@@ -1,0 +1,155 @@
+"""GF(2^8) matrix product: the hand-written Hopper kernel and its plain
+PyTorch version.
+
+Replaces seaweedfs_tpu/ops/rs_pallas.py::_fused_fn, the Pallas TPU kernel
+under EC encode and rebuild. Both compute
+
+    out (r, n) = coeffs (r, k) x data (k, n) over GF(2^8), poly 0x11D
+
+for every geometry the system sends: parity rows on encode, fused
+decode-plan rows on rebuild, any n >= 1 with no host padding.
+
+Kernel: csrc/gf_matmul.cu, CUDA C++ for sm_90a, built with nvcc into
+``seaweedfs_tpu_torch/build/`` at first use and loaded with ctypes. It
+multiplies with nibble-split tables built per block in shared memory
+(c*d = lo[c][d & 15] ^ hi[c][d >> 4]), so the only device constant is the
+(r, k) coefficient matrix itself.
+
+Bound: memory — (k + r) * n bytes at 3.35 TB/s (H100 SXM), 35 us for the
+RS(10,4) encode of an 8 MiB slab. The kernel reads each payload byte once
+per 4-row output tile (once on the main path) and writes each output byte
+once, both as 16-byte vectors where alignment allows; the table lookups stay
+in shared memory, conflict-free.
+
+``gf_matmul`` runs the plain version for a tensor on the CPU and launches
+the kernel for a tensor on the card; it never falls back from one to the
+other. ``gf_matmul.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .gf256 import MUL_TABLE
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "gf_matmul.cu"
+BUILD_DIR = _PKG / "build"
+LIBRARY = BUILD_DIR / "libgf_matmul.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the Hopper kernel is built on a "
+                       "machine with the CUDA toolkit")
+
+
+def compile_kernel(ptxas_verbose: bool = False) -> str:
+    """Compile csrc/gf_matmul.cu into build/libgf_matmul.so; returns the
+    compiler's diagnostics (ptxas register/shared-memory report when
+    ``ptxas_verbose``). Raises RuntimeError if nvcc fails."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
+           "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, LIBRARY)
+    return proc.stdout + proc.stderr
+
+
+def _library() -> ctypes.CDLL:
+    """The loaded kernel library, compiled first if missing or older
+    than its source."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            if not LIBRARY.exists() or \
+                    LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime:
+                compile_kernel()
+            lib = ctypes.CDLL(str(LIBRARY))
+            lib.gf_matmul_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_void_p]
+            lib.gf_matmul_launch.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _check(coeffs: torch.Tensor, data: torch.Tensor):
+    for name, t in (("coeffs", coeffs), ("data", data)):
+        if t.dtype != torch.uint8 or t.dim() != 2:
+            raise ValueError(f"{name} must be a 2-D uint8 tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if coeffs.shape[1] != data.shape[0]:
+        raise ValueError(f"coeffs {tuple(coeffs.shape)} do not match data "
+                         f"{tuple(data.shape)}")
+    if coeffs.device != data.device:
+        raise ValueError(f"coeffs on {coeffs.device}, data on {data.device}")
+
+
+def gf_matmul_plain(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: out[i] = XOR_j MUL[c_ij][data[j]],
+    gathered from the full 256x256 product table (a formulation
+    independent of the kernel's nibble tables)."""
+    _check(coeffs, data)
+    r, k = coeffs.shape
+    mul = torch.from_numpy(MUL_TABLE).to(data.device)
+    # indexing with a uint8 tensor would be a boolean mask: cast to int64
+    c = coeffs.to(torch.int64)
+    out = torch.zeros((r, data.shape[1]), dtype=torch.uint8,
+                      device=data.device)
+    for j in range(k):
+        out ^= mul[c[:, j]][:, data[j].to(torch.int64)]
+    return out
+
+
+def gf_matmul(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """coeffs (r, k) uint8 x data (k, n) uint8 -> (r, n) uint8 over
+    GF(2^8), both tensors on one device: the plain version on the CPU,
+    the Hopper kernel on the card."""
+    _check(coeffs, data)
+    if data.device.type == "cpu":
+        return gf_matmul_plain(coeffs, data)
+    if data.device.type != "cuda":
+        raise ValueError(f"gf_matmul runs on cpu or cuda, not {data.device}")
+    coeffs, data = coeffs.contiguous(), data.contiguous()
+    r, k = coeffs.shape
+    n = data.shape[1]
+    if r == 0 or n == 0 or k == 0:
+        return torch.zeros((r, n), dtype=torch.uint8, device=data.device)
+    lib = _library()
+    out = torch.empty((r, n), dtype=torch.uint8, device=data.device)
+    with torch.cuda.device(data.device):
+        rc = lib.gf_matmul_launch(
+            coeffs.data_ptr(), data.data_ptr(), out.data_ptr(), r, k, n,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gf_matmul kernel launch failed: CUDA error {rc}"
+                           f" at r={r} k={k} n={n}")
+    gf_matmul.launches += 1
+    return out
+
+
+gf_matmul.launches = 0

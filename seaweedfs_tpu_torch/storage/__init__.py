@@ -1,0 +1,6 @@
+"""storage — the on-disk formats the EC encoder reads: superblock and
+needle index."""
+
+from .needle_map import MemDb  # noqa: F401
+from .super_block import SUPER_BLOCK_SIZE, SuperBlock  # noqa: F401
+from .types import entry_size, entry_to_bytes  # noqa: F401

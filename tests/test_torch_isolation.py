@@ -1,0 +1,91 @@
+"""The port stands alone: nothing under seaweedfs_tpu_torch/, and not
+chip_smoke.py, imports jax or the JAX package, and the port encodes and
+rebuilds with both made unimportable."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "seaweedfs_tpu")
+
+
+def _port_files():
+    pkg = ROOT / "seaweedfs_tpu_torch"
+    # build/ holds what the package generates at run time, not its source
+    files = sorted(p for p in pkg.rglob("*.py")
+                   if p.relative_to(pkg).parts[0] != "build")
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and \
+                getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for want in ("seaweedfs_tpu_torch/ops/rs_hopper.py",
+                 "seaweedfs_tpu_torch/ec/encoder.py", "chip_smoke.py"):
+        assert want in names
+    assert (ROOT / "seaweedfs_tpu_torch/csrc/gf_matmul.cu").exists()
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_port_runs_with_jax_unimportable(tmp_path):
+    script = textwrap.dedent(f"""
+        import os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from seaweedfs_tpu_torch.ec import (rebuild_ec_files, to_ext,
+                                            write_ec_files)
+        from seaweedfs_tpu_torch.ops import TorchCodec, gf_matmul
+        base = {str(tmp_path / "1")!r}
+        rng = np.random.default_rng(0)
+        with open(base + ".dat", "wb") as f:
+            f.write(rng.integers(0, 256, 100_003, dtype=np.uint8).tobytes())
+        codec = TorchCodec(10, 4, device="cpu")
+        write_ec_files(base, codec=codec, large_block=16 << 10,
+                       small_block=4 << 10, slab=8 << 10)
+        want = [open(base + to_ext(i), "rb").read() for i in range(14)]
+        for sid in (1, 4, 10, 13):
+            os.remove(base + to_ext(sid))
+        assert sorted(rebuild_ec_files(base, codec=codec, slab=8 << 10)) \\
+            == [1, 4, 10, 13]
+        got = [open(base + to_ext(i), "rb").read() for i in range(14)]
+        assert got == want
+        assert gf_matmul.launches == 0
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
