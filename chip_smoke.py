@@ -3,16 +3,30 @@
 
     python3 chip_smoke.py [--seed N]
 
-1. Builds the Hopper kernel (csrc/gf_matmul.cu) from this checkout with
-   nvcc and prints the build time and ptxas report.
-2. Holds the kernel byte-identical to its plain PyTorch version on the
-   card over encode matrices for RS(10,4), (6,3), (20,4) (vandermonde
-   and cauchy), 4-loss decode plans for (10,4) and (20,4), a (1,10)
-   single-row plan and a (128,640) matrix, at widths 1, 129, 4407,
-   8 MiB and 8 MiB + 1 (plus a misaligned base pointer); then times the
-   kernel and the plain version with CUDA events at the main-path shape
-   (4,10) x 8 MiB, beside the memory bound.
-3. Drives the main path through the port's entry points: writes a
+1. Builds both Hopper kernel libraries from this checkout with nvcc, one
+   process per source, started together (csrc/gf_matmul.cu, K1;
+   csrc/gf_bitplane.cu, K6a/K6b), and prints each build's time and ptxas
+   report (registers, spills, stack frames).
+2. Holds K1 byte-identical to its plain PyTorch version on the card over
+   encode matrices for RS(10,4), (6,3), (20,4) (vandermonde and cauchy),
+   4-loss decode plans for (10,4) and (20,4), a (1,10) single-row plan and
+   a (128,640) matrix, at widths 1, 129, 4407, 8 MiB and 8 MiB + 1 (plus a
+   misaligned base pointer); then times K1 and the plain version with
+   CUDA events at the main-path shape (4,10) x 8 MiB, beside the memory
+   bound.
+3. Holds every bit-plane variant (K6a int8/bf16/tf32, K6b u=2,4 x
+   int8/bf16) byte-identical to its plain version and to K1, and K1 to
+   its own plain version, over the same geometries at widths 1, 129, 4407,
+   262,145 (and 8 MiB for the flat shapes), plus a misaligned base
+   pointer; then over the piggyback RS(10,4) emat (128,320), its
+   (0,7,11,12) decode plan and the RS(20,4) emat (128,640), at widths 1,
+   129, 4407, 262,144 (the piggyback slab, which takes K1's vector path)
+   and 262,145.
+4. Runs the port's kernel_exp (seaweedfs_tpu_torch/tools/kernel_exp.py) at
+   (4,10) x 8 MiB and (128,320) x 262,144: K1 and every variant's time per
+   launch, chained rate and r^2, bound and exactness against the numpy
+   oracle; the variants' launch counts are read from this phase.
+5. Drives the main path through the port's entry points: writes a
    seeded 1 GiB volume (.dat with a real superblock, plus a matching
    .idx), builds the .ecx with write_sorted_file_from_idx, encodes it
    with write_ec_files on the default codec (cuda, pipelined), deletes
@@ -21,10 +35,16 @@
    must agree with the numpy oracle on sampled columns, and the kernel's
    launch counter and the dispatch counters must show the path ran on
    the kernel.
-4. Traces one more encode and one more rebuild of the same volume with
+6. Traces one more encode and one more rebuild of the same volume with
    torch.profiler and reports the card's busy share of their wall time
    (the union of kernel, copy and memset intervals on the device) and
    the kernel's time per launch as it ran inside the pipeline.
+7. Encodes the same volume again with layout="piggyback", writes the
+   layout sidecars, checks them (.vif geometry, the .ecx tag byte), the
+   data shards (equal to flat), the parity (numpy oracle on three
+   windows) and the counters, then rebuilds (0,7,11,12) and a seeded 4
+   of the 14 through volume_layout; every shard must come back
+   sha256-identical with launches = dispatches.
 
 Prints the card line (nvidia-smi name, power limit), then a JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Exits non-zero,
@@ -44,12 +64,20 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VOLUME_BYTES = 1 << 30      # BASELINE.json config 1 (30 GB default cut)
 MAIN_N = 8 << 20            # main-path slab width (encoder DEFAULT_SLAB)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 WIDTHS = (1, 129, 4407, MAIN_N, MAIN_N + 1)
+PB_N = 262_144              # piggyback slab: 8 MiB over alpha = 32
+BP_WIDTHS = (1, 129, 4407, PB_N + 1)  # bit-plane widths; flat shapes add
+                                      # MAIN_N
+PB_WIDTHS = (1, 129, 4407, PB_N, PB_N + 1)  # the piggyback geometries'
+#: (u, operand type) of K6a (u = 1) and K6b (u = 2, 4)
+VARIANTS = ((1, "int8"), (1, "bf16"), (1, "tf32"), (2, "int8"), (2, "bf16"),
+            (4, "int8"), (4, "bf16"))
 
 
 def _sha(path: str) -> str:
@@ -57,16 +85,30 @@ def _sha(path: str) -> str:
         return hashlib.file_digest(f, "sha256").hexdigest()
 
 
-def build_kernel(rs_hopper) -> float:
+PTXAS_KEEP = ("registers", "Compiling entry", "spill", "stack frame")
+
+
+def build_kernels(modules) -> float:
+    """One nvcc per kernel source, all started together; prints each
+    build's time and ptxas report (registers, spills, stack frames).
+    Returns the wall time of the builds."""
+    def build(mod):
+        t0 = time.perf_counter()
+        log = mod.compile_kernel(ptxas_verbose=True)
+        return log, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    log = rs_hopper.compile_kernel(ptxas_verbose=True)
-    secs = time.perf_counter() - t0
-    print(f"build: nvcc {' '.join(rs_hopper.NVCC_FLAGS)} -> "
-          f"{os.path.relpath(rs_hopper.LIBRARY, ROOT)} in {secs:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
-    return secs
+    with ThreadPoolExecutor(max_workers=len(modules)) as pool:
+        logs = list(pool.map(build, modules))
+    wall = time.perf_counter() - t0
+    for mod, (log, secs) in zip(modules, logs):
+        print(f"build: nvcc {' '.join(mod.NVCC_FLAGS)} -> "
+              f"{os.path.relpath(mod.LIBRARY, ROOT)} in {secs:.2f} s")
+        for line in log.splitlines():
+            if any(key in line for key in PTXAS_KEEP):
+                print("  ptxas:", line.strip())
+    print(f"build: {len(modules)} libraries in {wall:.2f} s wall")
+    return wall
 
 
 def geometries(np, gf256, NumpyCodec, seed):
@@ -121,6 +163,91 @@ def check_kernel(torch, np, rs_hopper, gf256, NumpyCodec, dev, seed):
         raise AssertionError("kernel != plain on a misaligned base pointer")
     print(f"kernel vs plain: {cases + 1} cases byte-identical (tolerance: "
           f"exact, GF(2^8) arithmetic; max |err| {worst})")
+    return worst
+
+
+def piggyback_geometries(codec_mod):
+    """(label, coeffs, widths) of the piggyback layout's largest products."""
+    emat = codec_mod.piggyback_plan(10, 4).emat
+    lost = (0, 7, 11, 12)
+    _, _, dec = codec_mod.piggyback_decode_plan(
+        10, 4, tuple(i not in lost for i in range(14)))
+    return [("piggyback emat RS(10,4)", emat, PB_WIDTHS),
+            (f"piggyback decode RS(10,4) lost {lost}", dec, PB_WIDTHS),
+            ("piggyback emat RS(20,4)", codec_mod.piggyback_plan(20, 4).emat,
+             PB_WIDTHS)]
+
+
+def check_bitplane(torch, np, rs_bitplane, rs_hopper, geos, dev, seed,
+                   misaligned=False):
+    """Every bit-plane variant against its plain version and against
+    gf_matmul, and gf_matmul against its own plain version, byte for
+    byte, on the card, over geos (label, coeffs, widths) and, if asked,
+    one misaligned base pointer at the first geometry. Returns max |err|
+    by variant name and "gf_matmul"."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    worst = {rs_bitplane.variant_name(u, dt): 0
+             for u, dt in VARIANTS} | {"gf_matmul": 0}
+    cases = 0
+
+    def held(label, n, coeffs_t, lifts, d):
+        k1 = rs_hopper.gf_matmul(coeffs_t, d)
+        k1_plain = rs_hopper.gf_matmul_plain(coeffs_t, d)
+        torch.cuda.synchronize()
+        err = int((k1.int() - k1_plain.int()).abs().max().item())
+        worst["gf_matmul"] = max(worst["gf_matmul"], err)
+        if not torch.equal(k1, k1_plain):
+            raise AssertionError(f"gf_matmul != plain: {label} n={n}, "
+                                 f"max |err| {err}")
+        del k1_plain
+        r = coeffs_t.shape[0]
+        plain = {u: rs_bitplane.bitplane_plain(lifts[u], d, r, u)
+                 for u in lifts}
+        for u, dt in VARIANTS:
+            name = rs_bitplane.variant_name(u, dt)
+            got = (rs_bitplane.bitplane_matmul(lifts[1], d, r, dt) if u == 1
+                   else rs_bitplane.bitplane_matmul_batched(lifts[u], d, r,
+                                                            u, dt))
+            torch.cuda.synchronize()
+            err = max(int((got.int() - plain[u].int()).abs().max().item()),
+                      int((got.int() - k1.int()).abs().max().item()))
+            worst[name] = max(worst[name], err)
+            if not (torch.equal(got, plain[u]) and torch.equal(got, k1)):
+                raise AssertionError(f"{name} != plain / gf_matmul: {label} "
+                                     f"n={n}, max |err| {err}")
+
+    for label, coeffs, widths in geos:
+        bm = rs_bitplane.fuse_bitmat(coeffs)
+        lifts = {u: torch.from_numpy(
+            bm if u == 1 else rs_bitplane.block_diag_bitmat(bm, u)).to(dev)
+            for u in (1, *rs_bitplane.BATCH_UNITS)}
+        c = torch.from_numpy(np.ascontiguousarray(coeffs)).to(dev)
+        k = coeffs.shape[1]
+        for n in widths:
+            d = torch.randint(0, 256, (k, n), dtype=torch.uint8, device=dev,
+                              generator=gen)
+            held(label, n, c, lifts, d)
+            cases += 1
+        del lifts
+        torch.cuda.empty_cache()
+    if misaligned:  # a base pointer off 16-byte alignment, 8 MiB wide
+        coeffs = geos[0][1]
+        bm = rs_bitplane.fuse_bitmat(coeffs)
+        lifts = {u: torch.from_numpy(
+            bm if u == 1 else rs_bitplane.block_diag_bitmat(bm, u)).to(dev)
+            for u in (1, *rs_bitplane.BATCH_UNITS)}
+        k = coeffs.shape[1]
+        flat = torch.randint(0, 256, (k * MAIN_N + 1,), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        held("misaligned base", MAIN_N,
+             torch.from_numpy(np.ascontiguousarray(coeffs)).to(dev), lifts,
+             flat[1:].view(k, MAIN_N))
+        cases += 1
+    print(f"bit-plane kernels vs plain and gf_matmul, gf_matmul vs plain: "
+          f"{cases} cases x {len(VARIANTS)} variants byte-identical "
+          f"(tolerance: exact, 0/1 operands and sums below 2^24); max |err| "
+          f"{json.dumps(worst)}")
     return worst
 
 
@@ -242,7 +369,7 @@ def main_path(torch, np, port, dev, base, nbytes, seed):
               f"phases {st['phases']}) — shards sha256-identical")
     return {"encode_s": enc_s, "encode_launches": enc_launches,
             "n_slabs": n_slabs, "shard_size": shard_size,
-            "rebuilds": rebuilds, "shas": shas}
+            "rebuilds": rebuilds, "shas": shas, "ecx_bytes": len(want_ecx)}
 
 
 def check_parity(np, ops, ec, base, k, m, shard_size, nbytes):
@@ -330,6 +457,102 @@ def trace_main_path(torch, port, dev, base, shas):
     return out
 
 
+def piggyback_leg(np, port, dev, base, res, seed):
+    """Piggyback encode of the same volume, in the Store's order (encode,
+    then sidecars), then two coupled rebuilds. Returns the numbers."""
+    ec, ops, storage = port
+    from seaweedfs_tpu_torch.ec import layout as ec_layout
+    from seaweedfs_tpu_torch.ops import codec as ops_codec
+    k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
+    total, n_slabs = k + m, res["n_slabs"]
+    with open(base + ".dat", "rb") as f:
+        sb = storage.SuperBlock.from_bytes(f.read(storage.SUPER_BLOCK_SIZE))
+    enc = {}
+    start = ops.gf_matmul.launches
+    t0 = time.perf_counter()
+    ec.write_ec_files(base, codec=ops.get_codec(k, m, device=dev),
+                      layout="piggyback", stats=enc)
+    enc_s = time.perf_counter() - t0
+    enc_launches = ops.gf_matmul.launches - start
+    pplan = ops_codec.piggyback_plan(k, m)
+    window = ops_codec.pb_window(ec.SMALL_BLOCK_SIZE, pplan.alpha)
+    ec_layout.write_layout_sidecars(base, "piggyback", window, pplan.npairs,
+                                    version=sb.version,
+                                    offset_width=sb.offset_width)
+    lay = ec_layout.volume_layout(base, k)
+    if (lay.layout, lay.window, lay.pairs) != ("piggyback", 1 << 20, 5):
+        raise AssertionError(f"volume_layout read back {lay}")
+    with open(base + ".ecx", "rb") as f:
+        ecx = f.read()
+    if len(ecx) != res["ecx_bytes"] + 1 or ecx[-1] != 0x01:
+        raise AssertionError(f".ecx is {len(ecx)} bytes ending in "
+                             f"{ecx[-1]:#04x}, want {res['ecx_bytes'] + 1} "
+                             f"ending in 0x01")
+    shas = [_sha(base + ec.to_ext(i)) for i in range(total)]
+    if shas[:k] != res["shas"][:k]:
+        raise AssertionError("piggyback data shards differ from flat")
+    if any(shas[i] == res["shas"][i] for i in range(k, total)):
+        raise AssertionError("a piggyback parity shard equals flat")
+    # numpy oracle on three sampled windows: split, emat product, merge
+    shard_size = res["shard_size"]
+    for off in (0, (shard_size // 2) // window * window, shard_size - window):
+        rows = []
+        for sid in range(total):
+            with open(base + ec.to_ext(sid), "rb") as f:
+                f.seek(off)
+                rows.append(np.frombuffer(f.read(window), dtype=np.uint8))
+        rows = np.stack(rows)
+        sub = ops_codec.pb_split(rows[:k], pplan.alpha, window)
+        want = ops_codec.pb_merge(ops.host_matmul(pplan.emat, sub),
+                                  pplan.alpha, window)
+        if not np.array_equal(want, rows[k:]):
+            raise AssertionError(f"piggyback parity at {off} != numpy oracle")
+    if enc["dispatches"] != n_slabs or enc["bitmat_uploads"] != 1 or \
+            enc_launches != enc["dispatches"]:
+        raise AssertionError(f"piggyback encode counters {enc}, "
+                             f"{enc_launches} launches; want {n_slabs} "
+                             f"dispatches = launches and 1 upload")
+    print(f"piggyback encode: {os.path.getsize(base + '.dat') / enc_s / 1e6:.1f}"
+          f" MB/s "
+          f"({enc_s:.2f} s, {enc['dispatches']} dispatches = launches of "
+          f"({pplan.emat.shape[0]},{pplan.emat.shape[1]}), phases "
+          f"{enc['phases']}, pb split/merge s {enc['pb_host_s']}); "
+          f"sidecars {lay}, .ecx {len(ecx)} B; data shards = flat, 4 parities "
+          f"differ, parity = numpy oracle on 3 windows")
+
+    rng = np.random.default_rng(seed + 11)
+    random4 = tuple(sorted(rng.choice(total, 4, replace=False).tolist()))
+    rebuilds = []
+    for lost in ((0, 7, 11, 12), random4):
+        for sid in lost:
+            os.remove(base + ec.to_ext(sid))
+        st = {}
+        before = ops.gf_matmul.launches
+        t0 = time.perf_counter()
+        got = ec.rebuild_ec_files(base, codec=ops.get_codec(k, m, device=dev),
+                                  layout=ec_layout.volume_layout(base, k),
+                                  stats=st)
+        secs = time.perf_counter() - t0
+        launches = ops.gf_matmul.launches - before
+        if sorted(got) != list(lost):
+            raise AssertionError(f"rebuilt {got}, lost {lost}")
+        for sid in range(total):
+            if _sha(base + ec.to_ext(sid)) != shas[sid]:
+                raise AssertionError(f"piggyback shard {sid} differs after "
+                                     f"rebuilding {lost}")
+        if st["dispatches"] != n_slabs or st["bitmat_uploads"] != 1 or \
+                launches != st["dispatches"] or st["layout"] != "piggyback":
+            raise AssertionError(f"piggyback rebuild counters {st}, "
+                                 f"{launches} launches")
+        rebuilds.append((lost, secs, st))
+        print(f"piggyback rebuild {lost}: {st['survivor_bytes'] / secs / 1e6:.1f}"
+              f" MB/s of survivors ({secs:.2f} s, {st['dispatches']} "
+              f"dispatches = launches, phases {st['phases']}, pb split/merge "
+              f"s {st['pb_host_s']}) — shards sha256-identical")
+    return {"encode_s": enc_s, "rebuilds": rebuilds,
+            "launches": ops.gf_matmul.launches - start}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -346,44 +569,61 @@ def run(args) -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
     from seaweedfs_tpu_torch import ec, ops, storage
-    from seaweedfs_tpu_torch.ops import gf256, rs_hopper, telemetry
+    from seaweedfs_tpu_torch.ops import (codec as ops_codec, gf256,
+                                         rs_bitplane, rs_hopper, telemetry)
     from seaweedfs_tpu_torch.ops.codec import NumpyCodec
+    from seaweedfs_tpu_torch.tools import kernel_exp
 
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    build_s = build_kernel(rs_hopper)
+    build_s = build_kernels((rs_hopper, rs_bitplane))
     max_err = check_kernel(torch, np, rs_hopper, gf256, NumpyCodec, dev,
                            args.seed)
     ms, plain_ms, bound_ms = time_kernel(torch, rs_hopper, gf256, dev,
                                          args.seed)
+    t0 = time.perf_counter()
+    pb_geos = piggyback_geometries(ops_codec)
+    print(f"piggyback plans (RS(10,4), its decode, RS(20,4)) built on the "
+          f"host in {time.perf_counter() - t0:.2f} s")
+    geos = [(label, c, BP_WIDTHS + ((MAIN_N,) if c.shape[0] <= 4 else ()))
+            for label, c, _ in geometries(np, gf256, NumpyCodec, args.seed)]
+    bp_err = check_bitplane(torch, np, rs_bitplane, rs_hopper, geos, dev,
+                            args.seed, misaligned=True)
+    pb_err = check_bitplane(torch, np, rs_bitplane, rs_hopper, pb_geos, dev,
+                            args.seed + 1)
+    bp_err = {name: max(bp_err[name], pb_err[name]) for name in bp_err}
+    exp_flat, exp_pb, bp_launches = kernel_exp_phase(
+        torch, kernel_exp, rs_bitplane, gf256, ops_codec, dev, args.seed)
 
     work = os.path.join(str(rs_hopper.BUILD_DIR), "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     base = os.path.join(work, "1")
+    port = (ec, ops, storage)
     try:
         rs_hopper.gf_matmul.launches = 0  # count the main path only
         before = telemetry.STATS.snapshot()
-        res = main_path(torch, np, (ec, ops, storage), dev, base,
-                        VOLUME_BYTES, args.seed)
+        res = main_path(torch, np, port, dev, base, VOLUME_BYTES, args.seed)
+        trace_main_path(torch, port, dev, base, res["shas"])
+        pb = piggyback_leg(np, port, dev, base, res, args.seed)
         launches = rs_hopper.gf_matmul.launches
         moved = telemetry.delta(before)
-        trace_main_path(torch, (ec, ops, storage), dev, base, res["shas"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if res["encode_launches"] < 1 or \
-            any(r[3] < 1 for r in res["rebuilds"]):
+            any(r[3] < 1 for r in res["rebuilds"]) or pb["launches"] < 1:
         raise AssertionError("the kernel was not launched on every leg of "
                              "the main path")
     if launches != moved["dispatches"]:
         raise AssertionError(f"{launches} launches for "
                              f"{moved['dispatches']} dispatches")
-    print(f"main path: {launches} kernel launches = {moved['dispatches']} "
-          f"dispatches; build {build_s:.2f} s")
+    print(f"main path (flat, traced, piggyback): {launches} kernel launches "
+          f"= {moved['dispatches']} dispatches; builds {build_s:.2f} s")
 
     card = card_line()
-    kernels = {"kernels": [{
+    k1_pb = next(row for row in exp_pb if row["name"] == "gf_matmul")
+    entries = [{
         "name": "gf_matmul", "route": "cuda",
         "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "seaweedfs_tpu/ops/rs_pallas.py:82",
@@ -392,13 +632,105 @@ def run(args) -> int:
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
         "shape": f"(4,10)x{MAIN_N}",
-    }]}
+    }, {
+        "name": "gf_matmul_piggyback", "route": "cuda",
+        "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
+        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:82",
+        "replaces_function": "seaweedfs_tpu/ops/rs_pallas.py::_fused_fn",
+        "launches": pb["launches"], "matches_plain": True,
+        "max_abs_err": pb_err["gf_matmul"], "ms": k1_pb["ms"],
+        "plain_ms": k1_pb["plain_ms"], "bound_ms": k1_pb["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "shape": k1_pb["shape"],
+    }]
+    for u, dt in VARIANTS:
+        name = rs_bitplane.variant_name(u, dt)
+        flat_row = next(row for row in exp_flat if row["name"] == name)
+        pb_row = next(row for row in exp_pb if row["name"] == name)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "seaweedfs_tpu_torch/csrc/gf_bitplane.cu",
+            "replaces": "tools/kernel_exp.py:44" if u == 1
+            else "tools/kernel_exp.py:97",
+            "replaces_function": "tools/kernel_exp.py::make_fn" if u == 1
+            else "tools/kernel_exp.py::make_fn_batched",
+            "launches": bp_launches[name], "matches_plain": True,
+            "max_abs_err": bp_err[name], "ms": flat_row["ms"],
+            "plain_ms": flat_row["plain_ms"],
+            "bound_ms": flat_row["bound_ms"],
+            "bound_by": _bound_kind(flat_row), "library_ms": None,
+            "shape": flat_row["shape"], "mb_s": flat_row["mb_s"],
+            "r2": flat_row["r2"],
+            "at_piggyback": {key: pb_row[key] for key in (
+                "shape", "ms", "plain_ms", "bound_ms", "mb_s", "r2")}
+            | {"bound_by": _bound_kind(pb_row)},
+        } | ({} if u == 1 else _function_bound(flat_row, pb_row)))
     print(card)
-    print(json.dumps(kernels))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _bound_kind(row) -> str:
+    """"bytes" or "operations" from a kernel_exp row's "int8 ops" etc."""
+    return "bytes" if row["bound_by"] == "bytes" else "operations"
+
+
+def _function_bound(flat_row, pb_row) -> dict:
+    """K6b's bound above counts the multiplies of the block-diagonal
+    lift's zero blocks; this is the bound of the GF(2^8) function it
+    computes (u = 1), at both shapes."""
+    return {"function_bound_ms": flat_row["function_bound_ms"],
+            "function_bound_by": flat_row["function_bound_by"],
+            "at_piggyback_function_bound_ms": pb_row["function_bound_ms"],
+            "at_piggyback_function_bound_by": pb_row["function_bound_by"]}
+
+
+def kernel_exp_phase(torch, kernel_exp, rs_bitplane, gf256, ops_codec, dev,
+                     seed):
+    """The port's kernel_exp at RS(10,4) x 8 MiB and at the piggyback
+    emat (128,320) x 262,144: K1 and every bit-plane variant, time per
+    launch, chained rate, bound, exactness. The bit-plane wrappers'
+    launch counts start from 0 here and are read at the end; each
+    variant's share comes from kernel_exp's rows."""
+    rs_bitplane.bitplane_matmul.launches = 0
+    rs_bitplane.bitplane_matmul_batched.launches = 0
+    emat = ops_codec.piggyback_plan(10, 4).emat
+    flat = kernel_exp.run_table(gf256.build_matrix(10, 14)[10:], MAIN_N, seed,
+                                dev, label="kernel_exp ")
+    pb = kernel_exp.run_table(emat, PB_N, seed, dev, label="kernel_exp ")
+    totals = (rs_bitplane.bitplane_matmul.launches,
+              rs_bitplane.bitplane_matmul_batched.launches)
+    if not all(row["exact"] for row in flat + pb):
+        raise AssertionError("a kernel_exp kernel is not exact")
+    launches = {rs_bitplane.variant_name(u, dt): 0 for u, dt in VARIANTS}
+    for row in flat + pb:
+        if row["name"] in launches:
+            launches[row["name"]] += row["launches"]
+    by_wrapper = (sum(n for (u, _), n in zip(VARIANTS, launches.values())
+                      if u == 1),
+                  sum(n for (u, _), n in zip(VARIANTS, launches.values())
+                      if u > 1))
+    if by_wrapper != totals:
+        raise AssertionError(f"per-variant launches {launches} do not sum "
+                             f"to the wrappers' counts {totals}")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"{name} was not launched in the "
+                                 f"kernel_exp phase")
+    # yardstick only: cuBLAS's int8 product on planes unpacked beforehand
+    lift = torch.from_numpy(rs_bitplane.fuse_bitmat(emat)).to(dev)
+    planes = torch.randint(0, 2, (lift.shape[1], PB_N), dtype=torch.int8,
+                           device=dev)
+    mm_ms = kernel_exp.per_launch_ms(torch._int_mm, lift, planes)
+    print(f"the int8 product alone ({lift.shape[0]},{lift.shape[1]}) x "
+          f"({lift.shape[1]},{PB_N}), torch._int_mm on pre-unpacked planes "
+          f"(no unpack, no pack; not used by the port): {mm_ms:.4f} ms")
+    del lift, planes
+    torch.cuda.empty_cache()
+    print(f"kernel_exp: bit-plane launches {json.dumps(launches)}")
+    return flat, pb, launches
 
 
 def main() -> int:

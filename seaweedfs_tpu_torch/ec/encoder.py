@@ -1,12 +1,17 @@
 """Volume -> EC shard files (.dat -> .ec00..ec13), sorted index, rebuild.
 
-Behavior-compatible with reference ec_encoder.go, on the flat layout:
+Behavior-compatible with reference ec_encoder.go:
   * write_sorted_file_from_idx: .idx append log -> .ecx (same 16B entries,
     sorted by needle id)
   * write_ec_files: two-level striping — while MORE than one large row
     (k x 1GB) remains, emit a large row; tail as small rows (k x 1MB),
     zero-padded
   * rebuild_ec_files: regenerate missing .ecNN from >= k survivors
+
+Both run the flat layout (plain RS parity) or the piggyback layout
+(coupled sub-chunk parity, ops/codec.piggyback_plan): data shards are
+identical under both, and piggyback parity is one (m*alpha, k*alpha)
+GF matmul per window-split slab on the same kernel.
 
 Geometry is taken from the codec (generic RS(k,m), default 10+4).
 
@@ -28,7 +33,8 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..ops.codec import ReedSolomonCodec, get_codec
+from ..ops.codec import (ReedSolomonCodec, get_codec, pb_merge, pb_split,
+                         pb_window, piggyback_decode_plan, piggyback_plan)
 from ..ops.pipeline import PipelinedMatmul
 from ..ops.telemetry import STATS, delta
 from ..storage.needle_map import MemDb
@@ -118,6 +124,99 @@ def _coalesce_slabs(slabs: Iterator[Tuple[None, np.ndarray]],
                      else np.concatenate(batch, axis=1))
 
 
+def _window_batches(slabs: Iterator[Tuple[None, np.ndarray]],
+                    window: int) -> Iterator[Tuple[None, np.ndarray]]:
+    """Re-chunk a slab stream onto sub-chunk window boundaries.
+
+    The piggyback parity transform is window-local (ops/codec.pb_split
+    interleaves alpha sub-chunks per window), so every batch fed to the
+    encode matmul must be a whole number of windows. Shards append
+    contiguously, so buffering the non-aligned remainder into the next
+    batch preserves shard bytes exactly. The stream total is
+    window-aligned by construction (both stripe blocks divide by the
+    window), so the buffer always drains."""
+    held: Optional[np.ndarray] = None
+    for _, data in slabs:
+        if held is not None:
+            data = np.concatenate([held, data], axis=1)
+            held = None
+        cut = (data.shape[1] // window) * window
+        if cut < data.shape[1]:
+            held = np.ascontiguousarray(data[:, cut:])
+            data = data[:, :cut]
+        if data.shape[1]:
+            yield None, np.ascontiguousarray(data)
+    if held is not None and held.shape[1]:
+        raise ValueError(
+            f"stream tail of {held.shape[1]} bytes is not window-aligned "
+            f"(window {window}); block sizes must divide by the window")
+
+
+def piggyback_geometry(codec: ReedSolomonCodec, large_block: int,
+                       small_block: int):
+    """Resolve (plan, window) for a piggyback encode and check the
+    stripe geometry supports sub-chunking: the window must divide both
+    stripe blocks so every shard size is window-aligned."""
+    pplan = piggyback_plan(codec.k, codec.m, matrix_kind=codec.matrix_kind,
+                           matrix=codec.matrix)
+    window = pb_window(small_block, pplan.alpha)
+    if large_block % window:
+        raise ValueError(
+            f"piggyback layout: large block {large_block} not divisible "
+            f"by the sub-chunk window {window}")
+    return pplan, window
+
+
+def _pb_slab(slab: int, window: int) -> int:
+    """Clamp a slab size to whole windows (never below one window) so
+    every stripe of a piggyback stream stays window-aligned."""
+    return max(window, slab - slab % window)
+
+
+def _pb_transforms(timer: StageTimer, alpha: int, window: int):
+    """pb_split / pb_merge for one stream, each timed as its own stage
+    (reported as stats["pb_host_s"]; they sit inside the gather or
+    dispatch phase of whichever thread runs them)."""
+    def split(rows):
+        t0 = time.perf_counter()
+        out = pb_split(rows, alpha, window)
+        timer.add("pb_split", time.perf_counter() - t0, rows.nbytes)
+        return out
+
+    def merge(flat):
+        t0 = time.perf_counter()
+        out = pb_merge(np.asarray(flat, dtype=np.uint8), alpha, window)
+        timer.add("pb_merge", time.perf_counter() - t0, out.nbytes)
+        return out
+    return split, merge
+
+
+def _pb_encode_stream(codec, pplan, window, slabs, slab, pipelined, timer):
+    """(None, data, parity) per window-aligned batch of a piggyback
+    encode: split into sub-chunk rows, one emat product, merge back."""
+    alpha = pplan.alpha
+    batches = _window_batches(_coalesce_slabs(slabs, _pb_slab(slab, window)),
+                              window)
+    split, merge = _pb_transforms(timer, alpha, window)
+    if pipelined:
+        # the original data rides as meta; the split runs on the
+        # pipeline's reader thread
+        pm = PipelinedMatmul(pplan.emat, codec=codec,
+                             max_width=max(slab // alpha, window // alpha),
+                             timer=timer)
+        for data, _, psub in pm.stream((data, split(data))
+                                       for _, data in batches):
+            yield None, data, merge(psub)
+    else:
+        for _, data in batches:
+            yield None, data, merge(codec._matmul(pplan.emat, split(data)))
+
+
+def _pb_host_s(timer: StageTimer) -> dict:
+    return {n: round(timer.totals.get(f"pb_{n}", 0.0), 6)
+            for n in ("split", "merge")}
+
+
 def _phases(timer: StageTimer, pipelined: bool, stream_s: float) -> dict:
     """Map StageTimer stages onto the canonical EC phase names, from the
     consumer thread's perspective: in the pipelined path the waits
@@ -143,15 +242,28 @@ def write_ec_files(base_name: str, codec: Optional[ReedSolomonCodec] = None,
                    small_block: int = SMALL_BLOCK_SIZE,
                    slab: int = DEFAULT_SLAB,
                    pipelined: Optional[bool] = None,
-                   stats: Optional[dict] = None):
+                   stats: Optional[dict] = None,
+                   layout: str = "flat"):
     """Encode base_name.dat into base_name.ec00 .. .ec{k+m-1}.
 
     pipelined: None = auto (pipeline when the codec is device-backed);
     True/False forces. Both paths produce byte-identical shard files.
     ``stats``, when given, is filled with the dispatch-counter deltas of
-    this encode, stream_s, backend and the per-phase wall times."""
+    this encode, stream_s, backend, layout and the per-phase wall times
+    (piggyback adds pb_host_s, the split/merge seconds).
+
+    ``layout``: "flat" (plain RS parity) or "piggyback" (coupled
+    sub-chunk parity). Data shard bytes are identical under both. The
+    caller records the layout in the volume's sidecars
+    (ec/layout.write_layout_sidecars); this function only shapes bytes.
+    """
     codec = codec or get_codec(DATA_SHARDS, PARITY_SHARDS)
     k, m = codec.k, codec.m
+    if layout not in ("flat", "piggyback"):
+        raise ValueError(f"unknown EC layout {layout!r}")
+    piggyback = layout == "piggyback"
+    if piggyback:
+        pplan, window = piggyback_geometry(codec, large_block, small_block)
     if pipelined is None:
         pipelined = codec.backend == "cuda"
     dat_path = base_name + ".dat"
@@ -163,7 +275,10 @@ def write_ec_files(base_name: str, codec: Optional[ReedSolomonCodec] = None,
                        timer)
     outs = [open(base_name + to_ext(i), "wb") for i in range(k + m)]
     try:
-        if pipelined:
+        if piggyback:
+            stream = _pb_encode_stream(codec, pplan, window, slabs, slab,
+                                       pipelined, timer)
+        elif pipelined:
             pm = PipelinedMatmul(codec.matrix[k:], codec=codec,
                                  max_width=slab, timer=timer)
             stream = pm.stream(_coalesce_slabs(slabs, slab))
@@ -186,14 +301,18 @@ def write_ec_files(base_name: str, codec: Optional[ReedSolomonCodec] = None,
         stats.update(delta(before))
         stats["stream_s"] = round(stream_s, 6)
         stats["backend"] = codec.backend
+        stats["layout"] = layout
         stats["phases"] = _phases(timer, pipelined, stream_s)
+        if piggyback:
+            stats["pb_host_s"] = _pb_host_s(timer)
 
 
 def rebuild_ec_files(base_name: str,
                      codec: Optional[ReedSolomonCodec] = None,
                      slab: int = DEFAULT_SLAB,
                      pipelined: Optional[bool] = None,
-                     stats: Optional[dict] = None) -> List[int]:
+                     stats: Optional[dict] = None,
+                     layout=None) -> List[int]:
     """Regenerate missing shard files from survivors. Returns the list of
     rebuilt shard ids. Raises if fewer than k survive.
 
@@ -202,7 +321,11 @@ def rebuild_ec_files(base_name: str,
     every missing shard (data + parity rows stacked). ``stats``, when
     given, is filled with the dispatch-counter deltas of this rebuild
     (dispatches / bitmat_uploads / device_bytes / host_fallbacks),
-    survivor_bytes, rebuilt_bytes, stream_s, backend and phases."""
+    survivor_bytes, rebuilt_bytes, stream_s, backend and phases.
+
+    ``layout``: an ec.layout.LayoutInfo (None means flat). A piggyback
+    volume decodes through ops/codec.piggyback_decode_plan, one fused
+    matmul per window-split slab (not pipelined)."""
     codec = codec or get_codec(DATA_SHARDS, PARITY_SHARDS)
     k, total = codec.k, codec.total
     if pipelined is None:
@@ -222,6 +345,9 @@ def rebuild_ec_files(base_name: str,
                 shard_size = sz
             elif shard_size != sz:
                 raise ValueError("surviving shards differ in size")
+    if layout is not None and layout.piggyback:
+        return _rebuild_ec_files_piggyback(base_name, codec, layout, present,
+                                           missing, shard_size, slab, stats)
     ins = [open(base_name + to_ext(i), "rb") if present[i] else None
            for i in range(total)]
     outs = {i: open(base_name + to_ext(i), "wb") for i in missing}
@@ -287,3 +413,63 @@ def rebuild_ec_files(base_name: str,
         stats["backend"] = codec.backend
         stats["phases"] = _phases(timer, pipelined, stream_s)
     return missing
+
+
+def _rebuild_ec_files_piggyback(base_name, codec, layout, present,
+                                missing, shard_size, slab, stats
+                                ) -> List[int]:
+    """Local piggyback rebuild: decode every missing shard (data AND
+    parity) from the coupled decode plan's source set in one fused
+    matmul per slab. Shard sizes are window-aligned by construction
+    (both stripe blocks divide by the window), so slabs clamp to whole
+    windows with no tail special-case."""
+    alpha, window = layout.alpha, layout.window
+    if shard_size % window:
+        raise ValueError(
+            f"piggyback shard size {shard_size} not window-aligned "
+            f"({window}); sidecar geometry is wrong for these shards")
+    before = STATS.snapshot()
+    timer = StageTimer()
+    split, merge = _pb_transforms(timer, alpha, window)
+    t_stream = time.perf_counter()
+    # the plan's missing rows are every absent shard, in order: `missing`
+    src, _, coeffs = piggyback_decode_plan(
+        codec.k, codec.m, tuple(bool(p) for p in present),
+        matrix_kind=codec.matrix_kind, matrix=codec.matrix,
+        pairs=layout.pairs)
+    timer.add("plan", time.perf_counter() - t_stream)
+    eff_slab = _pb_slab(slab, window)
+    ins = {i: open(base_name + to_ext(i), "rb") for i in src}
+    outs = {i: open(base_name + to_ext(i), "wb") for i in missing}
+    try:
+        for off in range(0, shard_size, eff_slab):
+            n = min(eff_slab, shard_size - off)
+            t0 = time.perf_counter()
+            stack = []
+            for i in src:
+                ins[i].seek(off)
+                stack.append(np.frombuffer(ins[i].read(n), dtype=np.uint8))
+            block = np.stack(stack, axis=0)
+            timer.add("disk_read", time.perf_counter() - t0, block.nbytes)
+            merged = merge(codec._matmul(coeffs, split(block)))
+            t0 = time.perf_counter()
+            for r, i in enumerate(missing):
+                outs[i].write(merged[r].tobytes())
+            timer.add("shard_write", time.perf_counter() - t0,
+                      n * len(missing))
+    finally:
+        for h in ins.values():
+            h.close()
+        for h in outs.values():
+            h.close()
+    stream_s = time.perf_counter() - t_stream
+    if stats is not None:
+        stats.update(delta(before))
+        stats["survivor_bytes"] = shard_size * len(src)
+        stats["rebuilt_bytes"] = shard_size * len(missing)
+        stats["stream_s"] = round(stream_s, 6)
+        stats["backend"] = codec.backend
+        stats["layout"] = "piggyback"
+        stats["phases"] = _phases(timer, False, stream_s)
+        stats["pb_host_s"] = _pb_host_s(timer)
+    return list(missing)

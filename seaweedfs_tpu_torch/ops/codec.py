@@ -12,11 +12,17 @@ Backends:
 "numpy" is the conformance oracle. There is no automatic choice: a
 missing card raises instead of quietly running on the CPU. All
 backends produce bit-identical output.
+
+Also here: the piggybacked sub-chunk layout's plans (piggyback_plan,
+piggyback_decode_plan) and its window transforms (pb_split / pb_merge),
+host-side numpy like the rest of the GF(2^8) planning.
 """
 
 from __future__ import annotations
 
+import itertools
 from collections import OrderedDict
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -267,3 +273,365 @@ def get_codec(data_shards: int, parity_shards: int,
         return TorchCodec(data_shards, parity_shards, matrix_kind,
                           device=device)
     raise ValueError(f"unknown backend {backend!r}")
+
+
+# ---------------------------------------------------------------------------
+# Plan cache
+# ---------------------------------------------------------------------------
+
+#: Entries each plan cache keeps (the JAX package's SW_EC_PLAN_CACHE_SIZE
+#: default; the port reads no knob from the environment).
+PLAN_CACHE_SIZE = 128
+
+
+class _PlanLRU:
+    """Bounded LRU for derived GF plans, with shared hit/miss/evict
+    accounting. It holds host-side plan objects, and identity is stable
+    across repeated gets: ``plan_fn(...) is plan_fn(...)``."""
+
+    def __init__(self, name: str, maxsize: int = PLAN_CACHE_SIZE):
+        self.name = name
+        self._maxsize = max(int(maxsize), 1)
+        self._entries: OrderedDict = OrderedDict()
+
+    def get(self, key, make):
+        hit = self._entries.get(key)
+        if hit is not None:
+            self._entries.move_to_end(key)
+            _PLAN_CACHE_EVENTS["hits"] += 1
+            return hit
+        _PLAN_CACHE_EVENTS["misses"] += 1
+        val = make()
+        self._entries[key] = val
+        while len(self._entries) > self._maxsize:
+            self._entries.popitem(last=False)
+            _PLAN_CACHE_EVENTS["evictions"] += 1
+        return val
+
+    def __len__(self):
+        return len(self._entries)
+
+
+_PLAN_CACHE_EVENTS = {"hits": 0, "misses": 0, "evictions": 0}
+
+
+def plan_cache_stats() -> dict:
+    """Cumulative hit/miss/evict event counts plus the current entry
+    count of each plan cache."""
+    return {
+        "events": dict(_PLAN_CACHE_EVENTS),
+        "entries": {c.name: len(c) for c in
+                    (_PIGGYBACK_PLAN_CACHE, _PIGGYBACK_DECODE_CACHE)},
+    }
+
+
+# ---------------------------------------------------------------------------
+# Piggybacked sub-chunk layout.
+#
+# Each shard is split into alpha = 2^npairs sub-chunks per window
+# (npairs = min(k//2, pair cap) data-shard pairs). Data shards stay
+# verbatim; parity shard j's sub-chunk z couples each data shard i (pair
+# p = i>>1, side b = i&1) with its partner sub-chunk across bit p:
+#
+#   P_j[z] = XOR_i  a[j,i]*s_i[z]  ^  [z_p == b] * c[j,i]*s_i[z ^ 2^p]
+#
+# with a = the flat RS parity rows and c[j,i] = theta_j * a[j,i] (theta
+# distinct per parity). The gate [z_p == b] makes single-data-shard
+# repair plane-local: (k+1)/(2k) of k*shard, 0.55 for RS(10,4).
+#
+# Full decode of any <= m lost shards block-diagonalizes over cosets of
+# span{2^{p(i)} : i lost}, so the slab hot path is still ONE fused
+# (missing*alpha, src*alpha) GF matmul per window-split slab. theta is
+# chosen by a deterministic seed search that sweeps every (lost-data,
+# parity-subset) pattern at plan build; known-good seeds are pinned.
+# ---------------------------------------------------------------------------
+
+PIGGYBACK_MAX_PAIRS = 5            # alpha capped at 2^5 = 32 sub-chunks
+#: Pair cap for new encodes (the JAX package's SW_EC_PIGGYBACK_PAIRS
+#: default); ``pairs=`` pins an existing volume's geometry.
+PIGGYBACK_PAIRS = 5
+PIGGYBACK_SEED_TRIES = 32          # theta seed search bound
+# geometry -> verified theta seed (the MDS sweep still reruns once per
+# process at plan build; these just skip the failed-seed prefix)
+PIGGYBACK_KNOWN_SEEDS = {
+    (10, 4): 5, (6, 3): 0, (20, 4): 1, (4, 2): 0, (8, 3): 0, (12, 4): 8,
+}
+
+
+def piggyback_supported(k: int, m: int) -> bool:
+    """Geometries the piggyback layout accepts: >= 2 parities (the
+    repair plane solves a 2x2 per z) and >= 1 data pair."""
+    return m >= 2 and k >= 2 and k + m <= 256
+
+
+@dataclass(frozen=True, eq=False)
+class PiggybackPlan:
+    """Verified coupled-layout geometry: encode matrix + coupling
+    coefficients. emat is the (m*alpha, k*alpha) block matrix a single
+    batched GF matmul applies per window-split slab."""
+
+    k: int
+    m: int
+    npairs: int
+    alpha: int
+    theta_seed: int
+    matrix_kind: str = "vandermonde"
+    amat: np.ndarray = field(hash=False, default=None)
+    cmat: np.ndarray = field(hash=False, default=None)
+    emat: np.ndarray = field(hash=False, default=None)
+
+    @property
+    def coupled(self) -> int:
+        """Number of data shards with a coupling partner (cheap repair)."""
+        return 2 * self.npairs
+
+    @property
+    def repair_frac(self) -> float:
+        """Single-coupled-data-shard repair download vs k*shard."""
+        return (self.k + 1) / (2.0 * self.k)
+
+    def syndrome_rows(self) -> np.ndarray:
+        """[E | I] over flattened sub-chunk columns: zero syndrome iff
+        the window's parity sub-chunks match the coupled encode."""
+        ka, ma = self.k * self.alpha, self.m * self.alpha
+        h = np.zeros((ma, ka + ma), dtype=np.uint8)
+        h[:, :ka] = self.emat
+        h[:, ka:] = np.eye(ma, dtype=np.uint8)
+        return h
+
+
+def _pb_build(k: int, m: int, matrix_kind: str, matrix, theta_seed: int,
+              cap: int):
+    """(a, c) coefficient rows for one theta seed."""
+    n = k + m
+    if matrix is None:
+        matrix = gf256.build_matrix(k, n, matrix_kind)
+    a = np.ascontiguousarray(matrix[k:])
+    npairs = min(k // 2, cap)
+    theta = [gf256.EXP_TABLE[(theta_seed * m + j) * 11 % 255]
+             for j in range(m)]
+    if len(set(theta)) != m:
+        raise ValueError("theta collision — geometry too wide for seed")
+    c = gf256.MUL_TABLE[np.asarray(theta, dtype=np.uint8)[:, None], a]
+    c[:, 2 * npairs:] = 0
+    return a, c, npairs, 1 << npairs
+
+
+def _pb_encode_matrix(k, m, a, c, npairs, alpha) -> np.ndarray:
+    emat = np.zeros((m * alpha, k * alpha), dtype=np.uint8)
+    for j in range(m):
+        for z in range(alpha):
+            r = j * alpha + z
+            for i in range(k):
+                emat[r, i * alpha + z] ^= a[j, i]
+                if i < 2 * npairs:
+                    p, b = i >> 1, i & 1
+                    if (z >> p) & 1 == b:
+                        emat[r, i * alpha + (z ^ (1 << p))] ^= c[j, i]
+    return emat
+
+
+def _pb_decode_block(k, m, a, c, npairs, lostF, pJ):
+    """Per-coset solve for lost data shards lostF from parities pJ:
+    (Minv, V) with V the coupling span (coset offsets) and Minv the
+    (f*|V|, f*|V|) inverse, or None when singular. Unknown order is
+    (i in sorted F) x (v in V); equation order (j in pJ) x (v in V)."""
+    F = sorted(lostF)
+    f = len(F)
+    V = [0]
+    for p in sorted(set(i >> 1 for i in F if i < 2 * npairs)):
+        V = V + [v | (1 << p) for v in V]
+    t2 = len(V)
+    vidx = {v: e for e, v in enumerate(V)}
+    mat = np.zeros((f * t2, f * t2), dtype=np.uint8)
+    for je, j in enumerate(pJ):
+        for ve, v in enumerate(V):
+            r = je * t2 + ve
+            for ui, i in enumerate(F):
+                mat[r, ui * t2 + ve] ^= a[j, i]
+                if i < 2 * npairs:
+                    p, b = i >> 1, i & 1
+                    if (v >> p) & 1 == b:
+                        mat[r, ui * t2 + vidx[v ^ (1 << p)]] ^= c[j, i]
+    try:
+        return gf256.mat_inv(mat), V
+    except ValueError:  # singular candidate
+        return None
+
+
+def _pb_mds_sweep(k, m, a, c, npairs) -> bool:
+    """True iff every (lost-data, parity-subset) pattern is decodable."""
+    for f in range(1, m + 1):
+        for F in itertools.combinations(range(k), f):
+            for J in itertools.combinations(range(m), f):
+                if _pb_decode_block(k, m, a, c, npairs, F, J) is None:
+                    return False
+    return True
+
+
+_PIGGYBACK_PLAN_CACHE = _PlanLRU("piggyback")
+_PIGGYBACK_DECODE_CACHE = _PlanLRU("piggyback_decode")
+
+
+def piggyback_plan(k: int, m: int, matrix_kind: str = "vandermonde",
+                   matrix: Optional[np.ndarray] = None,
+                   pairs: Optional[int] = None) -> PiggybackPlan:
+    """Build (and cache) the verified coupled-layout plan for a
+    geometry. Deterministic: the theta seed search starts from the
+    pinned known-good seed when the geometry has one, and every
+    candidate must pass the exhaustive node-MDS sweep before the plan
+    is returned.
+
+    ``pairs`` pins the pair cap for an already-encoded volume (from its
+    sidecar); new encodes leave it None and take PIGGYBACK_PAIRS."""
+    if not piggyback_supported(k, m):
+        raise ValueError(
+            f"piggyback layout needs m >= 2 and k >= 2, got RS({k},{m})")
+    cap = PIGGYBACK_PAIRS if pairs is None else pairs
+    cap = max(1, min(int(cap), PIGGYBACK_MAX_PAIRS))
+    key = (k, m, matrix_kind, cap,
+           None if matrix is None else matrix.tobytes())
+    return _PIGGYBACK_PLAN_CACHE.get(
+        key, lambda: _build_piggyback_plan(k, m, matrix_kind, matrix, cap))
+
+
+def _build_piggyback_plan(k, m, matrix_kind, matrix, cap) -> PiggybackPlan:
+    known = PIGGYBACK_KNOWN_SEEDS.get((k, m))
+    order = list(range(PIGGYBACK_SEED_TRIES))
+    if known is not None:
+        order.remove(known)
+        order.insert(0, known)
+    for seed in order:
+        a, c, npairs, alpha = _pb_build(k, m, matrix_kind, matrix, seed,
+                                        cap)
+        if _pb_mds_sweep(k, m, a, c, npairs):
+            emat = _pb_encode_matrix(k, m, a, c, npairs, alpha)
+            return PiggybackPlan(k=k, m=m, npairs=npairs, alpha=alpha,
+                                 theta_seed=seed, matrix_kind=matrix_kind,
+                                 amat=a, cmat=c, emat=emat)
+    raise ValueError(
+        f"no MDS theta seed within {PIGGYBACK_SEED_TRIES} tries for "
+        f"RS({k},{m}) {matrix_kind}")
+
+
+def piggyback_decode_plan(k: int, m: int, present,
+                          matrix_kind: str = "vandermonde",
+                          matrix: Optional[np.ndarray] = None,
+                          pairs: Optional[int] = None):
+    """Fused full decode for a presence pattern on the coupled layout:
+    returns (src_sids, missing_sids, coeffs) with coeffs
+    (len(missing)*alpha, len(src)*alpha) so every missing shard — data
+    and parity — comes from ONE window-split matmul against the
+    survivors. src is every surviving data shard plus as many parities
+    as there are missing data shards (k shards read, as on the flat
+    layout)."""
+    pplan = piggyback_plan(k, m, matrix_kind, matrix, pairs=pairs)
+    key = (k, m, tuple(bool(p) for p in present), matrix_kind,
+           pplan.npairs,
+           None if matrix is None else matrix.tobytes())
+    return _PIGGYBACK_DECODE_CACHE.get(
+        key, lambda: _build_piggyback_decode(pplan, key[2]))
+
+
+def _build_piggyback_decode(pplan: PiggybackPlan, present):
+    k, m, alpha = pplan.k, pplan.m, pplan.alpha
+    n = k + m
+    if len(present) != n:
+        raise ValueError(f"presence tuple must have {n} entries")
+    a, c, npairs = pplan.amat, pplan.cmat, pplan.npairs
+    missing = [i for i in range(n) if not present[i]]
+    lost_data = [i for i in missing if i < k]
+    f = len(lost_data)
+    live_data = [i for i in range(k) if present[i]]
+    live_par = [j for j in range(m) if present[k + j]]
+    if len(live_data) + len(live_par) < k:
+        raise ValueError(
+            f"too few shards: have {sum(present)}, need {k}")
+    use_par = live_par[:f]
+    src = live_data + [k + j for j in use_par]
+    src_col = {s: t * alpha for t, s in enumerate(src)}
+    # L: full data flat (k*alpha) as a GF-linear map of the src stack
+    ldat = np.zeros((k * alpha, len(src) * alpha), dtype=np.uint8)
+    for i in live_data:
+        for z in range(alpha):
+            ldat[i * alpha + z, src_col[i] + z] = 1
+    if f:
+        blk = _pb_decode_block(k, m, a, c, npairs, lost_data, use_par)
+        if blk is None:
+            raise ValueError(
+                "singular decode pattern — layout verification bug")
+        minv, v_span = blk
+        t2 = len(v_span)
+        mask = 0
+        for v in v_span:
+            mask |= v
+        fs = sorted(lost_data)
+        for z0 in range(alpha):
+            if z0 & mask:
+                continue
+            # K rows for this coset, as rows over the src stack
+            krows = np.zeros((f * t2, len(src) * alpha), dtype=np.uint8)
+            for je, j in enumerate(use_par):
+                for ve, v in enumerate(v_span):
+                    z = z0 | v
+                    r = je * t2 + ve
+                    krows[r, src_col[k + j] + z] ^= 1
+                    for h in live_data:
+                        krows[r, src_col[h] + z] ^= a[j, h]
+                        if h < 2 * npairs:
+                            ph, bh = h >> 1, h & 1
+                            if (z >> ph) & 1 == bh and c[j, h]:
+                                krows[r, src_col[h] + (z ^ (1 << ph))] ^= \
+                                    c[j, h]
+            sol = gf256.mat_mul(minv, krows)
+            for ui, i in enumerate(fs):
+                for ve, v in enumerate(v_span):
+                    ldat[i * alpha + (z0 | v)] = sol[ui * t2 + ve]
+    rows = []
+    for s in missing:
+        if s < k:
+            rows.append(ldat[s * alpha:(s + 1) * alpha])
+        else:
+            j = s - k
+            erows = pplan.emat[j * alpha:(j + 1) * alpha]
+            rows.append(gf256.mat_mul(erows, ldat))
+    coeffs = np.concatenate(rows, axis=0) if rows else \
+        np.zeros((0, len(src) * alpha), dtype=np.uint8)
+    return src, missing, np.ascontiguousarray(coeffs)
+
+
+# -- sub-chunk window transforms (host numpy reshapes) -----------------------
+
+def pb_window(small_block: int, alpha: int) -> int:
+    """Sub-chunk window: every window bytes of a shard split into alpha
+    interleaved sub-chunks. The window is the small stripe block, which
+    divides every shard size the two-level striping can produce; it
+    must itself be alpha-divisible."""
+    if small_block % alpha:
+        raise ValueError(
+            f"small block {small_block} not divisible by alpha {alpha}")
+    return small_block
+
+
+def pb_split(rows: np.ndarray, alpha: int, window: int) -> np.ndarray:
+    """(r, W) shard rows -> (r*alpha, W/alpha) sub-chunk rows, window
+    by window; W must be window-aligned. Row order (shard-major,
+    sub-chunk z) matches the encode/decode matrix column order."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    r, width = rows.shape
+    if width % window:
+        raise ValueError(f"width {width} not aligned to window {window}")
+    wsub = window // alpha
+    x = rows.reshape(r, width // window, alpha, wsub)
+    return np.ascontiguousarray(
+        x.transpose(0, 2, 1, 3).reshape(r * alpha, width // alpha))
+
+
+def pb_merge(flat: np.ndarray, alpha: int, window: int) -> np.ndarray:
+    """Inverse of pb_split: (r*alpha, W/alpha) -> (r, W)."""
+    wsub = window // alpha
+    ra, cols = flat.shape
+    r = ra // alpha
+    x = flat.reshape(r, alpha, cols // wsub, wsub)
+    return np.ascontiguousarray(
+        x.transpose(0, 2, 1, 3).reshape(r, cols * alpha))

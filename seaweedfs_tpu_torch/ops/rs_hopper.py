@@ -61,33 +61,44 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def compile_kernel(ptxas_verbose: bool = False) -> str:
-    """Compile csrc/gf_matmul.cu into build/libgf_matmul.so; returns the
-    compiler's diagnostics (ptxas register/shared-memory report when
-    ``ptxas_verbose``). Raises RuntimeError if nvcc fails."""
+def build_library(source: Path, library: Path,
+                  ptxas_verbose: bool = False) -> str:
+    """Compile one CUDA source into a shared library under build/;
+    returns the compiler's diagnostics (ptxas register/shared-memory
+    report when ``ptxas_verbose``). Raises RuntimeError if nvcc fails."""
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
+    tmp = library.with_name(f"{library.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
-           "-o", str(tmp), str(SOURCE)]
+           "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, library)
     return proc.stdout + proc.stderr
 
 
+def load_library(source: Path, library: Path) -> ctypes.CDLL:
+    """ctypes handle on a kernel library, compiled first if missing or
+    older than its source."""
+    if not library.exists() or \
+            library.stat().st_mtime < source.stat().st_mtime:
+        build_library(source, library)
+    return ctypes.CDLL(str(library))
+
+
+def compile_kernel(ptxas_verbose: bool = False) -> str:
+    """Compile csrc/gf_matmul.cu into build/libgf_matmul.so."""
+    return build_library(SOURCE, LIBRARY, ptxas_verbose)
+
+
 def _library() -> ctypes.CDLL:
-    """The loaded kernel library, compiled first if missing or older
-    than its source."""
+    """The loaded kernel library, compiled first if missing or stale."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            if not LIBRARY.exists() or \
-                    LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime:
-                compile_kernel()
-            lib = ctypes.CDLL(str(LIBRARY))
+            lib = load_library(SOURCE, LIBRARY)
             lib.gf_matmul_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_longlong,

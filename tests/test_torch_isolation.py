@@ -1,6 +1,7 @@
 """The port stands alone: nothing under seaweedfs_tpu_torch/, and not
 chip_smoke.py, imports jax or the JAX package, and the port encodes and
-rebuilds with both made unimportable."""
+rebuilds, on the flat and the piggyback layout, with both made
+unimportable."""
 
 import ast
 import os
@@ -41,9 +42,14 @@ def _imported_modules(path: Path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for want in ("seaweedfs_tpu_torch/ops/rs_hopper.py",
-                 "seaweedfs_tpu_torch/ec/encoder.py", "chip_smoke.py"):
+                 "seaweedfs_tpu_torch/ops/rs_bitplane.py",
+                 "seaweedfs_tpu_torch/ops/codec.py",
+                 "seaweedfs_tpu_torch/ec/encoder.py",
+                 "seaweedfs_tpu_torch/ec/layout.py",
+                 "seaweedfs_tpu_torch/tools/kernel_exp.py", "chip_smoke.py"):
         assert want in names
-    assert (ROOT / "seaweedfs_tpu_torch/csrc/gf_matmul.cu").exists()
+    for source in ("gf_matmul.cu", "gf_bitplane.cu"):
+        assert (ROOT / "seaweedfs_tpu_torch/csrc" / source).exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -78,6 +84,22 @@ def test_port_runs_with_jax_unimportable(tmp_path):
             == [1, 4, 10, 13]
         got = [open(base + to_ext(i), "rb").read() for i in range(14)]
         assert got == want
+        # the piggyback layout: encode, sidecars, coupled rebuild
+        from seaweedfs_tpu_torch.ec.layout import (volume_layout,
+                                                   write_layout_sidecars)
+        write_ec_files(base, codec=codec, large_block=16 << 10,
+                       small_block=4 << 10, slab=8 << 10, layout="piggyback")
+        open(base + ".ecx", "wb").close()
+        write_layout_sidecars(base, "piggyback", 4 << 10, 5)
+        pb = [open(base + to_ext(i), "rb").read() for i in range(14)]
+        assert pb[:10] == want[:10] and pb[10:] != want[10:]
+        for sid in (0, 7, 11, 12):
+            os.remove(base + to_ext(sid))
+        assert rebuild_ec_files(base, codec=codec, slab=8 << 10,
+                                layout=volume_layout(base, 10)) \
+            == [0, 7, 11, 12]
+        assert [open(base + to_ext(i), "rb").read() for i in range(14)] == pb
+        from seaweedfs_tpu_torch.tools import kernel_exp  # noqa: F401
         assert gf_matmul.launches == 0
         assert not any(m.split(".")[0] in {FORBIDDEN!r}
                        for m, v in sys.modules.items() if v is not None)
