@@ -7,25 +7,34 @@
    process per source, started together (csrc/gf_matmul.cu, K1;
    csrc/gf_bitplane.cu, K6a/K6b), and prints each build's time and ptxas
    report (registers, spills, stack frames).
-2. Holds K1 byte-identical to its plain PyTorch version on the card over
-   encode matrices for RS(10,4), (6,3), (20,4) (vandermonde and cauchy),
-   4-loss decode plans for (10,4) and (20,4), a (1,10) single-row plan and
-   a (128,640) matrix, at widths 1, 129, 4407, 8 MiB and 8 MiB + 1 (plus a
-   misaligned base pointer); then times K1 and the plain version with
-   CUDA events at the main-path shape (4,10) x 8 MiB, beside the memory
-   bound.
+2. Holds K1, run from its tile plan (ops/gf_plan.make_plan, built once
+   per matrix), byte-identical to its plain PyTorch version on the card
+   over encode matrices for RS(10,4), (6,3), (20,4) (vandermonde and
+   cauchy), 4-loss decode plans for (10,4) and (20,4), a (1,10)
+   single-row plan and a (128,640) matrix, at widths 1, 129, 4407, 8 MiB
+   and 8 MiB + 1, plus a misaligned base pointer (through the raw
+   coefficient form, which builds its plan per call); then over the
+   piggyback RS(10,4) emat (128,320), its (0,7,11,12) and (1,6,10,11)
+   decode plans and the RS(20,4) emat (128,640), at widths 1, 129, 4407,
+   262,144 (the piggyback slab, K1's vector path), 262,145, 8 MiB and
+   8 MiB + 1. Then times K1 (plan built beforehand; its build time
+   printed on its own line, outside the timed window) and the plain
+   version with CUDA events at the main path's shapes: the flat encode
+   and the (0,1,2,3) decode plan (4,10) x 8 MiB, the piggyback emat and
+   its (0,7,11,12) decode plan (128,320) x 262,144, beside the memory
+   bound and the previous kernel's time. K1 is timed in two passes over
+   the shapes; the second is reported, the first printed beside it.
 3. Holds every bit-plane variant (K6a int8/bf16/tf32, K6b u=2,4 x
    int8/bf16) byte-identical to its plain version and to K1, and K1 to
    its own plain version, over the same geometries at widths 1, 129, 4407,
    262,145 (and 8 MiB for the flat shapes), plus a misaligned base
-   pointer; then over the piggyback RS(10,4) emat (128,320), its
-   (0,7,11,12) decode plan and the RS(20,4) emat (128,640), at widths 1,
-   129, 4407, 262,144 (the piggyback slab, which takes K1's vector path)
-   and 262,145.
+   pointer; then over the four piggyback geometries at widths 1, 129,
+   4407, 262,144 and 262,145.
 4. Runs the port's kernel_exp (seaweedfs_tpu_torch/tools/kernel_exp.py) at
-   (4,10) x 8 MiB and (128,320) x 262,144: K1 and every variant's time per
-   launch, chained rate and r^2, bound and exactness against the numpy
-   oracle; the variants' launch counts are read from this phase.
+   (4,10) x 8 MiB and (128,320) x 262,144: K1 (from a plan built
+   beforehand) and every variant's time per launch, chained rate and r^2,
+   bound and exactness against the numpy oracle; the variants' launch
+   counts are read from this phase.
 5. Drives the main path through the port's entry points: writes a
    seeded 1 GiB volume (.dat with a real superblock, plus a matching
    .idx), builds the .ecx with write_sorted_file_from_idx, encodes it
@@ -75,6 +84,10 @@ PB_N = 262_144              # piggyback slab: 8 MiB over alpha = 32
 BP_WIDTHS = (1, 129, 4407, PB_N + 1)  # bit-plane widths; flat shapes add
                                       # MAIN_N
 PB_WIDTHS = (1, 129, 4407, PB_N, PB_N + 1)  # the piggyback geometries'
+#: K1's time per launch before the tile-plan redesign, measured by this
+#: script on an NVIDIA H100 80GB HBM3 at 700 W: (4,10) x 8 MiB and the
+#: piggyback emat (128,320) x 262,144
+PREV_MS = {"flat encode": 0.1519, "piggyback emat": 4.6866}
 #: (u, operand type) of K6a (u = 1) and K6b (u = 2, 4)
 VARIANTS = ((1, "int8"), (1, "bf16"), (1, "tf32"), (2, "int8"), (2, "bf16"),
             (4, "int8"), (4, "bf16"))
@@ -131,51 +144,62 @@ def geometries(np, gf256, NumpyCodec, seed):
     return out
 
 
-def check_kernel(torch, np, rs_hopper, gf256, NumpyCodec, dev, seed):
-    """Kernel vs plain, byte for byte, on the card. Returns max |err|."""
+def check_kernel(torch, np, rs_hopper, gf_plan, geos, dev, seed,
+                 misaligned=False):
+    """K1 from each geometry's tile plan vs the plain version, byte for
+    byte, on the card, over geos (label, coeffs, widths) and, if asked, a
+    misaligned base pointer through the raw coefficient form (its plan
+    built in the call). Returns max |err|."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     worst = 0
     cases = 0
-    for label, coeffs, widths in geometries(np, gf256, NumpyCodec, seed):
-        c = torch.from_numpy(np.ascontiguousarray(coeffs)).to(dev)
-        k = c.shape[1]
+
+    def held(label, n, const, c, d):
+        got = rs_hopper.gf_matmul(const, d)
+        want = rs_hopper.gf_matmul_plain(c, d)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel != plain: {label} n={n}, "
+                                 f"max |err| {err}")
+        return err
+
+    for label, coeffs, widths in geos:
+        plan = gf_plan.make_plan(coeffs).to(dev)
+        k = coeffs.shape[1]
         for n in widths:
             d = torch.randint(0, 256, (k, n), dtype=torch.uint8, device=dev,
                               generator=gen)
-            got = rs_hopper.gf_matmul(c, d)
-            want = rs_hopper.gf_matmul_plain(c, d)
-            torch.cuda.synchronize()
-            err = int((got.int() - want.int()).abs().max().item())
-            worst = max(worst, err)
+            worst = max(worst, held(label, n, plan, plan.coeffs, d))
             cases += 1
-            if not torch.equal(got, want):
-                raise AssertionError(f"kernel != plain: {label} n={n}, "
-                                     f"max |err| {err}")
-    # a base pointer off 16-byte alignment takes the byte path at full width
-    c = torch.from_numpy(gf256.build_matrix(10, 14)[10:]).to(dev)
-    flat = torch.randint(0, 256, (10 * MAIN_N + 1,), dtype=torch.uint8,
-                         device=dev, generator=gen)
-    d = flat[1:].view(10, MAIN_N)
-    got, want = rs_hopper.gf_matmul(c, d), rs_hopper.gf_matmul_plain(c, d)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("kernel != plain on a misaligned base pointer")
-    print(f"kernel vs plain: {cases + 1} cases byte-identical (tolerance: "
-          f"exact, GF(2^8) arithmetic; max |err| {worst})")
+            del d
+        torch.cuda.empty_cache()
+    if misaligned:  # off 16-byte alignment: the byte path at full width
+        c = torch.from_numpy(np.ascontiguousarray(geos[0][1])).to(dev)
+        k = c.shape[1]
+        flat = torch.randint(0, 256, (k * MAIN_N + 1,), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        worst = max(worst, held("misaligned base", MAIN_N, c, c,
+                                flat[1:].view(k, MAIN_N)))
+        cases += 1
+    print(f"kernel vs plain: {cases} cases over {len(geos)} geometries "
+          f"byte-identical (tolerance: exact, GF(2^8) arithmetic; max |err| "
+          f"{worst})")
     return worst
 
 
 def piggyback_geometries(codec_mod):
     """(label, coeffs, widths) of the piggyback layout's largest products."""
-    emat = codec_mod.piggyback_plan(10, 4).emat
-    lost = (0, 7, 11, 12)
-    _, _, dec = codec_mod.piggyback_decode_plan(
-        10, 4, tuple(i not in lost for i in range(14)))
-    return [("piggyback emat RS(10,4)", emat, PB_WIDTHS),
-            (f"piggyback decode RS(10,4) lost {lost}", dec, PB_WIDTHS),
-            ("piggyback emat RS(20,4)", codec_mod.piggyback_plan(20, 4).emat,
-             PB_WIDTHS)]
+    out = [("piggyback emat RS(10,4)", codec_mod.piggyback_plan(10, 4).emat,
+            PB_WIDTHS)]
+    for lost in ((0, 7, 11, 12), (1, 6, 10, 11)):
+        _, _, dec = codec_mod.piggyback_decode_plan(
+            10, 4, tuple(i not in lost for i in range(14)))
+        out.append((f"piggyback decode RS(10,4) lost {lost}", dec, PB_WIDTHS))
+    out.append(("piggyback emat RS(20,4)",
+                codec_mod.piggyback_plan(20, 4).emat, PB_WIDTHS))
+    return out
 
 
 def check_bitplane(torch, np, rs_bitplane, rs_hopper, geos, dev, seed,
@@ -251,34 +275,71 @@ def check_bitplane(torch, np, rs_bitplane, rs_hopper, geos, dev, seed,
     return worst
 
 
-def time_kernel(torch, rs_hopper, gf256, dev, seed):
-    """CUDA-event times of kernel and plain at (4,10) x 8 MiB."""
-    r, k, n = 4, 10, MAIN_N
-    c = torch.from_numpy(gf256.build_matrix(k, k + r)[k:]).to(dev)
+def timed_shapes(np, gf256, NumpyCodec, codec_mod):
+    """(label, coeffs, n) of the main path's K1 products: flat encode and
+    the (0,1,2,3) decode plan at the 8 MiB slab, the piggyback emat and
+    its (0,7,11,12) decode plan at its 262,144-column slab."""
+    flat_dec = NumpyCodec(10, 4).decode_plan(
+        tuple(i >= 4 for i in range(14)))[2]
+    lost = (0, 7, 11, 12)
+    pb_dec = codec_mod.piggyback_decode_plan(
+        10, 4, tuple(i not in lost for i in range(14)))[2]
+    return [("flat encode", gf256.build_matrix(10, 14)[10:], MAIN_N),
+            ("flat decode (0, 1, 2, 3)", flat_dec, MAIN_N),
+            ("piggyback emat", codec_mod.piggyback_plan(10, 4).emat, PB_N),
+            (f"piggyback decode {lost}", pb_dec, PB_N)]
+
+
+def time_kernel(torch, rs_hopper, gf_plan, kernel_exp, shapes, dev, seed):
+    """CUDA-event times of K1 (its plan built beforehand, the build time
+    printed on its own line and never inside a timed window) and of the
+    plain version, beside the bytes bound, per (label, coeffs, n), with
+    kernel_exp.per_launch_ms (the stream held until every launch of the
+    window is enqueued). Every shape moves more than the 50 MB L2, so
+    launches find it cold."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
-    d = torch.randint(0, 256, (k, n), dtype=torch.uint8, device=dev,
-                      generator=gen)
-
-    def per_call_ms(fn, reps):
-        for _ in range(3):
-            fn(c, d)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn(c, d)
-        end.record()
+    cases = []
+    for label, coeffs, n in shapes:
+        r, k = coeffs.shape
+        t0 = time.perf_counter()
+        plan = gf_plan.make_plan(coeffs).to(dev)
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    ms = per_call_ms(rs_hopper.gf_matmul, 50)
-    plain_ms = per_call_ms(rs_hopper.gf_matmul_plain, 5)
-    bound_ms = (k + r) * n / HBM_BYTES_PER_S * 1e3
-    print(f"gf_matmul ({r},{k}) x {n}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: "
-          f"{(k + r) * n} at 3.35 TB/s), {ms / bound_ms:.2f}x the bound")
-    return ms, plain_ms, bound_ms
+        info = plan.summary() | {"build_ms": (time.perf_counter() - t0) * 1e3}
+        print(f"plan {label} ({r},{k}): built and uploaded in "
+              f"{info['build_ms']:.3f} ms, {plan.pairs} pairs per column, "
+              f"{plan.table_bytes} table bytes, payload read "
+              f"{info['payload_reads']:.2f} times over")
+        d = torch.randint(0, 256, (k, n), dtype=torch.uint8, device=dev,
+                          generator=gen)
+        cases.append((label, plan, d, info))
+    # Two passes over the shapes; the second is reported. The first shows
+    # whether a window's time depends on what ran before it.
+    first = {label: kernel_exp.per_launch_ms(rs_hopper.gf_matmul, plan, d,
+                                             reps=50)
+             for label, plan, d, _ in cases}
+    out = {}
+    for label, plan, d, info in cases:
+        (r, k), n = plan.coeffs.shape, d.shape[1]
+        ms = kernel_exp.per_launch_ms(rs_hopper.gf_matmul, plan, d, reps=50)
+        plain_ms = kernel_exp.per_launch_ms(
+            lambda p, x: rs_hopper.gf_matmul_plain(p.coeffs, x), plan, d,
+            reps=3, warmup=1)
+        nbytes = (k + r) * n
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        prev = PREV_MS.get(label)
+        print(f"gf_matmul {label} ({r},{k}) x {n}: kernel {ms:.4f} ms "
+              f"(first pass {first[label]:.4f} ms; "
+              f"{nbytes / ms / 1e6:.1f} GB/s of input + output), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: {nbytes} "
+              f"at 3.35 TB/s), {ms / bound_ms:.2f}x the bound; previous "
+              f"kernel {'not timed' if prev is None else f'{prev} ms'}")
+        out[label] = {"shape": f"({r},{k})x{n}", "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "plan": info}
+    del cases
+    torch.cuda.empty_cache()
+    return out
 
 
 def write_volume(np, SuperBlock, entry_to_bytes, base, nbytes, seed):
@@ -569,7 +630,7 @@ def run(args) -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
     from seaweedfs_tpu_torch import ec, ops, storage
-    from seaweedfs_tpu_torch.ops import (codec as ops_codec, gf256,
+    from seaweedfs_tpu_torch.ops import (codec as ops_codec, gf256, gf_plan,
                                          rs_bitplane, rs_hopper, telemetry)
     from seaweedfs_tpu_torch.ops.codec import NumpyCodec
     from seaweedfs_tpu_torch.tools import kernel_exp
@@ -578,16 +639,22 @@ def run(args) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
     build_s = build_kernels((rs_hopper, rs_bitplane))
-    max_err = check_kernel(torch, np, rs_hopper, gf256, NumpyCodec, dev,
-                           args.seed)
-    ms, plain_ms, bound_ms = time_kernel(torch, rs_hopper, gf256, dev,
-                                         args.seed)
     t0 = time.perf_counter()
     pb_geos = piggyback_geometries(ops_codec)
-    print(f"piggyback plans (RS(10,4), its decode, RS(20,4)) built on the "
+    print(f"piggyback plans (RS(10,4), two decodes, RS(20,4)) built on the "
           f"host in {time.perf_counter() - t0:.2f} s")
+    flat_geos = geometries(np, gf256, NumpyCodec, args.seed)
+    max_err = check_kernel(torch, np, rs_hopper, gf_plan, flat_geos, dev,
+                           args.seed, misaligned=True)
+    pb_k1_err = check_kernel(
+        torch, np, rs_hopper, gf_plan,
+        [(label, c, widths + (MAIN_N, MAIN_N + 1))
+         for label, c, widths in pb_geos], dev, args.seed + 3)
+    timed = time_kernel(torch, rs_hopper, gf_plan, kernel_exp,
+                        timed_shapes(np, gf256, NumpyCodec, ops_codec), dev,
+                        args.seed)
     geos = [(label, c, BP_WIDTHS + ((MAIN_N,) if c.shape[0] <= 4 else ()))
-            for label, c, _ in geometries(np, gf256, NumpyCodec, args.seed)]
+            for label, c, _ in flat_geos]
     bp_err = check_bitplane(torch, np, rs_bitplane, rs_hopper, geos, dev,
                             args.seed, misaligned=True)
     pb_err = check_bitplane(torch, np, rs_bitplane, rs_hopper, pb_geos, dev,
@@ -622,26 +689,13 @@ def run(args) -> int:
           f"= {moved['dispatches']} dispatches; builds {build_s:.2f} s")
 
     card = card_line()
-    k1_pb = next(row for row in exp_pb if row["name"] == "gf_matmul")
-    entries = [{
-        "name": "gf_matmul", "route": "cuda",
-        "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
-        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:82",
-        "replaces_function": "seaweedfs_tpu/ops/rs_pallas.py::_fused_fn",
-        "launches": launches, "matches_plain": True,
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-        "shape": f"(4,10)x{MAIN_N}",
-    }, {
-        "name": "gf_matmul_piggyback", "route": "cuda",
-        "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
-        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:82",
-        "replaces_function": "seaweedfs_tpu/ops/rs_pallas.py::_fused_fn",
-        "launches": pb["launches"], "matches_plain": True,
-        "max_abs_err": pb_err["gf_matmul"], "ms": k1_pb["ms"],
-        "plain_ms": k1_pb["plain_ms"], "bound_ms": k1_pb["bound_ms"],
-        "bound_by": "bytes", "library_ms": None, "shape": k1_pb["shape"],
-    }]
+    entries = [
+        _k1_entry("gf_matmul", launches, max_err, timed["flat encode"],
+                  timed["flat decode (0, 1, 2, 3)"]),
+        _k1_entry("gf_matmul_piggyback", pb["launches"],
+                  max(pb_k1_err, pb_err["gf_matmul"]),
+                  timed["piggyback emat"],
+                  timed["piggyback decode (0, 7, 11, 12)"])]
     for u, dt in VARIANTS:
         name = rs_bitplane.variant_name(u, dt)
         flat_row = next(row for row in exp_flat if row["name"] == name)
@@ -670,6 +724,29 @@ def run(args) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _k1_entry(name, launches, max_err, main, decode) -> dict:
+    """A kernels-line entry of K1 at one main-path slab: the encode
+    matrix's numbers, the plan's pairs per column and table bytes, and
+    the decode plan's numbers beside them, all measured in this run."""
+    def plan_keys(t):
+        return {"pairs_per_column": t["plan"]["pairs_per_column"],
+                "table_bytes": t["plan"]["table_bytes"],
+                "plan_build_ms": t["plan"]["build_ms"]}
+    return {
+        "name": name, "route": "cuda",
+        "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
+        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:82",
+        "replaces_function": "seaweedfs_tpu/ops/rs_pallas.py::_fused_fn",
+        "launches": launches, "matches_plain": True,
+        "max_abs_err": max_err, "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "shape": main["shape"],
+        **plan_keys(main),
+        "decode_plan": {key: decode[key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms")} | plan_keys(decode),
+    }
 
 
 def _bound_kind(row) -> str:

@@ -7,22 +7,30 @@ under EC encode and rebuild. Both compute
     out (r, n) = coeffs (r, k) x data (k, n) over GF(2^8), poly 0x11D
 
 for every geometry the system sends: parity rows on encode, fused
-decode-plan rows on rebuild, any n >= 1 with no host padding.
+decode-plan rows on rebuild, the piggyback layout's (128, 320) block
+matrices, any n >= 1 with no host padding.
 
 Kernel: csrc/gf_matmul.cu, CUDA C++ for sm_90a, built with nvcc into
 ``seaweedfs_tpu_torch/build/`` at first use and loaded with ctypes. It
-multiplies with nibble-split tables built per block in shared memory
-(c*d = lo[c][d & 15] ^ hi[c][d >> 4]), so the only device constant is the
-(r, k) coefficient matrix itself.
+runs from a tile plan built once per matrix on the host
+(ops/gf_plan.make_plan): output rows sorted by support and tiled by 4,
+each tile's list of input rows with a non-zero coefficient, and per
+(tile, input row) 32 packed words, so one shared-memory lookup per nibble
+gives a payload byte's products with all 4 rows of the tile and zero
+coefficients cost nothing.
 
-Bound: memory — (k + r) * n bytes at 3.35 TB/s (H100 SXM), 35 us for the
-RS(10,4) encode of an 8 MiB slab. The kernel reads each payload byte once
-per 4-row output tile (once on the main path) and writes each output byte
-once, both as 16-byte vectors where alignment allows; the table lookups stay
-in shared memory, conflict-free.
+Bound: memory -- (k + r) * n bytes at 3.35 TB/s (H100 SXM), 35 us for the
+RS(10,4) encode of an 8 MiB slab and for the piggyback (128, 320) matrix
+at 262,144 columns. The kernel's own work, two shared-memory lookups and
+about 4 integer ops per column and pair, scales with the plan's pairs (10
+per column at (4,10), 480 for the piggyback encode matrix) and weighs as
+much as the memory at (128, 320); the header of csrc/gf_matmul.cu counts
+it.
 
-``gf_matmul`` runs the plain version for a tensor on the CPU and launches
-the kernel for a tensor on the card; it never falls back from one to the
+``gf_matmul`` takes a plan (what ``TorchCodec.device_fn`` caches) or a raw
+coefficient tensor, whose plan it builds on every call (for checks and
+tests). It runs the plain version for a tensor on the CPU and launches the
+kernel for a tensor on the card; it never falls back from one to the
 other. ``gf_matmul.launches`` counts kernel launches.
 """
 
@@ -34,10 +42,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Union
 
 import torch
 
 from .gf256 import MUL_TABLE
+from .gf_plan import GfPlan, make_plan
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "gf_matmul.cu"
@@ -101,7 +111,8 @@ def _library() -> ctypes.CDLL:
             lib = load_library(SOURCE, LIBRARY)
             lib.gf_matmul_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_void_p]
             lib.gf_matmul_launch.restype = ctypes.c_int
             _lib = lib
@@ -136,25 +147,33 @@ def gf_matmul_plain(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gf_matmul(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """coeffs (r, k) uint8 x data (k, n) uint8 -> (r, n) uint8 over
-    GF(2^8), both tensors on one device: the plain version on the CPU,
-    the Hopper kernel on the card."""
+def gf_matmul(plan: Union[GfPlan, torch.Tensor],
+              data: torch.Tensor) -> torch.Tensor:
+    """plan (or coeffs (r, k) uint8) x data (k, n) uint8 -> (r, n) uint8
+    over GF(2^8), both on one device: the plain version on the CPU, the
+    Hopper kernel on the card."""
+    coeffs = plan if isinstance(plan, torch.Tensor) else plan.coeffs
     _check(coeffs, data)
     if data.device.type == "cpu":
         return gf_matmul_plain(coeffs, data)
     if data.device.type != "cuda":
         raise ValueError(f"gf_matmul runs on cpu or cuda, not {data.device}")
-    coeffs, data = coeffs.contiguous(), data.contiguous()
     r, k = coeffs.shape
     n = data.shape[1]
     if r == 0 or n == 0 or k == 0:
         return torch.zeros((r, n), dtype=torch.uint8, device=data.device)
+    if isinstance(plan, torch.Tensor):
+        plan = make_plan(plan).to(data.device)
+    # the plan's tensors were checked when it was made; _check matched
+    # its device to the data's
+    data = data.contiguous()
     lib = _library()
     out = torch.empty((r, n), dtype=torch.uint8, device=data.device)
     with torch.cuda.device(data.device):
         rc = lib.gf_matmul_launch(
-            coeffs.data_ptr(), data.data_ptr(), out.data_ptr(), r, k, n,
+            plan.tile_ptr.data_ptr(), plan.pair_rows.data_ptr(),
+            plan.tables.data_ptr(), plan.row_map.data_ptr(), plan.tiles, r,
+            data.data_ptr(), out.data_ptr(), n,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gf_matmul kernel launch failed: CUDA error {rc}"

@@ -22,6 +22,7 @@ import torch
 
 from .codec import (SMALL_DISPATCH_BYTES, ReedSolomonCodec, _ConstCache,
                     width_bucket)
+from .gf_plan import make_plan
 from .rs_hopper import gf_matmul
 from .telemetry import STATS
 
@@ -64,12 +65,12 @@ class TorchCodec(ReedSolomonCodec):
         return torch.from_numpy(host).to(self.device)
 
     def device_fn(self, coeffs: np.ndarray, width: int):
-        """(gf_matmul, device-resident coefficient tensor, put). The
-        coefficients upload once per matrix (one bitmat_upload) and stay
-        resident across slabs; ``width`` needs no specialisation."""
+        """(gf_matmul, device-resident tile plan, put). The plan is built
+        on the host and uploads once per matrix (one bitmat_upload), then
+        stays resident across slabs; ``width`` needs no specialisation."""
         coeffs = np.ascontiguousarray(coeffs, dtype=np.uint8)
         const = self._consts.get((coeffs.shape, coeffs.tobytes()),
-                                 lambda: self.put(coeffs))
+                                 lambda: make_plan(coeffs).to(self.device))
         return gf_matmul, const, self.put
 
     def _matmul(self, coeffs: np.ndarray, data: np.ndarray) -> np.ndarray:

@@ -1,17 +1,25 @@
 """Which mapping of the GF(2^8) product onto the card is fastest, and is
-it exact? K1's nibble-table kernel (ops/rs_hopper.gf_matmul) against the
-tensor-core bit-plane kernels (ops/rs_bitplane): K6a with int8, bf16 and
-tf32 operands, and K6b with u = 2 and 4 column tiles stacked against a
-block-diagonal lift.
+it exact? K1's nibble-table kernel (ops/rs_hopper.gf_matmul, run from a
+tile plan built beforehand) against the tensor-core bit-plane kernels
+(ops/rs_bitplane): K6a with int8, bf16 and tf32 operands, and K6b with
+u = 2 and 4 column tiles stacked against a block-diagonal lift.
 
     python3 -m seaweedfs_tpu_torch.tools.kernel_exp
 
 runs RS(10,4) encode rows over an 8 MiB slab (seed 7) on the card and
 prints, for each kernel, its time per launch, its payload rate and r^2
 from a chained fit, its bound on the card, and whether it equals the
-numpy oracle. K6b's bound counts the multiplies of its block-diagonal
-lift's zero blocks, as the TPU kernel does them; beside it stands the
-bound of the function it computes (u = 1).
+numpy oracle; K1's plan is built before any timed window, and its build
+time, pairs per column and table bytes print on a line of their own.
+K6b's bound counts the multiplies of its block-diagonal lift's zero
+blocks, as the TPU kernel does them; beside it stands the bound of the
+function it computes (u = 1).
+
+Every timed window starts behind a ``torch.cuda._sleep`` that holds the
+stream for about 10 ms (``HOLD_CYCLES``), so the host has enqueued the
+window's launches before the first one runs: K1 takes about as long on the
+card as its Python wrapper takes to launch it, and without the hold the
+window would time the host.
 
 Chained timing (``chained_rate``): chains of 5, 15 and 25 back-to-back
 launches on one stream, each feeding one output byte back into the next
@@ -23,12 +31,14 @@ time against chain length is the time per launch.
 from __future__ import annotations
 
 import sys
+import time
 
 import numpy as np
 import torch
 
 from ..ops import gf256
 from ..ops.codec import host_matmul
+from ..ops.gf_plan import make_plan
 from ..ops.rs_bitplane import (BATCH_UNITS, DTYPES, bitplane_matmul,
                                bitplane_matmul_batched, bitplane_plain,
                                block_diag_bitmat, fuse_bitmat, variant_name)
@@ -42,6 +52,8 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "tf32": 495e12}
 #: the JAX tool's dot dtypes -> the kernel's operand types
 _TORCH_DTYPES = {torch.int8: "int8", torch.bfloat16: "bf16",
                  torch.float32: "tf32"}
+#: card clock cycles the stream is held before a timed window
+HOLD_CYCLES = 20_000_000
 
 
 def _dtype(dot_dtype) -> str:
@@ -92,6 +104,7 @@ def per_launch_ms(fn, const, data, reps: int = 20, warmup: int = 3) -> float:
         fn(const, data)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn(const, data)
@@ -112,6 +125,7 @@ def chained_rate(fn, bitmat, slabs, lengths=(5, 15, 25), reps: int = 3):
             fn(bitmat, x)  # warm
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(HOLD_CYCLES)
             start.record()
             for _ in range(length):
                 y = fn(bitmat, x)
@@ -144,13 +158,17 @@ def bound(r: int, k: int, n: int, u: int = 1, dtype=None):
         (bytes_ms, "bytes")
 
 
-def _kernels(coeffs: np.ndarray, n: int, device):
+def _plain_planned(plan, data):
+    return gf_matmul_plain(plan.coeffs, data)
+
+
+def _kernels(coeffs: np.ndarray, plan, n: int, device):
     """(name, dtype, u, fn, constant, plain fn, wrapper that counts its
-    launches) for K1 and every variant."""
+    launches) for K1 (its constant the tile plan) and every variant."""
     r, k = coeffs.shape
-    c = torch.from_numpy(np.ascontiguousarray(coeffs)).to(device)
     bm_np = fuse_bitmat(coeffs)
-    out = [("gf_matmul", None, 1, gf_matmul, c, gf_matmul_plain, gf_matmul)]
+    out = [("gf_matmul", None, 1, gf_matmul, plan, _plain_planned,
+            gf_matmul)]
     bm = torch.from_numpy(bm_np).to(device)
     for dtype in ("int8", "bf16", "tf32"):
         out.append((variant_name(1, dtype), dtype, 1,
@@ -183,9 +201,16 @@ def run_table(coeffs: np.ndarray, n: int, seed: int = 7, device="cuda",
     host = [rng.integers(0, 256, (k, n), dtype=np.uint8) for _ in range(3)]
     slabs = [torch.from_numpy(h).to(dev) for h in host]
     oracle = host_matmul(coeffs, host[0])
+    t0 = time.perf_counter()
+    plan = make_plan(coeffs).to(dev)
+    torch.cuda.synchronize(dev)
+    print(f"{label}gf_matmul plan ({r},{k}): built and uploaded in "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms, {plan.pairs} pairs "
+          f"per column, {plan.table_bytes} table bytes, payload read "
+          f"{plan.summary()['payload_reads']:.2f} times over")
     rows = []
-    for name, dtype, u, fn, const, plain, wrapper in _kernels(coeffs, n,
-                                                               dev):
+    for name, dtype, u, fn, const, plain, wrapper in _kernels(coeffs, plan,
+                                                               n, dev):
         start = wrapper.launches
         exact = bool(np.array_equal(fn(const, slabs[0]).cpu().numpy(),
                                     oracle))

@@ -42,6 +42,7 @@ def _imported_modules(path: Path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for want in ("seaweedfs_tpu_torch/ops/rs_hopper.py",
+                 "seaweedfs_tpu_torch/ops/gf_plan.py",
                  "seaweedfs_tpu_torch/ops/rs_bitplane.py",
                  "seaweedfs_tpu_torch/ops/codec.py",
                  "seaweedfs_tpu_torch/ec/encoder.py",
