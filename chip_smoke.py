@@ -6,7 +6,11 @@
 1. Builds both Hopper kernel libraries from this checkout with nvcc, one
    process per source, started together (csrc/gf_matmul.cu, K1;
    csrc/gf_bitplane.cu, K6a/K6b), and prints each build's time and ptxas
-   report (registers, spills, stack frames).
+   report (registers, spills, stack frames, wgmma serialization). Counts,
+   in the bit-plane library's SASS (cuobjdump), the warpgroup MMA
+   (HGMMA/IGMMA), TMA load (UTMALDG) and legacy MMA (HMMA/IMMA)
+   instructions, and fails unless there is warpgroup MMA and no legacy
+   MMA.
 2. Holds K1, run from its tile plan (ops/gf_plan.make_plan, built once
    per matrix), byte-identical to its plain PyTorch version on the card
    over encode matrices for RS(10,4), (6,3), (20,4) (vandermonde and
@@ -33,8 +37,16 @@
 4. Runs the port's kernel_exp (seaweedfs_tpu_torch/tools/kernel_exp.py) at
    (4,10) x 8 MiB and (128,320) x 262,144: K1 (from a plan built
    beforehand) and every variant's time per launch, chained rate and r^2,
-   bound and exactness against the numpy oracle; the variants' launch
-   counts are read from this phase.
+   bound (the function's own: the bytes, or a multiply-add per one of the
+   lift), dense bound (the whole lift the TPU kernel multiplies), tile
+   bound (the lift tiles the kernel keeps) and tiles kept, and exactness
+   against the numpy oracle, each variant beside its previous kernel's
+   time (PREV_BP_MS); the
+   variants' launch counts are read from this phase. As a yardstick for
+   the tensor-core loop only, it times the product alone at both shapes
+   (no unpack, no pack): torch._int_mm of the lift by planes stored
+   (n, 8k) and passed transposed (column-major B), and torch.matmul of
+   the same in bf16.
 5. Drives the main path through the port's entry points: writes a
    seeded 1 GiB volume (.dat with a real superblock, plus a matching
    .idx), builds the .ecx with write_sorted_file_from_idx, encodes it
@@ -91,6 +103,17 @@ PREV_MS = {"flat encode": 0.1519, "piggyback emat": 4.6866}
 #: (u, operand type) of K6a (u = 1) and K6b (u = 2, 4)
 VARIANTS = ((1, "int8"), (1, "bf16"), (1, "tf32"), (2, "int8"), (2, "bf16"),
             (4, "int8"), (4, "bf16"))
+#: the bit-plane variants' times per launch before the warpgroup-MMA
+#: redesign (the wmma kernel), measured by this script on an NVIDIA H100
+#: 80GB HBM3 at 700 W: (4,10) x 8 MiB, (128,320) x 262,144
+PREV_BP_MS = {"gf_bitplane_int8": (0.8924, 10.0556),
+              "gf_bitplane_bf16": (1.2012, 15.0650),
+              "gf_bitplane_tf32": (2.2154, 31.1762),
+              "gf_bitplane_u2_int8": (0.7886, 20.0024),
+              "gf_bitplane_u2_bf16": (1.1034, 30.1401),
+              "gf_bitplane_u4_int8": (1.3799, 39.8358),
+              "gf_bitplane_u4_bf16": (2.0357, 60.0639)}
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
 
 
 def _sha(path: str) -> str:
@@ -98,7 +121,9 @@ def _sha(path: str) -> str:
         return hashlib.file_digest(f, "sha256").hexdigest()
 
 
-PTXAS_KEEP = ("registers", "Compiling entry", "spill", "stack frame")
+PTXAS_KEEP = ("registers", "Compiling entry", "spill", "stack frame",
+              "serialized")
+PTXAS_SKIP = ("C7519",)  # "warpgroup.arrive is injected": one per wgmma
 
 
 def build_kernels(modules) -> float:
@@ -118,10 +143,30 @@ def build_kernels(modules) -> float:
         print(f"build: nvcc {' '.join(mod.NVCC_FLAGS)} -> "
               f"{os.path.relpath(mod.LIBRARY, ROOT)} in {secs:.2f} s")
         for line in log.splitlines():
-            if any(key in line for key in PTXAS_KEEP):
+            if any(key in line for key in PTXAS_KEEP) and \
+                    not any(key in line for key in PTXAS_SKIP):
                 print("  ptxas:", line.strip())
     print(f"build: {len(modules)} libraries in {wall:.2f} s wall")
     return wall
+
+
+def sass_counts(library) -> dict:
+    """Instructions of each SASS_OPS kind in a built library
+    (cuobjdump --dump-sass); raises unless there is warpgroup MMA and no
+    legacy MMA."""
+    import re
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(library)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+    print(f"sass {os.path.relpath(str(library), ROOT)}: {json.dumps(counts)}")
+    if counts["HGMMA"] + counts["IGMMA"] == 0 or counts["HMMA"] + \
+            counts["IMMA"] > 0:
+        raise AssertionError(f"the bit-plane kernel is not warpgroup MMA "
+                             f"only: {counts}")
+    return counts
 
 
 def geometries(np, gf256, NumpyCodec, seed):
@@ -639,6 +684,7 @@ def run(args) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
     build_s = build_kernels((rs_hopper, rs_bitplane))
+    sass_counts(rs_bitplane.LIBRARY)
     t0 = time.perf_counter()
     pb_geos = piggyback_geometries(ops_codec)
     print(f"piggyback plans (RS(10,4), two decodes, RS(20,4)) built on the "
@@ -708,16 +754,9 @@ def run(args) -> int:
             "replaces_function": "tools/kernel_exp.py::make_fn" if u == 1
             else "tools/kernel_exp.py::make_fn_batched",
             "launches": bp_launches[name], "matches_plain": True,
-            "max_abs_err": bp_err[name], "ms": flat_row["ms"],
-            "plain_ms": flat_row["plain_ms"],
-            "bound_ms": flat_row["bound_ms"],
-            "bound_by": _bound_kind(flat_row), "library_ms": None,
-            "shape": flat_row["shape"], "mb_s": flat_row["mb_s"],
-            "r2": flat_row["r2"],
-            "at_piggyback": {key: pb_row[key] for key in (
-                "shape", "ms", "plain_ms", "bound_ms", "mb_s", "r2")}
-            | {"bound_by": _bound_kind(pb_row)},
-        } | ({} if u == 1 else _function_bound(flat_row, pb_row)))
+            "max_abs_err": bp_err[name], "library_ms": None}
+            | _bp_numbers(flat_row)
+            | {"at_piggyback": _bp_numbers(pb_row)})
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -749,19 +788,25 @@ def _k1_entry(name, launches, max_err, main, decode) -> dict:
     }
 
 
-def _bound_kind(row) -> str:
+def _bound_kind(row, key="bound") -> str:
     """"bytes" or "operations" from a kernel_exp row's "int8 ops" etc."""
-    return "bytes" if row["bound_by"] == "bytes" else "operations"
+    return "bytes" if row[f"{key}_by"] == "bytes" else "operations"
 
 
-def _function_bound(flat_row, pb_row) -> dict:
-    """K6b's bound above counts the multiplies of the block-diagonal
-    lift's zero blocks; this is the bound of the GF(2^8) function it
-    computes (u = 1), at both shapes."""
-    return {"function_bound_ms": flat_row["function_bound_ms"],
-            "function_bound_by": flat_row["function_bound_by"],
-            "at_piggyback_function_bound_ms": pb_row["function_bound_ms"],
-            "at_piggyback_function_bound_by": pb_row["function_bound_by"]}
+def _bp_numbers(row) -> dict:
+    """A bit-plane variant's numbers at one shape, from its kernel_exp
+    row. bound_ms is the function's own bound (the bytes, or a
+    multiply-add per one of the lift); dense_bound_ms counts the whole
+    lift the TPU kernel multiplies and tile_bound_ms the lift tiles this
+    kernel keeps, zeros inside them included: both count more work than
+    the function needs."""
+    return {key: row[key] for key in (
+        "shape", "ms", "plain_ms", "bound_ms", "mb_s", "r2",
+        "dense_bound_ms", "tile_bound_ms", "lift_ones", "tiles_kept",
+        "tiles_dense", "product_alone_ms")} | {
+        "bound_by": _bound_kind(row),
+        "dense_bound_by": _bound_kind(row, "dense_bound"),
+        "tile_bound_by": _bound_kind(row, "tile_bound")}
 
 
 def kernel_exp_phase(torch, kernel_exp, rs_bitplane, gf256, ops_codec, dev,
@@ -796,18 +841,51 @@ def kernel_exp_phase(torch, kernel_exp, rs_bitplane, gf256, ops_codec, dev,
         if n < 1:
             raise AssertionError(f"{name} was not launched in the "
                                  f"kernel_exp phase")
-    # yardstick only: cuBLAS's int8 product on planes unpacked beforehand
-    lift = torch.from_numpy(rs_bitplane.fuse_bitmat(emat)).to(dev)
-    planes = torch.randint(0, 2, (lift.shape[1], PB_N), dtype=torch.int8,
-                           device=dev)
-    mm_ms = kernel_exp.per_launch_ms(torch._int_mm, lift, planes)
-    print(f"the int8 product alone ({lift.shape[0]},{lift.shape[1]}) x "
-          f"({lift.shape[1]},{PB_N}), torch._int_mm on pre-unpacked planes "
-          f"(no unpack, no pack; not used by the port): {mm_ms:.4f} ms")
-    del lift, planes
-    torch.cuda.empty_cache()
+    for at, rows in enumerate((flat, pb)):
+        for row in rows:
+            if row["name"] not in PREV_BP_MS:
+                continue
+            prev = PREV_BP_MS[row["name"]][at]
+            print(f"kernel_exp {row['name']} {row['shape']}: "
+                  f"{row['ms']:.4f} ms, previous kernel {prev} ms "
+                  f"({prev / row['ms']:.1f}x faster), "
+                  f"{row['ms'] / row['bound_ms']:.2f}x the bound "
+                  f"{row['bound_ms']:.4f} ms, "
+                  f"{row['ms'] / row['tile_bound_ms']:.2f}x the tile bound "
+                  f"{row['tile_bound_ms']:.4f} ms")
+    alone = [yardsticks(torch, kernel_exp, rs_bitplane, coeffs, n, dev)
+             for coeffs, n in ((gf256.build_matrix(10, 14)[10:], MAIN_N),
+                               (emat, PB_N))]
+    for row, times in zip((flat, pb), alone):
+        for r in row:
+            r["product_alone_ms"] = times
     print(f"kernel_exp: bit-plane launches {json.dumps(launches)}")
     return flat, pb, launches
+
+
+def yardsticks(torch, kernel_exp, rs_bitplane, coeffs, n, dev):
+    """The product alone, lift (8r, 8k) x planes, with planes unpacked
+    beforehand and stored (n, 8k): torch._int_mm with the planes passed
+    transposed (the column-major B cuBLASLt's int8 product takes) and
+    torch.matmul in bf16. No unpack, no pack; a yardstick for the
+    tensor-core loop, never called by the port. Returns {call: ms}; a call
+    that fails fails the smoke."""
+    lift = torch.from_numpy(rs_bitplane.fuse_bitmat(coeffs)).to(dev)
+    r8, k8 = lift.shape
+    planes = torch.randint(0, 2, (n, k8), dtype=torch.int8, device=dev)
+    calls = {"torch._int_mm": (lambda a, b: torch._int_mm(a, b.t()), lift,
+                               planes),
+             "torch.matmul bf16": (lambda a, b: torch.matmul(a, b.t()),
+                                   lift.to(torch.bfloat16),
+                                   planes.to(torch.bfloat16))}
+    times = {name: kernel_exp.per_launch_ms(fn, a, b)
+             for name, (fn, a, b) in calls.items()}
+    print(f"the product alone ({r8},{k8}) x ({k8},{n}), planes stored "
+          f"({n},{k8}), no unpack, no pack (not used by the port): "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in times.items()))
+    del lift, planes, calls
+    torch.cuda.empty_cache()
+    return times
 
 
 def main() -> int:

@@ -17,18 +17,29 @@ lift is ``fuse_bitmat(coeffs)`` (block-diagonal for K6b), byte-identical in
 every operand type: the operands are 0/1 and the sums are at most
 u*8k <= 20480, exact in s32 and f32.
 
-Kernel: csrc/gf_bitplane.cu, CUDA C++ for sm_90a (wmma fragments), built
-with nvcc into ``seaweedfs_tpu_torch/build/`` at first use and loaded with
-ctypes. The wrapper takes the JAX package's plane-major lift; the device
-constant is that lift permuted once to byte-major rows and columns
-(``bitmat_from_reference``), zero-padded and cast to the operand type, and
-kept in a small cache by the lift tensor it came from.
+Kernel: csrc/gf_bitplane.cu, CUDA C++ for sm_90a (warpgroup MMA with A
+from registers, lift tiles streamed by TMA through an mbarrier ring),
+built with nvcc into ``seaweedfs_tpu_torch/build/`` at first use and
+loaded with ctypes. The wrapper takes the JAX package's plane-major lift;
+the kernel runs from a tile list built once per (lift, u, operand type)
+on the host (``make_tile_plan``) and cached on the device by the lift
+tensor it came from: output bytes sorted by their non-zero pattern, the
+lift cut into 32 x 32 or 256 x 64 tiles (``tile_rows``, ``tile_depth``),
+only the tiles that hold a one kept, each
+tile's rows and columns permuted into the order the kernel's register
+fragments want (``n_order``, ``k_order``).
 
-Bounds (H100 SXM): the larger of (k + r) * n bytes at 3.35 TB/s and
-u * 2 * 8r * 8k * n operations at 1,979 T int8, 989 T bf16 or 495 T tf32.
-RS(10,4) at 8 MiB: 0.0351 ms, bytes. The piggyback (128, 320) encode
-matrix at 262,144 columns: 0.694 ms int8, 1.390 ms bf16, 2.777 ms tf32,
-operations (times u for K6b).
+Bounds (H100 SXM, tools/kernel_exp.bound): the function's own is the
+larger of (k + r) * n bytes at 3.35 TB/s and a multiply-add per one of
+the lift per column at 1,979 T int8, 989 T bf16 or 495 T tf32
+(``TilePlan.least_ops_per_column``). It is the bytes, 0.0351 ms, at
+RS(10,4) x 8 MiB and at the piggyback (128, 320) encode matrix x 262,144
+for int8 and bf16; tf32's ones take 0.0415 and 0.0631 ms there. Two
+bounds count more work: the dense bound counts the whole lift the TPU
+kernel multiplies, u * 2 * 8r * 8k * n operations (0.694 ms int8 at
+(128, 320), times u for K6b), and the tile bound counts the lift tiles
+this kernel keeps, zeros inside them included (``ops_per_column``, 0.208
+ms int8 there).
 
 A tensor on the CPU runs the plain version; a tensor on the card launches
 the kernel or raises. ``bitplane_matmul.launches`` and
@@ -39,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -57,10 +69,12 @@ DTYPES = {"int8": (0, torch.int8), "bf16": (1, torch.bfloat16),
           "tf32": (2, torch.float32)}
 #: stacked column tiles K6b takes
 BATCH_UNITS = (2, 4)
-#: columns per stacked tile in the kernel (its block width), which the
-#: plain version's grouping matches
+#: columns per stacked tile in the kernel: its block step, two consumer
+#: warpgroups of 64 columns (the wgmma M); the plain version's grouping
+#: matches it
 TILE = 128
-_BM, _KPAD = 64, 16  # the kernel's row tile and contraction padding
+#: the kernel's lift tile heights (the wgmma N), in output bit-rows
+TILE_ROWS = (32, 256)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -76,18 +90,25 @@ def compile_kernel(ptxas_verbose: bool = False) -> str:
     return build_library(SOURCE, LIBRARY, ptxas_verbose)
 
 
+def bind(path) -> ctypes.CDLL:
+    """A built bit-plane library, its C interface typed."""
+    lib = ctypes.CDLL(str(path))
+    lib.gf_bitplane_launch.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p]
+    lib.gf_bitplane_launch.restype = ctypes.c_int
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = load_library(SOURCE, LIBRARY)
-            lib.gf_bitplane_launch.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
-            lib.gf_bitplane_launch.restype = ctypes.c_int
-            _lib = lib
+            load_library(SOURCE, LIBRARY)  # compiled first if stale
+            _lib = bind(LIBRARY)
     return _lib
 
 
@@ -129,16 +150,195 @@ def bitmat_from_reference(fused: np.ndarray, u: int = 1) -> np.ndarray:
     return np.ascontiguousarray(x.reshape(rows, cols)).astype(np.int8)
 
 
-def _device_const(lift: torch.Tensor, u: int, dtype: str) -> torch.Tensor:
-    """The kernel's constant for a lift: byte-major, padded to the row
-    tile and the contraction depth, in the operand type, on the lift's
-    device."""
-    bm = bitmat_from_reference(lift.detach().cpu().numpy(), u)
+# -- the kernel's tile list --------------------------------------------------
+
+def tile_rows(r: int) -> int:
+    """The kernel's lift tile height (wgmma N) for r output rows per
+    block: 32 when 8r fits (RS(10,4) needs no padding), else 256."""
+    return TILE_ROWS[0] if 8 * r <= TILE_ROWS[0] else TILE_ROWS[1]
+
+
+def tile_depth(nt: int) -> int:
+    """Contraction rows per lift tile: 32 (4 payload bytes) under a 32-row
+    tile, whose small wgmmas cost about the same whatever their depth, so
+    none is spent on padding (RS(10,4)'s 10 bytes take 3 chunks, not 2 of
+    8); 64 (8 bytes) under a 256-row tile."""
+    return 32 if nt == TILE_ROWS[0] else 64
+
+
+def n_order(nt: int) -> np.ndarray:
+    """Row order inside a lift tile: position p -> slot * 8 + bit. The
+    accumulator fragment gives thread tq of each quad the N columns
+    8v + 2tq and 8v + 2tq + 1; with p = 32B + 8a + 2tq + v0 holding bit
+    2a + v0 of slot 4B + tq, a thread's 8 values of each 32 columns are the
+    8 bits of one output byte."""
+    p = np.arange(nt)
+    slot = 4 * (p // 32) + (p % 8) // 2
+    bit = 2 * ((p % 32) // 8) + p % 2
+    return (slot * 8 + bit).astype(np.int64)
+
+
+def k_order(dtype: str, kc: int = 64) -> np.ndarray:
+    """Contraction order inside a kc-deep chunk (kc = 32 or 64): position
+    kk -> payload byte q * 8 + bit. A wgmma step (k32 s8, k16 bf16, k8
+    tf32) gives thread tq the A fragment's k slots 4tq..4tq+3 and 16+4tq..
+    (s8), 2tq, 2tq+1, 8+2tq, 9+2tq (bf16) or tq, tq+4 (tf32); the order
+    makes them bits of payload byte 4h + tq (h: first or second 32 of the
+    chunk): its low and high nibble (s8), a nibble per step (bf16), two
+    bits per step (tf32)."""
+    kk = np.arange(kc)
+    if dtype == "int8":        # steps of 32
+        s, w = kk // 32, kk % 32
+        q, bit = 4 * s + (w % 16) // 4, 4 * (w // 16) + w % 4
+    elif dtype == "bf16":      # steps of 16
+        s, w = kk // 16, kk % 16
+        q = 4 * (s // 2) + (w % 8) // 2
+        bit = 4 * (s % 2) + 2 * (w // 8) + w % 2
+    elif dtype == "tf32":      # steps of 8
+        s, w = kk // 8, kk % 8
+        q, bit = 4 * (s // 4) + w % 4, 2 * (s % 4) + w // 4
+    else:
+        raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
+                         f"{dtype!r}")
+    return (q * 8 + bit).astype(np.int64)
+
+
+@dataclass(frozen=True, eq=False)
+class TilePlan:
+    """The kernel's constant for one lift, u and operand type, in numpy.
+
+    Lift tiles are nt output bit-rows by kc contraction rows (``kc =
+    tile_depth(nt)``, kc / 8 payload bytes). Contraction chunk c covers
+    payload rows kc/8 * (c % chunks_per_block) onward of stacked column
+    tile c // chunks_per_block (each block's 8k padded to a multiple of
+    kc). N tile t covers output-byte slots t * nt / 8 onward; each stacked
+    tile j's r bytes, sorted by their non-zero pattern, fill whole N tiles
+    of their own (padded), and ``row_map`` gives each slot's stacked output
+    byte j * r + i (-1: padding). ``tiles[e * nt:(e + 1) * nt]`` is kept
+    tile e (of chunk ``tile_chunk[e]``), rows in ``n_order``, columns in
+    ``k_order``; N tile t owns kept tiles ``ntile_ptr[t]:ntile_ptr[t+1]``.
+    """
+
+    r: int
+    k: int
+    u: int
+    nt: int
+    dtype: str
+    tiles: np.ndarray       # (kept * nt, kc) int8, 0/1
+    tile_chunk: np.ndarray  # (kept,) int32
+    ntile_ptr: np.ndarray   # (n_tiles + 1,) int32
+    row_map: np.ndarray     # (n_tiles * nt // 8,) int32
+
+    @property
+    def kc(self) -> int:
+        return tile_depth(self.nt)
+
+    @property
+    def chunks_per_block(self) -> int:
+        return -(-8 * self.k // self.kc)
+
+    @property
+    def n_tiles(self) -> int:
+        return self.ntile_ptr.shape[0] - 1
+
+    @property
+    def kept(self) -> int:
+        return self.tile_chunk.shape[0]
+
+    @property
+    def dense(self) -> int:
+        """Tiles of the whole padded (u*8r, u*8k) lift."""
+        return self.n_tiles * self.u * self.chunks_per_block
+
+    @property
+    def ops_per_column(self) -> int:
+        """Operations the kernel's wgmmas do per stacked column: 2 * nt *
+        kc for each kept tile."""
+        return 2 * self.nt * self.kc * self.kept
+
+    @property
+    def ones(self) -> int:
+        """The lift's ones (each lies in a kept tile)."""
+        return int(np.count_nonzero(self.tiles))
+
+    @property
+    def least_ops_per_column(self) -> int:
+        """Operations the function needs per stacked column: one
+        multiply-add for each one of the lift, none for its zeros."""
+        return 2 * self.ones
+
+
+def make_tile_plan(lift, u: int, dtype: str) -> TilePlan:
+    """The tile list of a plane-major (u*8r, u*8k) lift (numpy or a CPU
+    tensor) for operand type ``dtype``."""
+    if isinstance(lift, torch.Tensor):
+        lift = lift.detach().cpu().numpy()
+    bm = bitmat_from_reference(lift, u)
     rows, cols = bm.shape
-    padded = np.zeros((-(-rows // _BM) * _BM, -(-cols // _KPAD) * _KPAD),
-                      dtype=np.int8)
-    padded[:rows, :cols] = bm
-    return torch.from_numpy(padded).to(lift.device).to(DTYPES[dtype][1])
+    r, k = rows // (8 * u), cols // (8 * u)
+    nt = tile_rows(r)
+    kc = tile_depth(nt)
+    cpb = -(-8 * k // kc)
+    chunks = u * cpb
+    # [stacked byte j*r+i, bit, block j', payload byte, bit l], K padded
+    x = np.zeros((u * r, 8, u, cpb * kc // 8, 8), dtype=np.int8)
+    x[:, :, :, :k, :] = bm.reshape(u * r, 8, u, k, 8)
+    x = x.reshape(u * r, 8, chunks, kc)
+    nz = x.any(axis=(1, 3))                                  # (u*r, chunks)
+    slots = nt // 8
+    per_block = -(-r // slots)      # N tiles never mix stacked tiles' rows
+    n_tiles = u * per_block
+    row_map = np.full(n_tiles * slots, -1, dtype=np.int32)
+    for j in range(u):
+        # stable: bytes with equal patterns keep their order
+        order = sorted(range(j * r, (j + 1) * r),
+                       key=lambda b: nz[b].tobytes())
+        row_map[j * per_block * slots:j * per_block * slots + r] = order
+    y = np.zeros((n_tiles * slots, 8, chunks, kc), dtype=np.int8)
+    y[row_map >= 0] = x[row_map[row_map >= 0]]
+    y = y.reshape(n_tiles, nt, chunks, kc)        # rows slot*8 + bit
+    kept = y.any(axis=(1, 3))                               # (n_tiles, chunks)
+    ntile_ptr = np.zeros(n_tiles + 1, dtype=np.int32)
+    ntile_ptr[1:] = np.cumsum(kept.sum(axis=1))
+    tile_n, tile_chunk = np.nonzero(kept)         # N-tile-major, chunks up
+    tiles = y[tile_n, :, tile_chunk, :]                    # (kept, nt, kc)
+    tiles = tiles[:, n_order(nt)][:, :, k_order(dtype, kc)]
+    return TilePlan(r=r, k=k, u=u, nt=nt, dtype=dtype,
+                    tiles=np.ascontiguousarray(tiles.reshape(-1, kc)),
+                    tile_chunk=tile_chunk.astype(np.int32),
+                    ntile_ptr=ntile_ptr, row_map=row_map)
+
+
+@dataclass(frozen=True, eq=False)
+class DeviceTiles:
+    """A TilePlan's tensors on the card, the tiles in the operand type."""
+
+    plan: TilePlan
+    tiles: torch.Tensor
+    tile_chunk: torch.Tensor
+    ntile_ptr: torch.Tensor
+    row_map: torch.Tensor
+
+
+def _device_const(lift: torch.Tensor, u: int, dtype: str) -> DeviceTiles:
+    """The kernel's constant for a lift, on the lift's device. A lift with
+    no non-zero tile uploads one zero tile, so the TMA map has a tensor."""
+    plan = make_tile_plan(lift, u, dtype)
+    tiles = plan.tiles if plan.kept else \
+        np.zeros((plan.nt, plan.kc), dtype=np.int8)
+    dev = lift.device
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return DeviceTiles(plan=plan, tiles=up(tiles).to(DTYPES[dtype][1]),
+                       tile_chunk=up(plan.tile_chunk),
+                       ntile_ptr=up(plan.ntile_ptr), row_map=up(plan.row_map))
+
+
+def device_tiles(lift: torch.Tensor, u: int, dtype: str) -> DeviceTiles:
+    """The cached constant the kernel runs from (built at first use)."""
+    return _CONSTS.get((id(lift), lift._version, u, dtype),
+                       lambda: (lift, _device_const(lift, u, dtype)))[1]
 
 
 #: device constants by lift tensor, keyed on its id and version counter
@@ -199,19 +399,24 @@ def bitplane_plain(lift: torch.Tensor, data: torch.Tensor, r: int,
 
 
 def _launch(lift: torch.Tensor, data: torch.Tensor, r: int, u: int,
-            dtype: str) -> torch.Tensor:
+            dtype: str, lib: ctypes.CDLL | None = None) -> torch.Tensor:
+    """One launch of the kernel in ``lib`` (default: the port's own
+    build)."""
     data = data.contiguous()
     k, n = data.shape
     if n == 0:
         return torch.zeros((r, 0), dtype=torch.uint8, device=data.device)
-    const = _CONSTS.get((id(lift), lift._version, u, dtype),
-                        lambda: (lift, _device_const(lift, u, dtype)))[1]
-    lib = _library()
+    const = device_tiles(lift, u, dtype)
+    plan = const.plan
+    lib = lib or _library()
     out = torch.empty((r, n), dtype=torch.uint8, device=data.device)
     with torch.cuda.device(data.device):
         rc = lib.gf_bitplane_launch(
-            DTYPES[dtype][0], u, const.data_ptr(), data.data_ptr(),
-            out.data_ptr(), r, k, n, const.shape[0], const.shape[1],
+            DTYPES[dtype][0], plan.nt, const.tiles.data_ptr(),
+            const.tiles.shape[0] // plan.nt,
+            const.tile_chunk.data_ptr(), const.ntile_ptr.data_ptr(),
+            const.row_map.data_ptr(), plan.n_tiles, r, k, u,
+            data.data_ptr(), out.data_ptr(), n,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gf_bitplane kernel launch failed: CUDA error "

@@ -72,14 +72,15 @@ def _nvcc() -> str:
 
 
 def build_library(source: Path, library: Path,
-                  ptxas_verbose: bool = False) -> str:
-    """Compile one CUDA source into a shared library under build/;
-    returns the compiler's diagnostics (ptxas register/shared-memory
-    report when ``ptxas_verbose``). Raises RuntimeError if nvcc fails."""
-    BUILD_DIR.mkdir(exist_ok=True)
+                  ptxas_verbose: bool = False, defines=()) -> str:
+    """Compile one CUDA source into a shared library under build/ (with
+    ``-D`` for each of ``defines``); returns the compiler's diagnostics
+    (ptxas register/shared-memory report when ``ptxas_verbose``). Raises
+    RuntimeError if nvcc fails."""
+    library.parent.mkdir(parents=True, exist_ok=True)
     tmp = library.with_name(f"{library.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
-           "-o", str(tmp), str(source)]
+           *(f"-D{d}" for d in defines), "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -11,9 +11,13 @@ prints, for each kernel, its time per launch, its payload rate and r^2
 from a chained fit, its bound on the card, and whether it equals the
 numpy oracle; K1's plan is built before any timed window, and its build
 time, pairs per column and table bytes print on a line of their own.
-K6b's bound counts the multiplies of its block-diagonal lift's zero
-blocks, as the TPU kernel does them; beside it stands the bound of the
-function it computes (u = 1).
+A bit-plane row's bound is the function's own: the bytes, or a
+multiply-add for each one of the lift if that takes longer. Beside it
+stand two bounds of more work: the dense bound, the whole lift the TPU
+kernel multiplies (K6b's block-diagonal zeros included), and the tile
+bound, the lift tiles the Hopper kernel keeps (those that hold a one,
+zeros inside them included), with how many of the dense lift's tiles it
+kept.
 
 Every timed window starts behind a ``torch.cuda._sleep`` that holds the
 stream for about 10 ms (``HOLD_CYCLES``), so the host has enqueued the
@@ -41,7 +45,8 @@ from ..ops.codec import host_matmul
 from ..ops.gf_plan import make_plan
 from ..ops.rs_bitplane import (BATCH_UNITS, DTYPES, bitplane_matmul,
                                bitplane_matmul_batched, bitplane_plain,
-                               block_diag_bitmat, fuse_bitmat, variant_name)
+                               block_diag_bitmat, device_tiles, fuse_bitmat,
+                               variant_name)
 from ..ops.rs_hopper import gf_matmul, gf_matmul_plain
 from ..ops.rs_torch import resolve_device
 
@@ -74,8 +79,9 @@ def make_fn(k: int, r: int, n: int, tile: int, dot_dtype):
     """K6a: fn(bitmat (8r, 8k) int8, data (k, n) uint8) -> (r, n) uint8
     with the dot's operands in ``dot_dtype`` (torch.int8, torch.bfloat16
     or torch.float32, which runs as tf32). ``tile`` is the TPU kernel's
-    column tile; the Hopper kernel's is fixed (rs_bitplane.TILE), and
-    columns are independent, so the result does not depend on it."""
+    column tile; the Hopper kernel's is fixed (rs_bitplane.TILE, its
+    block's 128 columns), and columns are independent, so the result does
+    not depend on it."""
     dtype = _dtype(dot_dtype)
 
     def fn(bitmat, data):
@@ -146,14 +152,22 @@ def chained_rate(fn, bitmat, slabs, lengths=(5, 15, 25), reps: int = 3):
     return k * n / slope / 1e6, r2
 
 
-def bound(r: int, k: int, n: int, u: int = 1, dtype=None):
+def bound(r: int, k: int, n: int, u: int = 1, dtype=None,
+          ops_per_column=None):
     """(least ms on one H100 SXM, what binds it): the larger of the
     (k + r) * n bytes at 3.35 TB/s and, for a bit-plane kernel,
-    u * 2 * 8r * 8k * n operations at the type's dense peak."""
+    ops_per_column * n / u operations (n / u stacked columns) at the
+    type's dense peak. Per stacked column of a TilePlan: the function's
+    own, ``least_ops_per_column`` (a multiply-add per one of the lift:
+    the bound reported as ``bound_ms``); the kernel's tile list,
+    ``ops_per_column`` (the tile bound); by default the dense lift the TPU
+    kernel multiplies, 2 * (u * 8r) * (u * 8k) (the dense bound)."""
     bytes_ms = (k + r) * n / HBM_BYTES_PER_S * 1e3
     if dtype is None:
         return bytes_ms, "bytes"
-    ops_ms = u * 2 * (8 * r) * (8 * k) * n / PEAK_OPS[dtype] * 1e3
+    if ops_per_column is None:
+        ops_per_column = 2 * (u * 8 * r) * (u * 8 * k)
+    ops_ms = ops_per_column * n / u / PEAK_OPS[dtype] * 1e3
     return (ops_ms, f"{dtype} ops") if ops_ms > bytes_ms else \
         (bytes_ms, "bytes")
 
@@ -218,22 +232,35 @@ def run_table(coeffs: np.ndarray, n: int, seed: int = 7, device="cuda",
         mb_s, r2 = chained_rate(fn, const, slabs)
         launches = wrapper.launches - start
         plain_ms = per_launch_ms(plain, const, slabs[0], reps=3, warmup=1)
-        bound_ms, bound_by = bound(r, k, n, u, dtype)
-        fn_bound_ms, fn_bound_by = bound(r, k, n, 1, dtype)
-        rows.append({"name": name, "dtype": dtype, "u": u,
-                     "shape": f"({r},{k})x{n}", "ms": ms,
-                     "plain_ms": plain_ms, "mb_s": mb_s, "r2": r2,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "function_bound_ms": fn_bound_ms,
-                     "function_bound_by": fn_bound_by,
-                     "launches": launches, "exact": exact})
-        own = (f"; the function's own bound {fn_bound_ms:.4f} ms, "
-               f"{fn_bound_by}, {ms / fn_bound_ms:.2f}x" if u > 1 else "")
+        row = {"name": name, "dtype": dtype, "u": u,
+               "shape": f"({r},{k})x{n}", "ms": ms,
+               "plain_ms": plain_ms, "mb_s": mb_s, "r2": r2,
+               "launches": launches, "exact": exact}
+        others = ""
+        if dtype is None:
+            row["bound_ms"], row["bound_by"] = bound(r, k, n)
+        else:
+            plan = device_tiles(const, u, dtype).plan
+            row["bound_ms"], row["bound_by"] = bound(
+                r, k, n, u, dtype, plan.least_ops_per_column)
+            row["dense_bound_ms"], row["dense_bound_by"] = bound(
+                r, k, n, u, dtype)
+            row["tile_bound_ms"], row["tile_bound_by"] = bound(
+                r, k, n, u, dtype, plan.ops_per_column)
+            row["lift_ones"] = plan.ones
+            row["tiles_kept"], row["tiles_dense"] = plan.kept, plan.dense
+            others = "".join(
+                f"; {what} bound {row[key + '_ms']:.4f} ms "
+                f"{row[key + '_by']} ({ms / row[key + '_ms']:.2f}x)"
+                for what, key in (("dense", "dense_bound"),
+                                  ("tile", "tile_bound"))) + \
+                f"; {plan.kept} of {plan.dense} tiles kept"
+        rows.append(row)
         print(f"{label}{name} ({r},{k})x{n}: {ms:.4f} ms/launch "
-              f"({ms / bound_ms:.2f}x the bound {bound_ms:.4f} ms, "
-              f"{bound_by}{own}), plain {plain_ms:.4f} ms, chained "
-              f"{mb_s:,.0f} MB/s (r2 {r2:.4f}), {launches} launches, "
-              f"exact={exact}")
+              f"({ms / row['bound_ms']:.2f}x the bound "
+              f"{row['bound_ms']:.4f} ms, {row['bound_by']}{others}), plain "
+              f"{plain_ms:.4f} ms, chained {mb_s:,.0f} MB/s (r2 {r2:.4f}), "
+              f"{launches} launches, exact={exact}")
     return rows
 
 

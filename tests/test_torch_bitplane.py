@@ -4,8 +4,9 @@ and make_fn_batched run in Pallas interpret mode, and against the numpy
 oracle gf256.mat_mul. Exact: 0/1 operands and integer sums. Tensors here
 lie on the CPU, so the wrappers run their plain version; the Hopper kernel
 itself is held against that plain version on the card by chip_smoke.py.
-This file also checks the constant the kernel uploads
-(bitmat_from_reference) by emulating the kernel's indexing in numpy."""
+This file also checks the byte-major lift (bitmat_from_reference) the
+kernel's tile list is cut from, and the device constant built from it;
+test_torch_bitplane_plan.py emulates the kernel's walk of that list."""
 
 import numpy as np
 import pytest
@@ -121,11 +122,12 @@ def test_k6b_matches_make_fn_batched(interpret_pallas, geo, n, u, dtype):
 
 
 def _emulate_kernel(const, data, r, u, tile=rs_bitplane.TILE):
-    """What csrc/gf_bitplane.cu computes from the uploaded constant
-    (byte-major rows i*8+b, byte-major columns j*8+l inside each of the
-    u blocks; zero-padded to 64 rows and 16 columns): stacked payload byte
-    g = j*k + jb of column c in tile j, bits spread along 8 adjacent
-    contraction rows, & 1, 8 adjacent rows packed into a byte."""
+    """The product in the byte-major order of bitmat_from_reference (rows
+    i*8+b, columns j*8+l inside each of the u blocks; zero-padded to 64
+    rows and 16 columns), which make_tile_plan sorts and cuts into tiles:
+    stacked payload byte g = j*k + jb of column c in tile j, bits spread
+    along 8 adjacent contraction rows, & 1, 8 adjacent rows packed into a
+    byte."""
     k, n = data.shape
     mp, kp = -(-const.shape[0] // 64) * 64, -(-const.shape[1] // 16) * 16
     a = np.zeros((mp, kp), dtype=np.float64)  # 0/1, sums exact
@@ -180,18 +182,31 @@ def test_bitmat_from_reference_rejects_bad_shapes():
 @pytest.mark.parametrize("dtype", ["int8", "bf16", "tf32"])
 @pytest.mark.parametrize("u", [1, 2])
 def test_device_const_is_padded_byte_major(dtype, u):
-    """The constant the kernel uploads: bitmat_from_reference's lift,
-    zero-padded to the kernel's row tile and contraction depth, in the
-    operand type."""
+    """The constant the kernel uploads: the tile list of
+    bitmat_from_reference's byte-major lift (make_tile_plan), its kept
+    tiles in the operand type, (kept * nt, depth) and zero past 8k; int32
+    chunk, range and row-map tensors on the lift's device."""
     bm = fuse_bitmat(_geometry("rs_6_3"))
     lift = bm if u == 1 else block_diag_bitmat(bm, u)
     const = rs_bitplane._device_const(torch.from_numpy(lift), u, dtype)
-    rows, cols = lift.shape
-    assert const.dtype == rs_bitplane.DTYPES[dtype][1]
-    assert const.shape[0] % 64 == 0 and const.shape[1] % 16 == 0
-    assert np.array_equal(const[:rows, :cols].to(torch.int8).numpy(),
-                          bitmat_from_reference(lift, u))
-    assert not const[rows:].any() and not const[:, cols:].any()
+    plan = const.plan
+    want = rs_bitplane.make_tile_plan(lift, u, dtype)
+    assert const.tiles.dtype == rs_bitplane.DTYPES[dtype][1]
+    assert tuple(const.tiles.shape) == (plan.kept * plan.nt, plan.kc)
+    assert np.array_equal(const.tiles.to(torch.int8).numpy(), want.tiles)
+    # r = 3: one 32-row tile per block, 32 deep; 6 payload bytes, 2 chunks
+    assert (plan.nt, plan.kc, plan.n_tiles) == (32, 32, u)
+    assert plan.chunks_per_block == 2 and plan.kept == 2 * u
+    for name in ("tile_chunk", "ntile_ptr", "row_map"):
+        t = getattr(const, name)
+        assert t.dtype == torch.int32 and t.is_contiguous()
+        assert np.array_equal(t.numpy(), getattr(want, name))
+    # the second chunk holds bytes 4, 5 and 2 bytes of padding
+    q = rs_bitplane.k_order(dtype, plan.kc) // 8
+    last = want.tile_chunk % plan.chunks_per_block == 1
+    tiles = want.tiles.reshape(-1, plan.nt, plan.kc)
+    assert not tiles[last][:, :, q >= 2].any()
+    assert tiles[last][:, :, q < 2].any()
 
 
 def test_cpu_tensors_never_launch():
@@ -270,3 +285,86 @@ def test_bounds(shape, u, dtype, want_ms, want_by):
     ms, by = kernel_exp.bound(*shape, u=u, dtype=dtype)
     assert ms == pytest.approx(want_ms, abs=6e-4)
     assert by == want_by
+
+
+@pytest.mark.parametrize("geo,shape,u,dtype,want_ms,want_by", [
+    # (4,10): 3 tiles of 32 rows by 32 (10 payload bytes in chunks of 4)
+    ("rs_10_4", (4, 10, 8 << 20), 1, "int8", 0.0351, "bytes"),
+    ("rs_10_4", (4, 10, 8 << 20), 1, "bf16", 0.0521, "bf16 ops"),
+    ("rs_10_4", (4, 10, 8 << 20), 1, "tf32", 0.1041, "tf32 ops"),
+    ("rs_10_4", (4, 10, 8 << 20), 4, "int8", 0.0351, "bytes"),
+    # the piggyback emat: 48 of 160 tiles of 256 rows by 64
+    ("pb_emat", (128, 320, 262_144), 1, "int8", 0.2084, "int8 ops"),
+    ("pb_emat", (128, 320, 262_144), 1, "bf16", 0.4169, "bf16 ops"),
+    ("pb_emat", (128, 320, 262_144), 1, "tf32", 0.8330, "tf32 ops"),
+    ("pb_emat", (128, 320, 262_144), 2, "bf16", 0.4169, "bf16 ops"),
+    ("pb_emat", (128, 320, 262_144), 4, "int8", 0.2084, "int8 ops"),
+])
+def test_tile_bounds(geo, shape, u, dtype, want_ms, want_by):
+    """The tile bound: the operations of the kept lift tiles
+    (TilePlan.ops_per_column per stacked column, n / u of them) at the
+    type's dense peak, or the bytes; K6b's equals K6a's."""
+    lift = fuse_bitmat(_geometry(geo))
+    if u > 1:
+        lift = block_diag_bitmat(lift, u)
+    plan = rs_bitplane.make_tile_plan(lift, u, dtype)
+    ms, by = kernel_exp.bound(*shape, u=u, dtype=dtype,
+                              ops_per_column=plan.ops_per_column)
+    assert ms == pytest.approx(want_ms, abs=6e-4)
+    assert by == want_by
+
+
+@pytest.mark.parametrize("geo,shape,u,dtype,want_ms,want_by", [
+    # (4,10): 1224 ones of 2560
+    ("rs_10_4", (4, 10, 8 << 20), 1, "int8", 0.0351, "bytes"),
+    ("rs_10_4", (4, 10, 8 << 20), 1, "bf16", 0.0351, "bytes"),
+    ("rs_10_4", (4, 10, 8 << 20), 1, "tf32", 0.0415, "tf32 ops"),
+    ("rs_10_4", (4, 10, 8 << 20), 4, "bf16", 0.0351, "bytes"),
+    # the piggyback emat: 59,568 ones of 2,621,440
+    ("pb_emat", (128, 320, 262_144), 1, "int8", 0.0351, "bytes"),
+    ("pb_emat", (128, 320, 262_144), 1, "bf16", 0.0351, "bytes"),
+    ("pb_emat", (128, 320, 262_144), 1, "tf32", 0.0631, "tf32 ops"),
+    ("pb_emat", (128, 320, 262_144), 2, "int8", 0.0351, "bytes"),
+    ("pb_emat", (128, 320, 262_144), 4, "bf16", 0.0351, "bytes"),
+])
+def test_function_bounds(geo, shape, u, dtype, want_ms, want_by):
+    """The bound reported as bound_ms: the function's own, a multiply-add
+    per one of the lift (TilePlan.least_ops_per_column) at the type's
+    peak, or the bytes; the same for every u, since K6b's block-diagonal
+    lift holds u times the ones over n / u stacked columns."""
+    lift = fuse_bitmat(_geometry(geo))
+    ones = int(np.count_nonzero(lift))
+    if u > 1:
+        lift = block_diag_bitmat(lift, u)
+    plan = rs_bitplane.make_tile_plan(lift, u, dtype)
+    assert plan.ones == u * ones
+    ms, by = kernel_exp.bound(*shape, u=u, dtype=dtype,
+                              ops_per_column=plan.least_ops_per_column)
+    assert ms == pytest.approx(want_ms, abs=6e-4)
+    assert by == want_by
+    # it never exceeds the tile bound, which never exceeds the dense one
+    tile_ms, _ = kernel_exp.bound(*shape, u=u, dtype=dtype,
+                                  ops_per_column=plan.ops_per_column)
+    dense_ms, _ = kernel_exp.bound(*shape, u=u, dtype=dtype)
+    assert ms <= tile_ms
+    assert tile_ms <= dense_ms or geo == "rs_10_4"  # 32-deep tiles pad 10 B
+
+
+def test_parts_tool_shapes_and_masks():
+    """tools/bitplane_parts times the kernel_exp shapes, and its masks
+    use only the three bits gf_bitplane.cu reads (GF_BP_SKIP), mask 0
+    (the port's own build) among them."""
+    from seaweedfs_tpu_torch.tools import bitplane_parts
+    assert 0 in bitplane_parts.SKIPS
+    assert all(0 <= mask <= 7 for mask in bitplane_parts.SKIPS)
+    source = rs_bitplane.SOURCE.read_text()
+    for bit in (1, 2, 4):
+        assert f"GF_BP_SKIP & {bit}" in source
+    got = {label: (c.shape, n) for label, c, n in bitplane_parts.shapes()}
+    pb = ref_codec.piggyback_plan(10, 4).emat
+    assert got == {"(4,10)x8MiB": ((4, 10), 8 << 20),
+                   "(128,320)x262144": (pb.shape, 262_144)}
+    flat = dict((label, c) for label, c, _ in bitplane_parts.shapes())
+    assert np.array_equal(flat["(4,10)x8MiB"],
+                          ref_gf256.build_matrix(10, 14)[10:])
+    assert np.array_equal(flat["(128,320)x262144"], pb)
