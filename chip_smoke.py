@@ -16,18 +16,24 @@
    over encode matrices for RS(10,4), (6,3), (20,4) (vandermonde and
    cauchy), 4-loss decode plans for (10,4) and (20,4), a (1,10)
    single-row plan and a (128,640) matrix, at widths 1, 129, 4407, 8 MiB
-   and 8 MiB + 1, plus a misaligned base pointer (through the raw
-   coefficient form, which builds its plan per call); then over the
+   and 8 MiB + 1, plus a misaligned base pointer; then over the
    piggyback RS(10,4) emat (128,320), its (0,7,11,12) and (1,6,10,11)
    decode plans and the RS(20,4) emat (128,640), at widths 1, 129, 4407,
    262,144 (the piggyback slab, K1's vector path), 262,145, 8 MiB and
-   8 MiB + 1. Then times K1 (plan built beforehand; its build time
-   printed on its own line, outside the timed window) and the plain
-   version with CUDA events at the main path's shapes: the flat encode
-   and the (0,1,2,3) decode plan (4,10) x 8 MiB, the piggyback emat and
-   its (0,7,11,12) decode plan (128,320) x 262,144, beside the memory
-   bound and the previous kernel's time. K1 is timed in two passes over
-   the shapes; the second is reported, the first printed beside it.
+   8 MiB + 1; then over the repair legs' two matrices, the trace-repair
+   combine (8, total_bits) of a seeded lost shard at its byte-stride
+   widths (1 MiB, 1 MiB + 1, an odd tail) and the plane-repair matrix
+   (32,176) of a seeded coupled data shard at w/32 (262,144, 262,145, an
+   odd tail), each also from a misaligned base. Every plan is built by
+   ops/gf_plan.make_plan. Then times K1 (plan built beforehand; its
+   build time printed on its own line, outside the timed window) and the
+   plain version with CUDA events at the main path's shapes: the flat
+   encode and the (0,1,2,3) decode plan (4,10) x 8 MiB, the piggyback
+   emat and its (0,7,11,12) decode plan (128,320) x 262,144, the trace
+   combine at 1 MiB and the plane-repair matrix at 262,144, beside the
+   memory bound and the previous kernel's time. K1 is timed in two
+   passes over the shapes; the second is reported, the first printed
+   beside it.
 3. Holds every bit-plane variant (K6a int8/bf16/tf32, K6b u=2,4 x
    int8/bf16) byte-identical to its plain version and to K1, and K1 to
    its own plain version, over the same geometries at widths 1, 129, 4407,
@@ -66,6 +72,28 @@
    windows) and the counters, then rebuilds (0,7,11,12) and a seeded 4
    of the 14 through volume_layout; every shard must come back
    sha256-identical with launches = dispatches.
+8. The rebuilder's repair paths on the same volume, through the gather
+   sources (window 4, 8 MiB stripes). Between the flat legs and the
+   piggyback encode: trace repair of the seeded lost shard
+   (LocalRepairReader per plan helper, RepairGatherSource,
+   rebuild_ec_file_repair; repair_bytes = total_bits x sum ceil(w/8), the
+   plan's fraction of k x shard) and a streaming rebuild of a seeded 4
+   (LocalShardReader over the first k survivors, StripedGatherSource,
+   rebuild_ec_files_streaming; peak_gather_buffer within window x k x
+   8 MiB). After the piggyback legs: plane repair of the seeded coupled
+   data shard (LocalPlaneReader, PlaneGatherSource,
+   rebuild_ec_file_piggyback; exactly 0.55 of k x shard) and a streaming
+   piggyback rebuild of a seeded 4 (readers in piggyback_decode_plan's src
+   order). Every shard must come back sha256-identical, each leg with
+   dispatches = launches and one plan upload.
+9. ec.decode: find_dat_file_size and write_dat_file from the data shards
+   must give back the original .dat's first dat_size bytes, and
+   write_idx_file_from_ec_index the .ecx records (the piggyback tag byte
+   dropped) plus a tombstone for each id of a written .ecj.
+
+Every leg runs with the kernel's launch counter set to 0 just before it
+and read just after; a leg of steps 5-8 whose launches differ from its
+dispatches, or that launched nothing, fails the smoke.
 
 Prints the card line (nvidia-smi name, power limit), then a JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Exits non-zero,
@@ -96,6 +124,11 @@ PB_N = 262_144              # piggyback slab: 8 MiB over alpha = 32
 BP_WIDTHS = (1, 129, 4407, PB_N + 1)  # bit-plane widths; flat shapes add
                                       # MAIN_N
 PB_WIDTHS = (1, 129, 4407, PB_N, PB_N + 1)  # the piggyback geometries'
+TRACE_N = MAIN_N // 8       # trace combine: a stripe's byte stride
+#: the repair matrices' widths: 1 stripe, 1 stripe + 1, an odd tail
+TRACE_WIDTHS = (1, 129, 4407, TRACE_N, TRACE_N + 1, 917_503)
+PLANE_WIDTHS = (1, 129, 4407, PB_N, PB_N + 1, 229_377)
+GATHER_WINDOW = 4           # ec.transport.DEFAULT_WINDOW
 #: K1's time per launch before the tile-plan redesign, measured by this
 #: script on an NVIDIA H100 80GB HBM3 at 700 W: (4,10) x 8 MiB and the
 #: piggyback emat (128,320) x 262,144
@@ -190,11 +223,11 @@ def geometries(np, gf256, NumpyCodec, seed):
 
 
 def check_kernel(torch, np, rs_hopper, gf_plan, geos, dev, seed,
-                 misaligned=False):
+                 misaligned=0):
     """K1 from each geometry's tile plan vs the plain version, byte for
-    byte, on the card, over geos (label, coeffs, widths) and, if asked, a
-    misaligned base pointer through the raw coefficient form (its plan
-    built in the call). Returns max |err|."""
+    byte, on the card, over geos (label, coeffs, widths) and, if
+    ``misaligned`` is a width, a base pointer off 16-byte alignment at the
+    first geometry and that width. Returns max |err|."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     worst = 0
@@ -221,12 +254,12 @@ def check_kernel(torch, np, rs_hopper, gf_plan, geos, dev, seed,
             del d
         torch.cuda.empty_cache()
     if misaligned:  # off 16-byte alignment: the byte path at full width
-        c = torch.from_numpy(np.ascontiguousarray(geos[0][1])).to(dev)
-        k = c.shape[1]
-        flat = torch.randint(0, 256, (k * MAIN_N + 1,), dtype=torch.uint8,
+        plan = gf_plan.make_plan(geos[0][1]).to(dev)
+        k, n = plan.k, misaligned
+        flat = torch.randint(0, 256, (k * n + 1,), dtype=torch.uint8,
                              device=dev, generator=gen)
-        worst = max(worst, held("misaligned base", MAIN_N, c, c,
-                                flat[1:].view(k, MAIN_N)))
+        worst = max(worst, held(f"misaligned base, {geos[0][0]}", n, plan,
+                                plan.coeffs, flat[1:].view(k, n)))
         cases += 1
     print(f"kernel vs plain: {cases} cases over {len(geos)} geometries "
           f"byte-identical (tolerance: exact, GF(2^8) arithmetic; max |err| "
@@ -247,8 +280,8 @@ def piggyback_geometries(codec_mod):
     return out
 
 
-def check_bitplane(torch, np, rs_bitplane, rs_hopper, geos, dev, seed,
-                   misaligned=False):
+def check_bitplane(torch, np, rs_bitplane, rs_hopper, gf_plan, geos, dev,
+                   seed, misaligned=False):
     """Every bit-plane variant against its plain version and against
     gf_matmul, and gf_matmul against its own plain version, byte for
     byte, on the card, over geos (label, coeffs, widths) and, if asked,
@@ -260,8 +293,9 @@ def check_bitplane(torch, np, rs_bitplane, rs_hopper, geos, dev, seed,
              for u, dt in VARIANTS} | {"gf_matmul": 0}
     cases = 0
 
-    def held(label, n, coeffs_t, lifts, d):
-        k1 = rs_hopper.gf_matmul(coeffs_t, d)
+    def held(label, n, plan, lifts, d):
+        coeffs_t = plan.coeffs
+        k1 = rs_hopper.gf_matmul(plan, d)
         k1_plain = rs_hopper.gf_matmul_plain(coeffs_t, d)
         torch.cuda.synchronize()
         err = int((k1.int() - k1_plain.int()).abs().max().item())
@@ -291,12 +325,12 @@ def check_bitplane(torch, np, rs_bitplane, rs_hopper, geos, dev, seed,
         lifts = {u: torch.from_numpy(
             bm if u == 1 else rs_bitplane.block_diag_bitmat(bm, u)).to(dev)
             for u in (1, *rs_bitplane.BATCH_UNITS)}
-        c = torch.from_numpy(np.ascontiguousarray(coeffs)).to(dev)
+        plan = gf_plan.make_plan(coeffs).to(dev)
         k = coeffs.shape[1]
         for n in widths:
             d = torch.randint(0, 256, (k, n), dtype=torch.uint8, device=dev,
                               generator=gen)
-            held(label, n, c, lifts, d)
+            held(label, n, plan, lifts, d)
             cases += 1
         del lifts
         torch.cuda.empty_cache()
@@ -309,15 +343,31 @@ def check_bitplane(torch, np, rs_bitplane, rs_hopper, geos, dev, seed,
         k = coeffs.shape[1]
         flat = torch.randint(0, 256, (k * MAIN_N + 1,), dtype=torch.uint8,
                              device=dev, generator=gen)
-        held("misaligned base", MAIN_N,
-             torch.from_numpy(np.ascontiguousarray(coeffs)).to(dev), lifts,
-             flat[1:].view(k, MAIN_N))
+        held("misaligned base", MAIN_N, gf_plan.make_plan(coeffs).to(dev),
+             lifts, flat[1:].view(k, MAIN_N))
         cases += 1
     print(f"bit-plane kernels vs plain and gf_matmul, gf_matmul vs plain: "
           f"{cases} cases x {len(VARIANTS)} variants byte-identical "
           f"(tolerance: exact, 0/1 operands and sums below 2^24); max |err| "
           f"{json.dumps(worst)}")
     return worst
+
+
+def repair_targets(np, codec_mod, seed):
+    """The repair legs' seeded lost shards and their plans: a trace
+    repair of any of the 14 shards, a plane repair of a coupled data
+    shard."""
+    trace_lost = int(np.random.default_rng(seed + 17).integers(0, 14))
+    coupled = codec_mod.piggyback_plan(10, 4).coupled
+    plane_lost = int(np.random.default_rng(seed + 19).integers(0, coupled))
+    return (codec_mod.repair_plan(10, 4, trace_lost),
+            codec_mod.piggyback_repair_plan(10, 4, plane_lost))
+
+
+def repair_geometries(plan, rplan):
+    """(label, coeffs, widths) of the repair legs' two K1 products."""
+    return [(f"trace combine lost {plan.lost}", plan.combine, TRACE_WIDTHS),
+            (f"plane repair lost {rplan.lost}", rplan.matrix, PLANE_WIDTHS)]
 
 
 def timed_shapes(np, gf256, NumpyCodec, codec_mod):
@@ -655,8 +705,254 @@ def piggyback_leg(np, port, dev, base, res, seed):
               f" MB/s of survivors ({secs:.2f} s, {st['dispatches']} "
               f"dispatches = launches, phases {st['phases']}, pb split/merge "
               f"s {st['pb_host_s']}) — shards sha256-identical")
-    return {"encode_s": enc_s, "rebuilds": rebuilds,
+    return {"encode_s": enc_s, "rebuilds": rebuilds, "shas": shas,
             "launches": ops.gf_matmul.launches - start}
+
+
+def _check_leg(label, st, n_slabs, launches):
+    """One K1 dispatch per stripe, each a launch, and one plan upload."""
+    if st["dispatches"] != n_slabs or st["bitmat_uploads"] != 1 or \
+            launches != st["dispatches"]:
+        raise AssertionError(f"{label}: counters {st}, {launches} launches; "
+                             f"want {n_slabs} dispatches = launches and 1 "
+                             f"upload")
+
+
+def _check_shas(ec, base, shas, label):
+    for sid, want in enumerate(shas):
+        if _sha(base + ec.to_ext(sid)) != want:
+            raise AssertionError(f"shard {sid} differs after {label}")
+
+
+def _leg_line(label, secs, st, moved, what):
+    """A leg's wall, its MB/s (of ``moved`` bytes, named by ``what``) and
+    its phases."""
+    return (f"{label}: {secs:.2f} s, {moved / secs / 1e6:.1f} MB/s of "
+            f"{what}, {st['dispatches']} dispatches = launches, phases "
+            f"{st['phases']}")
+
+
+def trace_repair_leg(np, port, dev, base, res, plan):
+    """Trace repair of plan.lost from the packed symbol planes of every
+    helper, through RepairGatherSource on the card's codec."""
+    ec, ops, _ = port
+    k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
+    lost, shard_size = plan.lost, res["shard_size"]
+    os.remove(base + ec.to_ext(lost))
+    gs = ec.GatherStats()
+    source = ec.RepairGatherSource(
+        [ec.LocalRepairReader(base + ec.to_ext(i), plan.masks[i], gs)
+         for i in plan.helpers], shard_size, plan, slab=MAIN_N,
+        window=GATHER_WINDOW, stats=gs)
+    st = {}
+    start = ops.gf_matmul.launches
+    t0 = time.perf_counter()
+    got = ec.rebuild_ec_file_repair(base, lost, source, plan,
+                                    codec=ops.get_codec(k, m, device=dev),
+                                    slab=MAIN_N, stats=st)
+    secs = time.perf_counter() - t0
+    if got != [lost]:
+        raise AssertionError(f"trace repair rebuilt {got}, lost {lost}")
+    _check_shas(ec, base, res["shas"], f"trace repair of {lost}")
+    want_bytes = plan.total_bits * sum(
+        (min(MAIN_N, shard_size - off) + 7) // 8
+        for off in range(0, shard_size, MAIN_N))
+    if st["repair_bytes"] != want_bytes or \
+            st["repair_bytes_frac"] != round(plan.frac, 4):
+        raise AssertionError(f"trace repair moved {st['repair_bytes']} B "
+                             f"({st['repair_bytes_frac']}), want "
+                             f"{want_bytes} ({plan.frac})")
+    _check_leg("trace repair", st, res["n_slabs"],
+               ops.gf_matmul.launches - start)
+    print(_leg_line(f"trace repair shard {lost}", secs, st,
+                    st["repair_bytes"], "symbol planes moved")
+          + f"; {st['repair_bytes']} B = {st['repair_bytes_frac']} "
+          f"of k x shard ({k * shard_size / secs / 1e6:.1f} MB/s of the "
+          f"k x shard baseline), {plan.total_bits} bits from "
+          f"{len(plan.helpers)} helpers, overlap {st['overlap_frac']}, "
+          f"gather busy {st['gather_busy_s']} s — shard sha256-identical")
+    return {"secs": secs, "stats": st}
+
+
+def _seeded4(np, seed, total):
+    rng = np.random.default_rng(seed)
+    return tuple(sorted(rng.choice(total, 4, replace=False).tolist()))
+
+
+def _gather_bound(peak, rows, label):
+    bound = GATHER_WINDOW * rows * MAIN_N
+    if not 0 < peak <= bound:
+        raise AssertionError(f"{label}: peak_gather_buffer {peak} B outside "
+                             f"(0, window x {rows} x 8 MiB = {bound}]")
+    return bound
+
+
+def streaming_leg(np, port, dev, base, res, seed):
+    """Streaming rebuild of a seeded 4 from the first k survivors,
+    pulled stripe by stripe through StripedGatherSource."""
+    ec, ops, _ = port
+    k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
+    total = k + m
+    lost = _seeded4(np, seed + 23, total)
+    for sid in lost:
+        os.remove(base + ec.to_ext(sid))
+    present = [i not in lost for i in range(total)]
+    gs = ec.GatherStats()
+    source = ec.StripedGatherSource(
+        [ec.LocalShardReader(base + ec.to_ext(i), gs)
+         for i in range(total) if present[i]][:k], res["shard_size"],
+        slab=MAIN_N, window=GATHER_WINDOW, stats=gs)
+    st = {}
+    start = ops.gf_matmul.launches
+    t0 = time.perf_counter()
+    got = ec.rebuild_ec_files_streaming(
+        base, present, list(lost), source,
+        codec=ops.get_codec(k, m, device=dev), slab=MAIN_N, stats=st)
+    secs = time.perf_counter() - t0
+    if got != list(lost):
+        raise AssertionError(f"streaming rebuilt {got}, lost {lost}")
+    _check_shas(ec, base, res["shas"], f"streaming rebuild of {lost}")
+    _check_leg("streaming rebuild", st, res["n_slabs"],
+               ops.gf_matmul.launches - start)
+    bound = _gather_bound(st["peak_gather_buffer"], k, "streaming rebuild")
+    print(_leg_line(f"streaming rebuild {lost}", secs, st,
+                    st["survivor_bytes"], "survivors")
+          + f"; overlap_frac {st['overlap_frac']}, gather busy "
+          f"{st['gather_busy_s']} s, compute {st['compute_busy_s']} s, "
+          f"peak_gather_buffer {st['peak_gather_buffer']} B (bound {bound})"
+          f" — shards sha256-identical")
+    return {"lost": lost, "secs": secs, "stats": st}
+
+
+def plane_repair_leg(np, port, dev, base, res, pb, rplan):
+    """Plane repair of the coupled data shard rplan.lost from the
+    half-plane of every helper, through PlaneGatherSource."""
+    ec, ops, _ = port
+    from seaweedfs_tpu_torch.ec import layout as ec_layout
+    k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
+    lay = ec_layout.volume_layout(base, k)
+    lost, shard_size = rplan.lost, res["shard_size"]
+    os.remove(base + ec.to_ext(lost))
+    gs = ec.GatherStats()
+    source = ec.PlaneGatherSource(
+        [ec.LocalPlaneReader(base + ec.to_ext(h), rplan.alpha, lay.window,
+                             rplan.plane_bit, rplan.plane_side, gs)
+         for h in rplan.helpers], shard_size, rplan, lay.window, slab=MAIN_N,
+        gather_window=GATHER_WINDOW, stats=gs)
+    st = {}
+    start = ops.gf_matmul.launches
+    t0 = time.perf_counter()
+    got = ec.rebuild_ec_file_piggyback(base, lost, source, rplan, lay.window,
+                                       codec=ops.get_codec(k, m, device=dev),
+                                       slab=source.slab, stats=st)
+    secs = time.perf_counter() - t0
+    if got != [lost]:
+        raise AssertionError(f"plane repair rebuilt {got}, lost {lost}")
+    _check_shas(ec, base, pb["shas"], f"plane repair of {lost}")
+    if st["repair_bytes_frac"] != 0.55 or \
+            st["repair_bytes"] != len(rplan.helpers) * shard_size // 2:
+        raise AssertionError(f"plane repair moved {st['repair_bytes']} B "
+                             f"({st['repair_bytes_frac']}), want 0.55 of "
+                             f"k x shard")
+    _check_leg("plane repair", st, res["n_slabs"],
+               ops.gf_matmul.launches - start)
+    print(_leg_line(f"plane repair shard {lost}", secs, st,
+                    st["repair_bytes"], "half-planes moved")
+          + f"; {st['repair_bytes']} B = {st['repair_bytes_frac']} of "
+          f"k x shard ({k * shard_size / secs / 1e6:.1f} MB/s of the "
+          f"k x shard baseline), {len(rplan.helpers)} helpers x half a "
+          f"shard, overlap {st['overlap_frac']} — shard sha256-identical")
+    return {"secs": secs, "stats": st}
+
+
+def streaming_piggyback_leg(np, port, dev, base, res, pb, seed):
+    """Streaming piggyback rebuild of a seeded 4, the readers in the
+    coupled decode plan's src order."""
+    ec, ops, _ = port
+    from seaweedfs_tpu_torch.ec import layout as ec_layout
+    from seaweedfs_tpu_torch.ops import codec as ops_codec
+    k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
+    total = k + m
+    lay = ec_layout.volume_layout(base, k)
+    lost = _seeded4(np, seed + 29, total)
+    for sid in lost:
+        os.remove(base + ec.to_ext(sid))
+    present = [i not in lost for i in range(total)]
+    src, _, _ = ops_codec.piggyback_decode_plan(k, m, tuple(present),
+                                                pairs=lay.pairs)
+    gs = ec.GatherStats()
+    source = ec.StripedGatherSource(
+        [ec.LocalShardReader(base + ec.to_ext(i), gs) for i in src],
+        res["shard_size"], slab=MAIN_N, window=GATHER_WINDOW, stats=gs)
+    st = {}
+    start = ops.gf_matmul.launches
+    t0 = time.perf_counter()
+    got = ec.rebuild_ec_files_streaming_piggyback(
+        base, present, list(lost), source, lay,
+        codec=ops.get_codec(k, m, device=dev), slab=MAIN_N, stats=st)
+    secs = time.perf_counter() - t0
+    if got != list(lost):
+        raise AssertionError(f"streaming piggyback rebuilt {got}, lost {lost}")
+    _check_shas(ec, base, pb["shas"], f"streaming piggyback rebuild of {lost}")
+    _check_leg("streaming piggyback rebuild", st, res["n_slabs"],
+               ops.gf_matmul.launches - start)
+    _gather_bound(st["peak_gather_buffer"], len(src),
+                  "streaming piggyback rebuild")
+    print(_leg_line(f"streaming piggyback rebuild {lost}", secs, st,
+                    st["survivor_bytes"], "survivors")
+          + f"; pb split/merge s {st['pb_host_s']}, "
+          f"peak_gather_buffer {st['peak_gather_buffer']} B — shards "
+          f"sha256-identical")
+    return {"lost": lost, "secs": secs, "stats": st}
+
+
+def decode_leg(np, port, base, res, seed):
+    """ec.decode from the data shards: the .dat's first dat_size bytes
+    and an .idx of the .ecx records plus the .ecj's tombstones."""
+    ec, _, storage = port
+    dat = base + ".dat"
+    t0 = time.perf_counter()
+    size = ec.find_dat_file_size(base)
+    with open(dat, "rb") as f:
+        want = hashlib.sha256()
+        left = size
+        while left:
+            chunk = f.read(min(left, 64 << 20))
+            want.update(chunk)
+            left -= len(chunk)
+    os.remove(dat)
+    t1 = time.perf_counter()
+    ec.write_dat_file(base, size)
+    dat_s = time.perf_counter() - t1
+    if os.path.getsize(dat) != size or _sha(dat) != want.hexdigest():
+        raise AssertionError(f"decoded .dat ({os.path.getsize(dat)} B) is "
+                             f"not the original's first {size} bytes")
+    rng = np.random.default_rng(seed + 31)
+    rec = storage.entry_size()
+    with open(base + ".ecx", "rb") as f:
+        ecx = f.read()
+    aligned = ecx[:len(ecx) // rec * rec]
+    picks = rng.choice(len(aligned) // rec, 2, replace=False)
+    nids = [aligned[i * rec:i * rec + 8] for i in sorted(picks.tolist())]
+    with open(base + ".ecj", "wb") as f:
+        f.write(b"".join(nids))
+    t1 = time.perf_counter()
+    ec.write_idx_file_from_ec_index(base)
+    idx_s = time.perf_counter() - t1
+    with open(base + ".idx", "rb") as f:
+        idx = f.read()
+    tomb = b"".join(storage.entry_to_bytes(int.from_bytes(n, "big"), 0,
+                                           0xFFFFFFFF) for n in nids)
+    if idx != aligned + tomb:
+        raise AssertionError(f".idx ({len(idx)} B) is not the .ecx records "
+                             f"({len(aligned)} B) plus 2 tombstones")
+    secs = time.perf_counter() - t0
+    print(f"decode: {secs:.2f} s, .dat {size} B in {dat_s:.2f} s "
+          f"({size / dat_s / 1e6:.1f} MB/s) = the original's first {size} "
+          f"bytes (sha256), .idx {len(idx)} B in {idx_s:.3f} s = .ecx "
+          f"records ({len(ecx) - len(aligned)} tag byte dropped) + 2 "
+          f"tombstones")
+    return {"secs": secs, "dat_s": dat_s, "dat_size": size}
 
 
 def card_line() -> str:
@@ -691,20 +987,33 @@ def run(args) -> int:
           f"host in {time.perf_counter() - t0:.2f} s")
     flat_geos = geometries(np, gf256, NumpyCodec, args.seed)
     max_err = check_kernel(torch, np, rs_hopper, gf_plan, flat_geos, dev,
-                           args.seed, misaligned=True)
+                           args.seed, misaligned=MAIN_N)
     pb_k1_err = check_kernel(
         torch, np, rs_hopper, gf_plan,
         [(label, c, widths + (MAIN_N, MAIN_N + 1))
          for label, c, widths in pb_geos], dev, args.seed + 3)
+    t0 = time.perf_counter()
+    trace_plan, plane_plan = repair_targets(np, ops_codec, args.seed)
+    print(f"repair plans built on the host in {time.perf_counter() - t0:.2f}"
+          f" s: trace lost {trace_plan.lost} ({trace_plan.total_bits} bits "
+          f"from {len(trace_plan.helpers)} helpers, {trace_plan.frac} of "
+          f"k x shard), plane lost {plane_plan.lost} "
+          f"{plane_plan.matrix.shape} ({plane_plan.frac} of k x shard)")
+    repair_err = max(
+        check_kernel(torch, np, rs_hopper, gf_plan, [geo], dev,
+                     args.seed + 5, misaligned=geo[2][3])
+        for geo in repair_geometries(trace_plan, plane_plan))
     timed = time_kernel(torch, rs_hopper, gf_plan, kernel_exp,
-                        timed_shapes(np, gf256, NumpyCodec, ops_codec), dev,
-                        args.seed)
+                        timed_shapes(np, gf256, NumpyCodec, ops_codec)
+                        + [("trace combine", trace_plan.combine, TRACE_N),
+                           ("plane repair", plane_plan.matrix, PB_N)],
+                        dev, args.seed)
     geos = [(label, c, BP_WIDTHS + ((MAIN_N,) if c.shape[0] <= 4 else ()))
             for label, c, _ in flat_geos]
-    bp_err = check_bitplane(torch, np, rs_bitplane, rs_hopper, geos, dev,
-                            args.seed, misaligned=True)
-    pb_err = check_bitplane(torch, np, rs_bitplane, rs_hopper, pb_geos, dev,
-                            args.seed + 1)
+    bp_err = check_bitplane(torch, np, rs_bitplane, rs_hopper, gf_plan, geos,
+                            dev, args.seed, misaligned=True)
+    pb_err = check_bitplane(torch, np, rs_bitplane, rs_hopper, gf_plan,
+                            pb_geos, dev, args.seed + 1)
     bp_err = {name: max(bp_err[name], pb_err[name]) for name in bp_err}
     exp_flat, exp_pb, bp_launches = kernel_exp_phase(
         torch, kernel_exp, rs_bitplane, gf256, ops_codec, dev, args.seed)
@@ -714,34 +1023,65 @@ def run(args) -> int:
     os.makedirs(work)
     base = os.path.join(work, "1")
     port = (ec, ops, storage)
-    try:
-        rs_hopper.gf_matmul.launches = 0  # count the main path only
+    legs = {}
+
+    def drive(name, fn, *fn_args, kernel=True):
+        """One leg of the main path, its launches counted from 0 and read
+        just after; they must equal its dispatches, and a kernel leg must
+        launch."""
+        rs_hopper.gf_matmul.launches = 0
         before = telemetry.STATS.snapshot()
-        res = main_path(torch, np, port, dev, base, VOLUME_BYTES, args.seed)
-        trace_main_path(torch, port, dev, base, res["shas"])
-        pb = piggyback_leg(np, port, dev, base, res, args.seed)
+        out = fn(*fn_args)
         launches = rs_hopper.gf_matmul.launches
-        moved = telemetry.delta(before)
+        dispatches = telemetry.delta(before)["dispatches"]
+        if launches != dispatches or (kernel and launches < 1):
+            raise AssertionError(f"{name}: {launches} kernel launches for "
+                                 f"{dispatches} dispatches")
+        legs[name] = launches
+        return out
+
+    t_path = time.perf_counter()
+    try:
+        res = drive("flat", main_path, torch, np, port, dev, base,
+                    VOLUME_BYTES, args.seed)
+        drive("traced", trace_main_path, torch, port, dev, base, res["shas"])
+        drive("trace repair", trace_repair_leg, np, port, dev, base, res,
+              trace_plan)
+        drive("streaming", streaming_leg, np, port, dev, base, res,
+              args.seed)
+        pb = drive("piggyback", piggyback_leg, np, port, dev, base, res,
+                   args.seed)
+        drive("plane repair", plane_repair_leg, np, port, dev, base, res, pb,
+              plane_plan)
+        drive("streaming piggyback", streaming_piggyback_leg, np, port, dev,
+              base, res, pb, args.seed)
+        drive("decode", decode_leg, np, port, base, res, args.seed,
+              kernel=False)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if res["encode_launches"] < 1 or \
             any(r[3] < 1 for r in res["rebuilds"]) or pb["launches"] < 1:
         raise AssertionError("the kernel was not launched on every leg of "
                              "the main path")
-    if launches != moved["dispatches"]:
-        raise AssertionError(f"{launches} launches for "
-                             f"{moved['dispatches']} dispatches")
-    print(f"main path (flat, traced, piggyback): {launches} kernel launches "
-          f"= {moved['dispatches']} dispatches; builds {build_s:.2f} s")
+    launches = sum(legs.values())
+    print(f"main path (flat, traced, trace repair, streaming, piggyback, "
+          f"plane repair, streaming piggyback, decode) in "
+          f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
+          f"= dispatches, by leg {json.dumps(legs)}; builds {build_s:.2f} s")
 
     card = card_line()
     entries = [
         _k1_entry("gf_matmul", launches, max_err, timed["flat encode"],
                   timed["flat decode (0, 1, 2, 3)"]),
-        _k1_entry("gf_matmul_piggyback", pb["launches"],
+        _k1_entry("gf_matmul_piggyback",
+                  legs["piggyback"] + legs["streaming piggyback"],
                   max(pb_k1_err, pb_err["gf_matmul"]),
                   timed["piggyback emat"],
-                  timed["piggyback decode (0, 7, 11, 12)"])]
+                  timed["piggyback decode (0, 7, 11, 12)"]),
+        _k1_entry("gf_matmul_repair",
+                  legs["trace repair"] + legs["plane repair"], repair_err,
+                  timed["trace combine"], timed["plane repair"],
+                  second_key="plane_repair")]
     for u, dt in VARIANTS:
         name = rs_bitplane.variant_name(u, dt)
         flat_row = next(row for row in exp_flat if row["name"] == name)
@@ -765,10 +1105,13 @@ def run(args) -> int:
     return 0
 
 
-def _k1_entry(name, launches, max_err, main, decode) -> dict:
-    """A kernels-line entry of K1 at one main-path slab: the encode
-    matrix's numbers, the plan's pairs per column and table bytes, and
-    the decode plan's numbers beside them, all measured in this run."""
+def _k1_entry(name, launches, max_err, main, second,
+              second_key="decode_plan") -> dict:
+    """A kernels-line entry of K1 for one class of main-path products:
+    the first matrix's numbers (the encode matrix, or the trace combine),
+    the plan's pairs per column and table bytes, and the second matrix's
+    numbers beside them under ``second_key`` (the decode plan, or the
+    plane-repair matrix), all measured in this run."""
     def plan_keys(t):
         return {"pairs_per_column": t["plan"]["pairs_per_column"],
                 "table_bytes": t["plan"]["table_bytes"],
@@ -783,8 +1126,8 @@ def _k1_entry(name, launches, max_err, main, decode) -> dict:
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "shape": main["shape"],
         **plan_keys(main),
-        "decode_plan": {key: decode[key] for key in (
-            "shape", "ms", "plain_ms", "bound_ms")} | plan_keys(decode),
+        second_key: {key: second[key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms")} | plan_keys(second),
     }
 
 

@@ -7,6 +7,9 @@ Behavior-compatible with reference ec_encoder.go:
     (k x 1GB) remains, emit a large row; tail as small rows (k x 1MB),
     zero-padded
   * rebuild_ec_files: regenerate missing .ecNN from >= k survivors
+  * rebuild_ec_files_streaming(_piggyback): the same, with the survivor
+    stripes arriving from an ec.gather source (a windowed pull) instead
+    of whole shard files on local disk
 
 Both run the flat layout (plain RS parity) or the piggyback layout
 (coupled sub-chunk parity, ops/codec.piggyback_plan): data shards are
@@ -27,6 +30,7 @@ returned in ``stats["phases"]``.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Iterator, List, Optional, Tuple
@@ -215,6 +219,61 @@ def _pb_encode_stream(codec, pplan, window, slabs, slab, pipelined, timer):
 def _pb_host_s(timer: StageTimer) -> dict:
     return {n: round(timer.totals.get(f"pb_{n}", 0.0), 6)
             for n in ("split", "merge")}
+
+
+def _sync_stream(slabs, fn, timer: StageTimer):
+    """(meta, data, fn(data)) per slab: the sync counterpart of
+    PipelinedMatmul.stream. Time spent waiting on the source counts as
+    disk_read (the gather phase); fn's time falls to dispatch."""
+    it = iter(slabs)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            meta, data = next(it)
+        except StopIteration:
+            return
+        timer.add("disk_read", time.perf_counter() - t0)
+        yield meta, data, fn(data)
+
+
+def _transport_stats(gs, stream_s: float, gather_s: float) -> dict:
+    """Gather busy time (the union of fetch intervals), the compute left
+    after the consumer's gather waits, and the share of their serialized
+    sum that overlapped, for a rebuild fed by an ec.gather source."""
+    gather_busy = gs.busy_s()
+    compute_busy = max(stream_s - gather_s, 0.0)
+    serialized = gather_busy + compute_busy
+    overlap = 0.0
+    if serialized > 0:
+        overlap = max(0.0, min(1.0, (serialized - stream_s) / serialized))
+    return {"gather_busy_s": round(gather_busy, 3),
+            "compute_busy_s": round(compute_busy, 3),
+            "overlap_frac": round(overlap, 4),
+            "gather_mbps": round(gs.mbps(), 1),
+            "gather_remote_shards": gs.remote_shards}
+
+
+@contextlib.contextmanager
+def _shard_outputs(base_name: str, sids):
+    """The shard files a rebuild writes, all or nothing: on any failure
+    they are closed and removed, so callers get complete shards or none
+    (and can fall back with a clean slate)."""
+    paths = {i: base_name + to_ext(i) for i in sids}
+    outs = {i: open(path, "wb") for i, path in paths.items()}
+    try:
+        yield outs
+    except BaseException:
+        for h in outs.values():
+            h.close()
+        for path in paths.values():
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+        raise
+    finally:
+        for h in outs.values():
+            h.close()
 
 
 def _phases(timer: StageTimer, pipelined: bool, stream_s: float) -> dict:
@@ -472,4 +531,151 @@ def _rebuild_ec_files_piggyback(base_name, codec, layout, present,
         stats["layout"] = "piggyback"
         stats["phases"] = _phases(timer, False, stream_s)
         stats["pb_host_s"] = _pb_host_s(timer)
+    return list(missing)
+
+
+def rebuild_ec_files_streaming(base_name: str,
+                               present: List[bool],
+                               missing: List[int],
+                               source,
+                               codec: Optional[ReedSolomonCodec] = None,
+                               slab: int = DEFAULT_SLAB,
+                               pipelined: Optional[bool] = None,
+                               stats: Optional[dict] = None) -> List[int]:
+    """Streaming variant of rebuild_ec_files: the survivor bytes arrive
+    from ``source`` (an ec.gather.StripedGatherSource over the first k
+    survivors) instead of whole shard files on local disk, and each
+    rebuilt slab is appended to the missing shard files as the decode
+    drains. The rebuilder never materializes a survivor copy.
+
+    ``present``/``missing`` describe the shard state (the decode plan),
+    not local files. On ANY failure the partially written missing-shard
+    files are removed: callers get complete rebuilt shards or nothing.
+    ``stats`` gets the dispatch-counter deltas, the gather snapshot
+    (``gather_*``, ``peak_gather_buffer``), survivor/rebuilt bytes,
+    stream_s, backend, phases and the overlap of gather and compute
+    (``gather_busy_s``, ``compute_busy_s``, ``overlap_frac``)."""
+    codec = codec or get_codec(DATA_SHARDS, PARITY_SHARDS)
+    k, total = codec.k, codec.total
+    if pipelined is None:
+        pipelined = codec.backend == "cuda"
+    if not missing:
+        return []
+    if sum(present) < k:
+        raise ValueError(
+            f"cannot rebuild: only {sum(present)} of {total} shards")
+    before = STATS.snapshot()
+    timer = StageTimer()
+    t_stream = time.perf_counter()
+    coeffs = _rebuild_coeffs(codec, present, missing)
+    timer.add("plan", time.perf_counter() - t_stream)
+    if pipelined:
+        pm = PipelinedMatmul(coeffs, codec=codec, max_width=slab,
+                             timer=timer, pieces=True)
+        stream = pm.stream(source.slabs())
+    else:
+        stream = _sync_stream(
+            source.slabs(), lambda data: [(0, codec._matmul(coeffs, data))],
+            timer)
+    rebuilt_bytes = 0
+    # closing: a consumer-side failure must stop the producer and the pull
+    # pool now, not when the traceback lets the generator go
+    with _shard_outputs(base_name, missing) as outs, \
+            contextlib.closing(stream):
+        for _, _, parts in stream:
+            t0 = time.perf_counter()
+            for _, piece in parts:
+                for r, i in enumerate(missing):
+                    outs[i].write(piece[r].tobytes())
+                    rebuilt_bytes += piece[r].nbytes
+            timer.add("shard_write", time.perf_counter() - t0)
+    stream_s = time.perf_counter() - t_stream
+    if stats is not None:
+        gs = source.stats
+        stats.update(delta(before))
+        stats.update(gs.snapshot())
+        stats["survivor_bytes"] = source.shard_size * k
+        stats["rebuilt_bytes"] = rebuilt_bytes
+        stats["stream_s"] = round(stream_s, 6)
+        stats["backend"] = codec.backend
+        stats["phases"] = _phases(timer, pipelined, stream_s)
+        stats.update(_transport_stats(gs, stream_s,
+                                      stats["phases"]["gather"]))
+    return list(missing)
+
+
+def _rebuild_coeffs(codec: ReedSolomonCodec, present: List[bool],
+                    missing: List[int]) -> np.ndarray:
+    """(len(missing), k) GF coefficients so that
+    missing_rows = coeffs @ stack(first k surviving shards).
+
+    ``missing`` may be a subset of the shards absent from ``present``
+    (survivors masked out without wanting them rebuilt), so only the
+    requested rows are sliced from the codec's fused decode plan."""
+    _, plan_missing, coeffs = codec.decode_plan(tuple(bool(p)
+                                                      for p in present))
+    if plan_missing == list(missing):
+        return coeffs
+    rows = [plan_missing.index(i) for i in missing]
+    return np.ascontiguousarray(coeffs[rows])
+
+
+def rebuild_ec_files_streaming_piggyback(base_name: str,
+                                         present: List[bool],
+                                         missing: List[int],
+                                         source,
+                                         layout,
+                                         codec: Optional[
+                                             ReedSolomonCodec] = None,
+                                         slab: int = DEFAULT_SLAB,
+                                         stats: Optional[dict] = None
+                                         ) -> List[int]:
+    """Streaming full decode for a piggyback volume: ``source`` yields
+    survivor stripes whose ROWS ARE THE DECODE PLAN'S src ORDER (every
+    surviving data shard, then the plan's parity picks: build the readers
+    from piggyback_decode_plan's src list, not first-k). Each stripe is
+    window-split, pushed through the fused coupled decode, merged, and
+    appended to the missing shard files, one slab at a time as in the JAX
+    package. Failure removes partial outputs, as for the flat streaming
+    rebuild; ``stats`` adds pb_host_s (split/merge seconds)."""
+    codec = codec or get_codec(DATA_SHARDS, PARITY_SHARDS)
+    if not missing:
+        return []
+    alpha, window = layout.alpha, layout.window
+    before = STATS.snapshot()
+    timer = StageTimer()
+    split, merge = _pb_transforms(timer, alpha, window)
+    t_stream = time.perf_counter()
+    src, plan_missing, coeffs = piggyback_decode_plan(
+        codec.k, codec.m, tuple(bool(p) for p in present),
+        matrix_kind=codec.matrix_kind, matrix=codec.matrix,
+        pairs=layout.pairs)
+    rows = [plan_missing.index(i) for i in missing]
+    timer.add("plan", time.perf_counter() - t_stream)
+    stream = _sync_stream(
+        source.slabs(),
+        lambda block: merge(codec._matmul(coeffs, split(block))), timer)
+    rebuilt_bytes = 0
+    with _shard_outputs(base_name, missing) as outs, \
+            contextlib.closing(stream):
+        for _, _, merged in stream:
+            t0 = time.perf_counter()
+            for r, i in zip(rows, missing):
+                outs[i].write(merged[r].tobytes())
+                rebuilt_bytes += merged.shape[1]
+            timer.add("shard_write", time.perf_counter() - t0)
+    stream_s = time.perf_counter() - t_stream
+    if stats is not None:
+        gs = source.stats
+        stats.update(delta(before))
+        stats.update(gs.snapshot())
+        stats["survivor_bytes"] = source.shard_size * len(src)
+        stats["rebuilt_bytes"] = rebuilt_bytes
+        stats["stream_s"] = round(stream_s, 6)
+        stats["backend"] = codec.backend
+        stats["layout"] = "piggyback"
+        stats["phases"] = _phases(timer, False, stream_s)
+        stats["pb_host_s"] = _pb_host_s(timer)
+        stats["gather_mbps"] = round(gs.mbps(), 1)
+        stats["gather_remote_shards"] = gs.remote_shards
     return list(missing)

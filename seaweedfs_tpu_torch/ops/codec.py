@@ -13,9 +13,12 @@ Backends:
 missing card raises instead of quietly running on the CPU. All
 backends produce bit-identical output.
 
-Also here: the piggybacked sub-chunk layout's plans (piggyback_plan,
-piggyback_decode_plan) and its window transforms (pb_split / pb_merge),
-host-side numpy like the rest of the GF(2^8) planning.
+Also here, host-side numpy like the rest of the GF(2^8) planning: the
+trace-repair plans of a single lost shard (repair_plan, with the holder's
+project_slab and the rebuilder's combine_planes_to_bytes), and the
+piggybacked sub-chunk layout's plans (piggyback_plan,
+piggyback_decode_plan, piggyback_repair_plan) with its window transforms
+(pb_split / pb_merge, pb_plane_slice / pb_plane_rows).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from __future__ import annotations
 import itertools
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -321,8 +324,211 @@ def plan_cache_stats() -> dict:
     return {
         "events": dict(_PLAN_CACHE_EVENTS),
         "entries": {c.name: len(c) for c in
-                    (_PIGGYBACK_PLAN_CACHE, _PIGGYBACK_DECODE_CACHE)},
+                    (_REPAIR_PLAN_CACHE, _PIGGYBACK_PLAN_CACHE,
+                     _PIGGYBACK_REPAIR_CACHE, _PIGGYBACK_DECODE_CACHE)},
     }
+
+
+# ---------------------------------------------------------------------------
+# Trace repair of a single lost shard (arxiv 2205.11015).
+#
+# A dual codeword g satisfies sum_i g[i]*c_i = 0 over every stripe, so
+#     Tr(g[lost]*c_lost) = sum_{i != lost} Tr(g[i]*c_i).
+# Pick 8 dual codewords whose values at the lost position are
+# GF(2)-independent and every bit of c_lost is a GF(2) combination of the
+# trace bits Tr(g_j[i]*c_i). Helper i only has to ship
+# t_i = dim_2 span{g_j[i]} bits per byte -- its projection onto a reduced
+# basis of that span -- instead of all 8, which is where the sub-k*slab
+# repair bandwidth comes from. The rebuilder's combine is a
+# {0,1}-coefficient GF(2^8) matmul (XOR of bit-planes), so the pipelined
+# kernel runs it unchanged: one dispatch per slab.
+# ---------------------------------------------------------------------------
+
+REPAIR_MAX_SUBSETS = 400   # cap on vanish-subset enumeration (RS(20,4))
+REPAIR_RESTARTS = 3        # greedy restarts with shuffled candidate order
+
+
+@dataclass(frozen=True, eq=False)
+class RepairPlan:
+    """Single-lost-shard trace-repair scheme for one geometry.
+
+    helpers lists the shard ids that must be contacted (t_i > 0 only);
+    masks[sid] are the GF(2^8) projection masks that holder applies (one
+    packed bit-plane per mask); combine is the (8, total_bits) {0,1}
+    matrix that XORs the concatenated symbol planes back into the lost
+    shard's 8 bit-planes, in helpers-then-mask order.
+    """
+
+    k: int
+    m: int
+    lost: int
+    helpers: Tuple[int, ...]
+    masks: Dict[int, Tuple[int, ...]] = field(hash=False)
+    combine: np.ndarray = field(hash=False)
+    matrix_kind: str = "vandermonde"
+
+    @property
+    def total_bits(self) -> int:
+        return sum(len(v) for v in self.masks.values())
+
+    @property
+    def frac(self) -> float:
+        """Repair symbol bits per stripe byte vs the k-byte baseline."""
+        return self.total_bits / (8.0 * self.k)
+
+    def bits_for(self, sid: int) -> int:
+        return len(self.masks[sid])
+
+    def wire_bytes(self, width: int) -> int:
+        """Bytes the helpers ship for a width-byte slab range (packed
+        planes)."""
+        return self.total_bits * ((width + 7) // 8)
+
+
+def project_slab(data: np.ndarray, masks) -> np.ndarray:
+    """Holder-side projection: trace bits Tr(mask * data) packed
+    little-bit-first per mask. data (w,) uint8 -> (len(masks),
+    ceil(w/8)) uint8. One LUT gather + packbits on the holder's host."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    m = np.asarray(list(masks), dtype=np.uint8)
+    bits = gf256.TRACE_MUL[m[:, None], data[None, :]]
+    return np.packbits(bits, axis=1, bitorder="little")
+
+
+def combine_planes_to_bytes(planes: np.ndarray, width: int) -> np.ndarray:
+    """Rebuilder-side interleave: 8 packed output bit-planes (8,
+    ceil(width/8)) -> the lost shard's bytes (width,). Plane b holds bit b
+    of every output byte."""
+    bits = np.unpackbits(np.ascontiguousarray(planes, dtype=np.uint8),
+                         axis=1, count=width, bitorder="little")
+    return np.packbits(bits, axis=0, bitorder="little").reshape(-1)
+
+
+_REPAIR_PLAN_CACHE = _PlanLRU("repair")
+
+
+def repair_plan(k: int, m: int, lost_sid: int, survivors=None,
+                matrix_kind: str = "vandermonde",
+                matrix: Optional[np.ndarray] = None,
+                seed: int = 0) -> RepairPlan:
+    """Build (and cache) the trace-repair scheme for one lost shard.
+
+    survivors: iterable of reachable shard ids (default: all others).
+    Unreachable positions are handled by forcing every dual codeword to
+    vanish there, which needs n - 1 - len(survivors) <= m - 1; with fewer
+    survivors than k the code cannot repair at all and this raises
+    ValueError.
+
+    The search enumerates dual codewords supported off an (m-1)-subset of
+    positions (nullspace of the transposed generator restricted to the
+    complement), scales each by all 255 nonzero constants, and greedily
+    picks 8 equations minimizing the total per-helper GF(2) span growth.
+    It draws from np.random.default_rng(seed) in the JAX package's order,
+    so every process, and either package, derives the identical plan.
+    """
+    n = k + m
+    if not (0 <= lost_sid < n):
+        raise ValueError(f"lost shard {lost_sid} outside 0..{n - 1}")
+    if survivors is None:
+        survivors = [i for i in range(n) if i != lost_sid]
+    helpers = sorted(set(int(s) for s in survivors) - {lost_sid})
+    unavailable = [i for i in range(n) if i != lost_sid and i not in helpers]
+    if len(unavailable) > m - 1:
+        raise ValueError(
+            f"too few survivors: {len(helpers)} reachable, need >= {k}")
+    key = (k, m, lost_sid, tuple(helpers), matrix_kind,
+           None if matrix is None else matrix.tobytes(), seed)
+    return _REPAIR_PLAN_CACHE.get(
+        key, lambda: _build_repair_plan(k, m, lost_sid, helpers, unavailable,
+                                        matrix_kind, matrix, seed))
+
+
+def _build_repair_plan(k, m, lost_sid, helpers, unavailable, matrix_kind,
+                       matrix, seed) -> RepairPlan:
+    n = k + m
+    if matrix is None:
+        matrix = gf256.build_matrix(k, n, matrix_kind)
+
+    # -- candidate dual codewords: vanish on unavailable + an
+    #    (m-1-|unavailable|)-subset of helpers ---------------------------
+    free = m - 1 - len(unavailable)
+    subsets = list(itertools.combinations(helpers, free))
+    rng = np.random.default_rng(seed)
+    if len(subsets) > REPAIR_MAX_SUBSETS:
+        idx = rng.choice(len(subsets), size=REPAIR_MAX_SUBSETS,
+                         replace=False)
+        subsets = [subsets[i] for i in sorted(idx)]
+    base = []
+    for sub in subsets:
+        vanish = set(unavailable) | set(sub)
+        support = [i for i in range(n) if i not in vanish]
+        g_u = gf256.gf_nullspace(matrix[support, :].T)
+        if g_u is None:
+            continue
+        g = np.zeros(n, dtype=np.uint8)
+        g[support] = g_u
+        if g[lost_sid] == 0:
+            continue
+        base.append(g)
+    if not base:
+        raise ValueError("no usable dual codewords for this geometry")
+    base = np.stack(base, axis=0)
+    betas = np.arange(1, 256, dtype=np.uint8)
+    cand = gf256.MUL_TABLE[betas[None, :, None], base[:, None, :]]
+    cand = cand.reshape(-1, n)
+
+    # -- greedy scheme selection (restarts keep the best) ----------------
+    best = None
+    for r in range(REPAIR_RESTARTS):
+        order = rng.permutation(cand.shape[0]) if r else \
+            np.arange(cand.shape[0])
+        cv = cand[order]
+        chosen = []
+        star_basis: list = []
+        pos_basis = {i: [] for i in helpers}
+        total = 0
+        for _ in range(8):
+            ok = gf256.gf2_reduce(cv[:, lost_sid], star_basis) != 0
+            cost = np.zeros(cv.shape[0], dtype=np.int32)
+            for i in helpers:
+                cost += (gf256.gf2_reduce(cv[:, i], pos_basis[i]) != 0
+                         ).astype(np.int32)
+            c = int(np.argmin(np.where(ok, cost, np.int32(1 << 20))))
+            chosen.append(cv[c].copy())
+            gf256.gf2_insert(star_basis, int(cv[c, lost_sid]))
+            for i in helpers:
+                if gf256.gf2_insert(pos_basis[i], int(cv[c, i])):
+                    total += 1
+        if best is None or total < best[0]:
+            best = (total, chosen, {i: list(pos_basis[i]) for i in helpers})
+
+    _, chosen, bases = best
+    active = [i for i in helpers if bases[i]]
+    masks = {i: tuple(bases[i]) for i in active}
+
+    # -- combine matrix: bits(c_lost) = inv(A) @ Lambda @ sigma ----------
+    a = np.zeros((8, 8), dtype=np.uint8)
+    for j, g in enumerate(chosen):
+        for b in range(8):
+            a[j, b] = gf256.TRACE_MUL[int(g[lost_sid]), 1 << b]
+    lam = np.zeros((8, sum(len(masks[i]) for i in active)), dtype=np.uint8)
+    for j, g in enumerate(chosen):
+        col = 0
+        for i in active:
+            coords = gf256.gf2_decompose(int(g[i]), masks[i])
+            lam[j, col:col + len(coords)] = coords
+            col += len(coords)
+    combine = (gf256.gf2_mat_inv(a).astype(np.int32) @
+               lam.astype(np.int32)) % 2
+    return RepairPlan(k=k, m=m, lost=lost_sid, helpers=tuple(active),
+                      masks=masks, combine=combine.astype(np.uint8),
+                      matrix_kind=matrix_kind)
+
+
+def repair_gain(plan: RepairPlan) -> float:
+    """Fraction of the k*slab baseline saved by trace repair (0 = no
+    gain)."""
+    return 1.0 - plan.frac
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +676,7 @@ def _pb_mds_sweep(k, m, a, c, npairs) -> bool:
 
 
 _PIGGYBACK_PLAN_CACHE = _PlanLRU("piggyback")
+_PIGGYBACK_REPAIR_CACHE = _PlanLRU("piggyback_repair")
 _PIGGYBACK_DECODE_CACHE = _PlanLRU("piggyback_decode")
 
 
@@ -512,6 +719,116 @@ def _build_piggyback_plan(k, m, matrix_kind, matrix, cap) -> PiggybackPlan:
     raise ValueError(
         f"no MDS theta seed within {PIGGYBACK_SEED_TRIES} tries for "
         f"RS({k},{m}) {matrix_kind}")
+
+
+@dataclass(frozen=True, eq=False)
+class PiggybackRepairPlan:
+    """Half-plane repair of one coupled data shard. Every helper (the k-1
+    other data shards + the two parity_sids) ships the sub-chunks
+    {z : bit plane_bit of z == plane_side}; matrix is the
+    (alpha, (k+1)*alpha/2) combine applied per window -- one fused matmul
+    rebuilds the lost shard bit-identically."""
+
+    k: int
+    m: int
+    lost: int
+    alpha: int
+    plane_bit: int
+    plane_side: int
+    data_helpers: Tuple[int, ...]
+    parity_sids: Tuple[int, ...]
+    matrix: np.ndarray = field(hash=False, default=None)
+    matrix_kind: str = "vandermonde"
+
+    @property
+    def helpers(self) -> Tuple[int, ...]:
+        return self.data_helpers + self.parity_sids
+
+    @property
+    def frac(self) -> float:
+        """Downloaded bytes vs the k*shard full-rebuild baseline."""
+        return len(self.helpers) / (2.0 * self.k)
+
+    def plane(self) -> Tuple[int, ...]:
+        return tuple(z for z in range(self.alpha)
+                     if (z >> self.plane_bit) & 1 == self.plane_side)
+
+    def wire_bytes(self, shard_bytes: int) -> int:
+        """Bytes the helpers ship for whole-shard repair (half a shard
+        each)."""
+        return len(self.helpers) * (shard_bytes // 2)
+
+
+def piggyback_repair_plan(k: int, m: int, lost_sid: int,
+                          parity_sids=None,
+                          matrix_kind: str = "vandermonde",
+                          matrix: Optional[np.ndarray] = None,
+                          pairs: Optional[int] = None
+                          ) -> PiggybackRepairPlan:
+    """Build (and cache) the half-plane repair scheme for one lost COUPLED
+    data shard. parity_sids: the two reachable parity shard ids to use
+    (absolute, >= k; default the first two). Uncoupled shards (odd-k
+    tail, parity shards) have no plane scheme. ``pairs`` pins an encoded
+    volume's pair cap, as for piggyback_plan."""
+    pplan = piggyback_plan(k, m, matrix_kind, matrix, pairs=pairs)
+    if not (0 <= lost_sid < pplan.coupled):
+        raise ValueError(
+            f"shard {lost_sid} is not a coupled data shard "
+            f"(coupled: 0..{pplan.coupled - 1})")
+    if parity_sids is None:
+        parity_sids = (k, k + 1)
+    pj = tuple(sorted(int(s) for s in parity_sids))
+    if len(pj) != 2 or not all(k <= s < k + m for s in pj):
+        raise ValueError(f"need exactly two parity shard ids, got {pj}")
+    key = (k, m, pplan.npairs, lost_sid, pj, matrix_kind,
+           None if matrix is None else matrix.tobytes())
+    return _PIGGYBACK_REPAIR_CACHE.get(
+        key, lambda: _build_piggyback_repair(pplan, lost_sid, pj))
+
+
+def _build_piggyback_repair(pplan: PiggybackPlan, lost: int,
+                            pj: Tuple[int, int]) -> PiggybackRepairPlan:
+    k = pplan.k
+    a, c, alpha = pplan.amat, pplan.cmat, pplan.alpha
+    npairs = pplan.npairs
+    p_, b_ = lost >> 1, lost & 1
+    half = alpha // 2
+    plane = [z for z in range(alpha) if (z >> p_) & 1 == b_]
+    zidx = {z: t for t, z in enumerate(plane)}
+    dh = [i for i in range(k) if i != lost]
+    j1, j2 = pj[0] - k, pj[1] - k
+    minv = gf256.mat_inv(np.array(
+        [[a[j1, lost], c[j1, lost]],
+         [a[j2, lost], c[j2, lost]]], dtype=np.uint8))
+    w = np.zeros((alpha, (len(dh) + 2) * half), dtype=np.uint8)
+    colbase = {h: t * half for t, h in enumerate(dh)}
+    pbase = {j1: len(dh) * half, j2: (len(dh) + 1) * half}
+    mt = gf256.MUL_TABLE
+    for z in plane:
+        t = zidx[z]
+        for col, jp in ((0, j1), (1, j2)):
+            # K_jp[z] weights into the two unknowns (s[z], s[z^2^p*])
+            for out_z, wc in ((z, minv[0, col]), (z ^ (1 << p_),
+                                                  minv[1, col])):
+                if wc == 0:
+                    continue
+                w[out_z, pbase[jp] + t] ^= wc
+                for h in dh:
+                    ah = mt[wc, a[jp, h]]
+                    if ah:
+                        w[out_z, colbase[h] + t] ^= ah
+                    if h < 2 * npairs:
+                        ph, bh = h >> 1, h & 1
+                        if (z >> ph) & 1 == bh and c[jp, h]:
+                            # gated partner term: stays on the plane
+                            # because ph != p* for every helper whose
+                            # gate can fire here
+                            w[out_z, colbase[h] + zidx[z ^ (1 << ph)]] ^= \
+                                mt[wc, c[jp, h]]
+    return PiggybackRepairPlan(
+        k=k, m=pplan.m, lost=lost, alpha=alpha, plane_bit=p_, plane_side=b_,
+        data_helpers=tuple(dh), parity_sids=pj, matrix=w,
+        matrix_kind=pplan.matrix_kind)
 
 
 def piggyback_decode_plan(k: int, m: int, present,
@@ -635,3 +952,26 @@ def pb_merge(flat: np.ndarray, alpha: int, window: int) -> np.ndarray:
     x = flat.reshape(r, alpha, cols // wsub, wsub)
     return np.ascontiguousarray(
         x.transpose(0, 2, 1, 3).reshape(r, cols * alpha))
+
+
+def pb_plane_slice(shard: np.ndarray, alpha: int, window: int,
+                   plane_bit: int, plane_side: int) -> np.ndarray:
+    """Holder-side half-plane extraction: the repair protocol ships
+    exactly these bytes. (W,) -> (W/2,) -- the plane's sub-chunks in
+    increasing z, window-major, so the rebuilder's pb_plane_rows can
+    restack them without knowing the holder's file layout."""
+    shard = np.ascontiguousarray(shard, dtype=np.uint8)
+    wsub = window // alpha
+    zs = [z for z in range(alpha) if (z >> plane_bit) & 1 == plane_side]
+    x = shard.reshape(-1, alpha, wsub)
+    return np.ascontiguousarray(x[:, zs, :].reshape(-1))
+
+
+def pb_plane_rows(plane: np.ndarray, alpha: int, window: int) -> np.ndarray:
+    """Rebuilder-side restack of one helper's plane bytes:
+    (W/2,) -> (alpha/2, W/alpha) rows in plan column order."""
+    half = alpha // 2
+    wsub = window // alpha
+    x = plane.reshape(-1, half, wsub)
+    return np.ascontiguousarray(
+        x.transpose(1, 0, 2).reshape(half, -1))

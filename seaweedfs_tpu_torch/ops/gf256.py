@@ -11,8 +11,12 @@ Matrix builders:
   * cauchy(k, total) — identity on top, parity rows m[r][c] = 1/(r ^ c);
     any geometry with k + m <= 256.
 
-This module is a numpy copy of what the encode/rebuild path needs; it
-must stay byte-identical to the field the shard files were written in.
+Also the field trace and the GF(2) linear algebra trace repair plans
+with (TRACE_MUL, gf_nullspace, gf2_*).
+
+This module is a numpy copy of what the encode/rebuild/repair paths
+need; it must stay byte-identical to the field the shard files were
+written in.
 """
 
 from __future__ import annotations
@@ -177,6 +181,139 @@ def pack_bit_matrix(coeff_rows: np.ndarray) -> np.ndarray:
     for j in range(k8):
         packed[j // 32] |= bm[j].astype(np.uint32) << np.uint32(j % 32)
     return packed
+
+
+# ---------------------------------------------------------------------------
+# Field trace and GF(2) linear algebra — the substrate of trace repair.
+#
+# Tr(x) = x + x^2 + ... + x^128 maps GF(2^8) onto GF(2), and Tr(a*x) is
+# GF(2)-linear in x for any fixed a. A lost RS symbol can therefore be
+# rebuilt from *bits* Tr(mask * c_i) collected from the survivors instead
+# of their full bytes (arxiv 2205.11015); the masks come from dual
+# codewords, found below via gf_nullspace.
+# ---------------------------------------------------------------------------
+
+def _build_trace_table():
+    x = np.arange(256, dtype=np.uint8)
+    acc = x.copy()
+    cur = x.copy()
+    for _ in range(7):
+        cur = MUL_TABLE[cur, cur]
+        acc ^= cur
+    if not set(np.unique(acc)) <= {0, 1}:
+        raise ValueError("field trace is not {0, 1}-valued")
+    return acc
+
+
+TRACE_TABLE = _build_trace_table()
+# TRACE_MUL[a, b] = Tr(a*b) in {0,1}: the survivor-side projection is a
+# single row-gather of this table followed by packbits.
+TRACE_MUL = TRACE_TABLE[MUL_TABLE]
+
+
+def gf_trace(a: int) -> int:
+    return int(TRACE_TABLE[a])
+
+
+def gf_nullspace(a: np.ndarray):
+    """One nullspace vector of an (r x c, r < c) matrix over GF(2^8), or
+    None if the map is injective. ops/codec.repair_plan uses it for dual
+    codewords vanishing on a chosen position subset."""
+    a = np.array(a, dtype=np.uint8)
+    r, c = a.shape
+    piv_of_col = {}
+    row = 0
+    for col in range(c):
+        piv = None
+        for rr in range(row, r):
+            if a[rr, col]:
+                piv = rr
+                break
+        if piv is None:
+            continue
+        if piv != row:
+            a[[row, piv]] = a[[piv, row]]
+        inv = INV_TABLE[a[row, col]]
+        a[row] = MUL_TABLE[inv][a[row]]
+        for rr in range(r):
+            if rr != row and a[rr, col]:
+                a[rr] ^= MUL_TABLE[a[rr, col]][a[row]]
+        piv_of_col[col] = row
+        row += 1
+        if row == r:
+            break
+    free = [col for col in range(c) if col not in piv_of_col]
+    if not free:
+        return None
+    f = free[0]
+    x = np.zeros(c, dtype=np.uint8)
+    x[f] = 1
+    for col, rr in piv_of_col.items():
+        x[col] = a[rr, f]  # char 2: -v == v
+    return x
+
+
+def gf2_reduce(vals: np.ndarray, basis) -> np.ndarray:
+    """Reduce uint8 values by a reduced GF(2) basis of field elements
+    (distinct leading bits, descending). Vectorized over vals."""
+    v = vals.copy()
+    for b in basis:
+        lead = b.bit_length() - 1
+        mask = ((v >> lead) & 1).astype(bool)
+        v[mask] ^= b
+    return v
+
+
+def gf2_insert(basis: list, val: int) -> bool:
+    """Insert val into a reduced GF(2) basis in place; True if the span
+    grew."""
+    for b in basis:
+        lead = b.bit_length() - 1
+        if (val >> lead) & 1:
+            val ^= b
+    if val:
+        basis.append(int(val))
+        basis.sort(reverse=True)
+        return True
+    return False
+
+
+def gf2_decompose(val: int, basis) -> list:
+    """Coordinates of val over a reduced GF(2) basis (same order as
+    basis). Raises ValueError when val is outside the span."""
+    coords = [0] * len(basis)
+    for i, b in enumerate(basis):
+        lead = b.bit_length() - 1
+        if (val >> lead) & 1:
+            val ^= b
+            coords[i] = 1
+    if val:
+        raise ValueError("value outside GF(2) span")
+    return coords
+
+
+def gf2_mat_inv(m: np.ndarray) -> np.ndarray:
+    """Gauss-Jordan inverse of a {0,1} matrix over GF(2). Raises
+    ValueError if singular."""
+    m = np.array(m, dtype=np.uint8) & 1
+    n = m.shape[0]
+    if m.shape != (n, n):
+        raise ValueError(f"not a square matrix: {m.shape}")
+    aug = np.concatenate([m, np.eye(n, dtype=np.uint8)], axis=1)
+    for col in range(n):
+        piv = -1
+        for row in range(col, n):
+            if aug[row, col]:
+                piv = row
+                break
+        if piv < 0:
+            raise ValueError("singular matrix over GF(2)")
+        if piv != col:
+            aug[[col, piv]] = aug[[piv, col]]
+        for row in range(n):
+            if row != col and aug[row, col]:
+                aug[row] ^= aug[col]
+    return aug[:, n:].copy()
 
 
 def decode_coeff_rows(matrix: np.ndarray, k: int, survivor_rows,

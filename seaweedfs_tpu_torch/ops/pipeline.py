@@ -46,12 +46,15 @@ class PipelinedMatmul:
 
     stream() yields (meta, data, out (r, w)) in input order with up to
     ``depth`` slabs in flight on the device and ``prefetch`` slabs of
-    read-ahead in the reader queue.
+    read-ahead in the reader queue. With ``pieces=True`` it yields
+    (meta, data, [(col_off, piece)]) instead, the form the streaming
+    rebuild appends from; on one card that is always [(0, out)].
     """
 
     def __init__(self, coeffs: np.ndarray, *, codec,
                  max_width: int = 32 << 20, depth: int = 4,
-                 prefetch: int = 3, timer: StageTimer):
+                 prefetch: int = 3, timer: StageTimer,
+                 pieces: bool = False):
         coeffs = np.ascontiguousarray(coeffs, dtype=np.uint8)
         self.r, self.k = coeffs.shape
         self.codec = codec
@@ -59,6 +62,7 @@ class PipelinedMatmul:
         self.depth = int(depth)
         self.prefetch = int(prefetch)
         self.timer = timer  # per-stage breakdown
+        self.pieces = bool(pieces)
         self._coeffs = coeffs
 
     def stream(self, slabs: Iterable[Tuple[object, np.ndarray]]
@@ -172,4 +176,4 @@ class PipelinedMatmul:
         t0 = time.perf_counter()
         host = fut.result()  # blocks until kernel + d2h complete
         self.timer.add("drain_wait", time.perf_counter() - t0)
-        return meta, data, host
+        return meta, data, [(0, host)] if self.pieces else host

@@ -27,11 +27,11 @@ per column at (4,10), 480 for the piggyback encode matrix) and weighs as
 much as the memory at (128, 320); the header of csrc/gf_matmul.cu counts
 it.
 
-``gf_matmul`` takes a plan (what ``TorchCodec.device_fn`` caches) or a raw
-coefficient tensor, whose plan it builds on every call (for checks and
-tests). It runs the plain version for a tensor on the CPU and launches the
-kernel for a tensor on the card; it never falls back from one to the
-other. ``gf_matmul.launches`` counts kernel launches.
+``gf_matmul`` takes a plan (what ``TorchCodec.device_fn`` caches; checks
+and tests build theirs with ``make_plan``). It runs the plain version for
+a tensor on the CPU and launches the kernel for a tensor on the card; it
+never falls back from one to the other. ``gf_matmul.launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -42,12 +42,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Union
-
 import torch
 
 from .gf256 import MUL_TABLE
-from .gf_plan import GfPlan, make_plan
+from .gf_plan import GfPlan
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "gf_matmul.cu"
@@ -148,12 +146,14 @@ def gf_matmul_plain(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gf_matmul(plan: Union[GfPlan, torch.Tensor],
-              data: torch.Tensor) -> torch.Tensor:
-    """plan (or coeffs (r, k) uint8) x data (k, n) uint8 -> (r, n) uint8
-    over GF(2^8), both on one device: the plain version on the CPU, the
-    Hopper kernel on the card."""
-    coeffs = plan if isinstance(plan, torch.Tensor) else plan.coeffs
+def gf_matmul(plan: GfPlan, data: torch.Tensor) -> torch.Tensor:
+    """plan (of coeffs (r, k)) x data (k, n) uint8 -> (r, n) uint8 over
+    GF(2^8), both on one device: the plain version on the CPU, the Hopper
+    kernel on the card."""
+    if not isinstance(plan, GfPlan):
+        raise TypeError(f"gf_matmul takes a GfPlan (gf_plan.make_plan), "
+                        f"got {type(plan).__name__}")
+    coeffs = plan.coeffs
     _check(coeffs, data)
     if data.device.type == "cpu":
         return gf_matmul_plain(coeffs, data)
@@ -163,8 +163,6 @@ def gf_matmul(plan: Union[GfPlan, torch.Tensor],
     n = data.shape[1]
     if r == 0 or n == 0 or k == 0:
         return torch.zeros((r, n), dtype=torch.uint8, device=data.device)
-    if isinstance(plan, torch.Tensor):
-        plan = make_plan(plan).to(data.device)
     # the plan's tensors were checked when it was made; _check matched
     # its device to the data's
     data = data.contiguous()

@@ -1,5 +1,5 @@
-"""storage — the on-disk formats the EC encoder reads: superblock and
-needle index."""
+"""storage — the on-disk formats the EC encoder and decoder read:
+superblock, needle index, and needle record sizes."""
 
 from .needle_map import MemDb  # noqa: F401
 from .super_block import SUPER_BLOCK_SIZE, SuperBlock  # noqa: F401

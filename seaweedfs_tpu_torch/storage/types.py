@@ -3,6 +3,7 @@
 Wire/disk compatible with the reference (SeaweedFS v1.71):
   * big-endian integers
   * index entry: NeedleId(8) + Offset(4) + Size(4) = 16 bytes
+  * needle header: Cookie(4) + NeedleId(8) + Size(4) = 16 bytes
   * offsets stored divided by 8 (needle padding unit); a volume flag
     widens them to 5 bytes (17-byte entries)
   * tombstone size = 0xFFFFFFFF
@@ -18,7 +19,11 @@ NEEDLE_ID_SIZE = 8
 OFFSET_SIZE = 4
 OFFSET_SIZE_5 = 5
 SIZE_SIZE = 4
+COOKIE_SIZE = 4
+NEEDLE_HEADER_SIZE = COOKIE_SIZE + NEEDLE_ID_SIZE + SIZE_SIZE  # 16
 NEEDLE_PADDING_SIZE = 8
+NEEDLE_CHECKSUM_SIZE = 4
+TIMESTAMP_SIZE = 8
 TOMBSTONE_FILE_SIZE = 0xFFFFFFFF
 
 VERSION3 = 3
@@ -28,6 +33,10 @@ CURRENT_VERSION = VERSION3
 def entry_size(offset_width: int = OFFSET_SIZE) -> int:
     """.idx record width for a volume's offset width (16 or 17)."""
     return NEEDLE_ID_SIZE + offset_width + SIZE_SIZE
+
+
+def bytes_to_needle_id(b: bytes) -> int:
+    return struct.unpack(">Q", b[:8])[0]
 
 
 def entry_to_bytes(nid: int, offset: int, size: int,

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under seaweedfs_tpu_torch/, and not
 chip_smoke.py, imports jax or the JAX package, and the port encodes and
-rebuilds, on the flat and the piggyback layout, with both made
+rebuilds (from local files and streamed), trace-repairs, plane-repairs
+and decodes, on the flat and the piggyback layout, with both made
 unimportable."""
 
 import ast
@@ -46,7 +47,11 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/ops/rs_bitplane.py",
                  "seaweedfs_tpu_torch/ops/codec.py",
                  "seaweedfs_tpu_torch/ec/encoder.py",
+                 "seaweedfs_tpu_torch/ec/decoder.py",
+                 "seaweedfs_tpu_torch/ec/gather.py",
+                 "seaweedfs_tpu_torch/ec/transport.py",
                  "seaweedfs_tpu_torch/ec/layout.py",
+                 "seaweedfs_tpu_torch/storage/needle.py",
                  "seaweedfs_tpu_torch/tools/kernel_exp.py", "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu"):
@@ -85,6 +90,33 @@ def test_port_runs_with_jax_unimportable(tmp_path):
             == [1, 4, 10, 13]
         got = [open(base + to_ext(i), "rb").read() for i in range(14)]
         assert got == want
+        # trace repair of one shard, then a streaming rebuild of four
+        from seaweedfs_tpu_torch.ec import (
+            LocalRepairReader, LocalShardReader, RepairGatherSource,
+            StripedGatherSource, rebuild_ec_file_repair,
+            rebuild_ec_files_streaming)
+        from seaweedfs_tpu_torch.ops.codec import (piggyback_repair_plan,
+                                                   repair_plan)
+        size = len(want[0])
+        plan = repair_plan(10, 4, 6)
+        os.remove(base + to_ext(6))
+        source = RepairGatherSource(
+            [LocalRepairReader(base + to_ext(i), plan.masks[i])
+             for i in plan.helpers], size, plan, slab=5000, window=2)
+        assert rebuild_ec_file_repair(base, 6, source, plan, codec=codec,
+                                      slab=5000) == [6]
+        lost = (0, 5, 11, 12)
+        for sid in lost:
+            os.remove(base + to_ext(sid))
+        present = [i not in lost for i in range(14)]
+        source = StripedGatherSource(
+            [LocalShardReader(base + to_ext(i)) for i in range(14)
+             if present[i]][:10], size, slab=5000, window=2)
+        assert rebuild_ec_files_streaming(base, present, list(lost), source,
+                                          codec=codec, slab=5000) \
+            == list(lost)
+        assert [open(base + to_ext(i), "rb").read() for i in range(14)] \
+            == want
         # the piggyback layout: encode, sidecars, coupled rebuild
         from seaweedfs_tpu_torch.ec.layout import (volume_layout,
                                                    write_layout_sidecars)
@@ -99,6 +131,21 @@ def test_port_runs_with_jax_unimportable(tmp_path):
         assert rebuild_ec_files(base, codec=codec, slab=8 << 10,
                                 layout=volume_layout(base, 10)) \
             == [0, 7, 11, 12]
+        assert [open(base + to_ext(i), "rb").read() for i in range(14)] == pb
+        # plane repair of a coupled data shard
+        from seaweedfs_tpu_torch.ec import (LocalPlaneReader,
+                                            PlaneGatherSource,
+                                            rebuild_ec_file_piggyback)
+        rplan = piggyback_repair_plan(10, 4, 3)
+        os.remove(base + to_ext(3))
+        source = PlaneGatherSource(
+            [LocalPlaneReader(base + to_ext(h), rplan.alpha, 4 << 10,
+                              rplan.plane_bit, rplan.plane_side)
+             for h in rplan.helpers], size, rplan, 4 << 10, slab=8 << 10,
+            gather_window=2)
+        assert rebuild_ec_file_piggyback(base, 3, source, rplan, 4 << 10,
+                                         codec=codec,
+                                         slab=source.slab) == [3]
         assert [open(base + to_ext(i), "rb").read() for i in range(14)] == pb
         from seaweedfs_tpu_torch.tools import kernel_exp  # noqa: F401
         assert gf_matmul.launches == 0

@@ -12,13 +12,14 @@ import torch
 from seaweedfs_tpu.ops.codec import NumpyCodec, host_matmul
 from seaweedfs_tpu.ops.rs_pallas import fused_matmul
 from seaweedfs_tpu_torch.ops import rs_hopper
+from seaweedfs_tpu_torch.ops.gf_plan import make_plan
 from seaweedfs_tpu_torch.ops.rs_hopper import gf_matmul, gf_matmul_plain
 from seaweedfs_tpu_torch.ops.rs_torch import TorchCodec, resolve_device
 from seaweedfs_tpu_torch.ops.codec import get_codec
 
 
 def _port(coeffs: np.ndarray, data: np.ndarray) -> np.ndarray:
-    out = gf_matmul(torch.from_numpy(np.ascontiguousarray(coeffs)),
+    out = gf_matmul(make_plan(coeffs),
                     torch.from_numpy(np.ascontiguousarray(data)))
     assert out.dtype == torch.uint8 and out.device.type == "cpu"
     return out.numpy()
@@ -115,7 +116,9 @@ def test_cuda_request_without_card_raises():
 
 
 def test_wrapper_rejects_bad_inputs():
-    c = torch.zeros((4, 10), dtype=torch.uint8)
+    c = make_plan(np.zeros((4, 10), dtype=np.uint8))
+    with pytest.raises(TypeError, match="GfPlan"):  # no raw coefficients
+        gf_matmul(c.coeffs, torch.zeros((10, 16), dtype=torch.uint8))
     with pytest.raises(ValueError):
         gf_matmul(c, torch.zeros((9, 16), dtype=torch.uint8))
     with pytest.raises(ValueError):
