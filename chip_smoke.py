@@ -105,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -119,6 +120,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 VOLUME_BYTES = 1 << 30      # BASELINE.json config 1 (30 GB default cut)
 MAIN_N = 8 << 20            # main-path slab width (encoder DEFAULT_SLAB)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+L2_BYTES = 50 << 20         # H100 SXM L2
 WIDTHS = (1, 129, 4407, MAIN_N, MAIN_N + 1)
 PB_N = 262_144              # piggyback slab: 8 MiB over alpha = 32
 BP_WIDTHS = (1, 129, 4407, PB_N + 1)  # bit-plane widths; flat shapes add
@@ -390,8 +392,9 @@ def time_kernel(torch, rs_hopper, gf_plan, kernel_exp, shapes, dev, seed):
     printed on its own line and never inside a timed window) and of the
     plain version, beside the bytes bound, per (label, coeffs, n), with
     kernel_exp.per_launch_ms (the stream held until every launch of the
-    window is enqueued). Every shape moves more than the 50 MB L2, so
-    launches find it cold."""
+    window is enqueued). A shape whose input and output move less than
+    twice the 50 MB L2 takes turns over enough input copies to reach it,
+    so no launch finds its input in L2 from the launch before."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     cases = []
@@ -405,36 +408,45 @@ def time_kernel(torch, rs_hopper, gf_plan, kernel_exp, shapes, dev, seed):
               f"{info['build_ms']:.3f} ms, {plan.pairs} pairs per column, "
               f"{plan.table_bytes} table bytes, payload read "
               f"{info['payload_reads']:.2f} times over")
-        d = torch.randint(0, 256, (k, n), dtype=torch.uint8, device=dev,
-                          generator=gen)
+        copies = -(-2 * L2_BYTES // ((k + r) * n))
+        d = [torch.randint(0, 256, (k, n), dtype=torch.uint8, device=dev,
+                           generator=gen) for _ in range(copies)]
         cases.append((label, plan, d, info))
     # Two passes over the shapes; the second is reported. The first shows
     # whether a window's time depends on what ran before it.
-    first = {label: kernel_exp.per_launch_ms(rs_hopper.gf_matmul, plan, d,
-                                             reps=50)
-             for label, plan, d, _ in cases}
+    first = {label: kernel_exp.per_launch_ms(
+        _taking_turns(rs_hopper.gf_matmul, d), plan, None, reps=50)
+        for label, plan, d, _ in cases}
     out = {}
     for label, plan, d, info in cases:
-        (r, k), n = plan.coeffs.shape, d.shape[1]
-        ms = kernel_exp.per_launch_ms(rs_hopper.gf_matmul, plan, d, reps=50)
+        (r, k), n = plan.coeffs.shape, d[0].shape[1]
+        ms = kernel_exp.per_launch_ms(_taking_turns(rs_hopper.gf_matmul, d),
+                                      plan, None, reps=50)
         plain_ms = kernel_exp.per_launch_ms(
-            lambda p, x: rs_hopper.gf_matmul_plain(p.coeffs, x), plan, d,
-            reps=3, warmup=1)
+            _taking_turns(lambda p, x: rs_hopper.gf_matmul_plain(p.coeffs, x),
+                          d), plan, None, reps=3, warmup=1)
         nbytes = (k + r) * n
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         prev = PREV_MS.get(label)
         print(f"gf_matmul {label} ({r},{k}) x {n}: kernel {ms:.4f} ms "
-              f"(first pass {first[label]:.4f} ms; "
-              f"{nbytes / ms / 1e6:.1f} GB/s of input + output), plain "
+              f"(first pass {first[label]:.4f} ms; {len(d)} input "
+              f"copies in turn; {nbytes / ms / 1e6:.1f} GB/s of input + "
+              f"output), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: {nbytes} "
               f"at 3.35 TB/s), {ms / bound_ms:.2f}x the bound; previous "
               f"kernel {'not timed' if prev is None else f'{prev} ms'}")
         out[label] = {"shape": f"({r},{k})x{n}", "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "plan": info}
+                      "input_copies": len(d), "plan": info}
     del cases
     torch.cuda.empty_cache()
     return out
+
+
+def _taking_turns(fn, inputs):
+    """fn(const, x) with x the next of ``inputs`` in turn on each call."""
+    turn = itertools.cycle(inputs)
+    return lambda const, _: fn(const, next(turn))
 
 
 def write_volume(np, SuperBlock, entry_to_bytes, base, nbytes, seed):
@@ -889,7 +901,7 @@ def streaming_piggyback_leg(np, port, dev, base, res, pb, seed):
     t0 = time.perf_counter()
     got = ec.rebuild_ec_files_streaming_piggyback(
         base, present, list(lost), source, lay,
-        codec=ops.get_codec(k, m, device=dev), slab=MAIN_N, stats=st)
+        codec=ops.get_codec(k, m, device=dev), stats=st)
     secs = time.perf_counter() - t0
     if got != list(lost):
         raise AssertionError(f"streaming piggyback rebuilt {got}, lost {lost}")

@@ -6,10 +6,10 @@ Behavior-compatible with reference ec_encoder.go:
   * write_ec_files: two-level striping — while MORE than one large row
     (k x 1GB) remains, emit a large row; tail as small rows (k x 1MB),
     zero-padded
-  * rebuild_ec_files: regenerate missing .ecNN from >= k survivors
-  * rebuild_ec_files_streaming(_piggyback): the same, with the survivor
-    stripes arriving from an ec.gather source (a windowed pull) instead
-    of whole shard files on local disk
+  * rebuild_ec_files_streaming(_piggyback): regenerate missing .ecNN
+    from >= k survivors whose stripes arrive from an ec.gather source
+    (a windowed pull)
+  * rebuild_ec_files: the same over the survivor files on local disk
 
 Both run the flat layout (plain RS parity) or the piggyback layout
 (coupled sub-chunk parity, ops/codec.piggyback_plan): data shards are
@@ -48,6 +48,7 @@ from ..storage.types import OFFSET_SIZE
 from ..util.profiling import StageTimer
 from .constants import (DATA_SHARDS, LARGE_BLOCK_SIZE, PARITY_SHARDS,
                         SMALL_BLOCK_SIZE, to_ext)
+from .gather import GatherStats, LocalShardReader, StripedGatherSource
 
 DEFAULT_SLAB = 8 << 20  # bytes per shard per device call
 
@@ -249,8 +250,7 @@ def _transport_stats(gs, stream_s: float, gather_s: float) -> dict:
     return {"gather_busy_s": round(gather_busy, 3),
             "compute_busy_s": round(compute_busy, 3),
             "overlap_frac": round(overlap, 4),
-            "gather_mbps": round(gs.mbps(), 1),
-            "gather_remote_shards": gs.remote_shards}
+            "gather_mbps": round(gs.mbps(), 1)}
 
 
 @contextlib.contextmanager
@@ -372,23 +372,22 @@ def rebuild_ec_files(base_name: str,
                      pipelined: Optional[bool] = None,
                      stats: Optional[dict] = None,
                      layout=None) -> List[int]:
-    """Regenerate missing shard files from survivors. Returns the list of
-    rebuilt shard ids. Raises if fewer than k survive.
+    """Regenerate missing shard files from survivors on local disk.
+    Returns the list of rebuilt shard ids. Raises if fewer than k
+    survive.
 
-    The "cuda" codec streams survivor slabs through PipelinedMatmul with
-    the fused decode plan: one device dispatch per slab regenerates
-    every missing shard (data + parity rows stacked). ``stats``, when
-    given, is filled with the dispatch-counter deltas of this rebuild
-    (dispatches / bitmat_uploads / device_bytes / host_fallbacks),
-    survivor_bytes, rebuilt_bytes, stream_s, backend and phases.
+    The local rebuild is the streaming rebuild over LocalShardReaders:
+    the survivors the decode plan reads are pulled stripe by stripe
+    through an ec.gather.StripedGatherSource, and the same all-or-nothing
+    guarantee holds. With the "cuda" codec one device dispatch per slab
+    regenerates every missing shard (data + parity rows stacked).
+    ``stats``, when given, is filled as by rebuild_ec_files_streaming.
 
     ``layout``: an ec.layout.LayoutInfo (None means flat). A piggyback
     volume decodes through ops/codec.piggyback_decode_plan, one fused
     matmul per window-split slab (not pipelined)."""
     codec = codec or get_codec(DATA_SHARDS, PARITY_SHARDS)
     k, total = codec.k, codec.total
-    if pipelined is None:
-        pipelined = codec.backend == "cuda"
     present = [os.path.exists(base_name + to_ext(i)) for i in range(total)]
     missing = [i for i, p in enumerate(present) if not p]
     if not missing:
@@ -396,142 +395,32 @@ def rebuild_ec_files(base_name: str,
     if sum(present) < k:
         raise ValueError(
             f"cannot rebuild: only {sum(present)} of {total} shards")
-    shard_size = None
-    for i, p in enumerate(present):
-        if p:
-            sz = os.path.getsize(base_name + to_ext(i))
-            if shard_size is None:
-                shard_size = sz
-            elif shard_size != sz:
-                raise ValueError("surviving shards differ in size")
-    if layout is not None and layout.piggyback:
-        return _rebuild_ec_files_piggyback(base_name, codec, layout, present,
-                                           missing, shard_size, slab, stats)
-    ins = [open(base_name + to_ext(i), "rb") if present[i] else None
-           for i in range(total)]
-    outs = {i: open(base_name + to_ext(i), "wb") for i in missing}
-    # only the first k survivors feed the decode plan; reading more would
-    # be dead I/O (their coefficient columns are zero by construction)
-    src = [i for i, p in enumerate(present) if p][:k]
-
-    def survivor_slabs():
-        for off in range(0, shard_size, slab):
-            n = min(slab, shard_size - off)
-            rows = []
-            for i in src:
-                ins[i].seek(off)
-                rows.append(np.frombuffer(ins[i].read(n), dtype=np.uint8))
-            yield None, np.stack(rows, axis=0)
-
-    before = STATS.snapshot()
-    timer = StageTimer()
-    t_stream = time.perf_counter()
-    try:
-        if pipelined:
-            t0 = time.perf_counter()
-            _, _, coeffs = codec.decode_plan(tuple(present))
-            timer.add("plan", time.perf_counter() - t0)
-            pm = PipelinedMatmul(coeffs, codec=codec, max_width=slab,
-                                 timer=timer)
-            for _, _, rebuilt in pm.stream(survivor_slabs()):
-                t0 = time.perf_counter()
-                for r, i in enumerate(missing):
-                    outs[i].write(rebuilt[r].tobytes())
-                timer.add("shard_write", time.perf_counter() - t0,
-                          rebuilt.nbytes)
-        else:
-            for off in range(0, shard_size, slab):
-                n = min(slab, shard_size - off)
-                t0 = time.perf_counter()
-                shards: List[Optional[np.ndarray]] = []
-                for i in range(total):
-                    if ins[i] is None:
-                        shards.append(None)
-                    else:
-                        ins[i].seek(off)
-                        shards.append(np.frombuffer(ins[i].read(n),
-                                                    dtype=np.uint8))
-                timer.add("disk_read", time.perf_counter() - t0)
-                rebuilt = codec.reconstruct(shards)
-                t0 = time.perf_counter()
-                for i in missing:
-                    outs[i].write(rebuilt[i].tobytes())
-                timer.add("shard_write", time.perf_counter() - t0)
-    finally:
-        for h in ins:
-            if h is not None:
-                h.close()
-        for h in outs.values():
-            h.close()
-    stream_s = time.perf_counter() - t_stream
-    if stats is not None:
-        stats.update(delta(before))
-        stats["survivor_bytes"] = shard_size * k
-        stats["rebuilt_bytes"] = shard_size * len(missing)
-        stats["stream_s"] = round(stream_s, 6)
-        stats["backend"] = codec.backend
-        stats["phases"] = _phases(timer, pipelined, stream_s)
-    return missing
-
-
-def _rebuild_ec_files_piggyback(base_name, codec, layout, present,
-                                missing, shard_size, slab, stats
-                                ) -> List[int]:
-    """Local piggyback rebuild: decode every missing shard (data AND
-    parity) from the coupled decode plan's source set in one fused
-    matmul per slab. Shard sizes are window-aligned by construction
-    (both stripe blocks divide by the window), so slabs clamp to whole
-    windows with no tail special-case."""
-    alpha, window = layout.alpha, layout.window
-    if shard_size % window:
-        raise ValueError(
-            f"piggyback shard size {shard_size} not window-aligned "
-            f"({window}); sidecar geometry is wrong for these shards")
-    before = STATS.snapshot()
-    timer = StageTimer()
-    split, merge = _pb_transforms(timer, alpha, window)
-    t_stream = time.perf_counter()
-    # the plan's missing rows are every absent shard, in order: `missing`
-    src, _, coeffs = piggyback_decode_plan(
-        codec.k, codec.m, tuple(bool(p) for p in present),
-        matrix_kind=codec.matrix_kind, matrix=codec.matrix,
-        pairs=layout.pairs)
-    timer.add("plan", time.perf_counter() - t_stream)
-    eff_slab = _pb_slab(slab, window)
-    ins = {i: open(base_name + to_ext(i), "rb") for i in src}
-    outs = {i: open(base_name + to_ext(i), "wb") for i in missing}
-    try:
-        for off in range(0, shard_size, eff_slab):
-            n = min(eff_slab, shard_size - off)
-            t0 = time.perf_counter()
-            stack = []
-            for i in src:
-                ins[i].seek(off)
-                stack.append(np.frombuffer(ins[i].read(n), dtype=np.uint8))
-            block = np.stack(stack, axis=0)
-            timer.add("disk_read", time.perf_counter() - t0, block.nbytes)
-            merged = merge(codec._matmul(coeffs, split(block)))
-            t0 = time.perf_counter()
-            for r, i in enumerate(missing):
-                outs[i].write(merged[r].tobytes())
-            timer.add("shard_write", time.perf_counter() - t0,
-                      n * len(missing))
-    finally:
-        for h in ins.values():
-            h.close()
-        for h in outs.values():
-            h.close()
-    stream_s = time.perf_counter() - t_stream
-    if stats is not None:
-        stats.update(delta(before))
-        stats["survivor_bytes"] = shard_size * len(src)
-        stats["rebuilt_bytes"] = shard_size * len(missing)
-        stats["stream_s"] = round(stream_s, 6)
-        stats["backend"] = codec.backend
-        stats["layout"] = "piggyback"
-        stats["phases"] = _phases(timer, False, stream_s)
-        stats["pb_host_s"] = _pb_host_s(timer)
-    return list(missing)
+    sizes = {os.path.getsize(base_name + to_ext(i))
+             for i, p in enumerate(present) if p}
+    if len(sizes) != 1:
+        raise ValueError("surviving shards differ in size")
+    shard_size = sizes.pop()
+    piggyback = layout is not None and layout.piggyback
+    if piggyback:
+        src = piggyback_decode_plan(
+            k, codec.m, tuple(present), matrix_kind=codec.matrix_kind,
+            matrix=codec.matrix, pairs=layout.pairs)[0]
+        slab = _pb_slab(slab, layout.window)
+    else:
+        # only the first k survivors feed the decode plan; reading more
+        # would be dead I/O (their coefficient columns are zero)
+        src = [i for i, p in enumerate(present) if p][:k]
+    gs = GatherStats()
+    source = StripedGatherSource(
+        [LocalShardReader(base_name + to_ext(i), gs) for i in src],
+        shard_size, slab=slab, stats=gs)
+    if piggyback:
+        return rebuild_ec_files_streaming_piggyback(
+            base_name, present, missing, source, layout, codec=codec,
+            stats=stats)
+    return rebuild_ec_files_streaming(base_name, present, missing, source,
+                                      codec=codec, slab=slab,
+                                      pipelined=pipelined, stats=stats)
 
 
 def rebuild_ec_files_streaming(base_name: str,
@@ -542,11 +431,13 @@ def rebuild_ec_files_streaming(base_name: str,
                                slab: int = DEFAULT_SLAB,
                                pipelined: Optional[bool] = None,
                                stats: Optional[dict] = None) -> List[int]:
-    """Streaming variant of rebuild_ec_files: the survivor bytes arrive
-    from ``source`` (an ec.gather.StripedGatherSource over the first k
-    survivors) instead of whole shard files on local disk, and each
-    rebuilt slab is appended to the missing shard files as the decode
-    drains. The rebuilder never materializes a survivor copy.
+    """Regenerate missing shards from a survivor stream: the survivor
+    bytes arrive from ``source`` (an ec.gather.StripedGatherSource over
+    the first k survivors), and each rebuilt slab is appended to the
+    missing shard files as the decode drains, so no survivor copy is
+    ever materialized. With the "cuda" codec the stripes flow through
+    PipelinedMatmul and the fused decode plan: one device dispatch per
+    stripe regenerates every missing shard.
 
     ``present``/``missing`` describe the shard state (the decode plan),
     not local files. On ANY failure the partially written missing-shard
@@ -627,7 +518,6 @@ def rebuild_ec_files_streaming_piggyback(base_name: str,
                                          layout,
                                          codec: Optional[
                                              ReedSolomonCodec] = None,
-                                         slab: int = DEFAULT_SLAB,
                                          stats: Optional[dict] = None
                                          ) -> List[int]:
     """Streaming full decode for a piggyback volume: ``source`` yields
@@ -636,12 +526,18 @@ def rebuild_ec_files_streaming_piggyback(base_name: str,
     from piggyback_decode_plan's src list, not first-k). Each stripe is
     window-split, pushed through the fused coupled decode, merged, and
     appended to the missing shard files, one slab at a time as in the JAX
-    package. Failure removes partial outputs, as for the flat streaming
-    rebuild; ``stats`` adds pb_host_s (split/merge seconds)."""
+    package; the source's slab must be whole windows. Failure removes
+    partial outputs, as for the flat streaming rebuild; ``stats`` adds
+    pb_host_s (split/merge seconds)."""
     codec = codec or get_codec(DATA_SHARDS, PARITY_SHARDS)
     if not missing:
         return []
     alpha, window = layout.alpha, layout.window
+    if source.shard_size % window or source.slab % window:
+        raise ValueError(
+            f"piggyback shard size {source.shard_size} or slab "
+            f"{source.slab} not window-aligned ({window}); sidecar "
+            f"geometry is wrong for these shards")
     before = STATS.snapshot()
     timer = StageTimer()
     split, merge = _pb_transforms(timer, alpha, window)
@@ -677,5 +573,4 @@ def rebuild_ec_files_streaming_piggyback(base_name: str,
         stats["phases"] = _phases(timer, False, stream_s)
         stats["pb_host_s"] = _pb_host_s(timer)
         stats["gather_mbps"] = round(gs.mbps(), 1)
-        stats["gather_remote_shards"] = gs.remote_shards
     return list(missing)

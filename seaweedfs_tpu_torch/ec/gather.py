@@ -58,8 +58,6 @@ class LocalRepairReader:
     the range, project, and account only the symbol bytes (the range
     itself never crossed the network)."""
 
-    remote = False
-
     def __init__(self, path: str, masks: Sequence[int],
                  stats: Optional[TransportStats] = None):
         if not masks:
@@ -68,7 +66,7 @@ class LocalRepairReader:
         self.masks = [int(x) for x in masks]
         self.stats = stats or GatherStats()
 
-    def read(self, off: int, n: int, stripe_idx: int = 0) -> bytes:
+    def read(self, off: int, n: int) -> bytes:
         t0 = time.perf_counter()
         planes = project_slab(_read_range(self.path, off, n), self.masks)
         self.stats.add_fetch(planes.nbytes, t0, time.perf_counter())
@@ -80,8 +78,6 @@ class LocalPlaneReader:
     window-aligned range, slice the repair plane, and account only the
     plane bytes."""
 
-    remote = False
-
     def __init__(self, path: str, alpha: int, window: int,
                  plane_bit: int, plane_side: int,
                  stats: Optional[TransportStats] = None):
@@ -92,7 +88,7 @@ class LocalPlaneReader:
         self.plane_side = int(plane_side)
         self.stats = stats or GatherStats()
 
-    def read(self, off: int, n: int, stripe_idx: int = 0) -> bytes:
+    def read(self, off: int, n: int) -> bytes:
         t0 = time.perf_counter()
         plane = pb_plane_slice(_read_range(self.path, off, n), self.alpha,
                                self.window, self.plane_bit, self.plane_side)

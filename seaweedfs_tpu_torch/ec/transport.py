@@ -34,9 +34,9 @@ DEFAULT_WINDOW = 4
 
 class TransportStats:
     """Counters + busy-time accounting shared by every endpoint of one
-    transport run. Busy time is the UNION of transfer intervals (transfers
-    overlap across stripes and rows), so ``bytes / busy_s`` is the
-    effective bandwidth. ``stage`` names the role and prefixes the
+    transport run. Busy time is the UNION of the transfer intervals and
+    the stripe assemblies (transfers overlap across stripes and rows), so
+    ``bytes / busy_s`` is the effective delivery rate. ``stage`` names the role and prefixes the
     snapshot keys."""
 
     stage = "transport"
@@ -46,20 +46,14 @@ class TransportStats:
         self._lock = threading.Lock()
         self.fetches = 0
         self.bytes = 0
-        self.remote_bytes = 0
         self.stripes = 0
         self.peak_buffered = 0
-        self.remote_shards = 0
-        self.local_shards = 0
 
-    def add_fetch(self, nbytes: int, t0: float, t1: float,
-                  remote: bool = False):
+    def add_fetch(self, nbytes: int, t0: float, t1: float):
         self.timer.add(self.stage, t1 - t0, nbytes, interval=(t0, t1))
         with self._lock:
             self.fetches += 1
             self.bytes += nbytes
-            if remote:
-                self.remote_bytes += nbytes
 
     def busy_s(self) -> float:
         return self.timer.busy_time(self.stage)
@@ -75,7 +69,6 @@ class TransportStats:
         with self._lock:
             return {
                 f"{s}_bytes": self.bytes,
-                f"{s}_remote_bytes": self.remote_bytes,
                 f"{s}_fetches": self.fetches,
                 f"{s}_stripes": self.stripes,
                 f"peak_{s}_buffer": self.peak_buffered,
@@ -94,13 +87,11 @@ class LocalShardReader:
     pull pool reads several stripes of one shard concurrently, and a
     shared seek pointer would race."""
 
-    remote = False
-
     def __init__(self, path: str, stats: Optional[TransportStats] = None):
         self.path = path
         self.stats = stats or GatherStats()
 
-    def read(self, off: int, n: int, stripe_idx: int = 0) -> bytes:
+    def read(self, off: int, n: int) -> bytes:
         t0 = time.perf_counter()
         with open(self.path, "rb") as f:
             f.seek(off)
@@ -116,7 +107,7 @@ class StripedPull:
     """The pull pump: ``slabs()`` yields ``((idx, off, w), block)``
     stripes in strict order, fetching up to ``window`` stripes ahead
     across a shared thread pool. ``readers`` are per-row endpoints, each
-    with ``read(off, n, stripe_idx) -> bytes``."""
+    with ``read(off, n) -> bytes``."""
 
     def __init__(self, readers: Sequence, shard_size: int,
                  slab: int = 8 << 20, window: Optional[int] = None,
@@ -130,10 +121,6 @@ class StripedPull:
         self.stats = stats if stats is not None else GatherStats()
         for r in self.readers:
             r.stats = self.stats
-        self.stats.remote_shards = sum(
-            1 for r in self.readers if getattr(r, "remote", False))
-        self.stats.local_shards = len(self.readers) - \
-            self.stats.remote_shards
         self._buffered = 0
         self._lock = threading.Lock()
 
@@ -172,7 +159,7 @@ class StripedPull:
             # buffered memory too, and the bound must hold even when
             # every submitted row completes before the consumer drains
             self._note_buffered(self._stripe_nbytes(w))
-            futs = [pool.submit(self.readers[r].read, off, w, idx)
+            futs = [pool.submit(self.readers[r].read, off, w)
                     for r in range(k)]
             pending.append((idx, off, w, futs))
 
@@ -183,7 +170,13 @@ class StripedPull:
                 nxt += 1
             while pending:
                 idx, off, w, futs = pending.popleft()
-                data = self._assemble([f.result() for f in futs], w)
+                bufs = [f.result() for f in futs]
+                # assembling the stripe is part of delivering it: its
+                # interval joins the fetches' union, so the gather's busy
+                # time (and the rebuild's overlap_frac) sees it on
+                # whichever thread iterates the stream
+                with self.stats.timer.stage(self.stats.stage):
+                    data = self._assemble(bufs, w)
                 self._note_buffered(-self._stripe_nbytes(w))
                 if nxt < len(stripes):
                     submit(nxt)

@@ -91,11 +91,11 @@ def _slow_source(module, k, slab, window, n_stripes):
         def __init__(self):
             self.stats = stats
 
-        def read(self, off, n, stripe_idx=0):
+        def read(self, off, n, *_):
             time.sleep(0.002)
             t = time.perf_counter()
             self.stats.add_fetch(n, t - 0.002, t)
-            return bytes([stripe_idx & 0xFF]) * n
+            return bytes([(off // slab) & 0xFF]) * n
 
     return module.StripedGatherSource(
         [SlowReader() for _ in range(k)], slab * n_stripes, slab=slab,
@@ -174,8 +174,7 @@ def test_streaming_rebuild_matches_jax(tmp_path, k, m, lost, pipelined):
             _read(base + to_ext(sid)), sid
     stripes = -(-shard_size // SLAB)
     for key in ("gather_bytes", "gather_stripes", "gather_fetches",
-                "gather_remote_bytes", "peak_gather_buffer",
-                "survivor_bytes", "rebuilt_bytes", "gather_remote_shards"):
+                "peak_gather_buffer", "survivor_bytes", "rebuilt_bytes"):
         assert stats[key] == ref_out[key], key
     assert stats["gather_stripes"] == stripes
     assert stats["gather_bytes"] == shard_size * k
@@ -223,8 +222,7 @@ def test_streaming_piggyback_matches_jax(tmp_path, lost):
     assert encoder.rebuild_ec_files_streaming_piggyback(
         port_base, present, list(lost), source,
         layout.LayoutInfo(layout.LAYOUT_PIGGYBACK, SB, 5),
-        codec=TorchCodec(k, m, device="cpu"), slab=slab,
-        stats=stats) == list(lost)
+        codec=TorchCodec(k, m, device="cpu"), stats=stats) == list(lost)
     for sid in lost:
         assert _read(port_base + to_ext(sid)) == want[sid] == \
             _read(base + to_ext(sid)), sid
@@ -239,14 +237,12 @@ def test_streaming_piggyback_matches_jax(tmp_path, lost):
 
 
 class _FlakyReader:
-    remote = False
-
     def __init__(self, path):
         self.path = path
         self.stats = None
 
-    def read(self, off, n, stripe_idx=0):
-        if stripe_idx >= 1:
+    def read(self, off, n):
+        if off:  # serves stripe 0, then fails
             raise IOError("holder went away")
         with open(self.path, "rb") as f:
             f.seek(off)
@@ -274,8 +270,7 @@ def test_streaming_failure_leaves_no_partials(tmp_path, kind):
         if kind == "piggyback":
             encoder.rebuild_ec_files_streaming_piggyback(
                 base, present, list(lost), source,
-                layout.LayoutInfo(layout.LAYOUT_PIGGYBACK, SB, 5), codec=c,
-                slab=4 * SB)
+                layout.LayoutInfo(layout.LAYOUT_PIGGYBACK, SB, 5), codec=c)
         else:
             encoder.rebuild_ec_files_streaming(
                 base, present, list(lost), source, codec=c, slab=4 * SB,
@@ -286,6 +281,65 @@ def test_streaming_failure_leaves_no_partials(tmp_path, kind):
     while _pull_threads() and time.monotonic() < deadline:
         time.sleep(0.02)
     assert not _pull_threads()
+
+
+@pytest.mark.parametrize("kind", ["pipelined", "sync", "piggyback"])
+def test_local_rebuild_failure_leaves_no_partials(tmp_path, monkeypatch,
+                                                  kind):
+    """rebuild_ec_files pulls the local survivors through the streaming
+    rebuild, so a failing read leaves no partial shard and no thread."""
+    k, m, lost = 10, 4, (1, 7, 12)
+    piggyback = kind == "piggyback"
+    base, want = _seed(tmp_path, k, m, 120_000,
+                       layout_name="piggyback" if piggyback else "flat")
+    for sid in lost:
+        os.remove(base + to_ext(sid))
+    read = gather.LocalShardReader.read
+
+    def flaky(self, off, n):
+        if off:
+            raise IOError("disk went away")
+        return read(self, off, n)
+
+    monkeypatch.setattr(gather.LocalShardReader, "read", flaky)
+    info = layout.LayoutInfo(layout.LAYOUT_PIGGYBACK, SB, 5) \
+        if piggyback else None
+    c = TorchCodec(k, m, device="cpu")
+    with pytest.raises(IOError, match="disk went away"):
+        encoder.rebuild_ec_files(base, codec=c, slab=4 * SB,
+                                 pipelined=kind == "pipelined", layout=info)
+    for sid in lost:
+        assert not os.path.exists(base + to_ext(sid))
+    deadline = time.monotonic() + 5
+    while _pull_threads() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert not _pull_threads()
+    monkeypatch.setattr(gather.LocalShardReader, "read", read)
+    stats = {}
+    assert encoder.rebuild_ec_files(base, codec=c, slab=4 * SB,
+                                    pipelined=kind == "pipelined",
+                                    layout=info, stats=stats) == list(lost)
+    for sid in lost:
+        assert _read(base + to_ext(sid)) == want[sid]
+    assert stats["gather_stripes"] == -(-len(want[0]) // (4 * SB))
+
+
+def test_stripe_assembly_counts_as_gather_busy():
+    """Assembling a stripe is part of the gather: one interval per stripe
+    lands in the gather stage even when the readers record nothing."""
+    k, slab, n_stripes = 3, 1024, 5
+
+    class Quiet:
+        def read(self, off, n):
+            return bytes(n)
+
+    stats = gather.GatherStats()
+    source = gather.StripedGatherSource([Quiet() for _ in range(k)],
+                                        slab * n_stripes, slab=slab,
+                                        window=2, stats=stats)
+    assert sum(1 for _ in source.slabs()) == n_stripes
+    assert len(stats.timer.intervals["gather"]) == n_stripes
+    assert stats.fetches == 0 and stats.busy_s() > 0
 
 
 def test_streaming_needs_k_survivors(tmp_path):
