@@ -90,10 +90,34 @@
    must give back the original .dat's first dat_size bytes, and
    write_idx_file_from_ec_index the .ecx records (the piggyback tag byte
    dropped) plus a tombstone for each id of a written .ecj.
+10. Degraded reads and the scrub, on each layout (after the flat
+   streaming rebuild, and after the streaming piggyback rebuild). K1 is
+   first held against its plain version on their four products: the
+   flat lost row (1,10) of a seeded data shard at 1,179,648 (a needle
+   batch: 8 slabs + 1 readahead slab) and 16,908,288 (the wide read),
+   the shard's alpha rows of the coupled decode plan (32,320) at 557,056
+   (17 windows over 32), the syndrome rows (4,14) at 1 MiB and the
+   piggyback ones (128,448) at 32,768, each +1, an odd tail and from a
+   misaligned base; then timed at those widths (gf_matmul_degraded,
+   gf_matmul_scrub in the kernels line). The degraded leg moves the
+   seeded data shard aside, mounts EcVolume over the rest with a
+   DegradedReadEngine (defaults: 128 KiB slabs, 2 ms batches, 1 slab of
+   readahead, 64 MiB cache), serves DEGRADED_GETS needle GETs whose
+   intervals touch the lost shard from 4 threads through
+   read_needle_blob(nid, reconstruct_fetch=engine.read), each blob held
+   against the .dat, then one 16 MiB read of the lost shard with the
+   cache emptied, held against the shard; it prints the GETs' p50/p99,
+   the wide read's MB/s and the engine's counters and batch phases, and
+   needs launches = device dispatches >= 1 (on the piggyback layout the
+   needle batches fall below the crossover, so the wide read carries
+   K1). The scrub leg runs ScrubEngine.scrub_volume(force=True) unpaced:
+   a clean pass, then a pass with one seeded byte of a seeded shard
+   flipped, which must report exactly that slab and that shard; the
+   byte is put back and the shard's sha256 checked.
 
 Every leg runs with the kernel's launch counter set to 0 just before it
-and read just after; a leg of steps 5-8 whose launches differ from its
-dispatches, or that launched nothing, fails the smoke.
+and read just after; a leg of steps 5-8 and 10 whose launches differ
+from its dispatches, or that launched nothing, fails the smoke.
 
 Prints the card line (nvidia-smi name, power limit), then a JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Exits non-zero,
@@ -131,6 +155,23 @@ TRACE_N = MAIN_N // 8       # trace combine: a stripe's byte stride
 TRACE_WIDTHS = (1, 129, 4407, TRACE_N, TRACE_N + 1, 917_503)
 PLANE_WIDTHS = (1, 129, 4407, PB_N, PB_N + 1, 229_377)
 GATHER_WINDOW = 4           # ec.transport.DEFAULT_WINDOW
+DEGRADED_SLAB = 128 << 10   # ec.degraded.SLAB_BYTES
+DEGRADED_WIDE = 16 << 20    # the wide range read of a lost shard
+DEGRADED_GETS = 48          # needle GETs through a lost shard, per layout
+DEGRADED_THREADS = 4        # GET reader threads
+#: K1's widths on the degraded legs: a flat needle batch (1 MiB of a
+#: needle in 8 slabs + 1 readahead slab), the flat wide read (16 MiB + 1
+#: readahead slab) and the piggyback wide read (its 17 windows over 32)
+NEEDLE_N = 9 * DEGRADED_SLAB
+WIDE_N = DEGRADED_WIDE + DEGRADED_SLAB
+PB_WIDE_N = 17 * (1 << 20) // 32
+SCRUB_N = 1 << 20           # ec.scrub.SLAB_BYTES; piggyback: over alpha
+PB_SCRUB_N = SCRUB_N // 32
+DEGRADED_WIDTHS = (1, 129, 4407, NEEDLE_N, NEEDLE_N + 1, WIDE_N, WIDE_N + 1,
+                   655_359)
+PB_DEGRADED_WIDTHS = (1, 129, 4407, PB_WIDE_N, PB_WIDE_N + 1, 98_303)
+SCRUB_WIDTHS = (1, 129, 4407, SCRUB_N, SCRUB_N + 1, 786_431)
+PB_SCRUB_WIDTHS = (1, 129, 4407, PB_SCRUB_N, PB_SCRUB_N + 1, 24_575)
 #: K1's time per launch before the tile-plan redesign, measured by this
 #: script on an NVIDIA H100 80GB HBM3 at 700 W: (4,10) x 8 MiB and the
 #: piggyback emat (128,320) x 262,144
@@ -364,6 +405,27 @@ def repair_targets(np, codec_mod, seed):
     plane_lost = int(np.random.default_rng(seed + 19).integers(0, coupled))
     return (codec_mod.repair_plan(10, 4, trace_lost),
             codec_mod.piggyback_repair_plan(10, 4, plane_lost))
+
+
+def degraded_targets(np, codec_mod, NumpyCodec, seed):
+    """The degraded legs' seeded lost data shard and the four K1 products
+    of the degraded reads and the scrub: the flat lost row (1,10), the
+    lost shard's alpha rows of the coupled decode plan (32,320), the
+    flat syndrome rows (4,14) and the piggyback ones (128,448)."""
+    lost = int(np.random.default_rng(seed + 37).integers(0, 10))
+    present = tuple(i != lost for i in range(14))
+    _, row = NumpyCodec(10, 4).lost_row_coeffs(present, lost)
+    _, pmissing, coeffs = codec_mod.piggyback_decode_plan(10, 4, present)
+    alpha = codec_mod.piggyback_plan(10, 4).alpha
+    pos = pmissing.index(lost)
+    pb_rows = np.ascontiguousarray(coeffs[pos * alpha:(pos + 1) * alpha])
+    return lost, [
+        ("degraded flat (1,10)", row, DEGRADED_WIDTHS),
+        ("degraded piggyback (32,320)", pb_rows, PB_DEGRADED_WIDTHS),
+        ("scrub flat (4,14)", NumpyCodec(10, 4).syndrome_plan(),
+         SCRUB_WIDTHS),
+        ("scrub piggyback (128,448)",
+         codec_mod.piggyback_plan(10, 4).syndrome_rows(), PB_SCRUB_WIDTHS)]
 
 
 def repair_geometries(plan, rplan):
@@ -918,6 +980,185 @@ def streaming_piggyback_leg(np, port, dev, base, res, pb, seed):
     return {"lost": lost, "secs": secs, "stats": st}
 
 
+class _Store:
+    """The one mounted EC volume, as a volume server's store gives it to
+    the degraded-read and scrub engines."""
+
+    def __init__(self, ev):
+        self.ev = ev
+        self.locations = [type("Location", (), {"ec_volumes": {1: ev}})]
+
+    def find_ec_volume(self, vid):
+        return self.ev if vid == 1 else None
+
+
+def _mount(ec, base, skip=()):
+    ev = ec.EcVolume(os.path.dirname(base), "", 1)
+    for sid in range(ec.TOTAL_SHARDS):
+        if sid not in skip:
+            ev.add_shard(sid)
+    return ev
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))]
+
+
+def degraded_leg(np, port, dev, base, res, lost, seed, label):
+    """Needle GETs through a lost data shard on the mounted volume, from
+    DEGRADED_THREADS threads (EcVolume.read_needle_blob with the engine's
+    read as its reconstruct fetch), each blob held against the .dat, then
+    one DEGRADED_WIDE read of the lost shard with the slab cache emptied.
+    The shard is moved aside for the leg and back after it."""
+    ec, ops, storage = port
+    from seaweedfs_tpu_torch.storage.needle import get_actual_size
+    k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
+    path = base + ec.to_ext(lost)
+    ev = _mount(ec, base, skip=(lost,))
+    os.rename(path, path + ".lost")
+    codec = ops.get_codec(k, m, device=dev)
+    eng = ec.DegradedReadEngine(_Store(ev), lambda vid: {}, lambda: codec)
+    start = ops.gf_matmul.launches
+    try:
+        rec = storage.entry_size()
+        with open(base + ".ecx", "rb") as f:
+            ecx = f.read()
+        nids = [int.from_bytes(ecx[i:i + 8], "big")
+                for i in range(0, len(ecx) // rec * rec, rec)]
+        touching = [nid for nid in nids
+                    if any(iv.to_shard_id_and_offset(
+                        ec.LARGE_BLOCK_SIZE, ec.SMALL_BLOCK_SIZE)[0] == lost
+                        for iv in ev.locate_needle(nid)[2])]
+        rng = np.random.default_rng(seed)
+        picks = [touching[i] for i in rng.permutation(len(touching))[
+            :DEGRADED_GETS]]
+        if len(picks) < min(32, DEGRADED_GETS):
+            raise AssertionError(f"{label}: only {len(picks)} needles touch "
+                                 f"shard {lost}")
+
+        def get(nid):
+            t0 = time.perf_counter()
+            blob = ev.read_needle_blob(nid, reconstruct_fetch=eng.read)
+            secs = time.perf_counter() - t0
+            off, size, _ = ev.locate_needle(nid)
+            with open(base + ".dat", "rb") as f:
+                f.seek(off)
+                want = f.read(get_actual_size(size, ev.version))
+            if blob != want:
+                raise AssertionError(f"{label}: needle {nid:#x} differs from "
+                                     f"the .dat at {off}")
+            return secs, len(blob)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(DEGRADED_THREADS) as pool:
+            got = list(pool.map(get, picks))
+        gets_s = time.perf_counter() - t0
+        lat = [secs * 1e3 for secs, _ in got]
+        gets = eng.snapshot()
+        eng.invalidate(1)
+        off = int(rng.integers(0, (res["shard_size"] - DEGRADED_WIDE)
+                               // (1 << 20))) << 20
+        t0 = time.perf_counter()
+        wide = eng.read(1, lost, off, DEGRADED_WIDE)
+        wide_s = time.perf_counter() - t0
+        with open(path + ".lost", "rb") as f:
+            f.seek(off)
+            if wide != f.read(DEGRADED_WIDE):
+                raise AssertionError(f"{label}: wide read at {off} differs "
+                                     f"from shard {lost}")
+        snap = eng.snapshot()
+    finally:
+        os.rename(path + ".lost", path)
+        ev.close()
+        eng.close()
+    launches = ops.gf_matmul.launches - start
+    if launches != snap["device_dispatches"] or launches < 1 or \
+            snap["errors"]:
+        raise AssertionError(f"{label}: {launches} launches for "
+                             f"{snap['device_dispatches']} device "
+                             f"dispatches, {snap['errors']} errors")
+    keys = ("batches", "host_dispatches", "device_dispatches",
+            "cache_hit_ratio", "survivor_bytes")
+    print(f"{label}: lost shard {lost}, {len(picks)} needle GETs from "
+          f"{DEGRADED_THREADS} threads in {gets_s:.3f} s, p50 "
+          f"{_pct(lat, 0.5):.3f} ms, p99 {_pct(lat, 0.99):.3f} ms, "
+          f"{sum(n for _, n in got)} B, every blob = the .dat's bytes; "
+          f"{json.dumps({key: gets[key] for key in keys})}; wide read "
+          f"{DEGRADED_WIDE} B at {off} in {wide_s:.3f} s "
+          f"({DEGRADED_WIDE / wide_s / 1e6:.1f} MB/s) = the shard's bytes; "
+          f"after both {json.dumps({key: snap[key] for key in keys})}, "
+          f"{launches} launches = device dispatches, batch phases "
+          f"{json.dumps(snap['phases'])}")
+    return {"gets": len(picks), "p50_ms": _pct(lat, 0.5),
+            "p99_ms": _pct(lat, 0.99), "wide_s": wide_s,
+            "wide_mb_s": DEGRADED_WIDE / wide_s / 1e6, "stats": snap}
+
+
+def scrub_leg(np, port, dev, base, res, shas, seed, label):
+    """A clean scrub pass of the mounted volume, then a pass with one
+    seeded byte of a seeded shard flipped, which must be found in its
+    slab and attributed to its shard; the byte is put back and the
+    shard's sha256 checked."""
+    ec, ops, _ = port
+    k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
+    ev = _mount(ec, base)
+    codec = ops.get_codec(k, m, device=dev)
+    eng = ec.ScrubEngine(_Store(ev), lambda vid: {}, lambda: codec,
+                         lambda: "smoke", rate_mbps=0)
+    rng = np.random.default_rng(seed)
+    sid = int(rng.integers(0, k + m))
+    off = int(rng.integers(0, res["shard_size"]))
+    start = ops.gf_matmul.launches
+    passes = []
+    try:
+        for flip in (False, True):
+            if flip:
+                _flip_byte(base + ec.to_ext(sid), off)
+            try:
+                passes.append(eng.scrub_volume(1, force=True))
+            finally:
+                if flip:
+                    _flip_byte(base + ec.to_ext(sid), off)
+    finally:
+        ev.close()
+    clean, found = passes
+    n_slabs = -(-res["shard_size"] // SCRUB_N)
+    if not clean["clean"] or clean["slabs"] != n_slabs or \
+            clean["path"] != "device":
+        raise AssertionError(f"{label}: clean pass {clean}")
+    if found["corrupt_slabs"] != [off // SCRUB_N] or \
+            found["corrupt_shards"] != [sid] or found["corrupt_columns"] != 1:
+        raise AssertionError(f"{label}: byte {off} of shard {sid} flipped, "
+                             f"pass found {found}")
+    if _sha(base + ec.to_ext(sid)) != shas[sid]:
+        raise AssertionError(f"{label}: shard {sid} differs after the byte "
+                             f"was put back")
+    snap = eng.snapshot()
+    launches = ops.gf_matmul.launches - start
+    if launches != snap["device_dispatches"] or launches != 2 * n_slabs:
+        raise AssertionError(f"{label}: {launches} launches for "
+                             f"{snap['device_dispatches']} device dispatches")
+    print(f"{label}: clean pass {clean['bytes'] / clean['seconds'] / 1e6:.1f}"
+          f" MB/s verified ({clean['bytes']} B in {clean['seconds']:.3f} s, "
+          f"{clean['slabs']} slabs, phases {json.dumps(clean['phases'])}); "
+          f"byte {off} of shard {sid} flipped: slab {found['corrupt_slabs']},"
+          f" shards {found['corrupt_shards']}, "
+          f"{found['corrupt_columns']} column, in {found['seconds']:.3f} s; "
+          f"put back, sha256-identical; {launches} launches = device "
+          f"dispatches")
+    return {"clean": clean, "found": found, "sid": sid, "off": off,
+            "mb_s": clean["bytes"] / clean["seconds"] / 1e6}
+
+
+def _flip_byte(path, off):
+    with open(path, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)[0]
+        f.seek(off)
+        f.write(bytes([b ^ 0x01]))
+
+
 def decode_leg(np, port, base, res, seed):
     """ec.decode from the data shards: the .dat's first dat_size bytes
     and an .idx of the .ecx records plus the .ecj's tombstones."""
@@ -1015,10 +1256,28 @@ def run(args) -> int:
         check_kernel(torch, np, rs_hopper, gf_plan, [geo], dev,
                      args.seed + 5, misaligned=geo[2][3])
         for geo in repair_geometries(trace_plan, plane_plan))
+    t0 = time.perf_counter()
+    degraded_lost, read_geos = degraded_targets(np, ops_codec, NumpyCodec,
+                                                args.seed)
+    print(f"degraded-read and scrub plans built on the host in "
+          f"{time.perf_counter() - t0:.2f} s: lost data shard "
+          f"{degraded_lost}, " + ", ".join(
+              f"{label} {c.shape}" for label, c, _ in read_geos))
+    read_err = {label: check_kernel(torch, np, rs_hopper, gf_plan,
+                                    [(label, c, widths)], dev, args.seed + 7,
+                                    misaligned=widths[3])
+                for label, c, widths in read_geos}
+    (_, flat_row, _), (_, pb_rows, _), (_, syn, _), (_, pb_syn, _) = \
+        read_geos
     timed = time_kernel(torch, rs_hopper, gf_plan, kernel_exp,
                         timed_shapes(np, gf256, NumpyCodec, ops_codec)
                         + [("trace combine", trace_plan.combine, TRACE_N),
-                           ("plane repair", plane_plan.matrix, PB_N)],
+                           ("plane repair", plane_plan.matrix, PB_N),
+                           ("degraded flat wide", flat_row, WIDE_N),
+                           ("degraded flat needle batch", flat_row, NEEDLE_N),
+                           ("degraded piggyback wide", pb_rows, PB_WIDE_N),
+                           ("scrub flat", syn, SCRUB_N),
+                           ("scrub piggyback", pb_syn, PB_SCRUB_N)],
                         dev, args.seed)
     geos = [(label, c, BP_WIDTHS + ((MAIN_N,) if c.shape[0] <= 4 else ()))
             for label, c, _ in flat_geos]
@@ -1061,12 +1320,20 @@ def run(args) -> int:
               trace_plan)
         drive("streaming", streaming_leg, np, port, dev, base, res,
               args.seed)
+        drive("degraded flat", degraded_leg, np, port, dev, base, res,
+              degraded_lost, args.seed + 41, "degraded flat")
+        drive("scrub flat", scrub_leg, np, port, dev, base, res, res["shas"],
+              args.seed + 43, "scrub flat")
         pb = drive("piggyback", piggyback_leg, np, port, dev, base, res,
                    args.seed)
         drive("plane repair", plane_repair_leg, np, port, dev, base, res, pb,
               plane_plan)
         drive("streaming piggyback", streaming_piggyback_leg, np, port, dev,
               base, res, pb, args.seed)
+        drive("degraded piggyback", degraded_leg, np, port, dev, base, res,
+              degraded_lost, args.seed + 47, "degraded piggyback")
+        drive("scrub piggyback", scrub_leg, np, port, dev, base, res,
+              pb["shas"], args.seed + 53, "scrub piggyback")
         drive("decode", decode_leg, np, port, base, res, args.seed,
               kernel=False)
     finally:
@@ -1076,8 +1343,9 @@ def run(args) -> int:
         raise AssertionError("the kernel was not launched on every leg of "
                              "the main path")
     launches = sum(legs.values())
-    print(f"main path (flat, traced, trace repair, streaming, piggyback, "
-          f"plane repair, streaming piggyback, decode) in "
+    print(f"main path (flat, traced, trace repair, streaming, degraded "
+          f"flat, scrub flat, piggyback, plane repair, streaming piggyback, "
+          f"degraded piggyback, scrub piggyback, decode) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
           f"= dispatches, by leg {json.dumps(legs)}; builds {build_s:.2f} s")
 
@@ -1093,7 +1361,20 @@ def run(args) -> int:
         _k1_entry("gf_matmul_repair",
                   legs["trace repair"] + legs["plane repair"], repair_err,
                   timed["trace combine"], timed["plane repair"],
-                  second_key="plane_repair")]
+                  second_key="plane_repair"),
+        _k1_entry("gf_matmul_degraded",
+                  legs["degraded flat"] + legs["degraded piggyback"],
+                  max(read_err["degraded flat (1,10)"],
+                      read_err["degraded piggyback (32,320)"]),
+                  timed["degraded flat wide"], timed["degraded piggyback wide"],
+                  second_key="piggyback_wide")
+        | {"needle_batch": _timed_keys(timed["degraded flat needle batch"])},
+        _k1_entry("gf_matmul_scrub",
+                  legs["scrub flat"] + legs["scrub piggyback"],
+                  max(read_err["scrub flat (4,14)"],
+                      read_err["scrub piggyback (128,448)"]),
+                  timed["scrub flat"], timed["scrub piggyback"],
+                  second_key="piggyback")]
     for u, dt in VARIANTS:
         name = rs_bitplane.variant_name(u, dt)
         flat_row = next(row for row in exp_flat if row["name"] == name)
@@ -1124,10 +1405,6 @@ def _k1_entry(name, launches, max_err, main, second,
     the plan's pairs per column and table bytes, and the second matrix's
     numbers beside them under ``second_key`` (the decode plan, or the
     plane-repair matrix), all measured in this run."""
-    def plan_keys(t):
-        return {"pairs_per_column": t["plan"]["pairs_per_column"],
-                "table_bytes": t["plan"]["table_bytes"],
-                "plan_build_ms": t["plan"]["build_ms"]}
     return {
         "name": name, "route": "cuda",
         "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
@@ -1137,10 +1414,20 @@ def _k1_entry(name, launches, max_err, main, second,
         "max_abs_err": max_err, "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "shape": main["shape"],
-        **plan_keys(main),
-        second_key: {key: second[key] for key in (
-            "shape", "ms", "plain_ms", "bound_ms")} | plan_keys(second),
+        **_plan_keys(main), second_key: _timed_keys(second),
     }
+
+
+def _plan_keys(t) -> dict:
+    return {"pairs_per_column": t["plan"]["pairs_per_column"],
+            "table_bytes": t["plan"]["table_bytes"],
+            "plan_build_ms": t["plan"]["build_ms"]}
+
+
+def _timed_keys(t) -> dict:
+    """One timed shape's numbers, for beside a kernels-line entry's own."""
+    return {key: t[key] for key in ("shape", "ms", "plain_ms",
+                                    "bound_ms")} | _plan_keys(t)
 
 
 def _bound_kind(row, key="bound") -> str:

@@ -1,8 +1,11 @@
 """ec — the erasure-coding pipeline: RS(10,4) striping of volumes into 14
 shard files with the two-level block layout (1GB large rows, 1MB small
 rows), rebuild of lost shards (from local shard files or streamed from an
-ec.gather source), single-lost-shard trace and plane repair, and decode
-back to a volume, with the GF(2^8) compute routed through ops.get_codec.
+ec.gather source), single-lost-shard trace and plane repair, decode back
+to a volume, needle reads of a mounted EC volume (EcVolume) with
+reconstruct-on-read of a lost shard (DegradedReadEngine), and the
+syndrome scrub (ScrubEngine), with the GF(2^8) compute routed through
+ops.get_codec.
 """
 
 from .constants import (  # noqa: F401
@@ -19,3 +22,9 @@ from .encoder import (rebuild_ec_files,  # noqa: F401
 from .gather import (GatherStats, LocalPlaneReader,  # noqa: F401
                      LocalRepairReader, LocalShardReader, PlaneGatherSource,
                      RepairGatherSource, StripedGatherSource)
+from .degraded import DegradedReadEngine, SlabCache  # noqa: F401
+from .ec_volume import (EcShardNotFound, EcVolume,  # noqa: F401
+                        EcVolumeShard)
+from .locate import Interval, locate_data  # noqa: F401
+from .scrub import ScrubEngine, locate_corrupt_shard  # noqa: F401
+from .shard_cache import EcShardLocationCache  # noqa: F401

@@ -418,9 +418,10 @@ def rebuild_ec_files(base_name: str,
         return rebuild_ec_files_streaming_piggyback(
             base_name, present, missing, source, layout, codec=codec,
             stats=stats)
-    return rebuild_ec_files_streaming(base_name, present, missing, source,
-                                      codec=codec, slab=slab,
-                                      pipelined=pipelined, stats=stats)
+    # the sync local rebuild multiplies as the JAX package's
+    # codec.reconstruct does: stripes below the crossover on the host
+    return _rebuild_flat_stream(base_name, present, missing, source, codec,
+                                slab, pipelined, stats, crossover=True)
 
 
 def rebuild_ec_files_streaming(base_name: str,
@@ -446,6 +447,16 @@ def rebuild_ec_files_streaming(base_name: str,
     (``gather_*``, ``peak_gather_buffer``), survivor/rebuilt bytes,
     stream_s, backend, phases and the overlap of gather and compute
     (``gather_busy_s``, ``compute_busy_s``, ``overlap_frac``)."""
+    return _rebuild_flat_stream(base_name, present, missing, source, codec,
+                                slab, pipelined, stats, crossover=False)
+
+
+def _rebuild_flat_stream(base_name, present, missing, source, codec, slab,
+                         pipelined, stats, crossover: bool) -> List[int]:
+    """The flat streaming rebuild. Sync, each stripe is one
+    ``codec._matmul``, or with ``crossover`` one
+    ``codec.crossover_matmul`` (host_matmul below small_dispatch_bytes,
+    counted as a host_fallback)."""
     codec = codec or get_codec(DATA_SHARDS, PARITY_SHARDS)
     k, total = codec.k, codec.total
     if pipelined is None:
@@ -465,8 +476,9 @@ def rebuild_ec_files_streaming(base_name: str,
                              timer=timer, pieces=True)
         stream = pm.stream(source.slabs())
     else:
+        multiply = codec.crossover_matmul if crossover else codec._matmul
         stream = _sync_stream(
-            source.slabs(), lambda data: [(0, codec._matmul(coeffs, data))],
+            source.slabs(), lambda data: [(0, multiply(coeffs, data))],
             timer)
     rebuilt_bytes = 0
     # closing: a consumer-side failure must stop the producer and the pull

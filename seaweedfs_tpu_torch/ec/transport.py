@@ -103,6 +103,15 @@ class LocalShardReader:
         return data
 
 
+def remote_only(vid: int, sid: int, holders) -> NotImplementedError:
+    """The error for a shard that only remote holders have. The port has
+    no remote reader yet; such a shard is neither missing nor read some
+    other way."""
+    return NotImplementedError(
+        f"volume {vid} shard {sid} is held only by remote holders "
+        f"{list(holders)}, and the port has no remote shard reader")
+
+
 class StripedPull:
     """The pull pump: ``slabs()`` yields ``((idx, off, w), block)``
     stripes in strict order, fetching up to ``window`` stripes ahead

@@ -224,15 +224,22 @@ class ReedSolomonCodec:
             return shards
         survivors = np.stack([np.asarray(shards[i], dtype=np.uint8)
                               for i in src], axis=0)
-        if self.small_dispatch_bytes and \
-                survivors.shape[1] < self.small_dispatch_bytes:
-            STATS.add("host_fallbacks")
-            out = host_matmul(coeffs, survivors)
-        else:
-            out = self._matmul(coeffs, survivors)
+        out = self.crossover_matmul(coeffs, survivors)
         for r, i in enumerate(missing):
             shards[i] = out[r]
         return shards
+
+    def crossover_matmul(self, coeffs: np.ndarray,
+                         data: np.ndarray) -> np.ndarray:
+        """coeffs @ data through the host/device crossover: widths below
+        small_dispatch_bytes run host_matmul and count a host_fallback,
+        wider ones take _matmul. reconstruct() and the sync flat rebuild
+        multiply through it."""
+        if self.small_dispatch_bytes and \
+                data.shape[1] < self.small_dispatch_bytes:
+            STATS.add("host_fallbacks")
+            return host_matmul(coeffs, data)
+        return self._matmul(coeffs, data)
 
     def verify(self, shards: Sequence[np.ndarray]) -> bool:
         """True iff parity rows match the data rows."""
@@ -263,6 +270,15 @@ class NumpyCodec(ReedSolomonCodec):
 
     def _matmul(self, coeffs: np.ndarray, data: np.ndarray) -> np.ndarray:
         return host_matmul(coeffs, data)
+
+
+def dispatch_threshold(codec) -> int:
+    """Host/device crossover width of a codec's batched products (the
+    degraded reads and the scrub): its small_dispatch_bytes, so a
+    host-only codec (0) never delegates to the device. The JAX package's
+    tuner override has no counterpart; the port reads no knob from the
+    environment."""
+    return codec.small_dispatch_bytes
 
 
 def get_codec(data_shards: int, parity_shards: int,

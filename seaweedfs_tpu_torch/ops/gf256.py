@@ -62,6 +62,14 @@ INV_TABLE = np.zeros(256, dtype=np.uint8)
 INV_TABLE[1:] = EXP_TABLE[255 - LOG_TABLE[np.arange(1, 256)]]
 
 
+def gf_div(a: int, b: int) -> int:
+    if b == 0:
+        raise ZeroDivisionError("GF(2^8) division by zero")
+    if a == 0:
+        return 0
+    return int(EXP_TABLE[(LOG_TABLE[a] - LOG_TABLE[b]) % 255])
+
+
 def gf_pow(a: int, n: int) -> int:
     """a**n in GF(2^8). 0**0 == 1 (matches the reference dependency)."""
     if n == 0:

@@ -21,6 +21,7 @@ OFFSET_SIZE_5 = 5
 SIZE_SIZE = 4
 COOKIE_SIZE = 4
 NEEDLE_HEADER_SIZE = COOKIE_SIZE + NEEDLE_ID_SIZE + SIZE_SIZE  # 16
+NEEDLE_ENTRY_SIZE = NEEDLE_ID_SIZE + OFFSET_SIZE + SIZE_SIZE   # 16
 NEEDLE_PADDING_SIZE = 8
 NEEDLE_CHECKSUM_SIZE = 4
 TIMESTAMP_SIZE = 8
@@ -37,6 +38,10 @@ def entry_size(offset_width: int = OFFSET_SIZE) -> int:
 
 def bytes_to_needle_id(b: bytes) -> int:
     return struct.unpack(">Q", b[:8])[0]
+
+
+def needle_id_to_bytes(nid: int) -> bytes:
+    return struct.pack(">Q", nid)
 
 
 def entry_to_bytes(nid: int, offset: int, size: int,

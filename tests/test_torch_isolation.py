@@ -1,8 +1,8 @@
 """The port stands alone: nothing under seaweedfs_tpu_torch/, and not
 chip_smoke.py, imports jax or the JAX package, and the port encodes and
 rebuilds (from local files and streamed), trace-repairs, plane-repairs
-and decodes, on the flat and the piggyback layout, with both made
-unimportable."""
+and decodes, on the flat and the piggyback layout, and serves a needle
+through a lost shard and scrubs, with both made unimportable."""
 
 import ast
 import os
@@ -51,6 +51,11 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/ec/gather.py",
                  "seaweedfs_tpu_torch/ec/transport.py",
                  "seaweedfs_tpu_torch/ec/layout.py",
+                 "seaweedfs_tpu_torch/ec/degraded.py",
+                 "seaweedfs_tpu_torch/ec/scrub.py",
+                 "seaweedfs_tpu_torch/ec/ec_volume.py",
+                 "seaweedfs_tpu_torch/ec/locate.py",
+                 "seaweedfs_tpu_torch/ec/shard_cache.py",
                  "seaweedfs_tpu_torch/storage/needle.py",
                  "seaweedfs_tpu_torch/tools/kernel_exp.py", "chip_smoke.py"):
         assert want in names
@@ -148,6 +153,75 @@ def test_port_runs_with_jax_unimportable(tmp_path):
                                          slab=source.slab) == [3]
         assert [open(base + to_ext(i), "rb").read() for i in range(14)] == pb
         from seaweedfs_tpu_torch.tools import kernel_exp  # noqa: F401
+        assert gf_matmul.launches == 0
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_degraded_read_and_scrub_with_jax_unimportable(tmp_path):
+    """A needle GET through a lost shard (EcVolume + DegradedReadEngine)
+    and a scrub that finds a flipped byte, on the port's plain version."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from seaweedfs_tpu_torch.ec import (DegradedReadEngine, EcVolume,
+                                            ScrubEngine, to_ext,
+                                            write_ec_files,
+                                            write_sorted_file_from_idx)
+        from seaweedfs_tpu_torch.ops import TorchCodec, gf_matmul
+        from seaweedfs_tpu_torch.storage import SuperBlock, entry_to_bytes
+        base = {str(tmp_path / "1")!r}
+        rng = np.random.default_rng(0)
+        dat = SuperBlock().to_bytes() + rng.bytes((2 << 20) - 8)
+        open(base + ".dat", "wb").write(dat)
+        nid, off, size = 77, (1 << 20) + 8, 300_000
+        open(base + ".idx", "wb").write(entry_to_bytes(nid, off, size))
+        write_sorted_file_from_idx(base)
+        codec = TorchCodec(10, 4, device="cpu")
+        write_ec_files(base, codec=codec)
+        os.remove(base + to_ext(1))
+        ev = EcVolume({str(tmp_path)!r}, "", 1)
+        for sid in range(14):
+            if sid != 1:
+                ev.add_shard(sid)
+
+        class Store:
+            locations = [type("Loc", (), {{"ec_volumes": {{1: ev}}}})]
+
+            def find_ec_volume(self, vid):
+                return ev
+
+        eng = DegradedReadEngine(Store(), lambda vid: {{}}, lambda: codec)
+        blob = ev.read_needle_blob(nid, reconstruct_fetch=eng.read)
+        assert blob == dat[off:off + len(blob)] and len(blob) > size
+        assert eng.snapshot()["device_dispatches"] == 1
+        # the shard rebuilt and mounted again; a flipped parity byte
+        from seaweedfs_tpu_torch.ec import rebuild_ec_files
+        assert rebuild_ec_files(base, codec=codec) == [1]
+        ev.add_shard(1)
+        eng.invalidate(1)
+        with open(base + to_ext(12), "r+b") as f:
+            f.seek(5)
+            b = f.read(1)[0]
+            f.seek(5)
+            f.write(bytes([b ^ 1]))
+        scrub = ScrubEngine(Store(), lambda vid: {{}}, lambda: codec,
+                            lambda: "me", rate_mbps=0)
+        res = scrub.scrub_volume(1, force=True)
+        assert res["corrupt_shards"] == [12] and res["corrupt_slabs"] == [0]
+        assert res["path"] == "device"
+        eng.close()
         assert gf_matmul.launches == 0
         assert not any(m.split(".")[0] in {FORBIDDEN!r}
                        for m, v in sys.modules.items() if v is not None)
