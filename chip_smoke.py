@@ -115,8 +115,32 @@
    flipped, which must report exactly that slab and that shard; the
    byte is put back and the shard's sha256 checked.
 
+11. EC repair over the network, on the same volume: after the flat
+   scrub, three holder processes (python3 -m
+   seaweedfs_tpu_torch.server.volume_server) on 127.0.0.1 over
+   directories of hard links to the .ecx, .vif and shards (A 0-4, B 5-9
+   plus 0 and 1, C 10-13), and the rebuilder a Store over an empty
+   directory (codec TorchCodec on the card), which fetches the index
+   sidecars over /admin/file. Net trace repair of the seeded lost shard
+   with -repair auto (the trace route, exactly the plan's symbol bytes
+   over HTTP: 0.6875 of k x shard for shard 10); a net full rebuild of
+   the streaming leg's seeded 4 (-repair auto falls back, with its
+   reason, to the full streaming decode: k x shard over HTTP); net
+   degraded GETs with every survivor remote (an EcVolume over a
+   directory with only the .ecx and .vif, the location map listing no
+   holder for data shard 1, NET_GETS GETs from 4 threads and a 16 MiB
+   read, each held against the .dat and the shard); a net scrub with
+   shard 0 local and 1-13 on the holders (a flipped byte of a seeded
+   remote shard found in its slab and shard). After the piggyback scrub,
+   holders over the piggyback shards and a net plane repair of the
+   seeded coupled data shard (exactly 0.55 of k x shard over HTTP). Each
+   rebuilt shard must be sha256-identical, and each rebuild's fetches
+   per holder exactly what rotation by stripe gives (so both holders of
+   shards 0 and 1 served them), with no retry. The holders are stopped
+   in a finally; one that does not start fails the run.
+
 Every leg runs with the kernel's launch counter set to 0 just before it
-and read just after; a leg of steps 5-8 and 10 whose launches differ
+and read just after; a leg of steps 5-8, 10 and 11 whose launches differ
 from its dispatches, or that launched nothing, fails the smoke.
 
 Prints the card line (nvidia-smi name, power limit), then a JSON line
@@ -133,6 +157,7 @@ import itertools
 import json
 import math
 import os
+import select
 import shutil
 import subprocess
 import sys
@@ -159,6 +184,11 @@ DEGRADED_SLAB = 128 << 10   # ec.degraded.SLAB_BYTES
 DEGRADED_WIDE = 16 << 20    # the wide range read of a lost shard
 DEGRADED_GETS = 48          # needle GETs through a lost shard, per layout
 DEGRADED_THREADS = 4        # GET reader threads
+NET_HOLDS = {"A": range(0, 5), "B": (0, 1, 5, 6, 7, 8, 9),
+             "C": range(10, 14)}  # the holders' shards; 0, 1 on two
+NET_LOST = 1                # the net degraded leg's lost data shard
+NET_GETS = DEGRADED_GETS    # needle GETs of the net degraded leg
+HOLDER_START_S = 60.0       # a holder prints its port within this
 #: K1's widths on the degraded legs: a flat needle batch (1 MiB of a
 #: needle in 8 slabs + 1 readahead slab), the flat wide read (16 MiB + 1
 #: readahead slab) and the piggyback wide read (its 17 windows over 32)
@@ -1006,72 +1036,81 @@ def _pct(xs, q):
 
 
 def degraded_leg(np, port, dev, base, res, lost, seed, label):
-    """Needle GETs through a lost data shard on the mounted volume, from
-    DEGRADED_THREADS threads (EcVolume.read_needle_blob with the engine's
-    read as its reconstruct fetch), each blob held against the .dat, then
-    one DEGRADED_WIDE read of the lost shard with the slab cache emptied.
-    The shard is moved aside for the leg and back after it."""
-    ec, ops, storage = port
-    from seaweedfs_tpu_torch.storage.needle import get_actual_size
-    k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
+    """Needle GETs through a lost data shard on the mounted volume, every
+    survivor local; the shard is moved aside for the leg and back after
+    it (_serve_degraded)."""
+    ec, ops, _ = port
     path = base + ec.to_ext(lost)
     ev = _mount(ec, base, skip=(lost,))
     os.rename(path, path + ".lost")
-    codec = ops.get_codec(k, m, device=dev)
+    codec = ops.get_codec(ec.DATA_SHARDS, ec.PARITY_SHARDS, device=dev)
     eng = ec.DegradedReadEngine(_Store(ev), lambda vid: {}, lambda: codec)
-    start = ops.gf_matmul.launches
     try:
-        rec = storage.entry_size()
-        with open(base + ".ecx", "rb") as f:
-            ecx = f.read()
-        nids = [int.from_bytes(ecx[i:i + 8], "big")
-                for i in range(0, len(ecx) // rec * rec, rec)]
-        touching = [nid for nid in nids
-                    if any(iv.to_shard_id_and_offset(
-                        ec.LARGE_BLOCK_SIZE, ec.SMALL_BLOCK_SIZE)[0] == lost
-                        for iv in ev.locate_needle(nid)[2])]
-        rng = np.random.default_rng(seed)
-        picks = [touching[i] for i in rng.permutation(len(touching))[
-            :DEGRADED_GETS]]
-        if len(picks) < min(32, DEGRADED_GETS):
-            raise AssertionError(f"{label}: only {len(picks)} needles touch "
-                                 f"shard {lost}")
-
-        def get(nid):
-            t0 = time.perf_counter()
-            blob = ev.read_needle_blob(nid, reconstruct_fetch=eng.read)
-            secs = time.perf_counter() - t0
-            off, size, _ = ev.locate_needle(nid)
-            with open(base + ".dat", "rb") as f:
-                f.seek(off)
-                want = f.read(get_actual_size(size, ev.version))
-            if blob != want:
-                raise AssertionError(f"{label}: needle {nid:#x} differs from "
-                                     f"the .dat at {off}")
-            return secs, len(blob)
-
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(DEGRADED_THREADS) as pool:
-            got = list(pool.map(get, picks))
-        gets_s = time.perf_counter() - t0
-        lat = [secs * 1e3 for secs, _ in got]
-        gets = eng.snapshot()
-        eng.invalidate(1)
-        off = int(rng.integers(0, (res["shard_size"] - DEGRADED_WIDE)
-                               // (1 << 20))) << 20
-        t0 = time.perf_counter()
-        wide = eng.read(1, lost, off, DEGRADED_WIDE)
-        wide_s = time.perf_counter() - t0
-        with open(path + ".lost", "rb") as f:
-            f.seek(off)
-            if wide != f.read(DEGRADED_WIDE):
-                raise AssertionError(f"{label}: wide read at {off} differs "
-                                     f"from shard {lost}")
-        snap = eng.snapshot()
+        return _serve_degraded(np, port, base, res, ev, eng, lost,
+                               path + ".lost", seed, label)
     finally:
         os.rename(path + ".lost", path)
         ev.close()
         eng.close()
+
+
+def _serve_degraded(np, port, base, res, ev, eng, lost, truth, seed, label,
+                    gets=DEGRADED_GETS):
+    """``gets`` needle GETs whose intervals touch the lost shard, from
+    DEGRADED_THREADS threads (EcVolume.read_needle_blob with the engine's
+    read as its reconstruct fetch; a needle here never spans two small
+    blocks, so it touches no other shard), each blob held against the
+    .dat, then one DEGRADED_WIDE read of the lost shard with the slab
+    cache emptied, held against ``truth`` (the shard's bytes)."""
+    ec, ops, storage = port
+    from seaweedfs_tpu_torch.storage.needle import get_actual_size
+    start = ops.gf_matmul.launches
+    rec = storage.entry_size()
+    with open(base + ".ecx", "rb") as f:
+        ecx = f.read()
+    nids = [int.from_bytes(ecx[i:i + 8], "big")
+            for i in range(0, len(ecx) // rec * rec, rec)]
+    touching = [nid for nid in nids
+                if any(iv.to_shard_id_and_offset(
+                    ec.LARGE_BLOCK_SIZE, ec.SMALL_BLOCK_SIZE)[0] == lost
+                    for iv in ev.locate_needle(nid)[2])]
+    rng = np.random.default_rng(seed)
+    picks = [touching[i] for i in rng.permutation(len(touching))[:gets]]
+    if len(picks) < min(32, gets):
+        raise AssertionError(f"{label}: only {len(picks)} needles touch "
+                             f"shard {lost}")
+
+    def get(nid):
+        t0 = time.perf_counter()
+        blob = ev.read_needle_blob(nid, reconstruct_fetch=eng.read)
+        secs = time.perf_counter() - t0
+        off, size, _ = ev.locate_needle(nid)
+        with open(base + ".dat", "rb") as f:
+            f.seek(off)
+            want = f.read(get_actual_size(size, ev.version))
+        if blob != want:
+            raise AssertionError(f"{label}: needle {nid:#x} differs from "
+                                 f"the .dat at {off}")
+        return secs, len(blob)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(DEGRADED_THREADS) as pool:
+        got = list(pool.map(get, picks))
+    gets_s = time.perf_counter() - t0
+    lat = [secs * 1e3 for secs, _ in got]
+    first = eng.snapshot()
+    eng.invalidate(1)
+    off = int(rng.integers(0, (res["shard_size"] - DEGRADED_WIDE)
+                           // (1 << 20))) << 20
+    t0 = time.perf_counter()
+    wide = eng.read(1, lost, off, DEGRADED_WIDE)
+    wide_s = time.perf_counter() - t0
+    with open(truth, "rb") as f:
+        f.seek(off)
+        if wide != f.read(DEGRADED_WIDE):
+            raise AssertionError(f"{label}: wide read at {off} differs "
+                                 f"from shard {lost}")
+    snap = eng.snapshot()
     launches = ops.gf_matmul.launches - start
     if launches != snap["device_dispatches"] or launches < 1 or \
             snap["errors"]:
@@ -1079,12 +1118,13 @@ def degraded_leg(np, port, dev, base, res, lost, seed, label):
                              f"{snap['device_dispatches']} device "
                              f"dispatches, {snap['errors']} errors")
     keys = ("batches", "host_dispatches", "device_dispatches",
-            "cache_hit_ratio", "survivor_bytes")
+            "cache_hit_ratio", "survivor_fetches", "survivor_bytes",
+            "remote_bytes", "retries")
     print(f"{label}: lost shard {lost}, {len(picks)} needle GETs from "
           f"{DEGRADED_THREADS} threads in {gets_s:.3f} s, p50 "
           f"{_pct(lat, 0.5):.3f} ms, p99 {_pct(lat, 0.99):.3f} ms, "
           f"{sum(n for _, n in got)} B, every blob = the .dat's bytes; "
-          f"{json.dumps({key: gets[key] for key in keys})}; wide read "
+          f"{json.dumps({key: first[key] for key in keys})}; wide read "
           f"{DEGRADED_WIDE} B at {off} in {wide_s:.3f} s "
           f"({DEGRADED_WIDE / wide_s / 1e6:.1f} MB/s) = the shard's bytes; "
           f"after both {json.dumps({key: snap[key] for key in keys})}, "
@@ -1096,10 +1136,9 @@ def degraded_leg(np, port, dev, base, res, lost, seed, label):
 
 
 def scrub_leg(np, port, dev, base, res, shas, seed, label):
-    """A clean scrub pass of the mounted volume, then a pass with one
-    seeded byte of a seeded shard flipped, which must be found in its
-    slab and attributed to its shard; the byte is put back and the
-    shard's sha256 checked."""
+    """A clean scrub pass of the mounted volume, every shard local, then
+    a pass with one seeded byte of a seeded shard flipped
+    (_scrub_drill)."""
     ec, ops, _ = port
     k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
     ev = _mount(ec, base)
@@ -1109,19 +1148,31 @@ def scrub_leg(np, port, dev, base, res, shas, seed, label):
     rng = np.random.default_rng(seed)
     sid = int(rng.integers(0, k + m))
     off = int(rng.integers(0, res["shard_size"]))
-    start = ops.gf_matmul.launches
-    passes = []
     try:
-        for flip in (False, True):
-            if flip:
-                _flip_byte(base + ec.to_ext(sid), off)
-            try:
-                passes.append(eng.scrub_volume(1, force=True))
-            finally:
-                if flip:
-                    _flip_byte(base + ec.to_ext(sid), off)
+        return _scrub_drill(port, base, res, shas, eng, sid, off,
+                            [base + ec.to_ext(sid)], label)
     finally:
         ev.close()
+
+
+def _scrub_drill(port, base, res, shas, eng, sid, off, paths, label):
+    """A clean pass, then a pass with byte ``off`` of shard ``sid``
+    flipped in each of ``paths`` (its copies), which must be found in its
+    slab and attributed to its shard; the byte is put back and the
+    shard's sha256 checked."""
+    ec, ops, _ = port
+    start = ops.gf_matmul.launches
+    passes = []
+    for flip in (False, True):
+        if flip:
+            for path in paths:
+                _flip_byte(path, off)
+        try:
+            passes.append(eng.scrub_volume(1, force=True))
+        finally:
+            if flip:
+                for path in paths:
+                    _flip_byte(path, off)
     clean, found = passes
     n_slabs = -(-res["shard_size"] // SCRUB_N)
     if not clean["clean"] or clean["slabs"] != n_slabs or \
@@ -1146,9 +1197,9 @@ def scrub_leg(np, port, dev, base, res, shas, seed, label):
           f" shards {found['corrupt_shards']}, "
           f"{found['corrupt_columns']} column, in {found['seconds']:.3f} s; "
           f"put back, sha256-identical; {launches} launches = device "
-          f"dispatches")
+          f"dispatches; remote bytes {snap['remote_bytes']}")
     return {"clean": clean, "found": found, "sid": sid, "off": off,
-            "mb_s": clean["bytes"] / clean["seconds"] / 1e6}
+            "mb_s": clean["bytes"] / clean["seconds"] / 1e6, "stats": snap}
 
 
 def _flip_byte(path, off):
@@ -1206,6 +1257,282 @@ def decode_leg(np, port, base, res, seed):
           f"records ({len(ecx) - len(aligned)} tag byte dropped) + 2 "
           f"tombstones")
     return {"secs": secs, "dat_s": dat_s, "dat_size": size}
+
+
+class Holders:
+    """Three holder processes (``python3 -m
+    seaweedfs_tpu_torch.server.volume_server``) on 127.0.0.1, each over a
+    directory of hard links (copies where a link fails) to the volume's
+    .ecx, .vif and the shards NET_HOLDS gives it. Separate processes, so
+    the rebuilder's GIL is not theirs. A holder that does not print its
+    port within HOLDER_START_S, or exits, fails the run."""
+
+    def __init__(self, base, work, label, total):
+        self.base = base
+        self.work = work
+        self.label = label
+        self.total = total
+        self.procs, self.urls, self.dirs = {}, {}, {}
+
+    def start(self):
+        for name, sids in NET_HOLDS.items():
+            d = os.path.join(self.work, f"holder-{self.label}-{name}")
+            os.makedirs(d)
+            exts = [".ecx", ".vif"] + [f".ec{sid:02d}" for sid in sids]
+            for ext in exts:
+                src = self.base + ext
+                if not os.path.exists(src):
+                    continue
+                dst = os.path.join(d, os.path.basename(src))
+                try:
+                    os.link(src, dst)
+                except OSError:
+                    shutil.copyfile(src, dst)
+            self.dirs[name] = d
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, "-m",
+                 "seaweedfs_tpu_torch.server.volume_server", "--dir", d],
+                cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=open(d + ".log", "wb"), text=True)
+        deadline = time.monotonic() + HOLDER_START_S
+        for name, proc in self.procs.items():
+            line = ""
+            while not line and time.monotonic() < deadline:
+                ready, _, _ = select.select([proc.stdout], [], [], 0.5)
+                if ready:
+                    line = proc.stdout.readline()
+                    if not line:
+                        break
+            if not line.startswith("listening "):
+                with open(self.dirs[name] + ".log", "rb") as f:
+                    err = f.read()[-2000:].decode("utf-8", "replace")
+                raise AssertionError(f"holder {name} did not start "
+                                     f"(exit {proc.poll()}): {err}")
+            self.urls[name] = line.split()[1]
+        print(f"holders {self.label}: " + ", ".join(
+            f"{name} {self.urls[name]} shards {list(NET_HOLDS[name])}"
+            for name in NET_HOLDS))
+        return self
+
+    def stop(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in self.procs.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        for d in self.dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+
+    def sources(self, lost=()):
+        """{sid: [holder urls]} of every shard not in ``lost``."""
+        return {sid: [self.urls[name] for name, sids in NET_HOLDS.items()
+                      if sid in sids]
+                for sid in range(self.total) if sid not in lost}
+
+    def names(self, by_url):
+        return {name: by_url.get(url, 0) for name, url in self.urls.items()}
+
+    def copies(self, sid):
+        """Every file of shard ``sid`` under the holders, the volume's own
+        included, one path per inode."""
+        seen, out = set(), []
+        for path in [self.base + f".ec{sid:02d}"] + [
+                os.path.join(d, os.path.basename(self.base) + f".ec{sid:02d}")
+                for d in self.dirs.values()]:
+            if os.path.exists(path):
+                ino = os.stat(path).st_ino
+                if ino not in seen:
+                    seen.add(ino)
+                    out.append(path)
+        return out
+
+
+def _rotation_fetches(sources, sids, stripes):
+    """{holder url: fetches} that rotation by stripe gives when ``sids``
+    are each read ``stripes`` times from their holders: stripe i of a
+    shard leads with holder i % len(holders)."""
+    out = {}
+    for sid in sids:
+        urls = sources[sid]
+        for i in range(stripes):
+            out[urls[i % len(urls)]] = out.get(urls[i % len(urls)], 0) + 1
+    return out
+
+
+def _net_store(port, work):
+    """The rebuilder: a Store over an empty directory, its codec the
+    default (TorchCodec on the card)."""
+    from seaweedfs_tpu_torch.storage.store import Store
+    d = os.path.join(work, "rebuilder")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return Store([d]), os.path.join(d, "1")
+
+
+def _net_leg(port, holders, work, lost, shas, label, read_sids, want_mode,
+             want_frac=None):
+    """One network rebuild of ``lost`` through the Store with ``-repair
+    auto`` and sources for every survivor: every rebuilt shard
+    sha256-identical, the route taken, the remote bytes, and the fetches
+    per holder exactly what rotation gives (so both holders of shards 0
+    and 1 served them)."""
+    ec, ops, _ = port
+    store, rbase = _net_store(port, work)
+    sources = holders.sources(lost)
+    st = {}
+    start = ops.gf_matmul.launches
+    t0 = time.perf_counter()
+    got = store.rebuild_ec_shards_streaming(1, sources=sources, stats=st,
+                                            repair="auto")
+    secs = time.perf_counter() - t0
+    launches = ops.gf_matmul.launches - start
+    if got != list(lost):
+        raise AssertionError(f"{label}: rebuilt {got}, lost {lost}")
+    for sid in lost:
+        if _sha(rbase + ec.to_ext(sid)) != shas[sid]:
+            raise AssertionError(f"{label}: shard {sid} differs")
+    if st["repair_mode"] != want_mode or (
+            want_frac is not None and st["repair_bytes_frac"] != want_frac):
+        raise AssertionError(f"{label}: route {st['repair_mode']} "
+                             f"({st.get('repair_bytes_frac')}), want "
+                             f"{want_mode} ({want_frac})")
+    want = _rotation_fetches(sources, read_sids, st["gather_stripes"])
+    if st["holder_fetches"] != want or st["gather_retries"] or \
+            st["holder_errors"] or st["gather_remote_shards"] != \
+            len(read_sids) or launches != st["dispatches"]:
+        raise AssertionError(f"{label}: holder fetches "
+                             f"{st['holder_fetches']} (want {want}), "
+                             f"retries {st['gather_retries']}, errors "
+                             f"{st['holder_errors']}, {launches} launches "
+                             f"for {st['dispatches']} dispatches")
+    moved = st["gather_remote_bytes"]
+    shard_size = os.path.getsize(rbase + ec.to_ext(lost[0]))
+    print(f"{label}: {secs:.2f} s, {moved / secs / 1e6:.1f} MB/s of "
+          f"{moved} B over HTTP ({ec.DATA_SHARDS * shard_size / secs / 1e6:.1f}"
+          f" MB/s of the k x shard baseline), route {st['repair_mode']}"
+          + (f" (fallback: {st['repair_fallback']})"
+             if "repair_fallback" in st else "")
+          + f", phases {st['phases']}, gather busy {st['gather_busy_s']} s, "
+          f"overlap {st['overlap_frac']}, {st['gather_fetches']} fetches, "
+          f"{st['gather_retries']} retries, fetches by holder "
+          f"{json.dumps(holders.names(st['holder_fetches']))}, "
+          f"{launches} launches = dispatches — shards sha256-identical")
+    return {"secs": secs, "stats": st, "launches": launches}
+
+
+def net_trace_leg(np, port, holders, work, res, plan):
+    """Trace repair of plan.lost from the holders: exactly the plan's
+    symbol bytes cross the wire, 0.6875 of k x shard for shard 10."""
+    ec, _, _ = port
+    out = _net_leg(port, holders, work, (plan.lost,), res["shas"],
+                   f"net trace repair shard {plan.lost}", plan.helpers,
+                   "trace", round(plan.frac, 4))
+    size = res["shard_size"]
+    symbols = plan.total_bits * sum((min(MAIN_N, size - off) + 7) // 8
+                                    for off in range(0, size, MAIN_N))
+    if out["stats"]["gather_remote_bytes"] != symbols or \
+            out["stats"]["repair_bytes_frac"] != 0.6875:
+        raise AssertionError(f"net trace repair moved "
+                             f"{out['stats']['gather_remote_bytes']} B, "
+                             f"want the plan's {symbols} (0.6875)")
+    return out
+
+
+def net_full_leg(np, port, holders, work, res, seed):
+    """The seeded 4 of the streaming leg lost: -repair auto falls back to
+    the full streaming decode, k x shard over the wire."""
+    ec, _, _ = port
+    lost = _seeded4(np, seed + 23, ec.TOTAL_SHARDS)
+    src = [i for i in range(ec.TOTAL_SHARDS) if i not in lost][
+        :ec.DATA_SHARDS]
+    out = _net_leg(port, holders, work, lost, res["shas"],
+                   f"net full rebuild {lost}", src, "full")
+    st = out["stats"]
+    if st["repair_fallback"] != "4 shards lost, trace repairs one" or \
+            st["gather_remote_bytes"] != ec.DATA_SHARDS * res["shard_size"]:
+        raise AssertionError(f"net full rebuild: fallback "
+                             f"{st.get('repair_fallback')!r}, remote "
+                             f"{st['gather_remote_bytes']} B")
+    return out
+
+
+def net_plane_leg(np, port, holders, work, res, pb, rplan):
+    """Plane repair of the coupled data shard rplan.lost from the
+    holders: exactly 0.55 of k x shard over the wire."""
+    out = _net_leg(port, holders, work, (rplan.lost,), pb["shas"],
+                   f"net plane repair shard {rplan.lost}", rplan.helpers,
+                   "piggyback", 0.55)
+    if out["stats"]["gather_remote_bytes"] != \
+            len(rplan.helpers) * res["shard_size"] // 2:
+        raise AssertionError("net plane repair moved "
+                             f"{out['stats']['gather_remote_bytes']} B")
+    return out
+
+
+def net_degraded_leg(np, port, dev, holders, work, base, res, seed, label):
+    """Degraded GETs with every survivor remote: an EcVolume over a
+    directory holding only the .ecx and .vif, sized by a probe of a
+    holder; the location map lists no holder for data shard NET_LOST, so
+    its intervals are reconstructed from survivors pulled over HTTP."""
+    ec, ops, _ = port
+    from seaweedfs_tpu_torch.ec import gather
+    d = os.path.join(work, "net-volume")
+    os.makedirs(d)
+    for ext in (".ecx", ".vif"):
+        if os.path.exists(base + ext):
+            shutil.copyfile(base + ext, os.path.join(d, "1" + ext))
+    locs = holders.sources((NET_LOST,))
+    sizes = gather.ShardSizeCache()
+    ev = ec.EcVolume(d, "", 1, shard_size=sizes.get(1, 0, locs[0]))
+    codec = ops.get_codec(ec.DATA_SHARDS, ec.PARITY_SHARDS, device=dev)
+    eng = ec.DegradedReadEngine(_Store(ev), lambda vid: locs, lambda: codec,
+                                self_url="smoke")
+    try:
+        out = _serve_degraded(np, port, base, res, ev, eng, NET_LOST,
+                              base + ec.to_ext(NET_LOST), seed, label,
+                              gets=NET_GETS)
+    finally:
+        ev.close()
+        eng.close()
+        shutil.rmtree(d, ignore_errors=True)
+    snap = out["stats"]
+    if snap["remote_bytes"] != snap["survivor_bytes"] or \
+            snap["retries"] or sizes.probes != 1:
+        raise AssertionError(f"{label}: remote {snap['remote_bytes']} of "
+                             f"{snap['survivor_bytes']} survivor bytes, "
+                             f"{snap['retries']} retries")
+    return out
+
+
+def net_scrub_leg(np, port, dev, holders, base, res, seed, label):
+    """The scrub with survivors remote: the scrubber holds shard 0 (so it
+    owns the volume) and reads 1-13 from the holders; the flipped byte
+    lies in a seeded remote shard, flipped in every copy of it."""
+    ec, ops, _ = port
+    k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
+    ev = _mount(ec, base, skip=range(1, k + m))
+    codec = ops.get_codec(k, m, device=dev)
+    locs = holders.sources()
+    eng = ec.ScrubEngine(_Store(ev), lambda vid: locs, lambda: codec,
+                         lambda: "smoke", rate_mbps=0)
+    rng = np.random.default_rng(seed)
+    sid = int(rng.integers(1, k + m))
+    off = int(rng.integers(0, res["shard_size"]))
+    try:
+        out = _scrub_drill(port, base, res, res["shas"], eng, sid, off,
+                           holders.copies(sid), label)
+    finally:
+        ev.close()
+    want = 2 * (k + m - 1) * res["shard_size"]
+    if out["stats"]["remote_bytes"] != want:
+        raise AssertionError(f"{label}: remote bytes "
+                             f"{out['stats']['remote_bytes']}, want {want}")
+    return out
 
 
 def card_line() -> str:
@@ -1324,6 +1651,20 @@ def run(args) -> int:
               degraded_lost, args.seed + 41, "degraded flat")
         drive("scrub flat", scrub_leg, np, port, dev, base, res, res["shas"],
               args.seed + 43, "scrub flat")
+        holders = Holders(base, work, "flat", ec.TOTAL_SHARDS)
+        try:
+            holders.start()
+            drive("net trace repair", net_trace_leg, np, port, holders, work,
+                  res, trace_plan)
+            drive("net full rebuild", net_full_leg, np, port, holders, work,
+                  res, args.seed)
+            drive("net degraded flat", net_degraded_leg, np, port, dev,
+                  holders, work, base, res, args.seed + 41,
+                  "net degraded flat")
+            drive("net scrub flat", net_scrub_leg, np, port, dev, holders,
+                  base, res, args.seed + 59, "net scrub flat")
+        finally:
+            holders.stop()
         pb = drive("piggyback", piggyback_leg, np, port, dev, base, res,
                    args.seed)
         drive("plane repair", plane_repair_leg, np, port, dev, base, res, pb,
@@ -1334,6 +1675,13 @@ def run(args) -> int:
               degraded_lost, args.seed + 47, "degraded piggyback")
         drive("scrub piggyback", scrub_leg, np, port, dev, base, res,
               pb["shas"], args.seed + 53, "scrub piggyback")
+        holders = Holders(base, work, "piggyback", ec.TOTAL_SHARDS)
+        try:
+            holders.start()
+            drive("net plane repair", net_plane_leg, np, port, holders, work,
+                  res, pb, plane_plan)
+        finally:
+            holders.stop()
         drive("decode", decode_leg, np, port, base, res, args.seed,
               kernel=False)
     finally:
@@ -1344,8 +1692,10 @@ def run(args) -> int:
                              "the main path")
     launches = sum(legs.values())
     print(f"main path (flat, traced, trace repair, streaming, degraded "
-          f"flat, scrub flat, piggyback, plane repair, streaming piggyback, "
-          f"degraded piggyback, scrub piggyback, decode) in "
+          f"flat, scrub flat, net trace repair, net full rebuild, net "
+          f"degraded flat, net scrub flat, piggyback, plane repair, "
+          f"streaming piggyback, degraded piggyback, scrub piggyback, net "
+          f"plane repair, decode) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
           f"= dispatches, by leg {json.dumps(legs)}; builds {build_s:.2f} s")
 
@@ -1359,18 +1709,22 @@ def run(args) -> int:
                   timed["piggyback emat"],
                   timed["piggyback decode (0, 7, 11, 12)"]),
         _k1_entry("gf_matmul_repair",
-                  legs["trace repair"] + legs["plane repair"], repair_err,
+                  legs["trace repair"] + legs["plane repair"]
+                  + legs["net trace repair"] + legs["net plane repair"],
+                  repair_err,
                   timed["trace combine"], timed["plane repair"],
                   second_key="plane_repair"),
         _k1_entry("gf_matmul_degraded",
-                  legs["degraded flat"] + legs["degraded piggyback"],
+                  legs["degraded flat"] + legs["degraded piggyback"]
+                  + legs["net degraded flat"],
                   max(read_err["degraded flat (1,10)"],
                       read_err["degraded piggyback (32,320)"]),
                   timed["degraded flat wide"], timed["degraded piggyback wide"],
                   second_key="piggyback_wide")
         | {"needle_batch": _timed_keys(timed["degraded flat needle batch"])},
         _k1_entry("gf_matmul_scrub",
-                  legs["scrub flat"] + legs["scrub piggyback"],
+                  legs["scrub flat"] + legs["scrub piggyback"]
+                  + legs["net scrub flat"],
                   max(read_err["scrub flat (4,14)"],
                       read_err["scrub piggyback (128,448)"]),
                   timed["scrub flat"], timed["scrub piggyback"],

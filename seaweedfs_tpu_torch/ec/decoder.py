@@ -192,6 +192,7 @@ def _repair_stats(stats, before, source, codec, timer, pipelined, stream_s,
     stats["repair_mode"] = mode
     stats["repair_helpers"] = n_helpers
     stats["repair_bytes"] = gs.bytes
+    stats["repair_remote_bytes"] = gs.remote_bytes
     stats["repair_baseline_bytes"] = baseline
     stats["repair_bytes_frac"] = round(
         gs.bytes / baseline, 4) if baseline else 0.0

@@ -22,12 +22,18 @@ reconstruct_fetch=engine.read)``). ``DegradedReadEngine`` serves them:
   ``(vid, sid, slab)``; ``invalidate`` drops a volume's slabs when its
   shards are mounted again.
 
+* **Remote survivors** — a survivor this server does not hold is read
+  from the holders the location map lists (never ``self_url``) by a
+  ``RemoteShardReader``: rotation by slab index and failover (hedging
+  at the transport's default, off); when no survivor is local the shard
+  is sized by a suffix probe, once per shard (``ShardSizeCache``). A
+  gather that fails drops the volume's cached locations and raises
+  ``EcShardNotFound``.
+
 This is the JAX package's ``ec/degraded.py`` engine, with every decision
-it makes held: the counters of the two agree on the same shard files.
-The survivors are read by ``LocalShardReader``; a survivor that only a
-remote holder has raises (the remote readers are not ported), and the
-spans the JAX engine records go into a ``StageTimer`` whose totals
-``snapshot()`` reports as ``phases``.
+it makes held: the counters of the two agree on the same shard files and
+holders. The spans the JAX engine records go into a ``StageTimer`` whose
+totals ``snapshot()`` reports as ``phases``.
 """
 
 from __future__ import annotations
@@ -45,8 +51,9 @@ from ..ops.pipeline import PipelinedMatmul
 from ..storage.types import entry_size
 from ..util.profiling import StageTimer
 from .ec_volume import EcShardNotFound
+from .gather import ShardSizeCache
 from .layout import LayoutInfo, volume_layout
-from .transport import GatherStats, LocalShardReader, remote_only
+from .transport import GatherStats, LocalShardReader, RemoteShardReader
 
 #: Defaults, each the JAX package's default of the knob named beside it.
 CACHE_BYTES = 64 << 20      # SW_EC_DEGRADED_CACHE_BYTES
@@ -180,6 +187,7 @@ class DegradedReadEngine:
                                else cache_bytes)
         # readahead-produced cache keys, so hits on them are attributable
         self._ra_keys: set = set()
+        self.size_cache = ShardSizeCache(timeout=READ_TIMEOUT_S)
         # plan / gather / dispatch of every batch, and the pipeline's own
         # stages inside dispatch on the device path
         self.timer = StageTimer()
@@ -191,7 +199,8 @@ class DegradedReadEngine:
             "batched_requests": 0, "last_batch_requests": 0,
             "max_batch_requests": 0, "batch_slabs": 0,
             "survivor_rows": 0, "survivor_fetches": 0,
-            "survivor_bytes": 0,
+            "survivor_bytes": 0, "remote_bytes": 0,
+            "hedges_fired": 0, "hedges_won": 0, "retries": 0,
             "host_dispatches": 0, "device_dispatches": 0,
             "readahead_slabs": 0, "readahead_hits": 0,
         }
@@ -384,10 +393,11 @@ class DegradedReadEngine:
             if ev is not None and s in ev.shards:
                 readers.append(LocalShardReader(ev.shards[s].path, stats))
             else:
-                raise remote_only(vid, s, [h for h in locations.get(s, [])
-                                           if h != self_url])
+                holders = [h for h in locations.get(s, []) if h != self_url]
+                readers.append(RemoteShardReader(
+                    vid, s, holders, stats, timeout=READ_TIMEOUT_S))
 
-        shard_size = self._shard_size(vid, ev, src)
+        shard_size = self._shard_size(vid, ev, src, locations, self_url)
         runs = self._runs(idxs, shard_size)
         if li.piggyback:
             # the coupled transform is window-local: widen each run to
@@ -425,20 +435,28 @@ class DegradedReadEngine:
             self._c["survivor_rows"] += len(readers)
             self._c["survivor_fetches"] += stats.fetches
             self._c["survivor_bytes"] += stats.bytes
+            self._c["remote_bytes"] += stats.remote_bytes
+            self._c["hedges_fired"] += stats.hedges_fired
+            self._c["hedges_won"] += stats.hedges_won
+            self._c["retries"] += stats.retries
         return slabs
 
-    @staticmethod
-    def _shard_size(vid, ev, src) -> int:
+    def _shard_size(self, vid, ev, src, locations, self_url) -> int:
         """Shard length bounds the gather: ranges are clamped to it and
         the beyond-tail remainder is zeros (every shard is equal-length,
-        so any survivor's size is the lost shard's size). Every survivor
-        read here is local, so a mounted shard gives it."""
+        so any survivor's size is the lost shard's size). A mounted shard
+        gives it; with none, a survivor's holder is probed, once per
+        shard for the engine's life."""
         if ev is not None:
             for s in src:
                 if s in ev.shards:
                     return ev.shards[s].size
             if ev.shards:
                 return next(iter(ev.shards.values())).size
+        for s in src:
+            holders = [h for h in locations.get(s, []) if h != self_url]
+            if holders:
+                return self.size_cache.get(vid, s, holders)
         raise EcShardNotFound(f"no survivor holders to size volume {vid}")
 
     def _runs(self, idxs: List[int], shard_size: int
@@ -535,8 +553,10 @@ class DegradedReadEngine:
         for ri, (off, w, _m) in enumerate(runs):
             if w <= 0:
                 continue
+            stripe = off // self.slab
             for r, reader in enumerate(readers):
-                futs[(ri, r)] = self._pool.submit(reader.read, off, w)
+                futs[(ri, r)] = self._pool.submit(reader.read, off, w,
+                                                  stripe)
         blocks = []
         err = None
         for ri, (off, w, _m) in enumerate(runs):

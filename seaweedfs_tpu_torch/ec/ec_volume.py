@@ -126,8 +126,9 @@ class EcVolumeShard:
         self.size = os.path.getsize(self.path)
 
     def read_at(self, offset: int, length: int) -> bytes:
-        self.f.seek(offset)
-        return self.f.read(length)
+        # one positioned read: a holder serves concurrent ranges of one
+        # shard from its handler threads, and a shared seek would race
+        return os.pread(self.f.fileno(), length, offset)
 
     def close(self):
         self.f.close()
@@ -138,10 +139,14 @@ class EcVolumeShard:
 
 
 class EcVolume:
-    """Mounted EC volume: local shards + the sorted index + journal."""
+    """Mounted EC volume: local shards + the sorted index + journal.
+    ``shard_size`` sizes the volume's needle layout when no shard file is
+    local (every survivor on a holder): the size its holders report."""
 
-    def __init__(self, dirname: str, collection: str, vid: int):
+    def __init__(self, dirname: str, collection: str, vid: int,
+                 shard_size: Optional[int] = None):
         self.dir = dirname
+        self.shard_size = shard_size
         self.collection = collection or ""
         self.vid = vid
         name = f"{self.collection}_{vid}" if self.collection else str(vid)
@@ -243,6 +248,8 @@ class EcVolume:
                 if os.path.exists(p):
                     shard_size = os.path.getsize(p)
                     break
+        if shard_size is None:
+            shard_size = self.shard_size
         if shard_size is None:
             raise EcShardNotFound(f"no local shards for volume {self.vid}")
         n_large = shard_size // LARGE_BLOCK_SIZE

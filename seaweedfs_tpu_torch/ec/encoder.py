@@ -250,7 +250,8 @@ def _transport_stats(gs, stream_s: float, gather_s: float) -> dict:
     return {"gather_busy_s": round(gather_busy, 3),
             "compute_busy_s": round(compute_busy, 3),
             "overlap_frac": round(overlap, 4),
-            "gather_mbps": round(gs.mbps(), 1)}
+            "gather_mbps": round(gs.mbps(), 1),
+            "gather_remote_shards": gs.remote_shards}
 
 
 @contextlib.contextmanager
@@ -585,4 +586,5 @@ def rebuild_ec_files_streaming_piggyback(base_name: str,
         stats["phases"] = _phases(timer, False, stream_s)
         stats["pb_host_s"] = _pb_host_s(timer)
         stats["gather_mbps"] = round(gs.mbps(), 1)
+        stats["gather_remote_shards"] = gs.remote_shards
     return list(missing)

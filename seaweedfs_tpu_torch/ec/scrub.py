@@ -16,12 +16,15 @@ evaluate from the shard map. Scrub state (last scrubbed, bytes verified,
 syndrome failures per local shard) persists in a ``.scrub`` sidecar
 next to the ``.ecx``, and findings go to the ``on_finding`` callback.
 
+The stripe's local shards are read off disk, the rest from the holders
+the location map lists (never ``self_url``) by ``RemoteShardReader``s,
+rotated by slab index.
+
 This is the JAX package's ``ec/scrub.py`` engine, with every decision it
 makes held: the counters, findings and sidecars of the two agree on the
-same shard files. Every shard of the stripe is read off local disk; a
-shard that only a remote holder has raises (the remote readers are not
-ported). The gather and dispatch seconds the JAX engine records as spans
-go into a ``StageTimer``, reported as ``phases`` in each volume's result.
+same shard files and holders. The gather and dispatch seconds the JAX
+engine records as spans go into a ``StageTimer``, reported as ``phases``
+in each volume's result.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from ..ops.pipeline import PipelinedMatmul
 from ..storage.types import entry_size
 from ..util.profiling import StageTimer
 from .layout import volume_layout
-from .transport import GatherStats, LocalShardReader, remote_only
+from .transport import GatherStats, LocalShardReader, RemoteShardReader
 
 log = logging.getLogger(__name__)
 
@@ -109,7 +112,7 @@ class ScrubEngine:
         self._lock = threading.Lock()        # counters
         self._c = {
             "passes": 0, "volumes_scrubbed": 0, "slabs": 0,
-            "bytes_verified": 0,
+            "bytes_verified": 0, "remote_bytes": 0,
             "corrupt_slabs": 0, "corrupt_columns": 0, "findings": 0,
             "report_failures": 0, "skipped_missing": 0,
             "skipped_not_owner": 0, "errors": 0,
@@ -232,7 +235,8 @@ class ScrubEngine:
         else:
             h = codec.syndrome_plan()
             total = h.shape[1]
-        readers, missing = self._readers(vid, local, total, GatherStats())
+        gstats = GatherStats()
+        readers, missing = self._readers(vid, local, total, gstats)
         if missing:
             with self._lock:
                 self._c["skipped_missing"] += 1
@@ -269,7 +273,7 @@ class ScrubEngine:
                     off = idx * slab_eff
                     w = min(slab_eff, shard_size - off)
                     g0 = time.perf_counter()
-                    futs = [pool.submit(readers[s].read, off, w)
+                    futs = [pool.submit(readers[s].read, off, w, idx)
                             for s in range(total)]
                     rows = [np.frombuffer(f.result(), dtype=np.uint8)
                             for f in futs]
@@ -321,6 +325,7 @@ class ScrubEngine:
         dt = time.perf_counter() - t0
         with self._lock:
             self._c["volumes_scrubbed"] += 1
+            self._c["remote_bytes"] += gstats.remote_bytes
             self._last_pass_s = dt
             self._last_pass_at = time.time()
             if dt > 0:
@@ -359,10 +364,10 @@ class ScrubEngine:
 
     def _readers(self, vid: int, local: Dict[int, object], total: int,
                  gstats: GatherStats) -> Tuple[list, List[int]]:
-        """One reader per shard id, each off local disk. Second return
-        lists shard ids nobody can serve (lost shards are the master
-        scan's incident, not a scrub finding). With none missing, a
-        shard that only remote holders have raises."""
+        """One reader per shard id: local shards off disk, the rest of
+        the stripe from their holders. Second return lists shard ids
+        nobody can serve (lost shards are the master scan's incident,
+        not a scrub finding)."""
         holders = {}
         try:
             holders = {int(s): list(u)
@@ -372,19 +377,15 @@ class ScrubEngine:
         me = self.self_url()
         readers: list = [None] * total
         missing: List[int] = []
-        remote: Dict[int, List[str]] = {}
         for sid in range(total):
             if sid in local:
                 readers[sid] = LocalShardReader(local[sid].path, gstats)
                 continue
-            urls = [u for u in holders.get(sid, ()) if u != me]
-            if urls:
-                remote[sid] = urls
-            else:
+            remote = [u for u in holders.get(sid, ()) if u != me]
+            if not remote:
                 missing.append(sid)
-        if remote and not missing:
-            sid = min(remote)
-            raise remote_only(vid, sid, remote[sid])
+                continue
+            readers[sid] = RemoteShardReader(vid, sid, remote, gstats)
         return readers, missing
 
     def _pace(self, t0: float, nbytes: int):

@@ -1,0 +1,420 @@
+"""Tiny stdlib HTTP server framework and the pooled cluster client.
+
+The JAX package's ``server/http_util.py``, in the parts the EC holder
+routes and the remote shard readers use: exact-path routing on a
+ThreadingHTTPServer, JSON and bytes responses (``Response``, with a
+streamed file range), ``parse_range``, and a keep-alive connection pool
+behind ``http_call`` / ``http_get_with_headers``.
+
+Left out: TLS, multipart and chunked bodies, the guard hook, the
+profile and trace handlers, and the metric observer. No ``traceparent``
+header goes out on a call: the port has no ``util/tracing``. The port
+reads no knob from the environment: the accept-loop poll and the
+pool's idle cap are module constants.
+"""
+
+from __future__ import annotations
+
+import http.client as _httpc
+import json
+import os
+import select
+import socket
+import threading
+import time
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Dict, List, Optional, Tuple
+
+#: Accept-loop poll of ``HttpServer``: bounds how long ``stop()`` waits
+#: for the loop (the JAX SW_HTTP_POLL_S is 0.5; its tests set 0.02).
+POLL_S = 0.05
+#: A pooled idle connection older than this is closed, not reused (the
+#: JAX SW_HTTP_POOL_MAX_IDLE_S default).
+POOL_MAX_IDLE_S = 60.0
+_POOL_MAX_PER_HOST = 32
+
+
+class HttpError(Exception):
+    def __init__(self, status: int, message: str = ""):
+        super().__init__(message)
+        self.status = status
+        self.message = message
+
+
+class Request:
+    def __init__(self, handler: BaseHTTPRequestHandler):
+        self.handler = handler
+        parsed = urllib.parse.urlparse(handler.path)
+        self.path = parsed.path
+        self.query: Dict[str, str] = {
+            k: v[0] for k, v in
+            urllib.parse.parse_qs(parsed.query,
+                                  keep_blank_values=True).items()}
+        self.method = handler.command
+        self.headers = handler.headers
+
+    def drain(self, cap: int = 4 << 20):
+        """Discard the request body (no route here reads one), so it
+        cannot prepend itself to the next request on the kept-alive
+        connection; past ``cap``, or with a chunked or malformed body,
+        close the connection instead."""
+        if "chunked" in (self.headers.get("Transfer-Encoding") or "").lower():
+            self.handler.close_connection = True
+            return
+        try:
+            left = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            self.handler.close_connection = True
+            return
+        if left > cap:
+            self.handler.close_connection = True
+            return
+        while left > 0:
+            chunk = self.handler.rfile.read(min(left, 1 << 20))
+            if not chunk:
+                break
+            left -= len(chunk)
+
+
+class Router:
+    def __init__(self):
+        self.routes: List[Tuple[str, str, Callable]] = []
+
+    def add(self, method: str, path: str, fn: Callable):
+        self.routes.append((method, path, fn))
+
+    def dispatch(self, req: Request):
+        for method, path, fn in self.routes:
+            if method in ("*", req.method) and req.path == path:
+                return fn(req)
+        raise HttpError(404, f"no route for {req.method} {req.path}")
+
+
+class Response:
+    """Non-JSON response: bytes, or ``body_range`` (offset, size) of the
+    file at ``body_path`` streamed without buffering it."""
+
+    def __init__(self, body: bytes = b"", status: int = 200,
+                 content_type: str = "application/octet-stream",
+                 headers: Optional[dict] = None,
+                 body_path: Optional[str] = None,
+                 body_range: Optional[tuple] = None):
+        self.body = body
+        self.status = status
+        self.content_type = content_type
+        self.headers = headers or {}
+        self.body_path = body_path
+        self.body_range = body_range
+
+    def send(self, handler: BaseHTTPRequestHandler):
+        src = None
+        if self.body_path is not None:
+            # open and size the file before any header goes out, so a
+            # vanished file is a clean error and Content-Length is what
+            # the stream can deliver
+            try:
+                src = open(self.body_path, "rb")
+                file_size = os.fstat(src.fileno()).st_size
+            except OSError as e:
+                if src is not None:
+                    src.close()
+                handler.send_error(404, str(e))
+                return
+            off, size = self.body_range or (0, file_size)
+            off = min(off, file_size)
+            length = size = min(size, file_size - off)
+        else:
+            length = len(self.body)
+        try:
+            handler.send_response(self.status)
+            handler.send_header("Content-Type", self.content_type)
+            handler.send_header("Content-Length", str(length))
+            for k, v in self.headers.items():
+                handler.send_header(k, v)
+            handler.end_headers()
+            if handler.command == "HEAD":
+                return
+            if src is not None:
+                src.seek(off)
+                left = size
+                while left > 0:
+                    chunk = src.read(min(1 << 20, left))
+                    if not chunk:
+                        break
+                    handler.wfile.write(chunk)
+                    left -= len(chunk)
+            else:
+                handler.wfile.write(self.body)
+        except OSError:  # the peer went away mid-response
+            pass
+        finally:
+            if src is not None:
+                src.close()
+
+
+def _make_handler(router: Router):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        # headers and body go out in separate writes; without NODELAY,
+        # Nagle holds the second behind the peer's delayed ACK
+        disable_nagle_algorithm = True
+        # reap idle keep-alive connections, each of which pins a thread
+        timeout = 75
+
+        def log_message(self, fmt, *args):  # quiet
+            pass
+
+        def _run(self):
+            req = Request(self)
+            try:
+                try:
+                    result = router.dispatch(req)
+                finally:
+                    req.drain()
+            except HttpError as e:
+                self._send_json({"error": e.message or str(e)}, e.status)
+                return
+            except BrokenPipeError:
+                return
+            except Exception as e:  # noqa: BLE001 - answered as a 500
+                self._send_json({"error": f"{type(e).__name__}: {e}"}, 500)
+                return
+            if isinstance(result, Response):
+                result.send(self)
+            else:
+                self._send_json({} if result is None else result, 200)
+
+        def _send_json(self, obj, status: int):
+            data = json.dumps(obj).encode()
+            try:
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+            except (BrokenPipeError, ConnectionResetError):
+                pass
+
+        do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = _run
+
+    return Handler
+
+
+class _TunedHTTPServer(ThreadingHTTPServer):
+    # the stdlib backlog of 5 drops SYNs under concurrent clients
+    request_queue_size = 128
+    daemon_threads = True
+
+    def __init__(self, *args, **kwargs):
+        self._client_socks: set = set()
+        self._conn_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    # track live client sockets so stop() can sever keep-alive
+    # connections: shutdown() only stops the accept loop
+    def get_request(self):
+        sock, addr = super().get_request()
+        with self._conn_lock:
+            self._client_socks.add(sock)
+        return sock, addr
+
+    def shutdown_request(self, request):
+        with self._conn_lock:
+            self._client_socks.discard(request)
+        super().shutdown_request(request)
+
+    def close_all_connections(self):
+        # shutdown only, never close(): the owning handler thread closes
+        # the fd once, so a reused fd number cannot receive its bytes
+        with self._conn_lock:
+            socks = list(self._client_socks)
+        for s in socks:
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+
+class HttpServer:
+    def __init__(self, port: int, router: Router, host: str = "127.0.0.1"):
+        self.router = router
+        self.httpd = _TunedHTTPServer((host, port), _make_handler(router))
+        self.port = self.httpd.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self):
+        self._thread = threading.Thread(
+            target=self.httpd.serve_forever, args=(POLL_S,),
+            daemon=True, name=f"http-serve-{self.port}")
+        self._thread.start()
+        return self
+
+    def stop(self):
+        # shutdown() waits for serve_forever()'s ack: only when it runs
+        if self._thread is not None:
+            self.httpd.shutdown()
+        self.httpd.server_close()
+        self.httpd.close_all_connections()
+
+
+def parse_range(rng: str, size: int) -> Optional[Tuple[int, int]]:
+    """Parse a ``bytes=a-b`` Range header against a ``size``-byte
+    resource: (offset, length), or None when the header is absent or not
+    a bytes range. Malformed or unsatisfiable ranges raise
+    HttpError(416). Only the first range of a multi-range spec counts."""
+    if not rng or not rng.startswith("bytes="):
+        return None
+    spec = rng[6:].split(",")[0]
+    s, _, e = spec.partition("-")
+    try:
+        if s == "":
+            offset = max(size - int(e), 0)
+            length = size - offset
+        else:
+            offset = int(s)
+            end = min(int(e), size - 1) if e else size - 1
+            length = end - offset + 1
+    except ValueError:
+        raise HttpError(416, f"bad range {rng}") from None
+    if length < 0 or (offset >= size and size > 0):
+        raise HttpError(416, f"unsatisfiable range {rng}")
+    return offset, length
+
+
+# -- the pooled client -------------------------------------------------------
+#
+# Cluster calls ride keep-alive connections: a fresh TCP connection per
+# range read would cap the gather at connection-churn rate. Entries are
+# (conn, parked_at); the park time drives idle-age eviction.
+
+_POOL: Dict[str, List] = {}
+_POOL_LOCK = threading.Lock()
+_RETRIABLE_STALE = (_httpc.RemoteDisconnected, _httpc.BadStatusLine,
+                    ConnectionResetError, BrokenPipeError)
+
+
+def _sock_is_stale(sock) -> bool:
+    """An idle pooled socket that polls readable has a FIN (the peer
+    closed it) or stray bytes: either way, not reusable."""
+    try:
+        r, _, _ = select.select([sock], [], [], 0)
+        return bool(r)
+    except (OSError, ValueError):
+        return True
+
+
+def _pool_get(netloc: str, timeout: float):
+    """-> (conn, reused). Newest first; entries past the idle cap or
+    failing the stale check are evicted."""
+    while True:
+        with _POOL_LOCK:
+            stack = _POOL.get(netloc)
+            entry = stack.pop() if stack else None
+        if entry is None:
+            return _httpc.HTTPConnection(netloc, timeout=timeout), False
+        conn, parked_at = entry
+        if time.monotonic() - parked_at > POOL_MAX_IDLE_S:
+            conn.close()
+            continue
+        if conn.sock is not None and _sock_is_stale(conn.sock):
+            conn.close()
+            continue
+        if conn.sock is not None:
+            conn.sock.settimeout(timeout)
+        return conn, True
+
+
+def _pool_put(netloc: str, conn):
+    """Park a connection, sweeping aged entries off the bottom of the
+    stack (newest-first reuse never pops them under steady load)."""
+    now = time.monotonic()
+    aged, overflow = [], None
+    with _POOL_LOCK:
+        stack = _POOL.setdefault(netloc, [])
+        while stack and now - stack[0][1] > POOL_MAX_IDLE_S:
+            aged.append(stack.pop(0)[0])
+        if len(stack) < _POOL_MAX_PER_HOST:
+            stack.append((conn, now))
+        else:
+            overflow = conn
+    for c in aged:
+        c.close()
+    if overflow is not None:
+        overflow.close()
+
+
+def clear_conn_pool():
+    """Drop every pooled connection."""
+    with _POOL_LOCK:
+        for stack in _POOL.values():
+            for conn, _ in stack:
+                conn.close()
+        _POOL.clear()
+
+
+def _pooled_call(method: str, url: str, body, headers: dict,
+                 timeout: float, want_headers: bool = False):
+    parsed = urllib.parse.urlsplit(url)
+    netloc = parsed.netloc
+    target = parsed.path or "/"
+    if parsed.query:
+        target += "?" + parsed.query
+    # a stale kept-alive connection fails at send or first byte: retry
+    # once on a fresh one, but only for idempotent methods; a POST whose
+    # server died after acting must not run twice
+    attempts = 2 if method in ("GET", "HEAD", "DELETE", "PUT") else 1
+    for attempt in range(attempts):
+        conn, reused = _pool_get(netloc, timeout)
+        try:
+            if conn.sock is None:
+                conn.connect()
+                conn.sock.setsockopt(socket.IPPROTO_TCP,
+                                     socket.TCP_NODELAY, 1)
+            conn.request(method, target, body=body, headers=headers)
+            resp = conn.getresponse()
+            data = resp.read()
+        except _RETRIABLE_STALE:
+            conn.close()
+            if reused and attempt + 1 < attempts:
+                continue
+            raise
+        except Exception:
+            conn.close()
+            raise
+        if resp.will_close:
+            conn.close()
+        else:
+            _pool_put(netloc, conn)
+        if resp.status >= 400:
+            detail = data.decode("utf-8", "replace")[:500]
+            raise HttpError(resp.status, f"{method} {url}: {detail}")
+        if want_headers:
+            return data, dict(resp.getheaders())
+        return data
+    raise HttpError(503, f"{method} {url}: retries exhausted")
+
+
+def http_get_with_headers(url: str, timeout: float = 30.0,
+                          headers: Optional[dict] = None):
+    """Cluster GET returning (body, response headers), for callers that
+    need what the body does not carry (Content-Range on ranged reads)."""
+    try:
+        return _pooled_call("GET", url, None, headers or {}, timeout,
+                            want_headers=True)
+    except HttpError:
+        raise
+    except (OSError, _httpc.HTTPException) as e:
+        raise HttpError(503, f"GET {url}: {e}") from None
+
+
+def http_call(method: str, url: str, body: bytes = None,
+              headers: dict = None, timeout: float = 30.0) -> bytes:
+    """A cluster call through the keep-alive pool; a status >= 400 or a
+    transport failure raises HttpError (503 for the latter)."""
+    try:
+        return _pooled_call(method, url, body, headers or {}, timeout)
+    except HttpError:
+        raise
+    except (OSError, _httpc.HTTPException) as e:
+        raise HttpError(503, f"{method} {url}: {e}") from None

@@ -1,0 +1,445 @@
+"""Store — a volume server's EC shards across its directories, and the
+rebuilder's routing of ``ec.rebuild -repair auto|trace|piggyback|full``.
+
+The JAX package's ``storage/store.py`` in the parts the EC holder routes
+and the network rebuild use: the directories (each a ``DiskLocation``
+holding the ``EcVolume``s whose shards it finds there),
+``find_ec_volume``, ``_volume_layout``, and ``rebuild_ec_shards_streaming``
+with its trace, piggyback and full paths. Survivors a store does not
+hold are pulled from their holders over HTTP (``ec/gather``); only the
+KB-sized index sidecars are copied whole. Every GF(2^8) product runs on
+the store's codec, ``TorchCodec`` on the card unless the caller passes
+another codec or ``device="cpu"``; a holder, which only serves shards,
+never builds one.
+
+Left out: plain volumes, needle writes, heartbeats, encode and mount
+bookkeeping, and the transport metrics export; the stats dict keys stay.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import time
+from typing import Dict, List, Optional
+
+from ..ec import decoder as ec_decoder
+from ..ec import encoder as ec_encoder
+from ..ec import gather
+from ..ec import layout as ec_layout
+from ..ec.constants import DATA_SHARDS, TOTAL_SHARDS, to_ext
+from ..ec.ec_volume import EcVolume, ec_offset_width, rebuild_ecx_file
+from ..ops import codec as ops_codec
+from ..server.http_util import HttpError
+from ..stats.health import BOARD
+from .types import entry_size
+
+_EC_SHARD_RE = re.compile(
+    r"^(?:(?P<collection>.+)_)?(?P<vid>\d+)\.ec(?P<shard>\d{2})$")
+
+
+class VolumeError(Exception):
+    pass
+
+
+def volume_file_prefix(dirname: str, collection: str, vid: int) -> str:
+    name = f"{collection}_{vid}" if collection else str(vid)
+    return os.path.join(dirname, name)
+
+
+class DiskLocation:
+    """One directory of a store: the EC volumes whose shard files and
+    ``.ecx`` it holds (the EC half of the JAX ``DiskLocation``)."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        self.ec_volumes: Dict[int, EcVolume] = {}
+
+    def load_all_ec_shards(self):
+        shard_sets: Dict[int, tuple] = {}
+        for fname in sorted(os.listdir(self.directory)):
+            m = _EC_SHARD_RE.match(fname)
+            if not m:
+                continue
+            shard_sets.setdefault(
+                int(m.group("vid")), (m.group("collection") or "", []))[1] \
+                .append(int(m.group("shard")))
+        for vid, (collection, shards) in shard_sets.items():
+            base = volume_file_prefix(self.directory, collection, vid)
+            if not os.path.exists(base + ".ecx"):
+                continue
+            ev = EcVolume(self.directory, collection, vid)
+            for sid in sorted(shards):
+                ev.add_shard(sid)
+            self.ec_volumes[vid] = ev
+
+    def close(self):
+        for ev in self.ec_volumes.values():
+            ev.close()
+        self.ec_volumes.clear()
+
+
+class Store:
+    """``directories`` -> ``locations``, each loaded with its EC shards.
+    ``codec`` defaults to RS(10,4) on ``device`` (the card), built on
+    first use; ``routing`` turns health routing on for the remote
+    readers and the full rebuild's survivor choice (the JAX package's
+    SW_EC_HEALTH_ROUTING, off by default)."""
+
+    def __init__(self, directories, codec=None, device="cuda",
+                 routing: bool = False):
+        if isinstance(directories, str):
+            directories = [directories]
+        self.locations = [DiskLocation(d) for d in directories]
+        self._codec = codec
+        self.device = device
+        self.routing = bool(routing)
+        for loc in self.locations:
+            loc.load_all_ec_shards()
+
+    @property
+    def codec(self):
+        if self._codec is None:
+            self._codec = ops_codec.get_codec(DATA_SHARDS,
+                                              TOTAL_SHARDS - DATA_SHARDS,
+                                              device=self.device)
+        return self._codec
+
+    def find_ec_volume(self, vid: int) -> Optional[EcVolume]:
+        for loc in self.locations:
+            ev = loc.ec_volumes.get(vid)
+            if ev is not None:
+                return ev
+        return None
+
+    def close(self):
+        for loc in self.locations:
+            loc.close()
+
+    def _volume_layout(self, base):
+        """Resolve an existing volume's on-disk layout from its sidecars
+        (ec/layout.volume_layout): the routing predicate of every
+        layout-sensitive path below."""
+        try:
+            width = ec_offset_width(base)
+        except Exception:  # noqa: BLE001 - no sidecars at all: flat
+            width = 4
+        return ec_layout.volume_layout(base, self.codec.k,
+                                       record_size=entry_size(width))
+
+    def rebuild_ec_shards_streaming(self, vid: int, collection: str = "",
+                                    sources: Dict[int, List[str]] = None,
+                                    stats: dict = None,
+                                    slab: Optional[int] = None,
+                                    window: Optional[int] = None,
+                                    hedge_ms: Optional[float] = None,
+                                    repair: str = "auto") -> List[int]:
+        """Rebuild missing shards by streaming slab ranges of remote
+        survivors straight into the decode: no whole-shard copy lands on
+        this store's disks. ``sources`` maps shard id -> holder urls for
+        survivors NOT local to this store; shards already here are read
+        from disk. Only the index sidecars (.ecx/.vif/.ecj) are copied.
+
+        ``repair`` picks the single-shard repair: ``trace`` gathers each
+        survivor's projected symbols over ``/admin/ec/shard_repair_read``
+        (ops/codec.repair_plan), ``piggyback`` half-plane sub-chunks over
+        ``/admin/ec/shard_plane_read`` ((k+1)/2k of k·shard, piggyback
+        volumes only), ``full`` is the full streaming decode, and
+        ``auto`` routes by the volume's layout and falls back to the
+        layout's full decode, bit-identically, for multi-shard loss,
+        no-gain geometries, uncoupled shards, or holders without the
+        repair routes (404, 405, 501). Forcing ``trace`` on a piggyback
+        volume, or ``piggyback`` on a flat one, is an error."""
+        sources = {int(s): list(urls) for s, urls in
+                   (sources or {}).items() if urls}
+        holders: List[str] = []
+        for urls in sources.values():
+            for u in urls:
+                if u not in holders:
+                    holders.append(u)
+        # prefer a location that already has volume files; the rebuilt
+        # shards and index live there
+        loc = None
+        for cand in self.locations:
+            base = volume_file_prefix(cand.directory, collection, vid)
+            if os.path.exists(base + ".ecx") or any(
+                    os.path.exists(base + to_ext(i))
+                    for i in range(TOTAL_SHARDS)):
+                loc = cand
+                break
+        if loc is None:
+            loc = self.locations[0]
+        base = volume_file_prefix(loc.directory, collection, vid)
+        k, total = self.codec.k, self.codec.total
+        if holders:
+            gather.fetch_index_files(base, holders)
+        local = [os.path.exists(base + to_ext(i)) for i in range(total)]
+        present = [local[i] or i in sources for i in range(total)]
+        missing = [i for i, p in enumerate(present) if not p]
+        if not missing:
+            return []
+        if sum(present) < k:
+            raise VolumeError(
+                f"cannot rebuild {vid}: only {sum(present)} of "
+                f"{total} shards reachable")
+        mode = (repair or "auto").lower()
+        if mode not in ("auto", "trace", "piggyback", "full"):
+            raise VolumeError(f"unknown repair mode {mode!r}")
+        # the sidecars are local now: the volume's layout routes below
+        li = self._volume_layout(base)
+        if mode == "trace" and li.piggyback:
+            raise VolumeError(
+                "-repair trace: volume has the piggyback layout "
+                "(trace masks read flat parity bytes); use "
+                "piggyback, auto or full")
+        if mode == "piggyback" and not li.piggyback:
+            raise VolumeError(
+                "-repair piggyback: volume has the flat layout "
+                "(no coupled parity planes); use trace, auto or "
+                "full")
+        # one wire probe per (vid, sid) for this whole rebuild
+        size_cache = gather.ShardSizeCache()
+
+        def sized(candidates) -> int:
+            sz = None
+            for i in candidates:
+                if local[i]:
+                    s = os.path.getsize(base + to_ext(i))
+                    if sz is None:
+                        sz = s
+                    elif sz != s:
+                        raise VolumeError("surviving shards differ in size")
+            if sz is not None:
+                return sz
+            last = None
+            for i in candidates:
+                if i in sources:
+                    try:
+                        return size_cache.get(vid, i, sources[i])
+                    except Exception as e:  # noqa: BLE001 - next holder
+                        last = e
+            raise last if last is not None else VolumeError(
+                f"cannot size shards of volume {vid}")
+
+        def readers_of(src, gstats):
+            return [gather.LocalShardReader(base + to_ext(i), gstats)
+                    if local[i] else gather.RemoteShardReader(
+                        vid, i, sources[i], gstats, hedge_ms=hedge_ms,
+                        routing=self.routing)
+                    for i in src]
+
+        ctx = (vid, base, local, present, missing, sources, sized, stats,
+               slab, window, hedge_ms, mode)
+        rebuilt = None
+        if mode != "full":
+            if li.piggyback:
+                rebuilt = self._rebuild_streaming_piggyback(*ctx, li)
+            else:
+                rebuilt = self._rebuild_streaming_trace(*ctx)
+        if rebuilt is None and li.piggyback:
+            # full coupled decode: the readers follow the decode plan's
+            # src order, and stripes clamp to sub-chunk windows
+            src, _, _ = ops_codec.piggyback_decode_plan(
+                k, self.codec.m, tuple(bool(p) for p in present),
+                matrix_kind=self.codec.matrix_kind,
+                matrix=self.codec.matrix, pairs=li.pairs)
+            gstats = gather.GatherStats()
+            shard_size = sized(src)
+            eff_slab = slab or gather.auto_slab(
+                shard_size, default=ec_encoder.DEFAULT_SLAB)
+            eff_slab = max(li.window, eff_slab - eff_slab % li.window)
+            source = gather.StripedGatherSource(
+                readers_of(src, gstats), shard_size, slab=eff_slab,
+                window=window, stats=gstats)
+            rebuilt = ec_encoder.rebuild_ec_files_streaming_piggyback(
+                base, present, missing, source, li, codec=self.codec,
+                stats=stats)
+            if stats is not None:
+                stats["repair_mode"] = "full"
+        elif rebuilt is None:
+            gather_present = self._health_survivor_mask(
+                present, local, sources, k, stats, self.routing)
+            src = [i for i, p in enumerate(gather_present) if p][:k]
+            gstats = gather.GatherStats()
+            shard_size = sized(src)
+            eff_slab = slab or gather.auto_slab(
+                shard_size, default=ec_encoder.DEFAULT_SLAB)
+            source = gather.StripedGatherSource(
+                readers_of(src, gstats), shard_size, slab=eff_slab,
+                window=window, stats=gstats)
+            rebuilt = ec_encoder.rebuild_ec_files_streaming(
+                base, gather_present, missing, source, codec=self.codec,
+                slab=eff_slab, stats=stats)
+            if stats is not None:
+                stats["repair_mode"] = "full"
+        t0 = time.perf_counter()
+        rebuild_ecx_file(base, ec_offset_width(base))
+        ecx_s = time.perf_counter() - t0
+        if stats is not None and "phases" in stats:
+            stats["phases"]["write"] = round(
+                stats["phases"].get("write", 0.0) + ecx_s, 6)
+        return rebuilt
+
+    @staticmethod
+    def _health_survivor_mask(present, local, sources, k, stats,
+                              routing: bool = False):
+        """Health-aware survivor choice for the full streaming gather:
+        with routing on and more than k survivors reachable, the surplus
+        is dropped worst-holder-first (a local shard scores 1.0), so a
+        slow or failing holder leaves the gather when healthier
+        survivors cover the k. Any k survivors decode exactly, so the
+        rebuilt bytes do not change. Ties drop the highest shard ids,
+        the un-routed first-k choice."""
+        survivors = [i for i, p in enumerate(present) if p]
+        surplus = len(survivors) - k
+        if surplus <= 0 or not routing:
+            return present
+
+        def shard_score(i):
+            if local[i] or not sources.get(i):
+                return 1.0
+            return max(BOARD.score(u) for u in sources[i])
+
+        masked = list(present)
+        drop_order = sorted(survivors, key=lambda i: (shard_score(i), -i))
+        demoted = sorted(drop_order[:surplus])
+        for i in demoted:
+            masked[i] = False
+        if stats is not None:
+            stats["health_demoted_shards"] = demoted
+        return masked
+
+    def _rebuild_streaming_piggyback(self, vid, base, local, present,
+                                     missing, sources, sized, stats, slab,
+                                     window, hedge_ms, mode, li):
+        """Attempt the half-plane piggyback repair; returns the rebuilt
+        shard list, or None for "use the full coupled decode". A forced
+        ``piggyback`` turns every fallback into an error; ``auto``
+        records the reason in stats and falls through."""
+
+        def bail(reason: str):
+            if mode == "piggyback":
+                raise VolumeError(f"-repair piggyback: {reason}")
+            if stats is not None:
+                stats["repair_fallback"] = reason
+            return None
+
+        if len(missing) != 1:
+            return bail(f"{len(missing)} shards lost, piggyback repairs one")
+        lost = missing[0]
+        codec = self.codec
+        k, m = codec.k, codec.m
+        try:
+            pplan = ops_codec.piggyback_plan(
+                k, m, matrix_kind=codec.matrix_kind, matrix=codec.matrix,
+                pairs=li.pairs)
+        except ValueError as e:
+            return bail(f"no piggyback scheme: {e}")
+        if lost >= pplan.coupled:
+            return bail(f"shard {lost} not coupled "
+                        f"(coupled prefix is 0..{pplan.coupled - 1})")
+        par = [k + j for j in range(m) if present[k + j]]
+        if len(par) < 2:
+            return bail(f"{len(par)} surviving parities, plane repair "
+                        f"needs 2")
+        if any(not present[i] for i in range(k) if i != lost):
+            return bail("a data helper is unreachable")
+        try:
+            rplan = ops_codec.piggyback_repair_plan(
+                k, m, lost, parity_sids=tuple(par[:2]),
+                matrix_kind=pplan.matrix_kind, matrix=codec.matrix,
+                pairs=li.pairs)
+        except ValueError as e:
+            return bail(f"no repair plan: {e}")
+        shard_size = sized(rplan.helpers)
+        if shard_size % li.window:
+            return bail(f"shard size {shard_size} not aligned to sidecar "
+                        f"window {li.window}")
+        gstats = gather.GatherStats()
+        readers = [
+            gather.LocalPlaneReader(base + to_ext(i), li.alpha, li.window,
+                                    rplan.plane_bit, rplan.plane_side,
+                                    gstats)
+            if local[i] else gather.RemotePlaneReader(
+                vid, i, sources[i], li.alpha, li.window, rplan.plane_bit,
+                rplan.plane_side, gstats, hedge_ms=hedge_ms,
+                routing=self.routing)
+            for i in rplan.helpers]
+        eff_slab = slab or gather.auto_slab(
+            shard_size, default=ec_encoder.DEFAULT_SLAB)
+        source = gather.PlaneGatherSource(
+            readers, shard_size, rplan, li.window, slab=eff_slab,
+            gather_window=window, stats=gstats)
+        rstats: dict = {}
+        try:
+            rebuilt = ec_decoder.rebuild_ec_file_piggyback(
+                base, lost, source, rplan, li.window, codec=codec,
+                slab=source.slab, stats=rstats)
+        except HttpError as e:
+            if e.status in (404, 405, 501):
+                # a holder predates /admin/ec/shard_plane_read (or never
+                # had the shard): the repair output is already removed,
+                # rerun as the full coupled decode
+                return bail(f"holder refused plane read ({e.status})")
+            raise
+        if stats is not None:
+            stats.update(rstats)
+        return rebuilt
+
+    def _rebuild_streaming_trace(self, vid, base, local, present, missing,
+                                 sources, sized, stats, slab, window,
+                                 hedge_ms, mode):
+        """Attempt trace repair; returns the rebuilt shard list, or None
+        for "use the full streaming gather". A forced ``trace`` turns
+        every fallback into an error; ``auto`` records the reason in
+        stats and falls through."""
+
+        def bail(reason: str):
+            if mode == "trace":
+                raise VolumeError(f"-repair trace: {reason}")
+            if stats is not None:
+                stats["repair_fallback"] = reason
+            return None
+
+        if len(missing) != 1:
+            return bail(f"{len(missing)} shards lost, trace repairs one")
+        lost = missing[0]
+        codec = self.codec
+        helpers = [i for i, p in enumerate(present) if p and i != lost]
+        try:
+            plan = ops_codec.repair_plan(
+                codec.k, codec.m, lost, survivors=helpers,
+                matrix_kind=codec.matrix_kind, matrix=codec.matrix)
+        except ValueError as e:
+            return bail(f"no repair scheme: {e}")
+        if mode == "auto" and plan.frac >= 1.0:
+            return bail(f"no trace gain (frac={plan.frac:.3f})")
+        shard_size = sized(plan.helpers)
+        gstats = gather.GatherStats()
+        readers = [
+            gather.LocalRepairReader(base + to_ext(i), plan.masks[i],
+                                     gstats)
+            if local[i] else gather.RemoteRepairReader(
+                vid, i, sources[i], plan.masks[i], gstats,
+                hedge_ms=hedge_ms, routing=self.routing)
+            for i in plan.helpers]
+        eff_slab = slab or gather.auto_slab(
+            shard_size, default=ec_encoder.DEFAULT_SLAB)
+        source = gather.RepairGatherSource(
+            readers, shard_size, plan, slab=eff_slab, window=window,
+            stats=gstats)
+        rstats: dict = {}
+        try:
+            rebuilt = ec_decoder.rebuild_ec_file_repair(
+                base, lost, source, plan, codec=codec, slab=eff_slab,
+                stats=rstats)
+        except HttpError as e:
+            if e.status in (404, 405, 501):
+                # a holder predates /admin/ec/shard_repair_read (or never
+                # had the shard): the repair output is already removed,
+                # rerun as the plain streaming gather
+                return bail(f"holder refused repair read ({e.status})")
+            raise
+        if stats is not None:
+            stats.update(rstats)
+        return rebuilt

@@ -11,10 +11,13 @@ drill). Also the repaired sync flat rebuild: its dispatch counters equal
 the JAX package's rebuild_ec_files(pipelined=False)."""
 
 import os
+import shutil
+import socket
 import threading
 
 import numpy as np
 import pytest
+import torch
 
 from seaweedfs_tpu.ec import degraded as ref_degraded
 from seaweedfs_tpu.ec import encoder as ref_encoder
@@ -27,6 +30,7 @@ from seaweedfs_tpu_torch.ec import (DegradedReadEngine, EcShardLocationCache,
 from seaweedfs_tpu_torch.ec import degraded, encoder
 from seaweedfs_tpu_torch.ops import codec as port_codec
 from seaweedfs_tpu_torch.ops.rs_torch import TorchCodec
+from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 
 K, M = 10, 4
 TOTAL = K + M
@@ -235,28 +239,105 @@ def test_insufficient_survivors(tmp_path):
     assert _same(ref, port)["errors"] == 1
 
 
+def _closed_port() -> str:
+    """A localhost address nothing listens on: a holder that is down."""
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    url = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    return url
+
+
 def test_remote_holders(tmp_path):
-    """A shard only a remote holder has counts as present, as in the JAX
-    engine, so the plans agree; reading it raises, naming the volume, the
-    shard and its holders. A remote shard outside the plan's survivors
-    is never read."""
+    """A shard only a remote holder has counts as present, so the plans
+    agree; when its holder is down the gather fails with the JAX engine's
+    EcShardNotFound text. This server's own address is never read, and a
+    remote shard outside the plan's survivors is never read."""
     shards, base = _seed(tmp_path)
     local = {i: _Shard(base + to_ext(i)) for i in range(TOTAL)
              if i not in (3, 5, 13)}
-    locs = {5: ["me:80", "peer:80"], 13: ["peer:81"]}
-    codec = port_codec.NumpyCodec(K, M)
-    eng = DegradedReadEngine(store=_Store(_Ev(local)),
-                             locations=lambda vid: locs,
-                             codec=lambda: codec, self_url="me:80",
-                             slab=4096, batch_ms=0.0)
-    # present: 11 local + 5 and 13 remote; src = 0-2, 4-10 takes shard 5
-    with pytest.raises(NotImplementedError,
-                       match=r"volume 1 shard 5 .*\['peer:80'\]"):
-        eng.read(1, 3, 0, 128)
-    # shard 5 back on disk: src is local, 13 (remote) is not read
+    locs = {5: ["me:80", _closed_port()], 13: [_closed_port()]}
+    errs = []
+    for mod, cls in ((ref_degraded, ref_degraded.DegradedReadEngine),
+                     (degraded, DegradedReadEngine)):
+        eng = cls(store=_Store(_Ev(local)), locations=lambda vid: locs,
+                  codec=lambda: port_codec.NumpyCodec(K, M),
+                  self_url="me:80", slab=4096, batch_ms=0.0)
+        # present: 11 local + 5 and 13 remote; src = 0-2, 4-10 takes 5
+        with pytest.raises(mod.EcShardNotFound) as ei:
+            eng.read(1, 3, 0, 128)
+        errs.append(str(ei.value))
+        assert eng.snapshot()["errors"] == 1
+    assert errs[1] == errs[0]
+    assert errs[1].startswith("survivor gather for 1.3 failed: GET "
+                              f"http://{locs[5][1]}/admin/ec/shard_read"
+                              "?volume=1&shard=5&offset=0&size=8192: ")
+    # shard 5 back on disk: src is local, 13 (remote, down) is not read
     local[5] = _Shard(base + to_ext(5))
     assert eng.read(1, 3, 0, 5000) == _expect(shards, 3, 0, 5000)
-    assert eng.snapshot()["errors"] == 1
+    assert eng.snapshot()["remote_bytes"] == 0
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The plain K1 runs hundreds of small torch ops a batch; with the
+    suite's workers sharing the cores, intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+REMOTE_KEYS = KEYS + ("remote_bytes", "hedges_fired", "hedges_won",
+                      "retries")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("local", ["mixed", "none"])
+@pytest.mark.parametrize("layout", ["flat", "piggyback"])
+def test_remote_survivors_match_jax(tmp_path, layout, local):
+    """Both engines gather their survivors from two holders (a
+    ``VolumeServer`` each over a copy of the shards), with two survivors
+    local or none (then the shard is sized by a probe): the same bytes,
+    remote bytes and host and device dispatches."""
+    (tmp_path / "mine").mkdir()
+    shards, base = _seed(tmp_path / "mine", layout)
+    hdir = tmp_path / "holder"
+    shutil.copytree(tmp_path / "mine", hdir)
+    open(hdir / "1.ecx", "wb").close()
+    lost = 3
+    holders = [VolumeServer(port=0, directories=[str(hdir)]).start()
+               for _ in range(2)]
+    try:
+        sids = (0, 2) if local == "mixed" else ()
+        ev = _Ev({i: _Shard(base + to_ext(i)) for i in sids},
+                 base if layout != "flat" else None)
+        locs = {i: [h.url for h in holders] for i in range(TOTAL)
+                if i != lost and i not in sids}
+        ref_c, port_c = _codecs("crossover")
+        engines = [cls(store=_Store(ev), locations=lambda vid: locs,
+                       codec=lambda c=c: c, slab=4096, batch_ms=0.0)
+                   for cls, c in ((ref_degraded.DegradedReadEngine, ref_c),
+                                  (DegradedReadEngine, port_c))]
+        w = shards.shape[1]
+        # the tail slab alone is below the crossover, on the host
+        for off, size in [(0, 100), (4000, 9000), (w - 3, 2), (w - 50, 200),
+                          (8192, 40_000)]:
+            want = _expect(shards, lost, off, size)
+            for eng in engines:
+                assert eng.read(1, lost, off, size) == want, (off, size)
+        a, b = (eng.snapshot() for eng in engines)
+        assert {k: b[k] for k in REMOTE_KEYS} == \
+            {k: a[k] for k in REMOTE_KEYS}
+        assert b["host_dispatches"] >= 1 and b["device_dispatches"] >= 1
+        remote_rows = K - len(sids)
+        assert 0 < b["remote_bytes"] < b["survivor_bytes"] or not sids
+        assert b["remote_bytes"] * K == b["survivor_bytes"] * remote_rows
+        assert engines[1].size_cache.probes == \
+            engines[0].size_cache.probes == (0 if sids else 1)
+    finally:
+        for h in holders:
+            h.stop()
 
 
 def test_gather_failure_invalidates_locations(tmp_path):

@@ -241,7 +241,7 @@ class _FlakyReader:
         self.path = path
         self.stats = None
 
-    def read(self, off, n):
+    def read(self, off, n, stripe_idx=0):
         if off:  # serves stripe 0, then fails
             raise IOError("holder went away")
         with open(self.path, "rb") as f:
@@ -296,10 +296,10 @@ def test_local_rebuild_failure_leaves_no_partials(tmp_path, monkeypatch,
         os.remove(base + to_ext(sid))
     read = gather.LocalShardReader.read
 
-    def flaky(self, off, n):
+    def flaky(self, off, n, stripe_idx=0):
         if off:
             raise IOError("disk went away")
-        return read(self, off, n)
+        return read(self, off, n, stripe_idx)
 
     monkeypatch.setattr(gather.LocalShardReader, "read", flaky)
     info = layout.LayoutInfo(layout.LAYOUT_PIGGYBACK, SB, 5) \
@@ -330,7 +330,7 @@ def test_stripe_assembly_counts_as_gather_busy():
     k, slab, n_stripes = 3, 1024, 5
 
     class Quiet:
-        def read(self, off, n):
+        def read(self, off, n, stripe_idx=0):
             return bytes(n)
 
     stats = gather.GatherStats()

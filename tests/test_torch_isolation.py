@@ -1,8 +1,9 @@
 """The port stands alone: nothing under seaweedfs_tpu_torch/, and not
 chip_smoke.py, imports jax or the JAX package, and the port encodes and
 rebuilds (from local files and streamed), trace-repairs, plane-repairs
-and decodes, on the flat and the piggyback layout, and serves a needle
-through a lost shard and scrubs, with both made unimportable."""
+and decodes, on the flat and the piggyback layout, serves a needle
+through a lost shard and scrubs, and trace-repairs from a holder over
+HTTP, with both made unimportable."""
 
 import ast
 import os
@@ -57,6 +58,10 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/ec/locate.py",
                  "seaweedfs_tpu_torch/ec/shard_cache.py",
                  "seaweedfs_tpu_torch/storage/needle.py",
+                 "seaweedfs_tpu_torch/storage/store.py",
+                 "seaweedfs_tpu_torch/server/http_util.py",
+                 "seaweedfs_tpu_torch/server/volume_server.py",
+                 "seaweedfs_tpu_torch/stats/health.py",
                  "seaweedfs_tpu_torch/tools/kernel_exp.py", "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu"):
@@ -222,6 +227,57 @@ def test_degraded_read_and_scrub_with_jax_unimportable(tmp_path):
         assert res["corrupt_shards"] == [12] and res["corrupt_slabs"] == [0]
         assert res["path"] == "device"
         eng.close()
+        assert gf_matmul.launches == 0
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_network_repair_with_jax_unimportable(tmp_path):
+    """One port holder in the process serves the survivors; the port's
+    Store trace-repairs a lost shard from it (-repair auto), pulling the
+    index sidecars and only the projected symbol planes over HTTP."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from seaweedfs_tpu_torch.ec import to_ext, write_ec_files
+        from seaweedfs_tpu_torch.ops import TorchCodec, gf_matmul
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        from seaweedfs_tpu_torch.storage.store import Store
+        hdir, sdir = {str(tmp_path / "holder")!r}, {str(tmp_path / "store")!r}
+        os.makedirs(hdir)
+        os.makedirs(sdir)
+        base = os.path.join(hdir, "1")
+        rng = np.random.default_rng(0)
+        with open(base + ".dat", "wb") as f:
+            f.write(rng.integers(0, 256, 100_003, dtype=np.uint8).tobytes())
+        codec = TorchCodec(10, 4, device="cpu")
+        write_ec_files(base, codec=codec, large_block=16 << 10,
+                       small_block=4 << 10, slab=8 << 10)
+        open(base + ".ecx", "wb").close()
+        want = open(base + to_ext(6), "rb").read()
+        vs = VolumeServer(port=0, directories=[hdir]).start()
+        try:
+            stats = {{}}
+            got = Store([sdir], codec=codec).rebuild_ec_shards_streaming(
+                1, sources={{i: [vs.url] for i in range(14) if i != 6}},
+                stats=stats, slab=5000)
+        finally:
+            vs.stop()
+        assert got == [6] and stats["repair_mode"] == "trace"
+        assert open(os.path.join(sdir, "1" + to_ext(6)), "rb").read() == want
+        assert 0 < stats["gather_remote_bytes"] < 10 * len(want)
+        assert sorted(os.listdir(sdir)) == ["1.ec06", "1.ecx"]
         assert gf_matmul.launches == 0
         assert not any(m.split(".")[0] in {FORBIDDEN!r}
                        for m, v in sys.modules.items() if v is not None)

@@ -12,9 +12,11 @@ JAX package reaches it only in a 3-server drill)."""
 import json
 import os
 import shutil
+import socket
 
 import numpy as np
 import pytest
+import torch
 
 from seaweedfs_tpu.ec import layout as ref_layout
 from seaweedfs_tpu.ec import scrub as ref_scrub
@@ -27,6 +29,7 @@ from seaweedfs_tpu_torch.ec import scrub
 from seaweedfs_tpu_torch.ops import codec as port_codec
 from seaweedfs_tpu_torch.ops import telemetry
 from seaweedfs_tpu_torch.ops.rs_torch import TorchCodec
+from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 
 K, M = 10, 4
 TOTAL = K + M
@@ -248,17 +251,32 @@ def test_below_crossover_stays_on_host(tmp_path):
     assert snap["device_dispatches"] == 0
 
 
+def _closed_port() -> str:
+    """A localhost address nothing listens on: a holder that is down."""
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    url = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    return url
+
+
 def test_ownership_election_and_force(tmp_path):
+    dead = _closed_port()
     ref, port, *_ = _engines(tmp_path, local=range(1, TOTAL),
-                             locations=lambda vid: {0: ["other:8080"]})
+                             locations=lambda vid: {0: [dead]})
     _same_result(ref.scrub_volume(1), port.scrub_volume(1))
     assert port.snapshot()["skipped_not_owner"] == 1
     _same_snapshot(ref, port)
-    # forced with shard 0 on another holder: the port has no remote
-    # reader, and says so instead of skipping or reading it some other way
-    with pytest.raises(NotImplementedError,
-                       match=r"volume 1 shard 0 .*\['other:8080'\]"):
-        port.scrub_volume(1, force=True)
+    # forced with shard 0 on a holder that is down: the read fails as in
+    # JAX, and a forced pass counts the volume as an error
+    errs = []
+    for eng in (ref, port):
+        with pytest.raises(Exception) as ei:
+            eng.scrub_volume(1, force=True)
+        errs.append((ei.value.status, str(ei.value)))
+    assert errs[1] == errs[0] and errs[1][0] == 503
+    # (the JAX run_pass logs this through glog.warning, which its glog
+    # lacks, so only the port's pass runs here)
     assert port.run_pass(force=True)["volumes"] == 0
     assert port.snapshot()["errors"] == 1
     # nobody holds shard 0: skipped as missing, as in JAX
@@ -269,6 +287,59 @@ def test_ownership_election_and_force(tmp_path):
     _same_result(a, b)
     assert b["skipped"] == "missing_shards" and b["missing"] == [0]
     _same_snapshot(ref, port)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The plain K1 runs hundreds of small torch ops a batch; with the
+    suite's workers sharing the cores, intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("layout", ["flat", "piggyback"])
+def test_remote_survivors_match_jax(tmp_path, layout):
+    """Shards 0-4 local to each engine, 5-13 read from a holder (a
+    ``VolumeServer`` over a third copy), crossover on so the slabs go to
+    the device: a clean pass, then a byte flipped in a remote shard on
+    the holder, found in its slab and attributed to its shard; results,
+    findings, sidecars and counters (remote bytes included) agree."""
+    holder = {}
+    ref, port, rbase, pbase, (rfound, pfound) = _engines(
+        tmp_path, "crossover", layout, local=range(5),
+        locations=lambda vid: {i: ["me:8080", holder["url"]]
+                               for i in range(5, TOTAL)})
+    hdir = tmp_path / "holder"
+    shutil.copytree(tmp_path / "ref", hdir)
+    open(hdir / "1.ecx", "ab").close()
+    vs = VolumeServer(port=0, directories=[str(hdir)]).start()
+    holder["url"] = vs.url
+    try:
+        width = W if layout == "flat" else PB_W
+        a, b = ref.scrub_volume(1, force=True), port.scrub_volume(1,
+                                                                  force=True)
+        _same_result(a, b)
+        assert b["clean"] and b["path"] == "device"
+        sid, off = K + 1, width - 7
+        _flip(str(hdir / "1"), sid, off)
+        a, b = ref.scrub_volume(1, force=True), port.scrub_volume(1,
+                                                                  force=True)
+        _same_result(a, b)
+        assert b["corrupt_shards"] == [sid]
+        assert b["corrupt_slabs"] == [off // SLAB]
+        for f in (rfound, pfound):
+            f[0].pop("detected_at")
+        assert pfound == rfound and pfound[0]["shards"] == [sid]
+        assert _sidecar(pbase) == _sidecar(rbase)
+        snap = _same_snapshot(ref, port)
+        assert port.snapshot()["remote_bytes"] == \
+            ref.snapshot()["remote_bytes"] == 2 * 9 * width
+        assert snap["device_dispatches"] == 2 * b["slabs"]
+    finally:
+        vs.stop()
 
 
 def test_run_pass_summary(tmp_path):
