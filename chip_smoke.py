@@ -139,8 +139,27 @@
    shards 0 and 1 served them), with no retry. The holders are stopped
    in a finally; one that does not start fails the run.
 
+12. ec.encode over the network, on each layout (after the flat net legs,
+   and after the piggyback net plane repair): an in-process source
+   VolumeServer on the card over hard links to the volume's .dat and
+   .idx (its own directory; the original's size and sha256 are checked
+   unchanged after), three holder processes over empty directories.
+   POST /admin/volume/readonly, then /admin/ec/generate with the
+   assignment (source shards 0-1, A 2-5, B 6-9, C 10-13, no spares, the
+   default window), traced for the card's busy share; the source encodes
+   on K1 and pushes each shard's 8 MiB stripes to its holder over
+   /admin/ec/shard_write while later stripes encode. Each holder then
+   runs /admin/ec/copy (the .ecx and .vif) and /admin/ec/mount. Every
+   shard must be sha256-identical at its holder to the local encode of
+   the same layout, no .part left anywhere, 12 shards remote, sends only
+   to the assigned holders, spread_bytes 14 x shard, exactly 12 x shard
+   (1,296,039,936 B at 1 GiB) in the holders' files, which started
+   empty, and every assigned shard mounted. Prints the leg's wall,
+   encode_busy_s, spread_busy_s, overlap_frac, peak_spread_buffer and
+   blocked_s (stream_s - encode_busy_s) on a line of its own.
+
 Every leg runs with the kernel's launch counter set to 0 just before it
-and read just after; a leg of steps 5-8, 10 and 11 whose launches differ
+and read just after; a leg of steps 5-8 and 10-12 whose launches differ
 from its dispatches, or that launched nothing, fails the smoke.
 
 Prints the card line (nvidia-smi name, power limit), then a JSON line
@@ -188,6 +207,8 @@ NET_HOLDS = {"A": range(0, 5), "B": (0, 1, 5, 6, 7, 8, 9),
              "C": range(10, 14)}  # the holders' shards; 0, 1 on two
 NET_LOST = 1                # the net degraded leg's lost data shard
 NET_GETS = DEGRADED_GETS    # needle GETs of the net degraded leg
+SPREAD_LOCAL = (0, 1)       # the spread source keeps these shards
+SPREAD_HOLDS = {"A": range(2, 6), "B": range(6, 10), "C": range(10, 14)}
 HOLDER_START_S = 60.0       # a holder prints its port within this
 #: K1's widths on the degraded legs: a flat needle batch (1 MiB of a
 #: needle in 8 slabs + 1 readahead slab), the flat wide read (16 MiB + 1
@@ -922,7 +943,9 @@ def streaming_leg(np, port, dev, base, res, seed):
     print(_leg_line(f"streaming rebuild {lost}", secs, st,
                     st["survivor_bytes"], "survivors")
           + f"; overlap_frac {st['overlap_frac']}, gather busy "
-          f"{st['gather_busy_s']} s, compute {st['compute_busy_s']} s, "
+          f"{st['gather_busy_s']} s (the JAX definition: the readers' fetch "
+          f"intervals only; stripe assembly runs on the consumer, so a "
+          f"local gather overlaps little), compute {st['compute_busy_s']} s, "
           f"peak_gather_buffer {st['peak_gather_buffer']} B (bound {bound})"
           f" — shards sha256-identical")
     return {"lost": lost, "secs": secs, "stats": st}
@@ -1263,31 +1286,31 @@ class Holders:
     """Three holder processes (``python3 -m
     seaweedfs_tpu_torch.server.volume_server``) on 127.0.0.1, each over a
     directory of hard links (copies where a link fails) to the volume's
-    .ecx, .vif and the shards NET_HOLDS gives it. Separate processes, so
+    .ecx, .vif and the shards ``holds`` gives it (NET_HOLDS by default),
+    or over an empty directory with ``empty``. Separate processes, so
     the rebuilder's GIL is not theirs. A holder that does not print its
     port within HOLDER_START_S, or exits, fails the run."""
 
-    def __init__(self, base, work, label, total):
+    def __init__(self, base, work, label, total, holds=None, empty=False):
         self.base = base
         self.work = work
         self.label = label
         self.total = total
+        self.holds = NET_HOLDS if holds is None else holds
+        self.empty = empty
         self.procs, self.urls, self.dirs = {}, {}, {}
 
     def start(self):
-        for name, sids in NET_HOLDS.items():
+        for name, sids in self.holds.items():
             d = os.path.join(self.work, f"holder-{self.label}-{name}")
             os.makedirs(d)
-            exts = [".ecx", ".vif"] + [f".ec{sid:02d}" for sid in sids]
+            exts = [] if self.empty else \
+                [".ecx", ".vif"] + [f".ec{sid:02d}" for sid in sids]
             for ext in exts:
                 src = self.base + ext
                 if not os.path.exists(src):
                     continue
-                dst = os.path.join(d, os.path.basename(src))
-                try:
-                    os.link(src, dst)
-                except OSError:
-                    shutil.copyfile(src, dst)
+                _link(src, os.path.join(d, os.path.basename(src)))
             self.dirs[name] = d
             self.procs[name] = subprocess.Popen(
                 [sys.executable, "-m",
@@ -1310,11 +1333,12 @@ class Holders:
                                      f"(exit {proc.poll()}): {err}")
             self.urls[name] = line.split()[1]
         print(f"holders {self.label}: " + ", ".join(
-            f"{name} {self.urls[name]} shards {list(NET_HOLDS[name])}"
-            for name in NET_HOLDS))
+            f"{name} {self.urls[name]} shards {list(self.holds[name])}"
+            + (" (empty)" if self.empty else "")
+            for name in self.holds))
         return self
 
-    def stop(self):
+    def stop_processes(self):
         for proc in self.procs.values():
             if proc.poll() is None:
                 proc.terminate()
@@ -1325,12 +1349,16 @@ class Holders:
                 proc.kill()
                 proc.wait()
             proc.stdout.close()
+        self.procs = {}
+
+    def stop(self):
+        self.stop_processes()
         for d in self.dirs.values():
             shutil.rmtree(d, ignore_errors=True)
 
     def sources(self, lost=()):
         """{sid: [holder urls]} of every shard not in ``lost``."""
-        return {sid: [self.urls[name] for name, sids in NET_HOLDS.items()
+        return {sid: [self.urls[name] for name, sids in self.holds.items()
                       if sid in sids]
                 for sid in range(self.total) if sid not in lost}
 
@@ -1350,6 +1378,14 @@ class Holders:
                     seen.add(ino)
                     out.append(path)
         return out
+
+
+def _link(src, dst):
+    """A hard link to ``src`` at ``dst``, or a copy where linking fails."""
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copyfile(src, dst)
 
 
 def _rotation_fetches(sources, sids, stripes):
@@ -1535,6 +1571,138 @@ def net_scrub_leg(np, port, dev, holders, base, res, seed, label):
     return out
 
 
+def _post(url, target, body=None, timeout=60.0):
+    from seaweedfs_tpu_torch.server.http_util import http_call
+    return json.loads(http_call(
+        "POST", f"http://{url}{target}",
+        None if body is None else json.dumps(body).encode(),
+        timeout=timeout))
+
+
+def spread_leg(torch, port, work, base, res, shas, dat, layout):
+    """ec.encode over the network, through the port's own routes: an
+    in-process source VolumeServer on the card over hard links to the
+    seeded volume's .dat and .idx, three holder processes over empty
+    directories. POST /admin/volume/readonly, then /admin/ec/generate
+    with the assignment (source SPREAD_LOCAL, holders SPREAD_HOLDS, no
+    spares, the default window; traced for the card's busy share), then
+    each holder's /admin/ec/copy (the .ecx and .vif) and /admin/ec/mount.
+    Every shard sha256-identical to the local encode of the same layout
+    at its holder, no .part anywhere, 12 shards remote and only the
+    assigned holders sent to, spread_bytes 14 x shard, 12 x shard in
+    the holders' files (they started empty), each holder's shards
+    mounted, and the original .dat unchanged."""
+    ec, ops, _ = port
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    label = f"spread {layout}"
+    d = os.path.join(work, f"spread-{layout}")
+    src = os.path.join(d, "src")
+    os.makedirs(src)
+    for ext in (".dat", ".idx"):
+        _link(base + ext, os.path.join(src, "1" + ext))
+    holders = Holders(base, d, f"spread-{layout}", ec.TOTAL_SHARDS,
+                      holds=SPREAD_HOLDS, empty=True)
+    source = None
+    try:
+        holders.start()
+        source = VolumeServer(port=0, directories=[src], device="cuda",
+                              layout=layout).start()
+        if _post(source.url, "/admin/volume/readonly?volume=1") != {
+                "volume": 1, "readonly": True, "was_readonly": False}:
+            raise AssertionError(f"{label}: readonly refused")
+        place = {sid: source.url for sid in SPREAD_LOCAL}
+        place.update({sid: holders.urls[name]
+                      for name, sids in SPREAD_HOLDS.items() for sid in sids})
+        got = []
+
+        def generate():
+            t0 = time.perf_counter()
+            got.append(_post(
+                source.url, "/admin/ec/generate?volume=1",
+                {"assignment": {str(s): u for s, u in place.items()}},
+                timeout=900))
+            got.append(time.perf_counter() - t0)
+
+        trace = traced(torch, label, generate, base + ".spread.trace.json")
+        out, wall = got
+        mounted = {}
+        for name, sids in SPREAD_HOLDS.items():
+            url = holders.urls[name]
+            copied = _post(url, f"/admin/ec/copy?volume=1&source="
+                                f"{source.url}&copy_ecx=true&shards=")
+            if copied["copied"] != [".ecx", ".vif"]:
+                raise AssertionError(f"{label}: holder {name} copied "
+                                     f"{copied}")
+            mounted[name] = _post(url, "/admin/ec/mount?volume=1&shards="
+                                  + ",".join(map(str, sids)))["mounted"]
+    finally:
+        if source is not None:
+            source.stop()
+        holders.stop_processes()
+    st = out["stats"]
+    size = res["shard_size"]
+    where = {sid: src for sid in SPREAD_LOCAL}
+    where.update({sid: holders.dirs[name]
+                  for name, sids in SPREAD_HOLDS.items() for sid in sids})
+    for sid, dirpath in where.items():
+        if _sha(os.path.join(dirpath, "1" + ec.to_ext(sid))) != shas[sid]:
+            raise AssertionError(f"{label}: shard {sid} at its holder "
+                                 f"differs from the local encode's")
+    dirs = [src] + list(holders.dirs.values())
+    parts = [f for p in dirs for f in os.listdir(p) if f.endswith(".part")]
+    held = sum(os.path.getsize(os.path.join(holders.dirs[name],
+                                            "1" + ec.to_ext(sid)))
+               for name, sids in SPREAD_HOLDS.items() for sid in sids)
+    remote = ec.TOTAL_SHARDS - len(SPREAD_LOCAL)
+    for name in SPREAD_HOLDS:
+        for ext in (".ecx", ".vif"):
+            if _sha(os.path.join(holders.dirs[name], "1" + ext)) != \
+                    _sha(os.path.join(src, "1" + ext)):
+                raise AssertionError(f"{label}: holder {name}'s {ext} "
+                                     f"differs from the source's")
+    sends = st["holder_fetches"]
+    if parts or st["spread_remote_shards"] != remote or \
+            st["shard_size"] != size or \
+            st["spread_bytes"] != ec.TOTAL_SHARDS * size or \
+            held != remote * size or \
+            set(sends) != set(holders.urls.values()) or \
+            min(sends.values()) < 1 or \
+            sum(sends.values()) > st["spread_sends"] or \
+            st["spread_retries"] or st["holder_errors"] or \
+            st["spread_stripes"] != res["n_slabs"] or \
+            out["assignment"] != {str(s): "" if u == source.url else u
+                                  for s, u in place.items()} or \
+            mounted != {name: list(sids)
+                        for name, sids in SPREAD_HOLDS.items()}:
+        raise AssertionError(f"{label}: parts {parts}, stats {st}, "
+                             f"{held} B held, mounted {mounted}, "
+                             f"assignment {out['assignment']}")
+    if os.path.getsize(base + ".dat") != dat["size"] or \
+            _sha(base + ".dat") != dat["sha"]:
+        raise AssertionError(f"{label}: the original .dat changed")
+    numbers = {
+        "wall_s": round(wall, 3), "stream_s": st["stream_s"],
+        "encode_busy_s": st["encode_busy_s"],
+        "spread_busy_s": st["spread_busy_s"],
+        "overlap_frac": st["overlap_frac"],
+        "peak_spread_buffer": st["peak_spread_buffer"],
+        "blocked_s": round(st["stream_s"] - st["encode_busy_s"], 3),
+        "spread_mbps": st["spread_mbps"], "spread_sends": st["spread_sends"],
+        "spread_bytes": st["spread_bytes"], "to_holders_bytes": held,
+        "sends_by_holder": holders.names(sends), "phases": st["phases"],
+        "dispatches": st["dispatches"],
+        "card_busy_share": None if trace is None else
+        round(trace["busy_share"], 5)}
+    print(f"{label}: {json.dumps(numbers)}")
+    print(f"{label}: {dat['size'] / wall / 1e6:.1f} MB/s of .dat over "
+          f"{wall:.2f} s; {held} B to the holders over HTTP, shards 0-1 "
+          f"kept; every shard sha256-identical at its holder, sidecars "
+          f"copied, {sum(len(v) for v in mounted.values())} shards mounted, "
+          f"no .part, the original .dat unchanged")
+    shutil.rmtree(d, ignore_errors=True)
+    return numbers
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1665,6 +1833,13 @@ def run(args) -> int:
                   base, res, args.seed + 59, "net scrub flat")
         finally:
             holders.stop()
+        t0 = time.perf_counter()
+        dat = {"size": os.path.getsize(base + ".dat"),
+               "sha": _sha(base + ".dat")}
+        print(f"the .dat's sha256 for the spread legs in "
+              f"{time.perf_counter() - t0:.2f} s")
+        drive("spread flat", spread_leg, torch, port, work, base, res,
+              res["shas"], dat, "flat")
         pb = drive("piggyback", piggyback_leg, np, port, dev, base, res,
                    args.seed)
         drive("plane repair", plane_repair_leg, np, port, dev, base, res, pb,
@@ -1682,6 +1857,8 @@ def run(args) -> int:
                   res, pb, plane_plan)
         finally:
             holders.stop()
+        drive("spread piggyback", spread_leg, torch, port, work, base, res,
+              pb["shas"], dat, "piggyback")
         drive("decode", decode_leg, np, port, base, res, args.seed,
               kernel=False)
     finally:
@@ -1693,9 +1870,9 @@ def run(args) -> int:
     launches = sum(legs.values())
     print(f"main path (flat, traced, trace repair, streaming, degraded "
           f"flat, scrub flat, net trace repair, net full rebuild, net "
-          f"degraded flat, net scrub flat, piggyback, plane repair, "
-          f"streaming piggyback, degraded piggyback, scrub piggyback, net "
-          f"plane repair, decode) in "
+          f"degraded flat, net scrub flat, spread flat, piggyback, plane "
+          f"repair, streaming piggyback, degraded piggyback, scrub "
+          f"piggyback, net plane repair, spread piggyback, decode) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
           f"= dispatches, by leg {json.dumps(legs)}; builds {build_s:.2f} s")
 
@@ -1704,7 +1881,8 @@ def run(args) -> int:
         _k1_entry("gf_matmul", launches, max_err, timed["flat encode"],
                   timed["flat decode (0, 1, 2, 3)"]),
         _k1_entry("gf_matmul_piggyback",
-                  legs["piggyback"] + legs["streaming piggyback"],
+                  legs["piggyback"] + legs["streaming piggyback"]
+                  + legs["spread piggyback"],
                   max(pb_k1_err, pb_err["gf_matmul"]),
                   timed["piggyback emat"],
                   timed["piggyback decode (0, 7, 11, 12)"]),

@@ -10,6 +10,9 @@ Behavior-compatible with reference ec_encoder.go:
     from >= k survivors whose stripes arrive from an ec.gather source
     (a windowed pull)
   * rebuild_ec_files: the same over the survivor files on local disk
+  * write_ec_files_spread: the encode's stripe stream teed into an
+    ec.spread sink, each shard's ranges pushed to its holder while later
+    slabs still encode
 
 Both run the flat layout (plain RS parity) or the piggyback layout
 (coupled sub-chunk parity, ops/codec.piggyback_plan): data shards are
@@ -303,7 +306,8 @@ def write_ec_files(base_name: str, codec: Optional[ReedSolomonCodec] = None,
                    slab: int = DEFAULT_SLAB,
                    pipelined: Optional[bool] = None,
                    stats: Optional[dict] = None,
-                   layout: str = "flat"):
+                   layout: str = "flat",
+                   sink=None):
     """Encode base_name.dat into base_name.ec00 .. .ec{k+m-1}.
 
     pipelined: None = auto (pipeline when the codec is device-backed);
@@ -311,6 +315,13 @@ def write_ec_files(base_name: str, codec: Optional[ReedSolomonCodec] = None,
     ``stats``, when given, is filled with the dispatch-counter deltas of
     this encode, stream_s, backend, layout and the per-phase wall times
     (piggyback adds pb_host_s, the split/merge seconds).
+
+    ``sink``: when given (an ec.spread.StripedSpreadSink), the stripe
+    stream is teed into ``sink.write_stripe(data, parity)`` instead of
+    local shard files, and no shard file is opened here: each stripe is
+    the next slab-aligned byte range of every shard, pushed to its
+    holder while later slabs encode. The caller owns the sink
+    (finish/abort).
 
     ``layout``: "flat" (plain RS parity) or "piggyback" (coupled
     sub-chunk parity). Data shard bytes are identical under both. The
@@ -333,7 +344,8 @@ def write_ec_files(base_name: str, codec: Optional[ReedSolomonCodec] = None,
     t_stream = time.perf_counter()
     slabs = _dat_slabs(dat_path, dat_size, k, large_block, small_block, slab,
                        timer)
-    outs = [open(base_name + to_ext(i), "wb") for i in range(k + m)]
+    outs = [] if sink is not None else \
+        [open(base_name + to_ext(i), "wb") for i in range(k + m)]
     try:
         if piggyback:
             stream = _pb_encode_stream(codec, pplan, window, slabs, slab,
@@ -347,10 +359,13 @@ def write_ec_files(base_name: str, codec: Optional[ReedSolomonCodec] = None,
                       for meta, data in slabs)
         for _, data, parity in stream:
             t0 = time.perf_counter()
-            for i in range(k):
-                outs[i].write(data[i].tobytes())
-            for j in range(m):
-                outs[k + j].write(parity[j].tobytes())
+            if sink is not None:
+                sink.write_stripe(data, parity)
+            else:
+                for i in range(k):
+                    outs[i].write(data[i].tobytes())
+                for j in range(m):
+                    outs[k + j].write(parity[j].tobytes())
             timer.add("shard_write", time.perf_counter() - t0,
                       data.nbytes + parity.nbytes)
     finally:
@@ -365,6 +380,64 @@ def write_ec_files(base_name: str, codec: Optional[ReedSolomonCodec] = None,
         stats["phases"] = _phases(timer, pipelined, stream_s)
         if piggyback:
             stats["pb_host_s"] = _pb_host_s(timer)
+
+
+def write_ec_files_spread(base_name: str, sink,
+                          codec: Optional[ReedSolomonCodec] = None,
+                          large_block: int = LARGE_BLOCK_SIZE,
+                          small_block: int = SMALL_BLOCK_SIZE,
+                          slab: int = DEFAULT_SLAB,
+                          pipelined: Optional[bool] = None,
+                          stats: Optional[dict] = None,
+                          layout: str = "flat"):
+    """Streaming encode+spread: tee write_ec_files' stripe stream into
+    ``sink`` (an ec.spread.StripedSpreadSink), so each shard's slab
+    ranges reach its holder while later slabs are still encoding. Wall
+    approaches max(encode, spread); shards bound for remote holders
+    never touch the source disk.
+
+    On ANY failure the sink is aborted (``.part`` cleanup on every
+    holder) before the exception propagates: callers get a complete
+    finalized shard set or nothing.
+
+    ``stats``, when given, is filled with write_ec_files' stats (the
+    dispatch-counter deltas, backend, layout, phases), the spread
+    snapshot (``spread_*``, ``holder_fetches``, ...), ``shard_size``,
+    ``stream_s`` (encode and finish), ``encode_busy_s`` (the stream
+    wall less the time the producer was blocked on full send windows),
+    ``spread_busy_s`` (the union of the send intervals),
+    ``overlap_frac`` (the share of their serialized sum that
+    overlapped), ``spread_mbps`` and ``spread_remote_shards``."""
+    enc: dict = {}
+    t_stream = time.perf_counter()
+    try:
+        write_ec_files(base_name, codec=codec, large_block=large_block,
+                       small_block=small_block, slab=slab,
+                       pipelined=pipelined, stats=enc, layout=layout,
+                       sink=sink)
+        sink.finish()
+    except BaseException:
+        sink.abort()
+        raise
+    stream_s = time.perf_counter() - t_stream
+    if stats is not None:
+        ss = sink.stats
+        stats.update(enc)
+        stats.update(ss.snapshot())
+        stats["shard_size"] = sink.offset
+        stats["stream_s"] = round(stream_s, 3)
+        spread_busy = ss.busy_s()
+        encode_busy = max(stream_s - sink.blocked_s, 0.0)
+        serialized = encode_busy + spread_busy
+        overlap = 0.0
+        if serialized > 0:
+            overlap = max(0.0, min(1.0,
+                                   (serialized - stream_s) / serialized))
+        stats["encode_busy_s"] = round(encode_busy, 3)
+        stats["spread_busy_s"] = round(spread_busy, 3)
+        stats["overlap_frac"] = round(overlap, 4)
+        stats["spread_mbps"] = round(ss.mbps(), 1)
+        stats["spread_remote_shards"] = ss.remote_shards
 
 
 def rebuild_ec_files(base_name: str,
@@ -588,3 +661,18 @@ def rebuild_ec_files_streaming_piggyback(base_name: str,
         stats["gather_mbps"] = round(gs.mbps(), 1)
         stats["gather_remote_shards"] = gs.remote_shards
     return list(missing)
+
+
+def ec_shard_base_size(dat_size: int, large_block: int = LARGE_BLOCK_SIZE,
+                       small_block: int = SMALL_BLOCK_SIZE,
+                       data_shards: int = DATA_SHARDS) -> int:
+    """Size every shard file will have for a given .dat size."""
+    large_row = large_block * data_shards
+    n_large = 0
+    remaining = dat_size
+    while remaining > large_row:
+        n_large += 1
+        remaining -= large_row
+    small_row = small_block * data_shards
+    n_small = (remaining + small_row - 1) // small_row
+    return n_large * large_block + n_small * small_block

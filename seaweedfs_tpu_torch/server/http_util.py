@@ -1,13 +1,15 @@
 """Tiny stdlib HTTP server framework and the pooled cluster client.
 
-The JAX package's ``server/http_util.py``, in the parts the EC holder
-routes and the remote shard readers use: exact-path routing on a
-ThreadingHTTPServer, JSON and bytes responses (``Response``, with a
-streamed file range), ``parse_range``, and a keep-alive connection pool
-behind ``http_call`` / ``http_get_with_headers``.
+The JAX package's ``server/http_util.py``, in the parts the EC routes,
+the remote shard readers and the spread's shard writers use: exact-path
+routing on a ThreadingHTTPServer, request bodies (``Content-Length`` or
+chunked, ``Request.json``), JSON and bytes responses (``Response``, with
+a streamed file range), ``parse_range``, a keep-alive connection pool
+behind ``http_call`` / ``http_get_with_headers``, and ``post_chunked``,
+which streams a body of unknown size on a fresh connection.
 
-Left out: TLS, multipart and chunked bodies, the guard hook, the
-profile and trace handlers, and the metric observer. No ``traceparent``
+Left out: TLS, multipart bodies, the guard hook, the profile and trace
+handlers, and the metric observer. No ``traceparent``
 header goes out on a call: the port has no ``util/tracing``. The port
 reads no knob from the environment: the accept-loop poll and the
 pool's idle cap are module constants.
@@ -53,28 +55,96 @@ class Request:
                                   keep_blank_values=True).items()}
         self.method = handler.command
         self.headers = handler.headers
+        self._body: Optional[bytes] = None
+
+    @property
+    def body(self) -> bytes:
+        if self._body is None:
+            if self._chunked():
+                self._body = self._read_chunked()
+                return self._body
+            try:
+                length = int(self.headers.get("Content-Length") or 0)
+            except ValueError:
+                length = -1
+            if length < 0:
+                # malformed or negative: the framing is unknowable, so
+                # refuse and sever rather than read until EOF
+                self.handler.close_connection = True
+                self._body = b""
+                raise HttpError(400, "bad Content-Length header")
+            self._body = self.handler.rfile.read(length) if length else b""
+        return self._body
+
+    def _chunked(self) -> bool:
+        return "chunked" in \
+            (self.headers.get("Transfer-Encoding") or "").lower()
+
+    def _read_chunked(self) -> bytes:
+        """Decode a chunked transfer-encoded body (what ``post_chunked``
+        sends). Any framing violation severs the connection: a kept-alive
+        stream cannot be resynchronized after a bad chunk header."""
+        rfile = self.handler.rfile
+        out: List[bytes] = []
+        while True:
+            line = rfile.readline(1 << 16)
+            if not line or not line.endswith(b"\n"):
+                self.handler.close_connection = True
+                raise HttpError(400, "truncated chunked body")
+            size_s = line.split(b";", 1)[0].strip()
+            try:
+                size = int(size_s, 16)
+            except ValueError:
+                self.handler.close_connection = True
+                raise HttpError(400, "bad chunk size") from None
+            if size == 0:
+                # consume optional trailers up to the blank line
+                while True:
+                    t = rfile.readline(1 << 16)
+                    if t in (b"\r\n", b"\n", b""):
+                        break
+                return b"".join(out)
+            data = rfile.read(size)
+            if len(data) != size:
+                self.handler.close_connection = True
+                raise HttpError(400, "truncated chunk")
+            out.append(data)
+            rfile.read(2)  # the chunk's terminating CRLF
 
     def drain(self, cap: int = 4 << 20):
-        """Discard the request body (no route here reads one), so it
-        cannot prepend itself to the next request on the kept-alive
-        connection; past ``cap``, or with a chunked or malformed body,
-        close the connection instead."""
-        if "chunked" in (self.headers.get("Transfer-Encoding") or "").lower():
+        """Discard any unread request body, so it cannot prepend itself
+        to the next request on the kept-alive connection. Past ``cap``,
+        or with an unread chunked or malformed body, close the
+        connection instead: reading a rejected volume-sized upload to
+        its end would stall the thread for the whole transfer."""
+        if self._body is not None:
+            return
+        if self._chunked():
+            # an unread chunked body's size is unknowable up front
             self.handler.close_connection = True
+            self._body = b""
             return
         try:
             left = int(self.headers.get("Content-Length") or 0)
         except ValueError:
             self.handler.close_connection = True
+            self._body = b""
             return
         if left > cap:
             self.handler.close_connection = True
+            self._body = b""
             return
         while left > 0:
             chunk = self.handler.rfile.read(min(left, 1 << 20))
             if not chunk:
                 break
             left -= len(chunk)
+        self._body = b""
+
+    def json(self) -> dict:
+        if not self.body:
+            return {}
+        return json.loads(self.body)
 
 
 class Router:
@@ -354,24 +424,35 @@ def clear_conn_pool():
 
 
 def _pooled_call(method: str, url: str, body, headers: dict,
-                 timeout: float, want_headers: bool = False):
+                 timeout: float, want_headers: bool = False,
+                 encode_chunked: bool = False):
     parsed = urllib.parse.urlsplit(url)
     netloc = parsed.netloc
     target = parsed.path or "/"
     if parsed.query:
         target += "?" + parsed.query
     # a stale kept-alive connection fails at send or first byte: retry
-    # once on a fresh one, but only for idempotent methods; a POST whose
-    # server died after acting must not run twice
-    attempts = 2 if method in ("GET", "HEAD", "DELETE", "PUT") else 1
+    # once on a fresh one, but only for idempotent methods with a
+    # replayable body; a POST whose server died after acting must not
+    # run twice. A streamed body cannot be re-sent at all, so it always
+    # goes out on a FRESH connection (its transfer dwarfs the handshake)
+    replayable = not encode_chunked and \
+        (body is None or isinstance(body, (bytes, bytearray)))
+    attempts = 2 if replayable and \
+        method in ("GET", "HEAD", "DELETE", "PUT") else 1
     for attempt in range(attempts):
-        conn, reused = _pool_get(netloc, timeout)
+        if replayable:
+            conn, reused = _pool_get(netloc, timeout)
+        else:
+            conn, reused = _httpc.HTTPConnection(netloc,
+                                                 timeout=timeout), False
         try:
             if conn.sock is None:
                 conn.connect()
                 conn.sock.setsockopt(socket.IPPROTO_TCP,
                                      socket.TCP_NODELAY, 1)
-            conn.request(method, target, body=body, headers=headers)
+            conn.request(method, target, body=body, headers=headers,
+                         encode_chunked=encode_chunked)
             resp = conn.getresponse()
             data = resp.read()
         except _RETRIABLE_STALE:
@@ -418,3 +499,21 @@ def http_call(method: str, url: str, body: bytes = None,
         raise
     except (OSError, _httpc.HTTPException) as e:
         raise HttpError(503, f"{method} {url}: {e}") from None
+
+
+def post_chunked(url: str, chunks, headers: Optional[dict] = None,
+                 timeout: float = 300.0) -> bytes:
+    """POST an iterable of byte chunks with chunked transfer-encoding:
+    the body can start flowing before its total size is known (the EC
+    spread pushes shard ranges as the encode makes them). A chunked body
+    is not replayable, so the call always goes out on a fresh
+    connection and is never retried here; the spread owns retry."""
+    h = dict(headers or {})
+    h["Transfer-Encoding"] = "chunked"
+    try:
+        return _pooled_call("POST", url, iter(chunks), h, timeout,
+                            encode_chunked=True)
+    except HttpError:
+        raise
+    except (OSError, _httpc.HTTPException) as e:
+        raise HttpError(503, f"POST {url}: {e}") from None

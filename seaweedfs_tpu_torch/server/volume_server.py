@@ -1,9 +1,23 @@
-"""VolumeServer — the EC holder routes of a volume server.
+"""VolumeServer — the EC routes of a volume server.
 
-The JAX package's ``server/volume_server.py`` in the part a rebuilder,
-a degraded read or a scrub on another server calls: the holder serves
-the shards of the ``EcVolume``s found in its directories.
+The JAX package's ``server/volume_server.py`` in the part that
+``ec.encode``, a rebuilder, a degraded read or a scrub on another server
+calls: the server freezes and encodes its plain volumes, takes the
+shards another server's encode pushes to it, and serves the shards of
+the ``EcVolume``s in its directories.
 
+    POST /admin/volume/readonly       freeze (or thaw) a volume
+    POST /admin/ec/generate           encode a readonly volume: query only,
+                                      every shard here; with an
+                                      ``assignment`` body, each shard
+                                      streamed to its holder
+    POST /admin/ec/shard_write        a pushed shard's ranges: append at
+                                      the staged offset (409 ``staged=``),
+                                      ``action=finalize`` or ``abort``
+    POST /admin/ec/copy               pull shard files and the .ecx (and
+                                      the .vif/.ecj where present) from a
+                                      source server
+    POST /admin/ec/mount              mount shard files found here
     GET  /admin/ec/shard_read         ranged shard bytes: the query form
                                       (offset, size), or a Range header
                                       answered 206 with Content-Range
@@ -14,14 +28,18 @@ the shards of the ``EcVolume``s found in its directories.
     GET  /admin/file                  a raw index or shard file
     *    /status                      the directories and EC shards held
 
-Paths, query parameters, status codes and headers are the JAX server's.
-The projections run on the host with numpy (``ops/codec.project_slab``,
-``pb_plane_slice``), as the JAX holder runs them; the holder never
-touches the card. Left out: the master heartbeat, needle reads and
-writes, the rest of the admin plane, and the whitelist and JWT guard.
+Paths, query parameters, status codes, headers and JSON keys are the JAX
+server's. The projections run on the host with numpy
+(``ops/codec.project_slab``, ``pb_plane_slice``), as the JAX holder runs
+them. Only ``/admin/ec/generate`` builds the store's codec (on
+``device``, the card by default), so a server that only holds shards
+never touches the card. Left out: the master heartbeat, needle reads and
+writes, the rest of the admin plane, the whitelist and JWT guard, and
+the ``trace_id`` and metrics exports of ``/admin/ec/generate`` (the port
+has no ``util/tracing`` or ``stats/metrics``).
 
     python3 -m seaweedfs_tpu_torch.server.volume_server --dir D [--dir D2]
-        [--host 127.0.0.1] [--port 0]
+        [--host 127.0.0.1] [--port 0] [--device cuda]
 
 serves until killed and prints ``listening <host>:<port>`` once bound,
 so a parent process that passed ``--port 0`` can read the port.
@@ -37,29 +55,40 @@ import threading
 
 import numpy as np
 
+from ..ec.constants import TOTAL_SHARDS, to_ext
 from ..ops import codec as ops_codec
-from ..storage.store import Store
+from ..storage.store import Store, volume_file_prefix
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
-                        parse_range)
+                        http_call, parse_range)
 
 
 class VolumeServer:
     def __init__(self, port: int = 8080, host: str = "127.0.0.1",
-                 directories=None):
+                 directories=None, device: str = "cuda",
+                 layout: str = "flat", codec=None):
         router = Router()
         router.add("*", "/status", self.status)
+        router.add("POST", "/admin/volume/readonly", self.admin_readonly)
+        router.add("POST", "/admin/ec/generate", self.admin_ec_generate)
+        router.add("POST", "/admin/ec/mount", self.admin_ec_mount)
+        router.add("POST", "/admin/ec/copy", self.admin_ec_copy)
+        router.add("POST", "/admin/ec/shard_write",
+                   self.admin_ec_shard_write)
         router.add("GET", "/admin/ec/shard_read", self.admin_ec_shard_read)
         router.add("POST", "/admin/ec/shard_repair_read",
                    self.admin_ec_shard_repair_read)
         router.add("POST", "/admin/ec/shard_plane_read",
                    self.admin_ec_shard_plane_read)
         router.add("GET", "/admin/file", self.admin_file)
-        # shards are only served here, so the store never builds a codec
-        self.store = Store(directories or ["."])
+        # without a ``codec``, the store builds RS(10,4) on ``device`` only
+        # when an encode or a rebuild first needs it
+        self.store = Store(directories or ["."], codec=codec, device=device,
+                           layout=layout)
         self.server = HttpServer(port, router, host=host)
         self.host = host
         self.port = self.server.port
         self.url = f"{host}:{self.port}"
+        self.store.public_url = self.url
 
     def start(self) -> "VolumeServer":
         self.server.start()
@@ -78,6 +107,167 @@ class VolumeServer:
                      "shards": ev.shard_ids()}
                     for loc in self.store.locations
                     for vid, ev in sorted(loc.ec_volumes.items())]}
+
+    def admin_readonly(self, req: Request):
+        vid = int(req.query["volume"])
+        readonly = req.query.get("readonly", "true") == "true"
+        was = self.store.mark_volume_readonly(vid, readonly)
+        if was is None:
+            raise HttpError(404, f"volume {vid} not found")
+        # was_readonly lets an orchestrator restore exactly the prior state
+        return {"volume": vid, "readonly": readonly, "was_readonly": was}
+
+    def admin_ec_generate(self, req: Request):
+        """Encode a readonly volume into shard files. Query only: every
+        shard lands on this disk. When the POST body carries
+        ``assignment`` ({shard: holder url}), the streaming encode+spread
+        runs instead: each shard's slab ranges are pushed to its holder
+        while later slabs encode, and shards bound for other holders
+        never touch this disk."""
+        vid = int(req.query["volume"])
+        collection = req.query.get("collection", "")
+        try:
+            body = req.json()
+        except ValueError:
+            raise HttpError(400, "bad JSON body") from None
+        if isinstance(body, dict) and body.get("assignment"):
+            stats: dict = {}
+            base, final = self.store.generate_ec_shards_streaming(
+                vid, collection,
+                assignment={int(s): u
+                            for s, u in body["assignment"].items()},
+                spares=body.get("spares") or [],
+                window=int(body.get("window") or 0) or None,
+                stats=stats,
+                rate_mbps=float(body.get("rate_mbps") or 0.0))
+            return {"volume": vid, "base": os.path.basename(base),
+                    "assignment": {str(s): u for s, u in final.items()},
+                    "stats": stats}
+        base = self.store.generate_ec_shards(vid, collection)
+        return {"volume": vid, "base": os.path.basename(base)}
+
+    def _ec_stage_base(self, vid: int, collection: str) -> str:
+        """Base path for incoming shard stages: the location already
+        holding this volume's EC files if any (staged ranges, finalized
+        shards and the later sidecar copy must all land at ONE base, or
+        the mount will not see them), else a free location."""
+        exts = [to_ext(s) for s in range(TOTAL_SHARDS)] + [".ecx"]
+        for loc in self.store.locations:
+            base = volume_file_prefix(loc.directory, collection, vid)
+            if any(os.path.exists(base + e) or
+                   os.path.exists(base + e + ".part") for e in exts):
+                return base
+        loc = self.store.find_free_location()
+        if loc is None:
+            raise HttpError(507, "no free disk location")
+        return volume_file_prefix(loc.directory, collection, vid)
+
+    def admin_ec_shard_write(self, req: Request):
+        """Take one shard's ranges from a streaming encode+spread
+        (ec/spread.py): chunked POSTs append at the expected offset into
+        ``<shard>.part`` (a 409 carries the staged size on a mismatch, so
+        a sender that lost an ack can tell delivered from diverged);
+        ``action=finalize&size=`` checks the stage and renames it into
+        place atomically; ``action=abort`` drops the stages. A failure
+        never leaves a partial shard file."""
+        vid = int(req.query["volume"])
+        collection = req.query.get("collection", "")
+        action = req.query.get("action", "append")
+        if action == "abort":
+            req.drain()
+            removed = []
+            for loc in self.store.locations:
+                base = volume_file_prefix(loc.directory, collection, vid)
+                for sid in range(TOTAL_SHARDS):
+                    p = base + to_ext(sid) + ".part"
+                    if os.path.exists(p):
+                        os.remove(p)
+                        removed.append(sid)
+            return {"volume": vid, "aborted": removed}
+        sid = int(req.query["shard"])
+        base = self._ec_stage_base(vid, collection)
+        part = base + to_ext(sid) + ".part"
+        if action == "finalize":
+            req.drain()
+            size = int(req.query["size"])
+            if not os.path.exists(part):
+                raise HttpError(404, f"no staged shard {sid} for "
+                                     f"volume {vid}")
+            staged = os.path.getsize(part)
+            if staged != size:
+                raise HttpError(409, f"shard {sid} staged={staged} "
+                                     f"expected={size}")
+            os.replace(part, base + to_ext(sid))
+            return {"volume": vid, "shard": sid, "size": size,
+                    "finalized": True}
+        off = int(req.query.get("offset", "0"))
+        staged = os.path.getsize(part) if os.path.exists(part) else 0
+        if off != staged and off != 0:
+            # consume the (window-bounded) body, so the sender reads this
+            # answer off a cleanly framed connection
+            _ = req.body
+            raise HttpError(409, f"shard {sid} offset mismatch: "
+                                 f"staged={staged} offset={off}")
+        data = req.body
+        # offset 0 truncates: a replayed first range (failover to this
+        # server, or a retry whose original died mid-body) starts clean
+        with open(part, "wb" if off == 0 else "ab") as f:
+            f.write(data)
+            staged = f.tell()
+        return {"volume": vid, "shard": sid, "staged": staged}
+
+    def admin_ec_mount(self, req: Request):
+        vid = int(req.query["volume"])
+        collection = req.query.get("collection", "")
+        shard_ids = [int(s) for s in req.query.get("shards", "").split(",")
+                     if s != ""]
+        mounted = self.store.mount_ec_shards(vid, collection, shard_ids)
+        if not mounted and shard_ids:
+            # tell "already mounted" from "files not found", so a wrong or
+            # omitted collection fails loudly instead of doing nothing
+            ev = self.store.find_ec_volume(vid)
+            if ev is None or not set(shard_ids) & set(ev.shards):
+                raise HttpError(
+                    404, f"no shard files for volume {vid} "
+                         f"collection={collection!r} here")
+        return {"volume": vid, "mounted": mounted}
+
+    def admin_ec_copy(self, req: Request):
+        """Pull shard files, and with ``copy_ecx`` the .ecx, from a source
+        server's ``/admin/file``. The .vif and .ecj are optional: a 404
+        on either is skipped, any other status fails the copy (a skipped
+        .vif would turn into a wrong offset-width guess on a parity-only
+        holder)."""
+        vid = int(req.query["volume"])
+        collection = req.query.get("collection", "")
+        source = req.query["source"]
+        shard_ids = [int(s) for s in req.query.get("shards", "").split(",")
+                     if s != ""]
+        copy_ecx = req.query.get("copy_ecx", "true") == "true"
+        # land next to any EC files this volume already has here: a
+        # streamed spread may have staged shards on this server, and the
+        # sidecars must join them at the same base for the mount
+        base = self._ec_stage_base(vid, collection)
+        name = os.path.basename(base)
+        exts = [to_ext(s) for s in shard_ids]
+        optional = []
+        if copy_ecx:
+            exts.append(".ecx")
+            optional = [".vif", ".ecj"]
+        copied = []
+        for ext in exts + optional:
+            try:
+                data = http_call(
+                    "GET", f"http://{source}/admin/file?name={name}{ext}",
+                    timeout=300)
+            except HttpError as e:
+                if ext in optional and e.status == 404:
+                    continue
+                raise
+            with open(base + ext, "wb") as f:
+                f.write(data)
+            copied.append(ext)
+        return {"volume": vid, "copied": copied}
 
     def _shard(self, req: Request):
         vid = int(req.query["volume"])
@@ -202,16 +392,18 @@ class VolumeServer:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="Serve the EC shards of the given directories over "
-                    "the holder routes.")
+        description="Serve the volumes and EC shards of the given "
+                    "directories over the EC routes.")
     ap.add_argument("--dir", action="append", required=True,
                     help="a directory of EC volumes (repeatable)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=0,
                     help="0 picks a free port")
+    ap.add_argument("--device", default="cuda",
+                    help="where /admin/ec/generate encodes (cuda or cpu)")
     args = ap.parse_args(argv)
     vs = VolumeServer(port=args.port, host=args.host,
-                      directories=args.dir).start()
+                      directories=args.dir, device=args.device).start()
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())

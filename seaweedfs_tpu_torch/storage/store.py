@@ -1,25 +1,34 @@
-"""Store — a volume server's EC shards across its directories, and the
-rebuilder's routing of ``ec.rebuild -repair auto|trace|piggyback|full``.
+"""Store — a volume server's volumes and EC shards across its
+directories, the EC encode (local, or streamed to the shards' holders),
+and the rebuilder's routing of ``ec.rebuild -repair
+auto|trace|piggyback|full``.
 
-The JAX package's ``storage/store.py`` in the parts the EC holder routes
-and the network rebuild use: the directories (each a ``DiskLocation``
-holding the ``EcVolume``s whose shards it finds there),
-``find_ec_volume``, ``_volume_layout``, and ``rebuild_ec_shards_streaming``
-with its trace, piggyback and full paths. Survivors a store does not
-hold are pulled from their holders over HTTP (``ec/gather``); only the
-KB-sized index sidecars are copied whole. Every GF(2^8) product runs on
-the store's codec, ``TorchCodec`` on the card unless the caller passes
-another codec or ``device="cpu"``; a holder, which only serves shards,
-never builds one.
+The JAX package's ``storage/store.py`` and ``disk_location.py`` in the
+parts the EC routes use: the directories (each a ``DiskLocation`` holding
+the plain ``Volume``s and the ``EcVolume``s it finds there),
+``find_volume``, ``find_ec_volume``, ``find_free_location``,
+``mark_volume_readonly``, ``generate_ec_shards`` and
+``generate_ec_shards_streaming`` (``ec.encode``: the readonly volume's
+shards written here, or each pushed to its holder while later slabs
+encode), ``mount_ec_shards``, ``_volume_layout``, and
+``rebuild_ec_shards_streaming`` with its trace, piggyback and full paths.
+Survivors a store does not hold are pulled from their holders over HTTP
+(``ec/gather``); only the KB-sized index sidecars are copied whole. Every
+GF(2^8) product runs on the store's codec, ``TorchCodec`` on the card
+unless the caller passes another codec or ``device="cpu"``; a holder,
+which only serves and takes shards, never builds one.
 
-Left out: plain volumes, needle writes, heartbeats, encode and mount
-bookkeeping, and the transport metrics export; the stats dict keys stay.
+The JAX package reads the new volumes' layout from SW_EC_LAYOUT; here it
+is the ``layout`` argument ("flat" by default). Left out: creating and
+deleting volumes, needle writes, heartbeats and their change callbacks,
+unmounting, and the transport metrics export; the stats dict keys stay.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -27,33 +36,77 @@ from ..ec import decoder as ec_decoder
 from ..ec import encoder as ec_encoder
 from ..ec import gather
 from ..ec import layout as ec_layout
-from ..ec.constants import DATA_SHARDS, TOTAL_SHARDS, to_ext
+from ..ec import spread
+from ..ec.constants import (DATA_SHARDS, LARGE_BLOCK_SIZE, PARITY_SHARDS,
+                            SMALL_BLOCK_SIZE, TOTAL_SHARDS, to_ext)
 from ..ec.ec_volume import EcVolume, ec_offset_width, rebuild_ecx_file
 from ..ops import codec as ops_codec
 from ..server.http_util import HttpError
 from ..stats.health import BOARD
 from .types import entry_size
+from .volume import (NotFound, Volume, VolumeError,  # noqa: F401
+                     volume_file_prefix)
 
+_VOL_RE = re.compile(r"^(?:(?P<collection>.+)_)?(?P<vid>\d+)\.idx$")
 _EC_SHARD_RE = re.compile(
     r"^(?:(?P<collection>.+)_)?(?P<vid>\d+)\.ec(?P<shard>\d{2})$")
 
 
-class VolumeError(Exception):
-    pass
-
-
-def volume_file_prefix(dirname: str, collection: str, vid: int) -> str:
-    name = f"{collection}_{vid}" if collection else str(vid)
-    return os.path.join(dirname, name)
-
-
 class DiskLocation:
-    """One directory of a store: the EC volumes whose shard files and
-    ``.ecx`` it holds (the EC half of the JAX ``DiskLocation``)."""
+    """One directory of a store: the plain volumes (a ``.idx`` with its
+    ``.dat``) and the EC volumes (shard files with an ``.ecx``) it holds.
+    ``max_volume_count`` is its slots, of which an EC shard takes a
+    tenth."""
 
-    def __init__(self, directory: str):
-        self.directory = directory
+    def __init__(self, directory: str, max_volume_count: int = 7):
+        self.directory = os.path.abspath(directory)
+        self.max_volume_count = max_volume_count
+        self.volumes: Dict[int, Volume] = {}
         self.ec_volumes: Dict[int, EcVolume] = {}
+        self.lock = threading.RLock()
+        os.makedirs(self.directory, exist_ok=True)
+
+    def load_existing_volumes(self):
+        with self.lock:
+            for fname in sorted(os.listdir(self.directory)):
+                m = _VOL_RE.match(fname)
+                if not m:
+                    continue
+                vid = int(m.group("vid"))
+                base = os.path.join(self.directory, fname[: -len(".idx")])
+                # a volume whose .dat is parked on a remote tier is not
+                # served by the port
+                if not os.path.exists(base + ".dat") or vid in self.volumes:
+                    continue
+                try:
+                    self.volumes[vid] = Volume(
+                        self.directory, m.group("collection") or "", vid)
+                except Exception:  # noqa: BLE001 - quarantine the volume
+                    continue
+
+    def load_volume(self, vid: int) -> Optional[Volume]:
+        """Mount one on-disk volume by id, whatever collection prefixes
+        its files, under the location lock (so a concurrent mount cannot
+        open it twice). Returns the (possibly already mounted) Volume, or
+        None when no loadable files exist."""
+        with self.lock:
+            existing = self.volumes.get(vid)
+            if existing is not None:
+                return existing
+            for fname in sorted(os.listdir(self.directory)):
+                m = _VOL_RE.match(fname)
+                if not m or int(m.group("vid")) != vid:
+                    continue
+                base = os.path.join(self.directory, fname[: -len(".idx")])
+                if not os.path.exists(base + ".dat"):
+                    continue  # orphaned .idx: the boot scan's quarantine
+                v = Volume(self.directory, m.group("collection") or "", vid)
+                self.volumes[vid] = v
+                return v
+            return None
+
+    def get_volume(self, vid: int) -> Optional[Volume]:
+        return self.volumes.get(vid)
 
     def load_all_ec_shards(self):
         shard_sets: Dict[int, tuple] = {}
@@ -74,27 +127,42 @@ class DiskLocation:
             self.ec_volumes[vid] = ev
 
     def close(self):
-        for ev in self.ec_volumes.values():
-            ev.close()
-        self.ec_volumes.clear()
+        with self.lock:
+            for v in self.volumes.values():
+                v.close()
+            for ev in self.ec_volumes.values():
+                ev.close()
+            self.volumes.clear()
+            self.ec_volumes.clear()
 
 
 class Store:
-    """``directories`` -> ``locations``, each loaded with its EC shards.
-    ``codec`` defaults to RS(10,4) on ``device`` (the card), built on
-    first use; ``routing`` turns health routing on for the remote
-    readers and the full rebuild's survivor choice (the JAX package's
-    SW_EC_HEALTH_ROUTING, off by default)."""
+    """``directories`` -> ``locations``, each loaded with its volumes and
+    EC shards. ``codec`` defaults to RS(10,4) on ``device`` (the card),
+    built on first use; ``routing`` turns health routing on for the
+    remote readers, the full rebuild's survivor choice and the spread's
+    spare choice (the JAX package's SW_EC_HEALTH_ROUTING, off by
+    default); ``layout`` is the parity layout of new EC volumes, "flat"
+    or "piggyback" (the JAX SW_EC_LAYOUT, flat by default);
+    ``max_volume_counts`` the slots of each directory (7 each).
+    ``public_url``, this server's address in a shard assignment, is set
+    by the server that owns the store."""
 
     def __init__(self, directories, codec=None, device="cuda",
-                 routing: bool = False):
+                 routing: bool = False, layout: str = "flat",
+                 max_volume_counts=None):
         if isinstance(directories, str):
             directories = [directories]
-        self.locations = [DiskLocation(d) for d in directories]
+        max_volume_counts = max_volume_counts or [7] * len(directories)
+        self.locations = [DiskLocation(d, n)
+                          for d, n in zip(directories, max_volume_counts)]
         self._codec = codec
         self.device = device
         self.routing = bool(routing)
+        self.layout = layout
+        self.public_url = ""
         for loc in self.locations:
+            loc.load_existing_volumes()
             loc.load_all_ec_shards()
 
     @property
@@ -105,6 +173,13 @@ class Store:
                                               device=self.device)
         return self._codec
 
+    def find_volume(self, vid: int) -> Optional[Volume]:
+        for loc in self.locations:
+            v = loc.get_volume(vid)
+            if v is not None:
+                return v
+        return None
+
     def find_ec_volume(self, vid: int) -> Optional[EcVolume]:
         for loc in self.locations:
             ev = loc.ec_volumes.get(vid)
@@ -112,9 +187,160 @@ class Store:
                 return ev
         return None
 
+    def find_free_location(self) -> Optional[DiskLocation]:
+        """The location with the most free slots (at least one); EC
+        shards count as 1/10 of a volume."""
+        best, best_free = None, 0.0
+        for loc in self.locations:
+            ec_shards = sum(len(ev.shards) for ev in loc.ec_volumes.values())
+            free = loc.max_volume_count - len(loc.volumes) - ec_shards / 10.0
+            if free >= 1 and free > best_free:
+                best, best_free = loc, free
+        return best
+
+    def mark_volume_readonly(self, vid: int,
+                             readonly: bool = True) -> Optional[bool]:
+        """Set the flag; returns the PREVIOUS readonly state, or None when
+        the volume is absent, so an orchestrator can restore exactly the
+        prior state on failure."""
+        v = self.find_volume(vid)
+        if v is None:
+            return None
+        was, v.readonly = v.readonly, readonly
+        return was
+
     def close(self):
         for loc in self.locations:
             loc.close()
+
+    # -- EC encode ---------------------------------------------------------
+    def _encode_layout(self):
+        """(layout name, plan, window) for NEW ec volumes, from
+        ``self.layout``. An unsupported geometry (m < 2) raises rather
+        than silently downgrading an explicit piggyback choice."""
+        name = (self.layout or ec_layout.LAYOUT_FLAT).lower()
+        if name == ec_layout.LAYOUT_FLAT:
+            return ec_layout.LAYOUT_FLAT, None, None
+        if name != ec_layout.LAYOUT_PIGGYBACK:
+            raise VolumeError(f"unknown EC layout {name!r}")
+        k = self._codec.k if self._codec is not None else DATA_SHARDS
+        m = self._codec.m if self._codec is not None else PARITY_SHARDS
+        if not ops_codec.piggyback_supported(k, m):
+            raise VolumeError(
+                f"EC layout piggyback unsupported for RS({k},{m})")
+        pplan, window = ec_encoder.piggyback_geometry(
+            self.codec, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)
+        return ec_layout.LAYOUT_PIGGYBACK, pplan, window
+
+    def _write_layout_sidecars(self, base, v, layout, pplan, window):
+        """Record the volume metadata AND layout in one .vif/.ecx-tag
+        write (ec/layout). offset_width rides along: a holder of only
+        parity shards has no .ec00 superblock to infer the .ecx record
+        width from."""
+        ec_layout.write_layout_sidecars(
+            base, layout, window=window,
+            pairs=(pplan.npairs if pplan is not None else None),
+            record_size=entry_size(v.offset_width),
+            version=v.version, offset_width=v.offset_width)
+
+    def _readonly_volume(self, vid: int) -> Volume:
+        v = self.find_volume(vid)
+        if v is None:
+            raise VolumeError(f"volume {vid} not found")
+        if not v.readonly:
+            raise VolumeError(f"volume {vid} must be readonly for ec encode")
+        return v
+
+    def generate_ec_shards(self, vid: int, collection: str = "") -> str:
+        """Volume .dat/.idx -> .ec00-13 + .ecx + .vif on the same disk,
+        in ``self.layout``; the choice is stamped into the sidecars, so
+        every later reader routes by the volume."""
+        v = self._readonly_volume(vid)
+        base = v.file_name()
+        layout, pplan, window = self._encode_layout()
+        ec_encoder.write_sorted_file_from_idx(base)
+        ec_encoder.write_ec_files(base, codec=self.codec, layout=layout)
+        self._write_layout_sidecars(base, v, layout, pplan, window)
+        return base
+
+    def generate_ec_shards_streaming(self, vid: int, collection: str = "",
+                                     assignment: Dict[int, str] = None,
+                                     spares: List[str] = None,
+                                     window: Optional[int] = None,
+                                     stats: dict = None,
+                                     rate_mbps: float = 0.0):
+        """Streaming encode+spread: encode the readonly volume and push
+        each shard's slab ranges to its assigned holder while later slabs
+        are still encoding (ec/spread.py). ``assignment`` maps shard id
+        -> holder url; shards assigned to this server (``public_url``) or
+        unassigned are written locally. Returns ``(base, final)``, where
+        ``final`` is the placement after failover ({sid: url, '' for
+        local}). On ANY failure every holder's ``.part`` stage is aborted
+        and the local shards, stages and .ecx removed: no partial shard
+        survives. ``rate_mbps`` > 0 paces the producer."""
+        v = self._readonly_volume(vid)
+        base = v.file_name()
+        assignment = {int(s): u for s, u in (assignment or {}).items()}
+        total = self.codec.total
+        # the streaming gather's slab policy: a near-slab-sized shard
+        # still gives the spread several stripes to overlap with the
+        # encode (the slab only batches device columns; shard bytes do
+        # not depend on it)
+        slab = gather.auto_slab(ec_encoder.ec_shard_base_size(
+            os.path.getsize(base + ".dat")))
+        layout, pplan, pb_window = self._encode_layout()
+        ec_encoder.write_sorted_file_from_idx(base)
+        sink = spread.StripedSpreadSink(
+            vid, base, assignment, total, collection=collection,
+            local_url=self.public_url, spares=spares, window=window,
+            stats=spread.SpreadStats(), rate_mbps=rate_mbps,
+            routing=self.routing)
+        try:
+            ec_encoder.write_ec_files_spread(
+                base, sink, codec=self.codec, slab=slab, stats=stats,
+                layout=layout)
+        except BaseException:
+            # the sink already aborted every holder's stage; drop what
+            # the local fast path finalized, and the index
+            for i in range(total):
+                for p in (base + to_ext(i), base + to_ext(i) + ".part"):
+                    try:
+                        os.remove(p)
+                    except OSError:
+                        pass
+            try:
+                os.remove(base + ".ecx")
+            except OSError:
+                pass
+            raise
+        self._write_layout_sidecars(base, v, layout, pplan, pb_window)
+        return base, sink.assignment()
+
+    def mount_ec_shards(self, vid: int, collection: str,
+                        shard_ids: List[int]) -> List[int]:
+        """Register the shard files of ``shard_ids`` found beside an .ecx
+        in the first location that has one; returns the ids newly
+        mounted."""
+        mounted = []
+        for loc in self.locations:
+            base = volume_file_prefix(loc.directory, collection, vid)
+            if not os.path.exists(base + ".ecx"):
+                continue
+            ev = loc.ec_volumes.get(vid)
+            created = ev is None
+            if created:
+                ev = EcVolume(loc.directory, collection, vid)
+            for sid in shard_ids:
+                if os.path.exists(base + to_ext(sid)) and ev.add_shard(sid):
+                    mounted.append(sid)
+            if created:
+                # never leave a shard-less EcVolume registered
+                if ev.shards:
+                    loc.ec_volumes[vid] = ev
+                else:
+                    ev.close()
+            break
+        return mounted
 
     def _volume_layout(self, base):
         """Resolve an existing volume's on-disk layout from its sidecars

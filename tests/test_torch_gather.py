@@ -325,21 +325,28 @@ def test_local_rebuild_failure_leaves_no_partials(tmp_path, monkeypatch,
 
 
 def test_stripe_assembly_counts_as_gather_busy():
-    """Assembling a stripe is part of the gather: one interval per stripe
-    lands in the gather stage even when the readers record nothing."""
+    """Stripe assembly is NOT gather busy time, in the port as in the JAX
+    package: quiet readers (which record no fetch) run through both
+    packages' StripedGatherSource, and neither records a gather interval,
+    so both report gather_busy_s 0.0. The gather's busy time is the union
+    of the readers' fetch intervals only."""
     k, slab, n_stripes = 3, 1024, 5
 
     class Quiet:
         def read(self, off, n, stripe_idx=0):
             return bytes(n)
 
-    stats = gather.GatherStats()
-    source = gather.StripedGatherSource([Quiet() for _ in range(k)],
-                                        slab * n_stripes, slab=slab,
-                                        window=2, stats=stats)
-    assert sum(1 for _ in source.slabs()) == n_stripes
-    assert len(stats.timer.intervals["gather"]) == n_stripes
-    assert stats.fetches == 0 and stats.busy_s() > 0
+    for mod in (gather, ref_gather):
+        stats = mod.GatherStats()
+        source = mod.StripedGatherSource([Quiet() for _ in range(k)],
+                                         slab * n_stripes, slab=slab,
+                                         window=2, stats=stats)
+        blocks = [block for _, block in source.slabs()]
+        assert len(blocks) == n_stripes
+        assert all(b.shape == (k, slab) and not b.any() for b in blocks)
+        assert stats.timer.intervals.get("gather", []) == []
+        assert stats.fetches == 0 and stats.busy_s() == 0.0
+        assert stats.snapshot()["gather_stripes"] == n_stripes
 
 
 def test_streaming_needs_k_survivors(tmp_path):

@@ -2,8 +2,9 @@
 chip_smoke.py, imports jax or the JAX package, and the port encodes and
 rebuilds (from local files and streamed), trace-repairs, plane-repairs
 and decodes, on the flat and the piggyback layout, serves a needle
-through a lost shard and scrubs, and trace-repairs from a holder over
-HTTP, with both made unimportable."""
+through a lost shard and scrubs, trace-repairs from a holder over HTTP,
+and streams an encode from one server's readonly volume to another
+server, with both made unimportable."""
 
 import ast
 import os
@@ -51,6 +52,7 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/ec/decoder.py",
                  "seaweedfs_tpu_torch/ec/gather.py",
                  "seaweedfs_tpu_torch/ec/transport.py",
+                 "seaweedfs_tpu_torch/ec/spread.py",
                  "seaweedfs_tpu_torch/ec/layout.py",
                  "seaweedfs_tpu_torch/ec/degraded.py",
                  "seaweedfs_tpu_torch/ec/scrub.py",
@@ -59,6 +61,7 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/ec/shard_cache.py",
                  "seaweedfs_tpu_torch/storage/needle.py",
                  "seaweedfs_tpu_torch/storage/store.py",
+                 "seaweedfs_tpu_torch/storage/volume.py",
                  "seaweedfs_tpu_torch/server/http_util.py",
                  "seaweedfs_tpu_torch/server/volume_server.py",
                  "seaweedfs_tpu_torch/stats/health.py",
@@ -278,6 +281,76 @@ def test_network_repair_with_jax_unimportable(tmp_path):
         assert open(os.path.join(sdir, "1" + to_ext(6)), "rb").read() == want
         assert 0 < stats["gather_remote_bytes"] < 10 * len(want)
         assert sorted(os.listdir(sdir)) == ["1.ec06", "1.ecx"]
+        assert gf_matmul.launches == 0
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_streaming_spread_with_jax_unimportable(tmp_path):
+    """Two port servers in the process: the source freezes its volume and
+    streams its encode (/admin/ec/generate with an assignment), the
+    holder takes shards 5-13 over /admin/ec/shard_write, copies the
+    sidecars and mounts them; every shard equals the local encode's."""
+    script = textwrap.dedent(f"""
+        import json, os, shutil, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from seaweedfs_tpu_torch.ec import to_ext, write_ec_files
+        from seaweedfs_tpu_torch.ops import TorchCodec, gf_matmul
+        from seaweedfs_tpu_torch.server.http_util import http_call
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        from seaweedfs_tpu_torch.storage import SuperBlock
+        src, hdir, odir = ({str(tmp_path / "src")!r},
+                           {str(tmp_path / "holder")!r},
+                           {str(tmp_path / "oracle")!r})
+        for d in (src, hdir, odir):
+            os.makedirs(d)
+        rng = np.random.default_rng(0)
+        with open(os.path.join(src, "1.dat"), "wb") as f:
+            f.write(SuperBlock().to_bytes())
+            f.write(rng.integers(0, 256, 300_000, dtype=np.uint8).tobytes())
+        open(os.path.join(src, "1.idx"), "wb").close()
+        shutil.copy(os.path.join(src, "1.dat"), os.path.join(odir, "1.dat"))
+        codec = TorchCodec(10, 4, device="cpu")
+        write_ec_files(os.path.join(odir, "1"), codec=codec)
+        source = VolumeServer(port=0, directories=[src], device="cpu",
+                              codec=codec).start()
+        holder = VolumeServer(port=0, directories=[hdir],
+                              device="cpu").start()
+        try:
+            post = lambda url, body=None: json.loads(http_call(
+                "POST", "http://" + url, body))
+            assert post(source.url + "/admin/volume/readonly?volume=1")[
+                "readonly"]
+            place = {{str(s): holder.url for s in range(5, 14)}}
+            out = post(source.url + "/admin/ec/generate?volume=1",
+                       json.dumps({{"assignment": place}}).encode())
+            assert out["stats"]["spread_remote_shards"] == 9
+            post(holder.url + "/admin/ec/copy?volume=1&shards=&source="
+                 + source.url)
+            got = post(holder.url + "/admin/ec/mount?volume=1&shards="
+                       + ",".join(map(str, range(5, 14))))
+            assert got["mounted"] == list(range(5, 14))
+        finally:
+            source.stop()
+            holder.stop()
+        for sid in range(14):
+            d = src if sid < 5 else hdir
+            want = open(os.path.join(odir, "1" + to_ext(sid)), "rb").read()
+            assert open(os.path.join(d, "1" + to_ext(sid)), "rb").read() \\
+                == want, sid
+        assert not [f for d in (src, hdir) for f in os.listdir(d)
+                    if f.endswith(".part")]
         assert gf_matmul.launches == 0
         assert not any(m.split(".")[0] in {FORBIDDEN!r}
                        for m, v in sys.modules.items() if v is not None)

@@ -137,9 +137,8 @@ def _readers(holders, sid, **kw):
 
 def _same_stats(ref, port):
     a, b = ref.snapshot(), port.snapshot()
-    # sends are the push side's, which the port has not ported
-    assert set(b) == set(a) - {"gather_sends"}
-    assert b == {key: a[key] for key in b}
+    assert set(b) == set(a)
+    assert b == a
     return b
 
 
