@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 1. Builds both Hopper kernel libraries from this checkout with nvcc, one
-   process per source, started together (csrc/gf_matmul.cu, K1;
+   process per source, and the CRC32-C library (csrc/crc32c.cc) with the
+   host C++ compiler, all started together (csrc/gf_matmul.cu, K1;
    csrc/gf_bitplane.cu, K6a/K6b), and prints each build's time and ptxas
    report (registers, spills, stack frames, wgmma serialization). Counts,
    in the bit-plane library's SASS (cuobjdump), the warpgroup MMA
@@ -158,9 +159,40 @@
    encode_busy_s, spread_busy_s, overlap_frac, peak_spread_buffer and
    blocked_s (stream_s - encode_busy_s) on a line of its own.
 
+13. The needle data plane of a port volume server, after ec.decode. A CRC
+   phase first holds the compiled CRC32-C (storage/crc.py) against its
+   plain version on seeded inputs of 0, 1, 7, 8, 4097 and 1 MiB + 3
+   bytes (whole, chained, and its slicing-by-8 path) and prints both
+   rates. Then an in-process VolumeServer on the card (127.0.0.1, an
+   empty directory, RS(10,4), flat): /admin/assign_volume; four client
+   threads POST seeded needles as multipart uploads, in the plan's
+   order (each prepares its body, then waits until the previous POST
+   is answered, so the .dat layout, and with it the needles on shard 1,
+   is fixed by the seed), until their data
+   fills VOLUME_BYTES (sizes log-uniform over 1 KiB-4 MiB, about 2,000
+   needles; each named, a third with a mime, a third octet-stream, every
+   fifth with a Seaweed-* pair; the reply's name, size and ETag checked,
+   each fid's sha256 kept); every needle GET back (sha256 and ETag);
+   every tenth DELETEd and 404 after; the vacuum (check > 0, compact,
+   commit, check 0; the .dat shrinks by exactly the deleted needles'
+   actual sizes; every live needle read back); /admin/volume/readonly,
+   the query form of /admin/ec/generate, /admin/ec/mount and
+   /admin/delete_volume, in ec.encode's order (K1 launches = the
+   encode's dispatches = ceil(shard / 8 MiB)); every live needle GET from
+   the EC volume (no launch); /admin/ec/delete_shards?shards=1; the
+   needles whose intervals touch shard 1 GET from four threads, each
+   parsed and its CRC checked by the server, through the server's
+   DegradedReadEngine (launches = its device dispatches > 0; p50, p99);
+   the query form of /admin/ec/rebuild (launches = its dispatches; shard
+   1 sha256-identical to the one encoded) and the shard's mount, then
+   the same GETs with no launch; three EC DELETEs, each 404 after and
+   listed in the .ecj. Prints write MB/s and requests/s, read MB/s, the
+   vacuum's, the encode's and the rebuild's seconds and the degraded
+   p50/p99, each on a line of its own, then the leg's numbers as JSON.
+
 Every leg runs with the kernel's launch counter set to 0 just before it
-and read just after; a leg of steps 5-8 and 10-12 whose launches differ
-from its dispatches, or that launched nothing, fails the smoke.
+and read just after; a leg of steps 5-8, 10-12 and 13 whose launches
+differ from its dispatches, or that launched nothing, fails the smoke.
 
 Prints the card line (nvidia-smi name, power limit), then a JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Exits non-zero,
@@ -180,6 +212,7 @@ import select
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -210,6 +243,14 @@ NET_GETS = DEGRADED_GETS    # needle GETs of the net degraded leg
 SPREAD_LOCAL = (0, 1)       # the spread source keeps these shards
 SPREAD_HOLDS = {"A": range(2, 6), "B": range(6, 10), "C": range(10, 14)}
 HOLDER_START_S = 60.0       # a holder prints its port within this
+DATA_VID = 7                # the data-plane leg's volume
+DATA_MIN = 1 << 10          # its needle sizes, log-uniform between
+DATA_MAX = 4 << 20
+DATA_THREADS = 4            # its client threads
+DATA_LOST = 1               # the shard it loses after the encode
+DATA_EC_DELETES = 3         # EC DELETEs at its end
+CRC_SIZES = (0, 1, 7, 8, 4097, (1 << 20) + 3)
+CRC_PLAIN_BYTES = 1 << 20   # the plain version's timed input
 #: K1's widths on the degraded legs: a flat needle batch (1 MiB of a
 #: needle in 8 slabs + 1 readahead slab), the flat wide read (16 MiB + 1
 #: readahead slab) and the piggyback wide read (its 17 windows over 32)
@@ -253,27 +294,34 @@ PTXAS_KEEP = ("registers", "Compiling entry", "spill", "stack frame",
 PTXAS_SKIP = ("C7519",)  # "warpgroup.arrive is injected": one per wgmma
 
 
-def build_kernels(modules) -> float:
-    """One nvcc per kernel source, all started together; prints each
-    build's time and ptxas report (registers, spills, stack frames).
-    Returns the wall time of the builds."""
-    def build(mod):
+def build_kernels(modules, crc) -> float:
+    """One nvcc per kernel source and the host compiler for the CRC32-C
+    library, all started together; prints each build's time and ptxas
+    report (registers, spills, stack frames). Returns the wall time of
+    the builds."""
+    builds = [(mod.LIBRARY, ("nvcc",) + tuple(mod.NVCC_FLAGS),
+               lambda mod=mod: mod.compile_kernel(ptxas_verbose=True))
+              for mod in modules]
+    builds.append((crc.LIBRARY, ("c++",) + tuple(crc.CXX_FLAGS),
+                   crc.compile_library))
+
+    def build(entry):
         t0 = time.perf_counter()
-        log = mod.compile_kernel(ptxas_verbose=True)
+        log = entry[2]()
         return log, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(modules)) as pool:
-        logs = list(pool.map(build, modules))
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        logs = list(pool.map(build, builds))
     wall = time.perf_counter() - t0
-    for mod, (log, secs) in zip(modules, logs):
-        print(f"build: nvcc {' '.join(mod.NVCC_FLAGS)} -> "
-              f"{os.path.relpath(mod.LIBRARY, ROOT)} in {secs:.2f} s")
+    for (library, flags, _), (log, secs) in zip(builds, logs):
+        print(f"build: {' '.join(flags)} -> "
+              f"{os.path.relpath(library, ROOT)} in {secs:.2f} s")
         for line in log.splitlines():
             if any(key in line for key in PTXAS_KEEP) and \
                     not any(key in line for key in PTXAS_SKIP):
                 print("  ptxas:", line.strip())
-    print(f"build: {len(modules)} libraries in {wall:.2f} s wall")
+    print(f"build: {len(builds)} libraries in {wall:.2f} s wall")
     return wall
 
 
@@ -1703,6 +1751,352 @@ def spread_leg(torch, port, work, base, res, shas, dat, layout):
     return numbers
 
 
+def crc_phase(np, crc):
+    """The compiled CRC32-C (storage/crc.py over csrc/crc32c.cc, built
+    with the kernels) against its plain version on seeded inputs of
+    CRC_SIZES bytes, whole and chained from a third of the way, and its
+    slicing-by-8 path beside its dispatching entry; then the compiled
+    CRC's rate over 256 MiB and the plain version's over CRC_PLAIN_BYTES.
+    Returns {"compiled_mb_s", "plain_mb_s", "hardware_path"}."""
+    rng = np.random.default_rng(5)
+    for size in CRC_SIZES:
+        data = rng.bytes(size)
+        want = crc.crc32c_plain(data)
+        cut = size // 3
+        got = (crc.crc32c(data), crc.crc32c_sliced(data),
+               crc.crc32c(data[cut:], crc.crc32c(data[:cut])))
+        if any(g != want for g in got):
+            raise AssertionError(f"crc32c of {size} B: {got} != plain "
+                                 f"{want:#x}")
+    big = rng.bytes(256 << 20)
+    t0 = time.perf_counter()
+    crc.crc32c(big)
+    compiled = len(big) / (time.perf_counter() - t0) / 1e6
+    plain_in = rng.bytes(CRC_PLAIN_BYTES)
+    t0 = time.perf_counter()
+    crc.crc32c_plain(plain_in)
+    plain = len(plain_in) / (time.perf_counter() - t0) / 1e6
+    out = {"compiled_mb_s": round(compiled, 1), "plain_mb_s": round(plain, 2),
+           "hardware_path": crc.hardware_path()}
+    print(f"crc32c: compiled = plain on {list(CRC_SIZES)} B (whole, chained, "
+          f"slicing-by-8 and dispatching entries); compiled "
+          f"{compiled:.1f} MB/s over 256 MiB (SSE4.2 path: "
+          f"{out['hardware_path']}), plain {plain:.2f} MB/s over "
+          f"{len(plain_in)} B")
+    return out
+
+
+def _needle_plan(np, seed, total):
+    """(fid, filename, content type, pairs, data seed, size) of seeded
+    needles, sizes log-uniform over DATA_MIN..DATA_MAX, until their data
+    reaches ``total`` bytes. Every needle has a name; a third give a
+    mime, a third octet-stream, a third leave it to the name's extension
+    (text/plain); every fifth carries a Seaweed-* pair."""
+    rng = np.random.default_rng(seed)
+    plan, acc, i = [], 0, 0
+    lo, hi = math.log(DATA_MIN), math.log(DATA_MAX)
+    while acc < total:
+        size = min(int(math.exp(rng.uniform(lo, hi))), total - acc)
+        key = int(rng.integers(1, 1 << 48))
+        cookie = int(rng.integers(0, 1 << 32))
+        fid = f"{DATA_VID},{key:x}{cookie:08x}"
+        kind = i % 3
+        name, ctype = (f"needle-{i}.jpg", "image/jpeg") if kind == 0 else \
+            (f"needle-{i}.bin", "application/octet-stream") if kind == 1 \
+            else (f"needle-{i}.txt", "")
+        pairs = {"Seaweed-Seq": str(i)} if i % 5 == 0 else None
+        plan.append((fid, name, ctype, pairs, (seed, i), max(size, 1)))
+        acc += size
+        i += 1
+    return plan
+
+
+def _timed_gets(url, fids, want, threads=DEGRADED_THREADS):
+    """GET every fid from ``threads`` threads; each body's sha256 and
+    Etag must be ``want[fid]``. Returns (wall s, bytes, latencies ms)."""
+    from seaweedfs_tpu_torch.server.http_util import http_get_with_headers
+
+    def get(fid):
+        t0 = time.perf_counter()
+        body, headers = http_get_with_headers(f"http://{url}/{fid}",
+                                              timeout=120)
+        secs = time.perf_counter() - t0
+        sha, etag = want[fid]
+        if hashlib.sha256(body).hexdigest() != sha or \
+                headers.get("Etag") != f'"{etag}"':
+            raise AssertionError(f"GET {fid}: body or Etag differs "
+                                 f"({headers.get('Etag')} != {etag})")
+        return secs * 1e3, len(body)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        got = list(pool.map(get, fids))
+    return time.perf_counter() - t0, sum(n for _, n in got), \
+        [ms for ms, _ in got]
+
+
+def _gone(url, fids):
+    """Every fid must answer 404."""
+    from seaweedfs_tpu_torch.server.http_util import HttpError, http_call
+    for fid in fids:
+        try:
+            http_call("GET", f"http://{url}/{fid}")
+        except HttpError as e:
+            if e.status == 404:
+                continue
+            raise
+        raise AssertionError(f"GET {fid}: a deleted needle was served")
+
+
+def data_plane_leg(np, port, work, seed):
+    """A port volume server's needle data plane, end to end: an
+    in-process VolumeServer on the card (127.0.0.1, an empty directory,
+    RS(10,4), flat). /admin/assign_volume; DATA_THREADS threads POST the
+    seeded needles (_needle_plan, about 2,000 over VOLUME_BYTES) as
+    multipart uploads in the plan's order (a thread sends needle j once
+    needle j - 1 is answered: the .dat layout is the seed's); every needle GET back (sha256 and Etag); every
+    tenth DELETEd and 404 after; the vacuum (check > 0, compact, commit,
+    check 0; the .dat shrinks by exactly the deleted needles' actual
+    sizes; every live needle read back); readonly, the query form of
+    /admin/ec/generate, mount, delete_volume (K1 launches = the encode's
+    dispatches = ceil(shard / 8 MiB)); every live needle GET from the EC
+    volume with no launch; /admin/ec/delete_shards of DATA_LOST; the
+    needles touching it GET from DEGRADED_THREADS threads, each parsed
+    and its CRC checked by the server (launches = the engine's device
+    dispatches > 0; p50, p99); the query form of /admin/ec/rebuild
+    (launches = its dispatches; the shard sha256-identical to the one
+    encoded), its mount, the same GETs again with no launch; DATA_EC_DELETES
+    EC DELETEs, each 404 after and listed in the .ecj. Returns the leg's
+    numbers (its own wall in leg_s) with its launches by phase."""
+    ec, ops, storage = port
+    from seaweedfs_tpu_torch.ops import telemetry
+    from seaweedfs_tpu_torch.server.http_util import (http_call,
+                                                      post_multipart)
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage import crc
+    from seaweedfs_tpu_torch.storage.needle import get_actual_size
+    from seaweedfs_tpu_torch.storage.types import parse_file_id
+    d = os.path.join(work, "data-plane")
+    os.makedirs(d)
+    base = os.path.join(d, str(DATA_VID))
+    plan = _needle_plan(np, seed, VOLUME_BYTES)
+    want = {}
+    numbers = {"needles": len(plan)}
+    launched = {}
+
+    leg_t0 = time.perf_counter()
+
+    def counted(name, fn):
+        start = ops.gf_matmul.launches
+        before = telemetry.STATS.snapshot()
+        out = fn()
+        launched[name] = (ops.gf_matmul.launches - start,
+                          telemetry.delta(before)["dispatches"])
+        return out
+
+    vs = VolumeServer(port=0, directories=[d], device="cuda",
+                      layout="flat").start()
+    url = vs.url
+    try:
+        if _post(url, f"/admin/assign_volume?volume={DATA_VID}") != {
+                "volume": DATA_VID}:
+            raise AssertionError("data plane: assign refused")
+
+        turn = [0]
+        turns = threading.Condition()
+
+        def put(j):
+            fid, name, ctype, pairs, dseed, size = plan[j]
+            data = np.random.default_rng(dseed).bytes(size)
+            etag = f"{crc.needle_checksum(data):08x}"
+            with turns:
+                if not turns.wait_for(lambda: turn[0] == j, timeout=600):
+                    raise AssertionError(f"POST {fid}: needle {j - 1} "
+                                         f"never answered")
+            try:
+                t0 = time.perf_counter()
+                out = post_multipart(f"http://{url}/{fid}", name, data,
+                                     ctype or "", headers=pairs,
+                                     timeout=120)
+                secs = time.perf_counter() - t0
+            finally:
+                with turns:
+                    turn[0] += 1
+                    turns.notify_all()
+            if out != {"name": name, "size": size, "eTag": etag}:
+                raise AssertionError(f"POST {fid}: {out}")
+            want[fid] = (hashlib.sha256(data).hexdigest(), etag)
+            return secs * 1e3
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(DATA_THREADS) as pool:
+            put_ms = list(pool.map(put, range(len(plan))))
+        write_s = time.perf_counter() - t0
+        data_bytes = sum(e[5] for e in plan)
+        dat_written = os.path.getsize(base + ".dat")
+        numbers.update(write_s=round(write_s, 3),
+                       write_mb_s=round(data_bytes / write_s / 1e6, 1),
+                       write_req_s=round(len(plan) / write_s, 1),
+                       write_p50_ms=round(_pct(put_ms, 0.5), 3),
+                       write_p99_ms=round(_pct(put_ms, 0.99), 3),
+                       data_bytes=data_bytes, dat_bytes=dat_written)
+        print(f"data plane: {len(plan)} needles ({data_bytes} B of data, "
+              f"{DATA_MIN}-{DATA_MAX} B log-uniform) POSTed in the "
+              f"plan's order from {DATA_THREADS} threads in "
+              f"{write_s:.2f} s: "
+              f"{numbers['write_mb_s']} MB/s, {numbers['write_req_s']} "
+              f"requests/s, p50 {numbers['write_p50_ms']} ms, p99 "
+              f"{numbers['write_p99_ms']} ms; .dat {dat_written} B")
+        fids = [e[0] for e in plan]
+        read_s, nbytes, _ = _timed_gets(url, fids, want, DATA_THREADS)
+        numbers.update(read_s=round(read_s, 3),
+                       read_mb_s=round(nbytes / read_s / 1e6, 1),
+                       read_req_s=round(len(fids) / read_s, 1))
+        print(f"data plane: every needle GET back in {read_s:.2f} s: "
+              f"{numbers['read_mb_s']} MB/s, {numbers['read_req_s']} "
+              f"requests/s, sha256 and Etag equal")
+
+        # every tenth needle deleted, then the vacuum
+        deleted = fids[::10]
+        rec = storage.entry_size()
+        with open(base + ".idx", "rb") as f:
+            idx = f.read()
+        sizes = {int.from_bytes(idx[i:i + 8], "big"):
+                 int.from_bytes(idx[i + rec - 4:i + rec], "big")
+                 for i in range(0, len(idx), rec)}
+        freed = sum(get_actual_size(
+            sizes[parse_file_id(fid)[1]], 3)
+            for fid in deleted)
+        for fid in deleted:
+            http_call("DELETE", f"http://{url}/{fid}")
+            want.pop(fid)
+        _gone(url, deleted)
+        live = [fid for fid in fids if fid in want]
+        garbage = _post(url, f"/admin/vacuum/check?volume={DATA_VID}")
+        t0 = time.perf_counter()
+        _post(url, f"/admin/vacuum/compact?volume={DATA_VID}", timeout=600)
+        _post(url, f"/admin/vacuum/commit?volume={DATA_VID}", timeout=600)
+        vacuum_s = time.perf_counter() - t0
+        after = _post(url, f"/admin/vacuum/check?volume={DATA_VID}")
+        dat_vacuumed = os.path.getsize(base + ".dat")
+        if not garbage["garbage"] > 0 or after["garbage"] != 0 or \
+                dat_vacuumed != dat_written - freed:
+            raise AssertionError(
+                f"vacuum: garbage {garbage} -> {after}, .dat {dat_written} "
+                f"-> {dat_vacuumed}, want -{freed}")
+        _gone(url, deleted)
+        _timed_gets(url, live, want, DATA_THREADS)
+        numbers.update(deleted=len(deleted), vacuum_s=round(vacuum_s, 3),
+                       garbage_before=garbage["garbage"], freed_bytes=freed)
+        print(f"data plane: {len(deleted)} needles deleted (404 after); "
+              f"vacuum {vacuum_s:.2f} s, garbage {garbage['garbage']:.5f} "
+              f"-> 0, .dat {dat_written} -> {dat_vacuumed} B (exactly the "
+              f"deleted needles' {freed} B); every live needle read back")
+
+        # ec.encode: freeze, encode here on K1, mount, drop the volume
+        _post(url, f"/admin/volume/readonly?volume={DATA_VID}")
+        t0 = time.perf_counter()
+        counted("encode", lambda: _post(
+            url, f"/admin/ec/generate?volume={DATA_VID}", timeout=600))
+        encode_s = time.perf_counter() - t0
+        shard_size = os.path.getsize(base + ec.to_ext(0))
+        n_slabs = math.ceil(shard_size / ec.encoder.DEFAULT_SLAB)
+        lost_sha = _sha(base + ec.to_ext(DATA_LOST))
+        all14 = ",".join(map(str, range(ec.TOTAL_SHARDS)))
+        if _post(url, f"/admin/ec/mount?volume={DATA_VID}&shards={all14}")[
+                "mounted"] != list(range(ec.TOTAL_SHARDS)) or \
+                _post(url, f"/admin/delete_volume?volume={DATA_VID}") != {
+                    "deleted": DATA_VID} or \
+                launched["encode"] != (n_slabs, n_slabs):
+            raise AssertionError(f"encode: launches, dispatches "
+                                 f"{launched['encode']}, want {n_slabs}")
+        numbers.update(encode_s=round(encode_s, 3), shard_size=shard_size,
+                       encode_mb_s=round(dat_vacuumed / encode_s / 1e6, 1))
+        print(f"data plane: readonly, generate {encode_s:.2f} s "
+              f"({numbers['encode_mb_s']} MB/s of .dat, {n_slabs} K1 "
+              f"launches = dispatches), mount, delete_volume")
+        counted("ec reads", lambda: _timed_gets(url, live, want,
+                                                DATA_THREADS))
+        if launched["ec reads"][0]:
+            raise AssertionError(f"EC reads launched {launched['ec reads']}")
+
+        # shard DATA_LOST lost: its needles reconstructed on read
+        if _post(url, f"/admin/ec/delete_shards?volume={DATA_VID}&shards="
+                      f"{DATA_LOST}")["removed"] != [DATA_LOST]:
+            raise AssertionError("delete_shards refused")
+        ev = vs.store.find_ec_volume(DATA_VID)
+        touching = [fid for fid in live if any(
+            iv.to_shard_id_and_offset(ec.LARGE_BLOCK_SIZE,
+                                      ec.SMALL_BLOCK_SIZE)[0] == DATA_LOST
+            for iv in ev.locate_needle(
+                parse_file_id(fid)[1])[2])]
+        eng0 = vs.degraded.snapshot()
+        deg_s, deg_bytes, lat = counted(
+            "degraded", lambda: _timed_gets(url, touching, want))
+        eng = vs.degraded.snapshot()
+        dev_disp = eng["device_dispatches"] - eng0["device_dispatches"]
+        if launched["degraded"] != (dev_disp, dev_disp) or dev_disp < 1 or \
+                eng["errors"]:
+            raise AssertionError(f"degraded GETs: launches, dispatches "
+                                 f"{launched['degraded']}, engine {eng}")
+        numbers.update(degraded_gets=len(touching),
+                       degraded_p50_ms=round(_pct(lat, 0.5), 3),
+                       degraded_p99_ms=round(_pct(lat, 0.99), 3),
+                       degraded_mb_s=round(deg_bytes / deg_s / 1e6, 1),
+                       degraded_host_dispatches=eng["host_dispatches"]
+                       - eng0["host_dispatches"],
+                       degraded_device_dispatches=dev_disp)
+        print(f"data plane: shard {DATA_LOST} deleted; {len(touching)} "
+              f"needle GETs through it from {DEGRADED_THREADS} threads in "
+              f"{deg_s:.2f} s, p50 {numbers['degraded_p50_ms']} ms, p99 "
+              f"{numbers['degraded_p99_ms']} ms, {numbers['degraded_mb_s']} "
+              f"MB/s, each parsed and CRC-checked; {dev_disp} K1 launches = "
+              f"device dispatches, {numbers['degraded_host_dispatches']} "
+              f"host dispatches")
+
+        t0 = time.perf_counter()
+        out = counted("rebuild", lambda: _post(
+            url, f"/admin/ec/rebuild?volume={DATA_VID}", timeout=600))
+        rebuild_s = time.perf_counter() - t0
+        if out["rebuilt"] != [DATA_LOST] or \
+                _sha(base + ec.to_ext(DATA_LOST)) != lost_sha or \
+                launched["rebuild"] != (out["stats"]["dispatches"],) * 2 or \
+                out["stats"]["dispatches"] < 1:
+            raise AssertionError(f"rebuild: {out}, launches "
+                                 f"{launched['rebuild']}")
+        _post(url, f"/admin/ec/mount?volume={DATA_VID}&shards={DATA_LOST}")
+        counted("rebuilt reads", lambda: _timed_gets(url, touching, want))
+        if launched["rebuilt reads"][0] or \
+                vs.degraded.snapshot()["reads"] != eng["reads"]:
+            raise AssertionError("reads after the rebuild reconstructed")
+        numbers["rebuild_s"] = round(rebuild_s, 3)
+        print(f"data plane: rebuild {rebuild_s:.2f} s "
+              f"({out['stats']['dispatches']} K1 launches = dispatches), "
+              f"shard {DATA_LOST} sha256-identical, mounted; the same GETs "
+              f"read it from disk, no launch")
+
+        gone = live[1:1 + DATA_EC_DELETES]
+        for fid in gone:
+            if http_call("DELETE", f"http://{url}/{fid}") != b'{"size": 0}':
+                raise AssertionError(f"EC DELETE {fid} refused")
+        _gone(url, gone)
+        with open(base + ".ecj", "rb") as f:
+            journal = f.read()
+        if journal != b"".join(parse_file_id(fid)[1]
+                               .to_bytes(8, "big") for fid in gone):
+            raise AssertionError(f"the .ecj does not list the EC deletes: "
+                                 f"{journal.hex()}")
+        print(f"data plane: {len(gone)} EC DELETEs, 404 after, listed in "
+              f"the .ecj")
+    finally:
+        vs.stop()
+    numbers["launches"] = {name: n for name, (n, _) in launched.items()}
+    numbers["leg_s"] = round(time.perf_counter() - leg_t0, 3)
+    print(f"data plane: {json.dumps(numbers)}")
+    shutil.rmtree(d, ignore_errors=True)
+    return numbers
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1722,12 +2116,13 @@ def run(args) -> int:
     from seaweedfs_tpu_torch.ops import (codec as ops_codec, gf256, gf_plan,
                                          rs_bitplane, rs_hopper, telemetry)
     from seaweedfs_tpu_torch.ops.codec import NumpyCodec
+    from seaweedfs_tpu_torch.storage import crc
     from seaweedfs_tpu_torch.tools import kernel_exp
 
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    build_s = build_kernels((rs_hopper, rs_bitplane))
+    build_s = build_kernels((rs_hopper, rs_bitplane), crc)
     sass_counts(rs_bitplane.LIBRARY)
     t0 = time.perf_counter()
     pb_geos = piggyback_geometries(ops_codec)
@@ -1861,6 +2256,9 @@ def run(args) -> int:
               pb["shas"], dat, "piggyback")
         drive("decode", decode_leg, np, port, base, res, args.seed,
               kernel=False)
+        crc_phase(np, crc)
+        data = drive("data plane", data_plane_leg, np, port, work,
+                     args.seed + 61)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if res["encode_launches"] < 1 or \
@@ -1872,7 +2270,8 @@ def run(args) -> int:
           f"flat, scrub flat, net trace repair, net full rebuild, net "
           f"degraded flat, net scrub flat, spread flat, piggyback, plane "
           f"repair, streaming piggyback, degraded piggyback, scrub "
-          f"piggyback, net plane repair, spread piggyback, decode) in "
+          f"piggyback, net plane repair, spread piggyback, decode, data "
+          f"plane) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
           f"= dispatches, by leg {json.dumps(legs)}; builds {build_s:.2f} s")
 
@@ -1894,7 +2293,8 @@ def run(args) -> int:
                   second_key="plane_repair"),
         _k1_entry("gf_matmul_degraded",
                   legs["degraded flat"] + legs["degraded piggyback"]
-                  + legs["net degraded flat"],
+                  + legs["net degraded flat"]
+                  + data["launches"]["degraded"],
                   max(read_err["degraded flat (1,10)"],
                       read_err["degraded piggyback (32,320)"]),
                   timed["degraded flat wide"], timed["degraded piggyback wide"],

@@ -296,6 +296,11 @@ class EcVolume:
         except KeyError:
             return False
         with self.ecj_lock:
+            if not os.path.exists(self.base_name + ".ecj"):
+                # a rebuild folded the journal into the .ecx and removed
+                # it: journal into a new one, not the unlinked file
+                self.ecj_file.close()
+                self.ecj_file = open(self.base_name + ".ecj", "a+b")
             self.ecj_file.seek(0, os.SEEK_END)
             self.ecj_file.write(needle_id_to_bytes(needle_id))
             self.ecj_file.flush()

@@ -1,15 +1,17 @@
 """Tiny stdlib HTTP server framework and the pooled cluster client.
 
-The JAX package's ``server/http_util.py``, in the parts the EC routes,
-the remote shard readers and the spread's shard writers use: exact-path
-routing on a ThreadingHTTPServer, request bodies (``Content-Length`` or
-chunked, ``Request.json``), JSON and bytes responses (``Response``, with
-a streamed file range), ``parse_range``, a keep-alive connection pool
-behind ``http_call`` / ``http_get_with_headers``, and ``post_chunked``,
+The JAX package's ``server/http_util.py``, in the parts the data and EC
+routes, the remote shard readers and the spread's shard writers use:
+exact-path routing with a fallback on a ThreadingHTTPServer, request
+bodies (``Content-Length`` or chunked, ``Request.json``, the first file
+of a multipart upload or a raw body: ``Request.upload_payload``), JSON
+and bytes responses (``Response``, with a streamed file range),
+``parse_range``, a keep-alive connection pool behind ``http_call`` /
+``http_get_with_headers``, ``post_multipart``, and ``post_chunked``,
 which streams a body of unknown size on a fresh connection.
 
-Left out: TLS, multipart bodies, the guard hook, the profile and trace
-handlers, and the metric observer. No ``traceparent``
+Left out: TLS, the guard hook, the profile and trace handlers, and the
+metric observer. No ``traceparent``
 header goes out on a call: the port has no ``util/tracing``. The port
 reads no knob from the environment: the accept-loop poll and the
 pool's idle cap are module constants.
@@ -20,11 +22,13 @@ from __future__ import annotations
 import http.client as _httpc
 import json
 import os
+import re
 import select
 import socket
 import threading
 import time
 import urllib.parse
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -146,18 +150,65 @@ class Request:
             return {}
         return json.loads(self.body)
 
+    def multipart_file(self) -> Optional[Tuple[str, str, bytes]]:
+        """(filename, content type, data) of the first file part of a
+        multipart/form-data body, or None."""
+        ctype = self.headers.get("Content-Type", "")
+        if not ctype.startswith("multipart/form-data"):
+            return None
+        m = re.search(r'boundary="?([^";]+)"?', ctype)
+        if not m:
+            return None
+        for part in self.body.split(b"--" + m.group(1).encode()):
+            # an inner part is b"\r\n<headers>\r\n\r\n<data>\r\n": one
+            # CRLF comes off each side, since data may begin or end with
+            # newline bytes of its own
+            if part.startswith(b"\r\n"):
+                part = part[2:]
+            if part.endswith(b"\r\n"):
+                part = part[:-2]
+            if not part or part in (b"--", b"--\r\n") or \
+                    b"\r\n\r\n" not in part:
+                continue
+            head, data = part.split(b"\r\n\r\n", 1)
+            head_s = head.decode("utf-8", "replace")
+            fn = re.search(r'filename="((?:[^"\\]|\\.)*)"', head_s)
+            ct = re.search(r"Content-Type:\s*([^\r\n]+)", head_s, re.I)
+            if fn is not None:
+                name = fn.group(1).replace('\\"', '"') \
+                    .replace("\\\\", "\\")
+                return name, ct.group(1).strip() if ct else "", data
+        return None
+
+    def upload_payload(self) -> Tuple[str, str, bytes]:
+        """(filename, content type, data) of a multipart upload, else of
+        the raw body (the reference takes both)."""
+        mp = self.multipart_file()
+        if mp is not None:
+            return mp
+        return "", self.headers.get("Content-Type", ""), self.body
+
 
 class Router:
+    """Exact-path routes; a request no route takes goes to the fallback
+    (the volume server's ``/<fid>`` data routes), else answers 404."""
+
     def __init__(self):
         self.routes: List[Tuple[str, str, Callable]] = []
+        self.fallback: Optional[Callable] = None
 
     def add(self, method: str, path: str, fn: Callable):
         self.routes.append((method, path, fn))
+
+    def set_fallback(self, fn: Callable):
+        self.fallback = fn
 
     def dispatch(self, req: Request):
         for method, path, fn in self.routes:
             if method in ("*", req.method) and req.path == path:
                 return fn(req)
+        if self.fallback is not None:
+            return self.fallback(req)
         raise HttpError(404, f"no route for {req.method} {req.path}")
 
 
@@ -499,6 +550,29 @@ def http_call(method: str, url: str, body: bytes = None,
         raise
     except (OSError, _httpc.HTTPException) as e:
         raise HttpError(503, f"{method} {url}: {e}") from None
+
+
+def _quote_name(name: str) -> str:
+    """Escape a filename for a quoted-string header parameter."""
+    return name.replace("\\", "\\\\").replace('"', '\\"')
+
+
+def post_multipart(url: str, filename: str, data: bytes,
+                   content_type: str = "application/octet-stream",
+                   timeout: float = 60.0, headers: dict = None) -> dict:
+    """POST ``data`` as the one file of a multipart/form-data body;
+    returns the JSON answer."""
+    boundary = uuid.uuid4().hex
+    body = b"".join((
+        (f"--{boundary}\r\n"
+         f'Content-Disposition: form-data; name="file"; '
+         f'filename="{_quote_name(filename or "file")}"\r\n'
+         f"Content-Type: {content_type}\r\n\r\n").encode(),
+        data, f"\r\n--{boundary}--\r\n".encode()))
+    all_headers = {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+    all_headers.update(headers or {})
+    return json.loads(http_call("POST", url, body, all_headers, timeout)
+                      or b"{}")
 
 
 def post_chunked(url: str, chunks, headers: Optional[dict] = None,

@@ -1,12 +1,34 @@
-"""VolumeServer — the EC routes of a volume server.
+"""VolumeServer — the needle data plane and the EC routes of a volume
+server.
 
-The JAX package's ``server/volume_server.py`` in the part that
-``ec.encode``, a rebuilder, a degraded read or a scrub on another server
-calls: the server freezes and encodes its plain volumes, takes the
-shards another server's encode pushes to it, and serves the shards of
-the ``EcVolume``s in its directories.
+The JAX package's ``server/volume_server.py`` in the part a client's
+needle traffic, ``ec.encode``, ``ec.rebuild``, a degraded read or a scrub
+on another server calls: the server creates volumes and takes, serves
+and deletes their needles, vacuums them, freezes and encodes them, takes
+the shards another server's encode pushes to it, serves the shards and
+the needles of the ``EcVolume``s in its directories (through a lost
+shard by reconstruction on its ``DegradedReadEngine``) and rebuilds lost
+shards.
 
+    GET|HEAD /<vid>,<key><cookie>     a needle: Content-Type, ETag,
+                                      Last-Modified (If-Modified-Since,
+                                      If-None-Match: 304), Range (206),
+                                      Content-Disposition, the Seaweed-*
+                                      pairs; from a plain volume, or
+                                      parsed out of an EC volume's shards
+    POST|PUT /<vid>,<key><cookie>     write a needle: a multipart upload
+                                      or a raw body; ?ts=, ?ttl=,
+                                      Seaweed-* headers; answers
+                                      {"name", "size", "eTag"}
+    DELETE   /<vid>,<key><cookie>     tombstone a needle (on an EC
+                                      volume: the .ecx and .ecj, then the
+                                      other holders the master lists)
+    POST /admin/assign_volume         create a volume (replication, ttl)
+    POST /admin/delete_volume         delete a volume's files
     POST /admin/volume/readonly       freeze (or thaw) a volume
+    POST /admin/vacuum/check          the garbage ratio
+    POST /admin/vacuum/compact        copy the live needles (.cpd/.cpx)
+    POST /admin/vacuum/commit         replay later writes, swap the files
     POST /admin/ec/generate           encode a readonly volume: query only,
                                       every shard here; with an
                                       ``assignment`` body, each shard
@@ -18,6 +40,13 @@ the ``EcVolume``s in its directories.
                                       the .vif/.ecj where present) from a
                                       source server
     POST /admin/ec/mount              mount shard files found here
+    POST /admin/ec/unmount            stop serving shards
+    POST /admin/ec/delete_shards      unmount and remove shard files
+    POST /admin/ec/rebuild            rebuild lost shards: query only, from
+                                      the shard files here; with a
+                                      ``sources`` body, streamed from the
+                                      holders (``repair`` auto, trace,
+                                      piggyback or full)
     GET  /admin/ec/shard_read         ranged shard bytes: the query form
                                       (offset, size), or a Range header
                                       answered 206 with Content-Range
@@ -31,15 +60,23 @@ the ``EcVolume``s in its directories.
 Paths, query parameters, status codes, headers and JSON keys are the JAX
 server's. The projections run on the host with numpy
 (``ops/codec.project_slab``, ``pb_plane_slice``), as the JAX holder runs
-them. Only ``/admin/ec/generate`` builds the store's codec (on
-``device``, the card by default), so a server that only holds shards
-never touches the card. Left out: the master heartbeat, needle reads and
-writes, the rest of the admin plane, the whitelist and JWT guard, and
-the ``trace_id`` and metrics exports of ``/admin/ec/generate`` (the port
-has no ``util/tracing`` or ``stats/metrics``).
+them. Only an encode, a rebuild and a degraded read build the store's
+codec (on ``device``, the card by default, which raises where there is
+none), so a server that only holds shards or serves needles never
+touches the card. With ``master_url``, the holders of an EC volume's
+shards come from the master's ``/cluster/ec_lookup``; without one the
+location map is empty: every survivor of a degraded read is local, and an
+EC delete reaches no other holder.
+
+Left out: the master heartbeat, the replica fan-out of writes and
+deletes and the read redirect to a replica, the whitelist and JWT guard,
+chunk manifests (``cm=``) and image resizing, the native plane, tiering,
+``/query``, ``/metrics`` and tracing (the ``trace_id`` of the JAX
+``/admin/ec/rebuild`` answer), volume copy, tail and sync, plain-volume
+mount and unmount, and ``configure_replication``.
 
     python3 -m seaweedfs_tpu_torch.server.volume_server --dir D [--dir D2]
-        [--host 127.0.0.1] [--port 0] [--device cuda]
+        [--host 127.0.0.1] [--port 0] [--device cuda] [--master HOST:PORT]
 
 serves until killed and prints ``listening <host>:<port>`` once bound,
 so a parent process that passed ``--port 0`` can read the port.
@@ -48,30 +85,58 @@ so a parent process that passed ``--port 0`` can read the port.
 from __future__ import annotations
 
 import argparse
+import json
+import mimetypes
 import os
 import signal
 import sys
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from datetime import timezone
+from email.utils import formatdate, parsedate_to_datetime
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..ec.constants import TOTAL_SHARDS, to_ext
+from ..ec.degraded import READ_TIMEOUT_S, DegradedReadEngine
+from ..ec.ec_volume import EcShardNotFound
+from ..ec.shard_cache import EcShardLocationCache
 from ..ops import codec as ops_codec
+from ..stats.health import BOARD
+from ..storage.needle import Needle
 from ..storage.store import Store, volume_file_prefix
+from ..storage.types import TTL, parse_file_id
+from ..storage.volume import NotFound, VolumeError
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
                         http_call, parse_range)
 
 
 class VolumeServer:
+    """``master_url`` (host:port, optional) is asked for EC shard
+    locations; ``file_size_limit_mb`` caps an upload (413 past it; 0: no
+    cap)."""
+
     def __init__(self, port: int = 8080, host: str = "127.0.0.1",
                  directories=None, device: str = "cuda",
-                 layout: str = "flat", codec=None):
+                 layout: str = "flat", codec=None, master_url: str = "",
+                 file_size_limit_mb: int = 256):
         router = Router()
         router.add("*", "/status", self.status)
+        router.add("POST", "/admin/assign_volume", self.admin_assign_volume)
+        router.add("POST", "/admin/delete_volume", self.admin_delete_volume)
         router.add("POST", "/admin/volume/readonly", self.admin_readonly)
+        router.add("POST", "/admin/vacuum/check", self.admin_vacuum_check)
+        router.add("POST", "/admin/vacuum/compact", self.admin_vacuum_compact)
+        router.add("POST", "/admin/vacuum/commit", self.admin_vacuum_commit)
         router.add("POST", "/admin/ec/generate", self.admin_ec_generate)
         router.add("POST", "/admin/ec/mount", self.admin_ec_mount)
+        router.add("POST", "/admin/ec/unmount", self.admin_ec_unmount)
+        router.add("POST", "/admin/ec/rebuild", self.admin_ec_rebuild)
         router.add("POST", "/admin/ec/copy", self.admin_ec_copy)
+        router.add("POST", "/admin/ec/delete_shards",
+                   self.admin_ec_delete_shards)
         router.add("POST", "/admin/ec/shard_write",
                    self.admin_ec_shard_write)
         router.add("GET", "/admin/ec/shard_read", self.admin_ec_shard_read)
@@ -80,8 +145,9 @@ class VolumeServer:
         router.add("POST", "/admin/ec/shard_plane_read",
                    self.admin_ec_shard_plane_read)
         router.add("GET", "/admin/file", self.admin_file)
+        router.set_fallback(self.data_handler)
         # without a ``codec``, the store builds RS(10,4) on ``device`` only
-        # when an encode or a rebuild first needs it
+        # when an encode, a rebuild or a degraded read first needs it
         self.store = Store(directories or ["."], codec=codec, device=device,
                            layout=layout)
         self.server = HttpServer(port, router, host=host)
@@ -89,6 +155,19 @@ class VolumeServer:
         self.port = self.server.port
         self.url = f"{host}:{self.port}"
         self.store.public_url = self.url
+        self.master_url = master_url
+        self.file_size_limit = max(0, int(file_size_limit_mb)) << 20
+        self._ec_loc_cache = EcShardLocationCache(
+            self._fetch_ec_shard_locations)
+        # reconstruct-on-read of lost shards: coalesced batches, an
+        # exactly-k survivor gather and a slab LRU (ec/degraded.py)
+        self.degraded = DegradedReadEngine(
+            store=self.store, locations=self._ec_shard_locations,
+            codec=lambda: self.store.codec, loc_cache=self._ec_loc_cache,
+            self_url=lambda: self.url)
+        # a shard mounted again (after a rebuild) is read from disk, not
+        # from the engine's cached reconstructions
+        self.store.on_ec_mount = self.degraded.invalidate
 
     def start(self) -> "VolumeServer":
         self.server.start()
@@ -96,6 +175,7 @@ class VolumeServer:
 
     def stop(self):
         self.server.stop()
+        self.degraded.close()
         self.store.close()
 
     def status(self, req: Request):
@@ -107,6 +187,41 @@ class VolumeServer:
                      "shards": ev.shard_ids()}
                     for loc in self.store.locations
                     for vid, ev in sorted(loc.ec_volumes.items())]}
+
+    # -- volumes -------------------------------------------------------------
+    def admin_assign_volume(self, req: Request):
+        vid = int(req.query["volume"])
+        self.store.add_volume(vid, req.query.get("collection", ""),
+                              req.query.get("replication", "000"),
+                              req.query.get("ttl", ""))
+        return {"volume": vid}
+
+    def admin_delete_volume(self, req: Request):
+        vid = int(req.query["volume"])
+        if not self.store.delete_volume(vid):
+            raise HttpError(404, f"volume {vid} not found")
+        return {"deleted": vid}
+
+    def _find_volume(self, req: Request):
+        vid = int(req.query["volume"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            raise HttpError(404, f"volume {vid} not found")
+        return vid, v
+
+    def admin_vacuum_check(self, req: Request):
+        vid, v = self._find_volume(req)
+        return {"volume": vid, "garbage": v.garbage_level()}
+
+    def admin_vacuum_compact(self, req: Request):
+        vid, v = self._find_volume(req)
+        v.compact(bytes_per_second=int(req.query.get("bytesPerSecond") or 0))
+        return {"volume": vid, "compacted": True}
+
+    def admin_vacuum_commit(self, req: Request):
+        vid, v = self._find_volume(req)
+        v.commit_compact()
+        return {"volume": vid, "committed": True}
 
     def admin_readonly(self, req: Request):
         vid = int(req.query["volume"])
@@ -219,8 +334,7 @@ class VolumeServer:
     def admin_ec_mount(self, req: Request):
         vid = int(req.query["volume"])
         collection = req.query.get("collection", "")
-        shard_ids = [int(s) for s in req.query.get("shards", "").split(",")
-                     if s != ""]
+        shard_ids = self._shard_ids(req)
         mounted = self.store.mount_ec_shards(vid, collection, shard_ids)
         if not mounted and shard_ids:
             # tell "already mounted" from "files not found", so a wrong or
@@ -232,6 +346,67 @@ class VolumeServer:
                          f"collection={collection!r} here")
         return {"volume": vid, "mounted": mounted}
 
+    def _shard_ids(self, req: Request) -> List[int]:
+        return [int(x) for x in req.query.get("shards", "").split(",")
+                if x != ""]
+
+    def admin_ec_unmount(self, req: Request):
+        vid = int(req.query["volume"])
+        out = self.store.unmount_ec_shards(vid, self._shard_ids(req))
+        return {"volume": vid, "unmounted": out}
+
+    def admin_ec_rebuild(self, req: Request):
+        """Rebuild lost shards: query only, from the shard files on this
+        server's disks; with ``sources`` ({shard: [holders]}) in the POST
+        body, streamed: survivor ranges are pulled and decoded in
+        overlapped slabs and never land whole on disk. The rebuilt shards
+        are not mounted."""
+        vid = int(req.query["volume"])
+        collection = req.query.get("collection", "")
+        try:
+            body = req.json()
+        except ValueError:
+            raise HttpError(400, "bad JSON body") from None
+        stats: dict = {}
+        if isinstance(body, dict) and body.get("sources"):
+            hedge_ms = body.get("hedge_ms")
+            rebuilt = self.store.rebuild_ec_shards_streaming(
+                vid, collection, sources=body["sources"], stats=stats,
+                slab=int(body.get("slab") or 0) or None,
+                window=int(body.get("window") or 0) or None,
+                hedge_ms=None if hedge_ms is None else float(hedge_ms),
+                repair=str(body.get("repair") or "auto"))
+        else:
+            rebuilt = self.store.rebuild_ec_shards(vid, collection,
+                                                   stats=stats)
+        if rebuilt:
+            self.degraded.invalidate(vid, rebuilt)
+        return {"volume": vid, "rebuilt": rebuilt, "stats": stats}
+
+    def admin_ec_delete_shards(self, req: Request):
+        """Unmount and remove shard files (and any spread stage beside
+        them); the .ecx, .ecj, .vif and .scrub go once no shard file is
+        left."""
+        vid = int(req.query["volume"])
+        collection = req.query.get("collection", "")
+        shard_ids = self._shard_ids(req)
+        self.store.unmount_ec_shards(vid, shard_ids)
+        removed = []
+        for loc in self.store.locations:
+            base = volume_file_prefix(loc.directory, collection, vid)
+            for sid in shard_ids:
+                for p in (base + to_ext(sid), base + to_ext(sid) + ".part"):
+                    if os.path.exists(p):
+                        os.remove(p)
+                        if not p.endswith(".part"):
+                            removed.append(sid)
+            if not any(os.path.exists(base + to_ext(s))
+                       for s in range(TOTAL_SHARDS)):
+                for ext in (".ecx", ".ecj", ".vif", ".scrub"):
+                    if os.path.exists(base + ext):
+                        os.remove(base + ext)
+        return {"volume": vid, "removed": removed}
+
     def admin_ec_copy(self, req: Request):
         """Pull shard files, and with ``copy_ecx`` the .ecx, from a source
         server's ``/admin/file``. The .vif and .ecj are optional: a 404
@@ -241,8 +416,7 @@ class VolumeServer:
         vid = int(req.query["volume"])
         collection = req.query.get("collection", "")
         source = req.query["source"]
-        shard_ids = [int(s) for s in req.query.get("shards", "").split(",")
-                     if s != ""]
+        shard_ids = self._shard_ids(req)
         copy_ecx = req.query.get("copy_ecx", "true") == "true"
         # land next to any EC files this volume already has here: a
         # streamed spread may have staged shards on this server, and the
@@ -389,21 +563,275 @@ class VolumeServer:
                 return Response(body_path=path, body_range=(offset, size))
         raise HttpError(404, f"{name} not found")
 
+    # -- the data routes -----------------------------------------------------
+    def data_handler(self, req: Request):
+        if req.path == "/":
+            return self.status(req)
+        try:
+            vid, key, cookie = parse_file_id(req.path.lstrip("/"))
+        except ValueError:
+            raise HttpError(404, f"invalid fid path {req.path}") from None
+        if req.method in ("GET", "HEAD"):
+            return self.read_needle(req, vid, key, cookie)
+        if req.method in ("POST", "PUT"):
+            return self.write_needle(req, vid, key, cookie)
+        if req.method == "DELETE":
+            return self.delete_needle(req, vid, key, cookie)
+        raise HttpError(405, req.method)
+
+    def write_needle(self, req: Request, vid, key, cookie):
+        # an oversized upload is refused before its body is read; the
+        # multipart envelope adds a little, so this is a coarse filter
+        # and the check after the parse is exact
+        if self.file_size_limit:
+            try:
+                clen = int(req.headers.get("Content-Length") or 0)
+            except ValueError:
+                clen = 0
+            if clen > self.file_size_limit + 65536:
+                raise HttpError(413, "file over the size limit")
+        filename, ctype, data = req.upload_payload()
+        if self.file_size_limit and len(data) > self.file_size_limit:
+            raise HttpError(413, "file over the size limit")
+        n = Needle(cookie=cookie, id=key, data=data)
+        if filename:
+            n.set_name(filename.encode())
+        if not ctype:
+            # the name's extension, when the upload names no type; an
+            # explicit octet-stream is kept as it is
+            ctype = mimetypes.guess_type(filename or "")[0] or ctype
+        if ctype and ctype != "application/octet-stream":
+            n.set_mime(ctype.encode())
+        # ?ts= sets the modified time; the field is 5 bytes on disk, so
+        # only 0 < ts < 2^40 is taken, anything else means now
+        ts_raw = req.query.get("ts", "")
+        ts_val = int(ts_raw) if ts_raw.isdigit() else 0
+        if not 0 < ts_val < 1 << 40:
+            ts_val = 0
+        n.set_last_modified(ts_val)
+        # Seaweed-* headers ride with the needle as its pairs; the uint16
+        # size field caps them, and past it the write fails rather than
+        # drop them
+        pairs = {k: v for k, v in req.headers.items()
+                 if k.lower().startswith("seaweed-")}
+        if pairs:
+            blob = json.dumps(pairs).encode()
+            if len(blob) >= 65536:
+                raise HttpError(400, "Seaweed-* pairs exceed 64KB")
+            n.set_pairs(blob)
+        ttl = TTL.parse(req.query.get("ttl", ""))
+        if ttl.to_uint32():
+            n.set_ttl(ttl)
+        try:
+            self.store.write_needle(vid, n)
+        except VolumeError as e:
+            raise HttpError(500, str(e)) from None
+        # the reference reports the data size, not the needle's Size
+        return {"name": filename, "size": len(data), "eTag": n.etag}
+
+    def read_needle(self, req: Request, vid, key, cookie):
+        if self.store.find_volume(vid) is None:
+            if self.store.find_ec_volume(vid) is not None:
+                got = self._read_needle_local(vid, key, cookie,
+                                              f"{vid},{key:x}")
+                return self._needle_response(got, req)
+            raise HttpError(404, f"volume {vid} not found")
+        try:
+            got = self.store.read_needle(vid, Needle(id=key, cookie=cookie))
+        except NotFound as e:
+            raise HttpError(404, str(e)) from None
+        return self._needle_response(got, req)
+
+    def _needle_response(self, got: Needle, req: Request) -> Response:
+        ctype = got.mime.decode() if got.has_mime() \
+            else "application/octet-stream"
+        etag = f'"{got.etag}"'
+        # Last-Modified and If-Modified-Since, checked before the ETag as
+        # the reference does
+        lm_header = None
+        if got.has_last_modified() and got.last_modified:
+            lm_header = formatdate(got.last_modified, usegmt=True)
+            ims = req.headers.get("If-Modified-Since")
+            if ims:
+                try:
+                    dt = parsedate_to_datetime(ims)
+                    if dt.tzinfo is None:
+                        # '-0000' parses naive and means UTC (RFC 5322)
+                        dt = dt.replace(tzinfo=timezone.utc)
+                    t = dt.timestamp()
+                except (TypeError, ValueError):
+                    t = None
+                if t is not None and t >= got.last_modified:
+                    return Response(b"", 304,
+                                    headers={"Last-Modified": lm_header,
+                                             "Etag": etag})
+        # If-None-Match: a comma list of (possibly weak) validators, or *
+        inm = (req.headers.get("If-None-Match") or "").strip()
+        if inm:
+            candidates = {c.strip().removeprefix("W/")
+                          for c in inm.split(",")}
+            if "*" in candidates or etag in candidates:
+                return Response(b"", 304, headers={"Etag": etag})
+        headers = {"Etag": etag, "Accept-Ranges": "bytes"}
+        if lm_header:
+            headers["Last-Modified"] = lm_header
+        if got.has_pairs() and got.pairs:
+            try:
+                headers.update(json.loads(got.pairs.decode()))
+            except (ValueError, AttributeError):
+                pass
+        if got.has_name():
+            # the name is the uploader's: escape it for a quoted string
+            name = got.name.decode("utf-8", "replace") \
+                .replace("\\", "\\\\").replace('"', '\\"')
+            headers["Content-Disposition"] = f'inline; filename="{name}"'
+        body = got.data
+        total = len(body)
+        parsed = parse_range(req.headers.get("Range") or "", total)
+        if parsed is not None:
+            start, length = parsed
+            headers["Content-Range"] = \
+                f"bytes {start}-{start + length - 1}/{total}"
+            return Response(body[start:start + length], 206, ctype, headers)
+        return Response(body, 200, ctype, headers)
+
+    def delete_needle(self, req: Request, vid, key, cookie):
+        if self.store.find_volume(vid) is None:
+            ev = self.store.find_ec_volume(vid)
+            if ev is not None:
+                return self._delete_ec_needle(req, ev, vid, key)
+            raise HttpError(404, f"volume {vid} not found")
+        try:
+            freed = self.store.delete_needle(vid, Needle(id=key,
+                                                         cookie=cookie))
+        except VolumeError as e:
+            raise HttpError(500, str(e)) from None
+        return {"size": freed}
+
+    # -- needles of EC volumes -----------------------------------------------
+    def _read_needle_local(self, vid: int, key: int, cookie: int,
+                           fid: str) -> Needle:
+        """A needle parsed out of a local EC volume's shards: a shard not
+        here is read from its holders, and a lost one reconstructed."""
+        ev = self.store.find_ec_volume(vid)
+        try:
+            blob = ev.read_needle_blob(
+                key, remote_fetch=self._read_shard_from_holders,
+                reconstruct_fetch=self._reconstruct_shard_range)
+        except KeyError:
+            raise HttpError(404, f"{fid} not found") from None
+        except EcShardNotFound as e:
+            raise HttpError(503, f"ec volume {vid}: {e}") from None
+        got = Needle.from_bytes(blob, ev.version)
+        if got.id != key:
+            # a valid needle, but not the one asked for: never serve
+            # another needle's bytes (cookies alone can collide)
+            raise HttpError(
+                500, f"ec read of {fid} assembled needle {got.id:x}")
+        if got.cookie != cookie:
+            raise HttpError(404, "cookie mismatch")
+        return got
+
+    def _fetch_ec_shard_locations(self, vid: int) -> Dict[int, List[str]]:
+        if not self.master_url:
+            return {}
+        try:
+            out = json.loads(http_call(
+                "GET", f"http://{self.master_url}/cluster/ec_lookup"
+                       f"?volumeId={vid}", timeout=10))
+        except (HttpError, ValueError):
+            return {}
+        return {int(k): v for k, v in out.get("shards", {}).items()}
+
+    def _ec_shard_locations(self, vid: int) -> Dict[int, List[str]]:
+        """The master's answer, cached with tiered freshness and
+        forgotten per holder on a failed read (shard_cache)."""
+        return self._ec_loc_cache.lookup(vid)
+
+    def _read_shard_from_holders(self, vid: int, sid: int, offset: int,
+                                 size: int) -> Optional[bytes]:
+        """One shard's range from the first of its holders that answers;
+        a holder that fails is forgotten. None when none answers."""
+        for holder in self._ec_shard_locations(vid).get(sid, []):
+            if holder == self.url:
+                continue
+            t0 = time.perf_counter()
+            try:
+                data = http_call(
+                    "GET", f"http://{holder}/admin/ec/shard_read?volume="
+                           f"{vid}&shard={sid}&offset={offset}&size={size}",
+                    timeout=READ_TIMEOUT_S)
+            except (HttpError, OSError):
+                BOARD.record_error(holder)
+                self._ec_loc_cache.forget(vid, sid, holder)
+                continue
+            BOARD.record_latency(holder, "degraded_read",
+                                 time.perf_counter() - t0)
+            return data
+        return None
+
+    def _reconstruct_shard_range(self, vid, sid, offset, size) -> bytes:
+        """A lost shard's range, reconstructed by the degraded-read
+        engine."""
+        return self.degraded.read(vid, sid, offset, size)
+
+    def _delete_ec_needle(self, req: Request, ev, vid, key):
+        """Tombstone the needle in the .ecx and journal it in the .ecj,
+        then send the delete to every other holder the master lists (a
+        holder that misses it would serve the needle again; 404 there is
+        the goal state)."""
+        found = ev.delete_needle(key)
+        if req.query.get("type") != "replicate":
+            # a fresh lookup first: a holder that mounted shards after the
+            # cache filled must not miss the delete
+            locations = self._fetch_ec_shard_locations(vid) or \
+                self._ec_shard_locations(vid)
+            targets = sorted({h for holders in locations.values()
+                              for h in holders if h != self.url})
+
+            def broadcast(holder: str):
+                http_call("DELETE", f"http://{holder}{req.path}"
+                                    f"?type=replicate")
+
+            failed = []
+            if targets:
+                with ThreadPoolExecutor(len(targets)) as pool:
+                    futs = [(h, pool.submit(broadcast, h)) for h in targets]
+                for holder, fut in futs:
+                    exc = fut.exception()
+                    if exc is None:
+                        found = True
+                    elif not (isinstance(exc, HttpError)
+                              and exc.status == 404):
+                        failed.append(f"{holder}: {exc}")
+            if failed:
+                raise HttpError(500, "ec delete replication failed on "
+                                + "; ".join(failed))
+        if not found:
+            raise HttpError(404, f"needle {key} not in ec volume {vid}")
+        return {"size": 0}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Serve the volumes and EC shards of the given "
-                    "directories over the EC routes.")
+                    "directories over the data and EC routes.")
     ap.add_argument("--dir", action="append", required=True,
-                    help="a directory of EC volumes (repeatable)")
+                    help="a directory of volumes and EC volumes "
+                         "(repeatable)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=0,
                     help="0 picks a free port")
     ap.add_argument("--device", default="cuda",
-                    help="where /admin/ec/generate encodes (cuda or cpu)")
+                    help="where encodes, rebuilds and degraded reads run "
+                         "(cuda or cpu)")
+    ap.add_argument("--master", default="",
+                    help="host:port of a master to ask for EC shard "
+                         "locations (none by default)")
     args = ap.parse_args(argv)
     vs = VolumeServer(port=args.port, host=args.host,
-                      directories=args.dir, device=args.device).start()
+                      directories=args.dir, device=args.device,
+                      master_url=args.master).start()
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())

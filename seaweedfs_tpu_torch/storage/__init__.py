@@ -1,7 +1,8 @@
-"""storage — the on-disk formats the EC encoder and decoder read:
-superblock, needle index, and needle record sizes; and ``store.Store``,
-a volume server's EC shards and the rebuilder's network repair
-routing."""
+"""storage — a volume server's disk formats and volumes: the superblock,
+the needle record (``needle``, checksummed by ``crc``), the needle index
+(``needle_map``), the append-only ``volume.Volume`` with its vacuum, and
+``store.Store``, a server's volumes and EC shards and the rebuilder's
+network repair routing."""
 
 from .needle_map import MemDb  # noqa: F401
 from .super_block import SUPER_BLOCK_SIZE, SuperBlock  # noqa: F401

@@ -1,16 +1,20 @@
 """Store — a volume server's volumes and EC shards across its
-directories, the EC encode (local, or streamed to the shards' holders),
-and the rebuilder's routing of ``ec.rebuild -repair
-auto|trace|piggyback|full``.
+directories: the needle writes, reads and deletes of its plain volumes,
+the EC encode (local, or streamed to the shards' holders), and the
+rebuilder's routing of ``ec.rebuild -repair auto|trace|piggyback|full``.
 
 The JAX package's ``storage/store.py`` and ``disk_location.py`` in the
-parts the EC routes use: the directories (each a ``DiskLocation`` holding
-the plain ``Volume``s and the ``EcVolume``s it finds there),
+parts the data and EC routes use: the directories (each a
+``DiskLocation`` holding the plain ``Volume``s and the ``EcVolume``s it
+finds there, with its volume slots), ``add_volume``, ``delete_volume``,
 ``find_volume``, ``find_ec_volume``, ``find_free_location``,
-``mark_volume_readonly``, ``generate_ec_shards`` and
+``mark_volume_readonly``, ``write_needle``, ``read_needle``,
+``read_needle_flags``, ``delete_needle``, ``generate_ec_shards`` and
 ``generate_ec_shards_streaming`` (``ec.encode``: the readonly volume's
 shards written here, or each pushed to its holder while later slabs
-encode), ``mount_ec_shards``, ``_volume_layout``, and
+encode), ``mount_ec_shards`` (with its ``on_ec_mount`` callback),
+``unmount_ec_shards``, ``_volume_layout``, ``rebuild_ec_shards`` (the
+local rebuild from the shard files here) and
 ``rebuild_ec_shards_streaming`` with its trace, piggyback and full paths.
 Survivors a store does not hold are pulled from their holders over HTTP
 (``ec/gather``); only the KB-sized index sidecars are copied whole. Every
@@ -19,9 +23,9 @@ unless the caller passes another codec or ``device="cpu"``; a holder,
 which only serves and takes shards, never builds one.
 
 The JAX package reads the new volumes' layout from SW_EC_LAYOUT; here it
-is the ``layout`` argument ("flat" by default). Left out: creating and
-deleting volumes, needle writes, heartbeats and their change callbacks,
-unmounting, and the transport metrics export; the stats dict keys stay.
+is the ``layout`` argument ("flat" by default). Left out: heartbeats and
+their change callback, the needle-map kinds but ``memory``, and the
+transport metrics export; the stats dict keys stay.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ from ..ec.ec_volume import EcVolume, ec_offset_width, rebuild_ecx_file
 from ..ops import codec as ops_codec
 from ..server.http_util import HttpError
 from ..stats.health import BOARD
-from .types import entry_size
+from .needle import Needle
+from .types import TTL, ReplicaPlacement, entry_size
 from .volume import (NotFound, Volume, VolumeError,  # noqa: F401
                      volume_file_prefix)
 
@@ -108,6 +113,34 @@ class DiskLocation:
     def get_volume(self, vid: int) -> Optional[Volume]:
         return self.volumes.get(vid)
 
+    def add_volume(self, collection: str, vid: int, **kwargs) -> Volume:
+        """Create a volume here (or return the one already mounted)."""
+        with self.lock:
+            if vid in self.volumes:
+                return self.volumes[vid]
+            v = Volume(self.directory, collection, vid, create=True,
+                       **kwargs)
+            self.volumes[vid] = v
+            return v
+
+    def delete_volume(self, vid: int) -> bool:
+        """Unmount and remove a volume's files; False if not here."""
+        with self.lock:
+            v = self.volumes.pop(vid, None)
+            if v is None:
+                return False
+            v.destroy()
+            return True
+
+    def unload_volume(self, vid: int) -> bool:
+        """Stop serving a volume, keeping its files."""
+        with self.lock:
+            v = self.volumes.pop(vid, None)
+            if v is None:
+                return False
+            v.close()
+            return True
+
     def load_all_ec_shards(self):
         shard_sets: Dict[int, tuple] = {}
         for fname in sorted(os.listdir(self.directory)):
@@ -146,7 +179,9 @@ class Store:
     or "piggyback" (the JAX SW_EC_LAYOUT, flat by default);
     ``max_volume_counts`` the slots of each directory (7 each).
     ``public_url``, this server's address in a shard assignment, is set
-    by the server that owns the store."""
+    by the server that owns the store, and so is ``on_ec_mount(vid,
+    shard_ids)``, called after a mount registers shards (the degraded
+    reads drop their reconstructions of them)."""
 
     def __init__(self, directories, codec=None, device="cuda",
                  routing: bool = False, layout: str = "flat",
@@ -161,6 +196,7 @@ class Store:
         self.routing = bool(routing)
         self.layout = layout
         self.public_url = ""
+        self.on_ec_mount = None
         for loc in self.locations:
             loc.load_existing_volumes()
             loc.load_all_ec_shards()
@@ -197,6 +233,44 @@ class Store:
             if free >= 1 and free > best_free:
                 best, best_free = loc, free
         return best
+
+    # -- volumes and needles -----------------------------------------------
+    def add_volume(self, vid: int, collection: str = "",
+                   replication: str = "000", ttl: str = "") -> Volume:
+        """Create volume ``vid`` in the freest location, with the replica
+        placement and TTL in its superblock; an existing one is returned
+        as it is."""
+        v = self.find_volume(vid)
+        if v is not None:
+            return v
+        loc = self.find_free_location()
+        if loc is None:
+            raise VolumeError("no free volume slots")
+        return loc.add_volume(
+            collection, vid,
+            replica_placement=ReplicaPlacement.parse(replication),
+            ttl=TTL.parse(ttl))
+
+    def delete_volume(self, vid: int) -> bool:
+        return any(loc.delete_volume(vid) for loc in self.locations)
+
+    def _volume(self, vid: int) -> Volume:
+        v = self.find_volume(vid)
+        if v is None:
+            raise VolumeError(f"volume {vid} not found")
+        return v
+
+    def write_needle(self, vid: int, n: Needle) -> int:
+        return self._volume(vid).write_needle(n)
+
+    def read_needle(self, vid: int, n: Needle) -> Needle:
+        return self._volume(vid).read_needle(n)
+
+    def read_needle_flags(self, vid: int, n: Needle) -> int:
+        return self._volume(vid).read_needle_flags(n)
+
+    def delete_needle(self, vid: int, n: Needle) -> int:
+        return self._volume(vid).delete_needle(n)
 
     def mark_volume_readonly(self, vid: int,
                              readonly: bool = True) -> Optional[bool]:
@@ -340,7 +414,52 @@ class Store:
                 else:
                     ev.close()
             break
+        if mounted and self.on_ec_mount is not None:
+            self.on_ec_mount(vid, mounted)
         return mounted
+
+    def unmount_ec_shards(self, vid: int, shard_ids: List[int]) -> List[int]:
+        """Stop serving shards (their files stay); an EcVolume left with
+        no shard is unregistered. Returns the ids unmounted."""
+        ev = self.find_ec_volume(vid)
+        if ev is None:
+            return []
+        out = []
+        for sid in shard_ids:
+            shard = ev.delete_shard(sid)
+            if shard is not None:
+                shard.close()
+                out.append(sid)
+        if not ev.shards:
+            for loc in self.locations:
+                if loc.ec_volumes.get(vid) is ev:
+                    loc.ec_volumes.pop(vid)
+            ev.close()
+        return out
+
+    def rebuild_ec_shards(self, vid: int, collection: str = "",
+                          stats: dict = None) -> List[int]:
+        """Rebuild the shard files missing beside this store's .ecx from
+        the survivors here (``ec/encoder.rebuild_ec_files``, on the
+        store's codec), then the .ecx's tombstones from the .ecj. The
+        rebuilt shards are not mounted. ``stats`` receives the rebuild's
+        dispatch counters."""
+        for loc in self.locations:
+            base = volume_file_prefix(loc.directory, collection, vid)
+            if not os.path.exists(base + ".ecx"):
+                continue
+            li = self._volume_layout(base)
+            rebuilt = ec_encoder.rebuild_ec_files(
+                base, codec=self.codec, stats=stats,
+                layout=(li if li.piggyback else None))
+            t0 = time.perf_counter()
+            rebuild_ecx_file(base, ec_offset_width(base))
+            ecx_s = time.perf_counter() - t0
+            if stats is not None and "phases" in stats:
+                stats["phases"]["write"] = round(
+                    stats["phases"].get("write", 0.0) + ecx_s, 6)
+            return rebuilt
+        raise VolumeError(f"ec volume {vid} not found")
 
     def _volume_layout(self, base):
         """Resolve an existing volume's on-disk layout from its sidecars

@@ -3,8 +3,10 @@ chip_smoke.py, imports jax or the JAX package, and the port encodes and
 rebuilds (from local files and streamed), trace-repairs, plane-repairs
 and decodes, on the flat and the piggyback layout, serves a needle
 through a lost shard and scrubs, trace-repairs from a holder over HTTP,
-and streams an encode from one server's readonly volume to another
-server, with both made unimportable."""
+streams an encode from one server's readonly volume to another server,
+and drives a volume server's needle data plane (create, write, read,
+delete, vacuum, encode, a GET through a lost shard), with both made
+unimportable."""
 
 import ast
 import os
@@ -60,6 +62,11 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/ec/locate.py",
                  "seaweedfs_tpu_torch/ec/shard_cache.py",
                  "seaweedfs_tpu_torch/storage/needle.py",
+                 "seaweedfs_tpu_torch/storage/needle_map.py",
+                 "seaweedfs_tpu_torch/storage/compact_map.py",
+                 "seaweedfs_tpu_torch/storage/crc.py",
+                 "seaweedfs_tpu_torch/storage/types.py",
+                 "seaweedfs_tpu_torch/util/throttler.py",
                  "seaweedfs_tpu_torch/storage/store.py",
                  "seaweedfs_tpu_torch/storage/volume.py",
                  "seaweedfs_tpu_torch/server/http_util.py",
@@ -67,7 +74,7 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/stats/health.py",
                  "seaweedfs_tpu_torch/tools/kernel_exp.py", "chip_smoke.py"):
         assert want in names
-    for source in ("gf_matmul.cu", "gf_bitplane.cu"):
+    for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc"):
         assert (ROOT / "seaweedfs_tpu_torch/csrc" / source).exists()
 
 
@@ -351,6 +358,73 @@ def test_streaming_spread_with_jax_unimportable(tmp_path):
                 == want, sid
         assert not [f for d in (src, hdir) for f in os.listdir(d)
                     if f.endswith(".part")]
+        assert gf_matmul.launches == 0
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_data_plane_with_jax_unimportable(tmp_path):
+    """One port VolumeServer in the process, on the CPU: a volume is
+    created, needles written, read, deleted and vacuumed over HTTP, the
+    volume encoded and mounted, and a needle read through a lost shard."""
+    script = textwrap.dedent(f"""
+        import json, os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from seaweedfs_tpu_torch.ops import gf_matmul
+        from seaweedfs_tpu_torch.server.http_util import (
+            HttpError, http_call, post_multipart)
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        vs = VolumeServer(port=0, directories=[{str(tmp_path / "d")!r}],
+                          device="cpu").start()
+        post = lambda t: json.loads(http_call("POST", "http://" + vs.url + t))
+        try:
+            assert post("/admin/assign_volume?volume=3") == {{"volume": 3}}
+            rng = np.random.default_rng(0)
+            fids = {{}}
+            for i in range(1, 7):
+                fid = "3,%x0000abcd" % i
+                fids[fid] = rng.bytes(250_000)
+                out = post_multipart("http://" + vs.url + "/" + fid,
+                                     "n%d.bin" % i, fids[fid])
+                assert out["size"] == 250_000
+            for fid, data in fids.items():
+                assert http_call("GET", "http://" + vs.url + "/" + fid) \\
+                    == data
+            gone = "3,20000abcd"
+            http_call("DELETE", "http://" + vs.url + "/" + gone)
+            del fids[gone]
+            assert post("/admin/vacuum/check?volume=3")["garbage"] > 0
+            post("/admin/vacuum/compact?volume=3")
+            post("/admin/vacuum/commit?volume=3")
+            assert post("/admin/vacuum/check?volume=3")["garbage"] == 0
+            post("/admin/volume/readonly?volume=3")
+            post("/admin/ec/generate?volume=3")
+            post("/admin/ec/mount?volume=3&shards=" +
+                 ",".join(map(str, range(14))))
+            post("/admin/delete_volume?volume=3")
+            post("/admin/ec/delete_shards?volume=3&shards=1")
+            for fid, data in fids.items():
+                assert http_call("GET", "http://" + vs.url + "/" + fid) \\
+                    == data
+            assert vs.degraded.snapshot()["reads"] > 0
+            try:
+                http_call("GET", "http://" + vs.url + "/" + gone)
+                raise AssertionError("a deleted needle was served")
+            except HttpError as e:
+                assert e.status == 404
+        finally:
+            vs.stop()
         assert gf_matmul.launches == 0
         assert not any(m.split(".")[0] in {FORBIDDEN!r}
                        for m, v in sys.modules.items() if v is not None)

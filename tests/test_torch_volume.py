@@ -212,3 +212,210 @@ def test_find_free_location_and_readonly_match_jax(tmp_path):
         for st in (ref, got):
             for loc in st.locations:
                 loc.close()
+
+
+# -- the write and read half: one sequence of operations on both Volumes ---
+
+class _Clock:
+    """time.time / time.time_ns for both packages, moved by the test."""
+
+    def __init__(self, t: float):
+        self.t = t
+
+    def time(self) -> float:
+        return self.t
+
+    def time_ns(self) -> int:
+        return int(self.t * 1e9)
+
+
+def _counters(v):
+    return {"file_count": v.file_count(), "deleted_count": v.deleted_count(),
+            "max_file_key": v.max_file_key(),
+            "content_size": v.content_size(),
+            "deleted_size": v.deleted_size(), "size": v.size(),
+            "garbage": v.garbage_level(), "expired_0": v.expired(0),
+            "expired_30g": v.expired(30 << 30),
+            "revision": v.super_block.compaction_revision}
+
+
+def _read_all(mods, v, ids):
+    """{id: (fields) or the exception's class name} for every id."""
+    needle_mod = mods[1]
+    out = {}
+    for nid, cookie in ids.items():
+        try:
+            n = v.read_needle(needle_mod.Needle(id=nid, cookie=cookie))
+            out[nid] = (n.data, n.flags, n.name, n.mime, n.last_modified,
+                        n.pairs, n.checksum, n.append_at_ns,
+                        n.ttl.to_bytes(),
+                        v.read_needle_flags(needle_mod.Needle(id=nid,
+                                                              cookie=cookie)))
+        except Exception as e:  # noqa: BLE001 - compared by class name
+            out[nid] = type(e).__name__
+    return out
+
+
+def _sequence(mods, d, clock, method, width):
+    """Writes, overwrites, deletes, TTL expiry, a compaction with writes
+    between it and its commit, a reload, and a commit cut short between
+    its renames then replayed at the next load; returns what each step
+    observed."""
+    vol_mod, needle_mod, types_mod = mods
+    obs = []
+    rng = np.random.default_rng(11)
+    v = vol_mod.Volume(d, "c", 9, create=True, offset_width=width,
+                       replica_placement=types_mod.ReplicaPlacement.parse(
+                           "010"),
+                       ttl=types_mod.TTL.parse("1h"))
+    ids = {}
+
+    def write(nid, size, cookie=None, **meta):
+        cookie = ids.setdefault(nid, 0x1000 + nid) if cookie is None \
+            else cookie
+        n = needle_mod.Needle(id=nid, cookie=cookie, data=rng.bytes(size))
+        if "name" in meta:
+            n.set_name(meta["name"])
+        if "mime" in meta:
+            n.set_mime(meta["mime"])
+        if "pairs" in meta:
+            n.set_pairs(meta["pairs"])
+        if "ttl" in meta:
+            n.set_ttl(types_mod.TTL.parse(meta["ttl"]))
+            n.set_last_modified(int(clock.t))
+        try:
+            obs.append(("write", nid, v.write_needle(n)))
+        except Exception as e:  # noqa: BLE001 - compared by message
+            obs.append(("write", nid, type(e).__name__, str(e)))
+
+    def delete(nid, cookie=None):
+        n = needle_mod.Needle(id=nid, cookie=ids.get(nid, 1)
+                              if cookie is None else cookie)
+        try:
+            obs.append(("delete", nid, v.delete_needle(n)))
+        except Exception as e:  # noqa: BLE001 - compared by message
+            obs.append(("delete", nid, type(e).__name__, str(e)))
+
+    for nid in range(1, 9):
+        write(nid, int(rng.integers(50, 3000)), name=b"f%d.bin" % nid,
+              mime=b"text/plain", pairs=b'{"Seaweed-n": "%d"}' % nid)
+    write(2, 777)                        # overwrite, same cookie
+    write(5, 10, cookie=0xBAD)           # overwrite, wrong cookie
+    write(6, 0)                          # empty: the tombstone format
+    write(20, 400, ttl="2m")             # its own TTL
+    delete(3)
+    delete(4, cookie=0xBAD)
+    delete(99)
+    obs.append(("read", _read_all(mods, v, ids)))
+    obs.append(("counters", _counters(v)))
+    clock.t += 30 * 60
+    write(9, 1500)
+    write(10, 900, name=b"late")
+    obs.append(("read", _read_all(mods, v, ids)))  # 20 has expired
+    clock.t += 31 * 60                   # 1-8 are past the volume's 1h
+    obs.append(("read", _read_all(mods, v, ids)))
+    obs.append(("scan", [(n.id, n.size, off) for n, off in v.scan()]))
+    obs.append(("counters", _counters(v)))
+    obs.append(("compact", getattr(v, method)()))
+    write(11, 640)                       # between compact and commit
+    delete(9)
+    write(10, 300)
+    v.commit_compact()
+    obs.append(("committed", _counters(v)))
+    obs.append(("read", _read_all(mods, v, ids)))
+    v.close()
+    v = vol_mod.Volume(d, "c", 9)        # reload
+    obs.append(("reloaded", _counters(v), _read_all(mods, v, ids)))
+    # a commit cut short after its first rename, replayed at the load
+    write(12, 2048)
+    delete(11)
+    v.compact()
+    write(13, 100)
+    prefix = v.file_name()
+    v._makeup_diff(prefix + ".cpd", prefix + ".cpx")
+    with open(prefix + ".commit", "w") as f:
+        f.write("compact-commit")
+    os.replace(prefix + ".cpd", prefix + ".dat")
+    v.dat.close()
+    v.nm.close()
+    v = vol_mod.Volume(d, "c", 9)
+    obs.append(("replayed", _counters(v), _read_all(mods, v, ids),
+                sorted(os.listdir(d))))
+    v.cleanup_compact()
+    v.close()
+    return obs
+
+
+@pytest.mark.parametrize("method", ("compact", "compact_scan"))
+@pytest.mark.parametrize("width", (4, 5))
+def test_write_read_vacuum_match_jax(tmp_path, monkeypatch, method, width):
+    from seaweedfs_tpu.storage import needle as ref_needle
+    from seaweedfs_tpu.storage import types as ref_types
+    from seaweedfs_tpu_torch.storage import needle, types
+    import time
+    clock = _Clock(1_700_000_000.0)
+    monkeypatch.setattr(time, "time", clock.time)
+    monkeypatch.setattr(time, "time_ns", clock.time_ns)
+    got = _sequence((volume, needle, types), str(tmp_path / "port"), clock,
+                    method, width)
+    clock.t = 1_700_000_000.0
+    want = _sequence((ref_volume, ref_needle, ref_types),
+                     str(tmp_path / "ref"), clock, method, width)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g == w, g[0]
+    for ext in (".dat", ".idx"):
+        assert _read(tmp_path / "port" / ("c_9" + ext)) == \
+            _read(tmp_path / "ref" / ("c_9" + ext)), ext
+    # what the sequence must have shown
+    kinds = [o[0] for o in got]
+    assert kinds.count("read") == 4 and "replayed" in kinds
+    assert any(o[:2] == ("write", 5) and o[2] == "VolumeError" for o in got)
+    first_read = got[kinds.index("read")][1]
+    assert first_read[3] == "NotFound" and isinstance(first_read[2], tuple)
+    late = [o for o in got if o[0] == "read"][2][1]
+    assert late[1] == "NotFound" and late[20] == "NotFound"
+    assert isinstance(late[9], tuple)
+
+
+def test_volume_lifecycle_in_store_matches_jax(tmp_path):
+    """Store.add_volume, write/read/delete through the store,
+    delete_volume, and DiskLocation.unload_volume."""
+    from seaweedfs_tpu.ops.codec import NumpyCodec as RefNumpyCodec
+    from seaweedfs_tpu.storage import needle as ref_needle
+    from seaweedfs_tpu_torch.storage import needle
+    ref = ref_store.Store([str(tmp_path / "ref")], max_volume_counts=[2],
+                          codec=RefNumpyCodec(10, 4))
+    got = store.Store([str(tmp_path / "port")], max_volume_counts=[2],
+                      device="cpu")
+    try:
+        answers = []
+        for st, nmod in ((ref, ref_needle), (got, needle)):
+            a = []
+            v = st.add_volume(4, "col", "001", "3d")
+            a.append((v.super_block.to_bytes(), st.add_volume(4) is v))
+            st.add_volume(5)
+            try:
+                st.add_volume(6)
+            except Exception as e:  # noqa: BLE001 - compared by message
+                a.append((type(e).__name__, str(e)))
+            a.append(st.write_needle(4, nmod.Needle(id=7, cookie=3,
+                                                    data=b"x" * 99)))
+            a.append(st.read_needle(4, nmod.Needle(id=7, cookie=3)).data)
+            a.append(st.read_needle_flags(4, nmod.Needle(id=7, cookie=3)))
+            a.append(st.delete_needle(4, nmod.Needle(id=7, cookie=3)))
+            for call in (st.write_needle, st.read_needle, st.delete_needle):
+                try:
+                    call(8, nmod.Needle(id=1, cookie=1, data=b"y"))
+                except Exception as e:  # noqa: BLE001 - compared by message
+                    a.append((type(e).__name__, str(e)))
+            a.append((st.delete_volume(5), st.delete_volume(5)))
+            a.append(st.locations[0].unload_volume(4))
+            a.append(st.find_volume(4))
+            a.append(sorted(os.listdir(st.locations[0].directory)))
+            answers.append(a)
+        assert answers[1] == answers[0]
+        assert answers[1][-1] == ["col_4.dat", "col_4.idx"]
+    finally:
+        ref.close()
+        got.close()
