@@ -169,8 +169,9 @@
    order (each prepares its body, then waits until the previous POST
    is answered, so the .dat layout, and with it the needles on shard 1,
    is fixed by the seed), until their data
-   fills VOLUME_BYTES (sizes log-uniform over 1 KiB-4 MiB, about 2,000
-   needles; each named, a third with a mime, a third octet-stream, every
+   fills DATA_PLANE_BYTES (256 MiB: the leg was cut from VOLUME_BYTES to
+   keep the smoke's time with step 14 beside it; sizes log-uniform over
+   1 KiB-4 MiB, about 500 needles; each named, a third with a mime, a third octet-stream, every
    fifth with a Seaweed-* pair; the reply's name, size and ETag checked,
    each fid's sha256 kept); every needle GET back (sha256 and ETag);
    every tenth DELETEd and 404 after; the vacuum (check > 0, compact,
@@ -190,8 +191,44 @@
    vacuum's, the encode's and the rebuild's seconds and the degraded
    p50/p99, each on a line of its own, then the leg's numbers as JSON.
 
+14. A port cluster, after the data plane: an in-process MasterServer
+   (127.0.0.1, 1 s pulses, its draws seeded from --seed), volume server
+   A in-process on the card (20 slots), B as a python3 -m
+   seaweedfs_tpu_torch.server.volume_server --master process (8 slots);
+   one 001 volume grown with /vol/grow while only A and B are
+   registered, so its replicas are on both; then C and D as processes,
+   which start while the writes run and must have registered before the
+   encode. Four client threads assign (client/operation) and POST seeded needles
+   (the data plane's plan: log-uniform over 1 KiB-4 MiB until
+   VOLUME_BYTES) to the server /dir/assign names, which fans each out to
+   the other replica; each reply's size and ETag checked. Every needle
+   GET back from A and from B (the locations of /dir/lookup) and through
+   the master's GET /<fid> redirect, sha256 and Etag; every tenth
+   DELETEd through the client, 404 on A and B after. Both replicas
+   frozen, A's .dat linked aside, then ec.encode -volumeId through the
+   port shell (it must stream from A; a shell line that reports an
+   error or a fallback to copy mode fails the leg): 14 shards over A-D in
+   /cluster/ec_status, each sha256-identical to a local write_ec_files
+   of A's frozen .dat through K1's plain version on the card (no
+   launch), the volume gone from A and B, K1 launches on A = the
+   encode's dispatches. The process of B-D with the most shards is
+   killed (SIGKILL) and the master's prune awaited (at most
+   PRUNE_WAIT_S); the live needles touching its shards GET from A by
+   four threads through A's DegradedReadEngine (launches = its device
+   dispatches > 0; p50, p99). ec.rebuild (on A: launches = dispatches >
+   0, every rebuilt shard sha256-identical) and ec.balance (14 shards
+   mounted, each sha256-identical where it lies); every live needle read
+   through the live servers in turn, with no launch on A; ec.decode, then
+   every live needle through /dir/lookup and the volume out of
+   /cluster/ec_status. Prints
+   the write MB/s and requests/s, the read MB/s, the walls of ec.encode,
+   the prune wait, ec.rebuild, ec.balance and ec.decode, the degraded
+   p50/p99 and the K1 launches by step, each on a line of its own, then
+   the leg's numbers as JSON. Every process is stopped and every
+   directory removed in a finally.
+
 Every leg runs with the kernel's launch counter set to 0 just before it
-and read just after; a leg of steps 5-8, 10-12 and 13 whose launches
+and read just after; a leg of steps 5-8, 10-12, 13 and 14 whose launches
 differ from its dispatches, or that launched nothing, fails the smoke.
 
 Prints the card line (nvidia-smi name, power limit), then a JSON line
@@ -244,11 +281,17 @@ SPREAD_LOCAL = (0, 1)       # the spread source keeps these shards
 SPREAD_HOLDS = {"A": range(2, 6), "B": range(6, 10), "C": range(10, 14)}
 HOLDER_START_S = 60.0       # a holder prints its port within this
 DATA_VID = 7                # the data-plane leg's volume
+DATA_PLANE_BYTES = 256 << 20  # its needles' data (cut from VOLUME_BYTES)
 DATA_MIN = 1 << 10          # its needle sizes, log-uniform between
 DATA_MAX = 4 << 20
 DATA_THREADS = 4            # its client threads
 DATA_LOST = 1               # the shard it loses after the encode
 DATA_EC_DELETES = 3         # EC DELETEs at its end
+CLUSTER_COLLECTION = "smoke"  # the cluster leg's collection
+CLUSTER_SLOTS = {"A": 20, "B": 8, "C": 8, "D": 8}  # A the freest
+CLUSTER_PULSE_S = 1.0       # its heartbeats; the master prunes after 5
+CLUSTER_THREADS = 4         # its client threads
+PRUNE_WAIT_S = 30.0         # bound on the wait for the prune of a killed one
 CRC_SIZES = (0, 1, 7, 8, 4097, (1 << 20) + 3)
 CRC_PLAIN_BYTES = 1 << 20   # the plain version's timed input
 #: K1's widths on the degraded legs: a flat needle batch (1 MiB of a
@@ -1330,44 +1373,31 @@ def decode_leg(np, port, base, res, seed):
     return {"secs": secs, "dat_s": dat_s, "dat_size": size}
 
 
-class Holders:
-    """Three holder processes (``python3 -m
-    seaweedfs_tpu_torch.server.volume_server``) on 127.0.0.1, each over a
-    directory of hard links (copies where a link fails) to the volume's
-    .ecx, .vif and the shards ``holds`` gives it (NET_HOLDS by default),
-    or over an empty directory with ``empty``. Separate processes, so
-    the rebuilder's GIL is not theirs. A holder that does not print its
+class ServerProcesses:
+    """Port volume servers as processes (``python3 -m
+    seaweedfs_tpu_torch.server.volume_server``) on 127.0.0.1, one per
+    name, each over its own directory. A server that does not print its
     port within HOLDER_START_S, or exits, fails the run."""
 
-    def __init__(self, base, work, label, total, holds=None, empty=False):
-        self.base = base
-        self.work = work
-        self.label = label
-        self.total = total
-        self.holds = NET_HOLDS if holds is None else holds
-        self.empty = empty
+    what = "volume server"
+
+    def __init__(self):
         self.procs, self.urls, self.dirs = {}, {}, {}
 
-    def start(self):
-        for name, sids in self.holds.items():
-            d = os.path.join(self.work, f"holder-{self.label}-{name}")
-            os.makedirs(d)
-            exts = [] if self.empty else \
-                [".ecx", ".vif"] + [f".ec{sid:02d}" for sid in sids]
-            for ext in exts:
-                src = self.base + ext
-                if not os.path.exists(src):
-                    continue
-                _link(src, os.path.join(d, os.path.basename(src)))
-            self.dirs[name] = d
-            self.procs[name] = subprocess.Popen(
-                [sys.executable, "-m",
-                 "seaweedfs_tpu_torch.server.volume_server", "--dir", d],
-                cwd=ROOT, stdout=subprocess.PIPE,
-                stderr=open(d + ".log", "wb"), text=True)
+    def spawn(self, name, d, *args):
+        """Start ``name`` over directory ``d`` without waiting for it."""
+        self.dirs[name] = d
+        self.procs[name] = subprocess.Popen(
+            [sys.executable, "-m",
+             "seaweedfs_tpu_torch.server.volume_server", "--dir", d, *args],
+            cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=open(d + ".log", "wb"), text=True)
+
+    def wait_listening(self, names):
+        """Each of ``names`` has printed its address."""
         deadline = time.monotonic() + HOLDER_START_S
-        for name, proc in self.procs.items():
-            line = ""
+        for name in names:
+            proc, line = self.procs[name], ""
             while not line and time.monotonic() < deadline:
                 ready, _, _ = select.select([proc.stdout], [], [], 0.5)
                 if ready:
@@ -1377,14 +1407,16 @@ class Holders:
             if not line.startswith("listening "):
                 with open(self.dirs[name] + ".log", "rb") as f:
                     err = f.read()[-2000:].decode("utf-8", "replace")
-                raise AssertionError(f"holder {name} did not start "
+                raise AssertionError(f"{self.what} {name} did not start "
                                      f"(exit {proc.poll()}): {err}")
             self.urls[name] = line.split()[1]
-        print(f"holders {self.label}: " + ", ".join(
-            f"{name} {self.urls[name]} shards {list(self.holds[name])}"
-            + (" (empty)" if self.empty else "")
-            for name in self.holds))
         return self
+
+    def kill(self, name):
+        proc = self.procs.pop(name)
+        proc.kill()
+        proc.wait()
+        proc.stdout.close()
 
     def stop_processes(self):
         for proc in self.procs.values():
@@ -1398,6 +1430,46 @@ class Holders:
                 proc.wait()
             proc.stdout.close()
         self.procs = {}
+
+
+class Holders(ServerProcesses):
+    """Three holder processes (``python3 -m
+    seaweedfs_tpu_torch.server.volume_server``) on 127.0.0.1, each over a
+    directory of hard links (copies where a link fails) to the volume's
+    .ecx, .vif and the shards ``holds`` gives it (NET_HOLDS by default),
+    or over an empty directory with ``empty``. Separate processes, so
+    the rebuilder's GIL is not theirs. A holder that does not print its
+    port within HOLDER_START_S, or exits, fails the run."""
+
+    what = "holder"
+
+    def __init__(self, base, work, label, total, holds=None, empty=False):
+        super().__init__()
+        self.base = base
+        self.work = work
+        self.label = label
+        self.total = total
+        self.holds = NET_HOLDS if holds is None else holds
+        self.empty = empty
+
+    def start(self):
+        for name, sids in self.holds.items():
+            d = os.path.join(self.work, f"holder-{self.label}-{name}")
+            os.makedirs(d)
+            exts = [] if self.empty else \
+                [".ecx", ".vif"] + [f".ec{sid:02d}" for sid in sids]
+            for ext in exts:
+                src = self.base + ext
+                if not os.path.exists(src):
+                    continue
+                _link(src, os.path.join(d, os.path.basename(src)))
+            self.spawn(name, d)
+        self.wait_listening(list(self.holds))
+        print(f"holders {self.label}: " + ", ".join(
+            f"{name} {self.urls[name]} shards {list(self.holds[name])}"
+            + (" (empty)" if self.empty else "")
+            for name in self.holds))
+        return self
 
     def stop(self):
         self.stop_processes()
@@ -1852,7 +1924,7 @@ def data_plane_leg(np, port, work, seed):
     """A port volume server's needle data plane, end to end: an
     in-process VolumeServer on the card (127.0.0.1, an empty directory,
     RS(10,4), flat). /admin/assign_volume; DATA_THREADS threads POST the
-    seeded needles (_needle_plan, about 2,000 over VOLUME_BYTES) as
+    seeded needles (_needle_plan, about 500 over DATA_PLANE_BYTES) as
     multipart uploads in the plan's order (a thread sends needle j once
     needle j - 1 is answered: the .dat layout is the seed's); every needle GET back (sha256 and Etag); every
     tenth DELETEd and 404 after; the vacuum (check > 0, compact, commit,
@@ -1879,7 +1951,7 @@ def data_plane_leg(np, port, work, seed):
     d = os.path.join(work, "data-plane")
     os.makedirs(d)
     base = os.path.join(d, str(DATA_VID))
-    plan = _needle_plan(np, seed, VOLUME_BYTES)
+    plan = _needle_plan(np, seed, DATA_PLANE_BYTES)
     want = {}
     numbers = {"needles": len(plan)}
     launched = {}
@@ -2097,6 +2169,438 @@ def data_plane_leg(np, port, work, seed):
     return numbers
 
 
+class VolumeProcesses(ServerProcesses):
+    """Cluster volume servers as processes (``--master``), each over an
+    empty directory with CLUSTER_SLOTS[name] slots and CLUSTER_PULSE_S
+    heartbeats. None builds a kernel library: a holder only stores and
+    serves shards."""
+
+    def __init__(self, work, master_url):
+        super().__init__()
+        self.work = work
+        self.master_url = master_url
+
+    def start(self, names):
+        return self.spawn_all(names).wait_listening(names)
+
+    def spawn_all(self, names):
+        """Start the processes without waiting for them."""
+        for name in names:
+            d = os.path.join(self.work, f"cluster-{name}")
+            os.makedirs(d)
+            self.spawn(name, d, "--master", self.master_url,
+                       "--max", str(CLUSTER_SLOTS[name]),
+                       "--pulse-seconds", str(CLUSTER_PULSE_S))
+        return self
+
+
+def _wait_for(what, pred, timeout):
+    """Poll ``pred`` every 50 ms until it holds; seconds waited, or fail
+    after ``timeout``."""
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _shell(master_url, line):
+    """One line through the port shell; its printed lines. A line that
+    reports an error or a fallback (a stream that failed and was redone
+    by whole-shard copies) fails the run: the streamed path is the one
+    under test."""
+    import io
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    out = io.StringIO()
+    run_command(CommandEnv(master_url, out=out), line)
+    text = out.getvalue()
+    print("  shell> " + line + "\n" + "".join(
+        f"    {ln}\n" for ln in text.splitlines()), end="")
+    if "error:" in text or "falling back" in text:
+        raise AssertionError(f"{line}: {text}")
+    return text
+
+
+def _plain_card_codec(np, ec):
+    """RS(DATA_SHARDS, PARITY_SHARDS) whose product is K1's plain PyTorch
+    version on the card: the reference the cluster's shards are held to,
+    independent of K1 and launching nothing."""
+    import torch
+    from seaweedfs_tpu_torch.ops.codec import NumpyCodec
+    from seaweedfs_tpu_torch.ops.rs_hopper import gf_matmul_plain
+
+    class PlainCardCodec(NumpyCodec):
+        def _matmul(self, coeffs, data):
+            return gf_matmul_plain(
+                torch.from_numpy(np.ascontiguousarray(coeffs)).cuda(),
+                torch.from_numpy(np.ascontiguousarray(data)).cuda()
+            ).cpu().numpy()
+
+    return PlainCardCodec(ec.DATA_SHARDS, ec.PARITY_SHARDS)
+
+
+def cluster_leg(np, port, work, seed):
+    """A port cluster on 127.0.0.1, end to end, through the entry points
+    its users call: an in-process MasterServer (pulse CLUSTER_PULSE_S,
+    seeded), volume server A in-process on the card with the most slots,
+    B as a process; one 001 volume grown in CLUSTER_COLLECTION while only
+    A and B are registered, so its replicas are on both; then C and D as
+    processes (started while the writes run; registered before the
+    encode). CLUSTER_THREADS client threads assign and upload seeded
+    needles (_needle_plan's sizes, names and types) through
+    client/operation until VOLUME_BYTES of data, each reply's size and
+    ETag checked; every needle read back from A and from B (the
+    locations /dir/lookup gives) and through the master's GET /<fid>
+    redirect; every tenth deleted through the client, 404 on both after.
+    Both replicas frozen and A's .dat and .idx linked aside; ec.encode
+    through the port shell, which must name A as the source: 14 shards
+    over A-D in /cluster/ec_status, the volume gone from A and B, every
+    shard sha256-identical to a local write_ec_files of A's frozen .dat
+    through K1's plain version on the card (no launch), A's K1
+    launches = the encode's dispatches. The process of B-D holding the
+    most shards is killed (SIGKILL) and the master's prune awaited
+    (bounded); the live needles touching its shards GET from A from
+    DEGRADED_THREADS threads (launches = A's degraded engine's device
+    dispatches > 0; p50, p99). ec.rebuild, which must name A: 14 shards
+    mounted, every rebuilt shard sha256-identical, launches = the
+    rebuild's dispatches > 0; ec.balance: 14 shards, each at its holder
+    sha256-identical; every live needle read through the live servers in
+    turn, with no launch on A (the counter read is A's); ec.decode: every live needle read through
+    /dir/lookup, the volume out of /cluster/ec_status. Prints each
+    step's wall and rates on a line of its own and the leg's numbers as
+    JSON; stops every process and removes its directories in a
+    finally."""
+    ec, ops, storage = port
+    from seaweedfs_tpu_torch.client import operation as op
+    from seaweedfs_tpu_torch.ops import telemetry
+    from seaweedfs_tpu_torch.server.http_util import (get_json, http_call,
+                                                      post_json,
+                                                      post_multipart)
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage import crc
+    from seaweedfs_tpu_torch.storage.types import parse_file_id
+    plan = _needle_plan(np, seed, VOLUME_BYTES)
+    numbers = {"needles": len(plan)}
+    launched = {}
+    want = {}
+    leg_t0 = time.perf_counter()
+
+    def counted(name, fn):
+        start = ops.gf_matmul.launches
+        before = telemetry.STATS.snapshot()
+        out = fn()
+        launched[name] = (ops.gf_matmul.launches - start,
+                          telemetry.delta(before)["dispatches"])
+        return out
+
+    master = MasterServer(port=0, pulse_seconds=CLUSTER_PULSE_S,
+                          seed=seed).start()
+    murl = master.url
+    d_a = os.path.join(work, "cluster-A")
+    os.makedirs(d_a)
+    a = VolumeServer(port=0, directories=[d_a], device="cuda",
+                     master_url=murl, pulse_seconds=CLUSTER_PULSE_S,
+                     max_volume_counts=[CLUSTER_SLOTS["A"]]).start()
+    procs = VolumeProcesses(work, murl)
+    ref_dir = os.path.join(work, "cluster-reference")
+
+    def nodes():
+        return {n["url"] for n in
+                get_json(f"http://{murl}/cluster/status")["nodes"]}
+
+    def ec_shards(vid):
+        vols = get_json(f"http://{murl}/cluster/ec_status")["volumes"]
+        return {int(s): urls for s, urls in
+                vols.get(str(vid), {}).get("shards", {}).items()}
+
+    try:
+        t0 = time.perf_counter()
+        procs.start(["B"])
+        urls = {"A": a.url, "B": procs.urls["B"]}
+        _wait_for("A and B registered", lambda: nodes() == set(
+            urls.values()), HOLDER_START_S)
+        grown = post_json(f"http://{murl}/vol/grow?collection="
+                          f"{CLUSTER_COLLECTION}&replication=001&count=1")
+        vols = get_json(f"http://{murl}/cluster/volumes")["volumes"]
+        (vid_s, replicas), = vols.items()
+        vid = int(vid_s)
+        if grown != {"count": 1} or \
+                [r["url"] for r in replicas] != [urls["A"], urls["B"]]:
+            raise AssertionError(f"the 001 volume: {grown}, {vols}")
+        # C and D come up while the writes run: they need only A and B
+        procs.spawn_all(["C", "D"])
+        _wait_for("the replicas in A's location map", lambda: sorted(
+            a._vid_map.lookup(vid) or []) == sorted([urls["A"],
+                                                     urls["B"]]), 10.0)
+        numbers["start_s"] = round(time.perf_counter() - t0, 3)
+        print(f"cluster: master {murl}, A {urls['A']} "
+              f"({CLUSTER_SLOTS['A']} slots, in-process on the card), B "
+              f"{urls['B']} ({CLUSTER_SLOTS['B']} slots, a process); 001 "
+              f"volume {vid} on A and B; up in {numbers['start_s']} s")
+
+        # the writes: assign, then upload; the server fans out to B
+        fids = [None] * len(plan)
+        fanned = []
+
+        def put(j):
+            _, name, ctype, pairs, dseed, size = plan[j]
+            data = np.random.default_rng(dseed).bytes(size)
+            etag = f"{crc.needle_checksum(data):08x}"
+            t0 = time.perf_counter()
+            got = op.assign(murl, collection=CLUSTER_COLLECTION,
+                            replication="001")
+            out = post_multipart(f"http://{got['url']}/{got['fid']}", name,
+                                 data, ctype or "", headers=pairs,
+                                 timeout=120)
+            secs = time.perf_counter() - t0
+            if out != {"name": name, "size": size, "eTag": etag} or \
+                    parse_file_id(got["fid"])[0] != vid:
+                raise AssertionError(f"POST {got}: {out}")
+            fids[j] = got["fid"]
+            fanned.append(got["url"])
+            want[got["fid"]] = (hashlib.sha256(data).hexdigest(), etag)
+            return secs * 1e3
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CLUSTER_THREADS) as pool:
+            put_ms = list(pool.map(put, range(len(plan))))
+        write_s = time.perf_counter() - t0
+        data_bytes = sum(e[5] for e in plan)
+        numbers.update(
+            write_s=round(write_s, 3),
+            write_mb_s=round(data_bytes / write_s / 1e6, 1),
+            write_req_s=round(len(plan) / write_s, 1),
+            write_p50_ms=round(_pct(put_ms, 0.5), 3),
+            write_p99_ms=round(_pct(put_ms, 0.99), 3),
+            data_bytes=data_bytes,
+            written_to={n: fanned.count(u) for n, u in urls.items()})
+        print(f"cluster: {len(plan)} needles ({data_bytes} B) assigned and "
+              f"POSTed from {CLUSTER_THREADS} threads in {write_s:.2f} s, "
+              f"each fanned out to the other replica: "
+              f"{numbers['write_mb_s']} MB/s, {numbers['write_req_s']} "
+              f"requests/s, p50 {numbers['write_p50_ms']} ms, p99 "
+              f"{numbers['write_p99_ms']} ms (assign + POST + fan-out); "
+              f"POSTs by server {numbers['written_to']}")
+
+        holders = sorted(op.lookup(murl, vid))
+        if holders != sorted([urls["A"], urls["B"]]):
+            raise AssertionError(f"/dir/lookup of {vid}: {holders}")
+        reads = {}
+        for name in ("A", "B"):
+            reads[name] = _timed_gets(urls[name], fids, want,
+                                      CLUSTER_THREADS)
+        reads["redirect"] = _timed_gets(murl, fids, want, CLUSTER_THREADS)
+        for name, (secs, nbytes, _) in reads.items():
+            numbers[f"read_{name}_s"] = round(secs, 3)
+            numbers[f"read_{name}_mb_s"] = round(nbytes / secs / 1e6, 1)
+        print("cluster: every needle GET back sha256- and Etag-identical "
+              "from " + ", ".join(
+                  f"{'the master redirect' if n == 'redirect' else n} "
+                  f"{numbers[f'read_{n}_mb_s']} MB/s ({s:.2f} s)"
+                  for n, (s, _, _) in reads.items()))
+
+        deleted = fids[::10]
+        for fid in deleted:
+            if not op.delete_file(murl, fid):
+                raise AssertionError(f"DELETE {fid} refused")
+            want.pop(fid)
+        for name in ("A", "B"):
+            _gone(urls[name], deleted)
+        live = [fid for fid in fids if fid in want]
+        print(f"cluster: {len(deleted)} needles deleted through the "
+              f"client, 404 on A and on B")
+        procs.wait_listening(["C", "D"])
+        urls.update(C=procs.urls["C"], D=procs.urls["D"])
+        name_of = {u: n for n, u in urls.items()}
+        _wait_for("C and D registered", lambda: nodes() == set(
+            urls.values()), HOLDER_START_S)
+        print(f"cluster: C {urls['C']}, D {urls['D']} "
+              f"({CLUSTER_SLOTS['C']} slots each, processes) registered")
+
+        # ec.encode on A; A's frozen .dat is the reference
+        for name in ("A", "B"):
+            _post(urls[name], f"/admin/volume/readonly?volume={vid}")
+        os.makedirs(ref_dir)
+        base_a = a.store.find_volume(vid).file_name()
+        ref_base = os.path.join(ref_dir, os.path.basename(base_a))
+        for ext in (".dat", ".idx"):
+            _link(base_a + ext, ref_base + ext)
+        t0 = time.perf_counter()
+        out = counted("encode", lambda: _shell(
+            murl, f"ec.encode -volumeId {vid}"))
+        encode_s = time.perf_counter() - t0
+        if f"streamed 14 shards from {urls['A']}" not in out or \
+                "ec encoded, original removed" not in out:
+            raise AssertionError(f"ec.encode did not stream from A: {out}")
+        counted("reference encode", lambda: ec.write_ec_files(
+            ref_base, codec=_plain_card_codec(np, ec)))
+        if launched["reference encode"] != (0, 0):
+            raise AssertionError(f"the reference encode launched K1: "
+                                 f"{launched['reference encode']}")
+        shas = [_sha(ref_base + ec.to_ext(s)) for s in range(ec.TOTAL_SHARDS)]
+        dat_size = os.path.getsize(ref_base + ".dat")
+        shard_size = os.path.getsize(ref_base + ec.to_ext(0))
+        dirs = dict(procs.dirs, A=d_a)
+
+        def check_shards(label, placed):
+            for sid in range(ec.TOTAL_SHARDS):
+                if len(placed.get(sid, [])) != 1:
+                    raise AssertionError(f"{label}: shard {sid} held by "
+                                         f"{placed.get(sid)}")
+                path = os.path.join(dirs[name_of[placed[sid][0]]],
+                                    os.path.basename(base_a)
+                                    + ec.to_ext(sid))
+                if _sha(path) != shas[sid]:
+                    raise AssertionError(f"{label}: shard {sid} differs")
+            return {n: sorted(s for s, u in placed.items()
+                              if u[0] == urls[n]) for n in urls}
+
+        placed = ec_shards(vid)
+        by_name = check_shards("encode", placed)
+        gone_replicas = str(vid) in get_json(
+            f"http://{murl}/cluster/volumes")["volumes"] or \
+            a.store.find_volume(vid) is not None or os.path.exists(
+                os.path.join(dirs["B"], os.path.basename(base_a) + ".dat"))
+        n_slabs = launched["encode"][0]
+        if gone_replicas or launched["encode"][1] != n_slabs or n_slabs < 1:
+            raise AssertionError(f"encode: original left {gone_replicas}, "
+                                 f"launches, dispatches "
+                                 f"{launched['encode']}")
+        numbers.update(encode_s=round(encode_s, 3), dat_bytes=dat_size,
+                       encode_mb_s=round(dat_size / encode_s / 1e6, 1),
+                       shard_size=shard_size, placement=by_name)
+        print(f"cluster: ec.encode {encode_s:.2f} s "
+              f"({numbers['encode_mb_s']} MB/s of .dat) from A: shards "
+              f"{by_name}, each sha256-identical to a local encode of A's "
+              f"frozen .dat; the volume gone from A and B; {n_slabs} K1 "
+              f"launches on A = the encode's dispatches")
+
+        # the holder of the most shards dies
+        victim = max(("B", "C", "D"), key=lambda n: (len(by_name[n]),
+                                                     n == "B"))
+        lost = by_name[victim]
+        procs.kill(victim)
+        t0 = time.perf_counter()
+        prune_s = _wait_for(
+            f"the master prunes {victim}",
+            lambda: urls[victim] not in nodes() and not set(lost)
+            & set(ec_shards(vid)), PRUNE_WAIT_S)
+        ev = a.store.find_ec_volume(vid)
+        touching = [fid for fid in live if any(
+            iv.to_shard_id_and_offset(ec.LARGE_BLOCK_SIZE,
+                                      ec.SMALL_BLOCK_SIZE)[0] in lost
+            for iv in ev.locate_needle(parse_file_id(fid)[1])[2])]
+        eng0 = a.degraded.snapshot()
+        deg_s, deg_bytes, lat = counted(
+            "degraded", lambda: _timed_gets(urls["A"], touching, want))
+        eng = a.degraded.snapshot()
+        dev_disp = eng["device_dispatches"] - eng0["device_dispatches"]
+        if launched["degraded"] != (dev_disp, dev_disp) or dev_disp < 1 or \
+                eng["errors"] != eng0["errors"]:
+            raise AssertionError(f"degraded GETs: launches, dispatches "
+                                 f"{launched['degraded']}, engine {eng}")
+        numbers.update(
+            victim=victim, lost=lost, prune_s=round(prune_s, 3),
+            degraded_gets=len(touching),
+            degraded_p50_ms=round(_pct(lat, 0.5), 3),
+            degraded_p99_ms=round(_pct(lat, 0.99), 3),
+            degraded_mb_s=round(deg_bytes / deg_s / 1e6, 1),
+            degraded_device_dispatches=dev_disp,
+            degraded_host_dispatches=eng["host_dispatches"]
+            - eng0["host_dispatches"])
+        print(f"cluster: {victim} (shards {lost}) killed; pruned by the "
+              f"master in {prune_s:.2f} s; {len(touching)} needle GETs "
+              f"through its shards from A, {DEGRADED_THREADS} threads, in "
+              f"{deg_s:.2f} s: p50 {numbers['degraded_p50_ms']} ms, p99 "
+              f"{numbers['degraded_p99_ms']} ms, "
+              f"{numbers['degraded_mb_s']} MB/s; {dev_disp} K1 launches = "
+              f"A's device dispatches")
+
+        t0 = time.perf_counter()
+        out = counted("rebuild", lambda: _shell(murl, "ec.rebuild"))
+        rebuild_s = time.perf_counter() - t0
+        if f"rebuilt shards {lost} on {urls['A']}" not in out or \
+                launched["rebuild"][0] != launched["rebuild"][1] or \
+                launched["rebuild"][0] < 1:
+            raise AssertionError(f"ec.rebuild: {out}, launches, dispatches "
+                                 f"{launched['rebuild']}")
+        check_shards("rebuild", ec_shards(vid))
+        t0b = time.perf_counter()
+        counted("balance", lambda: _shell(murl, "ec.balance"))
+        balance_s = time.perf_counter() - t0b
+        alive = [n for n in urls if n != victim]
+        by_name = {n: shards for n, shards in check_shards(
+            "balance", ec_shards(vid)).items() if n in alive}
+        t0r = time.perf_counter()
+        counted("reads after balance", lambda: [
+            _timed_gets(urls[alive[i % len(alive)]],
+                        live[i::len(alive)], want, CLUSTER_THREADS)
+            for i in range(len(alive))])
+        if launched["reads after balance"][0]:
+            raise AssertionError(f"reads with all 14 shards live "
+                                 f"reconstructed: "
+                                 f"{launched['reads after balance']}")
+        numbers.update(rebuild_s=round(rebuild_s, 3),
+                       balance_s=round(balance_s, 3),
+                       balanced=by_name,
+                       reads_after_balance_s=round(
+                           time.perf_counter() - t0r, 3))
+        print(f"cluster: ec.rebuild {rebuild_s:.2f} s on A (shards {lost}, "
+              f"{launched['rebuild'][0]} K1 launches = dispatches), "
+              f"ec.balance {balance_s:.2f} s: shards {by_name}, all 14 "
+              f"mounted and sha256-identical; every live needle read "
+              f"through {', '.join(alive)} in turn, no launch on A")
+
+        t0 = time.perf_counter()
+        out = counted("decode", lambda: _shell(
+            murl, f"ec.decode -volumeId {vid}"))
+        decode_s = time.perf_counter() - t0
+        target = op.lookup(murl, vid)
+        t0r = time.perf_counter()
+
+        def read_back(fid):
+            if hashlib.sha256(op.read_file(murl, fid)).hexdigest() != \
+                    want[fid][0]:
+                raise AssertionError(f"after ec.decode: {fid} differs")
+
+        with ThreadPoolExecutor(CLUSTER_THREADS) as pool:
+            list(pool.map(read_back, live))
+        if str(vid) in get_json(f"http://{murl}/cluster/ec_status")[
+                "volumes"] or len(target) != 1:
+            raise AssertionError(f"ec.decode: {out}, lookup {target}")
+        numbers.update(decode_s=round(decode_s, 3),
+                       decode_target=name_of[target[0]],
+                       reads_after_decode_s=round(
+                           time.perf_counter() - t0r, 3))
+        print(f"cluster: ec.decode {decode_s:.2f} s onto "
+              f"{numbers['decode_target']}; every live needle read "
+              f"through /dir/lookup sha256-identical; the volume out of "
+              f"/cluster/ec_status")
+    finally:
+        procs.stop_processes()
+        a.stop()
+        master.stop()
+        for d in [d_a, ref_dir] + list(procs.dirs.values()):
+            shutil.rmtree(d, ignore_errors=True)
+    numbers["launches"] = {name: n for name, (n, _) in launched.items()}
+    numbers["leg_s"] = round(time.perf_counter() - leg_t0, 3)
+    for key, label in (("write", "writes"), ("read_A", "reads from A"),
+                       ("read_B", "reads from B"),
+                       ("read_redirect", "reads by redirect")):
+        print(f"cluster {label}: {numbers[key + '_mb_s']} MB/s"
+              + (f", {numbers['write_req_s']} requests/s (001: each "
+                 f"fanned out)" if key == "write" else ""))
+    for key in ("encode", "prune", "rebuild", "balance", "decode"):
+        print(f"cluster {key} wall: {numbers[key + '_s']} s")
+    print(f"cluster degraded GETs: p50 {numbers['degraded_p50_ms']} ms, "
+          f"p99 {numbers['degraded_p99_ms']} ms")
+    print(f"cluster K1 launches by step: {json.dumps(numbers['launches'])}")
+    print(f"cluster: {json.dumps(numbers)}")
+    return numbers
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2259,6 +2763,8 @@ def run(args) -> int:
         crc_phase(np, crc)
         data = drive("data plane", data_plane_leg, np, port, work,
                      args.seed + 61)
+        cluster = drive("cluster", cluster_leg, np, port, work,
+                        args.seed + 67)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if res["encode_launches"] < 1 or \
@@ -2271,7 +2777,7 @@ def run(args) -> int:
           f"degraded flat, net scrub flat, spread flat, piggyback, plane "
           f"repair, streaming piggyback, degraded piggyback, scrub "
           f"piggyback, net plane repair, spread piggyback, decode, data "
-          f"plane) in "
+          f"plane, cluster) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
           f"= dispatches, by leg {json.dumps(legs)}; builds {build_s:.2f} s")
 
@@ -2294,7 +2800,8 @@ def run(args) -> int:
         _k1_entry("gf_matmul_degraded",
                   legs["degraded flat"] + legs["degraded piggyback"]
                   + legs["net degraded flat"]
-                  + data["launches"]["degraded"],
+                  + data["launches"]["degraded"]
+                  + cluster["launches"]["degraded"],
                   max(read_err["degraded flat (1,10)"],
                       read_err["degraded piggyback (32,320)"]),
                   timed["degraded flat wide"], timed["degraded piggyback wide"],

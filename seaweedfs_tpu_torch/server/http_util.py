@@ -7,8 +7,10 @@ bodies (``Content-Length`` or chunked, ``Request.json``, the first file
 of a multipart upload or a raw body: ``Request.upload_payload``), JSON
 and bytes responses (``Response``, with a streamed file range),
 ``parse_range``, a keep-alive connection pool behind ``http_call`` /
-``http_get_with_headers``, ``post_multipart``, and ``post_chunked``,
-which streams a body of unknown size on a fresh connection.
+``http_get_with_headers`` (a GET or HEAD follows redirects, and a 307 or
+308 keeps a replayable body), ``get_json``, ``post_json``,
+``post_multipart``, and ``post_chunked``, which streams a body of
+unknown size on a fresh connection.
 
 Left out: TLS, the guard hook, the profile and trace handlers, and the
 metric observer. No ``traceparent``
@@ -53,6 +55,7 @@ class Request:
         self.handler = handler
         parsed = urllib.parse.urlparse(handler.path)
         self.path = parsed.path
+        self.raw_query = parsed.query
         self.query: Dict[str, str] = {
             k: v[0] for k, v in
             urllib.parse.parse_qs(parsed.query,
@@ -476,7 +479,7 @@ def clear_conn_pool():
 
 def _pooled_call(method: str, url: str, body, headers: dict,
                  timeout: float, want_headers: bool = False,
-                 encode_chunked: bool = False):
+                 encode_chunked: bool = False, max_redirects: int = 5):
     parsed = urllib.parse.urlsplit(url)
     netloc = parsed.netloc
     target = parsed.path or "/"
@@ -518,6 +521,16 @@ def _pooled_call(method: str, url: str, body, headers: dict,
             conn.close()
         else:
             _pool_put(netloc, conn)
+        # a GET or HEAD follows a redirect (a master's /<fid>, a volume
+        # server's read of a volume it does not hold); 307 and 308 keep
+        # the method and a replayable body
+        follow = method in ("GET", "HEAD") or \
+            (resp.status in (307, 308) and replayable)
+        if 300 <= resp.status < 400 and resp.getheader("Location") \
+                and follow and max_redirects > 0:
+            loc = urllib.parse.urljoin(url, resp.getheader("Location"))
+            return _pooled_call(method, loc, body, headers, timeout,
+                                want_headers, max_redirects=max_redirects - 1)
         if resp.status >= 400:
             detail = data.decode("utf-8", "replace")[:500]
             raise HttpError(resp.status, f"{method} {url}: {detail}")
@@ -550,6 +563,17 @@ def http_call(method: str, url: str, body: bytes = None,
         raise
     except (OSError, _httpc.HTTPException) as e:
         raise HttpError(503, f"{method} {url}: {e}") from None
+
+
+def get_json(url: str, timeout: float = 30.0) -> dict:
+    return json.loads(http_call("GET", url, timeout=timeout) or b"{}")
+
+
+def post_json(url: str, obj=None, timeout: float = 30.0) -> dict:
+    body = json.dumps(obj or {}).encode()
+    out = http_call("POST", url, body,
+                    {"Content-Type": "application/json"}, timeout)
+    return json.loads(out or b"{}")
 
 
 def _quote_name(name: str) -> str:

@@ -42,6 +42,8 @@ shards.
     POST /admin/ec/mount              mount shard files found here
     POST /admin/ec/unmount            stop serving shards
     POST /admin/ec/delete_shards      unmount and remove shard files
+    POST /admin/ec/to_volume          decode the mounted data shards back
+                                      into a plain volume
     POST /admin/ec/rebuild            rebuild lost shards: query only, from
                                       the shard files here; with a
                                       ``sources`` body, streamed from the
@@ -55,7 +57,9 @@ shards.
     POST /admin/ec/shard_plane_read   the piggyback repair half-plane of
                                       a window-aligned range
     GET  /admin/file                  a raw index or shard file
-    *    /status                      the directories and EC shards held
+    *    /status                      the store's heartbeat, directories,
+                                      and the degraded-read and scrub
+                                      engines' counters
 
 Paths, query parameters, status codes, headers and JSON keys are the JAX
 server's. The projections run on the host with numpy
@@ -63,20 +67,35 @@ server's. The projections run on the host with numpy
 them. Only an encode, a rebuild and a degraded read build the store's
 codec (on ``device``, the card by default, which raises where there is
 none), so a server that only holds shards or serves needles never
-touches the card. With ``master_url``, the holders of an EC volume's
-shards come from the master's ``/cluster/ec_lookup``; without one the
-location map is empty: every survivor of a degraded read is local, and an
-EC delete reaches no other holder.
+touches the card.
 
-Left out: the master heartbeat, the replica fan-out of writes and
-deletes and the read redirect to a replica, the whitelist and JWT guard,
-chunk manifests (``cm=``) and image resizing, the native plane, tiering,
-``/query``, ``/metrics`` and tracing (the ``trace_id`` of the JAX
-``/admin/ec/rebuild`` answer), volume copy, tail and sync, plain-volume
-mount and unmount, and ``configure_replication``.
+With ``master_url`` (seeds ``host:port[,host:port]``), the server
+heartbeats its master: at start, every ``pulse_seconds``, at once when a
+volume is created or deleted or a shard mounted or unmounted (a delta
+against the state the master last acknowledged; a ``resync`` answer
+replays the whole state), and synchronously after each admin route that
+does so in the JAX server (assign and delete a volume, EC mount,
+unmount, delete_shards and to_volume), which then answers 503 after
+doing its work when no master answers. It says goodbye on ``stop``. A
+volume's replicas come from the master's pushed location map
+(``client/vid_map``), else a ``/dir/lookup`` kept 10 s; the holders of
+an EC volume's shards from ``/cluster/ec_lookup``. Without a master
+nothing is sent: every survivor of a degraded read is local, and no
+write, delete or read goes to another server. A needle write or delete
+that is not ``type=replicate`` goes on to the volume's other replicas
+(all must succeed; a replica's 404 on a delete counts as done); a GET of
+a volume held elsewhere answers 301 to a replica.
+
+Left out: the whitelist and JWT guard, chunk manifests (``cm=``) and
+image resizing, the native plane, tiering, ``/query``, ``/metrics``,
+tracing (the ``trace_id`` of the JAX ``/admin/ec/rebuild`` answer) and
+the metrics push, the scrub routes and the scrub's background pass (its
+engine is there for ``/status``), volume copy, tail and sync,
+plain-volume mount and unmount, and ``configure_replication``.
 
     python3 -m seaweedfs_tpu_torch.server.volume_server --dir D [--dir D2]
         [--host 127.0.0.1] [--port 0] [--device cuda] [--master HOST:PORT]
+        [--max N] [--pulse-seconds S]
 
 serves until killed and prints ``listening <host>:<port>`` once bound,
 so a parent process that passed ``--port 0`` can read the port.
@@ -99,9 +118,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..ec.constants import TOTAL_SHARDS, to_ext
+from ..client.vid_map import shared_vid_map
+from ..ec import decoder as ec_decoder
+from ..ec.constants import DATA_SHARDS, TOTAL_SHARDS, to_ext
 from ..ec.degraded import READ_TIMEOUT_S, DegradedReadEngine
 from ..ec.ec_volume import EcShardNotFound
+from ..ec.scrub import ScrubEngine
 from ..ec.shard_cache import EcShardLocationCache
 from ..ops import codec as ops_codec
 from ..stats.health import BOARD
@@ -109,19 +131,26 @@ from ..storage.needle import Needle
 from ..storage.store import Store, volume_file_prefix
 from ..storage.types import TTL, parse_file_id
 from ..storage.volume import NotFound, VolumeError
+from ..util.fanout import fan_out
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
-                        http_call, parse_range)
+                        get_json, http_call, parse_range, post_json,
+                        post_multipart)
+
+PULSE_S = 5.0        # SW_PULSE_S: the heartbeat's period
+LOOKUP_TTL_S = 10.0  # a /dir/lookup answer's life in the replica cache
 
 
 class VolumeServer:
-    """``master_url`` (host:port, optional) is asked for EC shard
-    locations; ``file_size_limit_mb`` caps an upload (413 past it; 0: no
-    cap)."""
+    """``master_url`` (host:port, optional; a comma list of seeds) is
+    heartbeated and asked for locations; ``file_size_limit_mb`` caps an
+    upload (413 past it; 0: no cap); ``max_volume_counts`` the slots of
+    each directory."""
 
     def __init__(self, port: int = 8080, host: str = "127.0.0.1",
                  directories=None, device: str = "cuda",
                  layout: str = "flat", codec=None, master_url: str = "",
-                 file_size_limit_mb: int = 256):
+                 file_size_limit_mb: int = 256, max_volume_counts=None,
+                 pulse_seconds: Optional[float] = None):
         router = Router()
         router.add("*", "/status", self.status)
         router.add("POST", "/admin/assign_volume", self.admin_assign_volume)
@@ -137,6 +166,7 @@ class VolumeServer:
         router.add("POST", "/admin/ec/copy", self.admin_ec_copy)
         router.add("POST", "/admin/ec/delete_shards",
                    self.admin_ec_delete_shards)
+        router.add("POST", "/admin/ec/to_volume", self.admin_ec_to_volume)
         router.add("POST", "/admin/ec/shard_write",
                    self.admin_ec_shard_write)
         router.add("GET", "/admin/ec/shard_read", self.admin_ec_shard_read)
@@ -149,14 +179,26 @@ class VolumeServer:
         # without a ``codec``, the store builds RS(10,4) on ``device`` only
         # when an encode, a rebuild or a degraded read first needs it
         self.store = Store(directories or ["."], codec=codec, device=device,
-                           layout=layout)
+                           layout=layout, max_volume_counts=max_volume_counts)
         self.server = HttpServer(port, router, host=host)
         self.host = host
         self.port = self.server.port
         self.url = f"{host}:{self.port}"
+        self.store.ip = host
+        self.store.port = self.port
         self.store.public_url = self.url
-        self.master_url = master_url
+        # heartbeats follow the leader hint and rotate through the seeds
+        self._seed_masters = [m.strip() for m in master_url.split(",")
+                              if m.strip()]
+        self.master_url = self._seed_masters[0] if self._seed_masters \
+            else ""
+        self._seed_i = 0
+        self.pulse_seconds = PULSE_S if pulse_seconds is None \
+            else pulse_seconds
         self.file_size_limit = max(0, int(file_size_limit_mb)) << 20
+        self._lookup_cache: Dict[int, tuple] = {}
+        self._vid_map = shared_vid_map(self.master_url) \
+            if self.master_url else None
         self._ec_loc_cache = EcShardLocationCache(
             self._fetch_ec_shard_locations)
         # reconstruct-on-read of lost shards: coalesced batches, an
@@ -168,25 +210,125 @@ class VolumeServer:
         # a shard mounted again (after a rebuild) is read from disk, not
         # from the engine's cached reconstructions
         self.store.on_ec_mount = self.degraded.invalidate
+        # the syndrome scrub's engine, whose counters /status reports
+        self.scrub = ScrubEngine(
+            store=self.store, locations=self._ec_shard_locations,
+            codec=lambda: self.store.codec, self_url=lambda: self.url)
+        # a volume created or deleted, a shard mounted or unmounted: the
+        # heartbeat loop wakes and sends the delta at once
+        self._stop = threading.Event()
+        self._hb_wake = threading.Event()
+        self.store.on_change = self._hb_wake.set
+        # the master and volume set the last heartbeat's answer acked;
+        # one heartbeat at a time, from its collect to that ack, so the
+        # loop's older state never overwrites a route's newer ack
+        self._hb_lock = threading.Lock()
+        self._hb_acked_master = None
+        self._hb_acked_volumes = None
+        self._hb_thread = threading.Thread(target=self._heartbeat_loop,
+                                           daemon=True,
+                                           name="volume-heartbeat")
 
     def start(self) -> "VolumeServer":
         self.server.start()
+        if self.master_url:
+            try:
+                self.heartbeat_once()
+            except HttpError:
+                pass    # no master yet: the loop keeps trying
+            self._hb_thread.start()
         return self
 
     def stop(self):
+        self._stop.set()
+        self._hb_wake.set()
+        if self.master_url:
+            try:
+                # a clean stop: the master drops this server now
+                post_json(f"http://{self.master_url}/cluster/goodbye",
+                          {"url": self.url}, timeout=2)
+            except HttpError:
+                pass
         self.server.stop()
         self.degraded.close()
         self.store.close()
 
+    # -- the heartbeat -------------------------------------------------------
+    def _heartbeat_loop(self):
+        while True:
+            self._hb_wake.wait(self.pulse_seconds)
+            self._hb_wake.clear()
+            if self._stop.is_set():
+                return
+            try:
+                self.heartbeat_once()
+            except HttpError:
+                pass    # every seed failed; the next pulse tries again
+
+    def _heartbeat_payload(self, hb: dict, target: str) -> dict:
+        """The full heartbeat, or a delta against the volumes the
+        target master last acknowledged: only new, changed and deleted
+        volumes ride it (the EC shard bits ride every heartbeat)."""
+        if target != self._hb_acked_master or self._hb_acked_volumes is None:
+            return hb
+        current = {v["id"]: v for v in hb["volumes"]}
+        previous = self._hb_acked_volumes
+        delta = dict(hb)
+        del delta["volumes"]
+        delta["delta"] = True
+        delta["new_volumes"] = [v for vid, v in current.items()
+                                if previous.get(vid) != v]
+        delta["deleted_volumes"] = [vid for vid in previous
+                                    if vid not in current]
+        return delta
+
+    def _post_heartbeat(self, hb: dict, target: str) -> dict:
+        resp = post_json(f"http://{target}/cluster/heartbeat",
+                         self._heartbeat_payload(hb, target), timeout=10)
+        if resp.get("resync"):
+            # the master lost (or never had) this server: the whole state
+            resp = post_json(f"http://{target}/cluster/heartbeat", hb,
+                             timeout=10)
+        if not resp.get("not_leader"):
+            self._hb_acked_master = target
+            self._hb_acked_volumes = {v["id"]: v for v in hb["volumes"]}
+        return resp
+
+    def heartbeat_once(self):
+        """Heartbeat the current master, trying every seed before
+        raising the last failure; then follow the answer's leader hint.
+        Without a master, nothing."""
+        if not self.master_url:
+            return
+        with self._hb_lock:
+            hb = self.store.collect_heartbeat()
+            last = None
+            for _ in range(len(self._seed_masters)):
+                try:
+                    resp = self._post_heartbeat(hb, self.master_url)
+                    break
+                except HttpError as e:
+                    last = e
+                    self._seed_i = (self._seed_i + 1) % \
+                        len(self._seed_masters)
+                    self.master_url = self._seed_masters[self._seed_i]
+            else:
+                raise last
+            leader = resp.get("leader")
+            if leader and leader != self.master_url:
+                self.master_url = leader
+                if resp.get("not_leader"):
+                    self._post_heartbeat(hb, self.master_url)
+
     def status(self, req: Request):
-        return {"url": self.url,
-                "directories": [loc.directory
-                                for loc in self.store.locations],
-                "ec_volumes": [
-                    {"id": vid, "collection": ev.collection,
-                     "shards": ev.shard_ids()}
-                    for loc in self.store.locations
-                    for vid, ev in sorted(loc.ec_volumes.items())]}
+        out = self.store.status()
+        # the JAX shape: the engine's phase totals stand in for the JAX
+        # package's trace spans and are read from ``snapshot()`` only
+        degraded = self.degraded.snapshot()
+        degraded.pop("phases")
+        out["ec_degraded"] = degraded
+        out["ec_scrub"] = self.scrub.snapshot()
+        return out
 
     # -- volumes -------------------------------------------------------------
     def admin_assign_volume(self, req: Request):
@@ -194,12 +336,15 @@ class VolumeServer:
         self.store.add_volume(vid, req.query.get("collection", ""),
                               req.query.get("replication", "000"),
                               req.query.get("ttl", ""))
+        self.heartbeat_once()
         return {"volume": vid}
 
     def admin_delete_volume(self, req: Request):
         vid = int(req.query["volume"])
         if not self.store.delete_volume(vid):
             raise HttpError(404, f"volume {vid} not found")
+        self._lookup_cache.pop(vid, None)
+        self.heartbeat_once()
         return {"deleted": vid}
 
     def _find_volume(self, req: Request):
@@ -344,6 +489,7 @@ class VolumeServer:
                 raise HttpError(
                     404, f"no shard files for volume {vid} "
                          f"collection={collection!r} here")
+        self.heartbeat_once()
         return {"volume": vid, "mounted": mounted}
 
     def _shard_ids(self, req: Request) -> List[int]:
@@ -353,6 +499,8 @@ class VolumeServer:
     def admin_ec_unmount(self, req: Request):
         vid = int(req.query["volume"])
         out = self.store.unmount_ec_shards(vid, self._shard_ids(req))
+        self._ec_loc_cache.invalidate(vid)
+        self.heartbeat_once()
         return {"volume": vid, "unmounted": out}
 
     def admin_ec_rebuild(self, req: Request):
@@ -391,6 +539,9 @@ class VolumeServer:
         collection = req.query.get("collection", "")
         shard_ids = self._shard_ids(req)
         self.store.unmount_ec_shards(vid, shard_ids)
+        # the cached holders listed this server for these shards: a read
+        # now asks the master where they went instead of reconstructing
+        self._ec_loc_cache.invalidate(vid)
         removed = []
         for loc in self.store.locations:
             base = volume_file_prefix(loc.directory, collection, vid)
@@ -405,7 +556,29 @@ class VolumeServer:
                 for ext in (".ecx", ".ecj", ".vif", ".scrub"):
                     if os.path.exists(base + ext):
                         os.remove(base + ext)
+        self.heartbeat_once()
         return {"volume": vid, "removed": removed}
+
+    def admin_ec_to_volume(self, req: Request):
+        """Decode the mounted EC volume back into a plain one: the
+        .dat from the data shards (all must be here), the .idx from the
+        .ecx and .ecj; the shards are unmounted, their files stay."""
+        vid = int(req.query["volume"])
+        ev = self.store.find_ec_volume(vid)
+        if ev is None:
+            raise HttpError(404, f"ec volume {vid} not mounted")
+        if len([s for s in ev.shard_ids() if s < DATA_SHARDS]) < DATA_SHARDS:
+            raise HttpError(409, "need all data shards local to decode")
+        base = ev.base_name
+        dat_size = ec_decoder.find_dat_file_size(base)
+        ec_decoder.write_dat_file(base, dat_size)
+        ec_decoder.write_idx_file_from_ec_index(base)
+        self.store.unmount_ec_shards(vid, list(range(TOTAL_SHARDS)))
+        for loc in self.store.locations:
+            if os.path.dirname(base) == loc.directory:
+                loc.load_existing_volumes()
+        self.heartbeat_once()
+        return {"volume": vid, "dat_size": dat_size}
 
     def admin_ec_copy(self, req: Request):
         """Pull shard files, and with ``copy_ecx`` the .ecx, from a source
@@ -626,8 +799,59 @@ class VolumeServer:
             self.store.write_needle(vid, n)
         except VolumeError as e:
             raise HttpError(500, str(e)) from None
+        if req.query.get("type") != "replicate":
+            self._replicate_write(req, vid, filename, ctype, data, ts_val)
         # the reference reports the data size, not the needle's Size
         return {"name": filename, "size": len(data), "eTag": n.etag}
+
+    def _replicate_write(self, req: Request, vid, filename, ctype, data,
+                         ts_val):
+        """The write on every other replica, all at once; any failure
+        fails the request, so the client knows the needle is
+        under-replicated. ``ttl``, the checked ``ts`` and the Seaweed-*
+        pairs go with it."""
+        extra_q = ""
+        if req.query.get("ttl"):
+            extra_q += f"&ttl={req.query['ttl']}"
+        if ts_val:
+            extra_q += f"&ts={ts_val}"
+        pair_headers = {k: v for k, v in req.headers.items()
+                        if k.lower().startswith("seaweed-")} or None
+
+        def replicate(node_url: str):
+            post_multipart(
+                f"http://{node_url}{req.path}?type=replicate{extra_q}",
+                filename, data, ctype or "application/octet-stream",
+                headers=pair_headers)
+
+        failed = [
+            f"{node_url}: {exc.message or exc.status}"
+            if isinstance(exc, HttpError) else f"{node_url}: {exc}"
+            for node_url, _, exc in fan_out(replicate,
+                                            self._other_replicas(vid))
+            if exc is not None]
+        if failed:
+            raise HttpError(500, "replication failed on " + "; ".join(failed))
+
+    def _other_replicas(self, vid: int) -> List[str]:
+        """The volume's other holders: from the pushed location map,
+        else a /dir/lookup kept LOOKUP_TTL_S; none without a master."""
+        if not self.master_url:
+            return []
+        urls = self._vid_map.lookup(vid)
+        if urls is None:
+            cached = self._lookup_cache.get(vid)
+            if cached and time.time() - cached[0] < LOOKUP_TTL_S:
+                urls = cached[1]
+            else:
+                try:
+                    out = get_json(f"http://{self.master_url}/dir/lookup"
+                                   f"?volumeId={vid}", timeout=10)
+                    urls = [loc["url"] for loc in out.get("locations", [])]
+                except HttpError:
+                    urls = []
+                self._lookup_cache[vid] = (time.time(), urls)
+        return [u for u in urls if u != self.url]
 
     def read_needle(self, req: Request, vid, key, cookie):
         if self.store.find_volume(vid) is None:
@@ -635,6 +859,11 @@ class VolumeServer:
                 got = self._read_needle_local(vid, key, cookie,
                                               f"{vid},{key:x}")
                 return self._needle_response(got, req)
+            # not held here: a replica has it
+            others = self._other_replicas(vid)
+            if others:
+                return Response(b"", 301, headers={
+                    "Location": f"http://{others[0]}{req.path}"})
             raise HttpError(404, f"volume {vid} not found")
         try:
             got = self.store.read_needle(vid, Needle(id=key, cookie=cookie))
@@ -706,6 +935,20 @@ class VolumeServer:
                                                          cookie=cookie))
         except VolumeError as e:
             raise HttpError(500, str(e)) from None
+        if req.query.get("type") != "replicate":
+            # every replica must drop it, or a read redirect brings it
+            # back; a 404 there is already the goal
+            def replicate(node_url: str):
+                http_call("DELETE",
+                          f"http://{node_url}{req.path}?type=replicate")
+
+            failed = [f"{node_url}: {exc}" for node_url, _, exc in
+                      fan_out(replicate, self._other_replicas(vid))
+                      if exc is not None and not (
+                          isinstance(exc, HttpError) and exc.status == 404)]
+            if failed:
+                raise HttpError(500, "delete replication failed on "
+                                + "; ".join(failed))
         return {"size": freed}
 
     # -- needles of EC volumes -----------------------------------------------
@@ -826,12 +1069,20 @@ def main(argv=None) -> int:
                     help="where encodes, rebuilds and degraded reads run "
                          "(cuda or cpu)")
     ap.add_argument("--master", default="",
-                    help="host:port of a master to ask for EC shard "
+                    help="host:port of the master to heartbeat and ask for "
                          "locations (none by default)")
+    ap.add_argument("--max", default="7",
+                    help="volume slots of each --dir (comma list)")
+    ap.add_argument("--pulse-seconds", type=float, default=PULSE_S,
+                    help="the heartbeat's period")
     args = ap.parse_args(argv)
+    slots = [int(x) for x in args.max.split(",")]
+    slots += slots[-1:] * (len(args.dir) - len(slots))
     vs = VolumeServer(port=args.port, host=args.host,
                       directories=args.dir, device=args.device,
-                      master_url=args.master).start()
+                      master_url=args.master,
+                      max_volume_counts=slots[:len(args.dir)],
+                      pulse_seconds=args.pulse_seconds).start()
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())

@@ -22,10 +22,16 @@ GF(2^8) product runs on the store's codec, ``TorchCodec`` on the card
 unless the caller passes another codec or ``device="cpu"``; a holder,
 which only serves and takes shards, never builds one.
 
+The heartbeat a volume server sends its master is ``collect_heartbeat``
+(every volume's info, the EC shard bits and collections, the largest
+file key), and ``status`` adds the directories; ``on_change`` is called
+after every volume create and delete and every EC mount and unmount
+that changed something, so the server can send a delta at once.
+
 The JAX package reads the new volumes' layout from SW_EC_LAYOUT; here it
-is the ``layout`` argument ("flat" by default). Left out: heartbeats and
-their change callback, the needle-map kinds but ``memory``, and the
-transport metrics export; the stats dict keys stay.
+is the ``layout`` argument ("flat" by default). Left out: the needle-map
+kinds but ``memory``, and the transport metrics export; the stats dict
+keys stay.
 """
 
 from __future__ import annotations
@@ -178,10 +184,11 @@ class Store:
     default); ``layout`` is the parity layout of new EC volumes, "flat"
     or "piggyback" (the JAX SW_EC_LAYOUT, flat by default);
     ``max_volume_counts`` the slots of each directory (7 each).
-    ``public_url``, this server's address in a shard assignment, is set
-    by the server that owns the store, and so is ``on_ec_mount(vid,
-    shard_ids)``, called after a mount registers shards (the degraded
-    reads drop their reconstructions of them)."""
+    ``ip``, ``port`` and ``public_url``, this server's address in a
+    heartbeat and a shard assignment, are set by the server that owns the
+    store, and so are ``on_ec_mount(vid, shard_ids)``, called after a
+    mount registers shards (the degraded reads drop their reconstructions
+    of them), and ``on_change()``."""
 
     def __init__(self, directories, codec=None, device="cuda",
                  routing: bool = False, layout: str = "flat",
@@ -195,8 +202,11 @@ class Store:
         self.device = device
         self.routing = bool(routing)
         self.layout = layout
+        self.ip = "127.0.0.1"
+        self.port = 0
         self.public_url = ""
         self.on_ec_mount = None
+        self.on_change = None
         for loc in self.locations:
             loc.load_existing_volumes()
             loc.load_all_ec_shards()
@@ -246,13 +256,24 @@ class Store:
         loc = self.find_free_location()
         if loc is None:
             raise VolumeError("no free volume slots")
-        return loc.add_volume(
+        v = loc.add_volume(
             collection, vid,
             replica_placement=ReplicaPlacement.parse(replication),
             ttl=TTL.parse(ttl))
+        self._changed()
+        return v
 
     def delete_volume(self, vid: int) -> bool:
-        return any(loc.delete_volume(vid) for loc in self.locations)
+        for loc in self.locations:
+            if loc.delete_volume(vid):
+                self._changed()
+                return True
+        return False
+
+    def _changed(self):
+        cb = self.on_change
+        if cb is not None:
+            cb()
 
     def _volume(self, vid: int) -> Volume:
         v = self.find_volume(vid)
@@ -282,6 +303,58 @@ class Store:
             return None
         was, v.readonly = v.readonly, readonly
         return was
+
+    # -- the heartbeat -------------------------------------------------------
+    def collect_heartbeat(self) -> dict:
+        """What the master is told: this server's address and place,
+        its slots, the largest file key, every volume's info and, per EC
+        volume, the bits of the shards mounted here and the
+        collection."""
+        volumes = []
+        ec_shards: Dict[int, int] = {}
+        ec_collections: Dict[int, str] = {}
+        max_file_key = 0
+        max_volume_count = 0
+        for loc in self.locations:
+            max_volume_count += loc.max_volume_count
+            for vid, v in list(loc.volumes.items()):
+                max_file_key = max(max_file_key, v.max_file_key())
+                volumes.append({
+                    "id": vid,
+                    "collection": v.collection,
+                    "size": v.size(),
+                    "file_count": v.file_count(),
+                    "delete_count": v.deleted_count(),
+                    "deleted_byte_count": v.deleted_size(),
+                    "read_only": v.readonly,
+                    "replica_placement":
+                        str(v.super_block.replica_placement),
+                    "ttl": v.super_block.ttl.to_uint32(),
+                    "version": v.version,
+                    "compact_revision": v.super_block.compaction_revision,
+                    "modified_at": v.last_modified,
+                })
+            for vid, ev in loc.ec_volumes.items():
+                bits = 0
+                for sid in ev.shard_ids():
+                    bits |= 1 << sid
+                ec_shards[vid] = bits
+                ec_collections[vid] = ev.collection
+        return {
+            "ip": self.ip, "port": self.port, "public_url": self.public_url,
+            # the default data center and rack
+            "data_center": "", "rack": "",
+            "max_volume_count": max_volume_count,
+            "max_file_key": max_file_key,
+            "volumes": volumes,
+            "ec_shards": ec_shards,
+            "ec_collections": ec_collections,
+        }
+
+    def status(self) -> dict:
+        hb = self.collect_heartbeat()
+        hb["directories"] = [loc.directory for loc in self.locations]
+        return hb
 
     def close(self):
         for loc in self.locations:
@@ -414,8 +487,10 @@ class Store:
                 else:
                     ev.close()
             break
-        if mounted and self.on_ec_mount is not None:
-            self.on_ec_mount(vid, mounted)
+        if mounted:
+            if self.on_ec_mount is not None:
+                self.on_ec_mount(vid, mounted)
+            self._changed()
         return mounted
 
     def unmount_ec_shards(self, vid: int, shard_ids: List[int]) -> List[int]:
@@ -435,6 +510,8 @@ class Store:
                 if loc.ec_volumes.get(vid) is ev:
                     loc.ec_volumes.pop(vid)
             ev.close()
+        if out:
+            self._changed()
         return out
 
     def rebuild_ec_shards(self, vid: int, collection: str = "",

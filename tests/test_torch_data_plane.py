@@ -23,11 +23,21 @@ the shard files, the .ecx and the .vif must be equal, and the .ecj: the
 JAX package removes the .ecj in the rebuild and journals the later EC
 delete into the unlinked file, the port into a new .ecj (ROADMAP §3).
 
-Both servers ask one fake master for EC shard locations (it lists none,
-so every survivor is local and no delete is broadcast); the JAX one also
-heartbeats it. The port runs on ``device="cpu"``, the JAX one on its
-numpy codec. ``time.time_ns``, which v3 needles and tombstones carry, is
-fixed for both; every write passes ``ts``. Tolerances: none."""
+Both servers heartbeat one fake master and ask it for EC shard locations
+and replicas (it lists none, so every survivor is local and no write or
+delete goes to another server). The port runs on ``device="cpu"``, the
+JAX one on its numpy codec. ``time.time_ns``, which v3 needles and
+tombstones carry, is fixed for both; every write passes ``ts``.
+
+Then both servers run with a master that does not answer (a closed
+localhost port): every admin route that heartbeats (assign and delete a
+volume, EC mount, unmount, delete_shards, to_volume) does its work and
+answers 503 with the heartbeat's error, equal between the two; and
+``/status`` (the store's heartbeat, the directories, and the
+degraded-read and scrub counters) must be equal once each server's own
+address and directory are taken out, and the degraded reads' measured
+p50/p99 (the host/device split of their dispatches is each codec's:
+their sum is held). Tolerances: none."""
 
 import http.client
 import json
@@ -348,3 +358,94 @@ def test_no_card_raises_unless_cpu(tmp_path):
             "rebuilt"] == [0]
     finally:
         cpu.stop()
+
+
+def _own(obj, server, root):
+    """JSON with a server's own address, port and directory taken out."""
+    if isinstance(obj, dict):
+        return {k: _own(v, server, root) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_own(v, server, root) for v in obj]
+    if isinstance(obj, str):
+        return obj.replace(server.url, "SELF").replace(root, "DIR")
+    if obj == server.port and not isinstance(obj, bool):
+        return "PORT"
+    return obj
+
+
+def test_no_master_503_after_work_and_status(tmp_path, monkeypatch):
+    """With a master that does not answer, the heartbeating admin routes
+    do their work and answer 503, as the JAX server's; /status is the
+    JAX server's."""
+    import torch
+    from seaweedfs_tpu.server.volume_server import \
+        VolumeServer as RefVolumeServer
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setattr(time, "time_ns", lambda: 1_700_000_000_123_456_789)
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.5)
+    gone = "127.0.0.1:1"
+    dirs = (str(tmp_path / "ref"), str(tmp_path / "port"))
+    ref = RefVolumeServer(port=0, directories=[dirs[0]], master_url=gone,
+                          ec_backend="numpy", fast_port=-1).start()
+    port = VolumeServer(port=0, directories=[dirs[1]], device="cpu",
+                        master_url=gone).start()
+    # the test configuration turns the JAX scrub's background pass off
+    port.scrub.idle_s = ref.scrub.idle_s
+    try:
+        both = _Both(ref, port)
+
+        def status():
+            out = [_own(json.loads(_call(vs.url, "GET", "/status")[2]),
+                        vs, d)
+                   for vs, d in ((ref, dirs[0]), (port, dirs[1]))]
+            for o in out:
+                # measured latencies; and the host/device split is the
+                # codec's (the JAX numpy codec runs every product on the
+                # host), so the dispatches are held as a sum
+                eng = o["ec_degraded"]
+                del eng["p50_ms"], eng["p99_ms"]
+                eng["dispatches"] = eng.pop("host_dispatches") + \
+                    eng.pop("device_dispatches")
+            assert out[1] == out[0]
+            return out[1]
+
+        assert status()["volumes"] == []
+        out = both("POST", f"/admin/assign_volume?volume={VID}"
+                           f"&replication=000", want=503)
+        assert "cluster/heartbeat" in out[2]["error"]
+        assert port.store.find_volume(VID) is not None
+        rng = np.random.default_rng(29)
+        needles = _needles(rng)[:5] + _needles(rng)[8:10]
+        for fid, how, name, ctype, data, query, headers in needles:
+            assert _post(both, fid, how, name, ctype, data, query,
+                         headers)[0] == 200
+        both("DELETE", needles[2][0], want=200)
+        assert [v["file_count"] for v in status()["volumes"]] == [7]
+        both("POST", f"/admin/volume/readonly?volume={VID}", want=200)
+        both("POST", f"/admin/ec/generate?volume={VID}", want=200)
+        all14 = ",".join(map(str, range(14)))
+        both("POST", f"/admin/ec/mount?volume={VID}&shards={all14}",
+             want=503)
+        both("POST", f"/admin/delete_volume?volume={VID}", want=503)
+        assert status()["ec_shards"] == {str(VID): (1 << 14) - 1}
+        both("POST", f"/admin/ec/unmount?volume={VID}&shards=13", want=503)
+        both("POST", f"/admin/ec/delete_shards?volume={VID}&shards=1",
+             want=503)
+        _reads(both, needles, deleted={needles[2][0]})
+        assert status()["ec_degraded"]["reads"] > 0
+        both("POST", f"/admin/ec/mount?volume={VID}&shards=13", want=503)
+        both("POST", f"/admin/ec/to_volume?volume={VID}", want=409)
+        both("POST", f"/admin/ec/rebuild?volume={VID}", want=200,
+             compare=lambda r: (r[0], r[2]["rebuilt"]))
+        both("POST", f"/admin/ec/mount?volume={VID}&shards=1", want=503)
+        both("POST", f"/admin/ec/to_volume?volume={VID}", want=503)
+        both("POST", "/admin/ec/to_volume?volume=42", want=404)
+        after = status()
+        assert after["ec_shards"] == {} and \
+            [v["id"] for v in after["volumes"]] == [VID]
+        _reads(both, needles, deleted={needles[2][0]})
+    finally:
+        port.stop()
+        ref.stop()
+        torch.set_num_threads(threads)

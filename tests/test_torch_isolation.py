@@ -4,9 +4,11 @@ rebuilds (from local files and streamed), trace-repairs, plane-repairs
 and decodes, on the flat and the piggyback layout, serves a needle
 through a lost shard and scrubs, trace-repairs from a holder over HTTP,
 streams an encode from one server's readonly volume to another server,
-and drives a volume server's needle data plane (create, write, read,
-delete, vacuum, encode, a GET through a lost shard), with both made
-unimportable."""
+drives a volume server's needle data plane (create, write, read,
+delete, vacuum, encode, a GET through a lost shard), and runs a cluster
+(a master, three heartbeating volume servers, replicated writes, the
+shell's ec.encode, ec.rebuild, ec.balance and ec.decode), with both
+made unimportable."""
 
 import ast
 import os
@@ -72,6 +74,19 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/server/http_util.py",
                  "seaweedfs_tpu_torch/server/volume_server.py",
                  "seaweedfs_tpu_torch/stats/health.py",
+                 "seaweedfs_tpu_torch/ec/shard_bits.py",
+                 "seaweedfs_tpu_torch/util/fanout.py",
+                 "seaweedfs_tpu_torch/topology/node.py",
+                 "seaweedfs_tpu_torch/topology/volume_layout.py",
+                 "seaweedfs_tpu_torch/topology/volume_growth.py",
+                 "seaweedfs_tpu_torch/topology/topology.py",
+                 "seaweedfs_tpu_torch/server/watch_hub.py",
+                 "seaweedfs_tpu_torch/server/master.py",
+                 "seaweedfs_tpu_torch/client/operation.py",
+                 "seaweedfs_tpu_torch/client/vid_map.py",
+                 "seaweedfs_tpu_torch/shell/command_env.py",
+                 "seaweedfs_tpu_torch/shell/command_ec.py",
+                 "seaweedfs_tpu_torch/shell/__main__.py",
                  "seaweedfs_tpu_torch/tools/kernel_exp.py", "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc"):
@@ -428,6 +443,88 @@ def test_data_plane_with_jax_unimportable(tmp_path):
         assert gf_matmul.launches == 0
         assert not any(m.split(".")[0] in {FORBIDDEN!r}
                        for m, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_cluster_with_jax_unimportable(tmp_path):
+    """A port master and three heartbeating port VolumeServers on the CPU
+    in one process: needles written through /dir/assign, a 001 volume
+    written on both replicas, then the shell's ec.encode, a lost shard,
+    ec.rebuild, ec.balance and ec.decode, every needle read back."""
+    script = textwrap.dedent(f"""
+        import io, os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from seaweedfs_tpu_torch.client import operation as op
+        from seaweedfs_tpu_torch.ops import gf_matmul
+        from seaweedfs_tpu_torch.server.http_util import http_call, post_json
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+        root = {str(tmp_path)!r}
+        m = MasterServer(port=0, pulse_seconds=1, seed=1).start()
+        servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
+                                master_url=m.url, pulse_seconds=1,
+                                max_volume_counts=[20],
+                                device="cpu").start() for i in range(3)]
+
+        def shell(line):
+            out = io.StringIO()
+            run_command(CommandEnv(m.url, out=out), line)
+            return out.getvalue()
+
+        try:
+            rng = np.random.default_rng(0)
+            data = {{}}
+            for i in range(10):
+                body = rng.bytes(20_000)
+                data[op.upload_data(m.url, body, filename="n%d" % i,
+                                    collection="iso")] = body
+            assert post_json("http://" + m.url + "/vol/grow?collection=r"
+                             "&replication=001")["count"] == 1
+            a = op.assign(m.url, collection="r", replication="001")
+            body = rng.bytes(5000)
+            op.upload(a["url"], a["fid"], body, filename="r.bin")
+            vid = int(a["fid"].split(",")[0])
+            holders = op.lookup(m.url, vid)
+            assert len(holders) == 2
+            for u in holders:
+                assert http_call("GET", "http://%s/%s" % (u, a["fid"])) \\
+                    == body
+            by_vid = {{}}
+            for fid in data:
+                by_vid.setdefault(int(fid.split(",")[0]), []).append(fid)
+            vid = max(by_vid, key=lambda v: len(by_vid[v]))
+            assert "ec encoded" in shell("ec.encode -volumeId %d" % vid)
+            victim = servers[0]
+            lost = victim.store.find_ec_volume(vid).shard_ids()[:2]
+            victim.store.unmount_ec_shards(vid, lost)
+            for loc in victim.store.locations:
+                for name in os.listdir(loc.directory):
+                    if any(name.endswith(".ec%02d" % s) for s in lost):
+                        os.remove(os.path.join(loc.directory, name))
+            victim.heartbeat_once()
+            assert "rebuilt shards" in shell("ec.rebuild")
+            assert "shard moves" in shell("ec.balance")
+            assert "decoded back" in shell("ec.decode -volumeId %d" % vid)
+            for fid, body in data.items():
+                assert op.read_file(m.url, fid) == body
+        finally:
+            for vs in servers:
+                vs.stop()
+            m.stop()
+        assert gf_matmul.launches == 0
+        assert not any(mod.split(".")[0] in {FORBIDDEN!r}
+                       for mod, v in sys.modules.items() if v is not None)
         print("PORT-OK")
     """)
     env = dict(os.environ)

@@ -15,6 +15,7 @@ package's, over HTTP on localhost (CPU, small RS(10,4) shards).
 """
 
 import http.client
+import json
 import os
 import shutil
 import threading
@@ -349,9 +350,10 @@ def test_holder_route_bytes(holders):
     plane = port_codec.pb_plane_slice(shards[2][4][4096:12288], 32, WINDOW,
                                       1, 0)
     assert body == plane.tobytes() and len(body) == 4096
-    status = http_util.http_call("GET", f"http://{port.url}/status")
-    assert b'"shards": [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13]' \
-        in status
+    status = json.loads(http_util.http_call("GET",
+                                            f"http://{port.url}/status"))
+    assert {"1", "2"} <= set(status["ec_shards"]) and all(
+        bits == (1 << 14) - 1 for bits in status["ec_shards"].values())
     # no route: 404 from both (the JAX server's needle-read fallback
     # answers it, which the port leaves out)
     for h in (ref.url, port.url):
