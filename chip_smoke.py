@@ -103,7 +103,9 @@
    gf_matmul_scrub in the kernels line). The degraded leg moves the
    seeded data shard aside, mounts EcVolume over the rest with a
    DegradedReadEngine (defaults: 128 KiB slabs, 2 ms batches, 1 slab of
-   readahead, 64 MiB cache), serves DEGRADED_GETS needle GETs whose
+   readahead, 64 MiB cache), serves DEGRADED_GETS needle GETs
+   (PB_DEGRADED_GETS on the piggyback layout, cut from 48 to 24 to keep
+   the smoke within its time with step 15 beside it) whose
    intervals touch the lost shard from 4 threads through
    read_needle_blob(nid, reconstruct_fetch=engine.read), each blob held
    against the .dat, then one 16 MiB read of the lost shard with the
@@ -200,7 +202,9 @@
    which start while the writes run and must have registered before the
    encode. Four client threads assign (client/operation) and POST seeded needles
    (the data plane's plan: log-uniform over 1 KiB-4 MiB until
-   VOLUME_BYTES) to the server /dir/assign names, which fans each out to
+   CLUSTER_BYTES, 256 MiB, cut from VOLUME_BYTES to make room for step
+   15 within the smoke's time) to the server /dir/assign names, which
+   fans each out to
    the other replica; each reply's size and ETag checked. Every needle
    GET back from A and from B (the locations of /dir/lookup) and through
    the master's GET /<fid> redirect, sha256 and Etag; every tenth
@@ -225,11 +229,47 @@
    the prune wait, ec.rebuild, ec.balance and ec.decode, the degraded
    p50/p99 and the K1 launches by step, each on a line of its own, then
    the leg's numbers as JSON. Every process is stopped and every
-   directory removed in a finally.
+   directory removed in a finally. The master runs no repair loop.
 
-Every leg runs with the kernel's launch counter set to 0 just before it
-and read just after; a leg of steps 5-8, 10-12, 13 and 14 whose launches
-differ from its dispatches, or that launched nothing, fails the smoke.
+15. The integrity plane of a port cluster, after step 14, on the main
+   1 GiB volume (its .dat and .idx hard-linked into A's directory before
+   A starts): an in-process MasterServer with a repair loop every
+   INTEGRITY_REPAIR_S, A in-process on the card, B and C as processes on
+   the card (INTEGRITY_SLOTS: B the freest, so the shell puts shard 0 on
+   it), scrubs unpaced.
+   ec.encode through the shell from A; volume.ec.scrub -trigger: no
+   finding on any server, no open incident, and each server's K1
+   launches, read from its own GET /admin/devices delta, equal its
+   scrub's device dispatches, > 0. One byte flipped mid-shard in a seeded
+   shard of B's; /admin/ec/scrub?volume= on B names that shard and no
+   other, its K1 launches (B's /admin/devices delta, the master's drain
+   held until it is read) = its device dispatches; the master's queue
+   opens one corruption incident at priority 0 and its drain posts
+   /admin/ec/scrub_repair to B, which rebuilds on K1 (B's
+   /admin/devices delta = the rebuild's stripes, > 0); the shard
+   sha256-identical to the main path's; the incident resolved via
+   scrub_repair with its time to re-protection; a second scrub of B
+   clean. /admin/ec/delete_shards removes a seeded shard of C's; the
+   heartbeat reports it, the scan opens a lost_shard incident, and the
+   drain rebuilds and mounts it on the holder of shard 0 (asserted: B),
+   on K1 there (delta = stripes); sha256-identical, resolved via
+   rebuild. Then a server built with degraded_mode="naive" (in-process,
+   no master, over hard links to every shard but a seeded data shard)
+   serves INTEGRITY_GETS needle GETs (GET /<fid> over HTTP) through that
+   shard from DEGRADED_THREADS threads, each body = the needle's data in
+   the .dat, its K1 launches = the ranges it reconstructed. cluster.repairs and
+   cluster.devices through the shell, printed. Prints each step's wall
+   on a line of its own, then the leg's numbers (scrub MB/s per server,
+   detect-to-resolve seconds of both incidents, K1 launches by server)
+   as JSON.
+
+Every leg runs with every kernel's launch count (ops/device_stats) set
+to 0 just before it and read just after; a leg of steps 5-8 and 10-15
+whose K1 launches in this process differ from its dispatches, or that
+launched nothing, fails the smoke. Each leg's wall is printed. Every
+volume server the smoke starts, in its process or as a process, runs
+with its background scrub off (scrub_idle_s 0): a scrub runs only when
+a leg asks for it.
 
 Prints the card line (nvidia-smi name, power limit), then a JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}. Exits non-zero,
@@ -271,7 +311,9 @@ PLANE_WIDTHS = (1, 129, 4407, PB_N, PB_N + 1, 229_377)
 GATHER_WINDOW = 4           # ec.transport.DEFAULT_WINDOW
 DEGRADED_SLAB = 128 << 10   # ec.degraded.SLAB_BYTES
 DEGRADED_WIDE = 16 << 20    # the wide range read of a lost shard
-DEGRADED_GETS = 48          # needle GETs through a lost shard, per layout
+DEGRADED_GETS = 48          # needle GETs through a lost shard, flat
+PB_DEGRADED_GETS = 24       # piggyback (cut from 48: each batch runs on
+                            # the host, ~0.5 s a GET)
 DEGRADED_THREADS = 4        # GET reader threads
 NET_HOLDS = {"A": range(0, 5), "B": (0, 1, 5, 6, 7, 8, 9),
              "C": range(10, 14)}  # the holders' shards; 0, 1 on two
@@ -288,6 +330,13 @@ DATA_THREADS = 4            # its client threads
 DATA_LOST = 1               # the shard it loses after the encode
 DATA_EC_DELETES = 3         # EC DELETEs at its end
 CLUSTER_COLLECTION = "smoke"  # the cluster leg's collection
+CLUSTER_BYTES = 256 << 20   # its needles' data (cut from VOLUME_BYTES)
+INTEGRITY_SLOTS = {"A": 8, "B": 10, "C": 8}  # B the freest: shard 0 on B
+INTEGRITY_REPAIR_S = 0.5    # the integrity leg's repair-loop period
+INTEGRITY_GETS = 32         # its naive degraded GETs
+INTEGRITY_WAIT_S = 60.0     # bound on each of its waits
+SERVER_DEVICE = "cuda"      # the integrity leg's servers' (a CPU rehearsal
+                            # sets "cpu")
 CLUSTER_SLOTS = {"A": 20, "B": 8, "C": 8, "D": 8}  # A the freest
 CLUSTER_PULSE_S = 1.0       # its heartbeats; the master prunes after 5
 CLUSTER_THREADS = 4         # its client threads
@@ -325,6 +374,13 @@ PREV_BP_MS = {"gf_bitplane_int8": (0.8924, 10.0556),
               "gf_bitplane_u4_int8": (1.3799, 39.8358),
               "gf_bitplane_u4_bf16": (2.0357, 60.0639)}
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
+
+
+def _k1() -> int:
+    """K1's launches on the card in this process so far, from
+    ops/device_stats (a call on the CPU is no launch)."""
+    from seaweedfs_tpu_torch.ops.device_stats import DEVICE_STATS, K1
+    return DEVICE_STATS.launch_count(K1)
 
 
 def _sha(path: str) -> str:
@@ -654,28 +710,35 @@ def _taking_turns(fn, inputs):
 
 
 def write_volume(np, SuperBlock, entry_to_bytes, base, nbytes, seed):
-    """A seeded volume: superblock + payload in .dat, and a .idx of
-    needles every 1 MiB with overwrites and tombstones. Returns the .ecx
-    bytes the sorted index must hold."""
+    """A seeded volume: superblock + one needle record in each 1 MiB
+    slot of the .dat (a random payload and cookie, the slot's rest random
+    bytes), and a .idx of those needles with overwrites and tombstones.
+    Returns the .ecx bytes the sorted index must hold."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
     rng = np.random.default_rng(seed)
-    with open(base + ".dat", "wb") as f:
-        f.write(SuperBlock().to_bytes())
-        left = nbytes - 8
-        while left:
-            step = min(left, 64 << 20)
-            f.write(rng.bytes(step))
-            left -= step
+    slot, size = 1 << 20, (1 << 20) - 64
     live = {}
-    with open(base + ".idx", "wb") as f:
+    with open(base + ".dat", "wb") as dat, open(base + ".idx", "wb") as idx:
+        dat.write(SuperBlock().to_bytes())
+        left = nbytes - 8
         for i in range(nbytes >> 20):
             nid = int(rng.integers(1, 1 << 40))
-            entry = (8 + (i << 20), (1 << 20) - 64)
-            f.write(entry_to_bytes(nid, *entry))
+            # flags 1 byte + data size 4 bytes: the header's size is size
+            rec = Needle(cookie=int(rng.integers(0, 1 << 32)), id=nid,
+                         data=rng.bytes(size - 5)).to_bytes()
+            fill = min(left, slot)
+            dat.write(rec)
+            dat.write(rng.bytes(fill - len(rec)))
+            left -= fill
+            entry = (8 + (i << 20), size)
+            idx.write(entry_to_bytes(nid, *entry))
             live[nid] = entry
             if i % 7 == 3:  # delete an earlier needle
                 victim = next(iter(live))
-                f.write(entry_to_bytes(victim, 0, 0xFFFFFFFF))
+                idx.write(entry_to_bytes(victim, 0, 0xFFFFFFFF))
                 live.pop(victim)
+        if left:
+            dat.write(rng.bytes(left))
     return b"".join(entry_to_bytes(nid, *live[nid]) for nid in sorted(live))
 
 
@@ -709,7 +772,7 @@ def main_path(torch, np, port, dev, base, nbytes, seed):
                              f"dispatches and 1 upload")
     shas = [_sha(base + ec.to_ext(i)) for i in range(total)]
     check_parity(np, ops, ec, base, k, m, shard_size, nbytes)
-    enc_launches = ops.gf_matmul.launches
+    enc_launches = _k1()
     print(f"encode: {nbytes / enc_s / 1e6:.1f} MB/s ({enc_s:.2f} s, shard "
           f"{shard_size} B, {enc['dispatches']} dispatches, phases "
           f"{enc['phases']})")
@@ -721,7 +784,7 @@ def main_path(torch, np, port, dev, base, nbytes, seed):
         for sid in lost:
             os.remove(base + ec.to_ext(sid))
         st = {}
-        before = ops.gf_matmul.launches
+        before = _k1()
         t0 = time.perf_counter()
         got = ec.rebuild_ec_files(base, codec=ops.get_codec(k, m, device=dev),
                                   stats=st)
@@ -735,7 +798,7 @@ def main_path(torch, np, port, dev, base, nbytes, seed):
         if st["dispatches"] != n_slabs or st["bitmat_uploads"] != 1:
             raise AssertionError(f"rebuild counters {st}, want {n_slabs} "
                                  f"dispatches and 1 upload")
-        rebuilds.append((lost, secs, st, ops.gf_matmul.launches - before))
+        rebuilds.append((lost, secs, st, _k1() - before))
         print(f"rebuild {lost}: {st['survivor_bytes'] / secs / 1e6:.1f} MB/s "
               f"of survivors ({secs:.2f} s, {st['dispatches']} dispatches, "
               f"phases {st['phases']}) — shards sha256-identical")
@@ -840,12 +903,12 @@ def piggyback_leg(np, port, dev, base, res, seed):
     with open(base + ".dat", "rb") as f:
         sb = storage.SuperBlock.from_bytes(f.read(storage.SUPER_BLOCK_SIZE))
     enc = {}
-    start = ops.gf_matmul.launches
+    start = _k1()
     t0 = time.perf_counter()
     ec.write_ec_files(base, codec=ops.get_codec(k, m, device=dev),
                       layout="piggyback", stats=enc)
     enc_s = time.perf_counter() - t0
-    enc_launches = ops.gf_matmul.launches - start
+    enc_launches = _k1() - start
     pplan = ops_codec.piggyback_plan(k, m)
     window = ops_codec.pb_window(ec.SMALL_BLOCK_SIZE, pplan.alpha)
     ec_layout.write_layout_sidecars(base, "piggyback", window, pplan.npairs,
@@ -899,13 +962,13 @@ def piggyback_leg(np, port, dev, base, res, seed):
         for sid in lost:
             os.remove(base + ec.to_ext(sid))
         st = {}
-        before = ops.gf_matmul.launches
+        before = _k1()
         t0 = time.perf_counter()
         got = ec.rebuild_ec_files(base, codec=ops.get_codec(k, m, device=dev),
                                   layout=ec_layout.volume_layout(base, k),
                                   stats=st)
         secs = time.perf_counter() - t0
-        launches = ops.gf_matmul.launches - before
+        launches = _k1() - before
         if sorted(got) != list(lost):
             raise AssertionError(f"rebuilt {got}, lost {lost}")
         for sid in range(total):
@@ -922,7 +985,7 @@ def piggyback_leg(np, port, dev, base, res, seed):
               f"dispatches = launches, phases {st['phases']}, pb split/merge "
               f"s {st['pb_host_s']}) — shards sha256-identical")
     return {"encode_s": enc_s, "rebuilds": rebuilds, "shas": shas,
-            "launches": ops.gf_matmul.launches - start}
+            "launches": _k1() - start}
 
 
 def _check_leg(label, st, n_slabs, launches):
@@ -961,7 +1024,7 @@ def trace_repair_leg(np, port, dev, base, res, plan):
          for i in plan.helpers], shard_size, plan, slab=MAIN_N,
         window=GATHER_WINDOW, stats=gs)
     st = {}
-    start = ops.gf_matmul.launches
+    start = _k1()
     t0 = time.perf_counter()
     got = ec.rebuild_ec_file_repair(base, lost, source, plan,
                                     codec=ops.get_codec(k, m, device=dev),
@@ -979,7 +1042,7 @@ def trace_repair_leg(np, port, dev, base, res, plan):
                              f"({st['repair_bytes_frac']}), want "
                              f"{want_bytes} ({plan.frac})")
     _check_leg("trace repair", st, res["n_slabs"],
-               ops.gf_matmul.launches - start)
+               _k1() - start)
     print(_leg_line(f"trace repair shard {lost}", secs, st,
                     st["repair_bytes"], "symbol planes moved")
           + f"; {st['repair_bytes']} B = {st['repair_bytes_frac']} "
@@ -1019,7 +1082,7 @@ def streaming_leg(np, port, dev, base, res, seed):
          for i in range(total) if present[i]][:k], res["shard_size"],
         slab=MAIN_N, window=GATHER_WINDOW, stats=gs)
     st = {}
-    start = ops.gf_matmul.launches
+    start = _k1()
     t0 = time.perf_counter()
     got = ec.rebuild_ec_files_streaming(
         base, present, list(lost), source,
@@ -1029,7 +1092,7 @@ def streaming_leg(np, port, dev, base, res, seed):
         raise AssertionError(f"streaming rebuilt {got}, lost {lost}")
     _check_shas(ec, base, res["shas"], f"streaming rebuild of {lost}")
     _check_leg("streaming rebuild", st, res["n_slabs"],
-               ops.gf_matmul.launches - start)
+               _k1() - start)
     bound = _gather_bound(st["peak_gather_buffer"], k, "streaming rebuild")
     print(_leg_line(f"streaming rebuild {lost}", secs, st,
                     st["survivor_bytes"], "survivors")
@@ -1058,7 +1121,7 @@ def plane_repair_leg(np, port, dev, base, res, pb, rplan):
          for h in rplan.helpers], shard_size, rplan, lay.window, slab=MAIN_N,
         gather_window=GATHER_WINDOW, stats=gs)
     st = {}
-    start = ops.gf_matmul.launches
+    start = _k1()
     t0 = time.perf_counter()
     got = ec.rebuild_ec_file_piggyback(base, lost, source, rplan, lay.window,
                                        codec=ops.get_codec(k, m, device=dev),
@@ -1073,7 +1136,7 @@ def plane_repair_leg(np, port, dev, base, res, pb, rplan):
                              f"({st['repair_bytes_frac']}), want 0.55 of "
                              f"k x shard")
     _check_leg("plane repair", st, res["n_slabs"],
-               ops.gf_matmul.launches - start)
+               _k1() - start)
     print(_leg_line(f"plane repair shard {lost}", secs, st,
                     st["repair_bytes"], "half-planes moved")
           + f"; {st['repair_bytes']} B = {st['repair_bytes_frac']} of "
@@ -1103,7 +1166,7 @@ def streaming_piggyback_leg(np, port, dev, base, res, pb, seed):
         [ec.LocalShardReader(base + ec.to_ext(i), gs) for i in src],
         res["shard_size"], slab=MAIN_N, window=GATHER_WINDOW, stats=gs)
     st = {}
-    start = ops.gf_matmul.launches
+    start = _k1()
     t0 = time.perf_counter()
     got = ec.rebuild_ec_files_streaming_piggyback(
         base, present, list(lost), source, lay,
@@ -1113,7 +1176,7 @@ def streaming_piggyback_leg(np, port, dev, base, res, pb, seed):
         raise AssertionError(f"streaming piggyback rebuilt {got}, lost {lost}")
     _check_shas(ec, base, pb["shas"], f"streaming piggyback rebuild of {lost}")
     _check_leg("streaming piggyback rebuild", st, res["n_slabs"],
-               ops.gf_matmul.launches - start)
+               _k1() - start)
     _gather_bound(st["peak_gather_buffer"], len(src),
                   "streaming piggyback rebuild")
     print(_leg_line(f"streaming piggyback rebuild {lost}", secs, st,
@@ -1149,10 +1212,11 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(len(xs) * q))]
 
 
-def degraded_leg(np, port, dev, base, res, lost, seed, label):
-    """Needle GETs through a lost data shard on the mounted volume, every
-    survivor local; the shard is moved aside for the leg and back after
-    it (_serve_degraded)."""
+def degraded_leg(np, port, dev, base, res, lost, seed, label,
+                 gets=DEGRADED_GETS):
+    """``gets`` needle GETs through a lost data shard on the mounted
+    volume, every survivor local; the shard is moved aside for the leg
+    and back after it (_serve_degraded)."""
     ec, ops, _ = port
     path = base + ec.to_ext(lost)
     ev = _mount(ec, base, skip=(lost,))
@@ -1161,7 +1225,7 @@ def degraded_leg(np, port, dev, base, res, lost, seed, label):
     eng = ec.DegradedReadEngine(_Store(ev), lambda vid: {}, lambda: codec)
     try:
         return _serve_degraded(np, port, base, res, ev, eng, lost,
-                               path + ".lost", seed, label)
+                               path + ".lost", seed, label, gets)
     finally:
         os.rename(path + ".lost", path)
         ev.close()
@@ -1178,7 +1242,7 @@ def _serve_degraded(np, port, base, res, ev, eng, lost, truth, seed, label,
     cache emptied, held against ``truth`` (the shard's bytes)."""
     ec, ops, storage = port
     from seaweedfs_tpu_torch.storage.needle import get_actual_size
-    start = ops.gf_matmul.launches
+    start = _k1()
     rec = storage.entry_size()
     with open(base + ".ecx", "rb") as f:
         ecx = f.read()
@@ -1225,7 +1289,7 @@ def _serve_degraded(np, port, base, res, ev, eng, lost, truth, seed, label,
             raise AssertionError(f"{label}: wide read at {off} differs "
                                  f"from shard {lost}")
     snap = eng.snapshot()
-    launches = ops.gf_matmul.launches - start
+    launches = _k1() - start
     if launches != snap["device_dispatches"] or launches < 1 or \
             snap["errors"]:
         raise AssertionError(f"{label}: {launches} launches for "
@@ -1275,7 +1339,7 @@ def _scrub_drill(port, base, res, shas, eng, sid, off, paths, label):
     slab and attributed to its shard; the byte is put back and the
     shard's sha256 checked."""
     ec, ops, _ = port
-    start = ops.gf_matmul.launches
+    start = _k1()
     passes = []
     for flip in (False, True):
         if flip:
@@ -1300,7 +1364,7 @@ def _scrub_drill(port, base, res, shas, eng, sid, off, paths, label):
         raise AssertionError(f"{label}: shard {sid} differs after the byte "
                              f"was put back")
     snap = eng.snapshot()
-    launches = ops.gf_matmul.launches - start
+    launches = _k1() - start
     if launches != snap["device_dispatches"] or launches != 2 * n_slabs:
         raise AssertionError(f"{label}: {launches} launches for "
                              f"{snap['device_dispatches']} device dispatches")
@@ -1385,11 +1449,14 @@ class ServerProcesses:
         self.procs, self.urls, self.dirs = {}, {}, {}
 
     def spawn(self, name, d, *args):
-        """Start ``name`` over directory ``d`` without waiting for it."""
+        """Start ``name`` over directory ``d`` without waiting for it,
+        its background scrub off (a pass at a random moment would launch
+        K1 outside the leg's count)."""
         self.dirs[name] = d
         self.procs[name] = subprocess.Popen(
             [sys.executable, "-m",
-             "seaweedfs_tpu_torch.server.volume_server", "--dir", d, *args],
+             "seaweedfs_tpu_torch.server.volume_server", "--dir", d,
+             "--scrub-idle-s", "0", *args],
             cwd=ROOT, stdout=subprocess.PIPE,
             stderr=open(d + ".log", "wb"), text=True)
 
@@ -1541,12 +1608,12 @@ def _net_leg(port, holders, work, lost, shas, label, read_sids, want_mode,
     store, rbase = _net_store(port, work)
     sources = holders.sources(lost)
     st = {}
-    start = ops.gf_matmul.launches
+    start = _k1()
     t0 = time.perf_counter()
     got = store.rebuild_ec_shards_streaming(1, sources=sources, stats=st,
                                             repair="auto")
     secs = time.perf_counter() - t0
-    launches = ops.gf_matmul.launches - start
+    launches = _k1() - start
     if got != list(lost):
         raise AssertionError(f"{label}: rebuilt {got}, lost {lost}")
     for sid in lost:
@@ -1726,7 +1793,7 @@ def spread_leg(torch, port, work, base, res, shas, dat, layout):
     try:
         holders.start()
         source = VolumeServer(port=0, directories=[src], device="cuda",
-                              layout=layout).start()
+                              layout=layout, scrub_idle_s=0).start()
         if _post(source.url, "/admin/volume/readonly?volume=1") != {
                 "volume": 1, "readonly": True, "was_readonly": False}:
             raise AssertionError(f"{label}: readonly refused")
@@ -1959,15 +2026,15 @@ def data_plane_leg(np, port, work, seed):
     leg_t0 = time.perf_counter()
 
     def counted(name, fn):
-        start = ops.gf_matmul.launches
+        start = _k1()
         before = telemetry.STATS.snapshot()
         out = fn()
-        launched[name] = (ops.gf_matmul.launches - start,
+        launched[name] = (_k1() - start,
                           telemetry.delta(before)["dispatches"])
         return out
 
     vs = VolumeServer(port=0, directories=[d], device="cuda",
-                      layout="flat").start()
+                      layout="flat", scrub_idle_s=0).start()
     url = vs.url
     try:
         if _post(url, f"/admin/assign_volume?volume={DATA_VID}") != {
@@ -2171,14 +2238,17 @@ def data_plane_leg(np, port, work, seed):
 
 class VolumeProcesses(ServerProcesses):
     """Cluster volume servers as processes (``--master``), each over an
-    empty directory with CLUSTER_SLOTS[name] slots and CLUSTER_PULSE_S
-    heartbeats. None builds a kernel library: a holder only stores and
-    serves shards."""
+    empty directory ``<prefix>-<name>`` with ``slots[name]`` slots and
+    CLUSTER_PULSE_S heartbeats, and ``args`` passed on."""
 
-    def __init__(self, work, master_url):
+    def __init__(self, work, master_url, slots=CLUSTER_SLOTS,
+                 prefix="cluster", args=()):
         super().__init__()
         self.work = work
         self.master_url = master_url
+        self.slots = slots
+        self.prefix = prefix
+        self.args = tuple(args)
 
     def start(self, names):
         return self.spawn_all(names).wait_listening(names)
@@ -2186,11 +2256,11 @@ class VolumeProcesses(ServerProcesses):
     def spawn_all(self, names):
         """Start the processes without waiting for them."""
         for name in names:
-            d = os.path.join(self.work, f"cluster-{name}")
+            d = os.path.join(self.work, f"{self.prefix}-{name}")
             os.makedirs(d)
             self.spawn(name, d, "--master", self.master_url,
-                       "--max", str(CLUSTER_SLOTS[name]),
-                       "--pulse-seconds", str(CLUSTER_PULSE_S))
+                       "--max", str(self.slots[name]),
+                       "--pulse-seconds", str(CLUSTER_PULSE_S), *self.args)
         return self
 
 
@@ -2247,9 +2317,10 @@ def cluster_leg(np, port, work, seed):
     B as a process; one 001 volume grown in CLUSTER_COLLECTION while only
     A and B are registered, so its replicas are on both; then C and D as
     processes (started while the writes run; registered before the
-    encode). CLUSTER_THREADS client threads assign and upload seeded
-    needles (_needle_plan's sizes, names and types) through
-    client/operation until VOLUME_BYTES of data, each reply's size and
+    encode). The master runs no repair loop. CLUSTER_THREADS client
+    threads assign and upload seeded needles (_needle_plan's sizes, names
+    and types) through client/operation until CLUSTER_BYTES of data, each
+    reply's size and
     ETag checked; every needle read back from A and from B (the
     locations /dir/lookup gives) and through the master's GET /<fid>
     redirect; every tenth deleted through the client, 404 on both after.
@@ -2281,28 +2352,30 @@ def cluster_leg(np, port, work, seed):
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     from seaweedfs_tpu_torch.storage import crc
     from seaweedfs_tpu_torch.storage.types import parse_file_id
-    plan = _needle_plan(np, seed, VOLUME_BYTES)
+    plan = _needle_plan(np, seed, CLUSTER_BYTES)
     numbers = {"needles": len(plan)}
     launched = {}
     want = {}
     leg_t0 = time.perf_counter()
 
     def counted(name, fn):
-        start = ops.gf_matmul.launches
+        start = _k1()
         before = telemetry.STATS.snapshot()
         out = fn()
-        launched[name] = (ops.gf_matmul.launches - start,
+        launched[name] = (_k1() - start,
                           telemetry.delta(before)["dispatches"])
         return out
 
+    # no repair loop: the killed holder's shards are ec.rebuild's
     master = MasterServer(port=0, pulse_seconds=CLUSTER_PULSE_S,
-                          seed=seed).start()
+                          seed=seed, repair_interval=0).start()
     murl = master.url
     d_a = os.path.join(work, "cluster-A")
     os.makedirs(d_a)
     a = VolumeServer(port=0, directories=[d_a], device="cuda",
                      master_url=murl, pulse_seconds=CLUSTER_PULSE_S,
-                     max_volume_counts=[CLUSTER_SLOTS["A"]]).start()
+                     max_volume_counts=[CLUSTER_SLOTS["A"]],
+                     scrub_idle_s=0).start()
     procs = VolumeProcesses(work, murl)
     ref_dir = os.path.join(work, "cluster-reference")
 
@@ -2601,6 +2674,307 @@ def cluster_leg(np, port, work, seed):
     return numbers
 
 
+def _devices_k1(url):
+    """K1's launches on the card of the server at ``url``, from its
+    /admin/devices."""
+    from seaweedfs_tpu_torch.ops.device_stats import K1
+    from seaweedfs_tpu_torch.server.http_util import get_json
+    return get_json(f"http://{url}/admin/devices")["stats"][
+        "launches"].get(K1, 0)
+
+
+def integrity_leg(np, port, work, base, res, seed):
+    """Step 15: scrub findings, the master's repair queue and its drain
+    onto K1 on the holder, held by each server's /admin/devices. Returns
+    the leg's numbers; stops every process and removes its directories
+    in a finally."""
+    ec, _, _ = port
+    from seaweedfs_tpu_torch.server.http_util import (get_json, http_call,
+                                                      post_json)
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
+    from seaweedfs_tpu_torch.storage.types import entry_size, format_file_id
+    rng = np.random.default_rng(seed)
+    from seaweedfs_tpu_torch.ec.gather import auto_slab
+    from seaweedfs_tpu_torch.ops import telemetry
+    vid, total = 1, ec.TOTAL_SHARDS
+    # a repair's stripes at the slab a rebuild picks when not told
+    stripes = -(-res["shard_size"] // auto_slab(res["shard_size"]))
+    numbers, walls = {}, {}
+    leg_t0 = time.perf_counter()
+    step_t0 = [leg_t0]
+
+    def step(name):
+        walls[name] = round(time.perf_counter() - step_t0[0], 3)
+        print(f"integrity step {name}: {walls[name]} s")
+        step_t0[0] = time.perf_counter()
+
+    master = MasterServer(port=0, pulse_seconds=CLUSTER_PULSE_S, seed=seed,
+                          repair_interval=INTEGRITY_REPAIR_S).start()
+    murl = master.url
+    # the master's drain, held while drain_gate is clear
+    drain_gate = threading.Event()
+    drain_gate.set()
+    drain_one = master._drain_one
+
+    def gated_drain(inc):
+        drain_gate.wait()
+        return drain_one(inc)
+
+    master._drain_one = gated_drain
+    procs = VolumeProcesses(work, murl, slots=INTEGRITY_SLOTS,
+                            prefix="integrity",
+                            args=("--scrub-rate-mbps", "0",
+                                  "--device", SERVER_DEVICE))
+    procs.spawn_all(["B", "C"])
+    d_a = os.path.join(work, "integrity-A")
+    os.makedirs(d_a)
+    for ext in (".dat", ".idx"):
+        _link(base + ext, os.path.join(d_a, f"{vid}{ext}"))
+    a = VolumeServer(port=0, directories=[d_a], device=SERVER_DEVICE,
+                     master_url=murl, pulse_seconds=CLUSTER_PULSE_S,
+                     max_volume_counts=[INTEGRITY_SLOTS["A"]],
+                     scrub_idle_s=0, scrub_rate_mbps=0).start()
+    naive = None
+    d_n = os.path.join(work, "integrity-naive")
+
+    def repairs():
+        return get_json(f"http://{murl}/cluster/repairs")
+
+    def incidents(kind):
+        view = repairs()
+        return [i for i in view["open"] + view["resolved_recent"]
+                if i["kind"] == kind and i["volume"] == vid]
+
+    def ec_shards():
+        vols = get_json(f"http://{murl}/cluster/ec_status")["volumes"]
+        return {int(s): urls for s, urls in
+                vols.get(str(vid), {}).get("shards", {}).items()}
+
+    def shard_path(name, sid):
+        return os.path.join(dirs[name], f"{vid}{ec.to_ext(sid)}")
+
+    try:
+        procs.wait_listening(["B", "C"])
+        urls = {"A": a.url, "B": procs.urls["B"], "C": procs.urls["C"]}
+        name_of = {u: n for n, u in urls.items()}
+        dirs = dict(procs.dirs, A=d_a)
+        _wait_for("A, B and C registered", lambda: {
+            n["url"] for n in get_json(f"http://{murl}/cluster/status")[
+                "nodes"]} == set(urls.values()), HOLDER_START_S)
+        step("start")
+
+        numbers["launches"] = {n: {} for n in urls}
+        k1, before = _k1(), telemetry.STATS.snapshot()
+        out = _shell(murl, f"ec.encode -volumeId {vid}")
+        k1 = numbers["launches"]["A"]["ec.encode"] = _k1() - k1
+        disp = telemetry.delta(before)["dispatches"]
+        if f"streamed 14 shards from {urls['A']}" not in out or \
+                k1 != disp or k1 < 1:
+            raise AssertionError(f"ec.encode did not stream from A on K1 "
+                                 f"({k1} launches for {disp} dispatches): "
+                                 f"{out}")
+        _wait_for("14 shards registered", lambda: len(ec_shards()) == total,
+                  INTEGRITY_WAIT_S)
+        placed = {n: sorted(s for s, u in ec_shards().items()
+                            if u == [urls[n]]) for n in urls}
+        if sorted(sum(placed.values(), [])) != list(range(total)) or \
+                0 not in placed["B"]:
+            raise AssertionError(f"ec.encode placement {placed}")
+        numbers["placement"] = placed
+        step("ec.encode")
+
+        # a clean scrub of the whole stripe on every server
+        before = {n: (_devices_k1(u), get_json(
+            f"http://{u}/admin/ec/scrub_status")) for n, u in urls.items()}
+        out = _shell(murl, "volume.ec.scrub -trigger")
+        numbers["scrub_mb_s"] = {}
+        for n, u in urls.items():
+            snap = get_json(f"http://{u}/admin/ec/scrub_status")
+            k1 = _devices_k1(u) - before[n][0]
+            dev = snap["device_dispatches"] - before[n][1][
+                "device_dispatches"]
+            if snap["findings"] or snap["corrupt_slabs"] or \
+                    snap["volumes_scrubbed"] != 1 or k1 != dev or k1 < 1:
+                raise AssertionError(f"clean scrub on {n}: {snap}, {k1} K1 "
+                                     f"launches for {dev} device dispatches")
+            numbers["scrub_mb_s"][n] = snap["last_pass_mbps"]
+            numbers["launches"][n]["clean scrub"] = k1
+        if repairs()["open"]:
+            raise AssertionError(f"incidents after a clean scrub: "
+                                 f"{repairs()}")
+        step("clean scrub")
+
+        # corruption: a byte of a shard of B's, found, drained, repaired
+        sid = int(rng.choice([s for s in placed["B"] if s != 0]))
+        off = int(rng.integers(res["shard_size"] // 4,
+                               3 * res["shard_size"] // 4))
+        path = shard_path("B", sid)
+        _flip_byte(path, off)
+        # the drain waits until B's scrub launches are read, so scrub and
+        # repair are each a measured delta of B's K1 launches
+        drain_gate.clear()
+        k1_b = _devices_k1(urls["B"])
+        dev_b = get_json(f"http://{urls['B']}/admin/ec/scrub_status")[
+            "device_dispatches"]
+        found = post_json(f"http://{urls['B']}/admin/ec/scrub?volume={vid}",
+                          timeout=300)
+        if found["clean"] or found["corrupt_shards"] != [sid] or \
+                found["corrupt_slabs"] != [off // SCRUB_N]:
+            raise AssertionError(f"B's scrub of shard {sid} byte {off}: "
+                                 f"{found}")
+        scrub_k1 = _devices_k1(urls["B"]) - k1_b
+        dev = get_json(f"http://{urls['B']}/admin/ec/scrub_status")[
+            "device_dispatches"] - dev_b
+        if scrub_k1 != dev or scrub_k1 < 1:
+            raise AssertionError(f"B's finding scrub: {scrub_k1} K1 launches "
+                                 f"for {dev} device dispatches")
+        k1_b += scrub_k1
+        drain_gate.set()
+        _wait_for("the corruption incident", lambda: incidents(
+            "corruption"), INTEGRITY_WAIT_S)
+        got = incidents("corruption")
+        if len(got) != 1 or got[0]["priority"] != 0 or \
+                got[0]["shard"] != sid:
+            raise AssertionError(f"corruption incidents {got}")
+        _wait_for("the corruption repaired", lambda: incidents(
+            "corruption")[0]["status"] == "resolved", INTEGRITY_WAIT_S)
+        inc = incidents("corruption")[0]
+        repair_k1 = _devices_k1(urls["B"]) - k1_b
+        if inc["via"] != "scrub_repair" or _sha(path) != res["shas"][sid] \
+                or repair_k1 != stripes or ec_shards()[sid] != [urls["B"]]:
+            raise AssertionError(f"scrub_repair of {sid}: {inc}, "
+                                 f"{repair_k1} K1 launches on B for "
+                                 f"{stripes} stripes")
+        numbers["corruption"] = {"shard": sid, "byte": off,
+                                 "ttr_s": inc["time_to_re_protection_s"]}
+        numbers["launches"]["B"].update(scrub=scrub_k1,
+                                        scrub_repair=repair_k1)
+        step("corruption found and repaired")
+        k1_b = _devices_k1(urls["B"])
+        again = post_json(f"http://{urls['B']}/admin/ec/scrub?volume={vid}",
+                          timeout=300)
+        if not again["clean"]:
+            raise AssertionError(f"B's second scrub: {again}")
+        numbers["launches"]["B"]["second scrub"] = \
+            _devices_k1(urls["B"]) - k1_b
+        step("second scrub")
+
+        # a lost shard of C's, found by the scan, rebuilt by the drain
+        lost = int(rng.choice(placed["C"]))
+        k1_b = _devices_k1(urls["B"])
+        post_json(f"http://{urls['C']}/admin/ec/delete_shards?volume={vid}"
+                  f"&shards={lost}")
+        _wait_for("the lost shard rebuilt", lambda: [
+            i for i in incidents("lost_shard")
+            if i["shard"] == lost and i["status"] == "resolved"],
+            INTEGRITY_WAIT_S)
+        inc = next(i for i in incidents("lost_shard") if i["shard"] == lost)
+        rebuild_k1 = _devices_k1(urls["B"]) - k1_b
+        target = ec_shards()[lost]
+        if inc["via"] != "rebuild" or target != [urls["B"]] or \
+                _sha(shard_path("B", lost)) != res["shas"][lost] or \
+                rebuild_k1 != stripes:
+            raise AssertionError(f"lost shard {lost}: {inc}, now on "
+                                 f"{target}, {rebuild_k1} K1 launches on B "
+                                 f"for {stripes} stripes")
+        numbers["lost_shard"] = {"shard": lost, "rebuilt_on": "B",
+                                 "ttr_s": inc["time_to_re_protection_s"]}
+        numbers["launches"]["B"]["rebuild"] = rebuild_k1
+        step("lost shard rebuilt")
+
+        # naive degraded reads on a server of its own, through a shard
+        # it lacks
+        miss = int(rng.integers(0, ec.DATA_SHARDS))
+        os.makedirs(d_n)
+        for sid_, urls_ in ec_shards().items():
+            if sid_ != miss:
+                src = shard_path(name_of[urls_[0]], sid_)
+                _link(src, os.path.join(d_n, os.path.basename(src)))
+        for ext in (".ecx", ".vif"):
+            if os.path.exists(os.path.join(d_a, f"{vid}{ext}")):
+                _link(os.path.join(d_a, f"{vid}{ext}"),
+                      os.path.join(d_n, f"{vid}{ext}"))
+        naive = VolumeServer(port=0, directories=[d_n],
+                             device=SERVER_DEVICE, scrub_idle_s=0,
+                             degraded_mode="naive").start()
+        ev = naive.store.find_ec_volume(vid)
+        rec = entry_size()
+        with open(os.path.join(d_n, f"{vid}.ecx"), "rb") as f:
+            ecx = f.read()
+        nids = [int.from_bytes(ecx[i:i + 8], "big")
+                for i in range(0, len(ecx) // rec * rec, rec)]
+
+        def ranges(nid):
+            return sum(iv.to_shard_id_and_offset(
+                ec.LARGE_BLOCK_SIZE, ec.SMALL_BLOCK_SIZE)[0] == miss
+                for iv in ev.locate_needle(nid)[2])
+
+        touching = [nid for nid in nids if ranges(nid)]
+        picks = [touching[i] for i in
+                 rng.permutation(len(touching))[:INTEGRITY_GETS]]
+
+        def get(nid):
+            o, size, _ = ev.locate_needle(nid)
+            with open(base + ".dat", "rb") as f:
+                f.seek(o)
+                want = Needle.from_bytes(
+                    f.read(get_actual_size(size, ev.version)), ev.version)
+            fid = format_file_id(vid, nid, want.cookie)
+            t0 = time.perf_counter()
+            body = http_call("GET", f"http://{naive.url}/{fid}",
+                             timeout=120)
+            secs = time.perf_counter() - t0
+            if body != want.data:
+                raise AssertionError(f"naive GET {fid} differs from the "
+                                     f"needle in the .dat")
+            return secs * 1e3
+
+        k1 = _k1()
+        with ThreadPoolExecutor(DEGRADED_THREADS) as pool:
+            lat = list(pool.map(get, picks))
+        naive_k1 = _k1() - k1
+        want = sum(ranges(nid) for nid in picks)
+        if not picks or naive_k1 != want or \
+                naive.degraded.snapshot()["reads"]:
+            raise AssertionError(f"naive GETs: {len(picks)}, {naive_k1} K1 "
+                                 f"launches for {want} ranges")
+        numbers["naive"] = {"lost": miss, "gets": len(picks),
+                            "p50_ms": round(_pct(lat, 0.5), 3),
+                            "p99_ms": round(_pct(lat, 0.99), 3),
+                            "launches": naive_k1}
+        step("naive degraded GETs")
+
+        _shell(murl, "cluster.repairs")
+        _shell(murl, "cluster.devices")
+        view = repairs()
+        if view["open"] or view["counters"]["resolved"] != 2:
+            raise AssertionError(f"the repair queue at the end: {view}")
+        step("cluster.repairs and cluster.devices")
+    finally:
+        drain_gate.set()
+        master.stop()
+        procs.stop_processes()
+        a.stop()
+        if naive is not None:
+            naive.stop()
+        for d in [d_a, d_n] + list(procs.dirs.values()):
+            shutil.rmtree(d, ignore_errors=True)
+    numbers["walls"] = walls
+    numbers["leg_s"] = round(time.perf_counter() - leg_t0, 3)
+    print(f"integrity scrub MB/s by server: "
+          f"{json.dumps(numbers['scrub_mb_s'])}")
+    print(f"integrity detect-to-resolve: corruption "
+          f"{numbers['corruption']['ttr_s']} s, lost shard "
+          f"{numbers['lost_shard']['ttr_s']} s")
+    print(f"integrity K1 launches by server: "
+          f"{json.dumps(numbers['launches'])}, naive GETs "
+          f"{numbers['naive']['launches']}")
+    print(f"integrity: {json.dumps(numbers)}")
+    return numbers
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2617,8 +2991,9 @@ def run(args) -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
     from seaweedfs_tpu_torch import ec, ops, storage
-    from seaweedfs_tpu_torch.ops import (codec as ops_codec, gf256, gf_plan,
-                                         rs_bitplane, rs_hopper, telemetry)
+    from seaweedfs_tpu_torch.ops import (codec as ops_codec, device_stats,
+                                         gf256, gf_plan, rs_bitplane,
+                                         rs_hopper, telemetry)
     from seaweedfs_tpu_torch.ops.codec import NumpyCodec
     from seaweedfs_tpu_torch.storage import crc
     from seaweedfs_tpu_torch.tools import kernel_exp
@@ -2626,8 +3001,13 @@ def run(args) -> int:
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
+    t_run = time.perf_counter()
+
+    def phase(name):
+        print(f"phase {name} done at {time.perf_counter() - t_run:.2f} s")
     build_s = build_kernels((rs_hopper, rs_bitplane), crc)
     sass_counts(rs_bitplane.LIBRARY)
+    phase("builds")
     t0 = time.perf_counter()
     pb_geos = piggyback_geometries(ops_codec)
     print(f"piggyback plans (RS(10,4), two decodes, RS(20,4)) built on the "
@@ -2663,6 +3043,7 @@ def run(args) -> int:
                 for label, c, widths in read_geos}
     (_, flat_row, _), (_, pb_rows, _), (_, syn, _), (_, pb_syn, _) = \
         read_geos
+    phase("K1 against its plain version")
     timed = time_kernel(torch, rs_hopper, gf_plan, kernel_exp,
                         timed_shapes(np, gf256, NumpyCodec, ops_codec)
                         + [("trace combine", trace_plan.combine, TRACE_N),
@@ -2673,6 +3054,7 @@ def run(args) -> int:
                            ("scrub flat", syn, SCRUB_N),
                            ("scrub piggyback", pb_syn, PB_SCRUB_N)],
                         dev, args.seed)
+    phase("K1 timed")
     geos = [(label, c, BP_WIDTHS + ((MAIN_N,) if c.shape[0] <= 4 else ()))
             for label, c, _ in flat_geos]
     bp_err = check_bitplane(torch, np, rs_bitplane, rs_hopper, gf_plan, geos,
@@ -2680,29 +3062,35 @@ def run(args) -> int:
     pb_err = check_bitplane(torch, np, rs_bitplane, rs_hopper, gf_plan,
                             pb_geos, dev, args.seed + 1)
     bp_err = {name: max(bp_err[name], pb_err[name]) for name in bp_err}
+    phase("bit-plane kernels against their plain versions")
     exp_flat, exp_pb, bp_launches = kernel_exp_phase(
         torch, kernel_exp, rs_bitplane, gf256, ops_codec, dev, args.seed)
+    phase("kernel_exp")
 
     work = os.path.join(str(rs_hopper.BUILD_DIR), "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     base = os.path.join(work, "1")
     port = (ec, ops, storage)
-    legs = {}
+    legs, walls = {}, {}
 
     def drive(name, fn, *fn_args, kernel=True):
-        """One leg of the main path, its launches counted from 0 and read
-        just after; they must equal its dispatches, and a kernel leg must
-        launch."""
-        rs_hopper.gf_matmul.launches = 0
+        """One leg of the main path, every kernel's launches (this
+        process's ops/device_stats launches) set to 0 just before it
+        and read just after; K1's must equal the leg's dispatches, and a
+        kernel leg must launch. Prints the leg's wall."""
+        t0 = time.perf_counter()
+        device_stats.DEVICE_STATS.reset_counts()
         before = telemetry.STATS.snapshot()
         out = fn(*fn_args)
-        launches = rs_hopper.gf_matmul.launches
+        launches = _k1()
         dispatches = telemetry.delta(before)["dispatches"]
         if launches != dispatches or (kernel and launches < 1):
             raise AssertionError(f"{name}: {launches} kernel launches for "
                                  f"{dispatches} dispatches")
         legs[name] = launches
+        walls[name] = round(time.perf_counter() - t0, 3)
+        print(f"leg {name}: {walls[name]} s, {launches} K1 launches")
         return out
 
     t_path = time.perf_counter()
@@ -2746,7 +3134,8 @@ def run(args) -> int:
         drive("streaming piggyback", streaming_piggyback_leg, np, port, dev,
               base, res, pb, args.seed)
         drive("degraded piggyback", degraded_leg, np, port, dev, base, res,
-              degraded_lost, args.seed + 47, "degraded piggyback")
+              degraded_lost, args.seed + 47, "degraded piggyback",
+              PB_DEGRADED_GETS)
         drive("scrub piggyback", scrub_leg, np, port, dev, base, res,
               pb["shas"], args.seed + 53, "scrub piggyback")
         holders = Holders(base, work, "piggyback", ec.TOTAL_SHARDS)
@@ -2758,6 +3147,8 @@ def run(args) -> int:
             holders.stop()
         drive("spread piggyback", spread_leg, torch, port, work, base, res,
               pb["shas"], dat, "piggyback")
+        integrity = drive("integrity", integrity_leg, np, port, work, base,
+                          res, args.seed + 71)
         drive("decode", decode_leg, np, port, base, res, args.seed,
               kernel=False)
         crc_phase(np, crc)
@@ -2771,15 +3162,31 @@ def run(args) -> int:
             any(r[3] < 1 for r in res["rebuilds"]) or pb["launches"] < 1:
         raise AssertionError("the kernel was not launched on every leg of "
                              "the main path")
-    launches = sum(legs.values())
+    # the integrity leg's launches in B's and C's processes
+    by_server = integrity["launches"]
+    if legs["integrity"] != sum(by_server["A"].values()) + \
+            integrity["naive"]["launches"]:
+        raise AssertionError(f"integrity: {legs['integrity']} launches in "
+                             f"this process, A and the naive server "
+                             f"{by_server['A']}, {integrity['naive']}")
+    other = {n: sum(by_server[n].values()) for n in ("B", "C")}
+    launches = sum(legs.values()) + sum(other.values())
     print(f"main path (flat, traced, trace repair, streaming, degraded "
           f"flat, scrub flat, net trace repair, net full rebuild, net "
           f"degraded flat, net scrub flat, spread flat, piggyback, plane "
           f"repair, streaming piggyback, degraded piggyback, scrub "
-          f"piggyback, net plane repair, spread piggyback, decode, data "
-          f"plane, cluster) in "
+          f"piggyback, net plane repair, spread piggyback, integrity, "
+          f"decode, data plane, cluster) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
-          f"= dispatches, by leg {json.dumps(legs)}; builds {build_s:.2f} s")
+          f"= dispatches ({sum(other.values())} of them in the integrity "
+          f"leg's B and C, {json.dumps(other)}), by leg in this process "
+          f"{json.dumps(legs)}; builds {build_s:.2f} s")
+    print(f"main path walls by leg: {json.dumps(walls)}")
+    integrity_scrub = sum(n for server in by_server.values()
+                          for what, n in server.items() if "scrub" in what
+                          and what != "scrub_repair")
+    integrity_repair = by_server["B"]["scrub_repair"] + \
+        by_server["B"]["rebuild"]
 
     card = card_line()
     entries = [
@@ -2793,7 +3200,8 @@ def run(args) -> int:
                   timed["piggyback decode (0, 7, 11, 12)"]),
         _k1_entry("gf_matmul_repair",
                   legs["trace repair"] + legs["plane repair"]
-                  + legs["net trace repair"] + legs["net plane repair"],
+                  + legs["net trace repair"] + legs["net plane repair"]
+                  + integrity_repair,
                   repair_err,
                   timed["trace combine"], timed["plane repair"],
                   second_key="plane_repair"),
@@ -2801,7 +3209,8 @@ def run(args) -> int:
                   legs["degraded flat"] + legs["degraded piggyback"]
                   + legs["net degraded flat"]
                   + data["launches"]["degraded"]
-                  + cluster["launches"]["degraded"],
+                  + cluster["launches"]["degraded"]
+                  + integrity["naive"]["launches"],
                   max(read_err["degraded flat (1,10)"],
                       read_err["degraded piggyback (32,320)"]),
                   timed["degraded flat wide"], timed["degraded piggyback wide"],
@@ -2809,7 +3218,7 @@ def run(args) -> int:
         | {"needle_batch": _timed_keys(timed["degraded flat needle batch"])},
         _k1_entry("gf_matmul_scrub",
                   legs["scrub flat"] + legs["scrub piggyback"]
-                  + legs["net scrub flat"],
+                  + legs["net scrub flat"] + integrity_scrub,
                   max(read_err["scrub flat (4,14)"],
                       read_err["scrub piggyback (128,448)"]),
                   timed["scrub flat"], timed["scrub piggyback"],
@@ -2897,14 +3306,14 @@ def kernel_exp_phase(torch, kernel_exp, rs_bitplane, gf256, ops_codec, dev,
     launch, chained rate, bound, exactness. The bit-plane wrappers'
     launch counts start from 0 here and are read at the end; each
     variant's share comes from kernel_exp's rows."""
-    rs_bitplane.bitplane_matmul.launches = 0
-    rs_bitplane.bitplane_matmul_batched.launches = 0
+    from seaweedfs_tpu_torch.ops.device_stats import DEVICE_STATS, K6A, K6B
+    DEVICE_STATS.reset_counts()
     emat = ops_codec.piggyback_plan(10, 4).emat
     flat = kernel_exp.run_table(gf256.build_matrix(10, 14)[10:], MAIN_N, seed,
                                 dev, label="kernel_exp ")
     pb = kernel_exp.run_table(emat, PB_N, seed, dev, label="kernel_exp ")
-    totals = (rs_bitplane.bitplane_matmul.launches,
-              rs_bitplane.bitplane_matmul_batched.launches)
+    totals = (DEVICE_STATS.launch_count(K6A),
+              DEVICE_STATS.launch_count(K6B))
     if not all(row["exact"] for row in flat + pb):
         raise AssertionError("a kernel_exp kernel is not exact")
     launches = {rs_bitplane.variant_name(u, dt): 0 for u, dt in VARIANTS}

@@ -61,6 +61,19 @@ SLAB_BYTES = 128 << 10      # SW_EC_DEGRADED_SLAB_BYTES
 BATCH_MS = 2.0              # SW_EC_DEGRADED_BATCH_MS
 READ_TIMEOUT_S = 10.0       # SW_EC_DEGRADED_READ_TIMEOUT_S
 READAHEAD_SLABS = 1         # SW_EC_DEGRADED_READAHEAD_SLABS
+MODE = "batch"              # SW_EC_DEGRADED_MODE
+MODES = ("batch", "naive")
+
+
+def degraded_mode(mode: Optional[str] = None) -> str:
+    """"batch" (the engine) or "naive" (a volume server's per-read
+    exactly-k reconstruction, kept for A/B runs); ``None`` or empty is the
+    default, anything else raises."""
+    mode = (mode or MODE).strip().lower() or MODE
+    if mode not in MODES:
+        raise ValueError(f"degraded mode must be one of {MODES}, got "
+                         f"{mode!r}")
+    return mode
 
 
 class SlabCache:

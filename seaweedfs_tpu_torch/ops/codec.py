@@ -24,13 +24,15 @@ piggyback_decode_plan, piggyback_repair_plan) with its window transforms
 from __future__ import annotations
 
 import itertools
+import threading
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import gf256
+from . import device_stats, gf256
 from .telemetry import STATS
 
 #: Width (bytes) below which device codecs answer reconstruct() on the
@@ -71,23 +73,61 @@ class _ConstCache:
     """Bounded LRU of device-resident coefficient constants, keyed by
     the coefficient bytes. A rebuild uploads its constant once, not once
     per slab — every make() call counts as a bitmat_upload in
-    ops/telemetry, so a run can assert exactly that."""
+    ops/telemetry, so a run can assert exactly that. Hits, misses and
+    evictions go to ``ops/device_stats``, and the cache registers there
+    (weakly) so its entries and their tensor bytes can be read. Its
+    ``owner`` serial names it to ``gf_plan.make_plan``, so that a plan it
+    builds a second time for one key is seen as a recompile."""
+
+    _serial = itertools.count(1)
 
     def __init__(self, maxsize: int = 32):
         self._entries: OrderedDict = OrderedDict()
         self._maxsize = maxsize
+        self._lock = threading.Lock()
+        self.owner = next(self._serial)
+        self._stats = device_stats.DEVICE_STATS
+        self._stats.register_const_cache(self)
 
     def get(self, key, make):
-        hit = self._entries.get(key)
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None:
+                self._entries.move_to_end(key)
         if hit is not None:
-            self._entries.move_to_end(key)
+            self._stats.note_const_cache("hits")
             return hit
+        self._stats.note_const_cache("misses")
         val = make()
         STATS.add("bitmat_uploads")
-        self._entries[key] = val
-        if len(self._entries) > self._maxsize:
-            self._entries.popitem(last=False)
+        with self._lock:
+            self._entries[key] = val
+            evicted = len(self._entries) > self._maxsize
+            if evicted:
+                self._entries.popitem(last=False)
+        if evicted:
+            self._stats.note_const_cache("evictions")
         return val
+
+    def occupancy(self) -> Dict[str, int]:
+        """Entries held, and the bytes of the tensors they hold."""
+        with self._lock:
+            values = list(self._entries.values())
+        return {"entries": len(values),
+                "bytes": sum(_tensor_bytes(v) for v in values)}
+
+
+def _tensor_bytes(value) -> int:
+    """Bytes of the tensors in a cached constant (a plan, a tuple of
+    them, a dataclass of tensors)."""
+    if hasattr(value, "element_size") and hasattr(value, "numel"):
+        return value.element_size() * value.numel()
+    if isinstance(value, (tuple, list)):
+        return sum(_tensor_bytes(v) for v in value)
+    fields = getattr(value, "__dataclass_fields__", None)
+    if fields:
+        return sum(_tensor_bytes(getattr(value, f)) for f in fields)
+    return 0
 
 
 class ReedSolomonCodec:
@@ -303,45 +343,57 @@ def get_codec(data_shards: int, parity_shards: int,
 PLAN_CACHE_SIZE = 128
 
 
+#: Every live plan cache, for the summed reports.
+_PLAN_CACHES: "weakref.WeakSet" = weakref.WeakSet()
+
+
 class _PlanLRU:
-    """Bounded LRU for derived GF plans, with shared hit/miss/evict
-    accounting. It holds host-side plan objects, and identity is stable
-    across repeated gets: ``plan_fn(...) is plan_fn(...)``."""
+    """Bounded LRU for derived GF plans, counting its own hits, misses
+    and evictions. It holds host-side plan objects, and identity is
+    stable across repeated gets: ``plan_fn(...) is plan_fn(...)``."""
 
     def __init__(self, name: str, maxsize: int = PLAN_CACHE_SIZE):
         self.name = name
         self._maxsize = max(int(maxsize), 1)
         self._entries: OrderedDict = OrderedDict()
+        self.hits = self.misses = self.evictions = 0
+        _PLAN_CACHES.add(self)
 
     def get(self, key, make):
         hit = self._entries.get(key)
         if hit is not None:
             self._entries.move_to_end(key)
-            _PLAN_CACHE_EVENTS["hits"] += 1
+            self.hits += 1
             return hit
-        _PLAN_CACHE_EVENTS["misses"] += 1
+        self.misses += 1
         val = make()
         self._entries[key] = val
         while len(self._entries) > self._maxsize:
             self._entries.popitem(last=False)
-            _PLAN_CACHE_EVENTS["evictions"] += 1
+            self.evictions += 1
         return val
 
     def __len__(self):
         return len(self._entries)
 
 
-_PLAN_CACHE_EVENTS = {"hits": 0, "misses": 0, "evictions": 0}
+def plan_cache_info() -> Dict[str, dict]:
+    """Each plan cache's hits, misses, size bound, entries and
+    evictions."""
+    return {c.name: {"hits": c.hits, "misses": c.misses,
+                     "maxsize": c._maxsize, "currsize": len(c),
+                     "evictions": c.evictions}
+            for c in sorted(list(_PLAN_CACHES), key=lambda c: c.name)}
 
 
 def plan_cache_stats() -> dict:
-    """Cumulative hit/miss/evict event counts plus the current entry
-    count of each plan cache."""
+    """Cumulative hit/miss/evict event counts, summed over the plan
+    caches, plus the current entry count of each."""
+    caches = list(_PLAN_CACHES)
     return {
-        "events": dict(_PLAN_CACHE_EVENTS),
-        "entries": {c.name: len(c) for c in
-                    (_REPAIR_PLAN_CACHE, _PIGGYBACK_PLAN_CACHE,
-                     _PIGGYBACK_REPAIR_CACHE, _PIGGYBACK_DECODE_CACHE)},
+        "events": {event: sum(getattr(c, event) for c in caches)
+                   for event in ("hits", "misses", "evictions")},
+        "entries": {c.name: len(c) for c in caches},
     }
 
 

@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .device_stats import PLAN_ENTRY, coeff_key, timed_build
 from .gf256 import MUL_TABLE
 
 TILE_ROWS = 4     # output rows per tile: one packed uint32 per column
@@ -105,14 +106,21 @@ class GfPlan:
                 "payload_reads": self.pairs / self.k if self.k else 0.0}
 
 
-def make_plan(coeffs) -> GfPlan:
+def make_plan(coeffs, owner=None) -> GfPlan:
     """The tile plan of an (r, k) GF(2^8) coefficient matrix (numpy or a
-    CPU tensor), on the CPU."""
+    CPU tensor), on the CPU. Each build is a compile in
+    ``ops/device_stats``; ``owner`` (a codec's constant cache) holds one
+    plan per matrix, so its second build of one matrix is a recompile."""
     if isinstance(coeffs, torch.Tensor):
         coeffs = coeffs.cpu().numpy()
     coeffs = np.ascontiguousarray(coeffs, dtype=np.uint8)
     if coeffs.ndim != 2:
         raise ValueError(f"coeffs must be 2-D, got shape {coeffs.shape}")
+    return timed_build(PLAN_ENTRY, coeff_key(coeffs),
+                       lambda: _build(coeffs), owner)
+
+
+def _build(coeffs: np.ndarray) -> GfPlan:
     r, k = coeffs.shape
     nz = coeffs != 0
     # stable: rows with equal patterns keep their order

@@ -42,8 +42,9 @@ this kernel keeps, zeros inside them included (``ops_per_column``, 0.208
 ms int8 there).
 
 A tensor on the CPU runs the plain version; a tensor on the card launches
-the kernel or raises. ``bitplane_matmul.launches`` and
-``bitplane_matmul_batched.launches`` count kernel launches.
+the kernel or raises. Each call is one dispatch of ``ops/device_stats``'s
+``K6A`` or ``K6B``; a kernel launch that returns without error is also one
+of its launches (a call on the CPU is none).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ import torch
 
 from . import gf256
 from .codec import _ConstCache
+from .device_stats import K6A, K6B, dispatch
 from .rs_hopper import (BUILD_DIR, NVCC_FLAGS,  # noqa: F401
                         build_library, load_library)
 
@@ -431,10 +433,10 @@ def bitplane_matmul(bitmat: torch.Tensor, data: torch.Tensor, r: int,
     kernel with ``dtype`` operands on the card."""
     _check(bitmat, data, r, 1, dtype)
     if data.device.type == "cpu":
-        return bitplane_plain(bitmat, data, r)
-    out = _launch(bitmat, data, r, 1, dtype)
-    bitplane_matmul.launches += 1
-    return out
+        return dispatch(K6A, data.device,
+                        lambda: bitplane_plain(bitmat, data, r))
+    return dispatch(K6A, data.device,
+                    lambda: _launch(bitmat, data, r, 1, dtype))
 
 
 def bitplane_matmul_batched(bigmat: torch.Tensor, data: torch.Tensor, r: int,
@@ -446,11 +448,7 @@ def bitplane_matmul_batched(bigmat: torch.Tensor, data: torch.Tensor, r: int,
         raise ValueError(f"u must be one of {BATCH_UNITS}, got {u}")
     _check(bigmat, data, r, u, dtype)
     if data.device.type == "cpu":
-        return bitplane_plain(bigmat, data, r, u)
-    out = _launch(bigmat, data, r, u, dtype)
-    bitplane_matmul_batched.launches += 1
-    return out
-
-
-bitplane_matmul.launches = 0
-bitplane_matmul_batched.launches = 0
+        return dispatch(K6B, data.device,
+                        lambda: bitplane_plain(bigmat, data, r, u))
+    return dispatch(K6B, data.device,
+                    lambda: _launch(bigmat, data, r, u, dtype))

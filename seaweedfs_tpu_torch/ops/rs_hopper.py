@@ -30,8 +30,10 @@ it.
 ``gf_matmul`` takes a plan (what ``TorchCodec.device_fn`` caches; checks
 and tests build theirs with ``make_plan``). It runs the plain version for
 a tensor on the CPU and launches the kernel for a tensor on the card; it
-never falls back from one to the other. ``gf_matmul.launches`` counts
-kernel launches.
+never falls back from one to the other. Each call is one dispatch of
+``ops/device_stats.K1``; a kernel launch that returns without error is
+also one of its launches (a call on the CPU is none). Each nvcc build is
+one compile.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import threading
 from pathlib import Path
 import torch
 
+from .device_stats import K1, dispatch, timed_build
 from .gf256 import MUL_TABLE
 from .gf_plan import GfPlan
 
@@ -74,7 +77,15 @@ def build_library(source: Path, library: Path,
     """Compile one CUDA source into a shared library under build/ (with
     ``-D`` for each of ``defines``); returns the compiler's diagnostics
     (ptxas register/shared-memory report when ``ptxas_verbose``). Raises
-    RuntimeError if nvcc fails."""
+    RuntimeError if nvcc fails. Counted as a compile of
+    ``nvcc:<library>`` in ``ops/device_stats``."""
+    return timed_build(f"nvcc:{library.name}", tuple(defines),
+                       lambda: _nvcc_build(source, library, ptxas_verbose,
+                                           defines), owner=str(library))
+
+
+def _nvcc_build(source: Path, library: Path, ptxas_verbose: bool,
+                defines) -> str:
     library.parent.mkdir(parents=True, exist_ok=True)
     tmp = library.with_name(f"{library.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
@@ -156,7 +167,8 @@ def gf_matmul(plan: GfPlan, data: torch.Tensor) -> torch.Tensor:
     coeffs = plan.coeffs
     _check(coeffs, data)
     if data.device.type == "cpu":
-        return gf_matmul_plain(coeffs, data)
+        return dispatch(K1, data.device,
+                        lambda: gf_matmul_plain(coeffs, data))
     if data.device.type != "cuda":
         raise ValueError(f"gf_matmul runs on cpu or cuda, not {data.device}")
     r, k = coeffs.shape
@@ -168,17 +180,17 @@ def gf_matmul(plan: GfPlan, data: torch.Tensor) -> torch.Tensor:
     data = data.contiguous()
     lib = _library()
     out = torch.empty((r, n), dtype=torch.uint8, device=data.device)
-    with torch.cuda.device(data.device):
+
+    def launch():
         rc = lib.gf_matmul_launch(
             plan.tile_ptr.data_ptr(), plan.pair_rows.data_ptr(),
             plan.tables.data_ptr(), plan.row_map.data_ptr(), plan.tiles, r,
             data.data_ptr(), out.data_ptr(), n,
             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gf_matmul kernel launch failed: CUDA error {rc}"
-                           f" at r={r} k={k} n={n}")
-    gf_matmul.launches += 1
-    return out
+        if rc != 0:
+            raise RuntimeError(f"gf_matmul kernel launch failed: CUDA error "
+                               f"{rc} at r={r} k={k} n={n}")
+        return out
 
-
-gf_matmul.launches = 0
+    with torch.cuda.device(data.device):
+        return dispatch(K1, data.device, launch)

@@ -69,8 +69,9 @@ class TorchCodec(ReedSolomonCodec):
         on the host and uploads once per matrix (one bitmat_upload), then
         stays resident across slabs; ``width`` needs no specialisation."""
         coeffs = np.ascontiguousarray(coeffs, dtype=np.uint8)
-        const = self._consts.get((coeffs.shape, coeffs.tobytes()),
-                                 lambda: make_plan(coeffs).to(self.device))
+        const = self._consts.get(
+            (coeffs.shape, coeffs.tobytes()),
+            lambda: make_plan(coeffs, self._consts.owner).to(self.device))
         return gf_matmul, const, self.put
 
     def _matmul(self, coeffs: np.ndarray, data: np.ndarray) -> np.ndarray:

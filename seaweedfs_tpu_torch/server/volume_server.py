@@ -56,6 +56,14 @@ shards.
                                       range (X-Repair-Planes/-Stride)
     POST /admin/ec/shard_plane_read   the piggyback repair half-plane of
                                       a window-aligned range
+    POST /admin/ec/scrub              a synchronous syndrome scrub of one
+                                      volume (?volume=) or of every local
+                                      EC volume
+    GET  /admin/ec/scrub_status       the scrub engine's counters
+    POST /admin/ec/scrub_repair       quarantine a corrupt shard and
+                                      rebuild it from the survivors
+    GET  /admin/devices               kernel launches, builds, plan cache
+                                      and the card (ops/device_stats)
     GET  /admin/file                  a raw index or shard file
     *    /status                      the store's heartbeat, directories,
                                       and the degraded-read and scrub
@@ -86,16 +94,31 @@ that is not ``type=replicate`` goes on to the volume's other replicas
 (all must succeed; a replica's 404 on a delete counts as done); a GET of
 a volume held elsewhere answers 301 to a replica.
 
+The syndrome scrub (``ec/scrub.ScrubEngine``) runs a background pass
+every ``scrub_idle_s`` (<= 0: none) paced at ``scrub_rate_mbps`` (0:
+unpaced), and ``/admin/ec/scrub`` runs one at once; each corrupt shard it
+finds is reported to the master's ``/cluster/scrub_report``, whose repair
+queue drains back into ``/admin/ec/scrub_repair`` here. A read through a
+lost shard goes to the degraded-read engine (``degraded_mode`` "batch"),
+or with "naive" reconstructs each range on its own: the first k survivors
+the decode plan names, one (1, k) product on the codec's device (the JAX
+server multiplies on the host; the bytes are the same).
+``device_timing`` turns on the sampled kernel timing of
+``ops/device_stats`` (every ``device_timing_sample``th call), which is
+process-wide.
+
 Left out: the whitelist and JWT guard, chunk manifests (``cm=``) and
 image resizing, the native plane, tiering, ``/query``, ``/metrics``,
-tracing (the ``trace_id`` of the JAX ``/admin/ec/rebuild`` answer) and
-the metrics push, the scrub routes and the scrub's background pass (its
-engine is there for ``/status``), volume copy, tail and sync,
-plain-volume mount and unmount, and ``configure_replication``.
+tracing (the ``trace_id`` of the JAX ``/admin/ec/rebuild`` and
+``/admin/ec/scrub_repair`` answers) and the metrics push, volume copy,
+tail and sync, plain-volume mount and unmount, and
+``configure_replication``.
 
     python3 -m seaweedfs_tpu_torch.server.volume_server --dir D [--dir D2]
         [--host 127.0.0.1] [--port 0] [--device cuda] [--master HOST:PORT]
-        [--max N] [--pulse-seconds S]
+        [--max N] [--pulse-seconds S] [--scrub-idle-s S]
+        [--scrub-rate-mbps R] [--degraded-mode batch|naive]
+        [--device-timing] [--device-timing-sample N]
 
 serves until killed and prints ``listening <host>:<port>`` once bound,
 so a parent process that passed ``--port 0`` can read the port.
@@ -122,10 +145,12 @@ from ..client.vid_map import shared_vid_map
 from ..ec import decoder as ec_decoder
 from ..ec.constants import DATA_SHARDS, TOTAL_SHARDS, to_ext
 from ..ec.degraded import READ_TIMEOUT_S, DegradedReadEngine
+from ..ec.degraded import degraded_mode as _degraded_mode
 from ..ec.ec_volume import EcShardNotFound
 from ..ec.scrub import ScrubEngine
 from ..ec.shard_cache import EcShardLocationCache
 from ..ops import codec as ops_codec
+from ..ops import device_stats
 from ..stats.health import BOARD
 from ..storage.needle import Needle
 from ..storage.store import Store, volume_file_prefix
@@ -144,13 +169,26 @@ class VolumeServer:
     """``master_url`` (host:port, optional; a comma list of seeds) is
     heartbeated and asked for locations; ``file_size_limit_mb`` caps an
     upload (413 past it; 0: no cap); ``max_volume_counts`` the slots of
-    each directory."""
+    each directory; ``scrub_idle_s`` and ``scrub_rate_mbps`` the
+    background scrub's period and pace (the scrub engine's defaults when
+    None); ``degraded_mode`` "batch" or "naive"; ``device_timing`` and
+    ``device_timing_sample`` the process's sampled kernel timing (left as
+    it is when None)."""
 
     def __init__(self, port: int = 8080, host: str = "127.0.0.1",
                  directories=None, device: str = "cuda",
                  layout: str = "flat", codec=None, master_url: str = "",
                  file_size_limit_mb: int = 256, max_volume_counts=None,
-                 pulse_seconds: Optional[float] = None):
+                 pulse_seconds: Optional[float] = None,
+                 scrub_idle_s: Optional[float] = None,
+                 scrub_rate_mbps: Optional[float] = None,
+                 degraded_mode: str = "batch",
+                 device_timing: Optional[bool] = None,
+                 device_timing_sample: int = 1):
+        self.degraded_mode = _degraded_mode(degraded_mode)
+        if device_timing is not None:
+            device_stats.DEVICE_STATS.configure(device_timing,
+                                                device_timing_sample)
         router = Router()
         router.add("*", "/status", self.status)
         router.add("POST", "/admin/assign_volume", self.admin_assign_volume)
@@ -174,6 +212,12 @@ class VolumeServer:
                    self.admin_ec_shard_repair_read)
         router.add("POST", "/admin/ec/shard_plane_read",
                    self.admin_ec_shard_plane_read)
+        router.add("POST", "/admin/ec/scrub", self.admin_ec_scrub)
+        router.add("GET", "/admin/ec/scrub_status",
+                   self.admin_ec_scrub_status)
+        router.add("POST", "/admin/ec/scrub_repair",
+                   self.admin_ec_scrub_repair)
+        router.add("GET", "/admin/devices", self.admin_devices)
         router.add("GET", "/admin/file", self.admin_file)
         router.set_fallback(self.data_handler)
         # without a ``codec``, the store builds RS(10,4) on ``device`` only
@@ -210,19 +254,28 @@ class VolumeServer:
         # a shard mounted again (after a rebuild) is read from disk, not
         # from the engine's cached reconstructions
         self.store.on_ec_mount = self.degraded.invalidate
-        # the syndrome scrub's engine, whose counters /status reports
+        # the syndrome scrub: a paced background pass over every local EC
+        # volume, each finding reported to the master's repair queue
         self.scrub = ScrubEngine(
             store=self.store, locations=self._ec_shard_locations,
-            codec=lambda: self.store.codec, self_url=lambda: self.url)
+            codec=lambda: self.store.codec, self_url=lambda: self.url,
+            on_finding=self._report_scrub_finding,
+            rate_mbps=scrub_rate_mbps, idle_s=scrub_idle_s)
         # a volume created or deleted, a shard mounted or unmounted: the
         # heartbeat loop wakes and sends the delta at once
         self._stop = threading.Event()
         self._hb_wake = threading.Event()
         self.store.on_change = self._hb_wake.set
-        # the master and volume set the last heartbeat's answer acked;
-        # one heartbeat at a time, from its collect to that ack, so the
-        # loop's older state never overwrites a route's newer ack
+        # the master and volume set of the newest collect acked; each
+        # collect is numbered, and an answer is applied only if no later
+        # collect was acked first, so a late loop pulse never rolls back
+        # a route's newer ack. The lock covers a collect and an ack, never
+        # a post. Each post carries (boot, seq), so the master too drops a
+        # collect that arrives after a later one of this server's.
         self._hb_lock = threading.Lock()
+        self._hb_boot = time.time_ns()
+        self._hb_seq = 0
+        self._hb_acked_seq = 0
         self._hb_acked_master = None
         self._hb_acked_volumes = None
         self._hb_thread = threading.Thread(target=self._heartbeat_loop,
@@ -237,11 +290,13 @@ class VolumeServer:
             except HttpError:
                 pass    # no master yet: the loop keeps trying
             self._hb_thread.start()
+        self.scrub.start()
         return self
 
     def stop(self):
         self._stop.set()
         self._hb_wake.set()
+        self.scrub.stop()
         if self.master_url:
             try:
                 # a clean stop: the master drops this server now
@@ -282,43 +337,58 @@ class VolumeServer:
                                     if vid not in current]
         return delta
 
-    def _post_heartbeat(self, hb: dict, target: str) -> dict:
-        resp = post_json(f"http://{target}/cluster/heartbeat",
-                         self._heartbeat_payload(hb, target), timeout=10)
+    def _post_heartbeat(self, hb: dict, seq: int, target: str) -> dict:
+        """Post collect ``seq`` (as a delta when the target acked an
+        earlier one) and ack it. A collect that a later acked one has
+        superseded is not sent: its state is older than the master's."""
+        order = [self._hb_boot, seq]
+        with self._hb_lock:
+            if seq < self._hb_acked_seq:
+                return {}
+            payload = dict(self._heartbeat_payload(hb, target), seq=order)
+        resp = post_json(f"http://{target}/cluster/heartbeat", payload,
+                         timeout=10)
         if resp.get("resync"):
             # the master lost (or never had) this server: the whole state
-            resp = post_json(f"http://{target}/cluster/heartbeat", hb,
-                             timeout=10)
-        if not resp.get("not_leader"):
-            self._hb_acked_master = target
-            self._hb_acked_volumes = {v["id"]: v for v in hb["volumes"]}
+            resp = post_json(f"http://{target}/cluster/heartbeat",
+                             dict(hb, seq=order), timeout=10)
+        if not resp.get("not_leader") and not resp.get("stale"):
+            with self._hb_lock:
+                if seq > self._hb_acked_seq:
+                    self._hb_acked_seq = seq
+                    self._hb_acked_master = target
+                    self._hb_acked_volumes = {v["id"]: v
+                                              for v in hb["volumes"]}
         return resp
 
     def heartbeat_once(self):
         """Heartbeat the current master, trying every seed before
         raising the last failure; then follow the answer's leader hint.
-        Without a master, nothing."""
+        Without a master, nothing. Heartbeats of the loop and of the
+        admin routes run at once; only the collect and the ack are
+        serialized."""
         if not self.master_url:
             return
         with self._hb_lock:
             hb = self.store.collect_heartbeat()
-            last = None
-            for _ in range(len(self._seed_masters)):
-                try:
-                    resp = self._post_heartbeat(hb, self.master_url)
-                    break
-                except HttpError as e:
-                    last = e
-                    self._seed_i = (self._seed_i + 1) % \
-                        len(self._seed_masters)
-                    self.master_url = self._seed_masters[self._seed_i]
-            else:
-                raise last
-            leader = resp.get("leader")
-            if leader and leader != self.master_url:
-                self.master_url = leader
-                if resp.get("not_leader"):
-                    self._post_heartbeat(hb, self.master_url)
+            self._hb_seq += 1
+            seq = self._hb_seq
+        last = None
+        for _ in range(len(self._seed_masters)):
+            try:
+                resp = self._post_heartbeat(hb, seq, self.master_url)
+                break
+            except HttpError as e:
+                last = e
+                self._seed_i = (self._seed_i + 1) % len(self._seed_masters)
+                self.master_url = self._seed_masters[self._seed_i]
+        else:
+            raise last
+        leader = resp.get("leader")
+        if leader and leader != self.master_url:
+            self.master_url = leader
+            if resp.get("not_leader"):
+                self._post_heartbeat(hb, seq, self.master_url)
 
     def status(self, req: Request):
         out = self.store.status()
@@ -530,6 +600,76 @@ class VolumeServer:
         if rebuilt:
             self.degraded.invalidate(vid, rebuilt)
         return {"volume": vid, "rebuilt": rebuilt, "stats": stats}
+
+    def admin_ec_scrub(self, req: Request):
+        """A synchronous scrub: one volume (?volume=) or a pass over
+        every local EC volume. A request bypasses the lowest-shard owner
+        rule: an operator asking this server to scrub means this
+        server."""
+        vid = req.query.get("volume")
+        if vid is not None:
+            return self.scrub.scrub_volume(int(vid), force=True)
+        return self.scrub.run_pass(force=True)
+
+    def admin_ec_scrub_status(self, req: Request):
+        return self.scrub.snapshot()
+
+    def admin_ec_scrub_repair(self, req: Request):
+        """Quarantine and rebuild one corrupt shard: unmount it and
+        remove its file (and any stage), so it can neither serve a read
+        nor feed a decode, then stream it back from the other shards'
+        holders (the body's ``sources``, else the master's map) and
+        mount it. The master's repair queue sends this to the holder a
+        scrub finding names."""
+        vid = int(req.query["volume"])
+        sid = int(req.query["shard"])
+        collection = req.query.get("collection", "")
+        try:
+            body = req.json()
+        except ValueError:
+            raise HttpError(400, "bad JSON body") from None
+        body = body if isinstance(body, dict) else {}
+        self.store.unmount_ec_shards(vid, [sid])
+        self._ec_loc_cache.invalidate(vid)
+        for loc in self.store.locations:
+            base = volume_file_prefix(loc.directory, collection, vid)
+            for p in (base + to_ext(sid), base + to_ext(sid) + ".part"):
+                if os.path.exists(p):
+                    os.remove(p)
+        sources = body.get("sources") or self._ec_shard_locations(vid)
+        sources = {int(s): [u for u in urls if u != self.url]
+                   for s, urls in (sources or {}).items()
+                   if int(s) != sid}
+        stats: dict = {}
+        rebuilt = self.store.rebuild_ec_shards_streaming(
+            vid, collection, sources=sources, stats=stats,
+            repair=str(body.get("repair") or "auto"))
+        mounted = self.store.mount_ec_shards(vid, collection, rebuilt) \
+            if rebuilt else []
+        self.degraded.invalidate(vid, rebuilt or [sid])
+        self.heartbeat_once()
+        return {"volume": vid, "shard": sid, "rebuilt": rebuilt,
+                "mounted": mounted, "stats": stats}
+
+    def _report_scrub_finding(self, finding: dict) -> bool:
+        """A scrub finding to the master's repair queue; True only when
+        the master took it (the engine counts the failures, and the
+        finding stays in its snapshot)."""
+        if not self.master_url:
+            return False
+        try:
+            post_json(f"http://{self.master_url}/cluster/scrub_report",
+                      finding, timeout=5)
+            return True
+        except HttpError:
+            return False
+
+    def admin_devices(self, req: Request):
+        """``ops/device_stats.admin_snapshot()``: each kernel's launches,
+        the builds and recompiles with the sentinel, sampled device
+        seconds, the plan caches, the constant cache's occupancy and the
+        card (CUDA initialized if it was not)."""
+        return device_stats.admin_snapshot()
 
     def admin_ec_delete_shards(self, req: Request):
         """Unmount and remove shard files (and any spread stage beside
@@ -1015,8 +1155,60 @@ class VolumeServer:
 
     def _reconstruct_shard_range(self, vid, sid, offset, size) -> bytes:
         """A lost shard's range, reconstructed by the degraded-read
-        engine."""
+        engine, or with ``degraded_mode`` "naive" on its own."""
+        if self.degraded_mode == "naive":
+            return self._reconstruct_shard_range_naive(vid, sid, offset,
+                                                       size)
         return self.degraded.read(vid, sid, offset, size)
+
+    def _reconstruct_shard_range_naive(self, vid, sid, offset,
+                                       size) -> bytes:
+        """One read's reconstruction, unbatched: the first k survivors
+        the decode plan names (local ones off disk, the rest from their
+        holders), and the lost shard's one coefficient row
+        (``lost_row_coeffs``) as one (1, k) product on the codec's
+        device."""
+        ev = self.store.find_ec_volume(vid)
+        locations = self._ec_shard_locations(vid)
+        codec = self.store.codec
+        present = []
+        for other in range(codec.total):
+            if other == sid:
+                present.append(False)
+            elif ev is not None and other in ev.shards:
+                present.append(True)
+            else:
+                present.append(any(h != self.url
+                                   for h in locations.get(other, [])))
+        if sum(present) < DATA_SHARDS:
+            raise HttpError(
+                503, f"cannot reconstruct {vid}.{sid}: "
+                     f"{sum(present)} shards")
+        src, row = codec.lost_row_coeffs(tuple(present), sid)
+
+        def pad(data: bytes) -> np.ndarray:
+            if len(data) < size:  # the shard's tail: zeros, as local reads
+                data = data + b"\x00" * (size - len(data))
+            return np.frombuffer(data, dtype=np.uint8)
+
+        rows: List[Optional[np.ndarray]] = [None] * len(src)
+        remote = []
+        for pos, other in enumerate(src):
+            if ev is not None and other in ev.shards:
+                rows[pos] = pad(ev.shards[other].read_at(offset, size))
+            else:
+                remote.append(pos)
+        for pos, data, exc in fan_out(
+                lambda p: self._read_shard_from_holders(
+                    vid, src[p], offset, size), remote, dedicated=True):
+            if exc is None and data is not None:
+                rows[pos] = pad(data)
+        if any(r is None for r in rows):
+            have = sum(r is not None for r in rows)
+            raise HttpError(
+                503, f"cannot reconstruct {vid}.{sid}: {have} of "
+                     f"{len(src)} survivors answered")
+        return codec._matmul(row, np.stack(rows, axis=0))[0].tobytes()
 
     def _delete_ec_needle(self, req: Request, ev, vid, key):
         """Tombstone the needle in the .ecx and journal it in the .ecj,
@@ -1075,6 +1267,19 @@ def main(argv=None) -> int:
                     help="volume slots of each --dir (comma list)")
     ap.add_argument("--pulse-seconds", type=float, default=PULSE_S,
                     help="the heartbeat's period")
+    ap.add_argument("--scrub-idle-s", type=float, default=None,
+                    help="seconds between background scrub passes (<= 0: "
+                         "none; default the scrub engine's)")
+    ap.add_argument("--scrub-rate-mbps", type=float, default=None,
+                    help="the background scrub's pace (0: unpaced)")
+    ap.add_argument("--degraded-mode", default="batch",
+                    choices=("batch", "naive"),
+                    help="reads through a lost shard: the batching engine "
+                         "or one reconstruction per read")
+    ap.add_argument("--device-timing", action="store_true",
+                    help="time every Nth kernel call (ops/device_stats)")
+    ap.add_argument("--device-timing-sample", type=int, default=1,
+                    help="N of --device-timing")
     args = ap.parse_args(argv)
     slots = [int(x) for x in args.max.split(",")]
     slots += slots[-1:] * (len(args.dir) - len(slots))
@@ -1082,7 +1287,13 @@ def main(argv=None) -> int:
                       directories=args.dir, device=args.device,
                       master_url=args.master,
                       max_volume_counts=slots[:len(args.dir)],
-                      pulse_seconds=args.pulse_seconds).start()
+                      pulse_seconds=args.pulse_seconds,
+                      scrub_idle_s=args.scrub_idle_s,
+                      scrub_rate_mbps=args.scrub_rate_mbps,
+                      degraded_mode=args.degraded_mode,
+                      device_timing=args.device_timing or None,
+                      device_timing_sample=args.device_timing_sample
+                      ).start()
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())

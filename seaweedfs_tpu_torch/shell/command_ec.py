@@ -7,9 +7,9 @@ plain volume on the server holding the most data shards) and
 ``ec.balance`` (even shard counts across racks, then within each). The
 JAX package's ``shell/command_ec.py`` without tracing; its knob defaults
 are constants here: ``SPREAD_MODE`` (SW_EC_SPREAD_MODE), ``GATHER_MODE``
-(SW_EC_GATHER_MODE) and ``REPAIR_MODE`` (SW_EC_REPAIR_MODE).
-``volume.ec.degraded`` and ``volume.ec.scrub`` wait for the scrub
-routes."""
+(SW_EC_GATHER_MODE) and ``REPAIR_MODE`` (SW_EC_REPAIR_MODE). Also each
+server's degraded-read engine (``volume.ec.degraded``) and syndrome scrub
+(``volume.ec.scrub [-trigger] [-volumeId N]``), in the JAX lines."""
 
 from __future__ import annotations
 
@@ -571,3 +571,75 @@ def ec_balance(env: CommandEnv, args: List[str]):
         moves += _balance_one_ec_volume(env, vid, collection, shards,
                                         node_rack)
     env.write(f"ec.balance: {moves} shard moves")
+
+
+@command("volume.ec.degraded",
+         ": per-server degraded-read engine status (reconstruct-on-read "
+         "batching, slab cache, survivor traffic)")
+def volume_ec_degraded(env: CommandEnv, args: List[str]):
+    nodes = env.cluster_nodes()
+    if not nodes:
+        env.write("no volume servers")
+        return
+    for node in nodes:
+        url = node["url"]
+        try:
+            snap = env.node_get(url, "/status").get("ec_degraded") or {}
+        except HttpError as e:
+            env.write(f"{url}  unreachable: {e}")
+            continue
+        reads = int(snap.get("reads", 0))
+        batches = int(snap.get("batches", 0))
+        coalesced = int(snap.get("batched_requests", 0))
+        avg_w = coalesced / batches if batches else 0.0
+        env.write(
+            f"{url}  reads={reads} batches={batches} "
+            f"width(avg/max)={avg_w:.1f}/"
+            f"{int(snap.get('max_batch_requests', 0))} "
+            f"hit_ratio={snap.get('cache_hit_ratio', 0.0):.2f} "
+            f"cache={int(snap.get('cache_bytes', 0)) >> 10}KB/"
+            f"{int(snap.get('cache_entries', 0))} slabs "
+            f"survivor={int(snap.get('survivor_bytes', 0)) >> 10}KB "
+            f"(remote {int(snap.get('remote_bytes', 0)) >> 10}KB) "
+            f"dispatch(host/dev)={int(snap.get('host_dispatches', 0))}/"
+            f"{int(snap.get('device_dispatches', 0))} "
+            f"p99={snap.get('p99_ms', 0.0):.1f}ms "
+            f"errors={int(snap.get('errors', 0))}")
+
+
+@command("volume.ec.scrub",
+         "[-trigger] [-volumeId <id>]: per-server syndrome-scrub status "
+         "(passes, bytes verified, corruption found); -trigger runs a "
+         "synchronous pass on every server first")
+def volume_ec_scrub(env: CommandEnv, args: List[str]):
+    flags = parse_flags(args)
+    nodes = env.cluster_nodes()
+    if not nodes:
+        env.write("no volume servers")
+        return
+    vid = flags.get("volumeId")
+    for node in nodes:
+        url = node["url"]
+        try:
+            if "trigger" in flags:
+                q = f"?volume={int(vid)}" if vid else ""
+                env.node_post(url, f"/admin/ec/scrub{q}")
+            snap = env.node_get(url, "/admin/ec/scrub_status") or {}
+        except HttpError as e:
+            env.write(f"{url}  unreachable: {e}")
+            continue
+        env.write(
+            f"{url}  passes={int(snap.get('passes', 0))} "
+            f"volumes={int(snap.get('volumes_scrubbed', 0))} "
+            f"slabs={int(snap.get('slabs', 0))} "
+            f"verified={int(snap.get('bytes_verified', 0)) >> 20}MB "
+            f"@{snap.get('last_pass_mbps', 0.0):.1f}MB/s "
+            f"corrupt(slabs/cols)={int(snap.get('corrupt_slabs', 0))}/"
+            f"{int(snap.get('corrupt_columns', 0))} "
+            f"findings={int(snap.get('findings', 0))} "
+            f"dispatch(host/dev)={int(snap.get('host_dispatches', 0))}/"
+            f"{int(snap.get('device_dispatches', 0))} "
+            f"skipped(owner/missing)="
+            f"{int(snap.get('skipped_not_owner', 0))}/"
+            f"{int(snap.get('skipped_missing', 0))} "
+            f"errors={int(snap.get('errors', 0))}")

@@ -1,1 +1,2 @@
-"""stats — the per-holder health scoreboard the remote readers feed."""
+"""stats — the per-holder health scoreboard the remote readers feed, and
+the master's repair queue."""

@@ -42,6 +42,7 @@ import torch
 
 from ..ops import gf256
 from ..ops.codec import host_matmul
+from ..ops.device_stats import DEVICE_STATS, K1, K6A, K6B
 from ..ops.gf_plan import make_plan
 from ..ops.rs_bitplane import (BATCH_UNITS, DTYPES, bitplane_matmul,
                                bitplane_matmul_batched, bitplane_plain,
@@ -177,25 +178,24 @@ def _plain_planned(plan, data):
 
 
 def _kernels(coeffs: np.ndarray, plan, n: int, device):
-    """(name, dtype, u, fn, constant, plain fn, wrapper that counts its
-    launches) for K1 (its constant the tile plan) and every variant."""
+    """(name, dtype, u, fn, constant, plain fn, the ``device_stats``
+    entry that counts its launches) for K1 (its constant the tile plan)
+    and every variant."""
     r, k = coeffs.shape
     bm_np = fuse_bitmat(coeffs)
-    out = [("gf_matmul", None, 1, gf_matmul, plan, _plain_planned,
-            gf_matmul)]
+    out = [("gf_matmul", None, 1, gf_matmul, plan, _plain_planned, K1)]
     bm = torch.from_numpy(bm_np).to(device)
     for dtype in ("int8", "bf16", "tf32"):
         out.append((variant_name(1, dtype), dtype, 1,
                     make_fn(k, r, n, 0, dtype), bm,
-                    lambda lift, x: bitplane_plain(lift, x, r),
-                    bitplane_matmul))
+                    lambda lift, x: bitplane_plain(lift, x, r), K6A))
     for u in BATCH_UNITS:
         big = torch.from_numpy(block_diag_bitmat(bm_np, u)).to(device)
         for dtype in ("int8", "bf16"):
             out.append((variant_name(u, dtype), dtype, u,
                         make_fn_batched(k, r, n, 0, u, dtype), big,
                         lambda lift, x, u=u: bitplane_plain(lift, x, r, u),
-                        bitplane_matmul_batched))
+                        K6B))
     return out
 
 
@@ -204,7 +204,7 @@ def run_table(coeffs: np.ndarray, n: int, seed: int = 7, device="cuda",
     """Times K1 and every bit-plane variant at coeffs (r, k) x n on the
     card and prints one line each; returns the rows as dicts. A row's
     ``launches`` counts its kernel's launches in this call, read from its
-    wrapper's counter."""
+    ``device_stats`` entry."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("kernel_exp times kernels on the card; it has no "
@@ -223,14 +223,14 @@ def run_table(coeffs: np.ndarray, n: int, seed: int = 7, device="cuda",
           f"per column, {plan.table_bytes} table bytes, payload read "
           f"{plan.summary()['payload_reads']:.2f} times over")
     rows = []
-    for name, dtype, u, fn, const, plain, wrapper in _kernels(coeffs, plan,
-                                                               n, dev):
-        start = wrapper.launches
+    for name, dtype, u, fn, const, plain, entry in _kernels(coeffs, plan,
+                                                              n, dev):
+        start = DEVICE_STATS.launch_count(entry)
         exact = bool(np.array_equal(fn(const, slabs[0]).cpu().numpy(),
                                     oracle))
         ms = per_launch_ms(fn, const, slabs[0])
         mb_s, r2 = chained_rate(fn, const, slabs)
-        launches = wrapper.launches - start
+        launches = DEVICE_STATS.launch_count(entry) - start
         plain_ms = per_launch_ms(plain, const, slabs[0], reps=3, warmup=1)
         row = {"name": name, "dtype": dtype, "u": u,
                "shape": f"({r},{k})x{n}", "ms": ms,

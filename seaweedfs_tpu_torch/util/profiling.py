@@ -1,11 +1,46 @@
-"""Per-stage wall-time accounting for the EC pipeline and transport."""
+"""Per-stage wall-time accounting for the EC pipeline and transport, and
+the device trace hooks.
+
+``maybe_trace`` and ``annotate`` are the JAX package's ``jax.profiler``
+hooks on ``torch.profiler``: a trace of the CPU and the card written as a
+Chrome trace under ``profile_dir/<label>`` (the JAX SW_PROFILE_DIR is an
+argument here, off when empty), and a named region inside it."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
+
+
+@contextlib.contextmanager
+def maybe_trace(label: str = "trace", profile_dir: Optional[str] = None):
+    """Trace the block with ``torch.profiler`` into
+    ``<profile_dir>/<label>/trace.json`` when ``profile_dir`` is given;
+    otherwise do nothing."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = os.path.join(profile_dir, label)
+    os.makedirs(out, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named region in a captured trace (a no-op outside tracing)."""
+    from torch.profiler import record_function
+    with record_function(name):
+        yield
 
 
 class StageTimer:

@@ -17,6 +17,7 @@ from seaweedfs_tpu.ops import gf256 as ref_gf256
 from seaweedfs_tpu.ops.rs_pallas import fuse_bitmat as ref_fuse_bitmat
 from seaweedfs_tpu.ops.rs_pallas import pick_tile
 from seaweedfs_tpu_torch.ops import rs_bitplane
+from seaweedfs_tpu_torch.ops.device_stats import DEVICE_STATS, K6A, K6B
 from seaweedfs_tpu_torch.ops.rs_bitplane import (bitmat_from_reference,
                                                  bitplane_matmul,
                                                  bitplane_matmul_batched,
@@ -210,7 +211,9 @@ def test_device_const_is_padded_byte_major(dtype, u):
 
 
 def test_cpu_tensors_never_launch():
-    before = (bitplane_matmul.launches, bitplane_matmul_batched.launches)
+    before = (DEVICE_STATS.launch_count(K6A),
+              DEVICE_STATS.launch_count(K6B))
+    calls = DEVICE_STATS.snapshot()["dispatches"]
     coeffs = _geometry("rs_10_4")
     bm = fuse_bitmat(coeffs)
     data = torch.from_numpy(_data(10, 500, 1))
@@ -219,8 +222,12 @@ def test_cpu_tensors_never_launch():
     for u in (2, 4):
         bitplane_matmul_batched(torch.from_numpy(block_diag_bitmat(bm, u)),
                                 data, 4, u, "bf16")
-    assert (bitplane_matmul.launches,
-            bitplane_matmul_batched.launches) == before == (0, 0)
+    assert (DEVICE_STATS.launch_count(K6A),
+            DEVICE_STATS.launch_count(K6B)) == before == (0, 0)
+    # each call one dispatch of its entry, the plain version
+    now = DEVICE_STATS.snapshot()["dispatches"]
+    assert (now[K6A] - calls.get(K6A, 0), now[K6B] - calls.get(K6B, 0)) \
+        == (3, 2)
     assert rs_bitplane._lib is None  # nothing was built or loaded
 
 

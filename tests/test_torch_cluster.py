@@ -89,8 +89,9 @@ class Cluster:
             from seaweedfs_tpu_torch.client import operation as op
             from seaweedfs_tpu_torch.server.master import MasterServer
             from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+            # no repair loop: the flow's lost shards are ec.rebuild's
             self.master = MasterServer(port=0, pulse_seconds=pulse,
-                                       seed=SEED).start()
+                                       seed=SEED, repair_interval=0).start()
         self.op, self.CommandEnv, self.run_command = \
             op, CommandEnv, run_command
         kinds = kinds or [kind] * n

@@ -17,6 +17,7 @@ from seaweedfs_tpu.ops.codec import NumpyCodec as RefNumpyCodec
 from seaweedfs_tpu.ops.codec import host_matmul
 from seaweedfs_tpu.ops.rs_pallas import fused_matmul
 from seaweedfs_tpu_torch.ops import gf_plan, rs_hopper, telemetry
+from seaweedfs_tpu_torch.ops.device_stats import DEVICE_STATS, K1
 from seaweedfs_tpu_torch.ops.gf_plan import GfPlan, make_plan
 from seaweedfs_tpu_torch.ops.rs_hopper import gf_matmul
 from seaweedfs_tpu_torch.ops.rs_torch import TorchCodec
@@ -288,12 +289,15 @@ def test_plan_rejects_a_tensor_the_kernel_cannot_read(field):
 def test_gf_matmul_takes_a_plan_on_the_cpu():
     """A CPU plan runs the plain version (with the plan's coefficients)
     and never loads or launches the kernel."""
-    before = gf_matmul.launches
+    before = DEVICE_STATS.launch_count(K1)
+    calls = DEVICE_STATS.snapshot()["dispatches"].get(K1, 0)
     coeffs = _geometry("pb_decode_0_7_11_12")
     data = _data(coeffs.shape[1], 300, 2)
     got = gf_matmul(make_plan(coeffs), torch.from_numpy(data)).numpy()
     assert np.array_equal(got, host_matmul(coeffs, data))
-    assert gf_matmul.launches == before
+    assert DEVICE_STATS.launch_count(K1) == before == 0
+    # one call, the plain one
+    assert DEVICE_STATS.snapshot()["dispatches"][K1] == calls + 1
     assert rs_hopper._lib is None
     with pytest.raises(ValueError):  # k does not match
         gf_matmul(make_plan(coeffs), torch.zeros((3, 8), dtype=torch.uint8))

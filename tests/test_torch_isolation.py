@@ -7,8 +7,10 @@ streams an encode from one server's readonly volume to another server,
 drives a volume server's needle data plane (create, write, read,
 delete, vacuum, encode, a GET through a lost shard), and runs a cluster
 (a master, three heartbeating volume servers, replicated writes, the
-shell's ec.encode, ec.rebuild, ec.balance and ec.decode), with both
-made unimportable."""
+shell's ec.encode, ec.rebuild, ec.balance and ec.decode) and its
+integrity plane (scrubs, a finding drained into a repair, a lost shard
+rebuilt by the master's repair queue, naive degraded reads, the device
+accounting and a torch.profiler trace), with both made unimportable."""
 
 import ast
 import os
@@ -86,7 +88,11 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/client/vid_map.py",
                  "seaweedfs_tpu_torch/shell/command_env.py",
                  "seaweedfs_tpu_torch/shell/command_ec.py",
+                 "seaweedfs_tpu_torch/shell/command_cluster.py",
                  "seaweedfs_tpu_torch/shell/__main__.py",
+                 "seaweedfs_tpu_torch/ops/device_stats.py",
+                 "seaweedfs_tpu_torch/stats/repair_queue.py",
+                 "seaweedfs_tpu_torch/util/profiling.py",
                  "seaweedfs_tpu_torch/tools/kernel_exp.py", "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc"):
@@ -183,7 +189,9 @@ def test_port_runs_with_jax_unimportable(tmp_path):
                                          slab=source.slab) == [3]
         assert [open(base + to_ext(i), "rb").read() for i in range(14)] == pb
         from seaweedfs_tpu_torch.tools import kernel_exp  # noqa: F401
-        assert gf_matmul.launches == 0
+        assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
+        assert sys.modules["seaweedfs_tpu_torch.ops.device_stats"] \
+            .DEVICE_STATS.launch_count("rs_hopper.gf_matmul") == 0
         assert not any(m.split(".")[0] in {FORBIDDEN!r}
                        for m, v in sys.modules.items() if v is not None)
         print("PORT-OK")
@@ -252,7 +260,9 @@ def test_degraded_read_and_scrub_with_jax_unimportable(tmp_path):
         assert res["corrupt_shards"] == [12] and res["corrupt_slabs"] == [0]
         assert res["path"] == "device"
         eng.close()
-        assert gf_matmul.launches == 0
+        assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
+        assert sys.modules["seaweedfs_tpu_torch.ops.device_stats"] \
+            .DEVICE_STATS.launch_count("rs_hopper.gf_matmul") == 0
         assert not any(m.split(".")[0] in {FORBIDDEN!r}
                        for m, v in sys.modules.items() if v is not None)
         print("PORT-OK")
@@ -303,7 +313,9 @@ def test_network_repair_with_jax_unimportable(tmp_path):
         assert open(os.path.join(sdir, "1" + to_ext(6)), "rb").read() == want
         assert 0 < stats["gather_remote_bytes"] < 10 * len(want)
         assert sorted(os.listdir(sdir)) == ["1.ec06", "1.ecx"]
-        assert gf_matmul.launches == 0
+        assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
+        assert sys.modules["seaweedfs_tpu_torch.ops.device_stats"] \
+            .DEVICE_STATS.launch_count("rs_hopper.gf_matmul") == 0
         assert not any(m.split(".")[0] in {FORBIDDEN!r}
                        for m, v in sys.modules.items() if v is not None)
         print("PORT-OK")
@@ -373,7 +385,9 @@ def test_streaming_spread_with_jax_unimportable(tmp_path):
                 == want, sid
         assert not [f for d in (src, hdir) for f in os.listdir(d)
                     if f.endswith(".part")]
-        assert gf_matmul.launches == 0
+        assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
+        assert sys.modules["seaweedfs_tpu_torch.ops.device_stats"] \
+            .DEVICE_STATS.launch_count("rs_hopper.gf_matmul") == 0
         assert not any(m.split(".")[0] in {FORBIDDEN!r}
                        for m, v in sys.modules.items() if v is not None)
         print("PORT-OK")
@@ -440,7 +454,9 @@ def test_data_plane_with_jax_unimportable(tmp_path):
                 assert e.status == 404
         finally:
             vs.stop()
-        assert gf_matmul.launches == 0
+        assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
+        assert sys.modules["seaweedfs_tpu_torch.ops.device_stats"] \
+            .DEVICE_STATS.launch_count("rs_hopper.gf_matmul") == 0
         assert not any(m.split(".")[0] in {FORBIDDEN!r}
                        for m, v in sys.modules.items() if v is not None)
         print("PORT-OK")
@@ -471,7 +487,8 @@ def test_cluster_with_jax_unimportable(tmp_path):
         from seaweedfs_tpu_torch.server.volume_server import VolumeServer
         from seaweedfs_tpu_torch.shell import CommandEnv, run_command
         root = {str(tmp_path)!r}
-        m = MasterServer(port=0, pulse_seconds=1, seed=1).start()
+        m = MasterServer(port=0, pulse_seconds=1, seed=1,
+                         repair_interval=0).start()
         servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
                                 master_url=m.url, pulse_seconds=1,
                                 max_volume_counts=[20],
@@ -522,7 +539,129 @@ def test_cluster_with_jax_unimportable(tmp_path):
             for vs in servers:
                 vs.stop()
             m.stop()
-        assert gf_matmul.launches == 0
+        assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
+        assert sys.modules["seaweedfs_tpu_torch.ops.device_stats"] \
+            .DEVICE_STATS.launch_count("rs_hopper.gf_matmul") == 0
+        assert not any(mod.split(".")[0] in {FORBIDDEN!r}
+                       for mod, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_integrity_with_jax_unimportable(tmp_path):
+    """A port master with a 0.2 s repair loop and three port
+    VolumeServers on the CPU (background scrub off): ec.encode, a clean
+    volume.ec.scrub -trigger, a flipped byte found by a scrub and
+    repaired by the master's drain, a deleted shard rebuilt by it, the
+    shell's cluster.repairs, cluster.devices and volume.ec.degraded,
+    GET /admin/devices, a naive degraded read, and a torch.profiler
+    trace."""
+    script = textwrap.dedent(f"""
+        import hashlib, io, os, sys, time
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from seaweedfs_tpu_torch.client import operation as op
+        from seaweedfs_tpu_torch.ops.device_stats import K1
+        from seaweedfs_tpu_torch.server.http_util import (get_json,
+                                                          http_call,
+                                                          post_json)
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+        from seaweedfs_tpu_torch.util.profiling import annotate, maybe_trace
+        root = {str(tmp_path)!r}
+        m = MasterServer(port=0, pulse_seconds=1, seed=1,
+                         repair_interval=0.2).start()
+        servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
+                                master_url=m.url, pulse_seconds=1,
+                                max_volume_counts=[20], device="cpu",
+                                scrub_idle_s=0, scrub_rate_mbps=0,
+                                degraded_mode="naive" if i == 2
+                                else "batch").start() for i in range(3)]
+
+        def shell(line):
+            out = io.StringIO()
+            run_command(CommandEnv(m.url, out=out), line)
+            assert "error:" not in out.getvalue(), out.getvalue()
+            return out.getvalue()
+
+        def wait(pred):
+            t0 = time.monotonic()
+            while not pred():
+                assert time.monotonic() - t0 < 60
+                time.sleep(0.05)
+
+        def resolved(kind):
+            return [i for i in get_json("http://" + m.url +
+                                        "/cluster/repairs")[
+                "resolved_recent"] if i["kind"] == kind]
+
+        try:
+            rng = np.random.default_rng(0)
+            data = {{}}
+            for i in range(8):
+                data[op.upload_data(m.url, rng.bytes(30_000),
+                                    collection="iso")] = None
+            for fid in data:
+                data[fid] = op.read_file(m.url, fid)
+            by_vid = {{}}
+            for fid in data:
+                by_vid.setdefault(int(fid.split(",")[0]), []).append(fid)
+            vid = max(by_vid, key=lambda v: len(by_vid[v]))
+            assert "ec encoded" in shell("ec.encode -volumeId %d" % vid)
+            wait(lambda: len(get_json("http://%s/cluster/ec_lookup"
+                                      "?volumeId=%d" % (m.url, vid))[
+                "shards"]) == 14)
+            with maybe_trace("scrub", root + "/trace"):
+                with annotate("scrub"):
+                    lines = shell("volume.ec.scrub -trigger")
+            assert os.path.exists(root + "/trace/scrub/trace.json")
+            assert lines.count("findings=0") == 3, lines
+            vs = next(v for v in servers
+                      if v.store.find_ec_volume(vid) is not None)
+            ev = vs.store.find_ec_volume(vid)
+            sid = sorted(ev.shards)[0]
+            path = ev.base_name + ".ec%02d" % sid
+            want = hashlib.sha256(open(path, "rb").read()).hexdigest()
+            with open(path, "r+b") as f:
+                f.seek(os.path.getsize(path) // 2)
+                b = f.read(1)
+                f.seek(-1, 1)
+                f.write(bytes([b[0] ^ 1]))
+            out = post_json("http://%s/admin/ec/scrub?volume=%d"
+                            % (vs.url, vid))
+            assert out["corrupt_shards"] == [sid], out
+            wait(lambda: resolved("corruption"))
+            assert resolved("corruption")[0]["via"] == "scrub_repair"
+            assert hashlib.sha256(open(path, "rb").read()).hexdigest() \
+                == want
+            post_json("http://%s/admin/ec/delete_shards?volume=%d"
+                      "&collection=iso&shards=%d" % (vs.url, vid, sid))
+            wait(lambda: resolved("lost_shard"))
+            assert "0 open, 2 resolved" in shell("cluster.repairs")
+            assert shell("cluster.devices").count("platform=cpu") == 3
+            shell("volume.ec.degraded")
+            devices = get_json("http://%s/admin/devices" % vs.url)
+            assert devices["stats"]["dispatches"][K1] > 0
+            assert not devices["stats"]["launches"]   # all on the CPU
+            for fid, body in data.items():
+                assert http_call("GET", "http://%s/%s"
+                                 % (servers[2].url, fid)) == body
+        finally:
+            m.stop()
+            for v in servers:
+                v.stop()
+        assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
+        assert sys.modules["seaweedfs_tpu_torch.ops.device_stats"] \
+            .DEVICE_STATS.launch_count("rs_hopper.gf_matmul") == 0
         assert not any(mod.split(".")[0] in {FORBIDDEN!r}
                        for mod, v in sys.modules.items() if v is not None)
         print("PORT-OK")

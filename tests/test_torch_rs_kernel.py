@@ -12,6 +12,7 @@ import torch
 from seaweedfs_tpu.ops.codec import NumpyCodec, host_matmul
 from seaweedfs_tpu.ops.rs_pallas import fused_matmul
 from seaweedfs_tpu_torch.ops import rs_hopper
+from seaweedfs_tpu_torch.ops.device_stats import DEVICE_STATS, K1
 from seaweedfs_tpu_torch.ops.gf_plan import make_plan
 from seaweedfs_tpu_torch.ops.rs_hopper import gf_matmul, gf_matmul_plain
 from seaweedfs_tpu_torch.ops.rs_torch import TorchCodec, resolve_device
@@ -84,14 +85,17 @@ def test_large_matrix_matches_oracle():
 
 
 def test_cpu_never_launches_the_kernel():
-    before = gf_matmul.launches
+    before = DEVICE_STATS.launch_count(K1)
+    calls = DEVICE_STATS.snapshot()["dispatches"].get(K1, 0)
     k, m = 10, 4
     data = np.random.default_rng(1).integers(0, 256, (k, 300),
                                              dtype=np.uint8)
     _port(NumpyCodec(k, m).matrix[k:], data)
     codec = TorchCodec(k, m, device="cpu", small_dispatch_bytes=0)
     codec.encode(data)
-    assert gf_matmul.launches == before
+    assert DEVICE_STATS.launch_count(K1) == before == 0
+    # two calls of the entry, each the plain version
+    assert DEVICE_STATS.snapshot()["dispatches"][K1] == calls + 2
     assert rs_hopper._lib is None  # nothing was built or loaded
 
 
