@@ -171,9 +171,9 @@
    order (each prepares its body, then waits until the previous POST
    is answered, so the .dat layout, and with it the needles on shard 1,
    is fixed by the seed), until their data
-   fills DATA_PLANE_BYTES (256 MiB: the leg was cut from VOLUME_BYTES to
-   keep the smoke's time with step 14 beside it; sizes log-uniform over
-   1 KiB-4 MiB, about 500 needles; each named, a third with a mime, a third octet-stream, every
+   fills DATA_PLANE_BYTES (128 MiB: the leg was cut from VOLUME_BYTES to
+   keep the smoke's time with steps 14-16 beside it; sizes log-uniform
+   over 1 KiB-4 MiB, about 250 needles; each named, a third with a mime, a third octet-stream, every
    fifth with a Seaweed-* pair; the reply's name, size and ETag checked,
    each fid's sha256 kept); every needle GET back (sha256 and ETag);
    every tenth DELETEd and 404 after; the vacuum (check > 0, compact,
@@ -202,8 +202,8 @@
    which start while the writes run and must have registered before the
    encode. Four client threads assign (client/operation) and POST seeded needles
    (the data plane's plan: log-uniform over 1 KiB-4 MiB until
-   CLUSTER_BYTES, 256 MiB, cut from VOLUME_BYTES to make room for step
-   15 within the smoke's time) to the server /dir/assign names, which
+   CLUSTER_BYTES, 128 MiB, cut from VOLUME_BYTES to make room for steps
+   15 and 16 within the smoke's time) to the server /dir/assign names, which
    fans each out to
    the other replica; each reply's size and ETag checked. Every needle
    GET back from A and from B (the locations of /dir/lookup) and through
@@ -263,10 +263,39 @@
    detect-to-resolve seconds of both incidents, K1 launches by server)
    as JSON.
 
+16. The multi-device tier, after step 15 and before the decode leg
+   rewrites the .dat, on the main 1 GiB volume. Two
+   rank processes start first (each one position on the card, joined
+   over gloo: NCCL refuses two ranks on one device, and the smoke prints
+   that reason) and wait while (a) and (b) run. (a) MeshCodec over
+   make_codec_mesh([cuda:0, cuda:0]), two 'data' positions on the one
+   card: write_ec_files (pipelined, 8 MiB slabs, each split into two
+   4 MiB lanes staged, copied and launched on their own streams) into a
+   directory over a hard link to the .dat, all 14 shards sha256-equal to
+   step 5's; then a seeded 4 removed and rebuilt (pipelined, a piece per
+   position), sha256-identical. Each must show mesh dispatches = slabs,
+   width 2, busy 1.0 at both positions, one plan upload and K1 launches
+   = 2 x sharded dispatches; MB/s printed. A (10, 4096) product crosses
+   over to one position (no mesh dispatch, width 1). (b)
+   distributed_ec_step(k=10, m=4, n_per_device=8 MiB) on a (2,2) mesh of
+   four positions on the card: diff 0, 8 K1 launches (the rebuild's two
+   (4,5) partials per column block XOR-folded), the parity equal in full
+   to TorchCodec's single-device output and to the numpy oracle on
+   sampled columns. (c) The ranks run multihost_ec_step(n_per_device=8
+   MiB) on their (1,2) mesh, their partials all-gathered through pinned
+   host memory and XOR-folded; each rank's summary must be ok, with its
+   own K1 launches (2, from its own ops/device_stats, reset just before)
+   and the card's name. K1 is first held against its plain version at
+   step 16's shapes ((4,10) at a 4 MiB lane, +1, a misaligned base; the
+   two (4,5) decode blocks at 8 MiB) and timed there (gf_matmul_mesh in
+   the kernels line).
+
 Every leg runs with every kernel's launch count (ops/device_stats) set
-to 0 just before it and read just after; a leg of steps 5-8 and 10-15
-whose K1 launches in this process differ from its dispatches, or that
-launched nothing, fails the smoke. Each leg's wall is printed. Every
+to 0 just before it and read just after; a leg of steps 5-8 and 10-16
+whose K1 launches in this process differ from its dispatches (two for a
+dispatch sharded over step 16's two positions; step 16 (b)'s programs
+count eight launches and no codec dispatch), or that launched nothing,
+fails the smoke. Each leg's wall is printed. Every
 volume server the smoke starts, in its process or as a process, runs
 with its background scrub off (scrub_idle_s 0): a scrub runs only when
 a leg asks for it.
@@ -287,6 +316,7 @@ import math
 import os
 import select
 import shutil
+import socket
 import subprocess
 import sys
 import threading
@@ -323,14 +353,14 @@ SPREAD_LOCAL = (0, 1)       # the spread source keeps these shards
 SPREAD_HOLDS = {"A": range(2, 6), "B": range(6, 10), "C": range(10, 14)}
 HOLDER_START_S = 60.0       # a holder prints its port within this
 DATA_VID = 7                # the data-plane leg's volume
-DATA_PLANE_BYTES = 256 << 20  # its needles' data (cut from VOLUME_BYTES)
+DATA_PLANE_BYTES = 128 << 20  # its needles' data (cut from VOLUME_BYTES)
 DATA_MIN = 1 << 10          # its needle sizes, log-uniform between
 DATA_MAX = 4 << 20
 DATA_THREADS = 4            # its client threads
 DATA_LOST = 1               # the shard it loses after the encode
 DATA_EC_DELETES = 3         # EC DELETEs at its end
 CLUSTER_COLLECTION = "smoke"  # the cluster leg's collection
-CLUSTER_BYTES = 256 << 20   # its needles' data (cut from VOLUME_BYTES)
+CLUSTER_BYTES = 128 << 20   # its needles' data (cut from VOLUME_BYTES)
 INTEGRITY_SLOTS = {"A": 8, "B": 10, "C": 8}  # B the freest: shard 0 on B
 INTEGRITY_REPAIR_S = 0.5    # the integrity leg's repair-loop period
 INTEGRITY_GETS = 32         # its naive degraded GETs
@@ -341,6 +371,11 @@ CLUSTER_SLOTS = {"A": 20, "B": 8, "C": 8, "D": 8}  # A the freest
 CLUSTER_PULSE_S = 1.0       # its heartbeats; the master prunes after 5
 CLUSTER_THREADS = 4         # its client threads
 PRUNE_WAIT_S = 30.0         # bound on the wait for the prune of a killed one
+MESH_LANE_N = MAIN_N // 2   # step 16 (a): an 8 MiB slab over two positions
+MESH_STEP_N = MAIN_N        # step 16 (b), (c): columns per mesh position
+RANK_START_S = 120.0        # a rank process joins its group within this
+MESH_DEVICE = "cuda:0"      # step 16's positions' card (a CPU rehearsal
+                            # sets "cpu")
 CRC_SIZES = (0, 1, 7, 8, 4097, (1 << 20) + 3)
 CRC_PLAIN_BYTES = 1 << 20   # the plain version's timed input
 #: K1's widths on the degraded legs: a flat needle batch (1 MiB of a
@@ -1991,7 +2026,7 @@ def data_plane_leg(np, port, work, seed):
     """A port volume server's needle data plane, end to end: an
     in-process VolumeServer on the card (127.0.0.1, an empty directory,
     RS(10,4), flat). /admin/assign_volume; DATA_THREADS threads POST the
-    seeded needles (_needle_plan, about 500 over DATA_PLANE_BYTES) as
+    seeded needles (_needle_plan, about 250 over DATA_PLANE_BYTES) as
     multipart uploads in the plan's order (a thread sends needle j once
     needle j - 1 is answered: the .dat layout is the seed's); every needle GET back (sha256 and Etag); every
     tenth DELETEd and 404 after; the vacuum (check > 0, compact, commit,
@@ -2975,6 +3010,247 @@ def integrity_leg(np, port, work, base, res, seed):
     return numbers
 
 
+def mesh_geometries(sharded_ec):
+    """(label, coeffs, widths) of step 16's K1 products: the encode rows
+    at a mesh lane (an 8 MiB slab over two positions) and the two (4,5)
+    blocks of the (6,7,8,9) decode plan that the (2,2) mesh's 'shard'
+    positions multiply."""
+    from seaweedfs_tpu_torch.ops import gf256
+    dec = sharded_ec.decode_coeffs(10, 4, list(range(6)) + [10, 11, 12, 13],
+                                   [6, 7, 8, 9])
+    return [("mesh lane encode", gf256.build_matrix(10, 14)[10:],
+             (1, 4407, MESH_LANE_N, MESH_LANE_N + 1)),
+            ("mesh rebuild partial", dec[:, :5],
+             (1, 4407, MESH_STEP_N, MESH_STEP_N + 1)),
+            ("mesh rebuild partial, second block", dec[:, 5:],
+             (MESH_STEP_N,))]
+
+
+_RANK = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[3])
+import torch
+from seaweedfs_tpu_torch.ops import rs_hopper
+from seaweedfs_tpu_torch.ops.device_stats import DEVICE_STATS
+from seaweedfs_tpu_torch.parallel import init_distributed, multihost_ec_step
+from seaweedfs_tpu_torch.parallel.multihost import shutdown
+dev = sys.argv[5]
+init_distributed(sys.argv[1], 2, int(sys.argv[2]), devices=[dev],
+                 backend="gloo")
+if dev.startswith("cuda"):
+    torch.zeros(1, device=dev)
+    rs_hopper._library()
+print("READY", flush=True)
+if sys.stdin.readline().strip() == "go":
+    DEVICE_STATS.reset_counts()
+    t0 = time.perf_counter()
+    out = multihost_ec_step(k=10, m=4, n_per_device=int(sys.argv[4]))
+    if dev.startswith("cuda"):
+        torch.cuda.synchronize()
+    out["seconds"] = round(time.perf_counter() - t0, 3)
+    print("RANK " + json.dumps(out), flush=True)
+shutdown()
+"""
+
+
+class Ranks:
+    """Step 16 (c)'s two rank processes, each with one position on
+    MESH_DEVICE, joined over gloo. They start, build their CUDA context and
+    join the group while the smoke runs (a) and (b), and wait for ``go``
+    on their standard input. A rank that does not report READY within
+    RANK_START_S, or fails, fails the run."""
+
+    def __init__(self, work):
+        self.log = os.path.join(work, "rank{}.log")
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        self.coord = f"127.0.0.1:{s.getsockname()[1]}"
+        s.close()
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-c", _RANK, self.coord, str(r), ROOT,
+             str(MESH_STEP_N), MESH_DEVICE], cwd=ROOT, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=open(self.log.format(r), "wb"),
+            text=True) for r in (0, 1)]
+
+    def _line(self, r, prefix, timeout):
+        proc, deadline = self.procs[r], time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            ready, _, _ = select.select([proc.stdout], [], [], 0.5)
+            if ready:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                if line.startswith(prefix):
+                    return line
+        with open(self.log.format(r), "rb") as f:
+            err = f.read()[-3000:].decode("utf-8", "replace")
+        raise AssertionError(f"rank {r} sent no {prefix!r} line (exit "
+                             f"{proc.poll()}): {err}")
+
+    def run(self):
+        """Both ranks ready, then go; each rank's summary."""
+        t0 = time.perf_counter()
+        for r in (0, 1):
+            self._line(r, "READY", RANK_START_S)
+        ready_s = time.perf_counter() - t0
+        for proc in self.procs:
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+        out = [json.loads(self._line(r, "RANK ", RANK_START_S)[5:])
+               for r in (0, 1)]
+        for r, proc in enumerate(self.procs):
+            if proc.wait(timeout=60) != 0:
+                raise AssertionError(f"rank {r} exited {proc.returncode}")
+        return out, ready_s
+
+    def stop(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            proc.stdout.close()
+            proc.stdin.close()
+
+
+def mesh_codec_leg(np, port, work, base, res, seed):
+    """Step 16 (a): the 1 GiB volume encoded and a seeded 4 rebuilt
+    through MeshCodec over two 'data' positions on the one card, in a
+    directory of its own over a hard link to the .dat."""
+    ec, ops, _ = port
+    from seaweedfs_tpu_torch.parallel import MeshCodec
+    from seaweedfs_tpu_torch.parallel.mesh import make_codec_mesh
+    k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
+    total = k + m
+    d = os.path.join(work, "mesh")
+    os.makedirs(d)
+    mbase = os.path.join(d, "1")
+    _link(base + ".dat", mbase + ".dat")
+    mesh = make_codec_mesh([MESH_DEVICE] * 2)
+    codec = MeshCodec(k, m, mesh=mesh)
+    print(f"mesh codec over {mesh}: two 'data' positions on one card (an "
+          f"exactness check of the multi-device path, not a multi-GPU "
+          f"speed)")
+    out = {}
+    lost = _seeded4(np, seed, total)
+    for what in ("encode", f"rebuild {lost}"):
+        st = {}
+        start = _k1()
+        t0 = time.perf_counter()
+        if what == "encode":
+            ec.write_ec_files(mbase, codec=codec, stats=st)
+        else:
+            for sid in lost:
+                os.remove(mbase + ec.to_ext(sid))
+            if ec.rebuild_ec_files(mbase, codec=codec, stats=st) != \
+                    list(lost):
+                raise AssertionError(f"mesh rebuild of {lost} failed")
+        secs = time.perf_counter() - t0
+        launches = _k1() - start
+        _check_shas(ec, mbase, res["shas"], f"mesh {what}")
+        busy = st["device_busy_frac"]
+        if st["mesh_dispatches"] != res["n_slabs"] or \
+                st["dispatches"] != res["n_slabs"] or \
+                st["dispatch_width_devices"] != 2 or \
+                sorted(busy.values()) != [1.0, 1.0] or \
+                st["bitmat_uploads"] != 1 or \
+                launches != 2 * st["mesh_dispatches"]:
+            raise AssertionError(f"mesh {what}: counters {st}, {launches} "
+                                 f"K1 launches; want {res['n_slabs']} mesh "
+                                 f"dispatches over 2 positions evenly, one "
+                                 f"upload, 2 launches each")
+        moved = VOLUME_BYTES if what == "encode" else st["survivor_bytes"]
+        out[what.split()[0]] = {
+            "secs": round(secs, 3), "mb_s": round(moved / secs / 1e6, 1),
+            "dispatches": st["dispatches"],
+            "mesh_dispatches": st["mesh_dispatches"], "launches": launches,
+            "busy": busy, "mesh_device_bytes": st["mesh_device_bytes"]}
+        print(f"mesh {what}: {moved / secs / 1e6:.1f} MB/s ({secs:.2f} s), "
+              f"{st['mesh_dispatches']} mesh dispatches = slabs, width "
+              f"{st['dispatch_width_devices']} positions, busy {busy}, "
+              f"bytes {st['mesh_device_bytes']}, {launches} K1 launches = "
+              f"2 x sharded dispatches, {st['bitmat_uploads']} upload, "
+              f"phases {st['phases']} — 14 shards sha256-identical to "
+              f"step 5's")
+    shutil.rmtree(d)
+    return out
+
+
+def mesh_crossover_leg(np, port):
+    """Step 16 (a): a sub-1 MiB product through the two-position mesh
+    codec runs at position 0 alone (width 1, no mesh dispatch)."""
+    _, ops, _ = port
+    from seaweedfs_tpu_torch.ops import telemetry
+    from seaweedfs_tpu_torch.parallel import MeshCodec
+    from seaweedfs_tpu_torch.parallel.mesh import make_codec_mesh
+    codec = MeshCodec(10, 4, mesh=make_codec_mesh([MESH_DEVICE] * 2))
+    data = np.random.default_rng(5).integers(0, 256, (10, 4096),
+                                             dtype=np.uint8)
+    before = telemetry.STATS.snapshot()
+    got = codec.encode(data)
+    moved = telemetry.delta(before)
+    if moved["mesh_dispatches"] != 0 or \
+            moved["dispatch_width_devices"] != 1 or \
+            not np.array_equal(got, ops.NumpyCodec(10, 4).encode(data)):
+        raise AssertionError(f"mesh crossover: {moved}")
+    print(f"mesh crossover: (10, 4096) = {10 * 4096} B < 1 MiB ran at one "
+          f"position: {moved['dispatches']} dispatch, 0 mesh dispatches, "
+          f"width {moved['dispatch_width_devices']}")
+
+
+def sharded_step_leg(np):
+    """Step 16 (b): distributed_ec_step on a (2,2) mesh of four positions
+    on MESH_DEVICE at MESH_STEP_N columns a position."""
+    from seaweedfs_tpu_torch.parallel import distributed_ec_step, make_mesh
+    mesh = make_mesh((2, 2), devices=[MESH_DEVICE] * 4)
+    t0 = time.perf_counter()
+    parity, rebuilt, diff = distributed_ec_step(mesh, 10, 4, MESH_STEP_N)
+    secs = time.perf_counter() - t0
+    if diff != 0:
+        raise AssertionError(f"distributed_ec_step: max |diff| {diff}")
+    print(f"distributed_ec_step on {mesh}: diff 0, {secs:.2f} s "
+          f"(seeded data, encode over 'data' with parity rows over 'shard', "
+          f"rebuild of 6-9 with its contraction over 'shard', the two "
+          f"(4,5) partials XOR-folded)")
+    return {"parity": parity, "secs": round(secs, 3)}
+
+
+def check_step_parity(torch, np, ops, parity):
+    """Step 16 (b)'s parity against TorchCodec's single-device K1 output
+    in full and the numpy oracle on sampled columns."""
+    n = 2 * MESH_STEP_N
+    data = np.random.default_rng(0).integers(0, 256, (10, n), dtype=np.uint8)
+    single = ops.get_codec(10, 4, device=MESH_DEVICE).encode(data)
+    if not np.array_equal(parity, single):
+        raise AssertionError("distributed_ec_step parity != TorchCodec's")
+    cols = np.random.default_rng(3).choice(n, 4096, replace=False)
+    if not np.array_equal(parity[:, cols],
+                          ops.NumpyCodec(10, 4).encode(data[:, cols])):
+        raise AssertionError("distributed_ec_step parity != numpy oracle")
+    print(f"distributed_ec_step parity (4, {n}) equal in full to "
+          f"TorchCodec's single-device K1 output and to the numpy oracle on "
+          f"4096 sampled columns")
+
+
+def check_ranks(torch, ranks, ready_s):
+    """Step 16 (c): both ranks' summaries."""
+    kind = torch.cuda.get_device_name(0)
+    for r, out in enumerate(ranks):
+        if not out["ok"] or out["process_index"] != r or \
+                out["process_count"] != 2 or out["global_devices"] != 2 or \
+                out["mesh_shape"] != {"data": 1, "shard": 2} or \
+                out["backend"] != "gloo" or out["device_kind"] != kind or \
+                out["k1_launches"] != 2 or \
+                out["parity_shards_checked"] < 1 or \
+                out["rebuilt_shards_checked"] < 1:
+            raise AssertionError(f"rank {r}: {out}")
+        print(f"rank {r}: {json.dumps(out)}")
+    print(f"two ranks over gloo on one card: both ok (a further "
+          f"{ready_s:.2f} s for both to be ready after (a) and (b)), K1 "
+          f"launches by rank "
+          f"{[out['k1_launches'] for out in ranks]}, each rank's blocks "
+          f"checked against the numpy oracle")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2995,6 +3271,7 @@ def run(args) -> int:
                                          gf256, gf_plan, rs_bitplane,
                                          rs_hopper, telemetry)
     from seaweedfs_tpu_torch.ops.codec import NumpyCodec
+    from seaweedfs_tpu_torch.parallel import sharded_ec
     from seaweedfs_tpu_torch.storage import crc
     from seaweedfs_tpu_torch.tools import kernel_exp
 
@@ -3043,6 +3320,9 @@ def run(args) -> int:
                 for label, c, widths in read_geos}
     (_, flat_row, _), (_, pb_rows, _), (_, syn, _), (_, pb_syn, _) = \
         read_geos
+    mesh_geos = mesh_geometries(sharded_ec)
+    mesh_err = check_kernel(torch, np, rs_hopper, gf_plan, mesh_geos, dev,
+                            args.seed + 9, misaligned=MESH_LANE_N)
     phase("K1 against its plain version")
     timed = time_kernel(torch, rs_hopper, gf_plan, kernel_exp,
                         timed_shapes(np, gf256, NumpyCodec, ops_codec)
@@ -3052,7 +3332,10 @@ def run(args) -> int:
                            ("degraded flat needle batch", flat_row, NEEDLE_N),
                            ("degraded piggyback wide", pb_rows, PB_WIDE_N),
                            ("scrub flat", syn, SCRUB_N),
-                           ("scrub piggyback", pb_syn, PB_SCRUB_N)],
+                           ("scrub piggyback", pb_syn, PB_SCRUB_N),
+                           ("mesh lane encode", mesh_geos[0][1], MESH_LANE_N),
+                           ("mesh rebuild partial", mesh_geos[1][1],
+                            MESH_STEP_N)],
                         dev, args.seed)
     phase("K1 timed")
     geos = [(label, c, BP_WIDTHS + ((MAIN_N,) if c.shape[0] <= 4 else ()))
@@ -3074,18 +3357,21 @@ def run(args) -> int:
     port = (ec, ops, storage)
     legs, walls = {}, {}
 
-    def drive(name, fn, *fn_args, kernel=True):
+    def drive(name, fn, *fn_args, kernel=True, per_dispatch=1, extra=0):
         """One leg of the main path, every kernel's launches (this
         process's ops/device_stats launches) set to 0 just before it
-        and read just after; K1's must equal the leg's dispatches, and a
-        kernel leg must launch. Prints the leg's wall."""
+        and read just after; K1's must equal the leg's dispatches (times
+        ``per_dispatch``, the mesh positions of a sharded one, plus
+        ``extra``, the launches of programs that count no dispatch), and
+        a kernel leg must launch. Prints the leg's wall."""
         t0 = time.perf_counter()
         device_stats.DEVICE_STATS.reset_counts()
         before = telemetry.STATS.snapshot()
         out = fn(*fn_args)
         launches = _k1()
         dispatches = telemetry.delta(before)["dispatches"]
-        if launches != dispatches or (kernel and launches < 1):
+        if launches != per_dispatch * dispatches + extra or \
+                (kernel and launches < 1):
             raise AssertionError(f"{name}: {launches} kernel launches for "
                                  f"{dispatches} dispatches")
         legs[name] = launches
@@ -3149,6 +3435,25 @@ def run(args) -> int:
               pb["shas"], dat, "piggyback")
         integrity = drive("integrity", integrity_leg, np, port, work, base,
                           res, args.seed + 71)
+        # step 16: the multi-device tier, on the volume before the decode
+        # leg rewrites its .dat; the ranks of (c) start now
+        t16 = time.perf_counter()
+        print("two ranks on one card: NCCL refuses two ranks on one device "
+              "(each rank needs a card of its own), so they join over "
+              "gloo, their partials staged through pinned host memory")
+        ranks = Ranks(work)
+        try:
+            mesh = drive("mesh codec", mesh_codec_leg, np, port, work, base,
+                         res, args.seed + 73, per_dispatch=2)
+            drive("mesh crossover", mesh_crossover_leg, np, port)
+            step = drive("sharded step", sharded_step_leg, np, extra=8)
+            check_step_parity(torch, np, ops, step.pop("parity"))
+            rank_out, ready_s = ranks.run()
+        finally:
+            ranks.stop()
+        check_ranks(torch, rank_out, ready_s)
+        print(f"step 16 (the multi-device tier) in "
+              f"{time.perf_counter() - t16:.2f} s")
         drive("decode", decode_leg, np, port, base, res, args.seed,
               kernel=False)
         crc_phase(np, crc)
@@ -3170,17 +3475,22 @@ def run(args) -> int:
                              f"this process, A and the naive server "
                              f"{by_server['A']}, {integrity['naive']}")
     other = {n: sum(by_server[n].values()) for n in ("B", "C")}
-    launches = sum(legs.values()) + sum(other.values())
+    rank_launches = [out["k1_launches"] for out in rank_out]
+    mesh_launches = legs["mesh codec"] + legs["mesh crossover"] + \
+        legs["sharded step"] + sum(rank_launches)
+    launches = sum(legs.values()) + sum(other.values()) + sum(rank_launches)
     print(f"main path (flat, traced, trace repair, streaming, degraded "
           f"flat, scrub flat, net trace repair, net full rebuild, net "
           f"degraded flat, net scrub flat, spread flat, piggyback, plane "
           f"repair, streaming piggyback, degraded piggyback, scrub "
           f"piggyback, net plane repair, spread piggyback, integrity, "
-          f"decode, data plane, cluster) in "
+          f"mesh codec, mesh crossover, sharded step, ranks, decode, data "
+          f"plane, cluster) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
-          f"= dispatches ({sum(other.values())} of them in the integrity "
-          f"leg's B and C, {json.dumps(other)}), by leg in this process "
-          f"{json.dumps(legs)}; builds {build_s:.2f} s")
+          f"= dispatches, 2 a sharded mesh dispatch ({sum(other.values())} "
+          f"of them in the integrity leg's B and C, {json.dumps(other)}, "
+          f"{sum(rank_launches)} in step 16's ranks, {rank_launches}), by "
+          f"leg in this process {json.dumps(legs)}; builds {build_s:.2f} s")
     print(f"main path walls by leg: {json.dumps(walls)}")
     integrity_scrub = sum(n for server in by_server.values()
                           for what, n in server.items() if "scrub" in what
@@ -3222,7 +3532,17 @@ def run(args) -> int:
                   max(read_err["scrub flat (4,14)"],
                       read_err["scrub piggyback (128,448)"]),
                   timed["scrub flat"], timed["scrub piggyback"],
-                  second_key="piggyback")]
+                  second_key="piggyback"),
+        _k1_entry("gf_matmul_mesh", mesh_launches, mesh_err,
+                  timed["mesh lane encode"], timed["mesh rebuild partial"],
+                  second_key="rebuild_partial")
+        | {"launches_by_step": {
+            "mesh codec": legs["mesh codec"],
+            "mesh crossover": legs["mesh crossover"],
+            "sharded step": legs["sharded step"],
+            "ranks": rank_launches},
+           "mesh_encode_mb_s": mesh["encode"]["mb_s"],
+           "mesh_rebuild_mb_s": mesh["rebuild"]["mb_s"]}]
     for u, dt in VARIANTS:
         name = rs_bitplane.variant_name(u, dt)
         flat_row = next(row for row in exp_flat if row["name"] == name)

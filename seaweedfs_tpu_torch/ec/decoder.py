@@ -220,7 +220,7 @@ def rebuild_ec_file_repair(base_name: str, lost_sid: int, source, plan,
     failure removes the partial shard file before propagating."""
     codec = codec or get_codec(DATA_SHARDS, PARITY_SHARDS)
     if pipelined is None:
-        pipelined = codec.backend == "cuda"
+        pipelined = codec.backend in ("cuda", "mesh")
     if lost_sid != plan.lost:
         raise ValueError(f"plan repairs shard {plan.lost}, not {lost_sid}")
     before = STATS.snapshot()
@@ -265,7 +265,7 @@ def rebuild_ec_file_piggyback(base_name: str, lost_sid: int, source,
     failure removes the partial shard file before propagating."""
     codec = codec or get_codec(DATA_SHARDS, PARITY_SHARDS)
     if pipelined is None:
-        pipelined = codec.backend == "cuda"
+        pipelined = codec.backend in ("cuda", "mesh")
     if lost_sid != rplan.lost:
         raise ValueError(f"plan repairs shard {rplan.lost}, not {lost_sid}")
     alpha = rplan.alpha

@@ -22,10 +22,11 @@ GF matmul per window-split slab on the same kernel.
 Geometry is taken from the codec (generic RS(k,m), default 10+4).
 
 Each device call covers a whole slab (default k x 8MB), and with the
-"cuda" codec the slabs flow through ops/pipeline.PipelinedMatmul, which
-overlaps disk reads, h2d, the kernel, d2h and shard-file writes. Slab
-reads are strided (block i of a row lives at start + i*block_size), the
-reference's column layout, so shard bytes are identical across backends.
+"cuda" and "mesh" codecs the slabs flow through
+ops/pipeline.PipelinedMatmul, which overlaps disk reads, h2d, the
+kernel, d2h and shard-file writes. Slab reads are strided (block i of
+a row lives at start + i*block_size), the reference's column layout, so
+shard bytes are identical across backends.
 
 Per-phase wall time (gather / plan / dispatch / drain / write) is
 returned in ``stats["phases"]``.
@@ -336,7 +337,7 @@ def write_ec_files(base_name: str, codec: Optional[ReedSolomonCodec] = None,
     if piggyback:
         pplan, window = piggyback_geometry(codec, large_block, small_block)
     if pipelined is None:
-        pipelined = codec.backend == "cuda"
+        pipelined = codec.backend in ("cuda", "mesh")
     dat_path = base_name + ".dat"
     dat_size = os.path.getsize(dat_path)
     timer = StageTimer()
@@ -453,7 +454,7 @@ def rebuild_ec_files(base_name: str,
     The local rebuild is the streaming rebuild over LocalShardReaders:
     the survivors the decode plan reads are pulled stripe by stripe
     through an ec.gather.StripedGatherSource, and the same all-or-nothing
-    guarantee holds. With the "cuda" codec one device dispatch per slab
+    guarantee holds. With a device codec one device dispatch per slab
     regenerates every missing shard (data + parity rows stacked).
     ``stats``, when given, is filled as by rebuild_ec_files_streaming.
 
@@ -510,7 +511,7 @@ def rebuild_ec_files_streaming(base_name: str,
     bytes arrive from ``source`` (an ec.gather.StripedGatherSource over
     the first k survivors), and each rebuilt slab is appended to the
     missing shard files as the decode drains, so no survivor copy is
-    ever materialized. With the "cuda" codec the stripes flow through
+    ever materialized. With a device codec the stripes flow through
     PipelinedMatmul and the fused decode plan: one device dispatch per
     stripe regenerates every missing shard.
 
@@ -534,7 +535,7 @@ def _rebuild_flat_stream(base_name, present, missing, source, codec, slab,
     codec = codec or get_codec(DATA_SHARDS, PARITY_SHARDS)
     k, total = codec.k, codec.total
     if pipelined is None:
-        pipelined = codec.backend == "cuda"
+        pipelined = codec.backend in ("cuda", "mesh")
     if not missing:
         return []
     if sum(present) < k:

@@ -4,6 +4,8 @@ Backends:
   numpy — pure-numpy reference implementation (conformance oracle)
   cuda  — the hand-written Hopper kernel (ops/rs_hopper.py) behind
           TorchCodec; its plain PyTorch version on device="cpu"
+  mesh  — the same kernel at every position of a mesh
+          (parallel/mesh_codec.MeshCodec)
 
 All backends are bit-identical.
 """

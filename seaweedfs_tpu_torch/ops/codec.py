@@ -6,10 +6,11 @@ are stored verbatim (systematic code), missing shards are None and are
 regenerated in place.
 
 Backends:
-    get_codec(k, m, backend="cuda" | "numpy", device=...)
+    get_codec(k, m, backend="cuda" | "mesh" | "numpy", device=..., mesh=...)
 "cuda" is the hand-written Hopper kernel behind ops/rs_torch.TorchCodec
 (its plain PyTorch version when the caller asks for device="cpu");
-"numpy" is the conformance oracle. There is no automatic choice: a
+"mesh" is parallel/mesh_codec.MeshCodec, the same kernel at every
+position of a mesh; "numpy" is the conformance oracle. There is no automatic choice: a
 missing card raises instead of quietly running on the CPU. All
 backends produce bit-identical output.
 
@@ -324,13 +325,19 @@ def dispatch_threshold(codec) -> int:
 def get_codec(data_shards: int, parity_shards: int,
               backend: str = "cuda",
               matrix_kind: str = "vandermonde",
-              device: str = "cuda") -> ReedSolomonCodec:
+              device: str = "cuda", mesh=None) -> ReedSolomonCodec:
+    """"mesh" is parallel/mesh_codec.MeshCodec over ``mesh`` (a
+    parallel/mesh.Mesh; every card when None), and takes no
+    ``device``."""
     if backend == "numpy":
         return NumpyCodec(data_shards, parity_shards, matrix_kind)
     if backend == "cuda":
         from .rs_torch import TorchCodec
         return TorchCodec(data_shards, parity_shards, matrix_kind,
                           device=device)
+    if backend == "mesh":
+        from ..parallel.mesh_codec import MeshCodec
+        return MeshCodec(data_shards, parity_shards, matrix_kind, mesh=mesh)
     raise ValueError(f"unknown backend {backend!r}")
 
 

@@ -7,7 +7,10 @@ their meaning carries to hand-written kernels:
   counts a jit dispatch on any backend: ``rs_hopper.gf_matmul`` (K1),
   ``rs_bitplane.bitplane_matmul`` (K6a) and
   ``rs_bitplane.bitplane_matmul_batched`` (K6b); on the CPU a call of
-  the plain version.
+  the plain version. The multi-device programs count one dispatch a
+  call under the JAX package's names (``mesh_codec._fn``,
+  ``sharded_ec.encode_fn``, ``sharded_ec.rebuild_fn``); their K1
+  launches, one a mesh position, count under K1.
 - **launches** — the same entries' kernel launches on the card, counted
   once a launch has returned without error (a call on the CPU, or a
   launch that raised, moves ``dispatches`` only). This is the port's one
@@ -50,6 +53,11 @@ K1 = "rs_hopper.gf_matmul"
 K6A = "rs_bitplane.bitplane_matmul"
 K6B = "rs_bitplane.bitplane_matmul_batched"
 PLAN_ENTRY = "gf_plan.make_plan"
+#: Entry names of the multi-device programs (parallel/), which launch K1
+#: at every mesh position.
+MESH_FN = "mesh_codec._fn"
+SHARDED_ENCODE = "sharded_ec.encode_fn"
+SHARDED_REBUILD = "sharded_ec.rebuild_fn"
 
 #: Offenders latched by the sentinel are capped here; past that the
 #: counters still move.
@@ -230,6 +238,22 @@ def dispatch(entry: str, device, launch: Callable[[], Any]):
         DEVICE_STATS.note_device_time(entry, _perf_counter() - t0)
     if on_card:
         DEVICE_STATS.note_launch(entry)
+    return out
+
+
+def program(entry: str, devices, run: Callable[[], Any]):
+    """Run ``run`` (a multi-device program: K1 launched at each of its
+    positions, each launch counted under K1) as one dispatch of
+    ``entry``. A sampled call is timed on the host clock to the end of
+    its work on every card of ``devices``."""
+    if not DEVICE_STATS.tick(entry):
+        return run()
+    t0 = _perf_counter()
+    out = run()
+    import torch
+    for dev in {d for d in devices if d.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+    DEVICE_STATS.note_device_time(entry, _perf_counter() - t0)
     return out
 
 

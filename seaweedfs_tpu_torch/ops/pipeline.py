@@ -17,9 +17,14 @@ the card works on slab t+1..t+depth while the host writes slab t.
 PipelinedMatmul computes ``coeffs @ data`` over GF(2^8) for a stream of
 slabs with a fixed coefficient matrix — encode (coeffs = parity rows) and
 rebuild (coeffs = fused decode-plan rows vs survivors) both reduce to
-this. The kernel, its device-resident constant and the device come from
-``codec.device_fn()``. On device="cpu" the same loop runs with no
-streams and no pinning, through the kernel's plain version.
+this. The codec (ops/rs_torch.LaneCodec) splits each slab into lanes,
+column slices each at a position's device: one lane on TorchCodec's
+device, one per 'data' position of a MeshCodec. Each lane is staged into
+its own pinned buffer and copied on its own h2d and d2h streams (keyed
+by position, so two positions on one card share neither a buffer nor an
+event); ``codec.launch`` runs the kernel of every lane on its device's
+current stream. On the CPU the same loop runs with no streams and no
+pinning, through the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ class PipelinedMatmul:
     ``depth`` slabs in flight on the device and ``prefetch`` slabs of
     read-ahead in the reader queue. With ``pieces=True`` it yields
     (meta, data, [(col_off, piece)]) instead, the form the streaming
-    rebuild appends from; on one card that is always [(0, out)].
+    rebuild appends from: one piece per lane (``codec.drain_pieces``).
     """
 
     def __init__(self, coeffs: np.ndarray, *, codec,
@@ -67,8 +72,6 @@ class PipelinedMatmul:
 
     def stream(self, slabs: Iterable[Tuple[object, np.ndarray]]
                ) -> Iterator[Tuple[object, np.ndarray, object]]:
-        device = self.codec.device
-        cuda = device.type == "cuda"
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         err: list = []
         stop = threading.Event()
@@ -91,20 +94,27 @@ class PipelinedMatmul:
                                         thread_name_prefix="pipeline-drain")
         pending: deque = deque()
         timer = self.timer
-        if cuda:
-            compute = torch.cuda.current_stream(device)
-            h2d_stream = torch.cuda.Stream(device)
-            d2h_stream = torch.cuda.Stream(device)
+        copy_streams = {}  # position -> (h2d, d2h) on its card
 
-        def fetch(host: torch.Tensor, done, nbytes: int, w: int):
+        def streams_of(label, dev):
+            got = copy_streams.get(label)
+            if got is None:
+                got = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+                copy_streams[label] = got
+            return got
+
+        def fetch(outs, nbytes: int, w: int):
             t = time.perf_counter()
-            if done is not None:
-                done.synchronize()  # kernel + d2h of this slab complete
-            arr = host.numpy()
-            if arr.shape[1] > w:
-                arr = arr[:, :w]
+            for _, _, done in outs:
+                if done is not None:
+                    done.synchronize()  # kernel + d2h of this lane complete
+            result = self.codec.drain_pieces(
+                [(lo, h) for lo, h, _ in outs], w)
+            if not self.pieces:
+                result = result[0][1] if len(result) == 1 else \
+                    np.concatenate([p for _, p in result], axis=1)
             timer.add("d2h+mxu", time.perf_counter() - t, nbytes)
-            return arr
+            return result
 
         try:
             while True:
@@ -119,40 +129,52 @@ class PipelinedMatmul:
                     raise ValueError(
                         f"slab width {w} exceeds max_width {self.max_width}")
                 bucket = self.codec.pipeline_width_bucket(w, self.max_width)
-                fn, const, _ = self.codec.device_fn(self._coeffs, bucket)
+                lanes = self.codec.lanes(self.k, bucket)
                 t0 = time.perf_counter()
-                # stage (and zero-pad) into pinned memory: the one host
-                # copy the original pad step already paid
-                staged = torch.empty((self.k, bucket), dtype=torch.uint8,
-                                     pin_memory=cuda)
-                view = staged.numpy()
-                view[:, :w] = data
-                view[:, w:] = 0
-                if cuda:
-                    with torch.cuda.stream(h2d_stream):
-                        x = torch.empty((self.k, bucket), dtype=torch.uint8,
-                                        device=device)
-                        x.copy_(staged, non_blocking=True)
-                    compute.wait_stream(h2d_stream)
-                    x.record_stream(compute)
-                else:
-                    x = staged
-                timer.add("h2d", time.perf_counter() - t0, staged.nbytes)
+                xs = []
+                for label, dev, lo, hi in lanes:
+                    cuda = dev.type == "cuda"
+                    # stage (and zero-pad) into this lane's pinned buffer:
+                    # the one host copy the original pad step already paid
+                    staged = torch.empty((self.k, hi - lo), dtype=torch.uint8,
+                                         pin_memory=cuda)
+                    view = staged.numpy()
+                    end = max(lo, min(hi, w))
+                    view[:, : end - lo] = data[:, lo:end]
+                    view[:, end - lo:] = 0
+                    if cuda:
+                        h2d, _ = streams_of(label, dev)
+                        with torch.cuda.stream(h2d):
+                            x = torch.empty((self.k, hi - lo),
+                                            dtype=torch.uint8, device=dev)
+                            x.copy_(staged, non_blocking=True)
+                        compute = torch.cuda.current_stream(dev)
+                        compute.wait_stream(h2d)
+                        x.record_stream(compute)
+                    else:
+                        x = staged
+                    xs.append(x)
+                timer.add("h2d", time.perf_counter() - t0, self.k * bucket)
                 STATS.add("dispatches")
                 STATS.add("device_bytes", data.nbytes)
-                out = fn(const, x)  # launches on the current stream
-                if cuda:
-                    d2h_stream.wait_stream(compute)
-                    with torch.cuda.stream(d2h_stream):
-                        host = out.to("cpu", non_blocking=True)
-                        done = torch.cuda.Event()
-                        done.record()
-                    out.record_stream(d2h_stream)
-                else:
-                    host, done = out, None
-                fut = drain_pool.submit(fetch, host, done,
+                # launches on each lane's device's current stream
+                outs = self.codec.launch(self._coeffs, bucket, xs)
+                staged_outs = []
+                for (lo, out), (label, dev, _, _) in zip(outs, lanes):
+                    if dev.type == "cuda":
+                        _, d2h = streams_of(label, dev)
+                        d2h.wait_stream(torch.cuda.current_stream(dev))
+                        with torch.cuda.stream(d2h):
+                            host = out.to("cpu", non_blocking=True)
+                            done = torch.cuda.Event()
+                            done.record()
+                        out.record_stream(d2h)
+                    else:
+                        host, done = out, None
+                    staged_outs.append((lo, host, done))
+                fut = drain_pool.submit(fetch, staged_outs,
                                         self.r * bucket, w)
-                pending.append((meta, data, fut, w))
+                pending.append((meta, data, fut))
                 if len(pending) >= self.depth:
                     yield self._drain(pending.popleft())
             while pending:
@@ -172,8 +194,8 @@ class PipelinedMatmul:
             reader.join(timeout=10)
 
     def _drain(self, entry):
-        meta, data, fut, w = entry
+        meta, data, fut = entry
         t0 = time.perf_counter()
         host = fut.result()  # blocks until kernel + d2h complete
         self.timer.add("drain_wait", time.perf_counter() - t0)
-        return meta, data, [(0, host)] if self.pieces else host
+        return meta, data, host

@@ -15,7 +15,7 @@ linearity) so varied widths reuse one set of buffer sizes.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +40,105 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class TorchCodec(ReedSolomonCodec):
-    """GF(2^8) codec on a torch device ("cuda" by default)."""
+#: A slab's column slice at one position: (position label, device,
+#: first column, end column).
+Lane = Tuple[str, torch.device, int, int]
+
+
+class LaneCodec(ReedSolomonCodec):
+    """A codec whose products run on K1 in column slices ("lanes"), each
+    at a position (a device). TorchCodec has one lane on its device;
+    parallel/mesh_codec.MeshCodec one per 'data' position of a mesh.
+
+    Subclasses give ``lanes(k, width)`` and ``launch(coeffs, width,
+    xs)``, which runs K1 on every lane's tensor before any is drained
+    and returns [(col_off, out)]. The chunk loop of ``_matmul`` and the
+    drain live here, and ops/pipeline.PipelinedMatmul streams slabs
+    through the same three methods."""
+
+    def __init__(self, data_shards: int, parity_shards: int,
+                 matrix_kind: str = "vandermonde",
+                 matrix: Optional[np.ndarray] = None,
+                 chunk_bytes: int = 32 << 20,
+                 small_dispatch_bytes: Optional[int] = None):
+        super().__init__(data_shards, parity_shards, matrix_kind, matrix)
+        self.chunk_bytes = int(chunk_bytes)
+        self.small_dispatch_bytes = (
+            SMALL_DISPATCH_BYTES if small_dispatch_bytes is None
+            else int(small_dispatch_bytes))
+        self._consts = _ConstCache()
+
+    def lanes(self, k: int, width: int) -> List[Lane]:
+        raise NotImplementedError
+
+    def launch(self, coeffs: np.ndarray, width: int,
+               xs: List[torch.Tensor]) -> List[Tuple[int, torch.Tensor]]:
+        raise NotImplementedError
+
+    def drain_pieces(self, out, w: int) -> List[Tuple[int, np.ndarray]]:
+        """Host pieces of ``launch``'s output in width order: one
+        (col_offset, (r, piece_w) array) per lane, clipped at ``w`` (the
+        tail pad dropped), so consumers start on the first lane's
+        stripes without staging the slab whole."""
+        pieces = []
+        for lo, t in out:
+            if lo >= w:
+                continue
+            piece = t.cpu().numpy()
+            if lo + piece.shape[1] > w:
+                piece = piece[:, : w - lo]
+            pieces.append((lo, piece))
+        return pieces
+
+    def column_multiple(self) -> int:
+        """What every width bucket is a multiple of (the lanes' count)."""
+        return 1
+
+    def pipeline_width_bucket(self, n: int, cap: int) -> int:
+        bucket = width_bucket(n, cap)
+        return bucket + (-bucket) % self.column_multiple()
+
+    def _width_bucket(self, n: int) -> int:
+        """A power-of-two bucket (at least 512, at most chunk_bytes but
+        never below n), padded to a multiple of column_multiple()."""
+        bucket = min(max(512, 1 << (n - 1).bit_length()), self.chunk_bytes)
+        bucket = max(bucket, n)
+        return bucket + (-bucket) % self.column_multiple()
+
+    def _matmul(self, coeffs: np.ndarray, data: np.ndarray) -> np.ndarray:
+        coeffs = np.ascontiguousarray(coeffs, dtype=np.uint8)
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        r, k = coeffs.shape
+        n = data.shape[1]
+        if n == 0:
+            return np.zeros((r, 0), dtype=np.uint8)
+        out = np.empty((r, n), dtype=np.uint8)
+        # launch every chunk before draining any: the copy back of
+        # chunk t overlaps the kernels of the chunks after it
+        pending = []
+        for off in range(0, n, self.chunk_bytes):
+            end = min(off + self.chunk_bytes, n)
+            w = end - off
+            bucket = self._width_bucket(w)
+            if w < bucket:  # zero columns: exact under GF linearity
+                padded = np.zeros((k, bucket), dtype=np.uint8)
+                padded[:, :w] = data[:, off:end]
+            else:
+                padded = data[:, off:end]
+            xs = [torch.from_numpy(np.require(
+                padded[:, lo:hi], requirements=["C", "W"])).to(dev)
+                for _, dev, lo, hi in self.lanes(k, bucket)]
+            STATS.add("dispatches")
+            STATS.add("device_bytes", w * k)
+            pending.append((off, w, self.launch(coeffs, bucket, xs)))
+        for off, w, dev_out in pending:
+            for lo, piece in self.drain_pieces(dev_out, w):
+                out[:, off + lo: off + lo + piece.shape[1]] = piece
+        return out
+
+
+class TorchCodec(LaneCodec):
+    """GF(2^8) codec on a torch device ("cuda" by default): one lane."""
 
     backend = "cuda"
 
@@ -51,13 +148,9 @@ class TorchCodec(ReedSolomonCodec):
                  small_dispatch_bytes: Optional[int] = None,
                  device="cuda",
                  matrix: Optional[np.ndarray] = None):
-        super().__init__(data_shards, parity_shards, matrix_kind, matrix)
+        super().__init__(data_shards, parity_shards, matrix_kind, matrix,
+                         chunk_bytes, small_dispatch_bytes)
         self.device = resolve_device(device)
-        self.chunk_bytes = int(chunk_bytes)
-        self.small_dispatch_bytes = (
-            SMALL_DISPATCH_BYTES if small_dispatch_bytes is None
-            else int(small_dispatch_bytes))
-        self._consts = _ConstCache()
 
     def put(self, host: np.ndarray) -> torch.Tensor:
         """Host uint8 array -> tensor on the codec's device."""
@@ -74,38 +167,9 @@ class TorchCodec(ReedSolomonCodec):
             lambda: make_plan(coeffs, self._consts.owner).to(self.device))
         return gf_matmul, const, self.put
 
-    def _matmul(self, coeffs: np.ndarray, data: np.ndarray) -> np.ndarray:
-        coeffs = np.ascontiguousarray(coeffs, dtype=np.uint8)
-        data = np.ascontiguousarray(data, dtype=np.uint8)
-        r, k = coeffs.shape
-        n = data.shape[1]
-        if n == 0:
-            return np.zeros((r, 0), dtype=np.uint8)
-        if n <= self.chunk_bytes:
-            bucket = width_bucket(n, self.chunk_bytes)
-            fn, const, put = self.device_fn(coeffs, bucket)
-            STATS.add("dispatches")
-            STATS.add("device_bytes", data.nbytes)
-            if n < bucket:
-                pad = np.zeros((k, bucket), dtype=np.uint8)
-                pad[:, :n] = data
-                data = pad
-            return fn(const, put(data)).cpu().numpy()[:, :n]
-        out = np.empty((r, n), dtype=np.uint8)
-        fn, const, put = self.device_fn(coeffs, self.chunk_bytes)
-        # launch every chunk before draining any: the copy back of
-        # chunk t overlaps the kernel of chunk t+1
-        pending = []
-        for off in range(0, n, self.chunk_bytes):
-            end = min(off + self.chunk_bytes, n)
-            chunk = data[:, off:end]
-            STATS.add("dispatches")
-            STATS.add("device_bytes", chunk.nbytes)
-            if end - off < self.chunk_bytes:
-                pad = np.zeros((k, self.chunk_bytes), dtype=np.uint8)
-                pad[:, : end - off] = chunk
-                chunk = pad
-            pending.append((off, end, fn(const, put(chunk))))
-        for off, end, dev in pending:
-            out[:, off:end] = dev.cpu().numpy()[:, : end - off]
-        return out
+    def lanes(self, k: int, width: int) -> List[Lane]:
+        return [("", self.device, 0, width)]
+
+    def launch(self, coeffs, width, xs):
+        fn, const, _ = self.device_fn(coeffs, width)
+        return [(0, fn(const, xs[0]))]

@@ -75,7 +75,10 @@ server's. The projections run on the host with numpy
 them. Only an encode, a rebuild and a degraded read build the store's
 codec (on ``device``, the card by default, which raises where there is
 none), so a server that only holds shards or serves needles never
-touches the card.
+touches the card. ``ec_backend`` "mesh" (the JAX ``-ec.backend mesh``)
+builds the store's codec as parallel/mesh_codec.MeshCodec over ``mesh``
+(every card when None), so each encode and rebuild runs K1 at every
+mesh position; "numpy" runs the host oracle.
 
 With ``master_url`` (seeds ``host:port[,host:port]``), the server
 heartbeats its master: at start, every ``pulse_seconds``, at once when a
@@ -119,9 +122,11 @@ tail and sync, plain-volume mount and unmount, and
         [--max N] [--pulse-seconds S] [--scrub-idle-s S]
         [--scrub-rate-mbps R] [--degraded-mode batch|naive]
         [--device-timing] [--device-timing-sample N]
+        [--ec.backend cuda|numpy|mesh] [--mesh.devices cuda:0,cuda:0]
 
 serves until killed and prints ``listening <host>:<port>`` once bound,
-so a parent process that passed ``--port 0`` can read the port.
+so a parent process that passed ``--port 0`` can read the port. The
+mesh codec spans ``--mesh.devices`` (every card by default).
 """
 
 from __future__ import annotations
@@ -173,7 +178,8 @@ class VolumeServer:
     background scrub's period and pace (the scrub engine's defaults when
     None); ``degraded_mode`` "batch" or "naive"; ``device_timing`` and
     ``device_timing_sample`` the process's sampled kernel timing (left as
-    it is when None)."""
+    it is when None); ``ec_backend`` "cuda" (the store's TorchCodec on
+    ``device``), "mesh" (MeshCodec over ``mesh``) or "numpy"."""
 
     def __init__(self, port: int = 8080, host: str = "127.0.0.1",
                  directories=None, device: str = "cuda",
@@ -184,8 +190,13 @@ class VolumeServer:
                  scrub_rate_mbps: Optional[float] = None,
                  degraded_mode: str = "batch",
                  device_timing: Optional[bool] = None,
-                 device_timing_sample: int = 1):
+                 device_timing_sample: int = 1,
+                 ec_backend: str = "cuda", mesh=None):
         self.degraded_mode = _degraded_mode(degraded_mode)
+        if codec is None and ec_backend != "cuda":
+            codec = ops_codec.get_codec(DATA_SHARDS,
+                                        TOTAL_SHARDS - DATA_SHARDS,
+                                        backend=ec_backend, mesh=mesh)
         if device_timing is not None:
             device_stats.DEVICE_STATS.configure(device_timing,
                                                 device_timing_sample)
@@ -967,31 +978,46 @@ class VolumeServer:
         failed = [
             f"{node_url}: {exc.message or exc.status}"
             if isinstance(exc, HttpError) else f"{node_url}: {exc}"
-            for node_url, _, exc in fan_out(replicate,
-                                            self._other_replicas(vid))
+            for node_url, _, exc in fan_out(
+                replicate, self._other_replicas(vid, self._copies(vid)))
             if exc is not None]
         if failed:
             raise HttpError(500, "replication failed on " + "; ".join(failed))
 
-    def _other_replicas(self, vid: int) -> List[str]:
+    def _copies(self, vid: int) -> int:
+        """The local volume's replica count (its placement's copy count)."""
+        v = self.store.find_volume(vid)
+        return v.super_block.replica_placement.copy_count if v else 1
+
+    def _other_replicas(self, vid: int, copies: int = 1) -> List[str]:
         """The volume's other holders: from the pushed location map,
-        else a /dir/lookup kept LOOKUP_TTL_S; none without a master."""
+        else a /dir/lookup kept LOOKUP_TTL_S; none without a master. A
+        map that lists fewer than ``copies`` holders (a write's or a
+        delete's copy count) may be behind the master: the map learns
+        each replica of a grown volume from its own push, so a write
+        just after the growth can find only the first one. Then the
+        master's answer is used, whatever its length, since the master
+        is the authority. A lookup that fails is kept LOOKUP_TTL_S as
+        no answer: the map's list (none without one) stands meanwhile."""
         if not self.master_url:
             return []
         urls = self._vid_map.lookup(vid)
-        if urls is None:
+        if urls is None or len(urls) < copies:
             cached = self._lookup_cache.get(vid)
             if cached and time.time() - cached[0] < LOOKUP_TTL_S:
-                urls = cached[1]
+                answer = cached[1]
             else:
                 try:
                     out = get_json(f"http://{self.master_url}/dir/lookup"
                                    f"?volumeId={vid}", timeout=10)
-                    urls = [loc["url"] for loc in out.get("locations", [])]
+                    answer = [loc["url"]
+                              for loc in out.get("locations", [])]
                 except HttpError:
-                    urls = []
-                self._lookup_cache[vid] = (time.time(), urls)
-        return [u for u in urls if u != self.url]
+                    answer = None
+                self._lookup_cache[vid] = (time.time(), answer)
+            if answer is not None:
+                urls = answer
+        return [u for u in (urls or []) if u != self.url]
 
     def read_needle(self, req: Request, vid, key, cookie):
         if self.store.find_volume(vid) is None:
@@ -1083,7 +1109,8 @@ class VolumeServer:
                           f"http://{node_url}{req.path}?type=replicate")
 
             failed = [f"{node_url}: {exc}" for node_url, _, exc in
-                      fan_out(replicate, self._other_replicas(vid))
+                      fan_out(replicate,
+                              self._other_replicas(vid, self._copies(vid)))
                       if exc is not None and not (
                           isinstance(exc, HttpError) and exc.status == 404)]
             if failed:
@@ -1280,7 +1307,19 @@ def main(argv=None) -> int:
                     help="time every Nth kernel call (ops/device_stats)")
     ap.add_argument("--device-timing-sample", type=int, default=1,
                     help="N of --device-timing")
+    ap.add_argument("--ec.backend", dest="ec_backend", default="cuda",
+                    choices=("cuda", "numpy", "mesh"),
+                    help="the EC codec: the kernel on --device, the host "
+                         "oracle, or the kernel at every mesh position")
+    ap.add_argument("--mesh.devices", dest="mesh_devices", default="",
+                    help="the mesh codec's positions, a comma list of "
+                         "torch devices (every card by default)")
     args = ap.parse_args(argv)
+    positions = [d for d in args.mesh_devices.split(",") if d]
+    mesh = None
+    if args.ec_backend == "mesh" and positions:
+        from ..parallel.mesh import make_codec_mesh
+        mesh = make_codec_mesh(positions)
     slots = [int(x) for x in args.max.split(",")]
     slots += slots[-1:] * (len(args.dir) - len(slots))
     vs = VolumeServer(port=args.port, host=args.host,
@@ -1292,8 +1331,8 @@ def main(argv=None) -> int:
                       scrub_rate_mbps=args.scrub_rate_mbps,
                       degraded_mode=args.degraded_mode,
                       device_timing=args.device_timing or None,
-                      device_timing_sample=args.device_timing_sample
-                      ).start()
+                      device_timing_sample=args.device_timing_sample,
+                      ec_backend=args.ec_backend, mesh=mesh).start()
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())

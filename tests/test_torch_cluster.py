@@ -389,3 +389,86 @@ def test_port_server_heartbeats(tmp_path, master_kind, torch_one_thread):
                           timeout=5.0)
     finally:
         c.stop()
+
+
+def test_replicated_write_behind_the_location_map(tmp_path,
+                                                  torch_one_thread):
+    """A write to a grown 001 volume reaches the other replica even when
+    the primary's pushed location map still lists only itself (each
+    replica's registration is its own push, so a write just after the
+    growth can arrive before the second one): the primary asks the
+    master again instead of replicating to nobody. The same for the
+    delete."""
+    from seaweedfs_tpu_torch.server.http_util import HttpError, post_json
+    c = Cluster("port", tmp_path, n=2, pulse=30.0)
+    try:
+        murl = c.master.url
+        assert post_json(f"http://{murl}/vol/grow?collection=r"
+                         f"&replication=001")["count"] == 1
+        a = c.op.assign(murl, collection="r", replication="001")
+        vid = int(a["fid"].split(",")[0])
+        primary = next(vs for vs in c.servers if vs.url == a["url"])
+        other = next(vs for vs in c.servers if vs is not primary)
+        primary._vid_map.lookup = lambda v: [primary.url]
+        primary._lookup_cache.pop(vid, None)
+        body = b"replica" * 700
+        c.op.upload(a["url"], a["fid"], body, filename="r.bin")
+        assert _get(f"http://{other.url}/{a['fid']}") == body
+        from seaweedfs_tpu_torch.server.http_util import http_call
+        http_call("DELETE", f"http://{primary.url}/{a['fid']}")
+        with pytest.raises(HttpError) as err:
+            _get(f"http://{other.url}/{a['fid']}")
+        assert err.value.status == 404
+        assert vid in other.store.locations[0].volumes
+    finally:
+        c.stop()
+
+
+def test_replica_lookup_when_the_master_fails(tmp_path, torch_one_thread,
+                                              monkeypatch):
+    """At copy count 3, a primary whose location map knows one of its two
+    replicas still writes to that one when the master's lookup fails;
+    the failure is kept LOOKUP_TTL_S as no answer (one lookup for two
+    writes) and never replaces the map's list. A fresh master answer is
+    then used whatever its length, with no new lookup."""
+    from seaweedfs_tpu_torch.server import volume_server as vsmod
+    from seaweedfs_tpu_torch.server.http_util import HttpError, post_json
+    c = Cluster("port", tmp_path, n=3, pulse=30.0)
+    try:
+        murl = c.master.url
+        assert post_json(f"http://{murl}/vol/grow?collection=t"
+                         f"&replication=002")["count"] == 1
+        a = c.op.assign(murl, collection="t", replication="002")
+        vid = int(a["fid"].split(",")[0])
+        primary = next(vs for vs in c.servers if vs.url == a["url"])
+        known, unknown = [vs for vs in c.servers if vs is not primary]
+        primary._vid_map.lookup = lambda v: [primary.url, known.url]
+        primary._lookup_cache.pop(vid, None)
+        lookups = []
+        real_get_json = vsmod.get_json
+
+        def get_json(url, *args, **kwargs):
+            if "/dir/lookup" in url:
+                lookups.append(url)
+                raise HttpError(503, "master unreachable")
+            return real_get_json(url, *args, **kwargs)
+
+        monkeypatch.setattr(vsmod, "get_json", get_json)
+        url = f"http://{a['url']}/{a['fid']}"
+        for body in (b"first" * 300, b"second" * 300):
+            c.op.upload(a["url"], a["fid"], body, filename="t.bin")
+            assert _get(f"http://{known.url}/{a['fid']}") == body
+        assert len(lookups) == 1
+        with pytest.raises(HttpError) as err:
+            _get(f"http://{unknown.url}/{a['fid']}")
+        assert err.value.status == 404
+        primary._vid_map.lookup = lambda v: [primary.url]
+        primary._lookup_cache[vid] = (time.time(),
+                                      [primary.url, unknown.url])
+        body = b"third" * 300
+        c.op.upload(a["url"], a["fid"], body, filename="t.bin")
+        assert _get(f"http://{unknown.url}/{a['fid']}") == body
+        assert _get(url) == body
+        assert len(lookups) == 1
+    finally:
+        c.stop()

@@ -10,7 +10,9 @@ delete, vacuum, encode, a GET through a lost shard), and runs a cluster
 shell's ec.encode, ec.rebuild, ec.balance and ec.decode) and its
 integrity plane (scrubs, a finding drained into a repair, a lost shard
 rebuilt by the master's repair queue, naive degraded reads, the device
-accounting and a torch.profiler trace), with both made unimportable."""
+accounting and a torch.profiler trace), and runs the multi-device tier
+(MeshCodec, the distributed EC step, two processes over gloo), with
+both made unimportable."""
 
 import ast
 import os
@@ -93,7 +95,12 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/ops/device_stats.py",
                  "seaweedfs_tpu_torch/stats/repair_queue.py",
                  "seaweedfs_tpu_torch/util/profiling.py",
-                 "seaweedfs_tpu_torch/tools/kernel_exp.py", "chip_smoke.py"):
+                 "seaweedfs_tpu_torch/tools/kernel_exp.py",
+                 "seaweedfs_tpu_torch/parallel/mesh.py",
+                 "seaweedfs_tpu_torch/parallel/sharded_ec.py",
+                 "seaweedfs_tpu_torch/parallel/mesh_codec.py",
+                 "seaweedfs_tpu_torch/parallel/multihost.py",
+                 "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc"):
         assert (ROOT / "seaweedfs_tpu_torch/csrc" / source).exists()
@@ -671,4 +678,95 @@ def test_integrity_with_jax_unimportable(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
                           text=True, timeout=300, cwd=str(tmp_path), env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_mesh_and_multihost_with_jax_unimportable(tmp_path):
+    """MeshCodec over eight CPU positions encodes and rebuilds a volume,
+    distributed_ec_step runs on a (2, 2) mesh of CPU positions, and two
+    processes (each with jax and the JAX package unimportable too) run
+    multihost_ec_step over gloo on a (1, 2) mesh; no K1 launch."""
+    child = textwrap.dedent(f"""
+        import json, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import torch
+        torch.set_num_threads(1)
+        from seaweedfs_tpu_torch.parallel import (init_distributed,
+                                                  multihost_ec_step)
+        from seaweedfs_tpu_torch.parallel.multihost import shutdown
+        init_distributed(sys.argv[1], 2, int(sys.argv[2]), devices=["cpu"])
+        out = multihost_ec_step(k=10, m=4, n_per_device=4096)
+        shutdown()
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, v in sys.modules.items() if v is not None)
+        print("RANK " + json.dumps(out), flush=True)
+    """)
+    script = textwrap.dedent(f"""
+        import json, os, socket, subprocess, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from seaweedfs_tpu_torch.ec import (rebuild_ec_files, to_ext,
+                                            write_ec_files)
+        from seaweedfs_tpu_torch.ops import NumpyCodec
+        from seaweedfs_tpu_torch.parallel import (MeshCodec,
+                                                  distributed_ec_step,
+                                                  make_mesh)
+        from seaweedfs_tpu_torch.parallel.mesh import make_codec_mesh
+        base = {str(tmp_path / "1")!r}
+        rng = np.random.default_rng(0)
+        with open(base + ".dat", "wb") as f:
+            f.write(rng.integers(0, 256, 3 << 20, dtype=np.uint8).tobytes())
+        codec = MeshCodec(10, 4, mesh=make_codec_mesh(["cpu"] * 8))
+        st = {{}}
+        write_ec_files(base, codec=codec, large_block=1 << 20,
+                       small_block=64 << 10, slab=256 << 10, stats=st)
+        assert st["mesh_dispatches"] > 0 and \
+            st["dispatch_width_devices"] == 8
+        want = [open(base + to_ext(i), "rb").read() for i in range(14)]
+        data = np.stack([np.frombuffer(w, dtype=np.uint8)
+                         for w in want[:10]])
+        assert np.array_equal(NumpyCodec(10, 4).encode(data),
+                              np.stack([np.frombuffer(w, dtype=np.uint8)
+                                        for w in want[10:]]))
+        for sid in (2, 7, 10, 12):
+            os.remove(base + to_ext(sid))
+        assert rebuild_ec_files(base, codec=codec, slab=256 << 10) == \
+            [2, 7, 10, 12]
+        assert [open(base + to_ext(i), "rb").read()
+                for i in range(14)] == want
+        mesh = make_mesh((2, 2), devices=["cpu"] * 4)
+        assert distributed_ec_step(mesh, 10, 4, 1024)[2] == 0
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        coord = "127.0.0.1:%d" % s.getsockname()[1]
+        s.close()
+        procs = [subprocess.Popen([sys.executable, "-c", {child!r}, coord,
+                                   str(r)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in (0, 1)]
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+        for p, out in zip(procs, outs):
+            assert p.returncode == 0, out[-3000:]
+            line = [ln for ln in out.splitlines() if ln.startswith("RANK ")]
+            r = json.loads(line[0][5:])
+            assert r["ok"] and r["mesh_shape"] == {{"data": 1, "shard": 2}}
+            assert r["k1_launches"] == 0
+        assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
+        assert sys.modules["seaweedfs_tpu_torch.ops.device_stats"] \
+            .DEVICE_STATS.launch_count("rs_hopper.gf_matmul") == 0
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
     assert "PORT-OK" in proc.stdout
