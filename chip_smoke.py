@@ -171,9 +171,9 @@
    order (each prepares its body, then waits until the previous POST
    is answered, so the .dat layout, and with it the needles on shard 1,
    is fixed by the seed), until their data
-   fills DATA_PLANE_BYTES (128 MiB: the leg was cut from VOLUME_BYTES to
+   fills DATA_PLANE_BYTES (64 MiB: the leg was cut from VOLUME_BYTES to
    keep the smoke's time with steps 14-16 beside it; sizes log-uniform
-   over 1 KiB-4 MiB, about 250 needles; each named, a third with a mime, a third octet-stream, every
+   over 1 KiB-4 MiB, about 130 needles; each named, a third with a mime, a third octet-stream, every
    fifth with a Seaweed-* pair; the reply's name, size and ETag checked,
    each fid's sha256 kept); every needle GET back (sha256 and ETag);
    every tenth DELETEd and 404 after; the vacuum (check > 0, compact,
@@ -202,20 +202,33 @@
    which start while the writes run and must have registered before the
    encode. Four client threads assign (client/operation) and POST seeded needles
    (the data plane's plan: log-uniform over 1 KiB-4 MiB until
-   CLUSTER_BYTES, 128 MiB, cut from VOLUME_BYTES to make room for steps
-   15 and 16 within the smoke's time) to the server /dir/assign names, which
+   CLUSTER_BYTES, 64 MiB, cut from VOLUME_BYTES to make room for steps
+   15 and 16 and the volume control plane within the smoke's time) to the server /dir/assign names, which
    fans each out to
    the other replica; each reply's size and ETag checked. Every needle
    GET back from A and from B (the locations of /dir/lookup) and through
-   the master's GET /<fid> redirect, sha256 and Etag; every tenth
-   DELETEd through the client, 404 on A and B after. Both replicas
-   frozen, A's .dat linked aside, then ec.encode -volumeId through the
-   port shell (it must stream from A; a shell line that reports an
-   error or a fallback to copy mode fails the leg): 14 shards over A-D in
-   /cluster/ec_status, each sha256-identical to a local write_ec_files
-   of A's frozen .dat through K1's plain version on the card (no
-   launch), the volume gone from A and B, K1 launches on A = the
-   encode's dispatches. The process of B-D with the most shards is
+   the master's GET /<fid> redirect, sha256 and Etag; a full backup
+   (command/volume_tools.backup_volume); every tenth DELETEd through the
+   client, 404 on A and B after. The volume control plane: an
+   incremental backup, which must ship exactly the tombstone records
+   (its bytes checked) and hold every live needle sha256-identical and
+   every deleted one gone; volume.vacuum below the deleted share, which
+   must name the volume vacuumed, leave the master no deleted bytes on
+   either replica, and shrink A's and B's .dat by exactly the deleted
+   needles' records plus their tombstones (each .dat walked before),
+   every live needle then GET sha256-identical from A and B and every
+   deleted one 404; volume.fsck -deep (each replica checks every live
+   needle, 0 errors); volume.move -source B -target C (/dir/lookup
+   lists A and C, no file of the volume left on B, every live needle
+   sha256-identical from C). C is the second replica from there. Both
+   replicas frozen, A's compacted .dat linked aside, then ec.encode
+   -volumeId through the port shell (it must stream from A; a shell line
+   that reports an error or a fallback to copy mode fails the leg): 14
+   shards over A-D in /cluster/ec_status, each sha256-identical to a
+   local write_ec_files of A's frozen .dat through K1's plain version on
+   the card (no launch), the volume gone from A and C, K1 launches on A
+   = the encode's dispatches; the encoded .dat's size printed beside the
+   pre-vacuum one. The process of B-D with the most shards is
    killed (SIGKILL) and the master's prune awaited (at most
    PRUNE_WAIT_S); the live needles touching its shards GET from A by
    four threads through A's DegradedReadEngine (launches = its device
@@ -224,12 +237,23 @@
    mounted, each sha256-identical where it lies); every live needle read
    through the live servers in turn, with no launch on A; ec.decode, then
    every live needle through /dir/lookup and the volume out of
-   /cluster/ec_status. Prints
+   /cluster/ec_status. Its one replica unmounted and mounted again (a
+   needle 404, then sha256-identical), volume.fix.replication (two
+   holders in /dir/lookup), volume.fsck -deep on both (0 errors), every
+   live needle sha256-identical from the new replica; four needles
+   through the master's /submit into CLUSTER_COLLECTION-tmp, each read
+   back; collection.list shows both collections; collection.delete of
+   the second: its volumes off every live server's /status and out of
+   /dir/lookup, the first untouched. Prints
    the write MB/s and requests/s, the read MB/s, the walls of ec.encode,
-   the prune wait, ec.rebuild, ec.balance and ec.decode, the degraded
+   the prune wait, ec.rebuild, ec.balance and ec.decode, the vacuum's
+   seconds and bytes reclaimed, fsck -deep MB/s, move and
+   fix.replication MB/s, the backups' bytes and seconds, the degraded
    p50/p99 and the K1 launches by step, each on a line of its own, then
    the leg's numbers as JSON. Every process is stopped and every
-   directory removed in a finally. The master runs no repair loop.
+   directory removed in a finally. The master runs no repair loop, no
+   vacuum loop and no maintenance scripts (CPU tests hold those: a loop
+   firing inside the leg would race its commands).
 
 15. The integrity plane of a port cluster, after step 14, on the main
    1 GiB volume (its .dat and .idx hard-linked into A's directory before
@@ -353,14 +377,14 @@ SPREAD_LOCAL = (0, 1)       # the spread source keeps these shards
 SPREAD_HOLDS = {"A": range(2, 6), "B": range(6, 10), "C": range(10, 14)}
 HOLDER_START_S = 60.0       # a holder prints its port within this
 DATA_VID = 7                # the data-plane leg's volume
-DATA_PLANE_BYTES = 128 << 20  # its needles' data (cut from VOLUME_BYTES)
+DATA_PLANE_BYTES = 64 << 20  # its needles' data (cut from VOLUME_BYTES)
 DATA_MIN = 1 << 10          # its needle sizes, log-uniform between
 DATA_MAX = 4 << 20
 DATA_THREADS = 4            # its client threads
 DATA_LOST = 1               # the shard it loses after the encode
 DATA_EC_DELETES = 3         # EC DELETEs at its end
 CLUSTER_COLLECTION = "smoke"  # the cluster leg's collection
-CLUSTER_BYTES = 128 << 20   # its needles' data (cut from VOLUME_BYTES)
+CLUSTER_BYTES = 64 << 20    # its needles' data (cut from VOLUME_BYTES)
 INTEGRITY_SLOTS = {"A": 8, "B": 10, "C": 8}  # B the freest: shard 0 on B
 INTEGRITY_REPAIR_S = 0.5    # the integrity leg's repair-loop period
 INTEGRITY_GETS = 32         # its naive degraded GETs
@@ -2358,8 +2382,12 @@ def cluster_leg(np, port, work, seed):
     reply's size and
     ETag checked; every needle read back from A and from B (the
     locations /dir/lookup gives) and through the master's GET /<fid>
-    redirect; every tenth deleted through the client, 404 on both after.
-    Both replicas frozen and A's .dat and .idx linked aside; ec.encode
+    redirect; a full backup; every tenth deleted through the client, 404
+    on both after; an incremental backup (the tombstones only; every
+    needle checked in the copy); volume.vacuum (exactly the deleted
+    records and tombstones reclaimed on A and B, reads after);
+    volume.fsck -deep; volume.move B -> C. Both replicas (A, C) frozen
+    and A's compacted .dat and .idx linked aside; ec.encode
     through the port shell, which must name A as the source: 14 shards
     over A-D in /cluster/ec_status, the volume gone from A and B, every
     shard sha256-identical to a local write_ec_files of A's frozen .dat
@@ -2372,21 +2400,28 @@ def cluster_leg(np, port, work, seed):
     mounted, every rebuilt shard sha256-identical, launches = the
     rebuild's dispatches > 0; ec.balance: 14 shards, each at its holder
     sha256-identical; every live needle read through the live servers in
-    turn, with no launch on A (the counter read is A's); ec.decode: every live needle read through
-    /dir/lookup, the volume out of /cluster/ec_status. Prints each
+    turn, with no launch on A (the counter read is A's); ec.decode: every
+    live needle read through /dir/lookup, the volume out of
+    /cluster/ec_status; unmount and mount of its one replica,
+    volume.fix.replication, volume.fsck -deep; /submit into a second
+    collection and its collection.delete. Prints each
     step's wall and rates on a line of its own and the leg's numbers as
     JSON; stops every process and removes its directories in a
     finally."""
     ec, ops, storage = port
     from seaweedfs_tpu_torch.client import operation as op
+    from seaweedfs_tpu_torch.command import volume_tools
     from seaweedfs_tpu_torch.ops import telemetry
-    from seaweedfs_tpu_torch.server.http_util import (get_json, http_call,
-                                                      post_json,
+    from seaweedfs_tpu_torch.server.http_util import (HttpError, get_json,
+                                                      http_call, post_json,
                                                       post_multipart)
     from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
-    from seaweedfs_tpu_torch.storage import crc
-    from seaweedfs_tpu_torch.storage.types import parse_file_id
+    from seaweedfs_tpu_torch.storage import crc, volume_backup
+    from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
+    from seaweedfs_tpu_torch.storage.types import (CURRENT_VERSION,
+                                                   parse_file_id)
+    from seaweedfs_tpu_torch.storage.volume import NotFound, Volume
     plan = _needle_plan(np, seed, CLUSTER_BYTES)
     numbers = {"needles": len(plan)}
     launched = {}
@@ -2401,9 +2436,12 @@ def cluster_leg(np, port, work, seed):
                           telemetry.delta(before)["dispatches"])
         return out
 
-    # no repair loop: the killed holder's shards are ec.rebuild's
+    # no repair loop (the killed holder's shards are ec.rebuild's), no
+    # vacuum loop and no maintenance scripts: a loop firing inside the
+    # leg would race its own commands
     master = MasterServer(port=0, pulse_seconds=CLUSTER_PULSE_S,
-                          seed=seed, repair_interval=0).start()
+                          seed=seed, repair_interval=0,
+                          vacuum_interval=0).start()
     murl = master.url
     d_a = os.path.join(work, "cluster-A")
     os.makedirs(d_a)
@@ -2413,6 +2451,7 @@ def cluster_leg(np, port, work, seed):
                      scrub_idle_s=0).start()
     procs = VolumeProcesses(work, murl)
     ref_dir = os.path.join(work, "cluster-reference")
+    bk_dir = os.path.join(work, "cluster-backup")
 
     def nodes():
         return {n["url"] for n in
@@ -2422,6 +2461,30 @@ def cluster_leg(np, port, work, seed):
         vols = get_json(f"http://{murl}/cluster/ec_status")["volumes"]
         return {int(s): urls for s, urls in
                 vols.get(str(vid), {}).get("shards", {}).items()}
+
+    def replica_info(vid):
+        """url -> the master's info of each replica of ``vid``."""
+        vols = get_json(f"http://{murl}/cluster/volumes")["volumes"]
+        return {r["url"]: r for r in vols.get(str(vid), [])}
+
+    def fsck_deep(names):
+        """volume.fsck -deep: each named replica checks every live needle
+        with no error; the wall."""
+        t0 = time.perf_counter()
+        out = _shell(murl, "volume.fsck -deep")
+        secs = time.perf_counter() - t0
+        for name in names:
+            if f"volume {vid} @ {urls[name]}: checked={len(live)} " \
+                    f"errors=0" not in out:
+                raise AssertionError(f"fsck -deep on {name}: {out}")
+        if "0 with errors" not in out:
+            raise AssertionError(f"fsck -deep: {out}")
+        return secs
+
+    def dat_path(name, vid):
+        base = a.store.find_volume(vid).file_name() if name == "A" else \
+            os.path.join(procs.dirs[name], f"{CLUSTER_COLLECTION}_{vid}")
+        return base + ".dat"
 
     try:
         t0 = time.perf_counter()
@@ -2509,6 +2572,20 @@ def cluster_leg(np, port, work, seed):
                   f"{numbers[f'read_{n}_mb_s']} MB/s ({s:.2f} s)"
                   for n, (s, _, _) in reads.items()))
 
+        # the backup tool: a full copy now, the tail after the deletes
+        t0 = time.perf_counter()
+        full = volume_tools.backup_volume(murl, vid, bk_dir,
+                                          CLUSTER_COLLECTION)
+        backup_full_s = time.perf_counter() - t0
+        if full["mode"] != "full" or full["applied"] != len(plan):
+            raise AssertionError(f"full backup: {full}")
+        numbers.update(backup_full_s=round(backup_full_s, 3),
+                       backup_full_bytes=full["size"])
+        print(f"cluster: backup (full) of volume {vid}: {full['size']} B "
+              f"pulled, {len(plan)} records indexed, in "
+              f"{backup_full_s:.2f} s "
+              f"({full['size'] / backup_full_s / 1e6:.1f} MB/s)")
+
         deleted = fids[::10]
         for fid in deleted:
             if not op.delete_file(murl, fid):
@@ -2519,6 +2596,95 @@ def cluster_leg(np, port, work, seed):
         live = [fid for fid in fids if fid in want]
         print(f"cluster: {len(deleted)} needles deleted through the "
               f"client, 404 on A and on B")
+
+        t0 = time.perf_counter()
+        inc = volume_tools.backup_volume(murl, vid, bk_dir,
+                                         CLUSTER_COLLECTION)
+        backup_inc_s = time.perf_counter() - t0
+        inc_bytes = inc["size"] - full["size"]
+        tombstones = len(deleted) * get_actual_size(0, CURRENT_VERSION)
+        if inc["mode"] != "incremental" or \
+                inc["applied"] != len(deleted) or inc_bytes != tombstones:
+            raise AssertionError(f"incremental backup: {inc}, "
+                                 f"{inc_bytes} B for {tombstones} B of "
+                                 f"tombstones")
+        bk = Volume(bk_dir, CLUSTER_COLLECTION, vid)
+        try:
+            for fid in fids:
+                _, key, cookie = parse_file_id(fid)
+                try:
+                    got = bk.read_needle(Needle(id=key, cookie=cookie))
+                except NotFound:
+                    got = None
+                if (got is None) != (fid not in want) or got is not None \
+                        and hashlib.sha256(got.data).hexdigest() != \
+                        want[fid][0]:
+                    raise AssertionError(f"backup: needle {fid} differs")
+        finally:
+            bk.close()
+        numbers.update(backup_inc_s=round(backup_inc_s, 3),
+                       backup_inc_bytes=inc_bytes)
+        print(f"cluster: backup (incremental) of volume {vid}: "
+              f"{inc['applied']} tombstone records, {inc_bytes} B, in "
+              f"{backup_inc_s:.3f} s; every live needle of the backup "
+              f"sha256-identical, every deleted one gone")
+
+        # volume.vacuum below the deleted share: exactly the deleted
+        # needles' records and their tombstones go, on both replicas
+        gone_keys = {parse_file_id(fid)[1] for fid in deleted}
+        dats = {n: dat_path(n, vid) for n in ("A", "B")}
+        before, reclaim = {}, {}
+        for name, path in dats.items():
+            before[name] = os.path.getsize(path)
+            with open(path, "rb") as f:
+                def pread(off, size, f=f):
+                    f.seek(off)
+                    return f.read(size)
+                reclaim[name] = sum(
+                    actual for n, _, actual in volume_backup.walk_records(
+                        pread, CURRENT_VERSION, 8, before[name])
+                    if n.id in gone_keys)
+        a.heartbeat_once()
+        _wait_for("the deletes in the master's view", lambda: all(
+            r["deleted_byte_count"] > 0 for r in replica_info(vid).values()),
+            10.0)
+        share = min(r["deleted_byte_count"] / r["size"]
+                    for r in replica_info(vid).values())
+        t0 = time.perf_counter()
+        out = _shell(murl, f"volume.vacuum -garbageThreshold "
+                           f"{share / 2:.6f}")
+        vacuum_s = time.perf_counter() - t0
+        if f"volume {vid}: vacuumed" not in out:
+            raise AssertionError(f"volume.vacuum: {out}")
+        a.heartbeat_once()
+        _wait_for("no deleted bytes in the master's view", lambda: all(
+            r["deleted_byte_count"] == 0 for r in replica_info(vid).values()),
+            10.0)
+        after = {name: os.path.getsize(path) for name, path in dats.items()}
+        for name in dats:
+            if before[name] - after[name] != reclaim[name]:
+                raise AssertionError(
+                    f"vacuum on {name}: {before[name]} -> {after[name]} "
+                    f"B, the deleted records are {reclaim[name]} B")
+        for name in ("A", "B"):
+            _timed_gets(urls[name], live, want, CLUSTER_THREADS)
+            _gone(urls[name], deleted)
+        numbers.update(vacuum_s=round(vacuum_s, 3),
+                       vacuum_reclaimed_bytes=reclaim["A"],
+                       pre_vacuum_dat_bytes=before["A"])
+        print(f"cluster: volume.vacuum {vacuum_s:.2f} s: {reclaim['A']} B "
+              f"reclaimed on A and {reclaim['B']} B on B (the deleted "
+              f"needles' records and their tombstones), no deleted bytes "
+              f"left in the master's view; every live needle GET back "
+              f"sha256-identical from A and B, every deleted one 404")
+        live_bytes = sum(e[5] for e, fid in zip(plan, fids) if fid in want)
+        fsck_s = fsck_deep(["A", "B"])
+        numbers.update(fsck_deep_s=round(fsck_s, 3),
+                       fsck_deep_mb_s=round(2 * live_bytes / fsck_s / 1e6,
+                                            1))
+        print(f"cluster: volume.fsck -deep {fsck_s:.2f} s "
+              f"({numbers['fsck_deep_mb_s']} MB/s of live needles): "
+              f"checked={len(live)} errors=0 on A and on B")
         procs.wait_listening(["C", "D"])
         urls.update(C=procs.urls["C"], D=procs.urls["D"])
         name_of = {u: n for n, u in urls.items()}
@@ -2527,8 +2693,28 @@ def cluster_leg(np, port, work, seed):
         print(f"cluster: C {urls['C']}, D {urls['D']} "
               f"({CLUSTER_SLOTS['C']} slots each, processes) registered")
 
-        # ec.encode on A; A's frozen .dat is the reference
-        for name in ("A", "B"):
+        # volume.move B -> C: from here C is the second replica
+        t0 = time.perf_counter()
+        _shell(murl, f"volume.move -volumeId {vid} -source {urls['B']} "
+                     f"-target {urls['C']}")
+        move_s = time.perf_counter() - t0
+        holders = sorted(op.lookup(murl, vid))
+        left_on_b = [f for f in os.listdir(procs.dirs["B"])
+                     if f.startswith(f"{CLUSTER_COLLECTION}_{vid}.")]
+        if holders != sorted([urls["A"], urls["C"]]) or left_on_b:
+            raise AssertionError(f"volume.move: /dir/lookup {holders}, "
+                                 f"left on B {left_on_b}")
+        _timed_gets(urls["C"], live, want, CLUSTER_THREADS)
+        moved = os.path.getsize(dat_path("C", vid))
+        numbers.update(move_s=round(move_s, 3),
+                       move_mb_s=round(moved / move_s / 1e6, 1))
+        print(f"cluster: volume.move B -> C {move_s:.2f} s "
+              f"({numbers['move_mb_s']} MB/s of .dat): /dir/lookup lists A "
+              f"and C, no file of volume {vid} left on B; every live "
+              f"needle GET back sha256-identical from C")
+
+        # ec.encode on A; A's frozen, compacted .dat is the reference
+        for name in ("A", "C"):
             _post(urls[name], f"/admin/volume/readonly?volume={vid}")
         os.makedirs(ref_dir)
         base_a = a.store.find_volume(vid).file_name()
@@ -2570,7 +2756,7 @@ def cluster_leg(np, port, work, seed):
         gone_replicas = str(vid) in get_json(
             f"http://{murl}/cluster/volumes")["volumes"] or \
             a.store.find_volume(vid) is not None or os.path.exists(
-                os.path.join(dirs["B"], os.path.basename(base_a) + ".dat"))
+                os.path.join(dirs["C"], os.path.basename(base_a) + ".dat"))
         n_slabs = launched["encode"][0]
         if gone_replicas or launched["encode"][1] != n_slabs or n_slabs < 1:
             raise AssertionError(f"encode: original left {gone_replicas}, "
@@ -2582,8 +2768,10 @@ def cluster_leg(np, port, work, seed):
         print(f"cluster: ec.encode {encode_s:.2f} s "
               f"({numbers['encode_mb_s']} MB/s of .dat) from A: shards "
               f"{by_name}, each sha256-identical to a local encode of A's "
-              f"frozen .dat; the volume gone from A and B; {n_slabs} K1 "
-              f"launches on A = the encode's dispatches")
+              f"frozen, compacted .dat; the volume gone from A and C; "
+              f"{n_slabs} K1 launches on A = the encode's dispatches")
+        print(f"cluster: the encoded .dat {dat_size} B, "
+              f"{numbers['pre_vacuum_dat_bytes']} B before the vacuum")
 
         # the holder of the most shards dies
         victim = max(("B", "C", "D"), key=lambda n: (len(by_name[n]),
@@ -2686,11 +2874,89 @@ def cluster_leg(np, port, work, seed):
               f"{numbers['decode_target']}; every live needle read "
               f"through /dir/lookup sha256-identical; the volume out of "
               f"/cluster/ec_status")
+
+        # the decoded volume's one replica: unmount, mount, re-replicate
+        holder = target[0]
+        _shell(murl, f"volume.unmount -volumeId {vid} -node {holder}")
+        _gone(holder, live[:1])
+        _shell(murl, f"volume.mount -volumeId {vid} -node {holder}")
+        _timed_gets(holder, live[:1], want)
+        t0 = time.perf_counter()
+        out = _shell(murl, "volume.fix.replication")
+        fix_s = time.perf_counter() - t0
+        holders = op.lookup(murl, vid)
+        if len(holders) != 2 or "1 copies made" not in out:
+            raise AssertionError(f"volume.fix.replication: {out}, "
+                                 f"/dir/lookup {holders}")
+        copy = next(u for u in holders if u != holder)
+        copied = os.path.getsize(dat_path(name_of[holder], vid))
+        numbers.update(fix_replication_s=round(fix_s, 3),
+                       fix_replication_mb_s=round(copied / fix_s / 1e6, 1),
+                       fix_replication_target=name_of[copy])
+        fsck2_s = fsck_deep([name_of[holder], name_of[copy]])
+        _timed_gets(copy, live, want, CLUSTER_THREADS)
+        numbers.update(fsck_deep_after_fix_mb_s=round(
+            2 * live_bytes / fsck2_s / 1e6, 1))
+        print(f"cluster: volume.unmount and volume.mount on "
+              f"{name_of[holder]} (a needle GET back after); "
+              f"volume.fix.replication {fix_s:.2f} s "
+              f"({numbers['fix_replication_mb_s']} MB/s of .dat) onto "
+              f"{name_of[copy]}: /dir/lookup lists both; volume.fsck -deep "
+              f"{fsck2_s:.2f} s, 0 errors on both; every live needle GET "
+              f"back sha256-identical from {name_of[copy]}")
+
+        # /submit into a second collection, then collection.delete of it
+        tmp = CLUSTER_COLLECTION + "-tmp"
+        rng = np.random.default_rng(seed + 1)
+        submitted = {}
+        for i in range(4):
+            data = rng.bytes(1000 + 777 * i)
+            got = post_multipart(f"http://{murl}/submit?collection={tmp}",
+                                 f"submit-{i}.bin", data)
+            if got.get("size") != len(data):
+                raise AssertionError(f"/submit: {got}")
+            submitted[got["fid"]] = data
+        for fid, data in submitted.items():
+            if op.read_file(murl, fid) != data:
+                raise AssertionError(f"/submit: {fid} read back differs")
+        tmp_vids = sorted(int(v) for v, reps in get_json(
+            f"http://{murl}/cluster/volumes")["volumes"].items()
+            if reps[0]["collection"] == tmp)
+        out = _shell(murl, "collection.list")
+        if f"collection {CLUSTER_COLLECTION!r}" not in out or \
+                f"collection {tmp!r}" not in out:
+            raise AssertionError(f"collection.list: {out}")
+        _shell(murl, f"collection.delete -collection {tmp}")
+        alive = [n for n in urls if n != victim]
+        for name in alive:
+            held = {v["id"] for v in
+                    get_json(f"http://{urls[name]}/status")["volumes"]}
+            if held & set(tmp_vids):
+                raise AssertionError(f"collection.delete: {name} still "
+                                     f"serves {held & set(tmp_vids)}")
+        for v in tmp_vids:
+            try:
+                get_json(f"http://{murl}/dir/lookup?volumeId={v}")
+            except HttpError as e:
+                if e.status == 404:
+                    continue
+                raise
+            raise AssertionError(f"collection.delete: {v} still looked up")
+        if sorted(op.lookup(murl, vid)) != sorted(holders):
+            raise AssertionError("collection.delete touched the first "
+                                 "collection")
+        _timed_gets(holder, live[:4], want)
+        numbers.update(submitted=len(submitted), tmp_volumes=tmp_vids)
+        print(f"cluster: {len(submitted)} needles through /submit into "
+              f"{tmp!r} (volumes {tmp_vids}), each read back; "
+              f"collection.list shows both collections; collection.delete "
+              f"of {tmp!r}: its volumes off every server's /status and out "
+              f"of /dir/lookup, {CLUSTER_COLLECTION!r} untouched")
     finally:
         procs.stop_processes()
         a.stop()
         master.stop()
-        for d in [d_a, ref_dir] + list(procs.dirs.values()):
+        for d in [d_a, ref_dir, bk_dir] + list(procs.dirs.values()):
             shutil.rmtree(d, ignore_errors=True)
     numbers["launches"] = {name: n for name, (n, _) in launched.items()}
     numbers["leg_s"] = round(time.perf_counter() - leg_t0, 3)
@@ -2702,6 +2968,17 @@ def cluster_leg(np, port, work, seed):
                  f"fanned out)" if key == "write" else ""))
     for key in ("encode", "prune", "rebuild", "balance", "decode"):
         print(f"cluster {key} wall: {numbers[key + '_s']} s")
+    print(f"cluster vacuum: {numbers['vacuum_s']} s, "
+          f"{numbers['vacuum_reclaimed_bytes']} B reclaimed")
+    print(f"cluster fsck -deep: {numbers['fsck_deep_mb_s']} MB/s, "
+          f"{numbers['fsck_deep_after_fix_mb_s']} MB/s after "
+          f"fix.replication")
+    print(f"cluster move: {numbers['move_mb_s']} MB/s; fix.replication: "
+          f"{numbers['fix_replication_mb_s']} MB/s")
+    print(f"cluster incremental backup: {numbers['backup_inc_bytes']} B "
+          f"in {numbers['backup_inc_s']} s (full: "
+          f"{numbers['backup_full_bytes']} B in "
+          f"{numbers['backup_full_s']} s)")
     print(f"cluster degraded GETs: p50 {numbers['degraded_p50_ms']} ms, "
           f"p99 {numbers['degraded_p99_ms']} ms")
     print(f"cluster K1 launches by step: {json.dumps(numbers['launches'])}")

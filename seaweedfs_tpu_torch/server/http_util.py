@@ -9,8 +9,9 @@ and bytes responses (``Response``, with a streamed file range),
 ``parse_range``, a keep-alive connection pool behind ``http_call`` /
 ``http_get_with_headers`` (a GET or HEAD follows redirects, and a 307 or
 308 keeps a replayable body), ``get_json``, ``post_json``,
-``post_multipart``, and ``post_chunked``, which streams a body of
-unknown size on a fresh connection.
+``post_multipart``, ``post_chunked``, which streams a body of unknown
+size on a fresh connection, and ``pull_file``, a volume server's file
+copied in ranged pulls.
 
 Left out: TLS, the guard hook, the profile and trace handlers, and the
 metric observer. No ``traceparent``
@@ -574,6 +575,27 @@ def post_json(url: str, obj=None, timeout: float = 30.0) -> dict:
     out = http_call("POST", url, body,
                     {"Content-Type": "application/json"}, timeout)
     return json.loads(out or b"{}")
+
+
+def pull_file(source: str, name: str, dest: str,
+              chunk: int = 64 << 20) -> int:
+    """Copy the file ``name`` a volume server serves at ``/admin/file``
+    to ``dest`` in ranged pulls of ``chunk`` bytes, so a whole volume
+    never sits in memory; the bytes copied."""
+    total = get_json(f"http://{source}/admin/file?name={name}"
+                     f"&stat=true")["size"]
+    with open(dest, "wb") as f:
+        off = 0
+        while off < total:
+            data = http_call(
+                "GET", f"http://{source}/admin/file?name={name}"
+                       f"&offset={off}&size={min(chunk, total - off)}",
+                timeout=600)
+            if not data:
+                raise HttpError(502, f"short pull of {name} at {off}")
+            f.write(data)
+            off += len(data)
+    return total
 
 
 def _quote_name(name: str) -> str:

@@ -28,6 +28,11 @@ volume and EC shard maps are looked up and pushed to watchers.
                               incident per corrupt shard
     GET  /cluster/repairs     the repair queue (``?refresh=1`` scans the
                               shard map first)
+    *    /vol/vacuum          compact every volume whose garbage exceeds
+                              ``garbageThreshold`` on all its replicas,
+                              then commit on all of them
+    *    /col/delete          delete a collection's volumes everywhere
+    POST /submit              assign a file id and upload the body to it
     GET  /<fid>               301 to one of the volume's holders
 
 Paths, query parameters, status codes and JSON are the JAX master's.
@@ -37,7 +42,8 @@ owns, seeded by ``seed``; the JAX master draws the same values in the
 same order from the module-global ``random`` (placement from an unseeded
 ``random.Random``). The JAX package's knob defaults are constants here:
 ``PULSE_S`` (SW_PULSE_S), ``GROWTH_COUNTS`` and ``REPAIR_INTERVAL_S``
-(SW_REPAIR_INTERVAL_S, the ``repair_interval`` argument).
+(SW_REPAIR_INTERVAL_S, the ``repair_interval`` argument); the vacuum and
+maintenance defaults are those of the JAX master's flags.
 
 The integrity plane: scrub findings and the scan of the shard map open
 incidents in a ``stats/repair_queue.RepairQueue``; every
@@ -50,14 +56,30 @@ shards one by one). The JAX scan also opens ``at_risk_holder`` incidents
 from the fleet health fold; that fold is not ported, so this scan opens
 none (the queue keeps the kind).
 
-Left out: raft and its sequencers; the metrics, aggregate, health and
-tiering planes (``/cluster/health``); the vacuum and maintenance loops
-(``/vol/vacuum``); ``/col/delete`` and ``/submit``; the whitelist guard
-and JWT; ``/stats/*`` and the UI. The master does no device work.
+The volume control plane: every ``vacuum_interval`` seconds (<= 0: no
+loop) the master vacuums the volumes over ``garbage_threshold`` and
+reaps the TTL volumes whose content outlived their TTL by a tenth (each
+marked readonly in every layout first, and kept registered until its
+delete succeeds); a manual ``/vol/vacuum`` never reaps. Every
+``maintenance_interval`` seconds the ';'-separated shell lines of
+``maintenance_scripts`` run against this master (no loop without
+scripts). ``/col/delete`` keeps the layout of a volume whose delete
+failed, so that the volume stays looked up until a later delete takes
+it (the JAX master drops the layout and orphans such a volume).
+
+Left out: raft and its sequencers (so no request is forwarded to a
+leader); the metrics, aggregate, health and tiering planes
+(``/cluster/health``); the whitelist guard and JWT (``/submit`` sends no
+``Authorization``, as the JAX master with no key); the filer of the
+maintenance shell; ``/stats/*`` and the UI. The master does no device
+work.
 
     python3 -m seaweedfs_tpu_torch.server.master [-port 9333] [-ip HOST]
         [-volumeSizeLimitMB N] [-defaultReplication 000]
         [-pulseSeconds S] [-seed N] [-repairInterval S]
+        [-vacuumIntervalSeconds 900] [-garbageThreshold 0.3]
+        [-maintenanceScripts "volume.vacuum; ec.rebuild"]
+        [-maintenanceIntervalSeconds 1020]
 
 serves until killed and prints ``master listening on <host>:<port>``.
 """
@@ -70,15 +92,18 @@ import random
 import signal
 import sys
 import threading
+import time
 from typing import Optional
 
 from ..ec.constants import TOTAL_SHARDS
+from ..shell.command_env import split_script
 from ..stats.repair_queue import RepairQueue
+from ..storage.super_block import SUPER_BLOCK_SIZE
 from ..storage.types import TTL, ReplicaPlacement, parse_file_id
 from ..topology.topology import Topology
 from ..topology.volume_growth import NoFreeSlots, find_empty_slots
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
-                        post_json)
+                        post_json, post_multipart)
 from .watch_hub import WatchHub
 
 PULSE_S = 5.0        # SW_PULSE_S: a heartbeat's period; 5 missed: pruned
@@ -86,6 +111,10 @@ PULSE_S = 5.0        # SW_PULSE_S: a heartbeat's period; 5 missed: pruned
 GROWTH_COUNTS = {1: 7, 2: 6, 3: 3}
 REPAIR_INTERVAL_S = 5.0  # SW_REPAIR_INTERVAL_S; <= 0: no repair loop
 REPAIR_DRAIN = 4         # incidents drained a tick
+VACUUM_INTERVAL_S = 15 * 60       # -vacuumIntervalSeconds; <= 0: no loop
+GARBAGE_THRESHOLD = 0.3           # -garbageThreshold
+MAINTENANCE_INTERVAL_S = 17 * 60  # -maintenanceIntervalSeconds
+MAINTENANCE_ADMIN_TIMEOUT_S = 900.0  # an unattended admin call's bound
 VERSION = "seaweedfs_tpu 0.1"
 
 log = logging.getLogger(__name__)
@@ -97,13 +126,18 @@ class MasterServer:
                  default_replication: str = "000",
                  pulse_seconds: Optional[float] = None,
                  seed: Optional[int] = None,
-                 repair_interval: float = REPAIR_INTERVAL_S):
+                 repair_interval: float = REPAIR_INTERVAL_S,
+                 garbage_threshold: float = GARBAGE_THRESHOLD,
+                 vacuum_interval: float = VACUUM_INTERVAL_S,
+                 maintenance_scripts: str = "",
+                 maintenance_interval: float = MAINTENANCE_INTERVAL_S):
         self.rng = random.Random(seed)
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=PULSE_S if pulse_seconds is None
             else pulse_seconds, rng=self.rng)
         self.default_replication = default_replication
+        self.garbage_threshold = float(garbage_threshold)
         self.vg_lock = threading.Lock()
         self.host = host
 
@@ -113,6 +147,9 @@ class MasterServer:
         router.add("*", "/dir/status", self.dir_status)
         router.add("*", "/vol/grow", self.vol_grow)
         router.add("*", "/vol/status", self.vol_status)
+        router.add("*", "/vol/vacuum", self.vol_vacuum)
+        router.add("*", "/col/delete", self.col_delete)
+        router.add("POST", "/submit", self.submit)
         router.add("POST", "/cluster/heartbeat", self.cluster_heartbeat)
         router.add("POST", "/cluster/goodbye", self.cluster_goodbye)
         router.add("*", "/cluster/status", self.cluster_status)
@@ -149,13 +186,27 @@ class MasterServer:
             target=self._repair_loop, daemon=True,
             name="master-repair-queue") if self.repair_interval > 0 \
             else None
+        # the vacuum and TTL reap, and the shell's maintenance scripts
+        self.vacuum_interval = float(vacuum_interval)
+        self._vacuum_thread = threading.Thread(
+            target=self._vacuum_loop, daemon=True,
+            name="master-vacuum") if self.vacuum_interval > 0 else None
+        self.maintenance_scripts = split_script(maintenance_scripts)
+        self.maintenance_interval = float(maintenance_interval)
+        self._maintenance_runs = 0
+        self._maintenance_thread = threading.Thread(
+            target=self._maintenance_loop, daemon=True,
+            name="master-maintenance") if self.maintenance_scripts \
+            else None
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "MasterServer":
         self.server.start()
         self._pruner.start()
-        if self._repair_thread is not None:
-            self._repair_thread.start()
+        for thread in (self._repair_thread, self._vacuum_thread,
+                       self._maintenance_thread):
+            if thread is not None:
+                thread.start()
         return self
 
     def stop(self):
@@ -530,6 +581,151 @@ class MasterServer:
             log.warning("repair of %s %s.%s failed: %s", inc.kind, vid,
                         inc.shard, e)
 
+    # -- the volume control plane --------------------------------------------
+    def _ttl_expired_volumes(self):
+        """Sorted (vid, [node urls]) of the TTL volumes whose content
+        outlived its TTL by a tenth (the grace keeps tail reads served).
+        An empty volume, a superblock and nothing more, never expires:
+        it is a writable target (the JAX master tests ``size == 0``, which
+        a heartbeat never reports, and reaps the empty volumes it grew)."""
+        out = {}
+        now = time.time()
+        with self.topology.lock:
+            for node in self.topology.all_nodes():
+                for vid, vi in node.volumes.items():
+                    ttl = TTL.from_uint32(vi.ttl or 0)
+                    if ttl.minutes == 0 or vi.size <= SUPER_BLOCK_SIZE or \
+                            not vi.modified_at:
+                        continue
+                    if now - vi.modified_at > ttl.minutes * 60 * 1.1:
+                        out.setdefault(vid, []).append(node.url)
+        return sorted(out.items())
+
+    def _run_vacuum_pass(self, threshold: float = None,
+                         reap_ttl: bool = False) -> dict:
+        """One vacuum pass: each candidate compacted on every replica,
+        then committed on every replica (a compact that fails leaves the
+        others' .cpd/.cpx, which the next pass compacts over). With
+        ``reap_ttl`` (the loop only) the expired TTL volumes are deleted
+        too."""
+        threshold = self.garbage_threshold if threshold is None \
+            else threshold
+        results = []
+        for vid, nodes in self.topology.vacuum_candidates(threshold):
+            ok = True
+            for n in nodes:
+                try:
+                    post_json(f"http://{n.url}/admin/vacuum/compact"
+                              f"?volume={vid}")
+                except HttpError:
+                    ok = False
+                    break
+            if ok:
+                for n in nodes:
+                    try:
+                        post_json(f"http://{n.url}/admin/vacuum/commit"
+                                  f"?volume={vid}")
+                    except HttpError:
+                        ok = False
+            results.append({"volume": vid, "ok": ok})
+        expired = []
+        if reap_ttl:
+            for vid, urls in self._ttl_expired_volumes():
+                # no assign may hand out a fid of a dying volume, but it
+                # stays registered until each replica's delete succeeds
+                # (a delta heartbeat never sends an unchanged volume, so
+                # a dropped but undeleted one would be orphaned)
+                with self.topology.lock:
+                    for layout in self.topology.layouts.values():
+                        layout.set_volume_readonly(vid, True)
+                reaped = []
+                for u in urls:
+                    try:
+                        post_json(f"http://{u}/admin/delete_volume"
+                                  f"?volume={vid}")
+                    except HttpError:
+                        continue  # still registered: the next pass retries
+                    reaped.append(u)
+                    with self.topology.lock:
+                        node = self.topology.find_node(u)
+                        if node is None:
+                            continue
+                        node.volumes.pop(vid, None)
+                        for layout in self.topology.layouts.values():
+                            layout.unregister_volume(vid, node)
+                        self.topology._publish("deleted", vid, node)
+                if reaped:
+                    expired.append(vid)
+        return {"vacuumed": results, "ttl_expired": expired}
+
+    def _vacuum_loop(self):
+        while not self._stop.wait(self.vacuum_interval):
+            try:
+                out = self._run_vacuum_pass(reap_ttl=True)
+                if out["vacuumed"] or out["ttl_expired"]:
+                    log.info("auto vacuum: %s", out)
+            except Exception as e:  # noqa: BLE001 - keep the loop alive
+                log.warning("auto vacuum failed: %s", e)
+
+    def _maintenance_loop(self):
+        """The maintenance scripts' lines through the port shell, every
+        ``maintenance_interval``; a failing line is logged and the rest
+        run."""
+        from .. import shell  # registers the commands
+        while not self._stop.wait(self.maintenance_interval):
+            env = shell.CommandEnv(self.url)
+            # one wedged volume server must not stall the loop for the
+            # interactive shell's hour
+            env.admin_timeout = MAINTENANCE_ADMIN_TIMEOUT_S
+            for line in self.maintenance_scripts:
+                try:
+                    shell.run_command(env, line)
+                except Exception as e:  # noqa: BLE001 - keep the loop
+                    log.warning("maintenance %r failed: %s", line, e)
+            self._maintenance_runs += 1
+
+    def vol_vacuum(self, req: Request):
+        threshold = float(req.query.get("garbageThreshold",
+                                        self.garbage_threshold))
+        return self._run_vacuum_pass(threshold)
+
+    def col_delete(self, req: Request):
+        """Delete every volume of a collection on every holder, then drop
+        the collection's layouts, but for those of a volume whose delete
+        failed: it stays looked up, and a later delete can take it."""
+        collection = req.query.get("collection", "")
+        if not collection:
+            raise HttpError(400, "collection required")
+        deleted, failed = [], set()
+        for node in self.topology.all_nodes():
+            for vid, vi in list(node.volumes.items()):
+                if vi.collection == collection:
+                    try:
+                        post_json(f"http://{node.url}/admin/delete_volume"
+                                  f"?volume={vid}")
+                        deleted.append(vid)
+                    except HttpError:
+                        failed.add(vid)
+        with self.topology.lock:
+            for key in [k for k in self.topology.layouts
+                        if k[0] == collection]:
+                if not failed & set(self.topology.layouts[key].locations):
+                    del self.topology.layouts[key]
+        return {"deleted": sorted(set(deleted))}
+
+    def submit(self, req: Request):
+        """An upload through the master: a file id assigned as
+        ``/dir/assign`` would (the query's collection, replication and
+        ttl), and the body posted to it."""
+        filename, ctype, data = req.upload_payload()
+        assign = self.dir_assign(req)
+        result = post_multipart(
+            f"http://{assign['url']}/{assign['fid']}", filename, data,
+            ctype or "application/octet-stream")
+        return {"fid": assign["fid"],
+                "fileUrl": f"{assign['publicUrl']}/{assign['fid']}",
+                "size": result.get("size", len(data))}
+
     def redirect_handler(self, req: Request):
         """GET /<fid>: a 301 to one of the volume's holders, drawn with
         the master's rng, the query kept. A path that is not a fid is a
@@ -562,12 +758,30 @@ def main(argv=None) -> int:
                     default=REPAIR_INTERVAL_S,
                     help="seconds between repair-queue scans and drains "
                          "(<= 0: none)")
+    ap.add_argument("-vacuumIntervalSeconds", type=float,
+                    default=VACUUM_INTERVAL_S,
+                    help="seconds between vacuum and TTL-reap passes "
+                         "(<= 0: none)")
+    ap.add_argument("-garbageThreshold", type=float,
+                    default=GARBAGE_THRESHOLD,
+                    help="the deleted share past which a volume is "
+                         "vacuumed")
+    ap.add_argument("-maintenanceScripts", default="",
+                    help="';'-separated shell lines run on an interval, "
+                         'e.g. "volume.vacuum; ec.rebuild"')
+    ap.add_argument("-maintenanceIntervalSeconds", type=float,
+                    default=MAINTENANCE_INTERVAL_S)
     args = ap.parse_args(argv)
     m = MasterServer(port=args.port, host=args.ip,
                      volume_size_limit_mb=args.volumeSizeLimitMB,
                      default_replication=args.defaultReplication,
                      pulse_seconds=args.pulseSeconds, seed=args.seed,
-                     repair_interval=args.repairInterval).start()
+                     repair_interval=args.repairInterval,
+                     garbage_threshold=args.garbageThreshold,
+                     vacuum_interval=args.vacuumIntervalSeconds,
+                     maintenance_scripts=args.maintenanceScripts,
+                     maintenance_interval=args.maintenanceIntervalSeconds
+                     ).start()
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())

@@ -1,10 +1,11 @@
-"""VolumeServer — the needle data plane and the EC routes of a volume
-server.
+"""VolumeServer — the needle data plane, the volume admin routes and the
+EC routes of a volume server.
 
 The JAX package's ``server/volume_server.py`` in the part a client's
-needle traffic, ``ec.encode``, ``ec.rebuild``, a degraded read or a scrub
-on another server calls: the server creates volumes and takes, serves
-and deletes their needles, vacuums them, freezes and encodes them, takes
+needle traffic, the volume and EC shell commands, a backup, a degraded
+read or a scrub on another server calls: the server creates volumes and
+takes, serves and deletes their needles, vacuums, mounts, unmounts,
+copies, verifies and tails them, freezes and encodes them, takes
 the shards another server's encode pushes to it, serves the shards and
 the needles of the ``EcVolume``s in its directories (through a lost
 shard by reconstruction on its ``DegradedReadEngine``) and rebuilds lost
@@ -26,6 +27,16 @@ shards.
     POST /admin/assign_volume         create a volume (replication, ttl)
     POST /admin/delete_volume         delete a volume's files
     POST /admin/volume/readonly       freeze (or thaw) a volume
+    POST /admin/volume/configure_replication
+                                      rewrite a volume's replica placement
+    POST /admin/volume/mount          serve a volume found on disk
+    POST /admin/volume/unmount        stop serving a volume, files kept
+    POST /admin/volume/copy           pull a volume (.idx, then .dat) from
+                                      a source server in 64 MiB ranges
+    POST /admin/volume/verify         CRC-check every live needle
+    GET  /admin/volume/sync_status    what an incremental copy needs
+    GET  /admin/volume/tail           the raw records after ``since_ns``
+    POST /admin/volume/tail_receive   append a tail sender's records
     POST /admin/vacuum/check          the garbage ratio
     POST /admin/vacuum/compact        copy the live needles (.cpd/.cpx)
     POST /admin/vacuum/commit         replay later writes, swap the files
@@ -64,7 +75,8 @@ shards.
                                       rebuild it from the survivors
     GET  /admin/devices               kernel launches, builds, plan cache
                                       and the card (ops/device_stats)
-    GET  /admin/file                  a raw index or shard file
+    GET  /admin/file                  a raw volume, index or shard file
+                                      (``offset``/``size`` for a range)
     *    /status                      the store's heartbeat, directories,
                                       and the degraded-read and scrub
                                       engines' counters
@@ -85,8 +97,10 @@ heartbeats its master: at start, every ``pulse_seconds``, at once when a
 volume is created or deleted or a shard mounted or unmounted (a delta
 against the state the master last acknowledged; a ``resync`` answer
 replays the whole state), and synchronously after each admin route that
-does so in the JAX server (assign and delete a volume, EC mount,
-unmount, delete_shards and to_volume), which then answers 503 after
+does so in the JAX server (assign and delete a volume, mount, unmount
+and copy a volume, EC mount, unmount, delete_shards and to_volume) and
+after ``configure_replication`` (which the JAX server leaves to the
+next pulse), which then answers 503 after
 doing its work when no master answers. It says goodbye on ``stop``. A
 volume's replicas come from the master's pushed location map
 (``client/vid_map``), else a ``/dir/lookup`` kept 10 s; the holders of
@@ -113,9 +127,7 @@ process-wide.
 Left out: the whitelist and JWT guard, chunk manifests (``cm=``) and
 image resizing, the native plane, tiering, ``/query``, ``/metrics``,
 tracing (the ``trace_id`` of the JAX ``/admin/ec/rebuild`` and
-``/admin/ec/scrub_repair`` answers) and the metrics push, volume copy,
-tail and sync, plain-volume mount and unmount, and
-``configure_replication``.
+``/admin/ec/scrub_repair`` answers) and the metrics push.
 
     python3 -m seaweedfs_tpu_torch.server.volume_server --dir D [--dir D2]
         [--host 127.0.0.1] [--port 0] [--device cuda] [--master HOST:PORT]
@@ -157,14 +169,16 @@ from ..ec.shard_cache import EcShardLocationCache
 from ..ops import codec as ops_codec
 from ..ops import device_stats
 from ..stats.health import BOARD
-from ..storage.needle import Needle
+from ..storage import volume_backup
+from ..storage.compact_map import snapshot_live_items
+from ..storage.needle import CorruptNeedle, Needle
 from ..storage.store import Store, volume_file_prefix
-from ..storage.types import TTL, parse_file_id
+from ..storage.types import TTL, ReplicaPlacement, parse_file_id
 from ..storage.volume import NotFound, VolumeError
 from ..util.fanout import fan_out
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
                         get_json, http_call, parse_range, post_json,
-                        post_multipart)
+                        post_multipart, pull_file)
 
 PULSE_S = 5.0        # SW_PULSE_S: the heartbeat's period
 LOOKUP_TTL_S = 10.0  # a /dir/lookup answer's life in the replica cache
@@ -205,6 +219,18 @@ class VolumeServer:
         router.add("POST", "/admin/assign_volume", self.admin_assign_volume)
         router.add("POST", "/admin/delete_volume", self.admin_delete_volume)
         router.add("POST", "/admin/volume/readonly", self.admin_readonly)
+        router.add("POST", "/admin/volume/configure_replication",
+                   self.admin_configure_replication)
+        router.add("POST", "/admin/volume/mount", self.admin_volume_mount)
+        router.add("POST", "/admin/volume/unmount",
+                   self.admin_volume_unmount)
+        router.add("POST", "/admin/volume/copy", self.admin_volume_copy)
+        router.add("POST", "/admin/volume/verify", self.admin_volume_verify)
+        router.add("GET", "/admin/volume/sync_status",
+                   self.admin_volume_sync_status)
+        router.add("GET", "/admin/volume/tail", self.admin_volume_tail)
+        router.add("POST", "/admin/volume/tail_receive",
+                   self.admin_volume_tail_receive)
         router.add("POST", "/admin/vacuum/check", self.admin_vacuum_check)
         router.add("POST", "/admin/vacuum/compact", self.admin_vacuum_compact)
         router.add("POST", "/admin/vacuum/commit", self.admin_vacuum_commit)
@@ -457,6 +483,133 @@ class VolumeServer:
             raise HttpError(404, f"volume {vid} not found")
         # was_readonly lets an orchestrator restore exactly the prior state
         return {"volume": vid, "readonly": readonly, "was_readonly": was}
+
+    def admin_configure_replication(self, req: Request):
+        """Rewrite a volume's replica placement in its superblock
+        (reference VolumeConfigure); 409 on a readonly volume."""
+        vid = int(req.query["volume"])
+        try:
+            rp = ReplicaPlacement.parse(req.query.get("replication", ""))
+        except (ValueError, KeyError) as e:
+            raise HttpError(400, f"bad replication: {e}") from None
+        v = self.store.find_volume(vid)
+        if v is None:
+            raise HttpError(404, f"volume {vid} not found")
+        try:
+            v.configure_replication(rp)
+        except VolumeError as e:
+            raise HttpError(409, str(e)) from None
+        # no native plane: the JAX server's write-lease sync has no
+        # counterpart here
+        self.heartbeat_once()
+        return {"volume": vid, "replication": str(rp)}
+
+    def admin_volume_mount(self, req: Request):
+        """Serve an on-disk volume (reference VolumeMount)."""
+        vid = int(req.query["volume"])
+        if self.store.find_volume(vid) is not None:
+            return {"volume": vid, "mounted": False}  # already serving
+        for loc in self.store.locations:
+            if loc.load_volume(vid) is not None:
+                # no native plane to register the volume with
+                self.heartbeat_once()
+                return {"volume": vid, "mounted": True}
+        raise HttpError(404, f"volume {vid} files not found")
+
+    def admin_volume_unmount(self, req: Request):
+        """Stop serving a volume and keep its files (reference
+        VolumeUnmount)."""
+        vid = int(req.query["volume"])
+        # no native plane to take the volume offline first
+        for loc in self.store.locations:
+            if loc.unload_volume(vid):
+                self.heartbeat_once()
+                return {"volume": vid, "unmounted": True}
+        raise HttpError(404, f"volume {vid} not mounted")
+
+    def admin_volume_copy(self, req: Request):
+        """Pull a whole volume (.idx, then .dat) from ``source`` and serve
+        it (reference VolumeCopy). The .idx comes first: the .dat only
+        grows, so every entry of an earlier index snapshot lies inside
+        the later .dat; an unindexed .dat tail is harmless."""
+        vid = int(req.query["volume"])
+        collection = req.query.get("collection", "")
+        source = req.query["source"]
+        if self.store.find_volume(vid) is not None:
+            raise HttpError(409, f"volume {vid} already here")
+        loc = self.store.find_free_location()
+        if loc is None:
+            raise HttpError(507, "no free disk location")
+        base = volume_file_prefix(loc.directory, collection, vid)
+        name = os.path.basename(base)
+        for ext in (".idx", ".dat"):
+            pull_file(source, name + ext, base + ext)
+        loc.load_existing_volumes()
+        # no native plane to register the volume with
+        self.heartbeat_once()
+        return {"volume": vid, "copied": True}
+
+    def admin_volume_verify(self, req: Request):
+        """Read and CRC-check every live needle the index lists, in .dat
+        order, locking the volume per needle (volume.fsck -deep)."""
+        vid, v = self._find_volume(req)
+        checked = errors = 0
+        with v.lock:
+            snapshot = snapshot_live_items(v.nm, by_offset=True)
+        for nid, nv in snapshot:
+            checked += 1
+            try:
+                with v.lock:
+                    blob = v._read_blob(nv.offset, nv.size)
+                Needle.from_bytes(blob, v.version, expected_size=nv.size)
+            except (CorruptNeedle, OSError, VolumeError):
+                errors += 1
+        return {"volume": vid, "checked": checked, "errors": errors}
+
+    def admin_volume_sync_status(self, req: Request):
+        """What an incremental copy needs to know of a volume (reference
+        VolumeSyncStatus)."""
+        vid, v = self._find_volume(req)
+        try:
+            last_ns = volume_backup.last_append_at_ns(v)
+        except VolumeError as e:
+            raise HttpError(400, str(e)) from None
+        return {
+            "volume": vid,
+            "collection": v.collection,
+            "tail_offset": v.size(),
+            "compact_revision": v.super_block.compaction_revision,
+            "replication": str(v.super_block.replica_placement),
+            "ttl": str(v.super_block.ttl),
+            "version": v.version,
+            "last_append_at_ns": last_ns,
+        }
+
+    def admin_volume_tail(self, req: Request):
+        """The raw records appended after ``since_ns``, at most
+        ``max_bytes`` (the default page when 0) ending on a record
+        (reference VolumeIncrementalCopy)."""
+        vid, v = self._find_volume(req)
+        max_bytes = int(req.query.get("max_bytes", 0)) \
+            or volume_backup.DEFAULT_TAIL_PAGE_BYTES
+        try:
+            return Response(volume_backup.read_incremental(
+                v, int(req.query.get("since_ns", 0)), max_bytes))
+        except VolumeError as e:
+            raise HttpError(400, str(e)) from None
+
+    def admin_volume_tail_receive(self, req: Request):
+        """Append the raw records a tail sender shipped and replay them
+        into the needle map (reference VolumeTailReceiver)."""
+        vid, v = self._find_volume(req)
+        since = req.query.get("since_ns")
+        # no native plane holds a write lease to take back first
+        try:
+            applied, cursor = volume_backup.append_raw_records(
+                v, req.body, int(since) if since is not None else None)
+        except VolumeError as e:
+            raise HttpError(400, str(e)) from None
+        return {"applied": applied, "cursor_ns": cursor}
 
     def admin_ec_generate(self, req: Request):
         """Encode a readonly volume into shard files. Query only: every

@@ -173,6 +173,10 @@ class TTL:
             return cls()
         return cls(b[0], b[1])
 
+    @classmethod
+    def from_uint32(cls, v: int) -> "TTL":
+        return cls.from_bytes(bytes([(v >> 8) & 0xFF, v & 0xFF]))
+
     def to_bytes(self) -> bytes:
         return bytes([self.count & 0xFF, self.unit & 0xFF])
 

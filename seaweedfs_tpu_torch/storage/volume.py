@@ -19,12 +19,13 @@ volume_loading.go, volume_checking.go, volume_vacuum.go):
   writes made since the copy began, then swaps the files under a
   ``.commit`` marker that a crash leaves for ``_finish_interrupted_commit``
   to complete at the next load) and ``cleanup_compact``;
+* ``configure_replication`` (the superblock's placement byte);
 * ``destroy``; a ``.vif`` whose ``remote`` key parks the volume on a tier
   keeps it readonly.
 
 Left out: the native plane's write lease (``fast_writer``), a ``.dat``
-that lives only on a remote tier, ``configure_replication``, the fsync
-knob, and every needle-map kind but ``memory``.
+that lives only on a remote tier, the fsync knob, and every needle-map
+kind but ``memory``.
 """
 
 from __future__ import annotations
@@ -145,6 +146,20 @@ class Volume:
     def size(self) -> int:
         with self.lock:
             return self.dat.seek(0, os.SEEK_END)
+
+    def configure_replication(self, rp: ReplicaPlacement) -> None:
+        """Rewrite the replica placement in the superblock (byte 1 of the
+        .dat, reference VolumeConfigure); the master sees it in the next
+        heartbeat. A readonly volume is refused, as every write is."""
+        with self.lock:
+            if self.readonly:
+                raise VolumeError(
+                    f"volume {self.id} is read only; cannot reconfigure "
+                    f"replication")
+            self.super_block.replica_placement = rp
+            self.dat.seek(1)
+            self.dat.write(bytes([rp.to_byte()]))
+            self.dat.flush()
 
     def garbage_level(self) -> float:
         sz = self.size()

@@ -2,8 +2,8 @@
 their heartbeats (full, or a delta against the state last acknowledged),
 a writable-volume layout per (collection, replication, ttl), the EC shard
 map, the file-key sequencer, node expiry, and the location events a watch
-hub pushes to clients. The JAX package's ``topology/topology.py`` without
-raft, its sequencers and the vacuum scan. Every random draw (the layout's
+hub pushes to clients, and the vacuum scan. The JAX package's
+``topology/topology.py`` without raft and its sequencers. Every random draw (the layout's
 pick, a file id's cookie, placement) comes from ``rng``, which the master
 seeds; the JAX package draws the same values in the same order from the
 module-global ``random``."""
@@ -268,6 +268,28 @@ class Topology:
                 return None
             return {sid: [n.url for n in holders]
                     for sid, holders in enumerate(per_shard) if holders}
+
+    # -- the vacuum scan (reference topology_vacuum.go) ----------------------
+    def vacuum_candidates(self, garbage_threshold: float = 0.3
+                          ) -> List[Tuple[int, List[DataNode]]]:
+        """(vid, every replica's node) of each writable volume whose
+        deleted bytes exceed ``garbage_threshold`` of its size on some
+        replica, in the order the nodes and their volumes are met."""
+        out = []
+        with self.lock:
+            seen = set()
+            for node in self.all_nodes():
+                for vi in node.volumes.values():
+                    if vi.id in seen or vi.read_only:
+                        continue
+                    if vi.size > 0 and \
+                            vi.deleted_byte_count / max(vi.size, 1) \
+                            > garbage_threshold:
+                        layout = self.get_layout(
+                            vi.collection, vi.replica_placement, vi.ttl)
+                        out.append((vi.id, layout.lookup(vi.id) or [node]))
+                        seen.add(vi.id)
+        return out
 
     def to_dict(self) -> dict:
         with self.lock:

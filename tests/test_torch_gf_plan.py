@@ -23,6 +23,17 @@ from seaweedfs_tpu_torch.ops.rs_hopper import gf_matmul
 from seaweedfs_tpu_torch.ops.rs_torch import TorchCodec
 
 
+@pytest.fixture(autouse=True)
+def jax_device_stats(monkeypatch):
+    """The JAX programs compiled here at many shapes count their compiles
+    and recompiles in a DeviceStats of their own: the process-wide one is
+    read by the JAX package's own tests (its recompile sentinel must not
+    have latched), which may run later in this process."""
+    from seaweedfs_tpu.ops import device_stats as ref_device_stats
+    monkeypatch.setattr(ref_device_stats, "DEVICE_STATS",
+                        ref_device_stats.DeviceStats())
+
+
 def _byte_perm(x, y, sel):
     """CUDA's __byte_perm on int64 tensors holding uint32 words: byte i
     of the result is byte (sel >> 4i) & 7 of the 8-byte value y:x."""

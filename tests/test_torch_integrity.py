@@ -367,8 +367,8 @@ def _sha_file(path):
 def integrity_flow(kind, root, monkeypatch):
     """The JAX end-to-end scrub test's flow on one package's cluster;
     returns what the two clusters must agree on."""
-    from seaweedfs_tpu_torch.server.http_util import (get_json, http_call,
-                                                      post_json)
+    from seaweedfs_tpu_torch.server.http_util import (HttpError, get_json,
+                                                      http_call, post_json)
     if kind == "ref":
         from seaweedfs_tpu.client import operation as op
         from seaweedfs_tpu.server.master import MasterServer
@@ -423,8 +423,13 @@ def integrity_flow(kind, root, monkeypatch):
         rec["encode"] = shell(f"ec.encode -volumeId {vid}")
 
         def shard_map():
-            out = get_json(f"http://{master.url}/cluster/ec_lookup"
-                           f"?volumeId={vid}")
+            try:
+                out = get_json(f"http://{master.url}/cluster/ec_lookup"
+                               f"?volumeId={vid}")
+            except HttpError as e:
+                if e.status == 404:  # no shard registered yet
+                    return None
+                raise
             got = {int(s): urls for s, urls in out["shards"].items()}
             return got if set(got) == set(range(TOTAL)) else None
 

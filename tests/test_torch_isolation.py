@@ -10,7 +10,9 @@ delete, vacuum, encode, a GET through a lost shard), and runs a cluster
 shell's ec.encode, ec.rebuild, ec.balance and ec.decode) and its
 integrity plane (scrubs, a finding drained into a repair, a lost shard
 rebuilt by the master's repair queue, naive degraded reads, the device
-accounting and a torch.profiler trace), and runs the multi-device tier
+accounting and a torch.profiler trace) and its volume control plane
+(vacuum, fsck, move, fix.replication, backup, /submit and
+collection.delete), and runs the multi-device tier
 (MeshCodec, the distributed EC step, two processes over gloo), with
 both made unimportable."""
 
@@ -100,6 +102,10 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/parallel/sharded_ec.py",
                  "seaweedfs_tpu_torch/parallel/mesh_codec.py",
                  "seaweedfs_tpu_torch/parallel/multihost.py",
+                 "seaweedfs_tpu_torch/storage/volume_backup.py",
+                 "seaweedfs_tpu_torch/shell/command_volume.py",
+                 "seaweedfs_tpu_torch/shell/command_collection.py",
+                 "seaweedfs_tpu_torch/command/volume_tools.py",
                  "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc"):
@@ -549,6 +555,100 @@ def test_cluster_with_jax_unimportable(tmp_path):
         assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
         assert sys.modules["seaweedfs_tpu_torch.ops.device_stats"] \
             .DEVICE_STATS.launch_count("rs_hopper.gf_matmul") == 0
+        assert not any(mod.split(".")[0] in {FORBIDDEN!r}
+                       for mod, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_volume_control_plane_with_jax_unimportable(tmp_path):
+    """A port master and three port VolumeServers on the CPU in one
+    process: a 001 volume written, backed up in full, needles deleted,
+    backed up incrementally (the tombstones only), vacuumed through the
+    shell, fsck'd, moved, brought back to two replicas by
+    volume.fix.replication after one replica's delete; a second
+    collection written through /submit and deleted."""
+    script = textwrap.dedent(f"""
+        import io, os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from seaweedfs_tpu_torch.client import operation as op
+        from seaweedfs_tpu_torch.command.volume_tools import backup_volume
+        from seaweedfs_tpu_torch.server.http_util import (http_call,
+                                                          post_json,
+                                                          post_multipart)
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+        root = {str(tmp_path)!r}
+        m = MasterServer(port=0, pulse_seconds=1, seed=1,
+                         repair_interval=0, vacuum_interval=0).start()
+        servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
+                                master_url=m.url, pulse_seconds=1,
+                                max_volume_counts=[20],
+                                device="cpu").start() for i in range(3)]
+
+        def shell(line):
+            for vs in servers:
+                vs.heartbeat_once()
+            out = io.StringIO()
+            run_command(CommandEnv(m.url, out=out), line)
+            assert "error:" not in out.getvalue(), out.getvalue()
+            return out.getvalue()
+
+        try:
+            assert post_json("http://" + m.url + "/vol/grow?collection=r"
+                             "&replication=001")["count"] == 1
+            rng = np.random.default_rng(0)
+            data = {{}}
+            for i in range(10):
+                a = op.assign(m.url, collection="r", replication="001")
+                body = rng.bytes(4000)
+                op.upload(a["url"], a["fid"], body, filename="n%d" % i)
+                data[a["fid"]] = body
+            vid = int(next(iter(data)).split(",")[0])
+            full = backup_volume(m.url, vid, root + "/bk", "r")
+            assert full["mode"] == "full" and full["applied"] == 10
+            for fid in list(data)[:4]:
+                assert op.delete_file(m.url, fid)
+                data.pop(fid)
+            inc = backup_volume(m.url, vid, root + "/bk", "r")
+            assert inc["mode"] == "incremental" and inc["applied"] == 4
+            assert "vacuumed" in shell("volume.vacuum -garbageThreshold 0.1")
+            assert "2 replicas, 0 with errors" in shell("volume.fsck -deep")
+            holders = op.lookup(m.url, vid)
+            free = [vs.url for vs in servers if vs.url not in holders][0]
+            shell("volume.move -volumeId %d -source %s -target %s"
+                  % (vid, holders[1], free))
+            assert sorted(op.lookup(m.url, vid)) == sorted(
+                [holders[0], free])
+            post_json("http://%s/admin/delete_volume?volume=%d"
+                      % (free, vid))
+            assert "1 copies made" in shell("volume.fix.replication")
+            assert len(op.lookup(m.url, vid)) == 2
+            for fid, body in data.items():
+                for u in op.lookup(m.url, vid):
+                    assert http_call("GET", "http://%s/%s" % (u, fid)) \
+                        == body
+            out = post_multipart("http://" + m.url + "/submit?collection=t",
+                                 "s.txt", b"submitted")
+            assert op.read_file(m.url, out["fid"]) == b"submitted"
+            assert "deleted volumes" in shell(
+                "collection.delete -collection t")
+            assert "collection 't'" not in shell("collection.list")
+        finally:
+            for vs in servers:
+                vs.stop()
+            m.stop()
+        assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
         assert not any(mod.split(".")[0] in {FORBIDDEN!r}
                        for mod, v in sys.modules.items() if v is not None)
         print("PORT-OK")

@@ -46,6 +46,17 @@ LOSSES = [((0, 1, 2, 3, 4, 5, 10, 11, 12, 13), (6, 7, 8, 9)),
 
 
 @pytest.fixture(autouse=True)
+def jax_device_stats(monkeypatch):
+    """The JAX programs compiled here at many shapes count their compiles
+    and recompiles in a DeviceStats of their own: the process-wide one is
+    read by the JAX package's own tests (its recompile sentinel must not
+    have latched), which may run later in this process."""
+    from seaweedfs_tpu.ops import device_stats as ref_device_stats
+    monkeypatch.setattr(ref_device_stats, "DEVICE_STATS",
+                        ref_device_stats.DeviceStats())
+
+
+@pytest.fixture(autouse=True)
 def torch_one_thread():
     import torch
     threads = torch.get_num_threads()

@@ -19,6 +19,17 @@ from seaweedfs_tpu_torch.ops.rs_torch import TorchCodec, resolve_device
 from seaweedfs_tpu_torch.ops.codec import get_codec
 
 
+@pytest.fixture(autouse=True)
+def jax_device_stats(monkeypatch):
+    """The JAX programs compiled here at many shapes count their compiles
+    and recompiles in a DeviceStats of their own: the process-wide one is
+    read by the JAX package's own tests (its recompile sentinel must not
+    have latched), which may run later in this process."""
+    from seaweedfs_tpu.ops import device_stats as ref_device_stats
+    monkeypatch.setattr(ref_device_stats, "DEVICE_STATS",
+                        ref_device_stats.DeviceStats())
+
+
 def _port(coeffs: np.ndarray, data: np.ndarray) -> np.ndarray:
     out = gf_matmul(make_plan(coeffs),
                     torch.from_numpy(np.ascontiguousarray(data)))
