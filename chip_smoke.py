@@ -193,29 +193,39 @@
    vacuum's, the encode's and the rebuild's seconds and the degraded
    p50/p99, each on a line of its own, then the leg's numbers as JSON.
 
-14. A port cluster, after the data plane: an in-process MasterServer
-   (127.0.0.1, 1 s pulses, its draws seeded from --seed), volume server
+14. A port cluster, after the data plane: three in-process
+   MasterServers in a raft group (127.0.0.1, ports picked free
+   beforehand, 1 s pulses, each its own raft directory and draws seeded
+   from --seed, one write-token key drawn from --seed, the whitelist
+   127.0.0.1), one leader awaited and its seconds printed; volume server
    A in-process on the card (20 slots), B as a python3 -m
-   seaweedfs_tpu_torch.server.volume_server --master process (8 slots);
+   seaweedfs_tpu_torch.server.volume_server --master process (8 slots),
+   each given the three masters with the leader first, the key and the
+   whitelist. Clients and the shell talk to a follower F, so every
+   assign, lookup and shell command is forwarded to the leader;
    one 001 volume grown with /vol/grow while only A and B are
    registered, so its replicas are on both; then C and D as processes,
    which start while the writes run and must have registered before the
-   encode. Four client threads assign (client/operation) and POST seeded needles
-   (the data plane's plan: log-uniform over 1 KiB-4 MiB until
+   encode. Four client threads assign (client/operation) and POST seeded
+   needles (the data plane's plan: log-uniform over 1 KiB-4 MiB until
    CLUSTER_BYTES, 64 MiB, cut from VOLUME_BYTES to make room for steps
-   15 and 16 and the volume control plane within the smoke's time) to the server /dir/assign names, which
-   fans each out to
-   the other replica; each reply's size and ETag checked. Every needle
+   15 and 16 and the volume control plane within the smoke's time) to the
+   server /dir/assign names, which fans each out to
+   the other replica, each POST with its assign's token; each reply's
+   size and ETag checked. Every needle
    GET back from A and from B (the locations of /dir/lookup) and through
-   the master's GET /<fid> redirect, sha256 and Etag; a full backup
+   F's GET /<fid> (a 301 to the leader, checked once, then a 301 to a
+   holder), sha256 and Etag; a POST to A without a token and one with
+   another fid's token, each 401; a full backup
    (command/volume_tools.backup_volume); every tenth DELETEd through the
-   client, 404 on A and B after. The volume control plane: an
-   incremental backup, which must ship exactly the tombstone records
-   (its bytes checked) and hold every live needle sha256-identical and
-   every deleted one gone; volume.vacuum below the deleted share, which
-   must name the volume vacuumed, leave the master no deleted bytes on
-   either replica, and shrink A's and B's .dat by exactly the deleted
-   needles' records plus their tombstones (each .dat walked before),
+   client with GenJwt(key, fid), 404 on A and B after. The volume
+   control plane: an incremental backup, which must ship exactly the
+   tombstone records (its bytes checked) and hold every live needle
+   sha256-identical and every deleted one gone; volume.vacuum below the
+   deleted share, which must name the volume vacuumed, leave the master
+   no deleted bytes on either replica, and shrink A's and B's .dat by
+   exactly the deleted needles' records plus their tombstones (each
+   .dat walked before),
    every live needle then GET sha256-identical from A and B and every
    deleted one 404; volume.fsck -deep (each replica checks every live
    needle, 0 errors); volume.move -source B -target C (/dir/lookup
@@ -232,11 +242,20 @@
    killed (SIGKILL) and the master's prune awaited (at most
    PRUNE_WAIT_S); the live needles touching its shards GET from A by
    four threads through A's DegradedReadEngine (launches = its device
-   dispatches > 0; p50, p99). ec.rebuild (on A: launches = dispatches >
-   0, every rebuilt shard sha256-identical) and ec.balance (14 shards
-   mounted, each sha256-identical where it lies); every live needle read
-   through the live servers in turn, with no launch on A; ec.decode, then
-   every live needle through /dir/lookup and the volume out of
+   dispatches > 0; p50, p99). Failover: the leader stopped (its HTTP
+   server and its raft, no hand-off); the seconds until one of the two
+   survivors leads, both survivors' /cluster/status naming it with its
+   peers, the servers registered with it (A and the processes follow the
+   leader hint of a follower's heartbeat answer), and its
+   /cluster/ec_status equal to the old leader's after the prune (the
+   killed holder absent); a /vol/grow into CLUSTER_COLLECTION-ids and
+   ID_ASSIGNS assigns through F: the new volume id above every earlier
+   one, every new file key above every key assigned before the failover.
+   Then, under the new leader, ec.rebuild through F (on A: launches =
+   dispatches > 0, every rebuilt shard sha256-identical) and ec.balance
+   (14 shards mounted, each sha256-identical where it lies); every live
+   needle read through the live servers in turn, with no launch on A;
+   ec.decode, then every live needle through /dir/lookup and the volume out of
    /cluster/ec_status. Its one replica unmounted and mounted again (a
    needle 404, then sha256-identical), volume.fix.replication (two
    holders in /dir/lookup), volume.fsck -deep on both (0 errors), every
@@ -250,8 +269,10 @@
    seconds and bytes reclaimed, fsck -deep MB/s, move and
    fix.replication MB/s, the backups' bytes and seconds, the degraded
    p50/p99 and the K1 launches by step, each on a line of its own, then
-   the leg's numbers as JSON. Every process is stopped and every
-   directory removed in a finally. The master runs no repair loop, no
+   the leg's numbers as JSON, with the two elections' seconds, the
+   re-registration's, the requests forwarded through F and the key and
+   volume-id margins. Every process is stopped and every
+   directory removed in a finally. The masters run no repair loop, no
    vacuum loop and no maintenance scripts (CPU tests hold those: a loop
    firing inside the leg would race its commands).
 
@@ -395,6 +416,9 @@ CLUSTER_SLOTS = {"A": 20, "B": 8, "C": 8, "D": 8}  # A the freest
 CLUSTER_PULSE_S = 1.0       # its heartbeats; the master prunes after 5
 CLUSTER_THREADS = 4         # its client threads
 PRUNE_WAIT_S = 30.0         # bound on the wait for the prune of a killed one
+CLUSTER_MASTERS = 3         # the cluster leg's raft group of masters
+ELECTION_WAIT_S = 30.0      # bound on each wait for a leader
+ID_ASSIGNS = 16             # assigns after the failover whose keys are held
 MESH_LANE_N = MAIN_N // 2   # step 16 (a): an 8 MiB slab over two positions
 MESH_STEP_N = MAIN_N        # step 16 (b), (c): columns per mesh position
 RANK_START_S = 120.0        # a rank process joins its group within this
@@ -2334,6 +2358,16 @@ def _wait_for(what, pred, timeout):
     return time.monotonic() - t0
 
 
+def _raft_leader(masters):
+    """The one master of ``masters`` that leads and that every other one
+    names, else None."""
+    leaders = [m for m in masters if m.is_leader()]
+    if len(leaders) == 1 and all(m.leader_url() == leaders[0].url
+                                 for m in masters):
+        return leaders[0]
+    return None
+
+
 def _shell(master_url, line):
     """One line through the port shell; its printed lines. A line that
     reports an error or a fallback (a stream that failed and was redone
@@ -2371,13 +2405,16 @@ def _plain_card_codec(np, ec):
 
 def cluster_leg(np, port, work, seed):
     """A port cluster on 127.0.0.1, end to end, through the entry points
-    its users call: an in-process MasterServer (pulse CLUSTER_PULSE_S,
-    seeded), volume server A in-process on the card with the most slots,
-    B as a process; one 001 volume grown in CLUSTER_COLLECTION while only
-    A and B are registered, so its replicas are on both; then C and D as
-    processes (started while the writes run; registered before the
-    encode). The master runs no repair loop. CLUSTER_THREADS client
-    threads assign and upload seeded needles (_needle_plan's sizes, names
+    its users call: CLUSTER_MASTERS in-process MasterServers in a raft
+    group (pulse CLUSTER_PULSE_S, seeded, write tokens, the whitelist),
+    clients and the shell through a follower; volume server A in-process
+    on the card with the most slots, B as a process, both given the
+    masters with the leader first; one 001 volume grown in
+    CLUSTER_COLLECTION while only A and B are registered, so its replicas
+    are on both; then C and D as processes (started while the writes
+    run; registered before the encode). The masters run no repair loop.
+    CLUSTER_THREADS client threads assign and upload seeded needles
+    (_needle_plan's sizes, names
     and types) through client/operation until CLUSTER_BYTES of data, each
     reply's size and
     ETag checked; every needle read back from A and from B (the
@@ -2396,7 +2433,10 @@ def cluster_leg(np, port, work, seed):
     most shards is killed (SIGKILL) and the master's prune awaited
     (bounded); the live needles touching its shards GET from A from
     DEGRADED_THREADS threads (launches = A's degraded engine's device
-    dispatches > 0; p50, p99). ec.rebuild, which must name A: 14 shards
+    dispatches > 0; p50, p99). The leader stopped: a new one elected, the
+    servers registered with it, its shard map the old one's; a /vol/grow
+    and ID_ASSIGNS assigns through the follower, every id above the
+    earlier ones. ec.rebuild, which must name A: 14 shards
     mounted, every rebuilt shard sha256-identical, launches = the
     rebuild's dispatches > 0; ec.balance: 14 shards, each at its holder
     sha256-identical; every live needle read through the live servers in
@@ -2409,9 +2449,11 @@ def cluster_leg(np, port, work, seed):
     JSON; stops every process and removes its directories in a
     finally."""
     ec, ops, storage = port
+    import http.client
     from seaweedfs_tpu_torch.client import operation as op
     from seaweedfs_tpu_torch.command import volume_tools
     from seaweedfs_tpu_torch.ops import telemetry
+    from seaweedfs_tpu_torch.security.jwt import GenJwt
     from seaweedfs_tpu_torch.server.http_util import (HttpError, get_json,
                                                       http_call, post_json,
                                                       post_multipart)
@@ -2436,20 +2478,52 @@ def cluster_leg(np, port, work, seed):
                           telemetry.delta(before)["dispatches"])
         return out
 
-    # no repair loop (the killed holder's shards are ec.rebuild's), no
-    # vacuum loop and no maintenance scripts: a loop firing inside the
-    # leg would race its own commands
-    master = MasterServer(port=0, pulse_seconds=CLUSTER_PULSE_S,
-                          seed=seed, repair_interval=0,
-                          vacuum_interval=0).start()
-    murl = master.url
+    # a raft group of masters; no repair loop (the killed holder's shards
+    # are ec.rebuild's), no vacuum loop and no maintenance scripts: a loop
+    # firing inside the leg would race its own commands
+    jwt_key = np.random.default_rng(seed).bytes(16).hex()
+    issued = []    # every file key assigned before the failover
+
+    def key_of(fid):
+        return parse_file_id(fid)[1]
+
+    socks = [socket.socket() for _ in range(CLUSTER_MASTERS)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    peers = ",".join(f"127.0.0.1:{p}" for p in ports)
+    raft_dir = os.path.join(work, "cluster-raft")
+    masters = [MasterServer(port=p, pulse_seconds=CLUSTER_PULSE_S,
+                            seed=seed + i, repair_interval=0,
+                            vacuum_interval=0, peers=peers,
+                            raft_dir=raft_dir, jwt_signing_key=jwt_key,
+                            whitelist=["127.0.0.1"]).start()
+               for i, p in enumerate(ports)]
+    live_masters = list(masters)
+    elect_s = _wait_for("a raft leader",
+                        lambda: _raft_leader(live_masters),
+                        ELECTION_WAIT_S)
+    leader = _raft_leader(live_masters)
+    follower, other = [m for m in masters if m is not leader]
+    # clients and the shell go through a follower: every call forwarded
+    murl = follower.url
+    seeds = ",".join([leader.url, follower.url, other.url])
+    numbers["elect_s"] = round(elect_s, 3)
+    print(f"cluster: {CLUSTER_MASTERS} masters in a raft group, leader "
+          f"{leader.url} elected in {elect_s:.3f} s; clients and the shell "
+          f"through the follower {murl}; write JWTs and the whitelist "
+          f"127.0.0.1 on every master and server")
     d_a = os.path.join(work, "cluster-A")
     os.makedirs(d_a)
     a = VolumeServer(port=0, directories=[d_a], device="cuda",
-                     master_url=murl, pulse_seconds=CLUSTER_PULSE_S,
+                     master_url=seeds, pulse_seconds=CLUSTER_PULSE_S,
                      max_volume_counts=[CLUSTER_SLOTS["A"]],
-                     scrub_idle_s=0).start()
-    procs = VolumeProcesses(work, murl)
+                     scrub_idle_s=0, jwt_signing_key=jwt_key,
+                     whitelist=["127.0.0.1"]).start()
+    procs = VolumeProcesses(work, seeds, args=(
+        "--jwt-key", jwt_key, "--whitelist", "127.0.0.1"))
     ref_dir = os.path.join(work, "cluster-reference")
     bk_dir = os.path.join(work, "cluster-backup")
 
@@ -2522,8 +2596,11 @@ def cluster_leg(np, port, work, seed):
             t0 = time.perf_counter()
             got = op.assign(murl, collection=CLUSTER_COLLECTION,
                             replication="001")
+            issued.append(key_of(got["fid"]))
             out = post_multipart(f"http://{got['url']}/{got['fid']}", name,
-                                 data, ctype or "", headers=pairs,
+                                 data, ctype or "",
+                                 headers=dict(pairs or {}, Authorization=
+                                              f"Bearer {got['auth']}"),
                                  timeout=120)
             secs = time.perf_counter() - t0
             if out != {"name": name, "size": size, "eTag": etag} or \
@@ -2571,6 +2648,35 @@ def cluster_leg(np, port, work, seed):
                   f"{'the master redirect' if n == 'redirect' else n} "
                   f"{numbers[f'read_{n}_mb_s']} MB/s ({s:.2f} s)"
                   for n, (s, _, _) in reads.items()))
+        # the follower bounces a GET /<fid> to the leader, the leader to a
+        # holder; a write without its token, or with another fid's, is
+        # refused
+        conn = http.client.HTTPConnection("127.0.0.1", follower.port,
+                                          timeout=30)
+        conn.request("GET", f"/{fids[0]}")
+        resp = conn.getresponse()
+        resp.read()
+        conn.close()
+        if resp.status != 301 or resp.getheader("Location") != \
+                f"http://{leader.url}/{fids[0]}":
+            raise AssertionError(f"the follower's redirect: {resp.status} "
+                                 f"{resp.getheader('Location')}")
+        probes = [op.assign(murl, collection=CLUSTER_COLLECTION,
+                            replication="001") for _ in range(2)]
+        issued += [key_of(probe["fid"]) for probe in probes]
+        refused = []
+        for headers in ({}, {"Authorization":
+                             f"Bearer {probes[1]['auth']}"}):
+            try:
+                post_multipart(f"http://{urls['A']}/{probes[0]['fid']}",
+                               "x", b"x", headers=headers)
+            except HttpError as e:
+                refused.append(e.status)
+        if refused != [401, 401]:
+            raise AssertionError(f"writes without their token: {refused}")
+        print(f"cluster: GET /<fid> on the follower: 301 to the leader, "
+              f"then to a holder; a POST to A without a token and one with "
+              f"another fid's token: {refused}")
 
         # the backup tool: a full copy now, the tail after the deletes
         t0 = time.perf_counter()
@@ -2588,14 +2694,14 @@ def cluster_leg(np, port, work, seed):
 
         deleted = fids[::10]
         for fid in deleted:
-            if not op.delete_file(murl, fid):
+            if not op.delete_file(murl, fid, jwt=GenJwt(jwt_key, fid)):
                 raise AssertionError(f"DELETE {fid} refused")
             want.pop(fid)
         for name in ("A", "B"):
             _gone(urls[name], deleted)
         live = [fid for fid in fids if fid in want]
         print(f"cluster: {len(deleted)} needles deleted through the "
-              f"client, 404 on A and on B")
+              f"client, each with its token, 404 on A and on B")
 
         t0 = time.perf_counter()
         inc = volume_tools.backup_volume(murl, vid, bk_dir,
@@ -2814,6 +2920,62 @@ def cluster_leg(np, port, work, seed):
               f"{numbers['degraded_mb_s']} MB/s; {dev_disp} K1 launches = "
               f"A's device dispatches")
 
+        # the leader stops, with no hand-off; the survivors elect another,
+        # the servers register with it and its shard map is the old one's
+        listed = ec_shards(vid)
+        old_max_vid = leader.topology.max_volume_id
+        leader.stop()
+        live_masters.remove(leader)
+        failover_s = _wait_for("a new raft leader",
+                               lambda: _raft_leader(live_masters),
+                               ELECTION_WAIT_S)
+        new_leader = _raft_leader(live_masters)
+        for m in live_masters:
+            st = get_json(f"http://{m.url}/cluster/status")
+            named = sorted(u.url for u in masters if u is not new_leader)
+            if not st["isLeader"] or st["leader"] != new_leader.url or \
+                    sorted(st["peers"]) != named:
+                raise AssertionError(f"/cluster/status of {m.url}: {st}")
+        alive = [n for n in urls if n != victim]
+        register_s = _wait_for(
+            "the servers registered with the new leader",
+            lambda: nodes() == {urls[n] for n in alive}, PRUNE_WAIT_S)
+        ec_status_s = _wait_for(
+            "the new leader's shard map", lambda: ec_shards(vid) == listed,
+            PRUNE_WAIT_S)
+        if any(urls[victim] in holders for holders in listed.values()):
+            raise AssertionError(f"{victim} in the shard map: {listed}")
+        # no file key or volume id is issued again
+        grown = post_json(f"http://{murl}/vol/grow?collection="
+                          f"{CLUSTER_COLLECTION}-ids&count=1")
+        new_vids = [int(v) for v, reps in get_json(
+            f"http://{murl}/cluster/volumes")["volumes"].items()
+            if reps[0]["collection"] == f"{CLUSTER_COLLECTION}-ids"]
+        new_keys = [key_of(op.assign(
+            murl, collection=f"{CLUSTER_COLLECTION}-ids")["fid"])
+            for _ in range(ID_ASSIGNS)]
+        if grown != {"count": 1} or len(new_vids) != 1 or \
+                min(new_vids) <= old_max_vid or \
+                min(new_keys) <= max(issued):
+            raise AssertionError(f"ids after the failover: grown {grown}, "
+                                 f"volumes {new_vids} (before: up to "
+                                 f"{old_max_vid}), keys {new_keys} (before: "
+                                 f"up to {max(issued)})")
+        numbers.update(
+            failover_elect_s=round(failover_s, 3),
+            reregister_s=round(register_s, 3),
+            ec_status_s=round(ec_status_s, 3),
+            key_margin=min(new_keys) - max(issued),
+            vid_margin=min(new_vids) - old_max_vid)
+        print(f"cluster: leader {leader.url} stopped; {new_leader.url} "
+              f"elected in {failover_s:.3f} s, named by both survivors' "
+              f"/cluster/status with its peers; the servers registered with "
+              f"it {register_s:.3f} s after, its /cluster/ec_status the old "
+              f"leader's ({ec_status_s:.3f} s, {victim} absent); "
+              f"/vol/grow and {ID_ASSIGNS} assigns through the follower: "
+              f"volume {min(new_vids)} (> {old_max_vid}), keys from "
+              f"{min(new_keys)} (> {max(issued)})")
+
         t0 = time.perf_counter()
         out = counted("rebuild", lambda: _shell(murl, "ec.rebuild"))
         rebuild_s = time.perf_counter() - t0
@@ -2952,22 +3114,31 @@ def cluster_leg(np, port, work, seed):
               f"collection.list shows both collections; collection.delete "
               f"of {tmp!r}: its volumes off every server's /status and out "
               f"of /dir/lookup, {CLUSTER_COLLECTION!r} untouched")
+        numbers["forwarded"] = follower.forwarded
     finally:
         procs.stop_processes()
         a.stop()
-        master.stop()
-        for d in [d_a, ref_dir, bk_dir] + list(procs.dirs.values()):
+        for m in live_masters:
+            m.stop()
+        for d in [d_a, ref_dir, bk_dir, raft_dir] + \
+                list(procs.dirs.values()):
             shutil.rmtree(d, ignore_errors=True)
     numbers["launches"] = {name: n for name, (n, _) in launched.items()}
     numbers["leg_s"] = round(time.perf_counter() - leg_t0, 3)
-    for key, label in (("write", "writes"), ("read_A", "reads from A"),
-                       ("read_B", "reads from B"),
-                       ("read_redirect", "reads by redirect")):
-        print(f"cluster {label}: {numbers[key + '_mb_s']} MB/s"
+    for stat, label in (("write", "writes"), ("read_A", "reads from A"),
+                        ("read_B", "reads from B"),
+                        ("read_redirect", "reads by redirect")):
+        print(f"cluster {label}: {numbers[stat + '_mb_s']} MB/s"
               + (f", {numbers['write_req_s']} requests/s (001: each "
-                 f"fanned out)" if key == "write" else ""))
-    for key in ("encode", "prune", "rebuild", "balance", "decode"):
-        print(f"cluster {key} wall: {numbers[key + '_s']} s")
+                 f"fanned out)" if stat == "write" else ""))
+    for step in ("encode", "prune", "rebuild", "balance", "decode"):
+        print(f"cluster {step} wall: {numbers[step + '_s']} s")
+    print(f"cluster raft: elected in {numbers['elect_s']} s, again in "
+          f"{numbers['failover_elect_s']} s after the leader stopped; the "
+          f"servers registered {numbers['reregister_s']} s after; "
+          f"{numbers['forwarded']} requests forwarded through the "
+          f"follower; key margin {numbers['key_margin']}, volume-id "
+          f"margin {numbers['vid_margin']}")
     print(f"cluster vacuum: {numbers['vacuum_s']} s, "
           f"{numbers['vacuum_reclaimed_bytes']} B reclaimed")
     print(f"cluster fsck -deep: {numbers['fsck_deep_mb_s']} MB/s, "

@@ -2,7 +2,9 @@
 package's ``client/operation.py``: ``assign`` asks the master for a file
 id (``?count=`` grants that many keys, addressed ``fid``, ``fid_1``, ...:
 ``expand_batch_fids``); ``upload`` POSTs a multipart body to a volume
-server, which fans it out to the volume's other replicas itself;
+server, which fans it out to the volume's other replicas itself, with
+the write token of the assign (``jwt=``, the answer's ``auth``) as
+``Authorization: Bearer``, as ``delete_file`` does;
 ``VidCache`` keeps a volume's locations for ``ttl_seconds`` (or rides the
 master's push channel with ``watch=True``); ``read_file_named`` tries
 each location in turn and returns the body and its stored name."""
@@ -42,7 +44,7 @@ def expand_batch_fids(fid: str, granted: int):
 
 
 def upload(url: str, fid: str, data: bytes, filename: str = "",
-           content_type: str = "", ttl: str = "") -> dict:
+           content_type: str = "", ttl: str = "", jwt: str = "") -> dict:
     if not content_type:
         # from the name's extension; an explicit octet-stream is kept
         content_type = mimetypes.guess_type(filename or "")[0] \
@@ -50,7 +52,9 @@ def upload(url: str, fid: str, data: bytes, filename: str = "",
     target = f"http://{url}/{fid}"
     if ttl:
         target += f"?ttl={ttl}"
-    return post_multipart(target, filename, data, content_type)
+    headers = {"Authorization": f"Bearer {jwt}"} if jwt else None
+    return post_multipart(target, filename, data, content_type,
+                          headers=headers)
 
 
 def upload_data(master_url: str, data: bytes, filename: str = "",
@@ -60,7 +64,7 @@ def upload_data(master_url: str, data: bytes, filename: str = "",
     a = assign(master_url, collection=collection, replication=replication,
                ttl=ttl)
     upload(a.get("fastUrl") or a["url"], a["fid"], data, filename,
-           content_type, ttl)
+           content_type, ttl, jwt=a.get("auth", ""))
     return a["fid"]
 
 
@@ -160,14 +164,15 @@ def read_file_named(master_url: str, fid: str,
 
 
 def delete_file(master_url: str, fid: str,
-                cache: Optional[VidCache] = None) -> bool:
+                cache: Optional[VidCache] = None, jwt: str = "") -> bool:
     """DELETE at the first location that answers (the server fans the
-    delete out to the other replicas)."""
+    delete out to the other replicas), with ``jwt`` as its token."""
     vid, _, _ = parse_file_id(fid)
     urls = cache.lookup(vid) if cache else lookup(master_url, vid)
+    headers = {"Authorization": f"Bearer {jwt}"} if jwt else None
     for u in urls:
         try:
-            http_call("DELETE", f"http://{u}/{fid}")
+            http_call("DELETE", f"http://{u}/{fid}", headers=headers)
             return True
         except HttpError:
             continue

@@ -13,8 +13,9 @@ and bytes responses (``Response``, with a streamed file range),
 size on a fresh connection, and ``pull_file``, a volume server's file
 copied in ranged pulls.
 
-Left out: TLS, the guard hook, the profile and trace handlers, and the
-metric observer. No ``traceparent``
+A router's ``before`` hook runs ahead of every route (the whitelist
+guard). Left out: TLS, the profile and trace handlers, and the metric
+observer. No ``traceparent``
 header goes out on a call: the port has no ``util/tracing``. The port
 reads no knob from the environment: the accept-loop poll and the
 pool's idle cap are module constants.
@@ -195,11 +196,14 @@ class Request:
 
 class Router:
     """Exact-path routes; a request no route takes goes to the fallback
-    (the volume server's ``/<fid>`` data routes), else answers 404."""
+    (the volume server's ``/<fid>`` data routes), else answers 404.
+    ``before(req)``, when set, runs ahead of every route and may raise
+    HttpError (the servers' whitelist guard)."""
 
     def __init__(self):
         self.routes: List[Tuple[str, str, Callable]] = []
         self.fallback: Optional[Callable] = None
+        self.before: Optional[Callable] = None
 
     def add(self, method: str, path: str, fn: Callable):
         self.routes.append((method, path, fn))
@@ -208,6 +212,8 @@ class Router:
         self.fallback = fn
 
     def dispatch(self, req: Request):
+        if self.before is not None:
+            self.before(req)
         for method, path, fn in self.routes:
             if method in ("*", req.method) and req.path == path:
                 return fn(req)

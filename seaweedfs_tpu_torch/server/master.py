@@ -1,4 +1,4 @@
-"""MasterServer — the cluster's coordinator, one master without raft.
+"""MasterServer — the cluster's coordinator, alone or one of a raft group.
 
 The JAX package's ``server/master.py`` in the part a port cluster runs:
 volume servers register through heartbeats (full, or a delta against the
@@ -34,6 +34,9 @@ volume and EC shard maps are looked up and pushed to watchers.
     *    /col/delete          delete a collection's volumes everywhere
     POST /submit              assign a file id and upload the body to it
     GET  /<fid>               301 to one of the volume's holders
+    POST /raft/request_vote, /raft/append_entries, /raft/install_snapshot
+    GET  /raft/status         the raft RPCs and the node's state (with
+                              ``peers`` only)
 
 Paths, query parameters, status codes and JSON are the JAX master's.
 Every random draw (a volume for a write, a file id's cookie, placement,
@@ -67,19 +70,41 @@ scripts). ``/col/delete`` keeps the layout of a volume whose delete
 failed, so that the volume stays looked up until a later delete takes
 it (the JAX master drops the layout and orphans such a volume).
 
-Left out: raft and its sequencers (so no request is forwarded to a
-leader); the metrics, aggregate, health and tiering planes
-(``/cluster/health``); the whitelist guard and JWT (``/submit`` sends no
-``Authorization``, as the JAX master with no key); the filer of the
-maintenance shell; ``/stats/*`` and the UI. The master does no device
-work.
+High availability: with ``peers`` (a comma list of every master's
+host:port, this one included) the masters form a raft group
+(``topology/raft``) that persists its state under ``raft_dir``. Only the
+leader holds the topology: volume servers heartbeat to it (a follower
+answers a heartbeat ``not_leader`` with the leader's url), and a
+follower forwards every other route to it (``X-Raft-Forwarded`` stops a
+loop; a body goes over as opaque bytes with its Content-Type and
+Authorization), but ``GET /<fid>``, which a follower answers with a 301
+to the leader. A new volume id is a raft command, and file keys come
+from a ``RaftSequencer`` unless ``sequencer`` is given (an
+``EtcdSequencer``), so a new leader never issues an id or a key again.
+An assign that loses the leadership or times out in the raft commit
+answers a retriable 503 naming the leader. The vacuum, repair and
+maintenance loops act on the leader only.
+
+The guard: with a ``whitelist`` (IPs, "10.0."-style prefixes, CIDRs) a
+caller from elsewhere gets 403, but on the cluster's own channels
+(``/cluster/heartbeat``, ``/cluster/goodbye``, ``/cluster/scrub_report``,
+``/raft/*``). With a ``jwt_signing_key`` an assign's answer carries
+``auth``, a write token bound to its fid, which ``/submit`` sends on.
+
+Left out: the metrics, aggregate, health and tiering planes
+(``/cluster/health``, ``/cluster/tiering``); mutual TLS and the
+``security.toml`` reader; the filer of the maintenance shell;
+``/stats/*`` and the UI. The master does no device work.
 
     python3 -m seaweedfs_tpu_torch.server.master [-port 9333] [-ip HOST]
         [-volumeSizeLimitMB N] [-defaultReplication 000]
         [-pulseSeconds S] [-seed N] [-repairInterval S]
         [-vacuumIntervalSeconds 900] [-garbageThreshold 0.3]
         [-maintenanceScripts "volume.vacuum; ec.rebuild"]
-        [-maintenanceIntervalSeconds 1020]
+        [-maintenanceIntervalSeconds 1020] [-peers H:P,H:P,H:P]
+        [-mdir DIR] [-jwtKey KEY] [-whiteList IP,PREFIX.,CIDR]
+        [-sequencer etcd -sequencerEtcd H:P [-sequencerEtcdUser U
+         -sequencerEtcdPassword P]]
 
 serves until killed and prints ``master listening on <host>:<port>``.
 """
@@ -87,23 +112,29 @@ serves until killed and prints ``master listening on <host>:<port>``.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import os
 import random
 import signal
 import sys
+import tempfile
 import threading
 import time
 from typing import Optional
 
 from ..ec.constants import TOTAL_SHARDS
+from ..security.guard import Guard
+from ..security.jwt import GenJwt
 from ..shell.command_env import split_script
 from ..stats.repair_queue import RepairQueue
 from ..storage.super_block import SUPER_BLOCK_SIZE
 from ..storage.types import TTL, ReplicaPlacement, parse_file_id
-from ..topology.topology import Topology
+from ..topology.raft import NotLeaderError, RaftNode
+from ..topology.topology import RaftSequencer, Topology
 from ..topology.volume_growth import NoFreeSlots, find_empty_slots
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
-                        post_json, post_multipart)
+                        http_call, post_json, post_multipart)
 from .watch_hub import WatchHub
 
 PULSE_S = 5.0        # SW_PULSE_S: a heartbeat's period; 5 missed: pruned
@@ -116,6 +147,9 @@ GARBAGE_THRESHOLD = 0.3           # -garbageThreshold
 MAINTENANCE_INTERVAL_S = 17 * 60  # -maintenanceIntervalSeconds
 MAINTENANCE_ADMIN_TIMEOUT_S = 900.0  # an unattended admin call's bound
 VERSION = "seaweedfs_tpu 0.1"
+# the routes a whitelist leaves open: servers and raft peers, not clients
+GUARD_EXEMPT = ("/cluster/heartbeat", "/cluster/goodbye",
+                "/cluster/scrub_report")
 
 log = logging.getLogger(__name__)
 
@@ -130,13 +164,18 @@ class MasterServer:
                  garbage_threshold: float = GARBAGE_THRESHOLD,
                  vacuum_interval: float = VACUUM_INTERVAL_S,
                  maintenance_scripts: str = "",
-                 maintenance_interval: float = MAINTENANCE_INTERVAL_S):
+                 maintenance_interval: float = MAINTENANCE_INTERVAL_S,
+                 peers: str = "", raft_dir: str = "",
+                 jwt_signing_key: str = "", whitelist=(),
+                 sequencer=None):
         self.rng = random.Random(seed)
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=PULSE_S if pulse_seconds is None
-            else pulse_seconds, rng=self.rng)
+            else pulse_seconds, sequencer=sequencer, rng=self.rng)
         self.default_replication = default_replication
+        self.jwt_signing_key = jwt_signing_key
+        self.guard = Guard(whitelist)
         self.garbage_threshold = float(garbage_threshold)
         self.vg_lock = threading.Lock()
         self.host = host
@@ -161,6 +200,7 @@ class MasterServer:
         router.add("POST", "/cluster/scrub_report",
                    self.cluster_scrub_report)
         router.set_fallback(self.redirect_handler)
+        router.before = self._guard_check
         # heartbeats and node deaths publish location events here;
         # clients long-poll /cluster/watch
         self.watch_hub = WatchHub(self._location_snapshot)
@@ -198,11 +238,128 @@ class MasterServer:
             target=self._maintenance_loop, daemon=True,
             name="master-maintenance") if self.maintenance_scripts \
             else None
+        self.raft: Optional[RaftNode] = None
+        # requests this master forwarded to its leader
+        self.forwarded = 0
+        self._forwarded_lock = threading.Lock()
+        if peers:
+            self._init_raft(peers, raft_dir, sequencer, seed, router)
+
+    # -- raft ----------------------------------------------------------------
+    def _init_raft(self, peers: str, raft_dir: str, sequencer, seed,
+                   router: Router):
+        if not raft_dir:
+            # a node that forgets its vote can vote twice in one term and
+            # elect two leaders: the state always goes somewhere
+            raft_dir = default_meta_dir()
+        # a snapshot holds committed state only: the topology's
+        # max_volume_id is bumped before its propose (and rolled back on
+        # a failure), so the apply stream keeps its own maximum
+        self._raft_committed_max_vid = 0
+        # installed before the node, so that a snapshot restored from
+        # disk lands its ceiling in it; the propose resolves self.raft
+        # when it is called
+        if sequencer is None:
+            self.topology.sequencer = RaftSequencer(
+                lambda cmd: self.raft.propose(cmd))
+
+        def snapshot_state():
+            state = {"max_volume_id": self._raft_committed_max_vid}
+            seq = self.topology.sequencer
+            if isinstance(seq, RaftSequencer):
+                state["sequence_ceiling"] = seq.ceiling()
+            return state
+
+        def restore_state(st):
+            self._apply_raft({"type": "max_volume_id",
+                              "value": int(st.get("max_volume_id", 0))})
+            self._apply_raft({"type": "sequence_ceiling",
+                              "value": int(st.get("sequence_ceiling", 0))})
+
+        # each master draws its own election deadlines: one seed for all
+        # would time them out together and split every vote
+        rng = random.Random(f"{seed}-{self.url}") if seed is not None \
+            else random.Random()
+        self.raft = RaftNode(
+            self.url, [p.strip() for p in peers.split(",") if p.strip()],
+            self._apply_raft, state_dir=raft_dir,
+            snapshot_state_fn=snapshot_state, restore_fn=restore_state,
+            rng=rng)
+        router.add("POST", "/raft/request_vote",
+                   lambda req: self.raft.handle_request_vote(req.json()))
+        router.add("POST", "/raft/append_entries",
+                   lambda req: self.raft.handle_append_entries(req.json()))
+        router.add("POST", "/raft/install_snapshot",
+                   lambda req: self.raft.handle_install_snapshot(
+                       req.json()))
+        router.add("GET", "/raft/status", lambda req: self.raft.status())
+
+    def _apply_raft(self, command: dict):
+        """A committed raft command: the highest volume id, or a file-key
+        sequence ceiling."""
+        if command.get("type") == "max_volume_id":
+            value = int(command["value"])
+            self._raft_committed_max_vid = max(self._raft_committed_max_vid,
+                                               value)
+            with self.topology.lock:
+                self.topology.max_volume_id = max(
+                    self.topology.max_volume_id, value)
+        elif command.get("type") == "sequence_ceiling":
+            seq = self.topology.sequencer
+            if isinstance(seq, RaftSequencer):
+                seq.apply_ceiling(int(command["value"]),
+                                  command.get("nonce"))
+
+    def is_leader(self) -> bool:
+        return self.raft is None or self.raft.is_leader
+
+    def leader_url(self) -> str:
+        if self.raft is None:
+            return self.url
+        return self.raft.leader() or ""
+
+    def _leader_forward(self, req: Request):
+        """The leader's answer to ``req`` when this master follows; None
+        when this master leads (or runs alone) and answers itself. A
+        request already forwarded once answers 503: the leadership is
+        moving."""
+        if self.is_leader():
+            return None
+        if req.headers.get("X-Raft-Forwarded"):
+            raise HttpError(503, "raft leadership unsettled, retry")
+        leader = self.leader_url()
+        if not leader:
+            raise HttpError(503, "no raft leader elected yet")
+        with self._forwarded_lock:
+            self.forwarded += 1
+        url = f"http://{leader}{req.path}" + \
+            (f"?{req.raw_query}" if req.raw_query else "")
+        headers = {"X-Raft-Forwarded": "1"}
+        # the headers that shape the body: without its Content-Type a
+        # multipart /submit reaches the leader as opaque bytes
+        for h in ("Content-Type", "Authorization"):
+            v = req.headers.get(h)
+            if v:
+                headers[h] = v
+        out = http_call(req.method, url, req.body or None, headers)
+        return json.loads(out or b"{}")
+
+    def _guard_check(self, req: Request):
+        """403 for a caller off the whitelist, but on the cluster's own
+        channels (volume servers and raft peers)."""
+        if not self.guard.enabled:
+            return
+        if req.path in GUARD_EXEMPT or req.path.startswith("/raft/"):
+            return
+        if not self.guard.allows(req.handler.client_address[0]):
+            raise HttpError(403, "ip not in whitelist")
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "MasterServer":
         self.server.start()
         self._pruner.start()
+        if self.raft is not None:
+            self.raft.start()
         for thread in (self._repair_thread, self._vacuum_thread,
                        self._maintenance_thread):
             if thread is not None:
@@ -211,6 +368,8 @@ class MasterServer:
 
     def stop(self):
         self._stop.set()
+        if self.raft is not None:
+            self.raft.stop()
         self.server.stop()
 
     @property
@@ -223,6 +382,10 @@ class MasterServer:
 
     # -- heartbeats ----------------------------------------------------------
     def cluster_heartbeat(self, req: Request):
+        # servers register with the leader only: a follower names it
+        if not self.is_leader():
+            return {"volume_size_limit": self.topology.volume_size_limit,
+                    "leader": self.leader_url(), "not_leader": True}
         hb = req.json()
         url = f"{hb.get('ip', '127.0.0.1')}:{int(hb.get('port', 0))}"
         order = tuple(hb["seq"]) if hb.get("seq") else None
@@ -231,7 +394,7 @@ class MasterServer:
             if order is not None and last is not None and order < last:
                 return {"stale": True,
                         "volume_size_limit": self.topology.volume_size_limit,
-                        "leader": self.url}
+                        "leader": self.leader_url() or self.url}
             resp = self._apply_heartbeat(hb, url)
             if order is not None and not resp.get("resync"):
                 self._hb_order[url] = order
@@ -256,7 +419,7 @@ class MasterServer:
                 # whole state
                 return {"resync": True,
                         "volume_size_limit": self.topology.volume_size_limit,
-                        "leader": self.url}
+                        "leader": self.leader_url() or self.url}
         else:
             self.topology.register_heartbeat(
                 dc_id=hb.get("data_center", ""),
@@ -271,11 +434,14 @@ class MasterServer:
                 ec_collections=ec_collections,
                 max_file_key=int(hb.get("max_file_key", 0)))
         return {"volume_size_limit": self.topology.volume_size_limit,
-                "leader": self.url}
+                "leader": self.leader_url() or self.url}
 
     def cluster_goodbye(self, req: Request):
         """A server stopping cleanly: drop it now and push the deletions,
         instead of waiting for its expiry."""
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         url = req.json().get("url", "")
         node = self.topology.find_node(url)
         if node is not None:
@@ -284,6 +450,22 @@ class MasterServer:
 
     # -- assignment and growth -----------------------------------------------
     def dir_assign(self, req: Request):
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
+        try:
+            return self._dir_assign_local(req)
+        except NotLeaderError as e:
+            # deposed between the forward check and the sequencer's raft
+            # grant: a retriable 503 naming the new leader
+            raise HttpError(
+                503, f"leadership changed during assign; leader is "
+                     f"{e.leader or 'unknown'}") from None
+        except TimeoutError:
+            raise HttpError(
+                503, "raft commit timed out during assign; retry") from None
+
+    def _dir_assign_local(self, req: Request):
         count = int(req.query.get("count", 1))
         collection = req.query.get("collection", "")
         replication = req.query.get("replication") \
@@ -313,7 +495,30 @@ class MasterServer:
                "publicUrl": node.public_url, "count": cnt}
         if node.fast_url:
             out["fastUrl"] = node.fast_url
+        if self.jwt_signing_key:
+            out["auth"] = GenJwt(self.jwt_signing_key, fid)
         return out
+
+    def _next_volume_id(self) -> int:
+        """A new volume id; under raft a committed command, so that a new
+        leader never issues it again."""
+        if self.raft is None:
+            return self.topology.next_volume_id()
+        with self.topology.lock:
+            # bumped before the propose, so two growths at once read two
+            # values (the apply takes the maximum)
+            value = self.topology.max_volume_id + 1
+            self.topology.max_volume_id = value
+        try:
+            self.raft.propose({"type": "max_volume_id", "value": value})
+        except Exception:
+            # a failed propose leaves no bump that no entry backs (unless
+            # a later one landed on top)
+            with self.topology.lock:
+                if self.topology.max_volume_id == value:
+                    self.topology.max_volume_id = value - 1
+            raise
+        return value
 
     def _grow_volumes(self, collection: str, replication: str, ttl: TTL,
                       preferred_dc: str = "", count: int = None) -> int:
@@ -332,7 +537,7 @@ class MasterServer:
                 if grown:
                     break
                 raise
-            vid = self.topology.next_volume_id()
+            vid = self._next_volume_id()
             ok = True
             for n in nodes:
                 try:
@@ -347,6 +552,9 @@ class MasterServer:
         return grown
 
     def vol_grow(self, req: Request):
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         collection = req.query.get("collection", "")
         replication = req.query.get("replication") \
             or self.default_replication
@@ -373,11 +581,17 @@ class MasterServer:
             return out
 
     def cluster_watch(self, req: Request):
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         since = int(req.query.get("since", 0))
         timeout = min(float(req.query.get("timeout", 20)), 25.0)
         return self.watch_hub.wait(since, timeout)
 
     def dir_lookup(self, req: Request):
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         vid_s = req.query.get("volumeId", "")
         if "," in vid_s:
             vid_s = vid_s.split(",")[0]
@@ -391,6 +605,9 @@ class MasterServer:
                 "locations": [self._location(n) for n in locs]}
 
     def ec_lookup(self, req: Request):
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         vid = int(req.query.get("volumeId", 0))
         shards = self.topology.lookup_ec_shards(vid)
         if shards is None:
@@ -399,6 +616,9 @@ class MasterServer:
 
     def ec_status(self, req: Request):
         """Every EC volume: its collection and shard id -> holder urls."""
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         with self.topology.lock:
             return {"volumes": {
                 str(vid): {
@@ -410,6 +630,9 @@ class MasterServer:
 
     def cluster_volumes(self, req: Request):
         """Every volume replica: vid -> [{url, ...volume info}]."""
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         out = {}
         with self.topology.lock:
             for node in self.topology.all_nodes():
@@ -420,12 +643,18 @@ class MasterServer:
         return {"volumes": out}
 
     def dir_status(self, req: Request):
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         return {"topology": self.topology.to_dict(),
                 "volumeSizeLimit": self.topology.volume_size_limit,
                 "version": VERSION}
 
     def vol_status(self, req: Request):
         """The volume map by data center, rack and server."""
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         with self.topology.lock:
             dcs = {}
             total_max = 0
@@ -445,7 +674,12 @@ class MasterServer:
                             "DataCenters": dcs}}
 
     def cluster_status(self, req: Request):
-        return {"isLeader": True, "leader": self.url, "peers": [],
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
+        return {"isLeader": self.is_leader(),
+                "leader": self.leader_url() or self.url,
+                "peers": self.raft.peers if self.raft else [],
                 "nodes": [n.to_dict() for n in self.topology.all_nodes()]}
 
     # -- the integrity plane -------------------------------------------------
@@ -453,6 +687,9 @@ class MasterServer:
         """The repair queue: open incidents by priority, the recently
         resolved with their time to re-protection, and its counters.
         ``?refresh=1`` scans the shard map first."""
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         if req.query.get("refresh"):
             self._repair_scan()
         return self.repair_queue.snapshot()
@@ -461,6 +698,9 @@ class MasterServer:
         """A volume server's scrub finding: one corruption incident per
         corrupt shard, or one keyed shard -1 when the finding pins no
         shard, so that the exposure is still tracked."""
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         finding = req.json()
         vid = int(finding.get("volume", 0))
         shards = [int(s) for s in (finding.get("shards") or [])] or [-1]
@@ -516,6 +756,8 @@ class MasterServer:
 
     def _repair_loop(self):
         while not self._stop.wait(self.repair_interval):
+            if not self.is_leader():
+                continue
             try:
                 self._repair_scan()
                 for _ in range(REPAIR_DRAIN):
@@ -660,6 +902,8 @@ class MasterServer:
 
     def _vacuum_loop(self):
         while not self._stop.wait(self.vacuum_interval):
+            if not self.is_leader():
+                continue
             try:
                 out = self._run_vacuum_pass(reap_ttl=True)
                 if out["vacuumed"] or out["ttl_expired"]:
@@ -673,6 +917,8 @@ class MasterServer:
         run."""
         from .. import shell  # registers the commands
         while not self._stop.wait(self.maintenance_interval):
+            if not self.is_leader():
+                continue
             env = shell.CommandEnv(self.url)
             # one wedged volume server must not stall the loop for the
             # interactive shell's hour
@@ -685,6 +931,9 @@ class MasterServer:
             self._maintenance_runs += 1
 
     def vol_vacuum(self, req: Request):
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         threshold = float(req.query.get("garbageThreshold",
                                         self.garbage_threshold))
         return self._run_vacuum_pass(threshold)
@@ -693,6 +942,9 @@ class MasterServer:
         """Delete every volume of a collection on every holder, then drop
         the collection's layouts, but for those of a volume whose delete
         failed: it stays looked up, and a later delete can take it."""
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         collection = req.query.get("collection", "")
         if not collection:
             raise HttpError(400, "collection required")
@@ -717,30 +969,47 @@ class MasterServer:
         """An upload through the master: a file id assigned as
         ``/dir/assign`` would (the query's collection, replication and
         ttl), and the body posted to it."""
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
         filename, ctype, data = req.upload_payload()
         assign = self.dir_assign(req)
+        headers = {"Authorization": f"Bearer {assign['auth']}"} \
+            if assign.get("auth") else None
         result = post_multipart(
             f"http://{assign['url']}/{assign['fid']}", filename, data,
-            ctype or "application/octet-stream")
+            ctype or "application/octet-stream", headers=headers)
         return {"fid": assign["fid"],
                 "fileUrl": f"{assign['publicUrl']}/{assign['fid']}",
                 "size": result.get("size", len(data))}
 
     def redirect_handler(self, req: Request):
         """GET /<fid>: a 301 to one of the volume's holders, drawn with
-        the master's rng, the query kept. A path that is not a fid is a
-        404."""
+        the master's rng, the query kept; on a follower a 301 to the same
+        path on the leader. A path that is not a fid is a 404."""
         try:
             vid, _, _ = parse_file_id(req.path.lstrip("/"))
         except ValueError:
             raise HttpError(404, f"no such path {req.path}") from None
         q = ("?" + req.raw_query) if req.raw_query else ""
+        if not self.is_leader():
+            leader = self.leader_url()
+            if not leader:
+                raise HttpError(503, "no leader")
+            return Response(b"", 301, headers={
+                "Location": f"http://{leader}{req.path}{q}"})
         locs = self.topology.lookup(req.query.get("collection", ""), vid)
         if not locs:
             raise HttpError(404, f"volume {vid} not found")
         node = self.rng.choice(locs)
         return Response(b"", 301, headers={
             "Location": f"http://{node.public_url}{req.path}{q}"})
+
+
+def default_meta_dir() -> str:
+    """Where raft state and ``sequencer.dat`` go without ``-mdir``: a
+    directory under the temp dir, as the JAX master's."""
+    return os.path.join(tempfile.gettempdir(), "weed-tpu-raft")
 
 
 def main(argv=None) -> int:
@@ -771,7 +1040,35 @@ def main(argv=None) -> int:
                          'e.g. "volume.vacuum; ec.rebuild"')
     ap.add_argument("-maintenanceIntervalSeconds", type=float,
                     default=MAINTENANCE_INTERVAL_S)
+    ap.add_argument("-peers", default="",
+                    help="every master's host:port, comma-separated, this "
+                         "one included: a raft group (none: one master)")
+    ap.add_argument("-mdir", default="",
+                    help="where the raft state (and the etcd sequencer's "
+                         "sequencer.dat) is kept")
+    ap.add_argument("-jwtKey", default="",
+                    help="the HS256 key of per-fid write tokens")
+    ap.add_argument("-whiteList", default="",
+                    help="comma-separated IPs, prefixes (10.0.) and CIDRs "
+                         "allowed on the client routes; heartbeats and "
+                         "raft stay open")
+    ap.add_argument("-sequencer", default="auto", choices=("auto", "etcd"),
+                    help="file keys from memory or raft (auto), or from "
+                         "an etcd every master shares")
+    ap.add_argument("-sequencerEtcd", default="127.0.0.1:2379",
+                    help="the etcd of -sequencer etcd (host:port)")
+    ap.add_argument("-sequencerEtcdUser", default="")
+    ap.add_argument("-sequencerEtcdPassword", default="")
     args = ap.parse_args(argv)
+    sequencer = None
+    if args.sequencer == "etcd":
+        from ..topology.topology import EtcdSequencer
+        meta_dir = args.mdir or default_meta_dir()
+        os.makedirs(meta_dir, exist_ok=True)
+        sequencer = EtcdSequencer(args.sequencerEtcd,
+                                  user=args.sequencerEtcdUser,
+                                  password=args.sequencerEtcdPassword,
+                                  meta_dir=meta_dir)
     m = MasterServer(port=args.port, host=args.ip,
                      volume_size_limit_mb=args.volumeSizeLimitMB,
                      default_replication=args.defaultReplication,
@@ -780,8 +1077,12 @@ def main(argv=None) -> int:
                      garbage_threshold=args.garbageThreshold,
                      vacuum_interval=args.vacuumIntervalSeconds,
                      maintenance_scripts=args.maintenanceScripts,
-                     maintenance_interval=args.maintenanceIntervalSeconds
-                     ).start()
+                     maintenance_interval=args.maintenanceIntervalSeconds,
+                     peers=args.peers, raft_dir=args.mdir,
+                     jwt_signing_key=args.jwtKey,
+                     whitelist=[w for w in args.whiteList.split(",")
+                                if w.strip()],
+                     sequencer=sequencer).start()
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())

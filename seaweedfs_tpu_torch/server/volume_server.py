@@ -124,9 +124,16 @@ server multiplies on the host; the bytes are the same).
 ``ops/device_stats`` (every ``device_timing_sample``th call), which is
 process-wide.
 
-Left out: the whitelist and JWT guard, chunk manifests (``cm=``) and
-image resizing, the native plane, tiering, ``/query``, ``/metrics``,
-tracing (the ``trace_id`` of the JAX ``/admin/ec/rebuild`` and
+The guard: with a ``whitelist`` (IPs, "10.0."-style prefixes, CIDRs)
+every route answers 403 to a caller from elsewhere; with a
+``jwt_signing_key`` a needle write or delete answers 401 without a
+token (``Authorization: Bearer`` or ``?jwt=``) that the key signed for
+its fid and that has not expired; the fan-out to the other replicas and
+holders carries the writer's token as ``?jwt=``.
+
+Left out: mutual TLS, chunk manifests (``cm=``) and image resizing,
+the native plane, tiering, ``/query``, ``/metrics``, tracing (the
+``trace_id`` of the JAX ``/admin/ec/rebuild`` and
 ``/admin/ec/scrub_repair`` answers) and the metrics push.
 
     python3 -m seaweedfs_tpu_torch.server.volume_server --dir D [--dir D2]
@@ -135,6 +142,7 @@ tracing (the ``trace_id`` of the JAX ``/admin/ec/rebuild`` and
         [--scrub-rate-mbps R] [--degraded-mode batch|naive]
         [--device-timing] [--device-timing-sample N]
         [--ec.backend cuda|numpy|mesh] [--mesh.devices cuda:0,cuda:0]
+        [--jwt-key KEY] [--whitelist IP,PREFIX.,CIDR]
 
 serves until killed and prints ``listening <host>:<port>`` once bound,
 so a parent process that passed ``--port 0`` can read the port. The
@@ -168,6 +176,8 @@ from ..ec.scrub import ScrubEngine
 from ..ec.shard_cache import EcShardLocationCache
 from ..ops import codec as ops_codec
 from ..ops import device_stats
+from ..security.guard import Guard
+from ..security.jwt import VerifyError, jwt_from_request, verify_fid_jwt
 from ..stats.health import BOARD
 from ..storage import volume_backup
 from ..storage.compact_map import snapshot_live_items
@@ -193,7 +203,9 @@ class VolumeServer:
     None); ``degraded_mode`` "batch" or "naive"; ``device_timing`` and
     ``device_timing_sample`` the process's sampled kernel timing (left as
     it is when None); ``ec_backend`` "cuda" (the store's TorchCodec on
-    ``device``), "mesh" (MeshCodec over ``mesh``) or "numpy"."""
+    ``device``), "mesh" (MeshCodec over ``mesh``) or "numpy";
+    ``jwt_signing_key`` the key of the write tokens (none: writes need
+    none) and ``whitelist`` the callers allowed (empty: all)."""
 
     def __init__(self, port: int = 8080, host: str = "127.0.0.1",
                  directories=None, device: str = "cuda",
@@ -205,8 +217,11 @@ class VolumeServer:
                  degraded_mode: str = "batch",
                  device_timing: Optional[bool] = None,
                  device_timing_sample: int = 1,
-                 ec_backend: str = "cuda", mesh=None):
+                 ec_backend: str = "cuda", mesh=None,
+                 jwt_signing_key: str = "", whitelist=()):
         self.degraded_mode = _degraded_mode(degraded_mode)
+        self.jwt_signing_key = jwt_signing_key
+        self.guard = Guard(whitelist)
         if codec is None and ec_backend != "cuda":
             codec = ops_codec.get_codec(DATA_SHARDS,
                                         TOTAL_SHARDS - DATA_SHARDS,
@@ -257,6 +272,7 @@ class VolumeServer:
         router.add("GET", "/admin/devices", self.admin_devices)
         router.add("GET", "/admin/file", self.admin_file)
         router.set_fallback(self.data_handler)
+        router.before = self._guard_check
         # without a ``codec``, the store builds RS(10,4) on ``device`` only
         # when an encode, a rebuild or a degraded read first needs it
         self.store = Store(directories or ["."], codec=codec, device=device,
@@ -1040,6 +1056,33 @@ class VolumeServer:
                 return Response(body_path=path, body_range=(offset, size))
         raise HttpError(404, f"{name} not found")
 
+    # -- the guard -----------------------------------------------------------
+    def _guard_check(self, req: Request):
+        """The whitelist covers every route, the admin ones included."""
+        if self.guard.enabled and \
+                not self.guard.allows(req.handler.client_address[0]):
+            raise HttpError(403, "ip not in whitelist")
+
+    def _check_write_jwt(self, req: Request):
+        """With a key, a write or delete needs a token signed for its
+        fid."""
+        if not self.jwt_signing_key:
+            return
+        token = jwt_from_request(req.headers, req.query)
+        if not token:
+            raise HttpError(401, "missing write jwt")
+        try:
+            verify_fid_jwt(self.jwt_signing_key, token,
+                           req.path.lstrip("/"))
+        except VerifyError as e:
+            raise HttpError(401, f"jwt rejected: {e}") from None
+
+    def _jwt_query(self, req: Request) -> str:
+        """``&jwt=<the writer's token>`` for a fan-out hop (with a key)."""
+        token = jwt_from_request(req.headers, req.query) \
+            if self.jwt_signing_key else None
+        return f"&jwt={token}" if token else ""
+
     # -- the data routes -----------------------------------------------------
     def data_handler(self, req: Request):
         if req.path == "/":
@@ -1051,8 +1094,10 @@ class VolumeServer:
         if req.method in ("GET", "HEAD"):
             return self.read_needle(req, vid, key, cookie)
         if req.method in ("POST", "PUT"):
+            self._check_write_jwt(req)
             return self.write_needle(req, vid, key, cookie)
         if req.method == "DELETE":
+            self._check_write_jwt(req)
             return self.delete_needle(req, vid, key, cookie)
         raise HttpError(405, req.method)
 
@@ -1112,9 +1157,9 @@ class VolumeServer:
                          ts_val):
         """The write on every other replica, all at once; any failure
         fails the request, so the client knows the needle is
-        under-replicated. ``ttl``, the checked ``ts`` and the Seaweed-*
-        pairs go with it."""
-        extra_q = ""
+        under-replicated. The writer's token, ``ttl``, the checked ``ts``
+        and the Seaweed-* pairs go with it."""
+        extra_q = self._jwt_query(req)
         if req.query.get("ttl"):
             extra_q += f"&ttl={req.query['ttl']}"
         if ts_val:
@@ -1257,9 +1302,11 @@ class VolumeServer:
         if req.query.get("type") != "replicate":
             # every replica must drop it, or a read redirect brings it
             # back; a 404 there is already the goal
+            jwt_q = self._jwt_query(req)
+
             def replicate(node_url: str):
-                http_call("DELETE",
-                          f"http://{node_url}{req.path}?type=replicate")
+                http_call("DELETE", f"http://{node_url}{req.path}"
+                                    f"?type=replicate{jwt_q}")
 
             failed = [f"{node_url}: {exc}" for node_url, _, exc in
                       fan_out(replicate,
@@ -1403,10 +1450,11 @@ class VolumeServer:
                 self._ec_shard_locations(vid)
             targets = sorted({h for holders in locations.values()
                               for h in holders if h != self.url})
+            jwt_q = self._jwt_query(req)
 
             def broadcast(holder: str):
                 http_call("DELETE", f"http://{holder}{req.path}"
-                                    f"?type=replicate")
+                                    f"?type=replicate{jwt_q}")
 
             failed = []
             if targets:
@@ -1442,7 +1490,8 @@ def main(argv=None) -> int:
                          "(cuda or cpu)")
     ap.add_argument("--master", default="",
                     help="host:port of the master to heartbeat and ask for "
-                         "locations (none by default)")
+                         "locations, or a comma list of a raft group's "
+                         "masters (none by default)")
     ap.add_argument("--max", default="7",
                     help="volume slots of each --dir (comma list)")
     ap.add_argument("--pulse-seconds", type=float, default=PULSE_S,
@@ -1467,6 +1516,12 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh.devices", dest="mesh_devices", default="",
                     help="the mesh codec's positions, a comma list of "
                          "torch devices (every card by default)")
+    ap.add_argument("--jwt-key", default="",
+                    help="the HS256 key of the masters' write tokens (a "
+                         "write or delete without one is refused)")
+    ap.add_argument("--whitelist", default="",
+                    help="comma-separated IPs, prefixes (10.0.) and CIDRs "
+                         "allowed on every route (none: all)")
     args = ap.parse_args(argv)
     positions = [d for d in args.mesh_devices.split(",") if d]
     mesh = None
@@ -1485,7 +1540,10 @@ def main(argv=None) -> int:
                       degraded_mode=args.degraded_mode,
                       device_timing=args.device_timing or None,
                       device_timing_sample=args.device_timing_sample,
-                      ec_backend=args.ec_backend, mesh=mesh).start()
+                      ec_backend=args.ec_backend, mesh=mesh,
+                      jwt_signing_key=args.jwt_key,
+                      whitelist=[w for w in args.whitelist.split(",")
+                                 if w.strip()]).start()
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())

@@ -3,16 +3,22 @@ their heartbeats (full, or a delta against the state last acknowledged),
 a writable-volume layout per (collection, replication, ttl), the EC shard
 map, the file-key sequencer, node expiry, and the location events a watch
 hub pushes to clients, and the vacuum scan. The JAX package's
-``topology/topology.py`` without raft and its sequencers. Every random draw (the layout's
-pick, a file id's cookie, placement) comes from ``rng``, which the master
-seeds; the JAX package draws the same values in the same order from the
+``topology/topology.py``. File keys come from one of three sequencers:
+``Sequencer`` (in memory, one master), ``RaftSequencer`` (blocks granted
+through the masters' raft log, so that a new leader never issues a key
+again) and ``EtcdSequencer`` (blocks granted by compare-and-swap on an
+etcd every master shares). Every random draw (the layout's pick, a file
+id's cookie, placement) comes from ``rng``, which the master seeds; the
+JAX package draws the same values in the same order from the
 module-global ``random``."""
 
 from __future__ import annotations
 
+import os
 import random
 import threading
 import time
+import uuid
 from typing import Dict, List, Optional, Tuple
 
 from ..ec.constants import TOTAL_SHARDS
@@ -38,6 +44,185 @@ class Sequencer:
         with self._lock:
             if seen >= self._counter:
                 self._counter = seen + 1
+
+
+class RaftSequencer(Sequencer):
+    """File keys whose grants survive a master failover. Keys are granted
+    in blocks: one raft round trip commits a rising "sequence ceiling"
+    for ``block`` keys, and every master applies it, so a new leader
+    starts above every key an earlier leader could have handed out.
+
+    ``propose_fn`` blocks until the commit, and the raft apply calls
+    ``apply_ceiling`` (on another thread, or on this one in a group of
+    one), so the lock is never held across a propose. A node hands out
+    keys only from grants it proposed itself (``_grant_end``): a ceiling
+    applied from another master raises ``_ceiling`` but opens no window
+    here. The grant's base is decided when the entry is applied, in
+    commit order: a fresh leader may propose before it applied the
+    former leader's last ceiling."""
+
+    def __init__(self, propose_fn, block: int = 10000):
+        super().__init__()
+        self._propose = propose_fn
+        self._block = int(block)
+        self._ceiling = 0     # the highest committed ceiling, any master
+        self._grant_end = 0   # the top of this node's own grants
+        self._nonce = 0
+        # nonces ride the replicated log: a prefix unique to the process
+        # keeps two masters' counters from minting one nonce (a foreign
+        # entry taken for a local grant would collide keys)
+        self._nonce_prefix = uuid.uuid4().hex
+        self._pending: set = set()  # nonces of my proposals in flight
+
+    def next_file_id(self, count: int = 1) -> int:
+        while True:
+            with self._lock:
+                if self._counter + count - 1 <= self._grant_end:
+                    start = self._counter
+                    self._counter += count
+                    return start
+                need = max(self._block, count)
+                target = max(self._ceiling, self._grant_end,
+                             self._counter - 1) + need
+                self._nonce += 1
+                nonce = f"{self._nonce_prefix}-{self._nonce}"
+                self._pending.add(nonce)
+            # outside the lock: the propose waits for the apply, which
+            # takes it. NotLeaderError on a follower.
+            try:
+                self._propose({"type": "sequence_ceiling",
+                               "value": target, "nonce": nonce})
+            finally:
+                with self._lock:
+                    self._pending.discard(nonce)
+            # the apply granted room (allocate), or a foreign ceiling
+            # swallowed the whole range (propose again above it)
+
+    def apply_ceiling(self, value: int, nonce: str = None):
+        """A committed ceiling from any master. When ``nonce`` is one of
+        this node's proposals in flight, (ceiling before the apply,
+        value] becomes its own grant."""
+        with self._lock:
+            if nonce is not None and nonce in self._pending:
+                base = self._ceiling
+                if base < value:
+                    if base > self._grant_end:
+                        # past a foreign ceiling: skip the keys another
+                        # leader may have issued
+                        self._counter = max(self._counter, base + 1)
+                    self._grant_end = max(self._grant_end, value)
+            if value > self._ceiling:
+                self._ceiling = value
+
+    def ceiling(self) -> int:
+        with self._lock:
+            return self._ceiling
+
+
+class EtcdSequencer(Sequencer):
+    """File keys granted in blocks by compare-and-swap of one counter key
+    on an etcd that every master shares, so no two masters mint one key
+    (one etcd round trip a ``block``). Each grant's ceiling is written to
+    ``<meta_dir>/sequencer.dat``, and at start etcd is raised to the
+    file's value, so an etcd wiped under a surviving master cannot roll
+    keys back."""
+
+    KEY = b"/seaweedfs/master/sequence"
+    DEFAULT_BLOCK = 500
+
+    def __init__(self, addr: str, user: str = "", password: str = "",
+                 meta_dir: str = "", block: int = DEFAULT_BLOCK,
+                 api_prefix: str = "/v3"):
+        super().__init__()
+        from ..filer.etcd_store import EtcdClient
+        self._client = EtcdClient.from_addr(addr, user=user,
+                                            password=password,
+                                            api_prefix=api_prefix)
+        if user:
+            self._client.authenticate()
+        self._block = max(1, int(block))
+        self._window_end = 0  # the exclusive top of our grant
+        self._seq_file = os.path.join(meta_dir, "sequencer.dat") \
+            if meta_dir else ""
+        seed = 0
+        if self._seq_file and os.path.exists(self._seq_file):
+            try:
+                with open(self._seq_file) as f:
+                    seed = int(f.read().strip() or "0")
+            except ValueError:
+                seed = 0
+        if seed:
+            self._raise_etcd_to(seed)
+
+    def _read_current(self) -> Optional[int]:
+        kvs = self._client.range(self.KEY)
+        if not kvs:
+            return None
+        try:
+            return int(kvs[0][1])
+        except ValueError:
+            raise RuntimeError(
+                f"etcd sequence key {self.KEY!r} holds non-integer "
+                f"{kvs[0][1]!r}") from None
+
+    def _raise_etcd_to(self, floor: int):
+        """Swap the shared counter up to at least ``floor`` (no grant)."""
+        while True:
+            cur = self._read_current()
+            if cur is not None and cur >= floor:
+                return
+            expect = None if cur is None else str(cur).encode()
+            if self._client.put_if(self.KEY, expect, str(floor).encode()):
+                return
+
+    def _grant(self, need: int) -> int:
+        """Swap a block of ``need`` keys; the window's exclusive base (we
+        own (base, base + need])."""
+        while True:
+            cur = self._read_current()
+            base = cur or 0
+            expect = None if cur is None else str(cur).encode()
+            if self._client.put_if(self.KEY, expect,
+                                   str(base + need).encode()):
+                if self._seq_file:
+                    tmp = self._seq_file + ".tmp"
+                    with open(tmp, "w") as f:
+                        f.write(str(base + need))
+                    os.replace(tmp, self._seq_file)
+                return base
+
+    def next_file_id(self, count: int = 1) -> int:
+        with self._lock:
+            if self._counter + count - 1 < self._window_end:
+                start = self._counter
+                self._counter += count
+                return start
+            need = max(self._block, count)
+            base = self._grant(need)
+            start = max(base + 1, self._counter)
+            if start + count - 1 > base + need:
+                # the local counter (set_max) is above even the fresh
+                # grant: raise etcd and grant again from there
+                self._raise_etcd_to(start - 1)
+                base = self._grant(need)
+                start = max(base + 1, self._counter)
+            self._counter = start + count
+            self._window_end = base + need + 1
+            return start
+
+    def set_max(self, seen: int):
+        with self._lock:
+            if seen < self._counter:
+                return
+            if seen < self._window_end - 1:
+                self._counter = seen + 1
+                return
+            self._counter = seen + 1
+            self._window_end = 0  # grant again above ``seen``
+        self._raise_etcd_to(seen)
+
+    def close(self):
+        self._client.close()
 
 
 class Topology:

@@ -13,8 +13,10 @@ rebuilt by the master's repair queue, naive degraded reads, the device
 accounting and a torch.profiler trace) and its volume control plane
 (vacuum, fsck, move, fix.replication, backup, /submit and
 collection.delete), and runs the multi-device tier
-(MeshCodec, the distributed EC step, two processes over gloo), with
-both made unimportable."""
+(MeshCodec, the distributed EC step, two processes over gloo), and a
+highly available cluster (three masters in a raft group, write tokens,
+the leader stopped, a write and an ec.rebuild after), with both made
+unimportable."""
 
 import ast
 import os
@@ -106,6 +108,10 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/shell/command_volume.py",
                  "seaweedfs_tpu_torch/shell/command_collection.py",
                  "seaweedfs_tpu_torch/command/volume_tools.py",
+                 "seaweedfs_tpu_torch/topology/raft.py",
+                 "seaweedfs_tpu_torch/security/guard.py",
+                 "seaweedfs_tpu_torch/security/jwt.py",
+                 "seaweedfs_tpu_torch/filer/etcd_store.py",
                  "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc"):
@@ -555,6 +561,130 @@ def test_cluster_with_jax_unimportable(tmp_path):
         assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
         assert sys.modules["seaweedfs_tpu_torch.ops.device_stats"] \
             .DEVICE_STATS.launch_count("rs_hopper.gf_matmul") == 0
+        assert not any(mod.split(".")[0] in {FORBIDDEN!r}
+                       for mod, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_ha_cluster_with_jax_unimportable(tmp_path):
+    """Three port masters in a raft group with write tokens and three
+    port VolumeServers on the CPU in one process, the leader their first
+    seed: needles written through a follower's assigns with their tokens,
+    ec.encode through the follower; then the leader stopped, two shards
+    lost, ec.rebuild through a survivor once the new leader has the
+    servers, a write after, every needle read back."""
+    script = textwrap.dedent(f"""
+        import io, os, socket, sys, time
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from seaweedfs_tpu_torch.client import operation as op
+        from seaweedfs_tpu_torch.server.http_util import (HttpError,
+                                                          post_multipart)
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+        root = {str(tmp_path)!r}
+        socks = [socket.socket() for _ in range(3)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        ports = [s.getsockname()[1] for s in socks]
+        for s in socks:
+            s.close()
+        peers = ",".join("127.0.0.1:%d" % p for p in ports)
+        masters = [MasterServer(port=p, pulse_seconds=1, seed=i,
+                                peers=peers, raft_dir=root + "/raft",
+                                jwt_signing_key="k", repair_interval=0,
+                                vacuum_interval=0).start()
+                   for i, p in enumerate(ports)]
+
+        def leader(alive, timeout=30):
+            deadline = time.monotonic() + timeout
+            while time.monotonic() < deadline:
+                got = [m for m in alive if m.is_leader()]
+                if len(got) == 1 and all(m.leader_url() == got[0].url
+                                         for m in alive):
+                    return got[0]
+                time.sleep(0.05)
+            raise AssertionError("no leader")
+
+        def until(pred, timeout=30):
+            deadline = time.monotonic() + timeout
+            while not pred():
+                assert time.monotonic() < deadline
+                time.sleep(0.05)
+
+        first = leader(masters)
+        rest = [m for m in masters if m is not first]
+        follower = rest[0]
+        seeds = ",".join([first.url] + [m.url for m in rest])
+        servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
+                                master_url=seeds, pulse_seconds=1,
+                                max_volume_counts=[20], device="cpu",
+                                jwt_signing_key="k").start()
+                   for i in range(3)]
+
+        def shell(master, line):
+            out = io.StringIO()
+            run_command(CommandEnv(master.url, out=out), line)
+            return out.getvalue()
+
+        try:
+            until(lambda: len(first.topology.all_nodes()) == 3)
+            rng = np.random.default_rng(0)
+            data = {{}}
+            for i in range(10):
+                body = rng.bytes(20_000)
+                data[op.upload_data(follower.url, body, filename="n%d" % i,
+                                    collection="iso")] = body
+            a = op.assign(follower.url, collection="iso")
+            try:
+                post_multipart("http://%s/%s" % (a["url"], a["fid"]), "x",
+                               b"x")
+                raise AssertionError("a write without its token")
+            except HttpError as e:
+                assert e.status == 401
+            by_vid = {{}}
+            for fid in data:
+                by_vid.setdefault(int(fid.split(",")[0]), []).append(fid)
+            vid = max(by_vid, key=lambda v: len(by_vid[v]))
+            assert "ec encoded" in shell(follower,
+                                         "ec.encode -volumeId %d" % vid)
+            first.stop()
+            new = leader(rest)
+            until(lambda: len(new.topology.all_nodes()) == 3 and
+                  len(new.topology.lookup_ec_shards(vid) or {{}}) == 14)
+            victim = next(vs for vs in servers
+                          if vs.store.find_ec_volume(vid) is not None)
+            lost = victim.store.find_ec_volume(vid).shard_ids()[:2]
+            victim.store.unmount_ec_shards(vid, lost)
+            for loc in victim.store.locations:
+                for name in os.listdir(loc.directory):
+                    if any(name.endswith(".ec%02d" % s) for s in lost):
+                        os.remove(os.path.join(loc.directory, name))
+            victim.heartbeat_once()
+            until(lambda: len(new.topology.lookup_ec_shards(vid)) == 12)
+            assert "rebuilt shards" in shell(follower, "ec.rebuild")
+            until(lambda: len(new.topology.lookup_ec_shards(vid)) == 14)
+            body = rng.bytes(7000)
+            data[op.upload_data(follower.url, body, collection="iso")] = \
+                body
+            for fid, body in data.items():
+                assert op.read_file(follower.url, fid) == body
+        finally:
+            for vs in servers:
+                vs.stop()
+            for m in masters:
+                m.stop()
+        assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
         assert not any(mod.split(".")[0] in {FORBIDDEN!r}
                        for mod, v in sys.modules.items() if v is not None)
         print("PORT-OK")
