@@ -27,11 +27,12 @@ from ..storage.super_block import SUPER_BLOCK_SIZE, SuperBlock
 from ..storage.types import (NEEDLE_ID_SIZE, TOMBSTONE_FILE_SIZE,
                              bytes_to_entry, bytes_to_needle_id, entry_size,
                              entry_to_bytes)
+from ..util import tracing
 from ..util.profiling import StageTimer
 from .constants import (DATA_SHARDS, LARGE_BLOCK_SIZE, PARITY_SHARDS,
                         SMALL_BLOCK_SIZE, to_ext)
-from .encoder import (_phases, _shard_outputs, _sync_stream,
-                      _transport_stats)
+from .encoder import (_phases, _record_phase_spans, _shard_outputs,
+                      _sync_stream, _transport_stats)
 from .layout import ecx_record_bytes
 
 
@@ -101,6 +102,13 @@ def write_dat_file(base_name: str, dat_size: int,
                    small_block: int = SMALL_BLOCK_SIZE,
                    buf_size: int = 8 << 20):
     """Interleave-copy .ec00-09 back into a .dat of dat_size bytes."""
+    with tracing.span("write", op="ec.to_volume", bytes=int(dat_size)):
+        _write_dat_file(base_name, dat_size, large_block, small_block,
+                        buf_size)
+
+
+def _write_dat_file(base_name, dat_size, large_block, small_block,
+                    buf_size):
     ins = [open(base_name + to_ext(i), "rb") for i in range(DATA_SHARDS)]
     try:
         with open(base_name + ".dat", "wb") as dat:
@@ -235,6 +243,8 @@ def rebuild_ec_file_repair(base_name: str, lost_sid: int, source, plan,
         lambda planes, w: combine_planes_to_bytes(planes, w).tobytes(),
         timer)
     stream_s = time.perf_counter() - t_stream
+    _record_phase_spans(_phases(timer, pipelined, stream_s), "ec.rebuild",
+                        backend=codec.backend, repair="trace")
     if stats is not None:
         _repair_stats(stats, before, source, codec, timer, pipelined,
                       stream_s, rebuilt_bytes, "trace", len(plan.helpers),
@@ -279,6 +289,8 @@ def rebuild_ec_file_piggyback(base_name: str, lost_sid: int, source,
         base_name, lost_sid, stream,
         lambda sub, w: pb_merge(sub, alpha, window)[0].tobytes(), timer)
     stream_s = time.perf_counter() - t_stream
+    _record_phase_spans(_phases(timer, pipelined, stream_s), "ec.rebuild",
+                        backend=codec.backend, repair="piggyback")
     if stats is not None:
         _repair_stats(stats, before, source, codec, timer, pipelined,
                       stream_s, rebuilt_bytes, "piggyback",

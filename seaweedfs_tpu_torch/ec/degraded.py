@@ -32,8 +32,11 @@ reconstruct_fetch=engine.read)``). ``DegradedReadEngine`` serves them:
 
 This is the JAX package's ``ec/degraded.py`` engine, with every decision
 it makes held: the counters of the two agree on the same shard files and
-holders. The spans the JAX engine records go into a ``StageTimer`` whose
-totals ``snapshot()`` reports as ``phases``.
+holders. Each batch is an ``ec.degraded`` span with the JAX engine's
+``plan``, ``gather`` and ``dispatch`` spans under it (``path`` host or
+device); the same phases go into a ``StageTimer`` whose totals
+``snapshot()`` reports as ``phases``. ``on_read(seconds)`` sees every
+read's latency (the server's histogram).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import numpy as np
 from ..ops import codec as ops_codec
 from ..ops.pipeline import PipelinedMatmul
 from ..storage.types import entry_size
+from ..util import tracing
 from ..util.profiling import StageTimer
 from .ec_volume import EcShardNotFound
 from .gather import ShardSizeCache
@@ -185,8 +189,12 @@ class DegradedReadEngine:
                  cache_bytes: Optional[int] = None,
                  slab: Optional[int] = None,
                  batch_ms: Optional[float] = None,
-                 readahead: Optional[int] = None):
+                 readahead: Optional[int] = None,
+                 on_read=None):
         self.store = store
+        # on_read(seconds) after every read (the server's latency
+        # histogram); its failure never fails the read
+        self.on_read = on_read
         self._locations = locations
         self._codec = codec
         self._loc_cache = loc_cache
@@ -235,9 +243,15 @@ class DegradedReadEngine:
                 self._c["errors"] += 1
             raise
         finally:
+            dt = time.perf_counter() - t0
             with self._lock:
                 self._c["reads"] += 1
-                self._latencies.append(time.perf_counter() - t0)
+                self._latencies.append(dt)
+            if self.on_read is not None:
+                try:
+                    self.on_read(dt)
+                except Exception:  # noqa: BLE001 - metrics never fail reads
+                    pass
 
     def invalidate(self, vid: int, shard_ids=None) -> int:
         """Drop cached slabs for a volume (optionally specific shards): a
@@ -362,6 +376,12 @@ class DegradedReadEngine:
     # -- batch execution ---------------------------------------------------
     def _reconstruct_batch(self, vid: int, sid: int, idxs: List[int],
                            nreq: int) -> Dict[int, bytes]:
+        with tracing.span("ec.degraded", volume=vid, shard=sid,
+                          slabs=len(idxs), requests=nreq) as root:
+            return self._reconstruct_batch_in(vid, sid, idxs, nreq, root)
+
+    def _reconstruct_batch_in(self, vid: int, sid: int, idxs: List[int],
+                              nreq: int, root) -> Dict[int, bytes]:
         codec = self._codec()
         ev = self.store.find_ec_volume(vid)
         self_url = self._self_url() if callable(self._self_url) \
@@ -386,7 +406,9 @@ class DegradedReadEngine:
         # volumes the coupled plan's alpha sub-chunk rows over
         # window-split survivor slabs
         li = self._layout(ev, codec)
-        with self.timer.stage("plan"):
+        with self.timer.stage("plan"), \
+                tracing.span("plan", backend=codec.backend,
+                             layout=li.layout):
             if li.piggyback:
                 src, pmissing, coeffs = ops_codec.piggyback_decode_plan(
                     codec.k, codec.m, tuple(present),
@@ -407,8 +429,10 @@ class DegradedReadEngine:
                 readers.append(LocalShardReader(ev.shards[s].path, stats))
             else:
                 holders = [h for h in locations.get(s, []) if h != self_url]
-                readers.append(RemoteShardReader(
-                    vid, s, holders, stats, timeout=READ_TIMEOUT_S))
+                r = RemoteShardReader(vid, s, holders, stats,
+                                      timeout=READ_TIMEOUT_S)
+                r.span = root
+                readers.append(r)
 
         shard_size = self._shard_size(vid, ev, src, locations, self_url)
         runs = self._runs(idxs, shard_size)
@@ -418,7 +442,7 @@ class DegradedReadEngine:
             # construction, so the widened runs stay in range)
             runs = self._window_runs(runs, li.window, shard_size)
         try:
-            blocks = self._gather(readers, runs)
+            blocks = self._gather(readers, runs, root)
         except Exception as e:
             # survivors we believed in are gone — drop the stale
             # location set so the next batch re-plans from fresh
@@ -550,15 +574,17 @@ class DegradedReadEngine:
             return np.zeros(0, dtype=np.uint8)
         sub = ops_codec.pb_split(data, alpha, window)
         thr = ops_codec.dispatch_threshold(codec)
-        if (not thr) or sub.shape[1] < thr:
-            out = self._host(rows, sub)
-        else:
-            out = self._device(codec, rows, sub)
+        host = (not thr) or sub.shape[1] < thr
+        with tracing.span("dispatch", backend=codec.backend,
+                          bytes=int(data.nbytes), layout="piggyback",
+                          path="host" if host else "device"):
+            out = self._host(rows, sub) if host else \
+                self._device(codec, rows, sub)
         merged = ops_codec.pb_merge(np.asarray(out, dtype=np.uint8), alpha,
                                     window)
         return np.ascontiguousarray(merged[0])
 
-    def _gather(self, readers, runs) -> List[np.ndarray]:
+    def _gather(self, readers, runs, root=None) -> List[np.ndarray]:
         """Fetch every (survivor row x run) range concurrently; returns
         one (k, w) block per run. Exactly k rows — never more."""
         t0 = time.perf_counter()
@@ -588,8 +614,11 @@ class DegradedReadEngine:
                     err = e
             if err is None:
                 blocks.append(np.stack(rows, axis=0))
-        self.timer.add("gather", time.perf_counter() - t0,
-                       sum(b.nbytes for b in blocks))
+        dt = time.perf_counter() - t0
+        nbytes = sum(b.nbytes for b in blocks)
+        self.timer.add("gather", dt, nbytes)
+        tracing.record_span("gather", dt, parent=root, op="ec.degraded",
+                            bytes=nbytes)
         if err is not None:
             raise err
         return blocks
@@ -605,10 +634,12 @@ class DegradedReadEngine:
             np.concatenate(blocks, axis=1)
         width = data.shape[1]
         thr = ops_codec.dispatch_threshold(codec)
-        if (not thr) or width < thr or width == 0:
-            out = self._host(row, data)
-        else:
-            out = self._device(codec, row, data)
+        host = (not thr) or width < thr or width == 0
+        with tracing.span("dispatch", backend=codec.backend,
+                          bytes=int(data.nbytes),
+                          path="host" if host else "device"):
+            out = self._host(row, data) if host else \
+                self._device(codec, row, data)
         return np.ascontiguousarray(out[0])
 
     def _split(self, runs: List[Tuple[int, int, List[int]]],

@@ -29,7 +29,9 @@ a row lives at start + i*block_size), the reference's column layout, so
 shard bytes are identical across backends.
 
 Per-phase wall time (gather / plan / dispatch / drain / write) is
-returned in ``stats["phases"]``.
+returned in ``stats["phases"]`` and recorded beside it as finished spans
+of those names (``util/tracing``, the JAX package's ops and tags), under
+the caller's current span.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from ..storage.needle_map import MemDb
 from ..storage.super_block import (SUPER_BLOCK_SIZE, InvalidSuperBlock,
                                    SuperBlock)
 from ..storage.types import OFFSET_SIZE
+from ..util import tracing
 from ..util.profiling import StageTimer
 from .constants import (DATA_SHARDS, LARGE_BLOCK_SIZE, PARITY_SHARDS,
                         SMALL_BLOCK_SIZE, to_ext)
@@ -301,6 +304,13 @@ def _phases(timer: StageTimer, pipelined: bool, stream_s: float) -> dict:
     return {n: round(s, 6) for n, s in phases.items()}
 
 
+def _record_phase_spans(phases: dict, op: str, **tags):
+    """Each phase that took time as a finished span of its name."""
+    for name, secs in phases.items():
+        if secs > 0:
+            tracing.record_span(name, secs, op=op, **tags)
+
+
 def write_ec_files(base_name: str, codec: Optional[ReedSolomonCodec] = None,
                    large_block: int = LARGE_BLOCK_SIZE,
                    small_block: int = SMALL_BLOCK_SIZE,
@@ -373,12 +383,14 @@ def write_ec_files(base_name: str, codec: Optional[ReedSolomonCodec] = None,
         for o in outs:
             o.close()
     stream_s = time.perf_counter() - t_stream
+    phases = _phases(timer, pipelined, stream_s)
+    _record_phase_spans(phases, "ec.encode")
     if stats is not None:
         stats.update(delta(before))
         stats["stream_s"] = round(stream_s, 6)
         stats["backend"] = codec.backend
         stats["layout"] = layout
-        stats["phases"] = _phases(timer, pipelined, stream_s)
+        stats["phases"] = phases
         if piggyback:
             stats["pb_host_s"] = _pb_host_s(timer)
 
@@ -490,9 +502,9 @@ def rebuild_ec_files(base_name: str,
         [LocalShardReader(base_name + to_ext(i), gs) for i in src],
         shard_size, slab=slab, stats=gs)
     if piggyback:
-        return rebuild_ec_files_streaming_piggyback(
-            base_name, present, missing, source, layout, codec=codec,
-            stats=stats)
+        return _rebuild_piggyback_stream(base_name, present, missing,
+                                         source, layout, codec, stats,
+                                         streaming=False)
     # the sync local rebuild multiplies as the JAX package's
     # codec.reconstruct does: stripes below the crossover on the host
     return _rebuild_flat_stream(base_name, present, missing, source, codec,
@@ -568,6 +580,11 @@ def _rebuild_flat_stream(base_name, present, missing, source, codec, slab,
                     rebuilt_bytes += piece[r].nbytes
             timer.add("shard_write", time.perf_counter() - t0)
     stream_s = time.perf_counter() - t_stream
+    phases = _phases(timer, pipelined, stream_s)
+    # the local rebuild is the JAX package's sync rebuild (no streaming
+    # tag); the others its streaming one
+    _record_phase_spans(phases, "ec.rebuild", backend=codec.backend,
+                        **({} if crossover else {"streaming": True}))
     if stats is not None:
         gs = source.stats
         stats.update(delta(before))
@@ -576,7 +593,7 @@ def _rebuild_flat_stream(base_name, present, missing, source, codec, slab,
         stats["rebuilt_bytes"] = rebuilt_bytes
         stats["stream_s"] = round(stream_s, 6)
         stats["backend"] = codec.backend
-        stats["phases"] = _phases(timer, pipelined, stream_s)
+        stats["phases"] = phases
         stats.update(_transport_stats(gs, stream_s,
                                       stats["phases"]["gather"]))
     return list(missing)
@@ -616,6 +633,14 @@ def rebuild_ec_files_streaming_piggyback(base_name: str,
     package; the source's slab must be whole windows. Failure removes
     partial outputs, as for the flat streaming rebuild; ``stats`` adds
     pb_host_s (split/merge seconds)."""
+    return _rebuild_piggyback_stream(base_name, present, missing, source,
+                                     layout, codec, stats, streaming=True)
+
+
+def _rebuild_piggyback_stream(base_name, present, missing, source, layout,
+                              codec, stats, streaming: bool) -> List[int]:
+    """The piggyback rebuild; ``streaming`` only picks its spans' tags
+    (the JAX package's sync or streaming piggyback rebuild)."""
     codec = codec or get_codec(DATA_SHARDS, PARITY_SHARDS)
     if not missing:
         return []
@@ -648,6 +673,10 @@ def rebuild_ec_files_streaming_piggyback(base_name: str,
                 rebuilt_bytes += merged.shape[1]
             timer.add("shard_write", time.perf_counter() - t0)
     stream_s = time.perf_counter() - t_stream
+    phases = _phases(timer, False, stream_s)
+    _record_phase_spans(phases, "ec.rebuild", backend=codec.backend,
+                        **({"streaming": True} if streaming else {}),
+                        layout="piggyback")
     if stats is not None:
         gs = source.stats
         stats.update(delta(before))
@@ -657,7 +686,7 @@ def rebuild_ec_files_streaming_piggyback(base_name: str,
         stats["stream_s"] = round(stream_s, 6)
         stats["backend"] = codec.backend
         stats["layout"] = "piggyback"
-        stats["phases"] = _phases(timer, False, stream_s)
+        stats["phases"] = phases
         stats["pb_host_s"] = _pb_host_s(timer)
         stats["gather_mbps"] = round(gs.mbps(), 1)
         stats["gather_remote_shards"] = gs.remote_shards

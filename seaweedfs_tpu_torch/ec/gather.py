@@ -300,13 +300,14 @@ class RepairGatherSource(StripedPull):
 
     def __init__(self, readers: Sequence, shard_size: int, plan,
                  slab: int = 8 << 20, window: Optional[int] = None,
-                 stats: Optional[TransportStats] = None):
+                 stats: Optional[TransportStats] = None,
+                 parent_span=None):
         if len(readers) != len(plan.helpers):
             raise ValueError(
                 f"need one reader per helper: {len(readers)} != "
                 f"{len(plan.helpers)}")
         super().__init__(readers, shard_size, slab=slab, window=window,
-                         stats=stats)
+                         stats=stats, parent_span=parent_span)
         self.plan = plan
 
     def _stripe_nbytes(self, w: int) -> int:
@@ -330,7 +331,8 @@ class PlaneGatherSource(StripedPull):
     def __init__(self, readers: Sequence, shard_size: int, plan,
                  window: int, slab: int = 8 << 20,
                  gather_window: Optional[int] = None,
-                 stats: Optional[TransportStats] = None):
+                 stats: Optional[TransportStats] = None,
+                 parent_span=None):
         if len(readers) != len(plan.helpers):
             raise ValueError(
                 f"need one reader per helper: {len(readers)} != "
@@ -341,7 +343,8 @@ class PlaneGatherSource(StripedPull):
                 f"window {window}")
         slab = max(window, slab - slab % window)
         super().__init__(readers, shard_size, slab=slab,
-                         window=gather_window, stats=stats)
+                         window=gather_window, stats=stats,
+                         parent_span=parent_span)
         self.plan = plan
         self.pb_window = int(window)
 

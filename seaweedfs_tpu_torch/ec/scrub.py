@@ -22,9 +22,10 @@ rotated by slab index.
 
 This is the JAX package's ``ec/scrub.py`` engine, with every decision it
 makes held: the counters, findings and sidecars of the two agree on the
-same shard files and holders. The gather and dispatch seconds the JAX
-engine records as spans go into a ``StageTimer``, reported as ``phases``
-in each volume's result.
+same shard files and holders. Each volume's pass is an ``ec.scrub``
+span with its ``gather`` and ``dispatch`` seconds as spans under it, as
+in JAX; the same seconds go into a ``StageTimer``, reported as
+``phases`` in each volume's result.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from ..ops import codec as ops_codec
 from ..ops import gf256
 from ..ops.pipeline import PipelinedMatmul
 from ..storage.types import entry_size
+from ..util import tracing
 from ..util.profiling import StageTimer
 from .layout import volume_layout
 from .transport import GatherStats, LocalShardReader, RemoteShardReader
@@ -306,21 +308,31 @@ class ScrubEngine:
                 corrupt_shards.add(
                     c // alpha if li.piggyback and c >= 0 else c)
 
-        if use_device:
-            pm = PipelinedMatmul(h, codec=codec,
-                                 max_width=max(slab_eff, 1 << 20),
-                                 timer=timer)
-            for meta, _data, out in pm.stream(slabs()):
-                with timer.stage("dispatch"):
-                    check(meta, np.asarray(out))
-                with self._lock:
-                    self._c["device_dispatches"] += 1
-        else:
-            for meta, block in slabs():
-                with timer.stage("dispatch"):
-                    check(meta, ops_codec.host_matmul(h, block))
-                with self._lock:
-                    self._c["host_dispatches"] += 1
+        path = "device" if use_device else "host"
+        with tracing.span("ec.scrub", volume=vid, shards=len(local_sids),
+                          slab=slab_eff, layout=li.layout,
+                          path=path) as root:
+            if use_device:
+                pm = PipelinedMatmul(h, codec=codec,
+                                     max_width=max(slab_eff, 1 << 20),
+                                     timer=timer)
+                for meta, _data, out in pm.stream(slabs()):
+                    with timer.stage("dispatch"):
+                        check(meta, np.asarray(out))
+                    with self._lock:
+                        self._c["device_dispatches"] += 1
+            else:
+                for meta, block in slabs():
+                    with timer.stage("dispatch"):
+                        check(meta, ops_codec.host_matmul(h, block))
+                    with self._lock:
+                        self._c["host_dispatches"] += 1
+            tracing.record_span("gather", timer.totals.get("gather", 0.0),
+                                parent=root, op="ec.scrub",
+                                bytes=pass_bytes)
+            tracing.record_span("dispatch",
+                                timer.totals.get("dispatch", 0.0),
+                                parent=root, op="ec.scrub", path=path)
 
         dt = time.perf_counter() - t0
         with self._lock:

@@ -50,7 +50,7 @@ class StripedSpreadSink(StripedPush):
                  stats: Optional[TransportStats] = None,
                  rate_mbps: float = 0.0,
                  hedge_ms: Optional[float] = None,
-                 routing: bool = False):
+                 routing: bool = False, parent_span=None):
         self.vid = vid
         self.base_name = base_name
         writers: List = []
@@ -67,4 +67,5 @@ class StripedSpreadSink(StripedPush):
             by_target.setdefault(url or None, []).append(sid)
         super().__init__(writers, by_target, spares=spares, window=window,
                          stats=stats, hedge_ms=hedge_ms,
-                         rate_mbps=rate_mbps, routing=routing)
+                         rate_mbps=rate_mbps, routing=routing,
+                         parent_span=parent_span)

@@ -29,8 +29,15 @@ Straggler defenses (shared):
 This is the JAX package's ``ec/transport.py``, both roles. The windows
 default to ``DEFAULT_WINDOW``, the hedge to off and routing to off, each
 the JAX default of its knob; the port reads no knob from the
-environment. No ``traceparent`` header goes out and no span is
-recorded: the port has no ``util/tracing``.
+environment.
+
+Tracing, as in JAX: pool and worker threads do not inherit the tracing
+contextvar, so each reader and writer carries its pump's
+``parent_span`` and sends that span's ``traceparent`` itself (the
+holders' ``shard_read`` / ``shard_write`` spans join the caller's
+trace). The pull side records one ``gather.stripe`` span a stripe (op
+``ec.rebuild.gather``), the push side one ``spread.run`` span a run
+sent (op ``ec.encode.spread``), both under ``parent_span``.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import numpy as np
 
 from ..server.http_util import HttpError, http_call, post_chunked
 from ..stats.health import BOARD
+from ..util import tracing
 from ..util.profiling import StageTimer
 
 #: Stripes in flight (the JAX package's SW_EC_GATHER_WINDOW and
@@ -255,6 +263,7 @@ class RemoteShardReader:
         self.sid = sid
         self.holders = list(holders)
         self.stats = stats or GatherStats()
+        self.span = None     # set by StripedPull: the trace parent
         self.timeout = timeout
         self.hedge_s = (DEFAULT_HEDGE_MS if hedge_ms is None
                         else float(hedge_ms)) / 1000.0
@@ -269,11 +278,16 @@ class RemoteShardReader:
         return n
 
     def _read_one(self, holder: str, off: int, n: int) -> bytes:
+        # pool and hedge threads do not inherit the tracing contextvar:
+        # the caller span's traceparent goes out explicitly
+        hdrs = None
+        if self.span is not None:
+            hdrs = {tracing.TRACEPARENT_HEADER: self.span.traceparent()}
         expect = self._expect_len(n)
         t0 = time.perf_counter()
         try:
             data = http_call(self._method, self._url(holder, off, n),
-                             timeout=self.timeout)
+                             headers=hdrs, timeout=self.timeout)
             if len(data) != expect:
                 raise HttpError(
                     502, f"short shard read {self.vid}.{self.sid} from "
@@ -361,9 +375,13 @@ class StripedPull:
     files and remote holders mixed freely, each with
     ``read(off, n, stripe_idx) -> bytes``."""
 
+    span_name = "gather.stripe"
+    span_op = "ec.rebuild.gather"
+
     def __init__(self, readers: Sequence, shard_size: int,
                  slab: int = 8 << 20, window: Optional[int] = None,
-                 stats: Optional[TransportStats] = None):
+                 stats: Optional[TransportStats] = None,
+                 parent_span=None):
         if not readers:
             raise ValueError("no survivor readers")
         self.readers = list(readers)
@@ -371,8 +389,10 @@ class StripedPull:
         self.slab = max(1, int(slab))
         self.window = max(1, int(window) if window else DEFAULT_WINDOW)
         self.stats = stats if stats is not None else GatherStats()
+        self.parent_span = parent_span
         for r in self.readers:
             r.stats = self.stats
+            r.span = parent_span
         self.stats.remote_shards = sum(
             1 for r in self.readers if getattr(r, "remote", False))
         self.stats.local_shards = len(self.readers) - \
@@ -415,9 +435,10 @@ class StripedPull:
             # buffered memory too, and the bound must hold even when
             # every submitted row completes before the consumer drains
             self._note_buffered(self._stripe_nbytes(w))
+            t_sub = time.perf_counter()
             futs = [pool.submit(self.readers[r].read, off, w, idx)
                     for r in range(k)]
-            pending.append((idx, off, w, futs))
+            pending.append((idx, off, w, t_sub, futs))
 
         try:
             nxt = 0
@@ -425,8 +446,13 @@ class StripedPull:
                 submit(nxt)
                 nxt += 1
             while pending:
-                idx, off, w, futs = pending.popleft()
+                idx, off, w, t_sub, futs = pending.popleft()
                 data = self._assemble([f.result() for f in futs], w)
+                tracing.record_span(
+                    self.span_name, time.perf_counter() - t_sub,
+                    parent=self.parent_span, op=self.span_op,
+                    stripe=idx, offset=off,
+                    bytes=self._stripe_nbytes(w))
                 self._note_buffered(-self._stripe_nbytes(w))
                 if nxt < len(stripes):
                     submit(nxt)
@@ -452,6 +478,7 @@ class LocalShardWriter:
         self.path = path
         self.part = path + ".part"
         self.stats = stats or SpreadStats()
+        self.span = None
         self._f = None
 
     def send(self, url: Optional[str], off: int,
@@ -509,18 +536,25 @@ class RemoteShardWriter:
         self.sid = sid
         self.collection = collection
         self.stats = stats or SpreadStats()
+        self.span = None     # set by StripedPush: the trace parent
         self.timeout = timeout
 
     def _url(self, holder: str, query: str) -> str:
         return (f"http://{holder}/admin/ec/shard_write?volume={self.vid}"
                 f"&collection={self.collection}&shard={self.sid}&{query}")
 
+    def _headers(self) -> Optional[dict]:
+        # worker threads do not inherit the tracing contextvar
+        if self.span is None:
+            return None
+        return {tracing.TRACEPARENT_HEADER: self.span.traceparent()}
+
     def send(self, url: str, off: int, chunks: Sequence[bytes]) -> int:
         n = sum(len(c) for c in chunks)
         t0 = time.perf_counter()
         try:
             post_chunked(self._url(url, f"offset={off}"), chunks,
-                         timeout=self.timeout)
+                         headers=self._headers(), timeout=self.timeout)
         except HttpError as e:
             if e.status == 409:
                 # the holder's staged size disagrees; if it already
@@ -545,11 +579,12 @@ class RemoteShardWriter:
 
     def finalize(self, url: str, size: int):
         http_call("POST", self._url(url, f"action=finalize&size={size}"),
-                  timeout=self.timeout)
+                  headers=self._headers(), timeout=self.timeout)
 
     def abort(self, url: str):
         try:
-            http_call("POST", self._url(url, "action=abort"), timeout=30.0)
+            http_call("POST", self._url(url, "action=abort"),
+                      headers=self._headers(), timeout=30.0)
         except Exception:  # noqa: BLE001 - best-effort cleanup
             pass
 
@@ -608,6 +643,7 @@ class TargetWorker(threading.Thread):
         if (self.sink.hedge_s > 0 and self.url is not None
                 and self.acked == 0 and off == 0):
             if self._send_run_hedged(writer, off, chunks, n):
+                self._trace_run(sid, off, n)
                 return n
         while True:
             last = None
@@ -617,6 +653,7 @@ class TargetWorker(threading.Thread):
                 try:
                     writer.send(self.url, off, chunks)
                     self.acked += n
+                    self._trace_run(sid, off, n)
                     return n
                 except BaseException as e:  # noqa: BLE001 - retry/failover
                     last = e
@@ -693,6 +730,12 @@ class TargetWorker(threading.Thread):
         self.sink._return_spare(spare)
         return False
 
+    def _trace_run(self, sid: int, off: int, n: int):
+        tracing.record_span(
+            self.sink.span_name, 0.0, parent=self.sink.parent_span,
+            op=self.sink.span_op, shard=sid, offset=off,
+            bytes=n, target=self.url or "local")
+
 
 def merge_runs(batch):
     """Merge a drained batch into per-shard contiguous runs, keeping
@@ -721,16 +764,21 @@ class StripedPush:
     blocked time, failover spares, hedging, finalize/abort and optional
     MB/s pacing live here."""
 
+    span_name = "spread.run"
+    span_op = "ec.encode.spread"
+
     def __init__(self, writers: List, by_target: Dict[Optional[str],
                                                       List[int]],
                  spares: Optional[Sequence[str]] = None,
                  window: Optional[int] = None,
                  stats: Optional[TransportStats] = None,
                  hedge_ms: Optional[float] = None,
-                 rate_mbps: float = 0.0, routing: bool = False):
+                 rate_mbps: float = 0.0, routing: bool = False,
+                 parent_span=None):
         self.total = len(writers)
         self.window = max(1, int(window) if window else push_window())
         self.stats = stats if stats is not None else SpreadStats()
+        self.parent_span = parent_span
         self.hedge_s = (DEFAULT_HEDGE_MS if hedge_ms is None
                         else float(hedge_ms)) / 1000.0
         # producer-side MB/s ceiling: sleep the producer so cumulative
@@ -747,6 +795,7 @@ class StripedPush:
         self.writers = list(writers)
         for w in self.writers:
             w.stats = self.stats
+            w.span = parent_span
         self.stats.remote_shards = sum(1 for w in self.writers if w.remote)
         self.stats.local_shards = self.total - self.stats.remote_shards
         self.workers = [TargetWorker(self, url, sids, self.window)

@@ -14,6 +14,12 @@ position of a mesh; "numpy" is the conformance oracle. There is no automatic cho
 missing card raises instead of quietly running on the CPU. All
 backends produce bit-identical output.
 
+The host/device crossover of a device codec (``dispatch_threshold``) is
+its ``small_dispatch_bytes`` unless the small-dispatch tuner
+(``stats/metrics.SmallDispatchTuner``, fed by ``reconstruct`` spans) has
+installed a live override, which it does when ``SMALL_DISPATCH_AUTO`` is
+on; both are widths, bytes a survivor row.
+
 Also here, host-side numpy like the rest of the GF(2^8) planning: the
 trace-repair plans of a single lost shard (repair_plan, with the holder's
 project_slab and the rebuilder's combine_planes_to_bytes), and the
@@ -33,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..util import tracing
 from . import device_stats, gf256
 from .telemetry import STATS
 
@@ -40,6 +47,31 @@ from .telemetry import STATS
 #: host: a kilobyte needle range costs less as a LUT walk than as a
 #: device round-trip.
 SMALL_DISPATCH_BYTES = 256 << 10
+#: SW_EC_SMALL_DISPATCH_AUTO: install the tuner's fitted crossover
+#: (``stats/metrics.SmallDispatchTuner``) as the live threshold.
+SMALL_DISPATCH_AUTO = False
+
+# the live crossover the tuner installed; None: each codec's own
+_SMALL_DISPATCH_OVERRIDE: Optional[int] = None
+
+
+def small_dispatch_override() -> Optional[int]:
+    return _SMALL_DISPATCH_OVERRIDE
+
+
+def set_small_dispatch_override(nbytes: Optional[int]):
+    """Install (or clear, with None or 0) the live crossover width."""
+    global _SMALL_DISPATCH_OVERRIDE
+    _SMALL_DISPATCH_OVERRIDE = int(nbytes) if nbytes else None
+
+
+def maybe_auto_apply_small_dispatch(suggestion: int) -> bool:
+    """Install the tuner's suggested crossover when
+    ``SMALL_DISPATCH_AUTO`` is on; whether it was installed."""
+    if not SMALL_DISPATCH_AUTO:
+        return False
+    set_small_dispatch_override(suggestion)
+    return True
 
 
 def host_matmul(coeffs: np.ndarray, data: np.ndarray) -> np.ndarray:
@@ -260,7 +292,8 @@ class ReedSolomonCodec:
         lens = {s.shape[-1] for s in shards if s is not None}
         if len(lens) != 1:
             raise ValueError("surviving shards have differing lengths")
-        src, missing, coeffs = self.decode_plan(present, data_only)
+        with tracing.span("plan", backend=self.backend):
+            src, missing, coeffs = self.decode_plan(present, data_only)
         if not missing:
             return shards
         survivors = np.stack([np.asarray(shards[i], dtype=np.uint8)
@@ -272,15 +305,23 @@ class ReedSolomonCodec:
 
     def crossover_matmul(self, coeffs: np.ndarray,
                          data: np.ndarray) -> np.ndarray:
-        """coeffs @ data through the host/device crossover: widths below
-        small_dispatch_bytes run host_matmul and count a host_fallback,
-        wider ones take _matmul. reconstruct() and the sync flat rebuild
-        multiply through it."""
-        if self.small_dispatch_bytes and \
-                data.shape[1] < self.small_dispatch_bytes:
-            STATS.add("host_fallbacks")
-            return host_matmul(coeffs, data)
-        return self._matmul(coeffs, data)
+        """coeffs @ data through the host/device crossover
+        (``dispatch_threshold``): widths below it run host_matmul and
+        count a host_fallback, the others take _matmul. reconstruct()
+        and the sync flat rebuild multiply through it, in a
+        ``reconstruct`` span: the JAX tags (``bytes``, the survivors'
+        bytes, and ``path``) and ``width``, what the tuner learns from
+        (``stats/metrics.observe_span``)."""
+        width = int(data.shape[1])
+        thr = dispatch_threshold(self)
+        small = bool(thr) and width < thr
+        with tracing.span("reconstruct", backend=self.backend,
+                          bytes=int(data.nbytes), width=width,
+                          path="host" if small else "device"):
+            if small:
+                STATS.add("host_fallbacks")
+                return host_matmul(coeffs, data)
+            return self._matmul(coeffs, data)
 
     def verify(self, shards: Sequence[np.ndarray]) -> bool:
         """True iff parity rows match the data rows."""
@@ -314,12 +355,14 @@ class NumpyCodec(ReedSolomonCodec):
 
 
 def dispatch_threshold(codec) -> int:
-    """Host/device crossover width of a codec's batched products (the
-    degraded reads and the scrub): its small_dispatch_bytes, so a
-    host-only codec (0) never delegates to the device. The JAX package's
-    tuner override has no counterpart; the port reads no knob from the
-    environment."""
-    return codec.small_dispatch_bytes
+    """Live host/device crossover width of a codec (reconstruct, the
+    degraded reads and the scrub): the tuner's installed override, else
+    the codec's small_dispatch_bytes; a host-only codec (0) never
+    delegates to the device."""
+    if not codec.small_dispatch_bytes:
+        return 0
+    ov = _SMALL_DISPATCH_OVERRIDE
+    return ov if ov is not None else codec.small_dispatch_bytes
 
 
 def get_codec(data_shards: int, parity_shards: int,

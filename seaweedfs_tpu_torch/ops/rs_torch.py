@@ -15,11 +15,13 @@ linearity) so varied widths reuse one set of buffer sizes.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..util import tracing
 from .codec import (SMALL_DISPATCH_BYTES, ReedSolomonCodec, _ConstCache,
                     width_bucket)
 from .gf_plan import make_plan
@@ -54,7 +56,11 @@ class LaneCodec(ReedSolomonCodec):
     xs)``, which runs K1 on every lane's tensor before any is drained
     and returns [(col_off, out)]. The chunk loop of ``_matmul`` and the
     drain live here, and ops/pipeline.PipelinedMatmul streams slabs
-    through the same three methods."""
+    through the same three methods. With ``trace_phases`` (MeshCodec, as
+    the JAX MeshCodec) the launches and the drain of ``_matmul`` are
+    ``dispatch`` and ``drain`` spans."""
+
+    trace_phases = False
 
     def __init__(self, data_shards: int, parity_shards: int,
                  matrix_kind: str = "vandermonde",
@@ -113,27 +119,34 @@ class LaneCodec(ReedSolomonCodec):
         if n == 0:
             return np.zeros((r, 0), dtype=np.uint8)
         out = np.empty((r, n), dtype=np.uint8)
+
+        def phase(name, nbytes):
+            return tracing.span(name, backend=self.backend, bytes=nbytes) \
+                if self.trace_phases else contextlib.nullcontext()
+
         # launch every chunk before draining any: the copy back of
         # chunk t overlaps the kernels of the chunks after it
         pending = []
-        for off in range(0, n, self.chunk_bytes):
-            end = min(off + self.chunk_bytes, n)
-            w = end - off
-            bucket = self._width_bucket(w)
-            if w < bucket:  # zero columns: exact under GF linearity
-                padded = np.zeros((k, bucket), dtype=np.uint8)
-                padded[:, :w] = data[:, off:end]
-            else:
-                padded = data[:, off:end]
-            xs = [torch.from_numpy(np.require(
-                padded[:, lo:hi], requirements=["C", "W"])).to(dev)
-                for _, dev, lo, hi in self.lanes(k, bucket)]
-            STATS.add("dispatches")
-            STATS.add("device_bytes", w * k)
-            pending.append((off, w, self.launch(coeffs, bucket, xs)))
-        for off, w, dev_out in pending:
-            for lo, piece in self.drain_pieces(dev_out, w):
-                out[:, off + lo: off + lo + piece.shape[1]] = piece
+        with phase("dispatch", int(n * k)):
+            for off in range(0, n, self.chunk_bytes):
+                end = min(off + self.chunk_bytes, n)
+                w = end - off
+                bucket = self._width_bucket(w)
+                if w < bucket:  # zero columns: exact under GF linearity
+                    padded = np.zeros((k, bucket), dtype=np.uint8)
+                    padded[:, :w] = data[:, off:end]
+                else:
+                    padded = data[:, off:end]
+                xs = [torch.from_numpy(np.require(
+                    padded[:, lo:hi], requirements=["C", "W"])).to(dev)
+                    for _, dev, lo, hi in self.lanes(k, bucket)]
+                STATS.add("dispatches")
+                STATS.add("device_bytes", w * k)
+                pending.append((off, w, self.launch(coeffs, bucket, xs)))
+        with phase("drain", int(n * r)):
+            for off, w, dev_out in pending:
+                for lo, piece in self.drain_pieces(dev_out, w):
+                    out[:, off + lo: off + lo + piece.shape[1]] = piece
         return out
 
 

@@ -49,6 +49,7 @@ class MeshCodec(LaneCodec):
     position. The chunk loop and the drain are LaneCodec's."""
 
     backend = "mesh"
+    trace_phases = True
 
     def __init__(self, data_shards: int, parity_shards: int,
                  matrix_kind: str = "vandermonde", mesh=None,

@@ -14,11 +14,17 @@ size on a fresh connection, and ``pull_file``, a volume server's file
 copied in ranged pulls.
 
 A router's ``before`` hook runs ahead of every route (the whitelist
-guard). Left out: TLS, the profile and trace handlers, and the metric
-observer. No ``traceparent``
-header goes out on a call: the port has no ``util/tracing``. The port
-reads no knob from the environment: the accept-loop poll and the
-pool's idle cap are module constants.
+guard). Every request runs inside a server span (``util/tracing``) that
+continues the caller's ``traceparent``, stamped with the router's
+``node``, and its ``observe(label, seconds, ok)`` hook feeds the
+servers' request metrics; every pooled call sends the current span's
+``traceparent`` (or a fresh root's). The shared handlers of every server
+role: ``traces_handler`` (``/admin/traces``), ``traces_export_handler``
+(``/admin/traces/export``), ``profile_handler`` (``POST /admin/profile``)
+and ``process_memory_stats`` (``/stats/memory``); the pool's churn
+counts (``pool_stats_snapshot``) feed ``/metrics``. Left out: TLS. The
+port reads no knob from the environment: the accept-loop poll, the
+pool's idle cap and the profile's longest window are module constants.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ..util import tracing
+
 #: Accept-loop poll of ``HttpServer``: bounds how long ``stop()`` waits
 #: for the loop (the JAX SW_HTTP_POLL_S is 0.5; its tests set 0.02).
 POLL_S = 0.05
@@ -43,6 +51,8 @@ POLL_S = 0.05
 #: JAX SW_HTTP_POOL_MAX_IDLE_S default).
 POOL_MAX_IDLE_S = 60.0
 _POOL_MAX_PER_HOST = 32
+#: Longest ``POST /admin/profile`` window, seconds (SW_PROFILE_MAX_S).
+PROFILE_MAX_S = 30.0
 
 
 class HttpError(Exception):
@@ -194,16 +204,86 @@ class Request:
         return "", self.headers.get("Content-Type", ""), self.body
 
 
+def traces_handler(req: Request) -> dict:
+    """JSON view of the in-process trace ring, shared by every server
+    role: ``/admin/traces?n=20`` for the newest traces, or
+    ``/admin/traces?trace=<id>`` for one trace's spans."""
+    tid = req.query.get("trace")
+    if tid:
+        return {"trace_id": tid, "spans": tracing.RING.get(tid)}
+    n = int(req.query.get("n", "20"))
+    return {"traces": tracing.RING.recent(n)}
+
+
+def traces_export_handler(req: Request) -> dict:
+    """Chrome trace-event JSON for one trace from this node's ring
+    (``/admin/traces/export?trace=<id>``): loadable in Perfetto as it
+    is, and carrying in its event args what shell ``trace.export`` needs
+    to merge several nodes' exports into one skew-normalized timeline."""
+    from ..util import trace_export
+    tid = req.query.get("trace")
+    if not tid:
+        raise HttpError(400, "trace query parameter required")
+    return trace_export.chrome_trace_events(tracing.RING.get(tid))
+
+
+# one profile at a time a process: concurrent samplers would double the
+# stack-walk overhead and interleave their counts
+_PROFILE_LOCK = threading.Lock()
+
+
+def profile_handler(req: Request) -> "Response":
+    """On-demand all-thread sampling profile, shared by every server
+    role: ``POST /admin/profile?seconds=N`` samples for N seconds
+    (at most ``PROFILE_MAX_S``) and answers the collapsed stacks as
+    text/plain, the folded format flamegraph.pl and speedscope read. A
+    request while one runs answers 409."""
+    from ..util.profiling import SamplingProfiler
+    try:
+        seconds = float(req.query.get("seconds", "2"))
+    except ValueError:
+        raise HttpError(400, "seconds must be a number")
+    if seconds <= 0:
+        raise HttpError(400, "seconds must be > 0")
+    seconds = min(seconds, PROFILE_MAX_S)
+    if not _PROFILE_LOCK.acquire(blocking=False):
+        raise HttpError(409, "a profile is already running")
+    try:
+        folded = SamplingProfiler.run_for(seconds)
+    finally:
+        _PROFILE_LOCK.release()
+    return Response(folded.encode("utf-8"), 200,
+                    "text/plain; charset=utf-8")
+
+
+def process_memory_stats() -> dict:
+    """Peak RSS of this process (reference statsMemoryHandler);
+    ru_maxrss is kilobytes on Linux, bytes on macOS."""
+    import resource
+    import sys
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    kb = ru.ru_maxrss // 1024 if sys.platform == "darwin" \
+        else ru.ru_maxrss
+    return {"maxrss_kb": kb}
+
+
 class Router:
     """Exact-path routes; a request no route takes goes to the fallback
     (the volume server's ``/<fid>`` data routes), else answers 404.
     ``before(req)``, when set, runs ahead of every route and may raise
-    HttpError (the servers' whitelist guard)."""
+    HttpError (the servers' whitelist guard). Each request runs in a
+    server span named by its route's label (``"<METHOD> <path>"``,
+    ``"<METHOD> data"`` for the fallback), which continues an incoming
+    ``traceparent`` and carries ``node`` (the owning server's
+    host:port, set once its port is known); ``observe(label, seconds,
+    ok)`` runs after every request, the span still current."""
 
     def __init__(self):
         self.routes: List[Tuple[str, str, Callable]] = []
         self.fallback: Optional[Callable] = None
         self.before: Optional[Callable] = None
+        self.observe: Optional[Callable] = None
+        self.node: Optional[str] = None
 
     def add(self, method: str, path: str, fn: Callable):
         self.routes.append((method, path, fn))
@@ -212,13 +292,42 @@ class Router:
         self.fallback = fn
 
     def dispatch(self, req: Request):
+        # the span becomes the handler thread's current span, so spans
+        # made inside the handler (EC phases, peer fetches) link to it
+        srv_span = tracing.start_span(
+            f"{req.method} {req.path}",
+            traceparent=req.headers.get(tracing.TRACEPARENT_HEADER))
+        if self.node:
+            srv_span.tags.setdefault("node", self.node)
+        t0 = time.monotonic()
+        label = None
+        try:
+            label, fn = self._route(req)
+            srv_span.name = label
+            out = fn(req)
+            if self.observe is not None:
+                self.observe(label, time.monotonic() - t0, True)
+            return out
+        except Exception as e:
+            srv_span.tags.setdefault("error", type(e).__name__)
+            if self.observe is not None:
+                # the label stays low-cardinality: a raw path would mint
+                # a series per fid or 404 probe
+                self.observe(label or f"{req.method} unrouted",
+                             time.monotonic() - t0, False)
+            raise
+        finally:
+            tracing.finish_span(srv_span)
+
+    def _route(self, req: Request):
+        """(metric label, handler) of a request; raises 404."""
         if self.before is not None:
             self.before(req)
         for method, path, fn in self.routes:
             if method in ("*", req.method) and req.path == path:
-                return fn(req)
+                return f"{method} {path}", fn
         if self.fallback is not None:
-            return self.fallback(req)
+            return f"{req.method} data", self.fallback
         raise HttpError(404, f"no route for {req.method} {req.path}")
 
 
@@ -421,6 +530,20 @@ def parse_range(rng: str, size: int) -> Optional[Tuple[int, int]]:
 
 _POOL: Dict[str, List] = {}
 _POOL_LOCK = threading.Lock()
+# churn counts, mirrored into /metrics (http_pool_churn_total{event=})
+POOL_STATS: Dict[str, int] = {"created": 0, "reused": 0,
+                              "evicted_stale": 0, "evicted_idle": 0,
+                              "evicted_overflow": 0}
+
+
+def _pool_count(event: str, n: int = 1):
+    with _POOL_LOCK:
+        POOL_STATS[event] += n
+
+
+def pool_stats_snapshot() -> Dict[str, int]:
+    with _POOL_LOCK:
+        return dict(POOL_STATS)
 _RETRIABLE_STALE = (_httpc.RemoteDisconnected, _httpc.BadStatusLine,
                     ConnectionResetError, BrokenPipeError)
 
@@ -443,16 +566,20 @@ def _pool_get(netloc: str, timeout: float):
             stack = _POOL.get(netloc)
             entry = stack.pop() if stack else None
         if entry is None:
+            _pool_count("created")
             return _httpc.HTTPConnection(netloc, timeout=timeout), False
         conn, parked_at = entry
         if time.monotonic() - parked_at > POOL_MAX_IDLE_S:
             conn.close()
+            _pool_count("evicted_idle")
             continue
         if conn.sock is not None and _sock_is_stale(conn.sock):
             conn.close()
+            _pool_count("evicted_stale")
             continue
         if conn.sock is not None:
             conn.sock.settimeout(timeout)
+        _pool_count("reused")
         return conn, True
 
 
@@ -469,6 +596,9 @@ def _pool_put(netloc: str, conn):
             stack.append((conn, now))
         else:
             overflow = conn
+        POOL_STATS["evicted_idle"] += len(aged)
+        if overflow is not None:
+            POOL_STATS["evicted_overflow"] += 1
     for c in aged:
         c.close()
     if overflow is not None:
@@ -484,9 +614,20 @@ def clear_conn_pool():
         _POOL.clear()
 
 
+def _traced_headers(headers: Optional[dict]) -> dict:
+    """The W3C ``traceparent`` on a cluster call, so the receiving
+    server's span continues the caller's trace (kept when the caller set
+    one: a reader thread passes its span's, a redirect its own)."""
+    h = dict(headers) if headers else {}
+    if tracing.TRACEPARENT_HEADER not in h:
+        h[tracing.TRACEPARENT_HEADER] = tracing.outbound_traceparent()
+    return h
+
+
 def _pooled_call(method: str, url: str, body, headers: dict,
                  timeout: float, want_headers: bool = False,
                  encode_chunked: bool = False, max_redirects: int = 5):
+    headers = _traced_headers(headers)
     parsed = urllib.parse.urlsplit(url)
     netloc = parsed.netloc
     target = parsed.path or "/"

@@ -28,6 +28,17 @@ volume and EC shard maps are looked up and pushed to watchers.
                               incident per corrupt shard
     GET  /cluster/repairs     the repair queue (``?refresh=1`` scans the
                               shard map first)
+    GET  /metrics             the master's Prometheus exposition
+    GET  /cluster/metrics     every node's /metrics merged: counters and
+                              histograms summed, gauges by ``node``
+                              (``?refresh=1`` scrapes first)
+    GET  /cluster/health      the per-holder health fold, the nodes'
+                              freshness and the repair queue's summary
+    GET  /admin/traces        the trace ring; /admin/traces/export one
+                              trace as Chrome trace events
+    POST /admin/profile       every thread's stacks sampled for
+                              ``?seconds=``
+    GET  /stats/health, /stats/memory
     *    /vol/vacuum          compact every volume whose garbage exceeds
                               ``garbageThreshold`` on all its replicas,
                               then commit on all of them
@@ -55,9 +66,19 @@ to four: a corrupt shard goes to ``/admin/ec/scrub_repair`` on its
 holder, a lost one to ``/admin/ec/rebuild`` and ``/admin/ec/mount`` on a
 holder of the volume's lowest shard. A stripe's hole counts as a loss
 only once the stripe was seen whole (a streamed encode registers its
-shards one by one). The JAX scan also opens ``at_risk_holder`` incidents
-from the fleet health fold; that fold is not ported, so this scan opens
-none (the queue keeps the kind).
+shards one by one). The scan also opens an advisory ``at_risk_holder``
+incident for each holder the fleet health fold scores below
+``at_risk_score`` (``REPAIR_AT_RISK_SCORE``, SW_REPAIR_AT_RISK_SCORE), and
+resolves it ``recovered`` once the score is back above it by 0.1; the
+drain passes such incidents by.
+
+Observability: every request runs in a server span that continues the
+caller's ``traceparent`` and feeds ``SeaweedFS_master_request_*``. A
+``ClusterMetricsAggregator`` scrapes every registered server's
+``/metrics`` every ``stats/aggregate.CLUSTER_SCRAPE_S`` seconds
+(SW_CLUSTER_SCRAPE_S) and serves the merge and the health fold. With
+``metrics_address`` (``-metrics.address``) every heartbeat answer names
+that push gateway and ``metrics_interval``.
 
 The volume control plane: every ``vacuum_interval`` seconds (<= 0: no
 loop) the master vacuums the volumes over ``garbage_threshold`` and
@@ -91,10 +112,9 @@ caller from elsewhere gets 403, but on the cluster's own channels
 ``/raft/*``). With a ``jwt_signing_key`` an assign's answer carries
 ``auth``, a write token bound to its fid, which ``/submit`` sends on.
 
-Left out: the metrics, aggregate, health and tiering planes
-(``/cluster/health``, ``/cluster/tiering``); mutual TLS and the
-``security.toml`` reader; the filer of the maintenance shell;
-``/stats/*`` and the UI. The master does no device work.
+Left out: the tiering plane (``/cluster/tiering``); mutual TLS and the
+``security.toml`` reader; the filer of the maintenance shell; the
+status page (``/``, ``/ui``). The master does no device work.
 
     python3 -m seaweedfs_tpu_torch.server.master [-port 9333] [-ip HOST]
         [-volumeSizeLimitMB N] [-defaultReplication 000]
@@ -103,6 +123,7 @@ Left out: the metrics, aggregate, health and tiering planes
         [-maintenanceScripts "volume.vacuum; ec.rebuild"]
         [-maintenanceIntervalSeconds 1020] [-peers H:P,H:P,H:P]
         [-mdir DIR] [-jwtKey KEY] [-whiteList IP,PREFIX.,CIDR]
+        [-metrics.address H:P] [-metrics.intervalSeconds 15]
         [-sequencer etcd -sequencerEtcd H:P [-sequencerEtcdUser U
          -sequencerEtcdPassword P]]
 
@@ -127,14 +148,19 @@ from ..ec.constants import TOTAL_SHARDS
 from ..security.guard import Guard
 from ..security.jwt import GenJwt
 from ..shell.command_env import split_script
+from ..stats import metrics
+from ..stats.aggregate import ClusterMetricsAggregator
 from ..stats.repair_queue import RepairQueue
 from ..storage.super_block import SUPER_BLOCK_SIZE
 from ..storage.types import TTL, ReplicaPlacement, parse_file_id
 from ..topology.raft import NotLeaderError, RaftNode
 from ..topology.topology import RaftSequencer, Topology
 from ..topology.volume_growth import NoFreeSlots, find_empty_slots
+from ..util import tracing
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
-                        http_call, post_json, post_multipart)
+                        http_call, post_json, post_multipart,
+                        process_memory_stats, profile_handler,
+                        traces_export_handler, traces_handler)
 from .watch_hub import WatchHub
 
 PULSE_S = 5.0        # SW_PULSE_S: a heartbeat's period; 5 missed: pruned
@@ -142,6 +168,7 @@ PULSE_S = 5.0        # SW_PULSE_S: a heartbeat's period; 5 missed: pruned
 GROWTH_COUNTS = {1: 7, 2: 6, 3: 3}
 REPAIR_INTERVAL_S = 5.0  # SW_REPAIR_INTERVAL_S; <= 0: no repair loop
 REPAIR_DRAIN = 4         # incidents drained a tick
+REPAIR_AT_RISK_SCORE = 0.4  # SW_REPAIR_AT_RISK_SCORE: health fold floor
 VACUUM_INTERVAL_S = 15 * 60       # -vacuumIntervalSeconds; <= 0: no loop
 GARBAGE_THRESHOLD = 0.3           # -garbageThreshold
 MAINTENANCE_INTERVAL_S = 17 * 60  # -maintenanceIntervalSeconds
@@ -167,7 +194,9 @@ class MasterServer:
                  maintenance_interval: float = MAINTENANCE_INTERVAL_S,
                  peers: str = "", raft_dir: str = "",
                  jwt_signing_key: str = "", whitelist=(),
-                 sequencer=None):
+                 sequencer=None, metrics_address: str = "",
+                 metrics_interval: int = 15,
+                 at_risk_score: float = REPAIR_AT_RISK_SCORE):
         self.rng = random.Random(seed)
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
@@ -199,14 +228,36 @@ class MasterServer:
         router.add("GET", "/cluster/repairs", self.cluster_repairs)
         router.add("POST", "/cluster/scrub_report",
                    self.cluster_scrub_report)
+        router.add("GET", "/metrics", self.metrics_handler)
+        router.add("GET", "/cluster/metrics", self.cluster_metrics)
+        router.add("GET", "/cluster/health", self.cluster_health)
+        router.add("GET", "/admin/traces", traces_handler)
+        router.add("GET", "/admin/traces/export", traces_export_handler)
+        router.add("POST", "/admin/profile", profile_handler)
+        router.add("GET", "/stats/health", self.stats_health)
+        router.add("GET", "/stats/memory", self.stats_memory)
         router.set_fallback(self.redirect_handler)
         router.before = self._guard_check
+
+        def observe(label, seconds, ok):
+            metrics.MASTER_REQUEST_COUNTER.inc(
+                label if ok else label + " error")
+            metrics.MASTER_REQUEST_HISTOGRAM.observe(
+                seconds, label, trace_id=tracing.current_trace_id())
+        router.observe = observe
+        # the push gateway the heartbeat answers name (reference
+        # master_grpc_server.go:75-77)
+        self.metrics_address = metrics_address
+        self.metrics_interval = int(metrics_interval)
         # heartbeats and node deaths publish location events here;
         # clients long-poll /cluster/watch
         self.watch_hub = WatchHub(self._location_snapshot)
         self.topology.location_listener = self.watch_hub.publish
         self.server = HttpServer(port, router, host)
         self.port = self.server.port
+        router.node = f"{host}:{self.port}"
+        # every registered server's /metrics, scraped and merged
+        self.cluster_agg = ClusterMetricsAggregator(self._scrape_targets)
         self._pruner = threading.Thread(target=self._prune_loop, daemon=True,
                                         name="master-pruner")
         self._stop = threading.Event()
@@ -222,6 +273,7 @@ class MasterServer:
         # those can lose a shard (a hole mid-encode is no loss)
         self._repair_seen_complete: set = set()
         self.repair_interval = float(repair_interval)
+        self.at_risk_score = float(at_risk_score)
         self._repair_thread = threading.Thread(
             target=self._repair_loop, daemon=True,
             name="master-repair-queue") if self.repair_interval > 0 \
@@ -358,6 +410,7 @@ class MasterServer:
     def start(self) -> "MasterServer":
         self.server.start()
         self._pruner.start()
+        self.cluster_agg.start()
         if self.raft is not None:
             self.raft.start()
         for thread in (self._repair_thread, self._vacuum_thread,
@@ -368,6 +421,7 @@ class MasterServer:
 
     def stop(self):
         self._stop.set()
+        self.cluster_agg.stop()
         if self.raft is not None:
             self.raft.stop()
         self.server.stop()
@@ -433,8 +487,13 @@ class MasterServer:
                 ec_shards=ec_shards,
                 ec_collections=ec_collections,
                 max_file_key=int(hb.get("max_file_key", 0)))
-        return {"volume_size_limit": self.topology.volume_size_limit,
-                "leader": self.leader_url() or self.url}
+        out = {"volume_size_limit": self.topology.volume_size_limit,
+               "leader": self.leader_url() or self.url}
+        if self.metrics_address:
+            # the master decides where and how often servers push
+            out["metrics_address"] = self.metrics_address
+            out["metrics_interval_seconds"] = self.metrics_interval
+        return out
 
     def cluster_goodbye(self, req: Request):
         """A server stopping cleanly: drop it now and push the deletions,
@@ -682,6 +741,41 @@ class MasterServer:
                 "peers": self.raft.peers if self.raft else [],
                 "nodes": [n.to_dict() for n in self.topology.all_nodes()]}
 
+    # -- observability -------------------------------------------------------
+    def metrics_handler(self, req: Request):
+        metrics.observe_repair_queue(self.repair_queue.snapshot())
+        return Response(metrics.MASTER_GATHER.render().encode(),
+                        content_type="text/plain; version=0.0.4")
+
+    def _scrape_targets(self):
+        with self.topology.lock:
+            return [n.url for n in self.topology.all_nodes()]
+
+    def cluster_metrics(self, req: Request):
+        """The merged exposition: counters and histograms summed over the
+        nodes, gauges per node under ``node=``. ``?refresh=1`` scrapes
+        every node first; otherwise the loop's snapshots serve."""
+        if req.query.get("refresh"):
+            self.cluster_agg.scrape_once()
+        return Response(self.cluster_agg.render().encode(),
+                        content_type="text/plain; version=0.0.4")
+
+    def cluster_health(self, req: Request):
+        """The per-holder fold of every node's ``ec_holder_*`` families
+        (the worst observer's score wins), the nodes' freshness and the
+        repair queue's open incidents and time to re-protection."""
+        if req.query.get("refresh"):
+            self.cluster_agg.scrape_once()
+        out = self.cluster_agg.holder_health()
+        out["repairs"] = self.repair_queue.summary()
+        return out
+
+    def stats_health(self, req: Request):
+        return {"ok": True, "leader": self.is_leader()}
+
+    def stats_memory(self, req: Request):
+        return process_memory_stats()
+
     # -- the integrity plane -------------------------------------------------
     def cluster_repairs(self, req: Request):
         """The repair queue: open incidents by priority, the recently
@@ -719,8 +813,9 @@ class MasterServer:
 
     def _repair_scan(self):
         """Open and close lost-shard incidents from the shard map the
-        heartbeats built. Idempotent: a repeat sighting collapses onto
-        the open incident, which keeps its first detection time."""
+        heartbeats built, and at-risk-holder advisories from the health
+        fold. Idempotent: a repeat sighting collapses onto the open
+        incident, which keeps its first detection time."""
         with self.topology.lock:
             shard_map = {vid: [[n.url for n in holders]
                                for holders in per_shard]
@@ -753,6 +848,16 @@ class MasterServer:
                                           volume=inc["volume"],
                                           shard=inc["shard"],
                                           via="volume_removed")
+        health = self.cluster_agg.holder_health().get("holders", {})
+        for holder, h in health.items():
+            score = float(h.get("score", 1.0))
+            if score < self.at_risk_score:
+                self.repair_queue.report(
+                    "at_risk_holder", holder=holder, source=self.url,
+                    detail={"score": round(score, 3)})
+            elif score > self.at_risk_score + 0.1:  # hysteresis
+                self.repair_queue.resolve("at_risk_holder",
+                                          holder=holder, via="recovered")
 
     def _repair_loop(self):
         while not self._stop.wait(self.repair_interval):
@@ -1057,6 +1162,12 @@ def main(argv=None) -> int:
                          "an etcd every master shares")
     ap.add_argument("-sequencerEtcd", default="127.0.0.1:2379",
                     help="the etcd of -sequencer etcd (host:port)")
+    ap.add_argument("-metrics.address", dest="metricsAddress", default="",
+                    help="a push gateway's host:port, named to the volume "
+                         "servers in heartbeat answers")
+    ap.add_argument("-metrics.intervalSeconds", dest="metricsInterval",
+                    type=int, default=15,
+                    help="the servers' push interval")
     ap.add_argument("-sequencerEtcdUser", default="")
     ap.add_argument("-sequencerEtcdPassword", default="")
     args = ap.parse_args(argv)
@@ -1082,7 +1193,9 @@ def main(argv=None) -> int:
                      jwt_signing_key=args.jwtKey,
                      whitelist=[w for w in args.whiteList.split(",")
                                 if w.strip()],
-                     sequencer=sequencer).start()
+                     sequencer=sequencer,
+                     metrics_address=args.metricsAddress,
+                     metrics_interval=args.metricsInterval).start()
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())

@@ -75,6 +75,14 @@ shards.
                                       rebuild it from the survivors
     GET  /admin/devices               kernel launches, builds, plan cache
                                       and the card (ops/device_stats)
+    GET  /metrics                     the Prometheus text exposition of
+                                      the volume-server families
+    GET  /admin/traces                the trace ring (``?n=``, or
+                                      ``?trace=<id>``'s spans)
+    GET  /admin/traces/export         one trace as Chrome trace events
+    POST /admin/profile               every thread's stacks sampled for
+                                      ``?seconds=`` (collapsed, text)
+    GET  /stats/disk, /stats/memory   each directory's usage; peak RSS
     GET  /admin/file                  a raw volume, index or shard file
                                       (``offset``/``size`` for a range)
     *    /status                      the store's heartbeat, directories,
@@ -131,10 +139,20 @@ token (``Authorization: Bearer`` or ``?jwt=``) that the key signed for
 its fid and that has not expired; the fan-out to the other replicas and
 holders carries the writer's token as ``?jwt=``.
 
+Observability, as in JAX: every request runs in a server span that
+continues the caller's ``traceparent`` and feeds
+``SeaweedFS_volumeServer_request_*``; ``/admin/ec/generate`` (streamed),
+``/admin/ec/rebuild`` and ``/admin/ec/scrub_repair`` answer their
+``trace_id``; a scrape of ``/metrics`` mirrors the store's volumes,
+``ops/telemetry``, the pool's churn, ``ops/device_stats`` (the card's
+memory only once CUDA is initialized: a scrape never initializes it),
+the plan caches, the degraded and scrub engines and the health board.
+When a heartbeat answer names a ``metrics_address`` the server pushes
+its exposition there every ``metrics_interval_seconds``.
+
 Left out: mutual TLS, chunk manifests (``cm=``) and image resizing,
-the native plane, tiering, ``/query``, ``/metrics``, tracing (the
-``trace_id`` of the JAX ``/admin/ec/rebuild`` and
-``/admin/ec/scrub_repair`` answers) and the metrics push.
+the native plane and its metric families, tiering, ``/query`` and the
+status page (``/ui``).
 
     python3 -m seaweedfs_tpu_torch.server.volume_server --dir D [--dir D2]
         [--host 127.0.0.1] [--port 0] [--device cuda] [--master HOST:PORT]
@@ -175,20 +193,24 @@ from ..ec.ec_volume import EcShardNotFound
 from ..ec.scrub import ScrubEngine
 from ..ec.shard_cache import EcShardLocationCache
 from ..ops import codec as ops_codec
-from ..ops import device_stats
+from ..ops import device_stats, telemetry
 from ..security.guard import Guard
 from ..security.jwt import VerifyError, jwt_from_request, verify_fid_jwt
-from ..stats.health import BOARD
+from ..stats import metrics
+from ..stats.health import BOARD, export_board
 from ..storage import volume_backup
 from ..storage.compact_map import snapshot_live_items
 from ..storage.needle import CorruptNeedle, Needle
 from ..storage.store import Store, volume_file_prefix
 from ..storage.types import TTL, ReplicaPlacement, parse_file_id
 from ..storage.volume import NotFound, VolumeError
+from ..util import tracing
 from ..util.fanout import fan_out
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
-                        get_json, http_call, parse_range, post_json,
-                        post_multipart, pull_file)
+                        get_json, http_call, parse_range, pool_stats_snapshot,
+                        post_json, post_multipart, process_memory_stats,
+                        profile_handler, pull_file, traces_export_handler,
+                        traces_handler)
 
 PULSE_S = 5.0        # SW_PULSE_S: the heartbeat's period
 LOOKUP_TTL_S = 10.0  # a /dir/lookup answer's life in the replica cache
@@ -271,8 +293,23 @@ class VolumeServer:
                    self.admin_ec_scrub_repair)
         router.add("GET", "/admin/devices", self.admin_devices)
         router.add("GET", "/admin/file", self.admin_file)
+        router.add("GET", "/metrics", self.metrics_handler)
+        router.add("GET", "/admin/traces", traces_handler)
+        router.add("GET", "/admin/traces/export", traces_export_handler)
+        router.add("POST", "/admin/profile", profile_handler)
+        router.add("GET", "/stats/disk", self.stats_disk)
+        router.add("GET", "/stats/memory", self.stats_memory)
         router.set_fallback(self.data_handler)
         router.before = self._guard_check
+
+        def observe(label, seconds, ok):
+            metrics.VOLUME_REQUEST_COUNTER.inc(
+                label if ok else label + " error")
+            # the router's span is still current: the bucket this lands
+            # in carries its trace id as an exemplar
+            metrics.VOLUME_REQUEST_HISTOGRAM.observe(
+                seconds, label, trace_id=tracing.current_trace_id())
+        router.observe = observe
         # without a ``codec``, the store builds RS(10,4) on ``device`` only
         # when an encode, a rebuild or a degraded read first needs it
         self.store = Store(directories or ["."], codec=codec, device=device,
@@ -281,6 +318,7 @@ class VolumeServer:
         self.host = host
         self.port = self.server.port
         self.url = f"{host}:{self.port}"
+        router.node = self.url
         self.store.ip = host
         self.store.port = self.port
         self.store.public_url = self.url
@@ -303,7 +341,9 @@ class VolumeServer:
         self.degraded = DegradedReadEngine(
             store=self.store, locations=self._ec_shard_locations,
             codec=lambda: self.store.codec, loc_cache=self._ec_loc_cache,
-            self_url=lambda: self.url)
+            self_url=lambda: self.url,
+            on_read=lambda s: metrics.DEGRADED_READ_HISTOGRAM.observe(
+                s, trace_id=tracing.current_trace_id()))
         # a shard mounted again (after a rebuild) is read from disk, not
         # from the engine's cached reconstructions
         self.store.on_ec_mount = self.degraded.invalidate
@@ -331,6 +371,7 @@ class VolumeServer:
         self._hb_acked_seq = 0
         self._hb_acked_master = None
         self._hb_acked_volumes = None
+        self._metrics_push = None
         self._hb_thread = threading.Thread(target=self._heartbeat_loop,
                                            daemon=True,
                                            name="volume-heartbeat")
@@ -357,6 +398,8 @@ class VolumeServer:
                           {"url": self.url}, timeout=2)
             except HttpError:
                 pass
+        if self._metrics_push is not None:
+            self._metrics_push.stop_event.set()
         self.server.stop()
         self.degraded.close()
         self.store.close()
@@ -437,11 +480,95 @@ class VolumeServer:
                 self.master_url = self._seed_masters[self._seed_i]
         else:
             raise last
+        self._maybe_start_metrics_push(resp)
         leader = resp.get("leader")
         if leader and leader != self.master_url:
             self.master_url = leader
             if resp.get("not_leader"):
                 self._post_heartbeat(hb, seq, self.master_url)
+
+    def _maybe_start_metrics_push(self, resp: dict):
+        """The master names a push gateway and its interval in its
+        heartbeat answers (reference LoopPushingMetric); one push loop
+        starts when the address first appears."""
+        addr = resp.get("metrics_address")
+        if not addr or self._metrics_push is not None:
+            return
+        if "://" not in addr:   # the master sends a bare host:port
+            addr = "http://" + addr
+        self._metrics_push = metrics.start_push_loop(
+            metrics.VOLUME_SERVER_GATHER, addr,
+            job=f"volume_{self.host}_{self.port}",
+            interval_s=max(1.0, float(
+                resp.get("metrics_interval_seconds", 15) or 15)))
+
+    # -- observability -------------------------------------------------------
+    def metrics_handler(self, req: Request):
+        """The Prometheus text exposition. Each scrape mirrors what the
+        families read from elsewhere: the volume and disk gauges from
+        the store (summed over every directory; a collection gone since
+        the last scrape set to 0), the codec telemetry, the pool's
+        churn, the device accounting (the card's memory only once CUDA
+        is initialized), the plan caches, the engines' counters and the
+        health board."""
+        by_coll: Dict[str, list] = {}
+        ec_by_coll: Dict[str, int] = {}
+        for loc in self.store.locations:
+            for v in loc.volumes.values():
+                agg = by_coll.setdefault(v.collection, [0, 0])
+                agg[0] += 1
+                agg[1] += v.size()
+            for ev in loc.ec_volumes.values():
+                ec_by_coll[ev.collection] = \
+                    ec_by_coll.get(ev.collection, 0) + len(ev.shards)
+        seen_count, seen_disk = set(), set()
+        for coll, (count, size) in by_coll.items():
+            metrics.VOLUME_COUNT_GAUGE.set(count, coll, "normal")
+            metrics.VOLUME_DISK_GAUGE.set(size, coll, "normal")
+            seen_count.add((coll, "normal"))
+            seen_disk.add((coll, "normal"))
+        for coll, count in ec_by_coll.items():
+            metrics.VOLUME_COUNT_GAUGE.set(count, coll, "ec")
+            seen_count.add((coll, "ec"))
+        # zero each gauge's own vanished series, never minting a series
+        # in a gauge that never carried it
+        for stale in getattr(self, "_count_series", set()) - seen_count:
+            metrics.VOLUME_COUNT_GAUGE.set(0, *stale)
+        for stale in getattr(self, "_disk_series", set()) - seen_disk:
+            metrics.VOLUME_DISK_GAUGE.set(0, *stale)
+        self._count_series = seen_count
+        self._disk_series = seen_disk
+        for kind, total in telemetry.STATS.snapshot().items():
+            # the per-position byte map has its own family (observe_mesh)
+            if isinstance(total, (int, float)):
+                metrics.DEVICE_TELEMETRY_COUNTER.set_total(total, kind)
+        for event, total in pool_stats_snapshot().items():
+            metrics.HTTP_POOL_CHURN_COUNTER.set_total(total, event)
+        # the port has no jit factories: ec_xla_jit_cache_* stays empty
+        metrics.observe_device_stats(device_stats.DEVICE_STATS.snapshot(),
+                                     None, device_stats.device_inventory())
+        metrics.observe_plan_cache()
+        metrics.observe_degraded(self.degraded.snapshot())
+        metrics.observe_scrub(self.scrub.snapshot())
+        export_board()
+        return Response(metrics.VOLUME_SERVER_GATHER.render().encode(),
+                        content_type="text/plain; version=0.0.4")
+
+    def stats_disk(self, req: Request):
+        """Each directory's disk usage (reference statsDiskHandler)."""
+        import shutil
+        out = []
+        for loc in self.store.locations:
+            try:
+                u = shutil.disk_usage(loc.directory)
+                out.append({"dir": loc.directory, "all": u.total,
+                            "used": u.used, "free": u.free})
+            except OSError as e:
+                out.append({"dir": loc.directory, "error": str(e)})
+        return {"DiskStatuses": out}
+
+    def stats_memory(self, req: Request):
+        return process_memory_stats()
 
     def status(self, req: Request):
         out = self.store.status()
@@ -650,9 +777,12 @@ class VolumeServer:
                 window=int(body.get("window") or 0) or None,
                 stats=stats,
                 rate_mbps=float(body.get("rate_mbps") or 0.0))
+            metrics.observe_spread(stats)
+            metrics.observe_mesh(stats)
             return {"volume": vid, "base": os.path.basename(base),
                     "assignment": {str(s): u for s, u in final.items()},
-                    "stats": stats}
+                    "stats": stats,
+                    "trace_id": tracing.current_trace_id()}
         base = self.store.generate_ec_shards(vid, collection)
         return {"volume": vid, "base": os.path.basename(base)}
 
@@ -774,12 +904,16 @@ class VolumeServer:
                 window=int(body.get("window") or 0) or None,
                 hedge_ms=None if hedge_ms is None else float(hedge_ms),
                 repair=str(body.get("repair") or "auto"))
+            metrics.observe_gather(stats)
+            metrics.observe_repair(stats)
+            metrics.observe_mesh(stats)
         else:
             rebuilt = self.store.rebuild_ec_shards(vid, collection,
                                                    stats=stats)
         if rebuilt:
             self.degraded.invalidate(vid, rebuilt)
-        return {"volume": vid, "rebuilt": rebuilt, "stats": stats}
+        return {"volume": vid, "rebuilt": rebuilt, "stats": stats,
+                "trace_id": tracing.current_trace_id()}
 
     def admin_ec_scrub(self, req: Request):
         """A synchronous scrub: one volume (?volume=) or a pass over
@@ -824,12 +958,16 @@ class VolumeServer:
         rebuilt = self.store.rebuild_ec_shards_streaming(
             vid, collection, sources=sources, stats=stats,
             repair=str(body.get("repair") or "auto"))
+        metrics.observe_gather(stats)
+        metrics.observe_repair(stats)
+        metrics.observe_mesh(stats)
         mounted = self.store.mount_ec_shards(vid, collection, rebuilt) \
             if rebuilt else []
         self.degraded.invalidate(vid, rebuilt or [sid])
         self.heartbeat_once()
         return {"volume": vid, "shard": sid, "rebuilt": rebuilt,
-                "mounted": mounted, "stats": stats}
+                "mounted": mounted, "stats": stats,
+                "trace_id": tracing.current_trace_id()}
 
     def _report_scrub_finding(self, finding: dict) -> bool:
         """A scrub finding to the master's repair queue; True only when

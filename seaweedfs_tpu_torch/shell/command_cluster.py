@@ -1,15 +1,52 @@
-"""The shell's cluster commands: ``cluster.repairs`` (the master's repair
-queue) and ``cluster.devices`` (each server's ``/admin/devices``), in the
-lines of the JAX package's ``shell/command_cluster.py``. Its
-``cluster.health``, ``cluster.profile`` and ``trace.export`` wait for the
-health, profiling and tracing planes."""
+"""The shell's cluster commands, in the lines of the JAX package's
+``shell/command_cluster.py``: ``cluster.health`` (the master's
+per-holder health fold), ``cluster.repairs`` (its repair queue),
+``cluster.devices`` (each server's ``/admin/devices``),
+``cluster.profile`` (every node's threads sampled through ``POST
+/admin/profile``, merged into one folded file) and ``trace.export``
+(one trace's spans from every node's ``/admin/traces/export``, merged by
+span id and skew-normalized into one Chrome trace-event file)."""
 
 from __future__ import annotations
 
+import json
 from typing import List
 
-from ..server.http_util import HttpError
+from ..server.http_util import HttpError, http_call
+from ..util import trace_export
 from .command_env import CommandEnv, command, parse_flags
+
+
+@command("cluster.health",
+         "[-refresh false]: per-holder health scores aggregated across "
+         "the fleet (latency/error/hedge-loss EWMAs from every node's "
+         "reader stack; worst observer wins)")
+def cluster_health(env: CommandEnv, args: List[str]):
+    flags = parse_flags(args)
+    path = "/cluster/health"
+    if flags.get("refresh", "true") != "false":
+        path += "?refresh=1"
+    view = env.master_get(path)
+    holders = view.get("holders") or {}
+    nodes = view.get("nodes") or []
+    fresh = sum(1 for n in nodes if not n.get("stale"))
+    env.write(f"cluster.health: {len(holders)} holders scored by "
+              f"{fresh}/{len(nodes)} fresh nodes")
+    for n in nodes:
+        if n.get("stale"):
+            err = n.get("last_error") or "no fresh scrape"
+            env.write(f"  node {n['node']}  STALE ({err})")
+    for holder in sorted(holders, key=lambda h: holders[h]["score"]):
+        h = holders[holder]
+        lats = " ".join(f"{kind}={ms:.1f}ms" for kind, ms in
+                        sorted(h.get("latency_ewma_ms", {}).items()))
+        ev = h.get("events", {})
+        env.write(
+            f"  {holder}  score={h['score']:.3f}"
+            f"{('  ' + lats) if lats else ''}"
+            f"  reads={int(ev.get('reads', 0))}"
+            f" errors={int(ev.get('errors', 0))}"
+            f" hedges_lost={int(ev.get('hedges_lost', 0))}")
 
 
 @command("cluster.repairs",
@@ -75,3 +112,87 @@ def cluster_devices(env: CommandEnv, args: List[str]):
             f"/{occ.get('bytes', 0)}B{sentinel}")
         for off in (stats.get("offenders") or []):
             env.write(f"    recompile offender: {off}")
+
+
+@command("cluster.profile",
+         "[-seconds 2] [-o <file>]: sample every server's Python "
+         "threads (POST /admin/profile) and merge the collapsed stacks "
+         "into one flamegraph/speedscope-ready folded file, each stack "
+         "prefixed with its node")
+def cluster_profile_cmd(env: CommandEnv, args: List[str]):
+    flags = parse_flags(args)
+    try:
+        seconds = float(flags.get("seconds", "2"))
+    except ValueError:
+        env.write("usage: cluster.profile [-seconds N] [-o <file>]")
+        return
+    out_path = flags.get("o") or "cluster_profile.folded"
+    targets = [env.master_url] + \
+        [n["url"] for n in env.cluster_nodes()]
+    # serial on purpose: the profiler is serialized per PROCESS (409 on
+    # overlap), and a test cluster runs every server in one process —
+    # a parallel fan-out there would profile one node and bounce off
+    # the rest
+    merged: List[str] = []
+    sampled = 0
+    for url in targets:
+        try:
+            folded = http_call(
+                "POST",
+                f"http://{url}/admin/profile?seconds={seconds:g}",
+                timeout=seconds + 30.0).decode("utf-8", "replace")
+        except Exception as e:  # noqa: BLE001 - a down node must not
+            # abort the sweep
+            env.write(f"  {url}  unreachable: {e}")
+            continue
+        lines = [ln for ln in folded.splitlines() if ln.strip()]
+        if lines:
+            sampled += 1
+        merged.extend(f"{url};{ln}" for ln in lines)
+    if not merged:
+        env.write("cluster.profile: no samples collected")
+        return
+    with open(out_path, "w") as f:
+        f.write("\n".join(merged) + "\n")
+    env.write(f"cluster.profile: {len(merged)} stacks from "
+              f"{sampled}/{len(targets)} nodes over {seconds:g}s "
+              f"-> {out_path}")
+
+
+@command("trace.export",
+         "-trace <id> [-o <file>]: merge one trace's spans from every "
+         "cluster node into a single skew-normalized Chrome trace-event "
+         "file (open in Perfetto / chrome://tracing)")
+def trace_export_cmd(env: CommandEnv, args: List[str]):
+    flags = parse_flags(args)
+    tid = flags.get("trace")
+    if not tid:
+        env.write("usage: trace.export -trace <id> [-o <file>]")
+        return
+    out_path = flags.get("o") or f"trace_{tid[:12]}.json"
+    targets = [env.master_url] + \
+        [n["url"] for n in env.cluster_nodes()]
+    span_lists = []
+    reached = 0
+    for url in targets:
+        try:
+            obj = env.node_get(url,
+                               f"/admin/traces/export?trace={tid}")
+        except HttpError as e:
+            env.write(f"  {url}  unreachable: {e}")
+            continue
+        reached += 1
+        span_lists.append(trace_export.spans_from_chrome(obj))
+    if not any(span_lists):
+        env.write(f"trace.export: no spans for trace {tid} on "
+                  f"{reached} reachable nodes")
+        return
+    merged = trace_export.merged_chrome_trace(span_lists)
+    with open(out_path, "w") as f:
+        json.dump(merged, f)
+    meta = merged.get("metadata", {})
+    env.write(
+        f"trace.export: {meta.get('span_count', 0)} spans from "
+        f"{len(meta.get('nodes', []))} nodes -> {out_path} "
+        f"(clock offsets: "
+        f"{json.dumps(meta.get('clock_offsets_s', {}))})")

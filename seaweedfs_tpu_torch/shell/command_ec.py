@@ -5,8 +5,11 @@ then copy, mount, drop the originals; unwound on failure), ``ec.rebuild``
 auto|trace|piggyback|full``, or by copies), ``ec.decode`` (back to a
 plain volume on the server holding the most data shards) and
 ``ec.balance`` (even shard counts across racks, then within each). The
-JAX package's ``shell/command_ec.py`` without tracing; its knob defaults
-are constants here: ``SPREAD_MODE`` (SW_EC_SPREAD_MODE), ``GATHER_MODE``
+JAX package's ``shell/command_ec.py``: ``ec.encode`` and ``ec.rebuild``
+of a volume each run in a root span (``ec.encode``, ``ec.rebuild``)
+whose ``traceparent`` every call below it carries, so one operation is
+one trace across the shell, the master and the servers; a survivor copy
+is a ``gather`` span under it. Its knob defaults are constants here: ``SPREAD_MODE`` (SW_EC_SPREAD_MODE), ``GATHER_MODE``
 (SW_EC_GATHER_MODE) and ``REPAIR_MODE`` (SW_EC_REPAIR_MODE). Also each
 server's degraded-read engine (``volume.ec.degraded``) and syndrome scrub
 (``volume.ec.scrub [-trigger] [-volumeId N]``), in the JAX lines."""
@@ -19,6 +22,7 @@ from typing import Dict, List
 
 from ..ec.constants import DATA_SHARDS, TOTAL_SHARDS
 from ..server.http_util import HttpError
+from ..util import tracing
 from ..util.fanout import fan_out_must_succeed
 from .command_env import CommandEnv, command, parse_flags
 
@@ -125,45 +129,53 @@ def do_ec_encode(env: CommandEnv, vid: int, mode: str = None):
         return
     collection = replicas[0].get("collection", "")
     source = replicas[0]["url"]
-    # 1. freeze every replica, noting each holder's own prior state (not
-    # the master's view, a heartbeat late) so that a failure thaws
-    # exactly what this command froze
-    froze: List[str] = []
-    for r in replicas:
-        out = env.node_post(r["url"], f"/admin/volume/readonly?volume={vid}")
-        if not (out or {}).get("was_readonly"):
-            froze.append(r["url"])
-    assignment = balanced_ec_distribution(_free_nodes(env))
-    by_node: Dict[str, List[int]] = {}
-    for sid, url in enumerate(assignment):
-        by_node.setdefault(url, []).append(sid)
+    root = tracing.start_span("ec.encode", volume=vid, mode=mode)
     try:
-        # 2, 3. encode, spread, mount
-        if mode == "copy":
-            _encode_spread_copy(env, vid, collection, source, by_node)
-        else:
-            try:
-                _encode_spread_streaming(env, vid, collection, source,
-                                         assignment)
-            except HttpError as e:
-                env.write(f"volume {vid}: streaming encode failed "
-                          f"({e.status}); falling back to copy mode")
-                _cleanup_partial_encode(env, vid, collection,
-                                        set(assignment) | {source})
+        # 1. freeze every replica, noting each holder's own prior state
+        # (not the master's view, a heartbeat late) so that a failure
+        # thaws exactly what this command froze
+        froze: List[str] = []
+        for r in replicas:
+            out = env.node_post(r["url"],
+                                f"/admin/volume/readonly?volume={vid}")
+            if not (out or {}).get("was_readonly"):
+                froze.append(r["url"])
+        assignment = balanced_ec_distribution(_free_nodes(env))
+        by_node: Dict[str, List[int]] = {}
+        for sid, url in enumerate(assignment):
+            by_node.setdefault(url, []).append(sid)
+        try:
+            # 2, 3. encode, spread, mount
+            if mode == "copy":
                 _encode_spread_copy(env, vid, collection, source, by_node)
-    except BaseException:
-        _cleanup_partial_encode(env, vid, collection,
-                                set(assignment) | {source})
-        for url in froze:
-            try:
-                env.node_post(url, f"/admin/volume/readonly?volume={vid}"
-                                   f"&readonly=false")
-            except HttpError:
-                pass
-        raise
-    # 4. drop the original volume everywhere
-    for r in replicas:
-        env.node_post(r["url"], f"/admin/delete_volume?volume={vid}")
+            else:
+                try:
+                    _encode_spread_streaming(env, vid, collection, source,
+                                             assignment)
+                except HttpError as e:
+                    env.write(f"volume {vid}: streaming encode failed "
+                              f"({e.status}); falling back to copy mode")
+                    root.tags["fallback"] = "copy"
+                    _cleanup_partial_encode(env, vid, collection,
+                                            set(assignment) | {source})
+                    _encode_spread_copy(env, vid, collection, source,
+                                        by_node)
+        except BaseException as e:
+            _cleanup_partial_encode(env, vid, collection,
+                                    set(assignment) | {source})
+            for url in froze:
+                try:
+                    env.node_post(url, f"/admin/volume/readonly?volume="
+                                       f"{vid}&readonly=false")
+                except HttpError:
+                    pass
+            root.tags.setdefault("error", type(e).__name__)
+            raise
+        # 4. drop the original volume everywhere
+        for r in replicas:
+            env.node_post(r["url"], f"/admin/delete_volume?volume={vid}")
+    finally:
+        tracing.finish_span(root)
     env.write(f"volume {vid}: ec encoded, original removed")
 
 
@@ -317,19 +329,31 @@ def do_ec_rebuild(env: CommandEnv, vid: int, collection: str,
     k-survivor gather on either. Stream mode only."""
     mode = (mode or GATHER_MODE).lower()
     repair = (repair or REPAIR_MODE).lower()
-    # the rebuilder: the server with the most free slots
-    rebuilder = _free_nodes(env)[0]["url"]
-    if mode == "copy":
-        rebuilt = _rebuild_via_copy(env, vid, collection, shards, rebuilder)
-    else:
-        try:
-            rebuilt = _rebuild_streaming(env, vid, collection, shards,
-                                         rebuilder, repair=repair)
-        except HttpError as e:
-            env.write(f"volume {vid}: streaming rebuild failed "
-                      f"({e.status}); falling back to copy mode")
+    # the trace's root: the gather, the rebuild and the mount below all
+    # carry its traceparent
+    root = tracing.start_span("ec.rebuild", volume=vid, mode=mode,
+                              repair=repair)
+    try:
+        # the rebuilder: the server with the most free slots
+        rebuilder = _free_nodes(env)[0]["url"]
+        if mode == "copy":
             rebuilt = _rebuild_via_copy(env, vid, collection, shards,
-                                        rebuilder)
+                                        rebuilder, root)
+        else:
+            try:
+                rebuilt = _rebuild_streaming(env, vid, collection, shards,
+                                             rebuilder, repair=repair)
+            except HttpError as e:
+                env.write(f"volume {vid}: streaming rebuild failed "
+                          f"({e.status}); falling back to copy mode")
+                root.tags["fallback"] = "copy"
+                rebuilt = _rebuild_via_copy(env, vid, collection, shards,
+                                            rebuilder, root)
+    except BaseException as e:
+        root.tags.setdefault("error", type(e).__name__)
+        raise
+    finally:
+        tracing.finish_span(root)
     env.write(f"volume {vid}: rebuilt shards {rebuilt} on {rebuilder}")
 
 
@@ -357,8 +381,8 @@ def _rebuild_streaming(env: CommandEnv, vid: int, collection: str,
 
 
 def _rebuild_via_copy(env: CommandEnv, vid: int, collection: str,
-                      shards: Dict[int, List[str]], rebuilder: str
-                      ) -> List[int]:
+                      shards: Dict[int, List[str]], rebuilder: str,
+                      root=None) -> List[int]:
     """Copy every survivor the rebuilder lacks whole, rebuild there,
     delete the copies."""
     local = {s for s, urls in shards.items() if rebuilder in urls}
@@ -370,11 +394,14 @@ def _rebuild_via_copy(env: CommandEnv, vid: int, collection: str,
 
     def pull(job):
         (sid, src), with_ecx = job
-        env.node_post(
-            rebuilder,
-            f"/admin/ec/copy?volume={vid}&collection={collection}"
-            f"&source={src}&shards={sid}"
-            f"&copy_ecx={'true' if with_ecx else 'false'}")
+        # fan-out threads do not inherit the tracing contextvar: each
+        # copy's span is parented on the root explicitly
+        with tracing.span("gather", parent=root, shard=sid, source=src):
+            env.node_post(
+                rebuilder,
+                f"/admin/ec/copy?volume={vid}&collection={collection}"
+                f"&source={src}&shards={sid}"
+                f"&copy_ecx={'true' if with_ecx else 'false'}")
 
     jobs = [(item, (not local) and i == 0)
             for i, item in enumerate(to_copy)]

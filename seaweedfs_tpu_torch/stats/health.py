@@ -14,10 +14,14 @@ JAX package's SW_EC_HEALTH_ROUTING), the pull rotation demotes holders
 below 0.5 to the back of the failover and hedge order, and the full
 streaming rebuild drops the worst-scored surplus survivors.
 
+Per-holder event counts (reads, errors, hedges_lost,
+hedges_won_against) ride beside the EWMAs; ``snapshot`` is the view
+``export_board`` mirrors onto the ``ec_holder_*`` families on every
+``/metrics`` scrape, which the master's aggregator folds into
+``/cluster/health``.
+
 The JAX package's ``stats/health.py``; the reference latency is the
-module constant ``REF_MS`` (the SW_EC_HEALTH_REF_MS default). The
-per-holder event counts and the snapshot behind the metric export are
-not ported.
+module constant ``REF_MS`` (the SW_EC_HEALTH_REF_MS default).
 """
 
 from __future__ import annotations
@@ -44,6 +48,12 @@ class HolderHealthBoard:
         self._err: Dict[str, float] = {}
         # holder -> hedge-loss-rate EWMA (0..1)
         self._hedge: Dict[str, float] = {}
+        # holder -> event -> monotonic count
+        self._events: Dict[str, Dict[str, int]] = {}
+
+    def _bump(self, holder: str, event: str, n: int = 1):
+        ev = self._events.setdefault(holder, {})
+        ev[event] = ev.get(event, 0) + n
 
     def record_latency(self, holder: str, kind: str, seconds: float):
         """One successful range read against ``holder`` took
@@ -58,6 +68,7 @@ class HolderHealthBoard:
             self._err[holder] = (1 - _ALPHA) * self._err.get(holder, 0.0)
             self._hedge[holder] = \
                 (1 - _ALPHA) * self._hedge.get(holder, 0.0)
+            self._bump(holder, "reads")
 
     def record_error(self, holder: str):
         """A range read against ``holder`` failed or timed out."""
@@ -66,6 +77,7 @@ class HolderHealthBoard:
         with self._lock:
             prev = self._err.get(holder, 0.0)
             self._err[holder] = prev + _ALPHA * (1.0 - prev)
+            self._bump(holder, "errors")
 
     def record_hedge_loss(self, loser: str, winner: str):
         """A hedged read raced ``loser`` against ``winner`` and the
@@ -75,6 +87,9 @@ class HolderHealthBoard:
         with self._lock:
             prev = self._hedge.get(loser, 0.0)
             self._hedge[loser] = prev + _ALPHA * (1.0 - prev)
+            self._bump(loser, "hedges_lost")
+            if winner:
+                self._bump(winner, "hedges_won_against")
 
     def score(self, holder: str) -> float:
         with self._lock:
@@ -91,6 +106,24 @@ class HolderHealthBoard:
         score = lat_score * (1.0 - err) * (1.0 - 0.5 * hedge)
         return min(1.0, max(0.0, score))
 
+    def snapshot(self) -> Dict[str, Dict]:
+        """Per-holder view for the ``/metrics`` export."""
+        with self._lock:
+            holders = (set(self._lat) | set(self._err) | set(self._hedge)
+                       | set(self._events))
+            out = {}
+            for h in sorted(holders):
+                out[h] = {
+                    "score": round(self._score_locked(h), 4),
+                    "latency_ewma_ms": {
+                        kind: round(s * 1000.0, 3)
+                        for kind, s in self._lat.get(h, {}).items()},
+                    "error_ewma": round(self._err.get(h, 0.0), 4),
+                    "hedge_loss_ewma": round(self._hedge.get(h, 0.0), 4),
+                    "events": dict(self._events.get(h, {})),
+                }
+            return out
+
     def order_by_health(self, holders: Sequence[str],
                         threshold: float = 0.5) -> List[str]:
         """Stable partition into healthy-first order: holders scoring
@@ -106,8 +139,16 @@ class HolderHealthBoard:
             self._lat.clear()
             self._err.clear()
             self._hedge.clear()
+            self._events.clear()
 
 
 # Process-global board: every reader in this process (rebuild gather,
 # repair, degraded engine, scrub) feeds the same scoreboard.
 BOARD = HolderHealthBoard()
+
+
+def export_board():
+    """Mirror the board onto the ``ec_holder_*`` metric families; the
+    ``/metrics`` handlers call it, so every scrape sees fresh scores."""
+    from .metrics import observe_health
+    observe_health(BOARD.snapshot())

@@ -29,9 +29,12 @@ after every volume create and delete and every EC mount and unmount
 that changed something, so the server can send a delta at once.
 
 The JAX package reads the new volumes' layout from SW_EC_LAYOUT; here it
-is the ``layout`` argument ("flat" by default). Left out: the needle-map
-kinds but ``memory``, and the transport metrics export; the stats dict
-keys stay.
+is the ``layout`` argument ("flat" by default). The encodes and rebuilds
+run in the JAX package's root spans (``ec.encode.local``,
+``ec.encode.stream``, ``ec.rebuild.local``, ``ec.rebuild.stream``, the
+.ecx rebuild as a ``write`` span), and each transport run is exported
+to ``ec_transport_*`` (``observe_transport``). Left out: the needle-map
+kinds but ``memory``.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ from ..ec.ec_volume import EcVolume, ec_offset_width, rebuild_ecx_file
 from ..ops import codec as ops_codec
 from ..server.http_util import HttpError
 from ..stats.health import BOARD
+from ..stats.metrics import observe_transport
+from ..util import tracing
 from .needle import Needle
 from .types import TTL, ReplicaPlacement, entry_size
 from .volume import (NotFound, Volume, VolumeError,  # noqa: F401
@@ -405,8 +410,10 @@ class Store:
         v = self._readonly_volume(vid)
         base = v.file_name()
         layout, pplan, window = self._encode_layout()
-        ec_encoder.write_sorted_file_from_idx(base)
-        ec_encoder.write_ec_files(base, codec=self.codec, layout=layout)
+        with tracing.span("ec.encode.local", volume=vid, layout=layout):
+            ec_encoder.write_sorted_file_from_idx(base)
+            ec_encoder.write_ec_files(base, codec=self.codec,
+                                      layout=layout)
         self._write_layout_sidecars(base, v, layout, pplan, window)
         return base
 
@@ -436,31 +443,36 @@ class Store:
         slab = gather.auto_slab(ec_encoder.ec_shard_base_size(
             os.path.getsize(base + ".dat")))
         layout, pplan, pb_window = self._encode_layout()
-        ec_encoder.write_sorted_file_from_idx(base)
-        sink = spread.StripedSpreadSink(
-            vid, base, assignment, total, collection=collection,
-            local_url=self.public_url, spares=spares, window=window,
-            stats=spread.SpreadStats(), rate_mbps=rate_mbps,
-            routing=self.routing)
-        try:
-            ec_encoder.write_ec_files_spread(
-                base, sink, codec=self.codec, slab=slab, stats=stats,
-                layout=layout)
-        except BaseException:
-            # the sink already aborted every holder's stage; drop what
-            # the local fast path finalized, and the index
-            for i in range(total):
-                for p in (base + to_ext(i), base + to_ext(i) + ".part"):
-                    try:
-                        os.remove(p)
-                    except OSError:
-                        pass
+        sstats = spread.SpreadStats()
+        with tracing.span("ec.encode.stream", volume=vid,
+                          layout=layout) as root:
+            ec_encoder.write_sorted_file_from_idx(base)
+            sink = spread.StripedSpreadSink(
+                vid, base, assignment, total, collection=collection,
+                local_url=self.public_url, spares=spares, window=window,
+                stats=sstats, rate_mbps=rate_mbps, routing=self.routing,
+                parent_span=root)
             try:
-                os.remove(base + ".ecx")
-            except OSError:
-                pass
-            raise
-        self._write_layout_sidecars(base, v, layout, pplan, pb_window)
+                ec_encoder.write_ec_files_spread(
+                    base, sink, codec=self.codec, slab=slab, stats=stats,
+                    layout=layout)
+            except BaseException:
+                # the sink already aborted every holder's stage; drop
+                # what the local fast path finalized, and the index
+                for i in range(total):
+                    for p in (base + to_ext(i),
+                              base + to_ext(i) + ".part"):
+                        try:
+                            os.remove(p)
+                        except OSError:
+                            pass
+                try:
+                    os.remove(base + ".ecx")
+                except OSError:
+                    pass
+                raise
+            self._write_layout_sidecars(base, v, layout, pplan, pb_window)
+        observe_transport("push", sstats, window=sink.window)
         return base, sink.assignment()
 
     def mount_ec_shards(self, vid: int, collection: str,
@@ -526,12 +538,15 @@ class Store:
             if not os.path.exists(base + ".ecx"):
                 continue
             li = self._volume_layout(base)
-            rebuilt = ec_encoder.rebuild_ec_files(
-                base, codec=self.codec, stats=stats,
-                layout=(li if li.piggyback else None))
-            t0 = time.perf_counter()
-            rebuild_ecx_file(base, ec_offset_width(base))
-            ecx_s = time.perf_counter() - t0
+            with tracing.span("ec.rebuild.local", volume=vid,
+                              layout=li.layout):
+                rebuilt = ec_encoder.rebuild_ec_files(
+                    base, codec=self.codec, stats=stats,
+                    layout=(li if li.piggyback else None))
+                t0 = time.perf_counter()
+                rebuild_ecx_file(base, ec_offset_width(base))
+                ecx_s = time.perf_counter() - t0
+                tracing.record_span("write", ecx_s, op="ec.rebuild.ecx")
             if stats is not None and "phases" in stats:
                 stats["phases"]["write"] = round(
                     stats["phases"].get("write", 0.0) + ecx_s, 6)
@@ -592,6 +607,15 @@ class Store:
         if loc is None:
             loc = self.locations[0]
         base = volume_file_prefix(loc.directory, collection, vid)
+        with tracing.span("ec.rebuild.stream", volume=vid) as root:
+            return self._rebuild_streaming(
+                vid, base, sources, holders, stats, slab, window,
+                hedge_ms, repair, root)
+
+    def _rebuild_streaming(self, vid, base, sources, holders, stats, slab,
+                           window, hedge_ms, repair, root) -> List[int]:
+        """The body of ``rebuild_ec_shards_streaming``, under its
+        ``ec.rebuild.stream`` span ``root``."""
         k, total = self.codec.k, self.codec.total
         if holders:
             gather.fetch_index_files(base, holders)
@@ -651,7 +675,7 @@ class Store:
                     for i in src]
 
         ctx = (vid, base, local, present, missing, sources, sized, stats,
-               slab, window, hedge_ms, mode)
+               slab, window, hedge_ms, mode, root)
         rebuilt = None
         if mode != "full":
             if li.piggyback:
@@ -672,10 +696,11 @@ class Store:
             eff_slab = max(li.window, eff_slab - eff_slab % li.window)
             source = gather.StripedGatherSource(
                 readers_of(src, gstats), shard_size, slab=eff_slab,
-                window=window, stats=gstats)
+                window=window, stats=gstats, parent_span=root)
             rebuilt = ec_encoder.rebuild_ec_files_streaming_piggyback(
                 base, present, missing, source, li, codec=self.codec,
                 stats=stats)
+            observe_transport("pull", gstats, window=source.window)
             if stats is not None:
                 stats["repair_mode"] = "full"
         elif rebuilt is None:
@@ -688,15 +713,17 @@ class Store:
                 shard_size, default=ec_encoder.DEFAULT_SLAB)
             source = gather.StripedGatherSource(
                 readers_of(src, gstats), shard_size, slab=eff_slab,
-                window=window, stats=gstats)
+                window=window, stats=gstats, parent_span=root)
             rebuilt = ec_encoder.rebuild_ec_files_streaming(
                 base, gather_present, missing, source, codec=self.codec,
                 slab=eff_slab, stats=stats)
+            observe_transport("pull", gstats, window=source.window)
             if stats is not None:
                 stats["repair_mode"] = "full"
         t0 = time.perf_counter()
         rebuild_ecx_file(base, ec_offset_width(base))
         ecx_s = time.perf_counter() - t0
+        tracing.record_span("write", ecx_s, op="ec.rebuild.ecx")
         if stats is not None and "phases" in stats:
             stats["phases"]["write"] = round(
                 stats["phases"].get("write", 0.0) + ecx_s, 6)
@@ -733,7 +760,7 @@ class Store:
 
     def _rebuild_streaming_piggyback(self, vid, base, local, present,
                                      missing, sources, sized, stats, slab,
-                                     window, hedge_ms, mode, li):
+                                     window, hedge_ms, mode, root, li):
         """Attempt the half-plane piggyback repair; returns the rebuilt
         shard list, or None for "use the full coupled decode". A forced
         ``piggyback`` turns every fallback into an error; ``auto``
@@ -791,7 +818,7 @@ class Store:
             shard_size, default=ec_encoder.DEFAULT_SLAB)
         source = gather.PlaneGatherSource(
             readers, shard_size, rplan, li.window, slab=eff_slab,
-            gather_window=window, stats=gstats)
+            gather_window=window, stats=gstats, parent_span=root)
         rstats: dict = {}
         try:
             rebuilt = ec_decoder.rebuild_ec_file_piggyback(
@@ -804,13 +831,14 @@ class Store:
                 # rerun as the full coupled decode
                 return bail(f"holder refused plane read ({e.status})")
             raise
+        observe_transport("pull", gstats, window=source.window)
         if stats is not None:
             stats.update(rstats)
         return rebuilt
 
     def _rebuild_streaming_trace(self, vid, base, local, present, missing,
                                  sources, sized, stats, slab, window,
-                                 hedge_ms, mode):
+                                 hedge_ms, mode, root):
         """Attempt trace repair; returns the rebuilt shard list, or None
         for "use the full streaming gather". A forced ``trace`` turns
         every fallback into an error; ``auto`` records the reason in
@@ -849,7 +877,7 @@ class Store:
             shard_size, default=ec_encoder.DEFAULT_SLAB)
         source = gather.RepairGatherSource(
             readers, shard_size, plan, slab=eff_slab, window=window,
-            stats=gstats)
+            stats=gstats, parent_span=root)
         rstats: dict = {}
         try:
             rebuilt = ec_decoder.rebuild_ec_file_repair(
@@ -862,6 +890,7 @@ class Store:
                 # rerun as the plain streaming gather
                 return bail(f"holder refused repair read ({e.status})")
             raise
+        observe_transport("pull", gstats, window=source.window)
         if stats is not None:
             stats.update(rstats)
         return rebuilt

@@ -375,9 +375,9 @@ def integrity_flow(kind, root, monkeypatch):
         from seaweedfs_tpu.shell.command_env import CommandEnv, run_command
         monkeypatch.setenv("SW_REPAIR_INTERVAL_S", str(REPAIR_S))
         monkeypatch.setenv("SW_EC_SCRUB_RATE_MBPS", "0")
-        # the port's scan has no at-risk half (the health fold is not
-        # ported): no score is below 0, so the JAX half opens nothing
-        # either, however slow a loaded host makes its holders look
+        # no score is below 0: neither master's at-risk half opens an
+        # advisory, however slow a loaded host makes its holders look
+        # (the port master takes the same floor as ``at_risk_score``)
         monkeypatch.setenv("SW_REPAIR_AT_RISK_SCORE", "0")
         master = MasterServer(port=0, pulse_seconds=1,
                               vacuum_interval=0).start()
@@ -387,7 +387,8 @@ def integrity_flow(kind, root, monkeypatch):
         from seaweedfs_tpu_torch.server.master import MasterServer
         from seaweedfs_tpu_torch.shell import CommandEnv, run_command
         master = MasterServer(port=0, pulse_seconds=1, seed=SEED,
-                              repair_interval=REPAIR_S).start()
+                              repair_interval=REPAIR_S,
+                              at_risk_score=0).start()
     servers = [_server(kind, str(root / f"{kind}-v{i}"), master.url, p)
                for i, p in enumerate(_ordered_ports(3))]
     names = {vs.url: f"S{i}" for i, vs in enumerate(servers)}

@@ -15,7 +15,9 @@ accounting and a torch.profiler trace) and its volume control plane
 collection.delete), and runs the multi-device tier
 (MeshCodec, the distributed EC step, two processes over gloo), and a
 highly available cluster (three masters in a raft group, write tokens,
-the leader stopped, a write and an ec.rebuild after), with both made
+the leader stopped, a write and an ec.rebuild after), and its
+observability plane (``/metrics``, ``/cluster/metrics``,
+``/admin/traces`` and the shell's ``trace.export``), with both made
 unimportable."""
 
 import ast
@@ -112,6 +114,10 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/security/guard.py",
                  "seaweedfs_tpu_torch/security/jwt.py",
                  "seaweedfs_tpu_torch/filer/etcd_store.py",
+                 "seaweedfs_tpu_torch/util/tracing.py",
+                 "seaweedfs_tpu_torch/util/trace_export.py",
+                 "seaweedfs_tpu_torch/stats/metrics.py",
+                 "seaweedfs_tpu_torch/stats/aggregate.py",
                  "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc"):
@@ -999,4 +1005,89 @@ def test_mesh_and_multihost_with_jax_unimportable(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
                           text=True, timeout=300, cwd=str(tmp_path), env=env)
     assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_observability_with_jax_unimportable(tmp_path):
+    """A port master and two port VolumeServers on the CPU: an encode
+    and a rebuild through the shell, then each server's ``/metrics``
+    parsed, the master's ``/cluster/metrics?refresh=1`` (K1's series the
+    servers' sum), ``/admin/traces`` naming the rebuild's trace and
+    ``trace.export`` merging it."""
+    script = textwrap.dedent(f"""
+        import io, json, os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from seaweedfs_tpu_torch.client import operation as op
+        from seaweedfs_tpu_torch.server.http_util import get_json, http_call
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+        from seaweedfs_tpu_torch.stats.metrics import parse_prometheus_text
+        root = {str(tmp_path)!r}
+        m = MasterServer(port=0, pulse_seconds=1, seed=1,
+                         repair_interval=0).start()
+        servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
+                                master_url=m.url, pulse_seconds=1,
+                                max_volume_counts=[20],
+                                device="cpu").start() for i in range(2)]
+
+        def shell(line):
+            out = io.StringIO()
+            run_command(CommandEnv(m.url, out=out), line)
+            return out.getvalue()
+
+        def k1(text):
+            for fam in parse_prometheus_text(text):
+                if fam["name"].endswith("_ec_xla_dispatches_total"):
+                    return sum(v for _, lab, v in fam["samples"]
+                               if dict(lab)["entry"] ==
+                               "rs_hopper.gf_matmul")
+            return 0
+
+        try:
+            rng = np.random.default_rng(0)
+            fids = [op.upload_data(m.url, rng.bytes(20_000),
+                                   filename="n%d" % i, collection="iso")
+                    for i in range(6)]
+            vid = int(fids[0].split(",")[0])
+            assert "ec encoded" in shell("ec.encode -volumeId %d" % vid)
+            victim = servers[0]
+            lost = victim.store.find_ec_volume(vid).shard_ids()[:1]
+            victim.store.unmount_ec_shards(vid, lost)
+            for loc in victim.store.locations:
+                for name in os.listdir(loc.directory):
+                    if name.endswith(".ec%02d" % lost[0]):
+                        os.remove(os.path.join(loc.directory, name))
+            victim.heartbeat_once()
+            assert "rebuilt shards" in shell("ec.rebuild")
+            traces = get_json("http://%s/admin/traces?n=50"
+                              % servers[1].url)["traces"]
+            tid = next(t["trace_id"] for t in traces
+                       if t["root"] == "ec.rebuild")
+            per = [k1(http_call("GET", "http://%s/metrics"
+                                % vs.url).decode()) for vs in servers]
+            merged = http_call("GET", "http://%s/cluster/metrics?refresh=1"
+                               % m.url).decode()
+            assert per[0] > 0 and k1(merged) == sum(per)
+            out = shell("trace.export -trace %s -o %s/t.json" % (tid, root))
+            assert out.startswith("trace.export: ")
+            with open(root + "/t.json") as f:
+                nodes = json.load(f)["metadata"]["nodes"]
+            assert "client" in nodes and m.url in nodes
+        finally:
+            for vs in servers:
+                vs.stop()
+            m.stop()
+        assert not any(mod.split(".")[0] in {FORBIDDEN!r}
+                       for mod, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
     assert "PORT-OK" in proc.stdout
