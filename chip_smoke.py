@@ -146,7 +146,9 @@
    and after the piggyback net plane repair): an in-process source
    VolumeServer on the card over hard links to the volume's .dat and
    .idx (its own directory; the original's size and sha256 are checked
-   unchanged after), three holder processes over empty directories.
+   unchanged after), three holder processes over empty directories
+   (started with the net legs' holders before them, so that one wait
+   covers both groups' start-up).
    POST /admin/volume/readonly, then /admin/ec/generate with the
    assignment (source shards 0-1, A 2-5, B 6-9, C 10-13, no spares, the
    default window), traced for the card's busy share; the source encodes
@@ -366,10 +368,40 @@
    one byte below it launch no K1 and one at it exactly one (the auto
    constant off for those two, so their own samples move nothing).
    Prints the crossover, the host MB/s and the device line's intercept
-   and slope, the first crossover of K1 measured on the card.
+   and slope, the first crossover of K1 measured on the card. The card
+   wins at every sampled width, so the crossover must be the tuner's
+   floor, 65,536 B, whatever the sign of the fitted intercept.
+
+18. The f4 hot→warm lifecycle, after step 14: an in-process MasterServer
+   (its tierer capped at TIER_RATE_MBPS, age 0) and TIER_SERVERS
+   in-process VolumeServers on the card. (a) The dir tier: a 000 volume
+   of TIER_DIR_NEEDLES seeded 64 KiB needles through volume.tier.upload
+   -dest dir.cold (the port shell) onto a dir backend of the card's host:
+   the .dat gone, the object byte-equal to it; every needle GET through
+   the master (served by the RemoteFile's range reads) equals its write;
+   a cold DiskLocation reopen serves each again; volume.tier.download
+   -deleteRemote restores a .dat whose sha256 is the original's and
+   empties the tier; the volume thawed. (b) A demotion on K1 under
+   foreground traffic: a 001 volume filled with seeded 64 KiB needles
+   (TIER_BYTES: a 30 GiB production volume cut for the smoke's time) and
+   sealed on both holders, the source's .dat linked aside; TIER_READERS
+   readers (GETs through the master's lookup) and TIER_WRITERS writers
+   (8 KiB needles into the default collection) through a healthy window
+   as long as the cap's floor, then the same load through GET
+   /cluster/tiering?scan=1. It must end warm with demotions_ok 1, no read
+   or write failed or differed and reads ran inside the demotion, no
+   write landed in the sealed volume, every needle after the flip equals
+   its write, the hot replicas are gone and /cluster/ec_status lists the
+   volume, each of the 14 shards has the sha256 of the kept .dat encoded
+   through K1's plain version on the card (no launch), K1's launches on
+   the source (its /admin/devices) equal its dispatches and are > 0, and
+   the master's /metrics shows one ok demotion, hot_bytes demoted and one
+   warm volume. Prints the demotion's wall and MB/s under the cap, read
+   p50/p99 healthy and during, write p50/p99, overlap_frac and the trace
+   id, then the leg's numbers as JSON.
 
 Every leg runs with every kernel's launch count (ops/device_stats) set
-to 0 just before it and read just after; a leg of steps 5-8 and 10-17
+to 0 just before it and read just after; a leg of steps 5-8 and 10-18
 whose K1 launches in this process differ from its dispatches (two for a
 dispatch sharded over step 16's two positions; step 16 (b)'s programs
 count eight launches and no codec dispatch), or that launched nothing,
@@ -457,6 +489,18 @@ MESH_STEP_N = MAIN_N        # step 16 (b), (c): columns per mesh position
 RANK_START_S = 120.0        # a rank process joins its group within this
 MESH_DEVICE = "cuda:0"      # step 16's positions' card (a CPU rehearsal
                             # sets "cpu")
+TIER_SERVERS = 3            # the tiering leg's in-process volume servers
+TIER_SLOTS = 20             # their volume slots each
+TIER_BYTES = 28 << 20       # its sealed volume's needle data (a production
+                            # volume holds 30 GiB: cut for the smoke's time;
+                            # under 30 MiB of .dat, so 3 MiB shards)
+TIER_NEEDLE = 64 << 10      # its needles' size
+TIER_RATE_MBPS = 16.0       # the demotion's cap, of shard bytes pushed
+TIER_READERS = 4            # foreground reader threads
+TIER_WRITERS = 2            # foreground writer threads
+TIER_WRITE = 8 << 10        # a writer's needle size
+TIER_DIR_NEEDLES = 64       # part (a)'s volume on the dir backend
+TIER_WAIT_S = 30.0          # bound on each of its waits
 TUNER_DEVICE = "cuda"        # the tuner leg's codec (a CPU rehearsal sets
                              # "cpu"; a card is needed otherwise)
 # the tuner leg's widths: below the 64 KiB clamp, so the host path takes
@@ -1545,6 +1589,13 @@ def tuner_leg(np, port, seed):
         if launches != [0, 1]:
             raise AssertionError(f"tuner: K1 launches at {thr - 1} and "
                                  f"{thr}: {launches}")
+        # the card wins at every sampled width: the tuner's floor,
+        # whatever the sign of the fitted intercept
+        if suggestion != metrics.SmallDispatchTuner.CLAMP[0] and \
+                TUNER_DEVICE != "cpu":
+            raise AssertionError(
+                f"tuner: installed {suggestion} B, not the floor "
+                f"{metrics.SmallDispatchTuner.CLAMP[0]}")
     finally:
         metrics.SMALL_DISPATCH_TUNER = saved
         ops_codec.SMALL_DISPATCH_AUTO = False
@@ -1770,6 +1821,12 @@ class Holders(ServerProcesses):
         self.empty = empty
 
     def start(self):
+        return self.spawn_all().wait_all()
+
+    def spawn_all(self):
+        """Link each holder's files and start its process, not waiting
+        for it: a leg that comes later can start its holders while an
+        earlier leg's start up or run."""
         for name, sids in self.holds.items():
             d = os.path.join(self.work, f"holder-{self.label}-{name}")
             os.makedirs(d)
@@ -1781,6 +1838,9 @@ class Holders(ServerProcesses):
                     continue
                 _link(src, os.path.join(d, os.path.basename(src)))
             self.spawn(name, d)
+        return self
+
+    def wait_all(self):
         self.wait_listening(list(self.holds))
         print(f"holders {self.label}: " + ", ".join(
             f"{name} {self.urls[name]} shards {list(self.holds[name])}"
@@ -2016,11 +2076,20 @@ def _post(url, target, body=None, timeout=60.0):
         timeout=timeout))
 
 
-def spread_leg(torch, port, work, base, res, shas, dat, layout):
+def spread_holders(ec, work, base, layout):
+    """The three holder processes of a spread leg, over empty directories,
+    started (spawn_all) but not waited for."""
+    return Holders(base, os.path.join(work, f"spread-{layout}"),
+                   f"spread-{layout}", ec.TOTAL_SHARDS, holds=SPREAD_HOLDS,
+                   empty=True).spawn_all()
+
+
+def spread_leg(torch, port, work, base, res, shas, dat, layout, holders):
     """ec.encode over the network, through the port's own routes: an
     in-process source VolumeServer on the card over hard links to the
     seeded volume's .dat and .idx, three holder processes over empty
-    directories. POST /admin/volume/readonly, then /admin/ec/generate
+    directories (``holders``, from spread_holders, started while an
+    earlier leg ran). POST /admin/volume/readonly, then /admin/ec/generate
     with the assignment (source SPREAD_LOCAL, holders SPREAD_HOLDS, no
     spares, the default window; traced for the card's busy share), then
     each holder's /admin/ec/copy (the .ecx and .vif) and /admin/ec/mount.
@@ -2037,11 +2106,9 @@ def spread_leg(torch, port, work, base, res, shas, dat, layout):
     os.makedirs(src)
     for ext in (".dat", ".idx"):
         _link(base + ext, os.path.join(src, "1" + ext))
-    holders = Holders(base, d, f"spread-{layout}", ec.TOTAL_SHARDS,
-                      holds=SPREAD_HOLDS, empty=True)
     source = None
     try:
-        holders.start()
+        holders.wait_all()
         source = VolumeServer(port=0, directories=[src], device="cuda",
                               layout=layout, scrub_idle_s=0).start()
         if _post(source.url, "/admin/volume/readonly?volume=1") != {
@@ -3819,6 +3886,354 @@ def fleet_scrape(murl, urls, durable):
     return numbers
 
 
+def _fg_load(np, run, murl, payloads, seed, note):
+    """``run()`` in this thread under the foreground load: TIER_READERS
+    threads GET the sealed volume's needles through the master's lookup
+    (client/operation.read_file: each location in turn) and TIER_WRITERS
+    threads upload TIER_WRITE-byte needles into the default collection.
+    Returns (run's result, read seconds, read failures, write seconds,
+    write failures, the writers' fids)."""
+    from seaweedfs_tpu_torch.client import operation as op
+    stop = threading.Event()
+    lock = threading.Lock()
+    reads, rfail, writes, wfail, fids = [], [], [], [], []
+    names = sorted(payloads)
+
+    def reader(tid):
+        i = tid
+        while not stop.is_set():
+            fid = names[i % len(names)]
+            i += 1
+            t0 = time.perf_counter()
+            try:
+                got = op.read_file(murl, fid)
+            except Exception as e:  # noqa: BLE001 - counted, then fails
+                with lock:
+                    rfail.append(f"{note} GET {fid}: {e!r}")
+                continue
+            with lock:
+                reads.append(time.perf_counter() - t0)
+                if got != payloads[fid]:
+                    rfail.append(f"{note} GET {fid}: bytes differ")
+
+    def writer(tid):
+        rng = np.random.default_rng(seed + 1000 * tid)
+        n = 0
+        while not stop.is_set():
+            data = rng.bytes(TIER_WRITE)
+            n += 1
+            t0 = time.perf_counter()
+            try:
+                fid = op.upload_data(murl, data, filename=f"w{tid}-{n}")
+            except Exception as e:  # noqa: BLE001 - counted, then fails
+                with lock:
+                    wfail.append(f"{note} write: {e!r}")
+                continue
+            with lock:
+                writes.append(time.perf_counter() - t0)
+                fids.append(fid)
+
+    threads = [threading.Thread(target=reader, args=(t,), daemon=True)
+               for t in range(TIER_READERS)]
+    threads += [threading.Thread(target=writer, args=(t,), daemon=True)
+                for t in range(TIER_WRITERS)]
+    for t in threads:
+        t.start()
+    try:
+        out = run()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=TIER_WAIT_S)
+    return out, reads, rfail, writes, wfail, fids
+
+
+def tiering_leg(np, port, work, seed):
+    """The f4 hot→warm lifecycle on a port cluster on 127.0.0.1: an
+    in-process MasterServer (no repair or vacuum loop; its tierer at
+    TIER_RATE_MBPS, age 0) and TIER_SERVERS in-process VolumeServers on
+    the card.
+
+    (a) The remote tier: a 000 volume of TIER_DIR_NEEDLES seeded needles
+    (TIER_NEEDLE each) in its own collection, ``volume.tier.upload -dest
+    dir.cold`` through the port shell onto a ``dir`` backend of this host
+    (the .dat gone, the object byte-equal to it); every needle GET through
+    the master, served by the RemoteFile's range reads, equals its write;
+    a cold DiskLocation over the holder's directory serves every needle
+    again; ``volume.tier.download -deleteRemote`` brings back a .dat whose
+    sha256 is the original's and empties the tier; the volume is thawed.
+
+    (b) A demotion on K1 under foreground traffic: a 001 volume of its own
+    collection filled with seeded TIER_NEEDLE needles (TIER_BYTES) and
+    sealed on both holders; the source's .dat linked aside. TIER_READERS
+    readers and TIER_WRITERS writers (_fg_load) run through a healthy
+    window as long as the cap's floor, then the same load through GET
+    /cluster/tiering?scan=1. The volume must be warm with demotions_ok 1;
+    no read failed or differed, reads ran inside the demotion, no write
+    failed and none landed in the sealed volume; every needle after the
+    flip equals its write; the hot replica is gone everywhere and
+    /cluster/ec_status lists the volume; each of the 14 shards has the
+    sha256 of the kept .dat encoded through K1's plain version on the
+    card (no launch); K1's launches on the source, from its
+    /admin/devices, equal its dispatches and are > 0; the master's
+    /metrics shows one ok demotion, hot_bytes demoted and one warm
+    volume. Prints each part's numbers, the demotion's wall and MB/s
+    under the cap, read p50/p99 healthy and during, write p50/p99,
+    overlap_frac and the trace id, then the leg's numbers as JSON.
+    Stops every server and the master in a finally."""
+    ec, _, _ = port
+    from seaweedfs_tpu_torch.client import operation as op
+    from seaweedfs_tpu_torch.ops.device_stats import K1
+    from seaweedfs_tpu_torch.server.http_util import (get_json, http_call,
+                                                      post_json)
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.stats.metrics import parse_prometheus_text
+    from seaweedfs_tpu_torch.storage.backend import (clear_backends,
+                                                     configure_backends)
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import DiskLocation
+    from seaweedfs_tpu_torch.storage.types import parse_file_id
+    rng = np.random.default_rng(seed)
+    numbers = {}
+    tier_dir = os.path.join(work, "tier-cold")
+    configure_backends({"dir": {"cold": {"path": tier_dir}}})
+    master = MasterServer(port=0, pulse_seconds=CLUSTER_PULSE_S, seed=seed,
+                          repair_interval=0, vacuum_interval=0,
+                          tier_rate_mbps=TIER_RATE_MBPS, tier_age=0).start()
+    murl = master.url
+    servers = []
+    try:
+        for i in range(TIER_SERVERS):
+            d = os.path.join(work, f"tier-{i}")
+            os.makedirs(d)
+            servers.append(VolumeServer(
+                port=0, directories=[d], device=SERVER_DEVICE,
+                master_url=murl, pulse_seconds=CLUSTER_PULSE_S,
+                max_volume_counts=[TIER_SLOTS], scrub_idle_s=0).start())
+        by_url = {vs.url: vs for vs in servers}
+
+        def beat():
+            for vs in servers:
+                vs.heartbeat_once()
+
+        def fill(collection, count, replication=""):
+            post_json(f"http://{murl}/vol/grow?collection={collection}"
+                      f"&count=1" + (f"&replication={replication}"
+                                     if replication else ""))
+            bodies = [rng.bytes(TIER_NEEDLE) for _ in range(count)]
+
+            def put(i):
+                a = op.assign(murl, collection=collection,
+                              replication=replication)
+                op.upload(a["url"], a["fid"], bodies[i], filename=f"t{i}")
+                return a["fid"], bodies[i]
+            with ThreadPoolExecutor(4) as pool:
+                payloads = dict(pool.map(put, range(count)))
+            vids = {parse_file_id(fid)[0] for fid in payloads}
+            if len(vids) != 1:
+                raise AssertionError(f"tiering: {collection} needles in "
+                                     f"volumes {vids}")
+            return vids.pop(), payloads
+
+        # (a) the dir backend
+        t0 = time.perf_counter()
+        vid_a, cold = fill("cold", TIER_DIR_NEEDLES)
+        beat()
+        holder = next(vs for vs in servers if vs.store.find_volume(vid_a))
+        dat = holder.store.find_volume(vid_a).dat_path
+        size_a, sha_a = os.path.getsize(dat), _sha(dat)
+        t1 = time.perf_counter()
+        _shell(murl, f"volume.tier.upload -volumeId {vid_a} -dest dir.cold")
+        up_s = time.perf_counter() - t1
+        obj = os.path.join(tier_dir, os.path.basename(dat))
+        if os.path.exists(dat) or _sha(obj) != sha_a:
+            raise AssertionError("tiering (a): the .dat was not moved whole "
+                                 "onto the dir backend")
+        t1 = time.perf_counter()
+        for fid, body in cold.items():
+            if op.read_file(murl, fid) != body:
+                raise AssertionError(f"tiering (a): GET {fid} through the "
+                                     f"RemoteFile differs")
+        remote_read_s = time.perf_counter() - t1
+        loc = DiskLocation(os.path.dirname(dat))
+        try:
+            v = loc.load_volume(vid_a)
+            if not v.readonly or v.dat.name != f"dir.cold/" \
+                    f"{os.path.basename(dat)}":
+                raise AssertionError(f"tiering (a): cold reopen {v.dat}")
+            for fid, body in cold.items():
+                _, key, cookie = parse_file_id(fid)
+                if v.read_needle(Needle(id=key, cookie=cookie)).data != body:
+                    raise AssertionError(f"tiering (a): cold reopen reads "
+                                         f"{fid} wrong")
+        finally:
+            loc.close()
+        t1 = time.perf_counter()
+        _shell(murl, f"volume.tier.download -volumeId {vid_a} -deleteRemote")
+        down_s = time.perf_counter() - t1
+        if _sha(dat) != sha_a or os.listdir(tier_dir):
+            raise AssertionError("tiering (a): the downloaded .dat differs "
+                                 "or the tier kept its object")
+        _post(holder.url, f"/admin/volume/readonly?volume={vid_a}"
+                          f"&readonly=false")
+        numbers["dir"] = {
+            "volume": vid_a, "dat_bytes": size_a, "needles": len(cold),
+            "upload_s": round(up_s, 4),
+            "upload_mb_s": round(size_a / up_s / 1e6, 1),
+            "remote_get_mb_s": round(
+                len(cold) * TIER_NEEDLE / remote_read_s / 1e6, 1),
+            "download_s": round(down_s, 4),
+            "wall_s": round(time.perf_counter() - t0, 3)}
+        print(f"tiering (a): volume {vid_a} ({size_a} B) onto dir.cold in "
+              f"{up_s:.3f} s, {len(cold)} GETs through the RemoteFile at "
+              f"{numbers['dir']['remote_get_mb_s']} MB/s, a cold "
+              f"DiskLocation reopen served each, download -deleteRemote in "
+              f"{down_s:.3f} s: sha256 the original's")
+
+        # (b) a demotion on K1 under foreground traffic
+        t0 = time.perf_counter()
+        vid, payloads = fill("tier", TIER_BYTES // TIER_NEEDLE, "001")
+        fill_s = time.perf_counter() - t0
+        holders = [u for u, vs in by_url.items() if vs.store.find_volume(vid)]
+        if len(holders) != 2:
+            raise AssertionError(f"tiering: volume {vid} on {holders}")
+        for u in holders:
+            _post(u, f"/admin/volume/readonly?volume={vid}")
+        beat()
+        _wait_for("the sealed volume in the master's view", lambda: all(
+            r.get("read_only") for r in get_json(
+                f"http://{murl}/cluster/volumes")["volumes"][str(vid)]),
+            TIER_WAIT_S)
+        source = get_json(f"http://{murl}/cluster/volumes")[
+            "volumes"][str(vid)][0]["url"]
+        kept = os.path.join(work, "tier-kept")
+        os.makedirs(kept)
+        base_src = by_url[source].store.find_volume(vid).file_name()
+        ref_base = os.path.join(kept, os.path.basename(base_src))
+        _link(base_src + ".dat", ref_base + ".dat")
+        dat_bytes = os.path.getsize(ref_base + ".dat")
+        shard_bytes = ec.TOTAL_SHARDS * ec.ec_shard_base_size(dat_bytes)
+        floor_s = shard_bytes / (TIER_RATE_MBPS * 1e6)
+        _, lat_h, rfail_h, wlat_h, wfail_h, wfids_h = _fg_load(
+            np, lambda: time.sleep(max(2.0, floor_s)), murl, payloads, seed,
+            "healthy")
+        dev0 = get_json(f"http://{source}/admin/devices")["stats"]
+        t1 = time.perf_counter()
+        out, lat_d, rfail_d, wlat_d, wfail_d, wfids_d = _fg_load(
+            np, lambda: get_json(f"http://{murl}/cluster/tiering?scan=1",
+                             timeout=600), murl, payloads, seed + 7,
+            "demotion")
+        demote_s = time.perf_counter() - t1
+        dev1 = get_json(f"http://{source}/admin/devices")["stats"]
+        st = out["volumes"].get(str(vid), {})
+        if st.get("state") != "warm" or out["demotions_ok"] != 1 or \
+                out["demotions_failed"]:
+            raise AssertionError(f"tiering: {out}")
+        failures = rfail_h + rfail_d + wfail_h + wfail_d
+        if failures or not lat_d or not wlat_d:
+            raise AssertionError(f"tiering: {len(failures)} foreground "
+                                 f"failures ({failures[:3]}), {len(lat_d)} "
+                                 f"reads and {len(wlat_d)} writes during "
+                                 f"the demotion")
+        if any(parse_file_id(f)[0] == vid for f in wfids_h + wfids_d):
+            raise AssertionError(f"tiering: a write landed in the sealed "
+                                 f"volume {vid}")
+        _wait_for("the hot replicas gone", lambda: not any(
+            vs.store.find_volume(vid) for vs in servers) and str(vid) not in
+            get_json(f"http://{murl}/cluster/volumes")["volumes"],
+            TIER_WAIT_S)
+        t1 = time.perf_counter()
+        for fid, body in payloads.items():
+            if op.read_file(murl, fid) != body:
+                raise AssertionError(f"tiering: GET {fid} after the flip "
+                                     f"differs")
+        flip_read_s = time.perf_counter() - t1
+        placed = get_json(f"http://{murl}/cluster/ec_status")[
+            "volumes"].get(str(vid), {}).get("shards", {})
+        before = _k1()
+        ec.write_ec_files(ref_base, codec=_plain_card_codec(np, ec))
+        if _k1() != before:
+            raise AssertionError("tiering: the reference encode launched K1")
+        want = _shas([ref_base + ec.to_ext(s)
+                      for s in range(ec.TOTAL_SHARDS)])
+        paths = []
+        for sid in range(ec.TOTAL_SHARDS):
+            urls = placed.get(str(sid), [])
+            if len(urls) != 1:
+                raise AssertionError(f"tiering: shard {sid} held by {urls}")
+            ev = by_url[urls[0]].store.find_ec_volume(vid)
+            paths.append(ev.base_name + ec.to_ext(sid))
+        if _shas(paths) != want:
+            raise AssertionError("tiering: a demoted shard differs from the "
+                                 "plain encode of the kept .dat")
+        launches = dev1["launches"].get(K1, 0) - dev0["launches"].get(K1, 0)
+        dispatches = dev1["dispatches"].get(K1, 0) - \
+            dev0["dispatches"].get(K1, 0)
+        if launches != dispatches or launches < 1:
+            raise AssertionError(f"tiering: K1 on the source {launches} "
+                                 f"launches for {dispatches} dispatches")
+        series = {}
+        for fam in parse_prometheus_text(http_call(
+                "GET", f"http://{murl}/metrics").decode()):
+            if fam["name"].startswith("SeaweedFS_master_tier_"):
+                for name, labels, value in fam["samples"]:
+                    series[(name, tuple(labels))] = value
+        want_series = {
+            ("SeaweedFS_master_tier_demotions_total",
+             (("result", "ok"),)): 1,
+            ("SeaweedFS_master_tier_demoted_bytes_total", ()):
+                st["hot_bytes"],
+            ("SeaweedFS_master_tier_volumes", (("state", "warm"),)): 1}
+        if any(series.get(k) != v for k, v in want_series.items()) or \
+                st["hot_bytes"] != dat_bytes:
+            raise AssertionError(f"tiering: the master's tier series "
+                                 f"{series}, hot_bytes {st['hot_bytes']} "
+                                 f"of a {dat_bytes} B .dat")
+        def ms(xs):
+            return [round(_pct(xs, q) * 1e3, 3) for q in (0.5, 0.99)]
+
+        numbers["demotion"] = {
+            "volume": vid, "needles": len(payloads), "dat_bytes": dat_bytes,
+            "shard_bytes": shard_bytes, "fill_s": round(fill_s, 3),
+            "rate_cap_mb_s": TIER_RATE_MBPS, "floor_s": round(floor_s, 3),
+            "wall_s": st["wall_s"], "scan_s": round(demote_s, 3),
+            "mb_s": st["demote_mbps"],
+            "shard_mb_s": round(shard_bytes / st["wall_s"] / 1e6, 2),
+            "overlap_frac": st["overlap_frac"], "trace_id": st["trace_id"],
+            "k1_launches": launches,
+            "reads": {"healthy": len(lat_h), "during": len(lat_d)},
+            "read_ms": {"healthy": ms(lat_h), "during": ms(lat_d)},
+            "writes": {"healthy": len(wlat_h), "during": len(wlat_d)},
+            "write_ms": {"healthy": ms(wlat_h), "during": ms(wlat_d)},
+            "flip_read_mb_s": round(TIER_BYTES / flip_read_s / 1e6, 1)}
+        d = numbers["demotion"]
+        print(f"tiering (b): volume {vid} ({dat_bytes} B, {len(payloads)} "
+              f"needles, filled in {fill_s:.2f} s) demoted from {source} in "
+              f"{st['wall_s']} s: {st['demote_mbps']} MB/s of .dat, "
+              f"{d['shard_mb_s']} MB/s of the {shard_bytes} shard bytes "
+              f"under the {TIER_RATE_MBPS} MB/s cap (floor {floor_s:.3f} s),"
+              f" {launches} K1 launches on the source = its dispatches, "
+              f"overlap_frac {st['overlap_frac']}, trace {st['trace_id']}")
+        print(f"tiering (b): reads p50/p99 ms healthy "
+              f"{d['read_ms']['healthy']} ({len(lat_h)} GETs), during the "
+              f"demotion {d['read_ms']['during']} ({len(lat_d)} GETs); "
+              f"writes p50/p99 ms healthy {d['write_ms']['healthy']} "
+              f"({len(wlat_h)}), during {d['write_ms']['during']} "
+              f"({len(wlat_d)}); 0 failures; after the flip every needle "
+              f"equal at {d['flip_read_mb_s']} MB/s; 14 shards = the plain "
+              f"encode of the kept .dat; the master's tier series as "
+              f"stated")
+        print(f"tiering: {json.dumps(numbers)}")
+        numbers["launches"] = launches
+        return numbers
+    finally:
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        clear_backends()
+
+
 def mesh_geometries(sharded_ec):
     """(label, coeffs, widths) of step 16's K1 products: the encode rows
     at a mesh lane (an 8 MiB slab over two positions) and the two (4,5)
@@ -4189,6 +4604,7 @@ def run(args) -> int:
         return out
 
     t_path = time.perf_counter()
+    spreading = []
     try:
         res = drive("flat", main_path, torch, np, port, dev, base,
                     VOLUME_BYTES, args.seed)
@@ -4202,6 +4618,9 @@ def run(args) -> int:
         drive("scrub flat", scrub_leg, np, port, dev, base, res, res["shas"],
               args.seed + 43, "scrub flat")
         tuner = drive("tuner", tuner_leg, np, port, args.seed + 45)
+        # each spread leg's holders start with the net legs' before it,
+        # so that one wait covers both groups' start-up
+        spreading.append(spread_holders(ec, work, base, "flat"))
         holders = Holders(base, work, "flat", ec.TOTAL_SHARDS)
         try:
             holders.start()
@@ -4222,7 +4641,7 @@ def run(args) -> int:
         print(f"the .dat's sha256 for the spread legs in "
               f"{time.perf_counter() - t0:.2f} s")
         drive("spread flat", spread_leg, torch, port, work, base, res,
-              res["shas"], dat, "flat")
+              res["shas"], dat, "flat", spreading[0])
         pb = drive("piggyback", piggyback_leg, np, port, dev, base, res,
                    args.seed)
         drive("plane repair", plane_repair_leg, np, port, dev, base, res, pb,
@@ -4234,6 +4653,7 @@ def run(args) -> int:
               PB_DEGRADED_GETS)
         drive("scrub piggyback", scrub_leg, np, port, dev, base, res,
               pb["shas"], args.seed + 53, "scrub piggyback")
+        spreading.append(spread_holders(ec, work, base, "piggyback"))
         holders = Holders(base, work, "piggyback", ec.TOTAL_SHARDS)
         try:
             holders.start()
@@ -4242,7 +4662,7 @@ def run(args) -> int:
         finally:
             holders.stop()
         drive("spread piggyback", spread_leg, torch, port, work, base, res,
-              pb["shas"], dat, "piggyback")
+              pb["shas"], dat, "piggyback", spreading[1])
         integrity = drive("integrity", integrity_leg, np, port, work, base,
                           res, args.seed + 71)
         # step 16: the multi-device tier, on the volume before the decode
@@ -4271,7 +4691,11 @@ def run(args) -> int:
                      args.seed + 61)
         cluster = drive("cluster", cluster_leg, np, port, work,
                         args.seed + 67)
+        tiering = drive("tiering", tiering_leg, np, port, work,
+                        args.seed + 79)
     finally:
+        for group in spreading:
+            group.stop_processes()
         shutil.rmtree(work, ignore_errors=True)
     if res["encode_launches"] < 1 or \
             any(r[3] < 1 for r in res["rebuilds"]) or pb["launches"] < 1:
@@ -4295,7 +4719,7 @@ def run(args) -> int:
           f"repair, streaming piggyback, degraded piggyback, scrub "
           f"piggyback, net plane repair, spread piggyback, integrity, "
           f"mesh codec, mesh crossover, sharded step, ranks, decode, data "
-          f"plane, cluster) in "
+          f"plane, cluster, tiering) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
           f"= dispatches, 2 a sharded mesh dispatch ({sum(other.values())} "
           f"of them in the integrity leg's B and C, {json.dumps(other)}, "
@@ -4311,7 +4735,8 @@ def run(args) -> int:
     card = card_line()
     entries = [
         _k1_entry("gf_matmul", launches, max_err, timed["flat encode"],
-                  timed["flat decode (0, 1, 2, 3)"]),
+                  timed["flat decode (0, 1, 2, 3)"])
+        | {"tiering_launches": tiering["launches"]},
         _k1_entry("gf_matmul_piggyback",
                   legs["piggyback"] + legs["streaming piggyback"]
                   + legs["spread piggyback"],

@@ -28,6 +28,9 @@ volume and EC shard maps are looked up and pushed to watchers.
                               incident per corrupt shard
     GET  /cluster/repairs     the repair queue (``?refresh=1`` scans the
                               shard map first)
+    GET  /cluster/tiering     the tierer's per-volume demotion state, knobs
+                              and counters (``?scan=1`` runs one scan and
+                              demotion pass first)
     GET  /metrics             the master's Prometheus exposition
     GET  /cluster/metrics     every node's /metrics merged: counters and
                               histograms summed, gauges by ``node``
@@ -112,9 +115,14 @@ caller from elsewhere gets 403, but on the cluster's own channels
 ``/raft/*``). With a ``jwt_signing_key`` an assign's answer carries
 ``auth``, a write token bound to its fid, which ``/submit`` sends on.
 
-Left out: the tiering plane (``/cluster/tiering``); mutual TLS and the
-``security.toml`` reader; the filer of the maintenance shell; the
-status page (``/``, ``/ui``). The master does no device work.
+Hot→warm tiering: the master owns a ``server/tiering.VolumeTierer``;
+with ``tier_enable`` its loop (leader only, every ``tier_interval``
+seconds) demotes the sealed volumes untouched for ``tier_age`` seconds
+onto EC, each a paced streaming encode on its source's card.
+
+Left out: mutual TLS and the ``security.toml`` reader; the filer of the
+maintenance shell; the status page (``/``, ``/ui``). The master does no
+device work.
 
     python3 -m seaweedfs_tpu_torch.server.master [-port 9333] [-ip HOST]
         [-volumeSizeLimitMB N] [-defaultReplication 000]
@@ -124,6 +132,8 @@ status page (``/``, ``/ui``). The master does no device work.
         [-maintenanceIntervalSeconds 1020] [-peers H:P,H:P,H:P]
         [-mdir DIR] [-jwtKey KEY] [-whiteList IP,PREFIX.,CIDR]
         [-metrics.address H:P] [-metrics.intervalSeconds 15]
+        [-tierEnable] [-tierInterval 60] [-tierAge 3600]
+        [-tierConcurrency 1] [-tierRateMBps 8] [-tierFullFrac 0.95]
         [-sequencer etcd -sequencerEtcd H:P [-sequencerEtcdUser U
          -sequencerEtcdPassword P]]
 
@@ -157,6 +167,7 @@ from ..topology.raft import NotLeaderError, RaftNode
 from ..topology.topology import RaftSequencer, Topology
 from ..topology.volume_growth import NoFreeSlots, find_empty_slots
 from ..util import tracing
+from . import tiering
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
                         http_call, post_json, post_multipart,
                         process_memory_stats, profile_handler,
@@ -196,7 +207,13 @@ class MasterServer:
                  jwt_signing_key: str = "", whitelist=(),
                  sequencer=None, metrics_address: str = "",
                  metrics_interval: int = 15,
-                 at_risk_score: float = REPAIR_AT_RISK_SCORE):
+                 at_risk_score: float = REPAIR_AT_RISK_SCORE,
+                 tier_enable: bool = tiering.TIER_ENABLE,
+                 tier_interval: float = tiering.TIER_INTERVAL_S,
+                 tier_age: float = tiering.TIER_AGE_S,
+                 tier_concurrency: int = tiering.TIER_CONCURRENCY,
+                 tier_rate_mbps: float = tiering.TIER_RATE_MBPS,
+                 tier_full_frac: float = tiering.TIER_FULL_FRAC):
         self.rng = random.Random(seed)
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
@@ -226,6 +243,7 @@ class MasterServer:
         router.add("*", "/cluster/volumes", self.cluster_volumes)
         router.add("GET", "/cluster/watch", self.cluster_watch)
         router.add("GET", "/cluster/repairs", self.cluster_repairs)
+        router.add("GET", "/cluster/tiering", self.cluster_tiering)
         router.add("POST", "/cluster/scrub_report",
                    self.cluster_scrub_report)
         router.add("GET", "/metrics", self.metrics_handler)
@@ -290,6 +308,11 @@ class MasterServer:
             target=self._maintenance_loop, daemon=True,
             name="master-maintenance") if self.maintenance_scripts \
             else None
+        # hot→warm tiering: the leader's demotions of sealed volumes
+        self.tierer = tiering.VolumeTierer(
+            self, enabled=tier_enable, interval=tier_interval,
+            age_s=tier_age, concurrency=tier_concurrency,
+            rate_mbps=tier_rate_mbps, full_frac=tier_full_frac)
         self.raft: Optional[RaftNode] = None
         # requests this master forwarded to its leader
         self.forwarded = 0
@@ -417,6 +440,7 @@ class MasterServer:
                        self._maintenance_thread):
             if thread is not None:
                 thread.start()
+        self.tierer.start()
         return self
 
     def stop(self):
@@ -787,6 +811,18 @@ class MasterServer:
         if req.query.get("refresh"):
             self._repair_scan()
         return self.repair_queue.snapshot()
+
+    def cluster_tiering(self, req: Request):
+        """The hot→warm view: each tracked volume's demotion state
+        (candidate, demoting, warm, failed), the knobs and the pass
+        counters. ``?scan=1`` runs one scan and demotion pass first, at
+        once and without the loop."""
+        fwd = self._leader_forward(req)
+        if fwd is not None:
+            return fwd
+        if req.query.get("scan"):
+            self.tierer.run_pass()
+        return self.tierer.snapshot()
 
     def cluster_scrub_report(self, req: Request):
         """A volume server's scrub finding: one corruption incident per
@@ -1168,6 +1204,25 @@ def main(argv=None) -> int:
     ap.add_argument("-metrics.intervalSeconds", dest="metricsInterval",
                     type=int, default=15,
                     help="the servers' push interval")
+    ap.add_argument("-tierEnable", action="store_true",
+                    help="demote sealed, idle volumes onto EC in the "
+                         "background (the leader only)")
+    ap.add_argument("-tierInterval", type=float,
+                    default=tiering.TIER_INTERVAL_S,
+                    help="seconds between tier scans (<= 0: no loop)")
+    ap.add_argument("-tierAge", type=float, default=tiering.TIER_AGE_S,
+                    help="seconds a sealed volume stays unmodified before "
+                         "it is demoted")
+    ap.add_argument("-tierConcurrency", type=int,
+                    default=tiering.TIER_CONCURRENCY,
+                    help="demotions at once")
+    ap.add_argument("-tierRateMBps", type=float,
+                    default=tiering.TIER_RATE_MBPS,
+                    help="a demotion's encode+spread cap in MB/s (0: none)")
+    ap.add_argument("-tierFullFrac", type=float,
+                    default=tiering.TIER_FULL_FRAC,
+                    help="the share of the size limit past which a "
+                         "writable volume counts as sealed")
     ap.add_argument("-sequencerEtcdUser", default="")
     ap.add_argument("-sequencerEtcdPassword", default="")
     args = ap.parse_args(argv)
@@ -1195,7 +1250,13 @@ def main(argv=None) -> int:
                                 if w.strip()],
                      sequencer=sequencer,
                      metrics_address=args.metricsAddress,
-                     metrics_interval=args.metricsInterval).start()
+                     metrics_interval=args.metricsInterval,
+                     tier_enable=args.tierEnable,
+                     tier_interval=args.tierInterval,
+                     tier_age=args.tierAge,
+                     tier_concurrency=args.tierConcurrency,
+                     tier_rate_mbps=args.tierRateMBps,
+                     tier_full_frac=args.tierFullFrac).start()
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())

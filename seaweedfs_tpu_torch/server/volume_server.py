@@ -34,6 +34,11 @@ shards.
     POST /admin/volume/copy           pull a volume (.idx, then .dat) from
                                       a source server in 64 MiB ranges
     POST /admin/volume/verify         CRC-check every live needle
+    POST /admin/volume/tier_upload   ship a readonly volume's .dat to a
+                                      configured tier backend (``dest``,
+                                      ``keep_local``)
+    POST /admin/volume/tier_download bring a tiered volume's .dat back
+                                      (``delete_remote``)
     GET  /admin/volume/sync_status    what an incremental copy needs
     GET  /admin/volume/tail           the raw records after ``since_ns``
     POST /admin/volume/tail_receive   append a tail sender's records
@@ -106,7 +111,8 @@ volume is created or deleted or a shard mounted or unmounted (a delta
 against the state the master last acknowledged; a ``resync`` answer
 replays the whole state), and synchronously after each admin route that
 does so in the JAX server (assign and delete a volume, mount, unmount
-and copy a volume, EC mount, unmount, delete_shards and to_volume) and
+and copy a volume, a tier upload and download, EC mount, unmount,
+delete_shards and to_volume) and
 after ``configure_replication`` (which the JAX server leaves to the
 next pulse), which then answers 503 after
 doing its work when no master answers. It says goodbye on ``stop``. A
@@ -150,9 +156,15 @@ the plan caches, the degraded and scrub engines and the health board.
 When a heartbeat answer names a ``metrics_address`` the server pushes
 its exposition there every ``metrics_interval_seconds``.
 
+Tiering: the tier backends (``storage/backend``) are the process's,
+configured by ``-tierConfig`` (a JSON file of ``configure_backends``'s
+shape) on the command line; a tier move heartbeats after it. The JAX
+handlers also take the volume off the native plane and put it back
+(``_fast_unregister`` / ``_fast_sync``), which the port does not have.
+
 Left out: mutual TLS, chunk manifests (``cm=``) and image resizing,
-the native plane and its metric families, tiering, ``/query`` and the
-status page (``/ui``).
+the native plane and its metric families, ``/query`` and the status
+page (``/ui``).
 
     python3 -m seaweedfs_tpu_torch.server.volume_server --dir D [--dir D2]
         [--host 127.0.0.1] [--port 0] [--device cuda] [--master HOST:PORT]
@@ -161,6 +173,7 @@ status page (``/ui``).
         [--device-timing] [--device-timing-sample N]
         [--ec.backend cuda|numpy|mesh] [--mesh.devices cuda:0,cuda:0]
         [--jwt-key KEY] [--whitelist IP,PREFIX.,CIDR]
+        [-tierConfig FILE.json]
 
 serves until killed and prints ``listening <host>:<port>`` once bound,
 so a parent process that passed ``--port 0`` can read the port. The
@@ -198,7 +211,8 @@ from ..security.guard import Guard
 from ..security.jwt import VerifyError, jwt_from_request, verify_fid_jwt
 from ..stats import metrics
 from ..stats.health import BOARD, export_board
-from ..storage import volume_backup
+from ..storage import volume_backup, volume_tier
+from ..storage.backend import BackendError, configure_backends
 from ..storage.compact_map import snapshot_live_items
 from ..storage.needle import CorruptNeedle, Needle
 from ..storage.store import Store, volume_file_prefix
@@ -263,6 +277,10 @@ class VolumeServer:
                    self.admin_volume_unmount)
         router.add("POST", "/admin/volume/copy", self.admin_volume_copy)
         router.add("POST", "/admin/volume/verify", self.admin_volume_verify)
+        router.add("POST", "/admin/volume/tier_upload",
+                   self.admin_tier_upload)
+        router.add("POST", "/admin/volume/tier_download",
+                   self.admin_tier_download)
         router.add("GET", "/admin/volume/sync_status",
                    self.admin_volume_sync_status)
         router.add("GET", "/admin/volume/tail", self.admin_volume_tail)
@@ -708,6 +726,33 @@ class VolumeServer:
             except (CorruptNeedle, OSError, VolumeError):
                 errors += 1
         return {"volume": vid, "checked": checked, "errors": errors}
+
+    def admin_tier_upload(self, req: Request):
+        """Ship a readonly volume's .dat to the backend ``dest``
+        (reference VolumeTierMoveDatToRemote); 400 when the volume is
+        writable or already remote, or the backend refuses."""
+        vid, v = self._find_volume(req)
+        try:
+            info = volume_tier.upload_dat(
+                v, req.query["dest"],
+                keep_local=req.query.get("keep_local") == "true")
+        except (VolumeError, BackendError) as e:
+            raise HttpError(400, str(e)) from None
+        self.heartbeat_once()
+        return info
+
+    def admin_tier_download(self, req: Request):
+        """Bring a tiered volume's .dat back to local disk (reference
+        VolumeTierMoveDatFromRemote); 400 "no remote tier" for a volume
+        that has none."""
+        vid, v = self._find_volume(req)
+        try:
+            out = volume_tier.download_dat(
+                v, delete_remote=req.query.get("delete_remote") == "true")
+        except (VolumeError, BackendError) as e:
+            raise HttpError(400, str(e)) from None
+        self.heartbeat_once()
+        return out
 
     def admin_volume_sync_status(self, req: Request):
         """What an incremental copy needs to know of a volume (reference
@@ -1660,7 +1705,14 @@ def main(argv=None) -> int:
     ap.add_argument("--whitelist", default="",
                     help="comma-separated IPs, prefixes (10.0.) and CIDRs "
                          "allowed on every route (none: all)")
+    ap.add_argument("-tierConfig", default="",
+                    help="JSON file of remote tier backends, e.g. "
+                         '{"s3": {"default": {"endpoint": ..., '
+                         '"bucket": ...}}, "dir": {"cold": {"path": ...}}}')
     args = ap.parse_args(argv)
+    if args.tierConfig:
+        with open(args.tierConfig) as f:
+            configure_backends(json.load(f))
     positions = [d for d in args.mesh_devices.split(",") if d]
     mesh = None
     if args.ec_backend == "mesh" and positions:

@@ -109,7 +109,8 @@ def ec_encode(env: CommandEnv, args: List[str]):
         do_ec_encode(env, vid, mode=flags.get("mode"))
 
 
-def do_ec_encode(env: CommandEnv, vid: int, mode: str = None):
+def do_ec_encode(env: CommandEnv, vid: int, mode: str = None,
+                 timings: Dict = None, rate_mbps: float = 0.0):
     """Freeze, encode and spread, mount, drop the originals.
 
     ``mode`` "stream" (SPREAD_MODE by default) sends the shard
@@ -121,7 +122,13 @@ def do_ec_encode(env: CommandEnv, vid: int, mode: str = None):
 
     A failure after the freeze unwinds: the shard files and ``.part``
     stages go on every server involved, and each replica's readonly
-    flag returns to its own prior state."""
+    flag returns to its own prior state.
+
+    ``timings``, when given, receives ``mode``, the encode's and the
+    spread's busy seconds, ``overlap_frac`` and the spread's counters
+    (the source's ``stats``), ``encode_wall_s`` and the root span's
+    ``trace_id``. ``rate_mbps`` > 0 paces the streaming spread (the
+    tierer's cap); copy mode ignores it."""
     mode = (mode or SPREAD_MODE).lower()
     replicas = _volume_replicas(env, vid)
     if not replicas:
@@ -130,6 +137,8 @@ def do_ec_encode(env: CommandEnv, vid: int, mode: str = None):
     collection = replicas[0].get("collection", "")
     source = replicas[0]["url"]
     root = tracing.start_span("ec.encode", volume=vid, mode=mode)
+    if timings is not None:
+        timings["mode"] = mode
     try:
         # 1. freeze every replica, noting each holder's own prior state
         # (not the master's view, a heartbeat late) so that a failure
@@ -147,11 +156,12 @@ def do_ec_encode(env: CommandEnv, vid: int, mode: str = None):
         try:
             # 2, 3. encode, spread, mount
             if mode == "copy":
-                _encode_spread_copy(env, vid, collection, source, by_node)
+                _encode_spread_copy(env, vid, collection, source, by_node,
+                                    timings)
             else:
                 try:
                     _encode_spread_streaming(env, vid, collection, source,
-                                             assignment)
+                                             assignment, timings, rate_mbps)
                 except HttpError as e:
                     env.write(f"volume {vid}: streaming encode failed "
                               f"({e.status}); falling back to copy mode")
@@ -159,7 +169,7 @@ def do_ec_encode(env: CommandEnv, vid: int, mode: str = None):
                     _cleanup_partial_encode(env, vid, collection,
                                             set(assignment) | {source})
                     _encode_spread_copy(env, vid, collection, source,
-                                        by_node)
+                                        by_node, timings)
         except BaseException as e:
             _cleanup_partial_encode(env, vid, collection,
                                     set(assignment) | {source})
@@ -174,6 +184,8 @@ def do_ec_encode(env: CommandEnv, vid: int, mode: str = None):
         # 4. drop the original volume everywhere
         for r in replicas:
             env.node_post(r["url"], f"/admin/delete_volume?volume={vid}")
+        if timings is not None:
+            timings["trace_id"] = root.trace_id
     finally:
         tracing.finish_span(root)
     env.write(f"volume {vid}: ec encoded, original removed")
@@ -194,19 +206,23 @@ def _cleanup_partial_encode(env: CommandEnv, vid: int, collection: str,
 
 
 def _encode_spread_streaming(env: CommandEnv, vid: int, collection: str,
-                             source: str, assignment: List[str]):
+                             source: str, assignment: List[str],
+                             timings: Dict = None, rate_mbps: float = 0.0):
     """One POST: the source encodes and pushes each shard's slab ranges
-    to its assigned holder while later slabs encode. Afterwards only
-    the KB-scale index sidecars (.ecx/.vif) are copied to remote
-    holders, then every holder mounts its shards."""
+    to its assigned holder while later slabs encode, paced at
+    ``rate_mbps`` when > 0. Afterwards only the KB-scale index sidecars
+    (.ecx/.vif) are copied to remote holders, then every holder mounts
+    its shards."""
     spares = [n["url"] for n in _free_nodes(env)
               if n["url"] not in assignment]
+    t0 = time.perf_counter()
     out = env.node_post(
         source, f"/admin/ec/generate?volume={vid}"
                 f"&collection={collection}",
         body={"assignment": {str(s): u
                              for s, u in enumerate(assignment)},
-              "spares": spares})
+              "spares": spares, "rate_mbps": rate_mbps})
+    wall = time.perf_counter() - t0
     stats = out.get("stats") or {}
     # grouped by the final placement: a failover may have moved a dead
     # target's shards to a spare ('' = the source kept them)
@@ -245,14 +261,40 @@ def _encode_spread_streaming(env: CommandEnv, vid: int, collection: str,
         # the source kept no shards: drop its now-orphan index sidecars
         env.node_post(source, f"/admin/ec/delete_shards?volume={vid}"
                               f"&collection={collection}&shards=")
+    if timings is not None:
+        timings["encode_wall_s"] = timings.get("encode_wall_s", 0) + wall
+        _merge_stats(timings, out)
+
+
+def _merge_stats(timings: Dict, out: dict):
+    """Fold a server's ``stats`` into the shell's timings: numbers sum
+    across volumes, the per-phase seconds and per-holder counts merge by
+    key, anything else is the latest."""
+    for key, val in (out.get("stats") or {}).items():
+        if key == "phases" and isinstance(val, dict):
+            agg = timings.setdefault("phases", {})
+            for ph, secs in val.items():
+                agg[ph] = round(agg.get(ph, 0.0) + secs, 6)
+        elif key in ("holder_fetches", "holder_errors") and \
+                isinstance(val, dict):
+            agg = timings.setdefault(key, {})
+            for holder, n in val.items():
+                agg[holder] = agg.get(holder, 0) + n
+        elif isinstance(val, (int, float)):
+            timings[key] = timings.get(key, 0) + val
+        else:
+            timings[key] = val
 
 
 def _encode_spread_copy(env: CommandEnv, vid: int, collection: str,
-                        source: str, by_node: Dict[str, List[int]]):
+                        source: str, by_node: Dict[str, List[int]],
+                        timings: Dict = None):
     """Two phases: all 14 shards generated on the source, then every
     target pulls and mounts its shards, all targets at once."""
+    t0 = time.perf_counter()
     env.node_post(source, f"/admin/ec/generate?volume={vid}"
                           f"&collection={collection}")
+    t1 = time.perf_counter()
     env.write(f"volume {vid}: generated {TOTAL_SHARDS} shards on "
               f"{source}")
 
@@ -280,6 +322,12 @@ def _encode_spread_copy(env: CommandEnv, vid: int, collection: str,
         env.node_post(source, f"/admin/ec/delete_shards?volume={vid}"
                               f"&collection={collection}"
                               f"&shards={','.join(map(str, extra))}")
+    t2 = time.perf_counter()
+    if timings is not None:
+        timings["encode_busy_s"] = timings.get("encode_busy_s", 0) + t1 - t0
+        timings["spread_busy_s"] = timings.get("spread_busy_s", 0) + t2 - t1
+        timings["encode_wall_s"] = timings.get("encode_wall_s", 0) + t2 - t0
+        timings.setdefault("overlap_frac", 0.0)
 
 
 @command("ec.rebuild",

@@ -1,15 +1,15 @@
 """volume.* shell commands (the JAX package's ``shell/command_volume.py``,
 reference weed/shell/command_volume_*.go): list, copy,
 configure.replication, move, balance, fix.replication, fsck [-deep],
-vacuum, delete, mount and unmount, over the master's ``/cluster/*``
-views and the volume servers' admin routes. Lines printed are the JAX
-package's. Left out: ``volume.tier.upload`` and ``volume.tier.download``,
-which wait for tiering."""
+vacuum, delete, tier.upload and tier.download, mount and unmount, over
+the master's ``/cluster/*`` views and the volume servers' admin routes.
+Lines printed are the JAX package's."""
 
 from __future__ import annotations
 
 from typing import List
 
+from ..server.http_util import HttpError
 from ..storage.types import ReplicaPlacement
 from .command_env import CommandEnv, command, parse_flags
 
@@ -241,6 +241,80 @@ def volume_delete(env: CommandEnv, args: List[str]):
     for r in env.all_volumes().get(str(vid), []):
         env.node_post(r["url"], f"/admin/delete_volume?volume={vid}")
         env.write(f"volume {vid}: deleted on {r['url']}")
+
+
+@command("volume.tier.upload",
+         "-volumeId <id> -dest <kind.id> [-keepLocalDatFile] : move a "
+         "volume's .dat to a remote tier backend")
+def volume_tier_upload(env: CommandEnv, args: List[str]):
+    """Reference command_volume_tier_upload.go: freeze every replica,
+    then ship from one of them (replica .dat files are not byte-equal in
+    general: two uploaders on one backend key would corrupt the tier for
+    whichever .idx loses). A failure anywhere, a later freeze included,
+    thaws exactly the replicas this command froze, judged by each
+    holder's own ``was_readonly``; one unreachable holder neither stops
+    the others' thaw nor hides the first error."""
+    flags = parse_flags(args)
+    vid = int(flags["volumeId"])
+    dest = flags["dest"]
+    replicas = env.all_volumes().get(str(vid), [])
+    if not replicas:
+        env.write(f"volume {vid} not found")
+        return
+    frozen = []
+    keep = "true" if flags.get("keepLocalDatFile") else "false"
+    try:
+        for r in replicas:
+            out = env.node_post(r["url"],
+                                f"/admin/volume/readonly?volume={vid}")
+            if not (out or {}).get("was_readonly"):
+                frozen.append(r["url"])
+        r = replicas[0]
+        info = env.node_post(
+            r["url"], f"/admin/volume/tier_upload?volume={vid}"
+                      f"&dest={dest}&keep_local={keep}")
+    except Exception:
+        for url in frozen:
+            try:
+                env.node_post(url, f"/admin/volume/readonly?volume={vid}"
+                                   f"&readonly=false")
+            except Exception:  # noqa: BLE001 - the first error is raised
+                pass
+        raise
+    env.write(f"volume {vid} @ {r['url']}: .dat -> "
+              f"{info['remote']['backend']}/{info['remote']['key']} "
+              f"({info['remote']['file_size']} bytes)")
+
+
+@command("volume.tier.download",
+         "-volumeId <id> [-deleteRemote] : bring a tiered volume's .dat "
+         "back to local disk")
+def volume_tier_download(env: CommandEnv, args: List[str]):
+    """Reference command_volume_tier_download.go: every replica whose
+    .dat is remote pulls it back; a replica that kept its local .dat
+    ("no remote tier") is passed by."""
+    flags = parse_flags(args)
+    vid = int(flags["volumeId"])
+    delete = "true" if flags.get("deleteRemote") else "false"
+    replicas = env.all_volumes().get(str(vid), [])
+    if not replicas:
+        env.write(f"volume {vid} not found")
+        return
+    brought = 0
+    for r in replicas:
+        try:
+            out = env.node_post(
+                r["url"], f"/admin/volume/tier_download?volume={vid}"
+                          f"&delete_remote={delete}")
+        except HttpError as e:
+            if "no remote tier" in str(e):
+                continue
+            raise
+        brought += 1
+        env.write(f"volume {vid} @ {r['url']}: .dat local again "
+                  f"({out['size']} bytes)")
+    if not brought:
+        env.write(f"volume {vid}: no replica is tiered")
 
 
 @command("volume.mount",

@@ -11,14 +11,20 @@ carry the port's device accounting (``ops/device_stats``): builds are
 nvcc and tile-plan builds, device samples are CUDA-event timings, and
 ``ec_xla_jit_cache_*`` gets no series (the port has no jit factories).
 
-Left out, with their modules: the filer gatherer, the tiering families
-and the native plane's.
+Left out, with their modules: the filer gatherer and the native
+plane's families.
 
-One difference, on purpose: the tuner learns from the ``width`` tag of
-a ``reconstruct`` span (survivor bytes per row), the unit
-``ops/codec.dispatch_threshold`` is compared in. The JAX package feeds
-it the span's ``bytes`` (k x width) and installs a crossover k times too
-wide; the span's ``bytes`` tag keeps the JAX value.
+Two differences, on purpose, both in the small-dispatch tuner:
+
+* it learns from the ``width`` tag of a ``reconstruct`` span (survivor
+  bytes per row), the unit ``ops/codec.dispatch_threshold`` is compared
+  in. The JAX package feeds it the span's ``bytes`` (k x width) and
+  installs a crossover k times too wide; the span's ``bytes`` tag keeps
+  the JAX value;
+* a fit whose device line lies below the host line at every width (a
+  non-positive intercept under a shallower slope) suggests the low
+  clamp: the card wins everywhere. The JAX package returns the high
+  clamp there, which sends every width below 8 MiB to the host.
 """
 
 from __future__ import annotations
@@ -557,6 +563,30 @@ CLUSTER_NODES_GAUGE = MASTER_GATHER.gauge(
     "SeaweedFS_master_cluster_scraped_nodes",
     "Nodes currently held by the cluster aggregator, by freshness "
     "(fresh, stale).",
+    labels=("state",))
+
+# -- hot→warm tiering (server/tiering.py) ------------------------------------
+
+MASTER_TIER_DEMOTIONS = MASTER_GATHER.counter(
+    "SeaweedFS_master_tier_demotions_total",
+    "Volume demotions finished by the background tierer, by result "
+    "(ok, failed).",
+    labels=("result",))
+MASTER_TIER_SECONDS = MASTER_GATHER.counter(
+    "SeaweedFS_master_tier_demotion_seconds_total",
+    "Cumulative wall seconds spent demoting volumes to EC warm "
+    "storage.")
+MASTER_TIER_BYTES = MASTER_GATHER.counter(
+    "SeaweedFS_master_tier_demoted_bytes_total",
+    "Hot .dat bytes converted to EC warm storage by the tierer.")
+MASTER_TIER_MBPS_GAUGE = MASTER_GATHER.gauge(
+    "SeaweedFS_master_tier_mbps",
+    "Effective demotion bandwidth of the last completed demotion "
+    "(hot bytes / wall seconds — the rate cap should show here).")
+MASTER_TIER_VOLUMES_GAUGE = MASTER_GATHER.gauge(
+    "SeaweedFS_master_tier_volumes",
+    "Volumes currently tracked by the tierer, by lifecycle state "
+    "(candidate, demoting, warm, failed).",
     labels=("state",))
 
 # -- EC phase spans (fed by util/tracing via observe_span) -------------------
@@ -1175,9 +1205,14 @@ class SmallDispatchTuner:
         b_fit = sum((x - mx) * (y - my) for x, y in device) / sxx
         a_fit = my - b_fit * mx
         denom = 1.0 / host_rate - b_fit
-        if a_fit <= 0 or denom <= 0:
-            # device never wins (or fit degenerate) in the sampled range
+        if denom <= 0:
+            # the device line is no shallower than the host's: past the
+            # sampled range the host wins, or the fit is degenerate
             return self.CLAMP[1]
+        if a_fit <= 0:
+            # a shallower device line that starts at or below zero lies
+            # under the host line at every width: the card always wins
+            return self.CLAMP[0]
         cross = a_fit / denom
         return int(min(max(cross, self.CLAMP[0]), self.CLAMP[1]))
 

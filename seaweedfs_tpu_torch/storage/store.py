@@ -90,9 +90,12 @@ class DiskLocation:
                     continue
                 vid = int(m.group("vid"))
                 base = os.path.join(self.directory, fname[: -len(".idx")])
-                # a volume whose .dat is parked on a remote tier is not
-                # served by the port
-                if not os.path.exists(base + ".dat") or vid in self.volumes:
+                # a tiered volume has no .dat here: its .vif names the
+                # remote one
+                if not os.path.exists(base + ".dat") and \
+                        not os.path.exists(base + ".vif"):
+                    continue
+                if vid in self.volumes:
                     continue
                 try:
                     self.volumes[vid] = Volume(
@@ -114,7 +117,8 @@ class DiskLocation:
                 if not m or int(m.group("vid")) != vid:
                     continue
                 base = os.path.join(self.directory, fname[: -len(".idx")])
-                if not os.path.exists(base + ".dat"):
+                if not os.path.exists(base + ".dat") and \
+                        not os.path.exists(base + ".vif"):
                     continue  # orphaned .idx: the boot scan's quarantine
                 v = Volume(self.directory, m.group("collection") or "", vid)
                 self.volumes[vid] = v

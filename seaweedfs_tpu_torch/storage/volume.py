@@ -20,23 +20,27 @@ volume_loading.go, volume_checking.go, volume_vacuum.go):
   ``.commit`` marker that a crash leaves for ``_finish_interrupted_commit``
   to complete at the next load) and ``cleanup_compact``;
 * ``configure_replication`` (the superblock's placement byte);
-* ``destroy``; a ``.vif`` whose ``remote`` key parks the volume on a tier
-  keeps it readonly.
+* ``destroy``;
+* a tiered volume (``storage/volume_tier``): when the .dat is gone and
+  the ``.vif`` has a ``remote`` key, the .dat is a ``backend.RemoteFile``
+  (the object's size checked against the .vif's ``file_size``) and every
+  read a range request; a local .dat beside such a ``.vif`` (a
+  keep-local upload) is served locally. Either way the volume is
+  readonly, so the remote copy cannot diverge.
 
-Left out: the native plane's write lease (``fast_writer``), a ``.dat``
-that lives only on a remote tier, the fsync knob, and every needle-map
-kind but ``memory``.
+Left out: the native plane's write lease (``fast_writer``), the fsync
+knob, and every needle-map kind but ``memory``.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import threading
 import time
 from typing import Optional
 
 from ..util.throttler import WriteThrottler
+from .backend import BackendError, RemoteFile, get_backend
 from .compact_map import load_needle_map, snapshot_live_items
 from .needle import CorruptNeedle, Needle, get_actual_size
 from .super_block import (FLAG_5_BYTE_OFFSETS, SUPER_BLOCK_SIZE, SuperBlock)
@@ -59,15 +63,13 @@ def volume_file_prefix(dirname: str, collection: str, vid: int) -> str:
     return os.path.join(dirname, name)
 
 
-def _parked_on_tier(vif_path: str) -> bool:
-    """A keep-local tier upload leaves the .dat beside a .vif that names
-    its remote copy: the volume serves locally but stays frozen."""
-    try:
-        with open(vif_path) as f:
-            info = json.load(f)
-    except (OSError, ValueError):
-        return False
-    return isinstance(info, dict) and "remote" in info
+def _remote_info(vif_path: str) -> Optional[dict]:
+    """The ``remote`` record of a tiered volume's .vif, or None."""
+    from .volume_tier import load_volume_info
+    info = load_volume_info(vif_path)
+    if isinstance(info, dict) and "remote" in info:
+        return info["remote"]
+    return None
 
 
 class Volume:
@@ -87,6 +89,14 @@ class Volume:
         self.dat_path = prefix + ".dat"
         self.idx_path = prefix + ".idx"
         self._finish_interrupted_commit(prefix)
+        # the .dat of a tiered volume lives on its backend, but only
+        # when the local one is gone: a keep-local upload leaves both,
+        # and the local copy is served (below, frozen)
+        if not os.path.exists(self.dat_path):
+            remote = _remote_info(prefix + ".vif")
+            if remote is not None:
+                self._open_remote(remote)
+                return
         if create and not os.path.exists(self.dat_path):
             os.makedirs(dirname, exist_ok=True)
             sb = SuperBlock(
@@ -111,8 +121,35 @@ class Volume:
             self.dat.close()
             raise
         self.last_modified = int(os.path.getmtime(self.dat_path))
-        if not create and _parked_on_tier(prefix + ".vif"):
+        if not create and _remote_info(prefix + ".vif") is not None:
             self.readonly = True
+
+    def _open_remote(self, remote: dict):
+        """Serve the .dat from its tier. A .vif naming an object that is
+        unreachable, or whose size is not the recorded ``file_size``
+        (truncated or replaced), refuses the load: it would serve short
+        reads forever."""
+        backend = get_backend(remote["backend"])
+        expect = int(remote["file_size"])
+        try:
+            actual = backend.size(remote["key"])
+        except NotImplementedError:
+            actual = expect
+        except BackendError as e:
+            raise VolumeError(
+                f"volume {self.id}: remote .dat {remote['key']} "
+                f"unreachable: {e}") from None
+        if actual != expect:
+            raise VolumeError(
+                f"volume {self.id}: remote .dat {remote['key']} is "
+                f"{actual} bytes but .vif records {expect}; refusing "
+                f"to serve a mismatched remote volume")
+        self.dat = RemoteFile(backend, remote["key"], expect)
+        self.super_block = SuperBlock.from_bytes(
+            self.dat.read(SUPER_BLOCK_SIZE))
+        self.readonly = True
+        self.nm = load_needle_map(self.idx_path, self.offset_width)
+        self.last_modified = remote.get("modified_at", 0)
 
     # -- properties --------------------------------------------------------
     @property

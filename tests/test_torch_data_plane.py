@@ -360,15 +360,18 @@ def test_no_card_raises_unless_cpu(tmp_path):
         cpu.stop()
 
 
-def _own(obj, server, root):
-    """JSON with a server's own address, port and directory taken out."""
+def _own(obj, server, root, key=None):
+    """JSON with a server's own address, port and directory taken out:
+    its url and directory inside strings, and its port where a ``port``
+    key carries it. Any other number is kept, one equal to the port
+    too (a count or a shard mask is no address)."""
     if isinstance(obj, dict):
-        return {k: _own(v, server, root) for k, v in obj.items()}
+        return {k: _own(v, server, root, k) for k, v in obj.items()}
     if isinstance(obj, list):
         return [_own(v, server, root) for v in obj]
     if isinstance(obj, str):
         return obj.replace(server.url, "SELF").replace(root, "DIR")
-    if obj == server.port and not isinstance(obj, bool):
+    if key == "port" and obj == server.port:
         return "PORT"
     return obj
 
@@ -411,6 +414,14 @@ def test_no_master_503_after_work_and_status(tmp_path, monkeypatch):
             return out[1]
 
         assert status()["volumes"] == []
+        # a number that equals a server's port is no address: kept
+        for vs, d in ((ref, dirs[0]), (port, dirs[1])):
+            reply = json.loads(_call(vs.url, "GET", "/status")[2])
+            reply["ec_shards"] = {str(VID): vs.port}
+            own = _own(reply, vs, d)
+            assert (own["port"], own["public_url"], own["directories"]) \
+                == ("PORT", "SELF", ["DIR"])
+            assert own["ec_shards"] == {str(VID): vs.port}
         out = both("POST", f"/admin/assign_volume?volume={VID}"
                            f"&replication=000", want=503)
         assert "cluster/heartbeat" in out[2]["error"]

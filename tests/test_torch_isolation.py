@@ -17,7 +17,9 @@ collection.delete), and runs the multi-device tier
 highly available cluster (three masters in a raft group, write tokens,
 the leader stopped, a write and an ec.rebuild after), and its
 observability plane (``/metrics``, ``/cluster/metrics``,
-``/admin/traces`` and the shell's ``trace.export``), with both made
+``/admin/traces`` and the shell's ``trace.export``), and its hot→warm
+lifecycle (``volume.tier.upload`` / ``.download`` on a ``dir`` backend,
+and one demotion through ``/cluster/tiering?scan=1``), with both made
 unimportable."""
 
 import ast
@@ -118,6 +120,9 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/util/trace_export.py",
                  "seaweedfs_tpu_torch/stats/metrics.py",
                  "seaweedfs_tpu_torch/stats/aggregate.py",
+                 "seaweedfs_tpu_torch/storage/backend.py",
+                 "seaweedfs_tpu_torch/storage/volume_tier.py",
+                 "seaweedfs_tpu_torch/server/tiering.py",
                  "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc"):
@@ -1081,6 +1086,105 @@ def test_observability_with_jax_unimportable(tmp_path):
             for vs in servers:
                 vs.stop()
             m.stop()
+        assert not any(mod.split(".")[0] in {FORBIDDEN!r}
+                       for mod, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_tiering_with_jax_unimportable(tmp_path):
+    """A port master and two port VolumeServers on the CPU: a volume
+    tiered onto a ``dir`` backend through the shell and read back, brought
+    home with -deleteRemote (its .dat byte-equal to the one uploaded);
+    then a second volume sealed and demoted by the master's tierer
+    (``/cluster/tiering?scan=1``), every needle read back from its EC
+    shards."""
+    script = textwrap.dedent(f"""
+        import io, os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from seaweedfs_tpu_torch.client import operation as op
+        from seaweedfs_tpu_torch.server.http_util import get_json, post_json
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+        from seaweedfs_tpu_torch.storage.backend import configure_backends
+        root = {str(tmp_path)!r}
+        configure_backends({{"dir": {{"cold": {{"path": root + "/tier"}}}}}})
+        m = MasterServer(port=0, pulse_seconds=1, seed=1,
+                         repair_interval=0, tier_rate_mbps=0,
+                         tier_age=0).start()
+        servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
+                                master_url=m.url, pulse_seconds=1,
+                                max_volume_counts=[20],
+                                device="cpu").start() for i in range(2)]
+
+        def shell(line):
+            for vs in servers:
+                vs.heartbeat_once()
+            out = io.StringIO()
+            run_command(CommandEnv(m.url, out=out), line)
+            assert "error:" not in out.getvalue(), out.getvalue()
+            return out.getvalue()
+
+        def fill(collection):
+            post_json("http://%s/vol/grow?collection=%s&count=1"
+                      % (m.url, collection))
+            data = {{}}
+            for i in range(8):
+                body = rng.bytes(3000)
+                data[op.upload_data(m.url, body, filename="n%d" % i,
+                                    collection=collection)] = body
+            vids = {{int(fid.split(",")[0]) for fid in data}}
+            assert len(vids) == 1, vids
+            return vids.pop(), data
+
+        try:
+            rng = np.random.default_rng(0)
+            vid, data = fill("cold")
+            holder = next(vs for vs in servers if vs.store.find_volume(vid))
+            dat = holder.store.find_volume(vid).dat_path
+            with open(dat, "rb") as f:
+                want = f.read()
+            assert "-> dir.cold/" in shell(
+                "volume.tier.upload -volumeId %d -dest dir.cold" % vid)
+            assert not os.path.exists(dat)
+            for fid, body in data.items():
+                assert op.read_file(m.url, fid) == body
+            assert "local again" in shell(
+                "volume.tier.download -volumeId %d -deleteRemote" % vid)
+            with open(dat, "rb") as f:
+                assert f.read() == want
+            assert os.listdir(root + "/tier") == []
+            # the download leaves the volume frozen, as in JAX: thawed
+            # here, so that the tierer's scan passes it by
+            post_json("http://%s/admin/volume/readonly?volume=%d"
+                      "&readonly=false" % (holder.url, vid))
+            vid, data = fill("warm")
+            for vs in servers:
+                if vs.store.find_volume(vid):
+                    post_json("http://%s/admin/volume/readonly?volume=%d"
+                              % (vs.url, vid))
+                vs.heartbeat_once()
+            out = get_json("http://%s/cluster/tiering?scan=1" % m.url)
+            assert out["volumes"][str(vid)]["state"] == "warm", out
+            assert str(vid) in get_json(
+                "http://%s/cluster/ec_status" % m.url)["volumes"]
+            for fid, body in data.items():
+                assert op.read_file(m.url, fid) == body
+        finally:
+            for vs in servers:
+                vs.stop()
+            m.stop()
+        assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
         assert not any(mod.split(".")[0] in {FORBIDDEN!r}
                        for mod, v in sys.modules.items() if v is not None)
         print("PORT-OK")

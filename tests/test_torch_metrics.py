@@ -9,12 +9,16 @@ against the JAX package's.
   JAX fixed point), exemplars included; a malformed line raises in both.
 - The gatherers: every family the port registers is the JAX package's
   (name, kind, label names), and the JAX families the port lacks are
-  only the filer's, the tiering ones and the native plane's.
+  only the filer's and the native plane's.
 - The ``observe_*`` mirrors render the same series for the same
   snapshots (both packages' gatherers swapped for fresh registries).
 - ``SmallDispatchTuner``: the same (path, bytes, seconds) samples give
   the same suggestions and clamps; ``dispatch_threshold`` is equal under
-  the same override.
+  the same override. The clamp fault of the JAX tuner, not copied: a fit
+  whose device line starts at or below zero under a shallower slope
+  (the card wins at every width) gives the JAX package's high clamp and
+  the port's low one; a device line no shallower than the host's gives
+  the high clamp in both.
 - The tuner's unit: on the same host and device reconstruct calls, fed
   through each package's ``observe_span`` with the same durations and
   auto-apply on, the JAX package installs k times the port's crossover
@@ -86,7 +90,7 @@ def test_malformed_exposition_raises_in_both(text):
             m.parse_prometheus_text(text)
 
 
-LEFT_OUT = ("SeaweedFS_master_tier_", "SeaweedFS_volumeServer_plane_",
+LEFT_OUT = ("SeaweedFS_volumeServer_plane_",
             "SeaweedFS_volumeServer_fast_plane_", "SeaweedFS_filer_")
 
 
@@ -246,6 +250,38 @@ def test_tuner_suggestions_match_jax(case):
     assert port.SmallDispatchTuner.CLAMP == ref.SmallDispatchTuner.CLAMP
     assert port.SmallDispatchTuner.MAX_SAMPLES == \
         ref.SmallDispatchTuner.MAX_SAMPLES
+
+
+NEGATIVE_INTERCEPT = {
+    # host 10 MB/s; the device 1 GB/s from -0.1 ms: below the host line
+    # at every width, so the card always wins
+    "shallower": ([("host", w, w / 1e7) for w in (4e4, 8e4, 1.2e5, 1.6e5)]
+                  + [("device", w, -1e-4 + w / 1e9)
+                     for w in (2e6, 4e6, 6e6, 8e6)]),
+    # the device line no shallower than the host's: the host wins past
+    # the sampled range, whatever the intercept
+    "steeper": ([("host", w, w / 1e10) for w in (4e4, 8e4, 1.2e5, 1.6e5)]
+                + [("device", w, -1e-4 + w / 1e9)
+                   for w in (2e6, 4e6, 6e6, 8e6)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEGATIVE_INTERCEPT))
+def test_negative_intercept_clamp_differs_from_jax(case):
+    """The clamp fault of the JAX tuner, not copied into the port."""
+    import seaweedfs_tpu.stats.metrics as ref
+    import seaweedfs_tpu_torch.stats.metrics as port
+    tuners = [ref.SmallDispatchTuner(), port.SmallDispatchTuner()]
+    for path, nbytes, secs in NEGATIVE_INTERCEPT[case]:
+        assert secs > 0
+        for t in tuners:
+            t.add(path, nbytes, secs)
+    got = [t.suggest() for t in tuners]
+    if case == "shallower":
+        assert got == [8 << 20, 64 << 10]
+        assert got[1] == port.SmallDispatchTuner.CLAMP[0]
+    else:
+        assert got == [8 << 20, 8 << 20]
 
 
 @pytest.mark.parametrize("override", [None, 96 << 10, 3 << 20])
