@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--seed N]
 
 1. Builds both Hopper kernel libraries from this checkout with nvcc, one
-   process per source, and the CRC32-C library (csrc/crc32c.cc) with the
-   host C++ compiler, all started together (csrc/gf_matmul.cu, K1;
+   process per source, and the CRC32-C library (csrc/crc32c.cc), the
+   native plane (csrc/http_plane.cc) and its load generator
+   (csrc/loadgen.cc) with the host C++ compiler, all started together
+   (csrc/gf_matmul.cu, K1;
    csrc/gf_bitplane.cu, K6a/K6b), and prints each build's time and ptxas
    report (registers, spills, stack frames, wgmma serialization). Counts,
    in the bit-plane library's SASS (cuobjdump), the warpgroup MMA
@@ -210,8 +212,8 @@
    which start while the writes run and must have registered before the
    encode. Four client threads assign (client/operation) and POST seeded
    needles (the data plane's plan: log-uniform over 1 KiB-4 MiB until
-   CLUSTER_BYTES, 64 MiB, cut from VOLUME_BYTES to make room for steps
-   15 and 16 and the volume control plane within the smoke's time) to the
+   CLUSTER_BYTES, 32 MiB, cut from VOLUME_BYTES to make room for steps
+   15, 16 and 19 and the volume control plane within the smoke's time) to the
    server /dir/assign names, which fans each out to
    the other replica, each POST with its assign's token; each reply's
    size and ETag checked. Every needle
@@ -291,7 +293,8 @@
    A starts): an in-process MasterServer with a repair loop every
    INTEGRITY_REPAIR_S, A in-process on the card, B and C as processes on
    the card (INTEGRITY_SLOTS: B the freest, so the shell puts shard 0 on
-   it), scrubs unpaced.
+   it), scrubs unpaced. The master and B and C start with the piggyback
+   spread leg's holders, so their start-up overlaps the legs before.
    ec.encode through the shell from A; volume.ec.scrub -trigger: no
    finding on any server, no open incident, and each server's K1
    launches, read from its own GET /admin/devices delta, equal its
@@ -400,8 +403,33 @@
    p50/p99 healthy and during, write p50/p99, overlap_frac and the trace
    id, then the leg's numbers as JSON.
 
+19. The native data plane, after step 13 (native_plane_leg): an
+   in-process master and a port VolumeServer on the card with its plane
+   (csrc/http_plane.cc, built with g++ beside the kernels, as is
+   csrc/loadgen.cc) on a second port; needle sizes from step 13's plan
+   (seed --seed). (a) The plane is up and built from this checkout's
+   sources. (b) loadgen POSTs to the plane over batch-assigned fids, under
+   the sync mode off and then group (set_sync_mode, the lease cycled),
+   NP_SECONDS or NP_POST_BYTES each, every 200 a fresh needle: every
+   written needle read back sha256-identical; group: every acknowledged
+   write a rider of a committed batch, an fdatasync timed per batch, none
+   pending or failed. (c) loadgen GETs of those needles through the
+   plane, then through the Python server. (d) JSON needles added, the
+   volume encoded (launches = dispatches) and shard DATA_LOST deleted;
+   NP_COLD_GETS needles touching it (their lost slabs disjoint) GET cold
+   through the plane, each a 307 then reconstructed on K1 (launches = the
+   engine's device dispatches > 0), then warm, each served by the plane
+   from its slab cache (no launch, no Python read, hits). (e) A file of
+   three chunks and a manifest, read whole and by Range, deleted with its
+   chunks. (f) /query over the JSON needles through the lost shard, rows
+   equal to a plain filter of the documents. (g) A -index disk server's
+   needles, written by its plane, read back after a cold restart. Prints
+   req/s, MB/s, p50 and p99 of each loadgen run, the group commits and
+   riders, cold and warm p50/p99, K1 launches and cache hits, then the
+   step's numbers as JSON.
+
 Every leg runs with every kernel's launch count (ops/device_stats) set
-to 0 just before it and read just after; a leg of steps 5-8 and 10-18
+to 0 just before it and read just after; a leg of steps 5-8 and 10-19
 whose K1 launches in this process differ from its dispatches (two for a
 dispatch sharded over step 16's two positions; step 16 (b)'s programs
 count eight launches and no codec dispatch), or that launched nothing,
@@ -469,8 +497,19 @@ DATA_MAX = 4 << 20
 DATA_THREADS = 4            # its client threads
 DATA_LOST = 1               # the shard it loses after the encode
 DATA_EC_DELETES = 3         # EC DELETEs at its end
+NP_VID = 8                  # step 19's volume (the native plane)
+NP_POST_BYTES = 4 * DATA_PLANE_BYTES  # a sync mode's POST data at most
+NP_SECONDS = 1.5            # each loadgen run's length at most
+NP_THREADS = 8              # loadgen connections (the card's host: 8 cores)
+NP_SLOTS = 16               # the step's server's volume slots
+NP_COLD_GETS = 48           # lost-shard GETs, cold then warm
+NP_WARM_BYTES = 24 << 20    # their slabs, within the plane cache's 32 MiB
+NP_JSON_NEEDLES = 12        # JSON-lines needles for /query: 12 MiB in a
+NP_JSON_ROWS = 6_000        # row, so one lies on every shard (~1 MiB each)
+NP_CHUNK = 1 << 20          # the chunked file's chunk (3 chunks)
+NP_DISK_NEEDLES = 64        # the -index disk volume's needles
 CLUSTER_COLLECTION = "smoke"  # the cluster leg's collection
-CLUSTER_BYTES = 64 << 20    # its needles' data (cut from VOLUME_BYTES)
+CLUSTER_BYTES = 32 << 20    # its needles' data (cut from VOLUME_BYTES)
 INTEGRITY_SLOTS = {"A": 8, "B": 10, "C": 8}  # B the freest: shard 0 on B
 INTEGRITY_REPAIR_S = 0.5    # the integrity leg's repair-loop period
 INTEGRITY_GETS = 32         # its naive degraded GETs
@@ -571,16 +610,21 @@ PTXAS_KEEP = ("registers", "Compiling entry", "spill", "stack frame",
 PTXAS_SKIP = ("C7519",)  # "warpgroup.arrive is injected": one per wgmma
 
 
-def build_kernels(modules, crc) -> float:
-    """One nvcc per kernel source and the host compiler for the CRC32-C
-    library, all started together; prints each build's time and ptxas
-    report (registers, spills, stack frames). Returns the wall time of
-    the builds."""
+def build_kernels(modules, crc, plane) -> float:
+    """One nvcc per kernel source, and the host compiler for the CRC32-C
+    library, the native plane's library and its load generator, all
+    started together; prints each build's time and ptxas report
+    (registers, spills, stack frames). Returns the wall time of the
+    builds."""
     builds = [(mod.LIBRARY, ("nvcc",) + tuple(mod.NVCC_FLAGS),
                lambda mod=mod: mod.compile_kernel(ptxas_verbose=True))
               for mod in modules]
     builds.append((crc.LIBRARY, ("c++",) + tuple(crc.CXX_FLAGS),
                    crc.compile_library))
+    builds.append((plane.LIBRARY, ("g++", "-shared") + plane.CXX_FLAGS,
+                   plane.build_library))
+    builds.append((plane.LOADGEN, ("g++",) + plane.CXX_FLAGS,
+                   plane.compile_loadgen))
 
     def build(entry):
         t0 = time.perf_counter()
@@ -1757,7 +1801,7 @@ class ServerProcesses:
         self.procs[name] = subprocess.Popen(
             [sys.executable, "-m",
              "seaweedfs_tpu_torch.server.volume_server", "--dir", d,
-             "--scrub-idle-s", "0", *args],
+             "--scrub-idle-s", "0", "-fastPort", "-1", *args],
             cwd=ROOT, stdout=subprocess.PIPE,
             stderr=open(d + ".log", "wb"), text=True)
 
@@ -2110,7 +2154,8 @@ def spread_leg(torch, port, work, base, res, shas, dat, layout, holders):
     try:
         holders.wait_all()
         source = VolumeServer(port=0, directories=[src], device="cuda",
-                              layout=layout, scrub_idle_s=0).start()
+                              layout=layout, scrub_idle_s=0,
+                              fast_port=-1).start()
         if _post(source.url, "/admin/volume/readonly?volume=1") != {
                 "volume": 1, "readonly": True, "was_readonly": False}:
             raise AssertionError(f"{label}: readonly refused")
@@ -2355,7 +2400,7 @@ def data_plane_leg(np, port, work, seed):
         return out
 
     vs = VolumeServer(port=0, directories=[d], device="cuda",
-                      layout="flat", scrub_idle_s=0).start()
+                      layout="flat", scrub_idle_s=0, fast_port=-1).start()
     url = vs.url
     try:
         if _post(url, f"/admin/assign_volume?volume={DATA_VID}") != {
@@ -2554,6 +2599,431 @@ def data_plane_leg(np, port, work, seed):
     numbers["leg_s"] = round(time.perf_counter() - leg_t0, 3)
     print(f"data plane: {json.dumps(numbers)}")
     shutil.rmtree(d, ignore_errors=True)
+    return numbers
+
+
+def _raw_get(hostport, path):
+    """(status, body) of one GET, no redirect followed."""
+    import http.client
+    host, p = hostport.split(":")
+    conn = http.client.HTTPConnection(host, int(p), timeout=120)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _loadgen(lg, port, paths, sizes=None, workdir="."):
+    """One loadgen run against 127.0.0.1:``port``: multipart POSTs, each
+    path once, when ``sizes`` are given, else GETs cycling the paths;
+    NP_SECONDS at most, NP_THREADS connections. Its JSON line; any
+    request that failed fails the step."""
+    pf = os.path.join(workdir, "loadgen-paths")
+    with open(pf, "w") as f:
+        for i, path in enumerate(paths):
+            f.write(f"/{path} {sizes[i]}\n" if sizes else f"/{path}\n")
+    cmd = [str(lg), "127.0.0.1", str(port), str(NP_SECONDS),
+           str(NP_THREADS), pf] + (["post", "1024"] if sizes else [])
+    out = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=NP_SECONDS + 120)
+    if out.returncode != 0:
+        raise AssertionError(f"loadgen failed: {out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if res["errors"] or not res["requests"]:
+        raise AssertionError(f"loadgen: {res}")
+    return res
+
+
+def _loadgen_payload(np, max_size):
+    """payload(i, size): the bytes loadgen uploads to its i-th path
+    (csrc/loadgen.cc: pattern[o, o + size), o = i * 7919 mod 4096)."""
+    n = max_size + 4096
+    pattern = ((((np.arange(n, dtype=np.uint64) * 2654435761)
+                 & 0xFFFFFFFF) % 26) + 97).astype(np.uint8).tobytes()
+    return lambda i, size: pattern[(i * 7919) % 4096:
+                                   (i * 7919) % 4096 + size]
+
+
+def native_plane_leg(np, port, work, seed):
+    """Step 19, the native data plane: an in-process master and a port
+    VolumeServer on the card with its plane (csrc/http_plane.cc) on a
+    second port, needle sizes from step 13's plan. (a) The plane is up,
+    built from this checkout's csrc/ (not a library named in
+    SW_HTTP_PLANE_LIB), and loadgen too. (b) Under each sync mode, off
+    then group (set_sync_mode, the lease cycled), loadgen POSTs to the
+    plane over batch-assigned fids for NP_SECONDS (NP_POST_BYTES at
+    most), every 200 a fresh needle; every written needle read back
+    sha256-identical; group: every acknowledged write a rider of a
+    committed batch, at least one fdatasync timed per batch, none
+    pending or failed; off: no batch. (c) loadgen GETs of those needles
+    through the plane, then through the Python server. (d) JSON needles
+    added, the volume encoded (readonly, generate, mount, delete_volume:
+    launches = dispatches), shard DATA_LOST deleted; up to NP_COLD_GETS
+    needles touching it (lost-shard slabs disjoint, readahead included,
+    within NP_WARM_BYTES) GET cold through the plane: each 307, then
+    reconstructed on K1 (launches = the engine's device dispatches > 0)
+    and its bytes checked; again warm: each served by the plane (200),
+    no K1 launch, no Python read, cache hits. (e) A file of three
+    NP_CHUNK chunks: read whole through the plane and the master, by
+    Range across a chunk boundary, deleted with its chunks. (f) /query
+    over the JSON needles, through the lost shard, rows equal to a plain
+    filter of the documents. (g) A server with -index disk: needles
+    written by its plane, the server restarted, each read back. Returns
+    the step's numbers with its launches by phase."""
+    ec, ops, storage = port
+    from seaweedfs_tpu_torch.client import chunked, operation as op
+    from seaweedfs_tpu_torch.ops import telemetry
+    from seaweedfs_tpu_torch.server import native_plane
+    from seaweedfs_tpu_torch.server.http_util import (HttpError, http_call,
+                                                      http_get_with_headers,
+                                                      post_multipart)
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.types import (format_file_id,
+                                                   parse_file_id)
+    from seaweedfs_tpu_torch.util import config
+    leg_t0 = time.perf_counter()
+    d = os.path.join(work, "native-plane")
+    os.makedirs(d)
+    sizes = [e[5] for e in _needle_plan(np, seed, DATA_PLANE_BYTES)]
+    payload = _loadgen_payload(np, max(sizes))
+    numbers, launched, walls = {}, {}, {}
+    mark_t0 = [leg_t0]
+
+    def mark(name):
+        walls[name] = round(time.perf_counter() - mark_t0[0], 3)
+        mark_t0[0] = time.perf_counter()
+
+    def counted(name, fn):
+        start = _k1()
+        before = telemetry.STATS.snapshot()
+        out = fn()
+        launched[name] = (_k1() - start,
+                          telemetry.delta(before)["dispatches"])
+        return out
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    # (a) the plane and loadgen, from this checkout's sources
+    lib = native_plane._library_path()
+    if native_plane.build_failed() or not native_plane.available() or \
+            lib != native_plane.LIBRARY or \
+            native_plane._stale(lib, native_plane.SOURCE) or \
+            native_plane._stale(native_plane.LOADGEN,
+                                native_plane.LOADGEN_SOURCE):
+        raise AssertionError(f"native plane: not built from "
+                             f"{native_plane.SOURCE} ({lib})")
+    lg = native_plane.LOADGEN
+    m = MasterServer(port=0, pulse_seconds=CLUSTER_PULSE_S, seed=seed,
+                     repair_interval=0, vacuum_interval=0).start()
+    vs = VolumeServer(port=0, directories=[d], device="cuda",
+                      master_url=m.url, pulse_seconds=CLUSTER_PULSE_S,
+                      max_volume_counts=[NP_SLOTS], scrub_idle_s=0).start()
+    plane = vs.fast_plane
+    try:
+        if plane is None or not vs.fast_url:
+            raise AssertionError("native plane: the server has no plane")
+        print(f"native plane: {native_plane.LIBRARY.name} and loadgen built "
+              f"from seaweedfs_tpu_torch/csrc/; the server's plane at "
+              f"{vs.fast_url}, Python at {vs.url}")
+        _post(vs.url, f"/admin/assign_volume?volume={NP_VID}")
+        vs.heartbeat_once()
+        if vs.store.find_volume(NP_VID).fast_writer is None:
+            raise AssertionError("native plane: no write lease")
+        mark("start")
+
+        # (b) loadgen POSTs under off, then group
+        written = []        # (fid, payload index, size)
+        for mode in ("off", "group"):
+            plane.set_sync_mode(
+                mode, config.env_int("SW_PLANE_FSYNC_BATCH_US"),
+                config.env_int("SW_PLANE_FSYNC_MAX_PENDING"))
+            vs._fast_sync(NP_VID)       # a lease takes the mode it starts
+            n, acc = 0, 0
+            while acc < NP_POST_BYTES:
+                acc += sizes[n % len(sizes)]
+                n += 1
+            a = op.assign(m.url, count=n)
+            if a.get("fastUrl") != vs.fast_url or a["count"] != n or \
+                    parse_file_id(a["fid"])[0] != NP_VID:
+                raise AssertionError(f"batch assign: {a}")
+            fids = list(op.expand_batch_fids(a["fid"], n))
+            mode_sizes = [sizes[i % len(sizes)] for i in range(n)]
+            s0, w0 = plane.sync_stats(), plane.written
+            res = _loadgen(lg, plane.port, fids, mode_sizes, d)
+            s1, w1 = plane.sync_stats(), plane.written
+            done = res["written"]
+            batches = s1["batches"] - s0["batches"]
+            riders = s1["riders"] - s0["riders"]
+            timed = sum(c for _, c in s1["buckets"]) - \
+                sum(c for _, c in s0["buckets"])
+            if s1["mode"] != mode or w1 - w0 != done or done < 1 or \
+                    s1["failures"] or s1["pending"] or (
+                        mode == "group" and (riders != done or batches < 1
+                                             or timed < batches)) or (
+                        mode == "off" and batches):
+                raise AssertionError(f"POST {mode}: {res}, sync {s0} -> "
+                                     f"{s1}, plane written {w1 - w0}")
+            written += [(fids[i], i, mode_sizes[i]) for i in range(done)]
+            numbers[f"post_{mode}"] = {
+                "requests": res["requests"], "seconds": res["seconds"],
+                "req_s": res["rps"], "mb_s": res["mb_s"],
+                "p50_us": res["p50_us"], "p99_us": res["p99_us"],
+                "batches": batches, "riders": riders,
+                "riders_per_batch": round(riders / batches, 2)
+                if batches else None,
+                "fsyncs_per_batch": round(timed / batches, 2)
+                if batches else None}
+            print(f"native plane: POST under {mode}: {done} needles in "
+                  f"{res['seconds']:.3f} s from {NP_THREADS} connections, "
+                  f"{res['rps']} req/s, {res['mb_s']} MB/s, p50 "
+                  f"{res['p50_us']} us, p99 {res['p99_us']} us; {batches} "
+                  f"group commits for {riders} riders, {timed} fsyncs timed")
+
+        def check(entry):
+            fid, i, size = entry
+            got = http_call("GET", f"http://{vs.fast_url}/{fid}", timeout=120)
+            if sha(got) != sha(payload(i, size)):
+                raise AssertionError(f"GET {fid}: not the bytes written")
+
+        mark("POSTs")
+        with ThreadPoolExecutor(NP_THREADS) as pool:
+            list(pool.map(check, written))
+        mark("read back")
+        want = {fid: (i, size) for fid, i, size in written}
+        print(f"native plane: all {len(written)} needles written by the "
+              f"plane read back sha256-identical")
+
+        # (c) loadgen GETs through the plane, then through Python
+        for where, p in (("plane", plane.port), ("python", vs.port)):
+            res = _loadgen(lg, p, [f for f, _, _ in written], None, d)
+            numbers[f"get_{where}"] = {
+                "requests": res["requests"], "seconds": res["seconds"],
+                "req_s": res["rps"], "mb_s": res["mb_s"],
+                "p50_us": res["p50_us"], "p99_us": res["p99_us"]}
+            print(f"native plane: GET through the {where}: {res['rps']} "
+                  f"req/s, {res['mb_s']} MB/s, p50 {res['p50_us']} us, p99 "
+                  f"{res['p99_us']} us over {res['seconds']:.3f} s")
+
+        mark("GETs")
+        # JSON-lines needles for (f), appended through Python's path
+        rng = np.random.default_rng(seed)
+        docs = {}
+        a = op.assign(m.url, count=NP_JSON_NEEDLES)
+        for j, fid in enumerate(op.expand_batch_fids(a["fid"],
+                                                     NP_JSON_NEEDLES)):
+            rows = [{"id": j * NP_JSON_ROWS + r,
+                     "v": int(x), "pad": "p" * 150}
+                    for r, x in enumerate(rng.integers(0, 1000,
+                                                       NP_JSON_ROWS))]
+            body = ("\n".join(json.dumps(r) for r in rows) + "\n").encode()
+            post_multipart(f"http://{vs.url}/{fid}", f"rows-{j}.jsonl",
+                           body, "application/json")
+            docs[fid] = rows
+
+        mark("JSON needles")
+        # (d) encode, lose DATA_LOST, cold then warm GETs through the plane
+        _post(vs.url, f"/admin/volume/readonly?volume={NP_VID}")
+        base = os.path.join(d, str(NP_VID))
+        t0 = time.perf_counter()
+        counted("encode", lambda: _post(
+            vs.url, f"/admin/ec/generate?volume={NP_VID}", timeout=600))
+        encode_s = time.perf_counter() - t0
+        n_slabs = math.ceil(os.path.getsize(base + ec.to_ext(0))
+                            / ec.encoder.DEFAULT_SLAB)
+        all14 = ",".join(map(str, range(ec.TOTAL_SHARDS)))
+        _post(vs.url, f"/admin/ec/mount?volume={NP_VID}&shards={all14}")
+        _post(vs.url, f"/admin/delete_volume?volume={NP_VID}")
+        if launched["encode"] != (n_slabs, n_slabs):
+            raise AssertionError(f"encode: {launched['encode']}, want "
+                                 f"{n_slabs}")
+        if _post(vs.url, f"/admin/ec/delete_shards?volume={NP_VID}&shards="
+                         f"{DATA_LOST}")["removed"] != [DATA_LOST]:
+            raise AssertionError("delete_shards refused")
+        ev = vs.store.find_ec_volume(NP_VID)
+        slab = vs.degraded.slab
+
+        def lost_slabs(fid):
+            """The slabs of DATA_LOST a read of fid reconstructs, and the
+            readahead slab after each run."""
+            out = set()
+            for iv in ev.locate_needle(parse_file_id(fid)[1])[2]:
+                sid, off = iv.to_shard_id_and_offset(ec.LARGE_BLOCK_SIZE,
+                                                     ec.SMALL_BLOCK_SIZE)
+                if sid == DATA_LOST:
+                    out.update(range(off // slab,
+                                     (off + iv.size - 1) // slab + 2))
+            return out
+
+        cold, taken = [], set()
+        for fid, _, _ in written:
+            slabs = lost_slabs(fid)
+            if slabs and not slabs & taken and \
+                    (len(taken) + len(slabs)) * slab <= NP_WARM_BYTES:
+                cold.append(fid)
+                taken |= slabs
+                if len(cold) == NP_COLD_GETS:
+                    break
+        cs0, eng0 = plane.cache_stats(), vs.degraded.snapshot()
+
+        def cold_gets():
+            lat = []
+            for fid in cold:
+                t0 = time.perf_counter()
+                if _raw_get(vs.fast_url, f"/{fid}")[0] != 307:
+                    raise AssertionError(f"cold GET {fid}: not redirected")
+                body, _ = http_get_with_headers(f"http://{vs.url}/{fid}",
+                                                timeout=120)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if sha(body) != sha(payload(*want[fid])):
+                    raise AssertionError(f"cold GET {fid}: wrong bytes")
+            return lat
+
+        mark("encode")
+        cold_ms = counted("degraded", cold_gets)
+        cs1, eng1 = plane.cache_stats(), vs.degraded.snapshot()
+        dev = eng1["device_dispatches"] - eng0["device_dispatches"]
+        if not cold or launched["degraded"] != (dev, dev) or dev < 1 or \
+                eng1["errors"] or \
+                cs1["degraded_redirected"] - cs0["degraded_redirected"] \
+                != len(cold) or cs1["puts"] <= cs0["puts"]:
+            raise AssertionError(f"cold GETs: launches, dispatches "
+                                 f"{launched['degraded']}, engine {eng1}, "
+                                 f"cache {cs0} -> {cs1}")
+
+        def warm_gets():
+            lat = []
+            for fid in cold:
+                t0 = time.perf_counter()
+                st, body = _raw_get(vs.fast_url, f"/{fid}")
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if st != 200 or sha(body) != sha(payload(*want[fid])):
+                    raise AssertionError(f"warm GET {fid}: {st}")
+            return lat
+
+        mark("cold GETs")
+        served0 = plane.served
+        warm_ms = counted("warm", warm_gets)
+        cs2 = plane.cache_stats()
+        if launched["warm"][0] or plane.served - served0 != len(cold) or \
+                cs2["degraded_served"] - cs1["degraded_served"] != \
+                len(cold) or cs2["hits"] <= cs1["hits"] or \
+                vs.degraded.snapshot()["reads"] != eng1["reads"]:
+            raise AssertionError(f"warm GETs: launches {launched['warm']}, "
+                                 f"cache {cs1} -> {cs2}")
+        numbers.update(
+            encode_s=round(encode_s, 3), lost_gets=len(cold),
+            cold_p50_ms=round(_pct(cold_ms, 0.5), 3),
+            cold_p99_ms=round(_pct(cold_ms, 0.99), 3),
+            warm_p50_ms=round(_pct(warm_ms, 0.5), 3),
+            warm_p99_ms=round(_pct(warm_ms, 0.99), 3),
+            cold_k1_launches=dev,
+            cache_hits=cs2["hits"] - cs1["hits"],
+            cache_puts=cs1["puts"] - cs0["puts"])
+        print(f"native plane: encoded in {encode_s:.2f} s ({n_slabs} K1 "
+              f"launches = dispatches), shard {DATA_LOST} deleted; "
+              f"{len(cold)} GETs through it, cold (each 307, rebuilt on K1: "
+              f"{dev} launches = device dispatches, {numbers['cache_puts']} "
+              f"slabs published) p50 {numbers['cold_p50_ms']} ms, p99 "
+              f"{numbers['cold_p99_ms']} ms; warm (each served by the "
+              f"plane, no launch, {numbers['cache_hits']} cache hits) p50 "
+              f"{numbers['warm_p50_ms']} ms, p99 {numbers['warm_p99_ms']} ms")
+
+        mark("warm GETs")
+        # (f) /query through the lost shard
+        touching = [f for f in docs if lost_slabs(f)]
+        ask = {"fids": list(docs),
+               "sql": "SELECT id, v FROM S3Object WHERE v > 990"}
+        reads0 = vs.degraded.snapshot()["reads"]
+        got = counted("query", lambda: http_call(
+            "POST", f"http://{vs.url}/query", json.dumps(ask).encode(),
+            timeout=120))
+        expect = [{"id": r["id"], "v": r["v"]} for f in docs for r in docs[f]
+                  if r["v"] > 990]
+        rows = [json.loads(line) for line in got.decode().splitlines()]
+        if rows != expect or not touching or \
+                vs.degraded.snapshot()["reads"] <= reads0 or \
+                launched["query"][0] != launched["query"][1]:
+            raise AssertionError(f"/query: {len(rows)} rows, want "
+                                 f"{len(expect)}; {len(touching)} needles "
+                                 f"on the lost shard, {launched['query']}")
+        print(f"native plane: /query over {len(docs)} JSON needles "
+              f"({len(touching)} through shard {DATA_LOST}): {len(rows)} "
+              f"rows = a plain filter of the documents")
+
+        mark("query")
+        # (e) a chunked file: three chunks and a manifest
+        data = np.random.default_rng(seed + 1).bytes(3 * NP_CHUNK - 1000)
+        fid = chunked.submit_chunked(m.url, data, filename="chunked.bin",
+                                     chunk_size=NP_CHUNK,
+                                     content_type="application/x-smoke")
+        manifest = json.loads(http_call("GET",
+                                        f"http://{vs.url}/{fid}?cm=false"))
+        lo, hi = NP_CHUNK - 100, 2 * NP_CHUNK + 99
+        if len(manifest["chunks"]) != 3 or \
+                http_call("GET", f"http://{vs.fast_url}/{fid}") != data or \
+                op.read_file(m.url, fid) != data or \
+                http_call("GET", f"http://{vs.url}/{fid}", headers={
+                    "Range": f"bytes={lo}-{hi}"}) != data[lo:hi + 1]:
+            raise AssertionError("chunked file: read back differs")
+        op.delete_file(m.url, fid)
+        for f in [fid] + [c["fid"] for c in manifest["chunks"]]:
+            try:
+                http_call("GET", f"http://{vs.url}/{f}")
+            except HttpError as e:
+                if e.status == 404:
+                    continue
+                raise
+            raise AssertionError(f"chunked file: {f} served after delete")
+        print(f"native plane: a {len(data)} B file in 3 chunks and a "
+              f"manifest, read whole (plane and master) and by Range, "
+              f"deleted with its chunks")
+        mark("chunked")
+    finally:
+        vs.stop()
+        m.stop()
+
+    # (g) -index disk: the plane writes, the server restarts cold
+    dd = os.path.join(work, "native-plane-disk")
+    os.makedirs(dd)
+    disk_want = {}
+    vs = VolumeServer(port=0, directories=[dd], device="cuda",
+                      index_kind="disk", scrub_idle_s=0).start()
+    try:
+        _post(vs.url, f"/admin/assign_volume?volume={NP_VID}")
+        for i in range(NP_DISK_NEEDLES):
+            f = format_file_id(NP_VID, i + 1, 0x5EED)
+            body = payload(i, min(sizes[i % len(sizes)], 256 << 10))
+            post_multipart(f"http://{vs.fast_url}/{f}", "d", body)
+            disk_want[f] = sha(body)
+        if vs.fast_plane.written != NP_DISK_NEEDLES:
+            raise AssertionError("-index disk: the plane did not write")
+    finally:
+        vs.stop()
+    vs = VolumeServer(port=0, directories=[dd], device="cuda",
+                      index_kind="disk", scrub_idle_s=0).start()
+    try:
+        v = vs.store.find_volume(NP_VID)
+        if v.index_kind != "disk" or v.file_count() != NP_DISK_NEEDLES or \
+                not os.path.exists(os.path.join(dd, f"{NP_VID}.ndb")) or \
+                any(sha(http_call("GET", f"http://{vs.fast_url}/{f}"))
+                    != s for f, s in disk_want.items()):
+            raise AssertionError("-index disk: a needle differs after the "
+                                 "restart")
+    finally:
+        vs.stop()
+    print(f"native plane: -index disk, {NP_DISK_NEEDLES} needles written by "
+          f"the plane read back after a cold restart")
+    mark("-index disk")
+    numbers["launches"] = {name: n for name, (n, _) in launched.items()}
+    numbers["walls"] = walls
+    numbers["leg_s"] = round(time.perf_counter() - leg_t0, 3)
+    print(f"native plane: {json.dumps(numbers)}")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(dd, ignore_errors=True)
     return numbers
 
 
@@ -2759,7 +3229,7 @@ def cluster_leg(np, port, work, seed):
                      master_url=seeds, pulse_seconds=CLUSTER_PULSE_S,
                      max_volume_counts=[CLUSTER_SLOTS["A"]],
                      scrub_idle_s=0, jwt_signing_key=jwt_key,
-                     whitelist=["127.0.0.1"]).start()
+                     whitelist=["127.0.0.1"], fast_port=-1).start()
     procs = VolumeProcesses(work, seeds, args=(
         "--jwt-key", jwt_key, "--whitelist", "127.0.0.1"))
     ref_dir = os.path.join(work, "cluster-reference")
@@ -3487,15 +3957,41 @@ def _devices_k1(url):
         "launches"].get(K1, 0)
 
 
-def integrity_leg(np, port, work, base, res, seed):
+def integrity_servers(work, seed):
+    """Step 15's master (a repair loop every INTEGRITY_REPAIR_S, its
+    drain held while the returned gate is clear) and its B and C
+    processes, spawned and not waited for: started before the legs that
+    precede step 15, so their start-up overlaps those legs. Returns
+    (master, drain gate, processes)."""
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    master = MasterServer(port=0, pulse_seconds=CLUSTER_PULSE_S, seed=seed,
+                          repair_interval=INTEGRITY_REPAIR_S).start()
+    drain_gate = threading.Event()
+    drain_gate.set()
+    drain_one = master._drain_one
+
+    def gated_drain(inc):
+        drain_gate.wait()
+        return drain_one(inc)
+
+    master._drain_one = gated_drain
+    procs = VolumeProcesses(work, master.url, slots=INTEGRITY_SLOTS,
+                            prefix="integrity",
+                            args=("--scrub-rate-mbps", "0",
+                                  "--device", SERVER_DEVICE))
+    procs.spawn_all(["B", "C"])
+    return master, drain_gate, procs
+
+
+def integrity_leg(np, port, work, base, res, seed, servers):
     """Step 15: scrub findings, the master's repair queue and its drain
-    onto K1 on the holder, held by each server's /admin/devices. Returns
-    the leg's numbers; stops every process and removes its directories
-    in a finally."""
+    onto K1 on the holder, held by each server's /admin/devices, on the
+    master and processes of ``servers`` (integrity_servers). Returns the
+    leg's numbers; stops every process and removes its directories in a
+    finally."""
     ec, _, _ = port
     from seaweedfs_tpu_torch.server.http_util import (get_json, http_call,
                                                       post_json)
-    from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
     from seaweedfs_tpu_torch.storage.types import entry_size, format_file_id
@@ -3514,24 +4010,8 @@ def integrity_leg(np, port, work, base, res, seed):
         print(f"integrity step {name}: {walls[name]} s")
         step_t0[0] = time.perf_counter()
 
-    master = MasterServer(port=0, pulse_seconds=CLUSTER_PULSE_S, seed=seed,
-                          repair_interval=INTEGRITY_REPAIR_S).start()
+    master, drain_gate, procs = servers
     murl = master.url
-    # the master's drain, held while drain_gate is clear
-    drain_gate = threading.Event()
-    drain_gate.set()
-    drain_one = master._drain_one
-
-    def gated_drain(inc):
-        drain_gate.wait()
-        return drain_one(inc)
-
-    master._drain_one = gated_drain
-    procs = VolumeProcesses(work, murl, slots=INTEGRITY_SLOTS,
-                            prefix="integrity",
-                            args=("--scrub-rate-mbps", "0",
-                                  "--device", SERVER_DEVICE))
-    procs.spawn_all(["B", "C"])
     d_a = os.path.join(work, "integrity-A")
     os.makedirs(d_a)
     for ext in (".dat", ".idx"):
@@ -3539,7 +4019,7 @@ def integrity_leg(np, port, work, base, res, seed):
     a = VolumeServer(port=0, directories=[d_a], device=SERVER_DEVICE,
                      master_url=murl, pulse_seconds=CLUSTER_PULSE_S,
                      max_volume_counts=[INTEGRITY_SLOTS["A"]],
-                     scrub_idle_s=0, scrub_rate_mbps=0).start()
+                     scrub_idle_s=0, scrub_rate_mbps=0, fast_port=-1).start()
     naive = None
     d_n = os.path.join(work, "integrity-naive")
 
@@ -3705,7 +4185,7 @@ def integrity_leg(np, port, work, base, res, seed):
                       os.path.join(d_n, f"{vid}{ext}"))
         naive = VolumeServer(port=0, directories=[d_n],
                              device=SERVER_DEVICE, scrub_idle_s=0,
-                             degraded_mode="naive").start()
+                             degraded_mode="naive", fast_port=-1).start()
         ev = naive.store.find_ec_volume(vid)
         rec = entry_size()
         with open(os.path.join(d_n, f"{vid}.ecx"), "rb") as f:
@@ -4008,7 +4488,7 @@ def tiering_leg(np, port, work, seed):
             d = os.path.join(work, f"tier-{i}")
             os.makedirs(d)
             servers.append(VolumeServer(
-                port=0, directories=[d], device=SERVER_DEVICE,
+                fast_port=-1, port=0, directories=[d], device=SERVER_DEVICE,
                 master_url=murl, pulse_seconds=CLUSTER_PULSE_S,
                 max_volume_counts=[TIER_SLOTS], scrub_idle_s=0).start())
         by_url = {vs.url: vs for vs in servers}
@@ -4496,6 +4976,7 @@ def run(args) -> int:
                                          rs_hopper, telemetry)
     from seaweedfs_tpu_torch.ops.codec import NumpyCodec
     from seaweedfs_tpu_torch.parallel import sharded_ec
+    from seaweedfs_tpu_torch.server import native_plane
     from seaweedfs_tpu_torch.storage import crc
     from seaweedfs_tpu_torch.tools import kernel_exp
 
@@ -4506,7 +4987,7 @@ def run(args) -> int:
 
     def phase(name):
         print(f"phase {name} done at {time.perf_counter() - t_run:.2f} s")
-    build_s = build_kernels((rs_hopper, rs_bitplane), crc)
+    build_s = build_kernels((rs_hopper, rs_bitplane), crc, native_plane)
     sass_counts(rs_bitplane.LIBRARY)
     phase("builds")
     t0 = time.perf_counter()
@@ -4654,6 +5135,10 @@ def run(args) -> int:
         drive("scrub piggyback", scrub_leg, np, port, dev, base, res,
               pb["shas"], args.seed + 53, "scrub piggyback")
         spreading.append(spread_holders(ec, work, base, "piggyback"))
+        # step 15's master and processes start here too: their start-up
+        # overlaps the legs before it
+        integrity_early = integrity_servers(work, args.seed + 71)
+        spreading.append(integrity_early[2])
         holders = Holders(base, work, "piggyback", ec.TOTAL_SHARDS)
         try:
             holders.start()
@@ -4664,7 +5149,7 @@ def run(args) -> int:
         drive("spread piggyback", spread_leg, torch, port, work, base, res,
               pb["shas"], dat, "piggyback", spreading[1])
         integrity = drive("integrity", integrity_leg, np, port, work, base,
-                          res, args.seed + 71)
+                          res, args.seed + 71, integrity_early)
         # step 16: the multi-device tier, on the volume before the decode
         # leg rewrites its .dat; the ranks of (c) start now
         t16 = time.perf_counter()
@@ -4689,6 +5174,8 @@ def run(args) -> int:
         crc_phase(np, crc)
         data = drive("data plane", data_plane_leg, np, port, work,
                      args.seed + 61)
+        native = drive("native plane", native_plane_leg, np, port, work,
+                       args.seed)
         cluster = drive("cluster", cluster_leg, np, port, work,
                         args.seed + 67)
         tiering = drive("tiering", tiering_leg, np, port, work,
@@ -4719,7 +5206,7 @@ def run(args) -> int:
           f"repair, streaming piggyback, degraded piggyback, scrub "
           f"piggyback, net plane repair, spread piggyback, integrity, "
           f"mesh codec, mesh crossover, sharded step, ranks, decode, data "
-          f"plane, cluster, tiering) in "
+          f"plane, native plane, cluster, tiering) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
           f"= dispatches, 2 a sharded mesh dispatch ({sum(other.values())} "
           f"of them in the integrity leg's B and C, {json.dumps(other)}, "
@@ -4754,13 +5241,15 @@ def run(args) -> int:
                   legs["degraded flat"] + legs["degraded piggyback"]
                   + legs["net degraded flat"]
                   + data["launches"]["degraded"]
+                  + native["launches"]["degraded"]
                   + cluster["launches"]["degraded"]
                   + integrity["naive"]["launches"],
                   max(read_err["degraded flat (1,10)"],
                       read_err["degraded piggyback (32,320)"]),
                   timed["degraded flat wide"], timed["degraded piggyback wide"],
                   second_key="piggyback_wide")
-        | {"needle_batch": _timed_keys(timed["degraded flat needle batch"])},
+        | {"needle_batch": _timed_keys(timed["degraded flat needle batch"]),
+           "native_plane_launches": native["launches"]},
         _k1_entry("gf_matmul_scrub",
                   legs["scrub flat"] + legs["scrub piggyback"]
                   + legs["net scrub flat"] + integrity_scrub,

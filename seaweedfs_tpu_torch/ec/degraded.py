@@ -36,7 +36,9 @@ holders. Each batch is an ``ec.degraded`` span with the JAX engine's
 ``plan``, ``gather`` and ``dispatch`` spans under it (``path`` host or
 device); the same phases go into a ``StageTimer`` whose totals
 ``snapshot()`` reports as ``phases``. ``on_read(seconds)`` sees every
-read's latency (the server's histogram).
+read's latency (the server's histogram), and ``on_slabs(vid, sid,
+slabs)`` every fresh reconstruction's slabs (the server publishes them
+into its native plane's slab cache).
 """
 
 from __future__ import annotations
@@ -190,11 +192,17 @@ class DegradedReadEngine:
                  slab: Optional[int] = None,
                  batch_ms: Optional[float] = None,
                  readahead: Optional[int] = None,
-                 on_read=None):
+                 on_read=None, on_slabs=None):
         self.store = store
         # on_read(seconds) after every read (the server's latency
         # histogram); its failure never fails the read
         self.on_read = on_read
+        # on_slabs(vid, sid, {slab index: bytes}) after every fresh
+        # reconstruction: the server publishes the slabs into the native
+        # plane's cache, so the next read of these bytes never leaves
+        # the plane. Whatever invalidates this engine's cache invalidates
+        # the plane's copy too. Its failure never fails the read.
+        self.on_slabs = on_slabs
         self._locations = locations
         self._codec = codec
         self._loc_cache = loc_cache
@@ -461,6 +469,11 @@ class DegradedReadEngine:
         slabs = self._split(runs, out, shard_size)
         for idx, data in slabs.items():
             self.cache.put((vid, sid, idx), data)
+        if self.on_slabs is not None:
+            try:
+                self.on_slabs(vid, sid, slabs)
+            except Exception:  # noqa: BLE001 - publishing is best-effort
+                pass
 
         with self._lock:
             self._c["batches"] += 1

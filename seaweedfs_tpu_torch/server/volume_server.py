@@ -16,14 +16,23 @@ shards.
                                       If-None-Match: 304), Range (206),
                                       Content-Disposition, the Seaweed-*
                                       pairs; from a plain volume, or
-                                      parsed out of an EC volume's shards
+                                      parsed out of an EC volume's shards;
+                                      a chunk manifest resolved to its
+                                      file (``?cm=false``: the manifest);
+                                      an image resized by ``width``,
+                                      ``height`` and ``mode``
     POST|PUT /<vid>,<key><cookie>     write a needle: a multipart upload
-                                      or a raw body; ?ts=, ?ttl=,
-                                      Seaweed-* headers; answers
+                                      or a raw body; ?ts=, ?ttl=, ?cm=true
+                                      (a chunk manifest), Seaweed-*
+                                      headers; answers
                                       {"name", "size", "eTag"}
-    DELETE   /<vid>,<key><cookie>     tombstone a needle (on an EC
-                                      volume: the .ecx and .ecj, then the
-                                      other holders the master lists)
+    DELETE   /<vid>,<key><cookie>     tombstone a needle, a manifest's
+                                      chunks first (on an EC volume: the
+                                      .ecx and .ecj, then the other
+                                      holders the master lists)
+    POST /query                       JSON lines of the rows a SQL query
+                                      selects from JSON needles (plain or
+                                      EC volumes)
     POST /admin/assign_volume         create a volume (replication, ttl)
     POST /admin/delete_volume         delete a volume's files
     POST /admin/volume/readonly       freeze (or thaw) a volume
@@ -87,6 +96,10 @@ shards.
     GET  /admin/traces/export         one trace as Chrome trace events
     POST /admin/profile               every thread's stacks sampled for
                                       ``?seconds=`` (collapsed, text)
+    GET  /admin/plane/slow            the native plane's slow requests
+    GET  /admin/plane/cache           its slab cache and EC read outcomes
+    GET  /admin/plane/durability      its group commit (mode, batches,
+                                      riders, fsync histogram)
     GET  /stats/disk, /stats/memory   each directory's usage; peak RSS
     GET  /admin/file                  a raw volume, index or shard file
                                       (``offset``/``size`` for a range)
@@ -158,13 +171,22 @@ its exposition there every ``metrics_interval_seconds``.
 
 Tiering: the tier backends (``storage/backend``) are the process's,
 configured by ``-tierConfig`` (a JSON file of ``configure_backends``'s
-shape) on the command line; a tier move heartbeats after it. The JAX
-handlers also take the volume off the native plane and put it back
-(``_fast_unregister`` / ``_fast_sync``), which the port does not have.
+shape) on the command line; a tier move heartbeats after it.
 
-Left out: mutual TLS, chunk manifests (``cm=``) and image resizing,
-the native plane and its metric families, ``/query`` and the status
-page (``/ui``).
+The native plane (``server/native_plane``, ``fast_port`` 0 by default:
+a port picked free; -1: none; off under a whitelist): a C++ server on a
+second port, advertised to the master as ``fast_url``, serving plain
+needle GETs and, for the volumes whose write lease it holds (writable,
+one copy, no TTL, v2/v3, no write tokens), plain multipart POSTs and
+DELETEs; it redirects everything else here. Every admin route that
+changes a volume's files or flags takes the volume off the plane, or
+takes the lease back, first and registers it again after, as the JAX
+handlers do. The degraded engine's reconstructions are published into
+the plane's slab cache, so a warm GET through a lost shard is served
+there; a mount or a rebuild drops them. ``index_kind`` is the needle
+map of every volume (``-index memory|disk``).
+
+Left out: mutual TLS and the status page (``/ui``).
 
     python3 -m seaweedfs_tpu_torch.server.volume_server --dir D [--dir D2]
         [--host 127.0.0.1] [--port 0] [--device cuda] [--master HOST:PORT]
@@ -173,7 +195,7 @@ page (``/ui``).
         [--device-timing] [--device-timing-sample N]
         [--ec.backend cuda|numpy|mesh] [--mesh.devices cuda:0,cuda:0]
         [--jwt-key KEY] [--whitelist IP,PREFIX.,CIDR]
-        [-tierConfig FILE.json]
+        [-tierConfig FILE.json] [-fastPort N] [-index memory|disk]
 
 serves until killed and prints ``listening <host>:<port>`` once bound,
 so a parent process that passed ``--port 0`` can read the port. The
@@ -205,6 +227,9 @@ from ..ec.degraded import degraded_mode as _degraded_mode
 from ..ec.ec_volume import EcShardNotFound
 from ..ec.scrub import ScrubEngine
 from ..ec.shard_cache import EcShardLocationCache
+from ..images import fix_orientation, resize_image
+from ..client.chunked import ChunkManifest
+from ..client.operation import delete_file, lookup
 from ..ops import codec as ops_codec
 from ..ops import device_stats, telemetry
 from ..security.guard import Guard
@@ -214,12 +239,14 @@ from ..stats.health import BOARD, export_board
 from ..storage import volume_backup, volume_tier
 from ..storage.backend import BackendError, configure_backends
 from ..storage.compact_map import snapshot_live_items
-from ..storage.needle import CorruptNeedle, Needle
+from ..query import QueryError, query_json_lines
+from ..storage.needle import FLAG_IS_CHUNK_MANIFEST, CorruptNeedle, Needle
 from ..storage.store import Store, volume_file_prefix
 from ..storage.types import TTL, ReplicaPlacement, parse_file_id
 from ..storage.volume import NotFound, VolumeError
-from ..util import tracing
+from ..util import config, tracing
 from ..util.fanout import fan_out
+from . import native_plane
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
                         get_json, http_call, parse_range, pool_stats_snapshot,
                         post_json, post_multipart, process_memory_stats,
@@ -241,7 +268,9 @@ class VolumeServer:
     it is when None); ``ec_backend`` "cuda" (the store's TorchCodec on
     ``device``), "mesh" (MeshCodec over ``mesh``) or "numpy";
     ``jwt_signing_key`` the key of the write tokens (none: writes need
-    none) and ``whitelist`` the callers allowed (empty: all)."""
+    none); ``whitelist`` the callers allowed (empty: all);
+    ``index_kind`` the needle map ("memory" or "disk"); ``fast_port``
+    the native plane's port (0: one picked free, -1: no plane)."""
 
     def __init__(self, port: int = 8080, host: str = "127.0.0.1",
                  directories=None, device: str = "cuda",
@@ -254,7 +283,8 @@ class VolumeServer:
                  device_timing: Optional[bool] = None,
                  device_timing_sample: int = 1,
                  ec_backend: str = "cuda", mesh=None,
-                 jwt_signing_key: str = "", whitelist=()):
+                 jwt_signing_key: str = "", whitelist=(),
+                 index_kind: str = "memory", fast_port: int = 0):
         self.degraded_mode = _degraded_mode(degraded_mode)
         self.jwt_signing_key = jwt_signing_key
         self.guard = Guard(whitelist)
@@ -317,6 +347,11 @@ class VolumeServer:
         router.add("POST", "/admin/profile", profile_handler)
         router.add("GET", "/stats/disk", self.stats_disk)
         router.add("GET", "/stats/memory", self.stats_memory)
+        router.add("GET", "/admin/plane/slow", self.admin_plane_slow)
+        router.add("GET", "/admin/plane/cache", self.admin_plane_cache)
+        router.add("GET", "/admin/plane/durability",
+                   self.admin_plane_durability)
+        router.add("POST", "/query", self.query_handler)
         router.set_fallback(self.data_handler)
         router.before = self._guard_check
 
@@ -331,7 +366,8 @@ class VolumeServer:
         # without a ``codec``, the store builds RS(10,4) on ``device`` only
         # when an encode, a rebuild or a degraded read first needs it
         self.store = Store(directories or ["."], codec=codec, device=device,
-                           layout=layout, max_volume_counts=max_volume_counts)
+                           layout=layout, max_volume_counts=max_volume_counts,
+                           index_kind=index_kind)
         self.server = HttpServer(port, router, host=host)
         self.host = host
         self.port = self.server.port
@@ -361,10 +397,11 @@ class VolumeServer:
             codec=lambda: self.store.codec, loc_cache=self._ec_loc_cache,
             self_url=lambda: self.url,
             on_read=lambda s: metrics.DEGRADED_READ_HISTOGRAM.observe(
-                s, trace_id=tracing.current_trace_id()))
+                s, trace_id=tracing.current_trace_id()),
+            on_slabs=self._publish_slabs)
         # a shard mounted again (after a rebuild) is read from disk, not
-        # from the engine's cached reconstructions
-        self.store.on_ec_mount = self.degraded.invalidate
+        # from a cached reconstruction: the plane's or the engine's
+        self.store.on_ec_mount = self._invalidate_reconstructions
         # the syndrome scrub: a paced background pass over every local EC
         # volume, each finding reported to the master's repair queue
         self.scrub = ScrubEngine(
@@ -393,6 +430,29 @@ class VolumeServer:
         self._hb_thread = threading.Thread(target=self._heartbeat_loop,
                                            daemon=True,
                                            name="volume-heartbeat")
+        # the native plane on a second port (0 picks one, -1: none). It
+        # speaks open HTTP, so a whitelist keeps it off; write tokens
+        # keep every volume's lease with Python (_writer_acquire). A
+        # plane that does not build or listen leaves the server without
+        # one (the plane_build_failed gauge), as in JAX, unless
+        # SW_HTTP_PLANE_LIB named the library
+        self.fast_plane = None
+        if fast_port >= 0 and not self.guard.enabled and \
+                native_plane.available():
+            try:
+                self.fast_plane = native_plane.NativeReadPlane(
+                    host, fast_port, self.url)
+            except RuntimeError:
+                if config.env_is_set("SW_HTTP_PLANE_LIB"):
+                    raise
+        if self.fast_plane is not None:
+            for loc in self.store.locations:
+                for v in loc.volumes.values():
+                    with v.lock:
+                        self.fast_plane.register_volume(v)
+                        self._writer_acquire(v)
+                for vid in list(loc.ec_volumes):
+                    self._fast_ec_sync(vid)
 
     def start(self) -> "VolumeServer":
         self.server.start()
@@ -418,9 +478,131 @@ class VolumeServer:
                 pass
         if self._metrics_push is not None:
             self._metrics_push.stop_event.set()
+        if self.fast_plane is not None:
+            self.fast_plane.stop()
         self.server.stop()
         self.degraded.close()
         self.store.close()
+
+    @property
+    def fast_url(self) -> str:
+        """host:port of the native plane, or "" without one."""
+        return f"{self.host}:{self.fast_plane.port}" \
+            if self.fast_plane is not None else ""
+
+    # -- the native plane: the volume mirror and the write lease -------------
+    def _writer_acquire(self, v):
+        """Hand the volume's write lease to the plane (caller holds
+        v.lock, having just registered the mirror from the current map).
+        Only a volume whose plain POSTs the plane serves exactly gets
+        it: writable, unreplicated, without a TTL, v2/v3, on a server
+        without write tokens."""
+        if self.fast_plane is None or v.fast_writer is not None:
+            return
+        if v.readonly or v.version < 2 or self.jwt_signing_key or \
+                v.super_block.ttl.to_uint32() or \
+                v.super_block.replica_placement.copy_count != 1:
+            return
+        v.fast_writer = self.fast_plane.enable_writer(
+            v, self.file_size_limit, accept_posts=True)
+
+    def _writer_release(self, v, reload: bool = True):
+        """Take the lease back: once the plane's disable (a mutex
+        barrier) returns, no native append is in flight, and the needle
+        map is replayed from the .idx the plane kept."""
+        if self.fast_plane is None:
+            return
+        with v.lock:
+            if v.fast_writer is None:
+                return
+            v.fast_writer = None
+            self.fast_plane.disable_writer(v.id)
+            if reload:
+                v.reload_nm()
+
+    def _fast_put(self, vid: int, nid: int):
+        """Mirror a Python write of a leaseless volume (a leased one's
+        append updated the mirror itself)."""
+        if self.fast_plane is None:
+            return
+        v = self.store.find_volume(vid)
+        if v is None or v.fast_writer is not None:
+            return
+        nv = v.nm.get(nid)
+        if nv is not None:
+            self.fast_plane.put(vid, nid, nv.offset, nv.size)
+
+    def _fast_delete(self, vid: int, nid: int):
+        if self.fast_plane is None:
+            return
+        v = self.store.find_volume(vid)
+        if v is not None and v.fast_writer is not None:
+            return
+        self.fast_plane.delete(vid, nid)
+
+    def _fast_sync(self, vid: int):
+        """Register a volume again after a change to its files or its
+        flags (create, mount, vacuum commit, copy, tail, decode, a tier
+        move, readonly, replication), or drop it when it is gone; the
+        lease goes back out when the volume qualifies."""
+        if self.fast_plane is None:
+            return
+        v = self.store.find_volume(vid)
+        if v is None:
+            self.fast_plane.unregister_volume(vid)
+            return
+        with v.lock:
+            self._writer_release(v)
+            self.fast_plane.register_volume(v)
+            self._writer_acquire(v)
+
+    def _fast_unregister(self, vid: int):
+        """Take a volume off the plane before its files go away or move,
+        so no plane write lands in a removed file."""
+        if self.fast_plane is None:
+            return
+        v = self.store.find_volume(vid)
+        if v is not None:
+            self._writer_release(v)
+        self.fast_plane.unregister_volume(vid)
+
+    # -- the native plane: EC volumes and the slab cache ---------------------
+    def _fast_ec_sync(self, vid: int):
+        """Register an EC volume's geometry, local shards and .ecx again
+        (after every mount, unmount and rebuild), or drop it when it is
+        gone: the plane learns of a local shard before the cached slabs
+        of it are dropped."""
+        if self.fast_plane is None:
+            return
+        ev = self.store.find_ec_volume(vid)
+        if ev is None or not self.fast_plane.register_ec_volume(
+                ev, self.degraded.slab):
+            self.fast_plane.unregister_ec_volume(vid)
+
+    def _fast_ec_delete(self, vid: int, nid: int):
+        if self.fast_plane is not None:
+            self.fast_plane.ec_delete(vid, nid)
+
+    def _publish_slabs(self, vid: int, sid: int, slabs: dict):
+        """The degraded engine's ``on_slabs``: fresh reconstructions go
+        into the plane's cache, so the next read of these bytes is
+        served there."""
+        if self.fast_plane is None:
+            return
+        for idx, data in slabs.items():
+            self.fast_plane.cache_put(vid, sid, int(idx), data)
+
+    def _invalidate_reconstructions(self, vid: int, shard_ids):
+        """Drop every cached reconstruction of these shards once a mount
+        or a rebuild made them stale: the plane's shard set first, then
+        its slabs, then the engine's. A read in between gets the fresh
+        local bytes or a miss (Python reconstructs from the fresh
+        shards), never stale ones."""
+        self._fast_ec_sync(vid)
+        if self.fast_plane is not None:
+            for sid in shard_ids:
+                self.fast_plane.cache_invalidate(vid, sid)
+        self.degraded.invalidate(vid, shard_ids)
 
     # -- the heartbeat -------------------------------------------------------
     def _heartbeat_loop(self):
@@ -485,6 +667,8 @@ class VolumeServer:
             return
         with self._hb_lock:
             hb = self.store.collect_heartbeat()
+            if self.fast_plane is not None:
+                hb["fast_url"] = self.fast_url
             self._hb_seq += 1
             seq = self._hb_seq
         last = None
@@ -568,6 +752,16 @@ class VolumeServer:
         metrics.observe_plan_cache()
         metrics.observe_degraded(self.degraded.snapshot())
         metrics.observe_scrub(self.scrub.snapshot())
+        plane = self.fast_plane
+        if plane is not None:
+            for outcome in ("served", "redirected", "written"):
+                metrics.FAST_PLANE_COUNTER.set_total(getattr(plane, outcome),
+                                                     outcome)
+        metrics.observe_plane(plane.stats() if plane else None,
+                              len(plane.slow_requests()) if plane else 0,
+                              native_plane.build_failed())
+        metrics.observe_plane_cache(plane.cache_stats() if plane else None)
+        metrics.observe_plane_sync(plane.sync_stats() if plane else None)
         export_board()
         return Response(metrics.VOLUME_SERVER_GATHER.render().encode(),
                         content_type="text/plain; version=0.0.4")
@@ -596,7 +790,81 @@ class VolumeServer:
         degraded.pop("phases")
         out["ec_degraded"] = degraded
         out["ec_scrub"] = self.scrub.snapshot()
+        if self.fast_plane is not None:
+            out["fast_plane"] = {"url": self.fast_url,
+                                 "served": self.fast_plane.served,
+                                 "redirected": self.fast_plane.redirected}
         return out
+
+    def admin_plane_slow(self, req: Request):
+        """The plane's slow-request ring, newest first (requests of
+        SW_PLANE_SLOW_US or more, 64 at most), and its stats."""
+        if self.fast_plane is None:
+            return {"plane": False, "slow": []}
+        return {"plane": True, "slow": self.fast_plane.slow_requests(),
+                "stats": self.fast_plane.stats()}
+
+    def admin_plane_cache(self, req: Request):
+        """The plane's slab-cache counters and the EC reads' outcomes:
+        served from the cache, redirected to Python, or local."""
+        if self.fast_plane is None:
+            return {"plane": False, "cache": None}
+        return {"plane": True, "cache": self.fast_plane.cache_stats()}
+
+    def admin_plane_durability(self, req: Request):
+        """The group commit's mode, window and rider cap, its batches
+        against riders, the fsync histogram, the pending appends and the
+        failures (a poisoned batch)."""
+        if self.fast_plane is None:
+            return {"plane": False, "durability": None}
+        return {"plane": True, "durability": self.fast_plane.sync_stats()}
+
+    def query_handler(self, req: Request):
+        """S3-Select-style query over JSON needles (reference Query,
+        volume_grpc_query.go:12): a JSON body ``{"fids": [...], "sql":
+        "SELECT ... FROM S3Object WHERE ...", "limit": N}``, answered
+        with the matching rows as JSON lines. A needle of an EC volume
+        is read as a GET reads it, through a lost shard too."""
+        try:
+            body = json.loads(req.body or b"{}")
+        except ValueError:
+            raise HttpError(400, "bad JSON body") from None
+        sql = body.get("sql", "")
+        fids = body.get("fids", [])
+        if not sql or not fids:
+            raise HttpError(400, "need sql and fids")
+        limit = int(body.get("limit", 0))
+        rows: List[dict] = []
+        for fid in fids:
+            try:
+                vid, key, cookie = parse_file_id(fid)
+            except ValueError:
+                raise HttpError(400, f"bad fid {fid!r}") from None
+            got = self._read_any_needle(vid, key, cookie, fid)
+            try:
+                rows.extend(query_json_lines(
+                    got.data, sql,
+                    limit=(limit - len(rows)) if limit else 0))
+            except QueryError as e:
+                raise HttpError(400, str(e)) from None
+            if limit and len(rows) >= limit:
+                break
+        out = "\n".join(json.dumps(r, separators=(",", ":")) for r in rows)
+        return Response((out + "\n").encode() if out else b"",
+                        content_type="application/jsonl")
+
+    def _read_any_needle(self, vid: int, key: int, cookie: int,
+                         fid: str) -> Needle:
+        """A needle of a local plain or EC volume."""
+        if self.store.find_volume(vid) is not None:
+            try:
+                return self.store.read_needle(vid, Needle(cookie=cookie,
+                                                          id=key))
+            except NotFound:
+                raise HttpError(404, f"{fid} not found") from None
+        if self.store.find_ec_volume(vid) is None:
+            raise HttpError(404, f"volume {vid} not local")
+        return self._read_needle_local(vid, key, cookie, fid)
 
     # -- volumes -------------------------------------------------------------
     def admin_assign_volume(self, req: Request):
@@ -604,12 +872,17 @@ class VolumeServer:
         self.store.add_volume(vid, req.query.get("collection", ""),
                               req.query.get("replication", "000"),
                               req.query.get("ttl", ""))
+        self._fast_sync(vid)
         self.heartbeat_once()
         return {"volume": vid}
 
     def admin_delete_volume(self, req: Request):
         vid = int(req.query["volume"])
+        # off the plane before the unlink: a plane POST in between would
+        # append to a deleted file and acknowledge a lost write
+        self._fast_unregister(vid)
         if not self.store.delete_volume(vid):
+            self._fast_sync(vid)
             raise HttpError(404, f"volume {vid} not found")
         self._lookup_cache.pop(vid, None)
         self.heartbeat_once()
@@ -628,12 +901,20 @@ class VolumeServer:
 
     def admin_vacuum_compact(self, req: Request):
         vid, v = self._find_volume(req)
+        # the lease back first: the copy snapshots the needle map, which
+        # is frozen while the plane owns the tails. Writes during the
+        # copy take the Python path and the commit's makeup diff
+        self._writer_release(v)
         v.compact(bytes_per_second=int(req.query.get("bytesPerSecond") or 0))
         return {"volume": vid, "compacted": True}
 
     def admin_vacuum_commit(self, req: Request):
         vid, v = self._find_volume(req)
+        # off the plane while the files are swapped, so it serves no old
+        # offset from the new .dat; then registered from the new map
+        self._fast_unregister(vid)
         v.commit_compact()
+        self._fast_sync(vid)
         return {"volume": vid, "committed": True}
 
     def admin_readonly(self, req: Request):
@@ -642,6 +923,11 @@ class VolumeServer:
         was = self.store.mark_volume_readonly(vid, readonly)
         if was is None:
             raise HttpError(404, f"volume {vid} not found")
+        if was != readonly:
+            # the lease follows writability: a frozen volume hands it
+            # back (an encode reads the .idx next), a thawed one may
+            # qualify again
+            self._fast_sync(vid)
         # was_readonly lets an orchestrator restore exactly the prior state
         return {"volume": vid, "readonly": readonly, "was_readonly": was}
 
@@ -660,8 +946,8 @@ class VolumeServer:
             v.configure_replication(rp)
         except VolumeError as e:
             raise HttpError(409, str(e)) from None
-        # no native plane: the JAX server's write-lease sync has no
-        # counterpart here
+        # the lease's one-copy condition may have changed
+        self._fast_sync(vid)
         self.heartbeat_once()
         return {"volume": vid, "replication": str(rp)}
 
@@ -672,7 +958,7 @@ class VolumeServer:
             return {"volume": vid, "mounted": False}  # already serving
         for loc in self.store.locations:
             if loc.load_volume(vid) is not None:
-                # no native plane to register the volume with
+                self._fast_sync(vid)
                 self.heartbeat_once()
                 return {"volume": vid, "mounted": True}
         raise HttpError(404, f"volume {vid} files not found")
@@ -681,11 +967,15 @@ class VolumeServer:
         """Stop serving a volume and keep its files (reference
         VolumeUnmount)."""
         vid = int(req.query["volume"])
-        # no native plane to take the volume offline first
+        if self.store.find_volume(vid) is not None:
+            # off the plane first: it must not acknowledge writes to an
+            # unmounted volume
+            self._fast_unregister(vid)
         for loc in self.store.locations:
             if loc.unload_volume(vid):
                 self.heartbeat_once()
                 return {"volume": vid, "unmounted": True}
+        self._fast_sync(vid)
         raise HttpError(404, f"volume {vid} not mounted")
 
     def admin_volume_copy(self, req: Request):
@@ -706,7 +996,7 @@ class VolumeServer:
         for ext in (".idx", ".dat"):
             pull_file(source, name + ext, base + ext)
         loc.load_existing_volumes()
-        # no native plane to register the volume with
+        self._fast_sync(vid)
         self.heartbeat_once()
         return {"volume": vid, "copied": True}
 
@@ -732,12 +1022,18 @@ class VolumeServer:
         (reference VolumeTierMoveDatToRemote); 400 when the volume is
         writable or already remote, or the backend refuses."""
         vid, v = self._find_volume(req)
+        # off the plane first: once the local .dat is gone its open fd
+        # would go on serving (and holding the disk space)
+        self._fast_unregister(vid)
         try:
             info = volume_tier.upload_dat(
                 v, req.query["dest"],
                 keep_local=req.query.get("keep_local") == "true")
         except (VolumeError, BackendError) as e:
+            self._fast_sync(vid)
             raise HttpError(400, str(e)) from None
+        if req.query.get("keep_local") == "true":
+            self._fast_sync(vid)
         self.heartbeat_once()
         return info
 
@@ -751,6 +1047,7 @@ class VolumeServer:
                 v, delete_remote=req.query.get("delete_remote") == "true")
         except (VolumeError, BackendError) as e:
             raise HttpError(400, str(e)) from None
+        self._fast_sync(vid)
         self.heartbeat_once()
         return out
 
@@ -791,12 +1088,16 @@ class VolumeServer:
         into the needle map (reference VolumeTailReceiver)."""
         vid, v = self._find_volume(req)
         since = req.query.get("since_ns")
-        # no native plane holds a write lease to take back first
+        # the records land through the volume's own files: the lease
+        # comes back first, so the plane appends nothing meanwhile
+        self._writer_release(v)
         try:
             applied, cursor = volume_backup.append_raw_records(
                 v, req.body, int(since) if since is not None else None)
         except VolumeError as e:
+            self._fast_sync(vid)
             raise HttpError(400, str(e)) from None
+        self._fast_sync(vid)
         return {"applied": applied, "cursor_ns": cursor}
 
     def admin_ec_generate(self, req: Request):
@@ -924,6 +1225,7 @@ class VolumeServer:
     def admin_ec_unmount(self, req: Request):
         vid = int(req.query["volume"])
         out = self.store.unmount_ec_shards(vid, self._shard_ids(req))
+        self._fast_ec_sync(vid)  # the plane stops reading those files
         self._ec_loc_cache.invalidate(vid)
         self.heartbeat_once()
         return {"volume": vid, "unmounted": out}
@@ -956,7 +1258,7 @@ class VolumeServer:
             rebuilt = self.store.rebuild_ec_shards(vid, collection,
                                                    stats=stats)
         if rebuilt:
-            self.degraded.invalidate(vid, rebuilt)
+            self._invalidate_reconstructions(vid, rebuilt)
         return {"volume": vid, "rebuilt": rebuilt, "stats": stats,
                 "trace_id": tracing.current_trace_id()}
 
@@ -989,6 +1291,8 @@ class VolumeServer:
             raise HttpError(400, "bad JSON body") from None
         body = body if isinstance(body, dict) else {}
         self.store.unmount_ec_shards(vid, [sid])
+        # the plane drops its fd of the poisoned file now
+        self._fast_ec_sync(vid)
         self._ec_loc_cache.invalidate(vid)
         for loc in self.store.locations:
             base = volume_file_prefix(loc.directory, collection, vid)
@@ -1008,7 +1312,7 @@ class VolumeServer:
         metrics.observe_mesh(stats)
         mounted = self.store.mount_ec_shards(vid, collection, rebuilt) \
             if rebuilt else []
-        self.degraded.invalidate(vid, rebuilt or [sid])
+        self._invalidate_reconstructions(vid, rebuilt or [sid])
         self.heartbeat_once()
         return {"volume": vid, "shard": sid, "rebuilt": rebuilt,
                 "mounted": mounted, "stats": stats,
@@ -1042,6 +1346,7 @@ class VolumeServer:
         collection = req.query.get("collection", "")
         shard_ids = self._shard_ids(req)
         self.store.unmount_ec_shards(vid, shard_ids)
+        self._fast_ec_sync(vid)
         # the cached holders listed this server for these shards: a read
         # now asks the master where they went instead of reconstructing
         self._ec_loc_cache.invalidate(vid)
@@ -1077,9 +1382,11 @@ class VolumeServer:
         ec_decoder.write_dat_file(base, dat_size)
         ec_decoder.write_idx_file_from_ec_index(base)
         self.store.unmount_ec_shards(vid, list(range(TOTAL_SHARDS)))
+        self._fast_ec_sync(vid)  # a plain volume again
         for loc in self.store.locations:
             if os.path.dirname(base) == loc.directory:
                 loc.load_existing_volumes()
+        self._fast_sync(vid)
         self.heartbeat_once()
         return {"volume": vid, "dat_size": dat_size}
 
@@ -1314,6 +1621,9 @@ class VolumeServer:
         if not 0 < ts_val < 1 << 40:
             ts_val = 0
         n.set_last_modified(ts_val)
+        if req.query.get("cm") == "true":
+            # the payload is a chunk manifest (client/chunked)
+            n.set_is_chunk_manifest()
         # Seaweed-* headers ride with the needle as its pairs; the uint16
         # size field caps them, and past it the write fails rather than
         # drop them
@@ -1331,6 +1641,7 @@ class VolumeServer:
             self.store.write_needle(vid, n)
         except VolumeError as e:
             raise HttpError(500, str(e)) from None
+        self._fast_put(vid, key)
         if req.query.get("type") != "replicate":
             self._replicate_write(req, vid, filename, ctype, data, ts_val)
         # the reference reports the data size, not the needle's Size
@@ -1340,9 +1651,11 @@ class VolumeServer:
                          ts_val):
         """The write on every other replica, all at once; any failure
         fails the request, so the client knows the needle is
-        under-replicated. The writer's token, ``ttl``, the checked ``ts``
-        and the Seaweed-* pairs go with it."""
+        under-replicated. The writer's token, ``cm``, ``ttl``, the checked
+        ``ts`` and the Seaweed-* pairs go with it."""
         extra_q = self._jwt_query(req)
+        if req.query.get("cm") == "true":
+            extra_q += "&cm=true"
         if req.query.get("ttl"):
             extra_q += f"&ttl={req.query['ttl']}"
         if ts_val:
@@ -1419,6 +1732,9 @@ class VolumeServer:
         return self._needle_response(got, req)
 
     def _needle_response(self, got: Needle, req: Request) -> Response:
+        # a chunk manifest is resolved to its chunks unless ?cm=false
+        if got.is_chunk_manifest() and req.query.get("cm") != "false":
+            return self._chunk_manifest_response(got, req)
         ctype = got.mime.decode() if got.has_mime() \
             else "application/octet-stream"
         etag = f'"{got.etag}"'
@@ -1462,6 +1778,16 @@ class VolumeServer:
                 .replace("\\", "\\\\").replace('"', '\\"')
             headers["Content-Disposition"] = f'inline; filename="{name}"'
         body = got.data
+        # a resize only on a whole-object read of an image: a Range read
+        # (a chunk's slice) must get the stored bytes
+        if ctype.startswith("image/") and not req.headers.get("Range"):
+            width = int(req.query.get("width", 0) or 0)
+            height = int(req.query.get("height", 0) or 0)
+            if width or height:
+                if ctype == "image/jpeg":
+                    body = fix_orientation(body, ctype)
+                body, ctype = resize_image(body, ctype, width, height,
+                                           req.query.get("mode", ""))
         total = len(body)
         parsed = parse_range(req.headers.get("Range") or "", total)
         if parsed is not None:
@@ -1471,17 +1797,90 @@ class VolumeServer:
             return Response(body[start:start + length], 206, ctype, headers)
         return Response(body, 200, ctype, headers)
 
+    def _chunk_manifest_response(self, got: Needle,
+                                 req: Request) -> Response:
+        """The file a manifest lists (reference chunked_file.go), or the
+        Range of it asked for: each chunk's slice is fetched with a
+        ranged GET, all at once, from its volume's holders."""
+        manifest = ChunkManifest.from_json(got.data)
+        ctype = manifest.mime or "application/octet-stream"
+        headers = {"Accept-Ranges": "bytes"}
+        if manifest.name:
+            headers["Content-Disposition"] = \
+                f'inline; filename="{manifest.name}"'
+        parsed = parse_range(req.headers.get("Range") or "", manifest.size)
+        start, length = parsed if parsed is not None else (0, manifest.size)
+        jobs = []
+        for c in manifest.chunks:
+            lo = max(c.offset, start)
+            hi = min(c.offset + c.size, start + length)
+            if lo < hi:
+                jobs.append((c, lo, hi))
+        out = bytearray(length)
+        for (c, lo, hi), seg, exc in fan_out(
+                lambda job: self._fetch_fid_range(
+                    job[0].fid, job[1] - job[0].offset, job[2] - job[1]),
+                jobs, dedicated=True):
+            if exc is not None:
+                raise HttpError(502, f"chunk {c.fid} unavailable: {exc}")
+            out[lo - start:lo - start + len(seg)] = seg
+        if parsed is not None:
+            headers["Content-Range"] = \
+                f"bytes {start}-{start + length - 1}/{manifest.size}"
+            return Response(bytes(out), 206, ctype, headers)
+        return Response(bytes(out), 200, ctype, headers)
+
+    def _fetch_fid_range(self, fid: str, offset: int, size: int) -> bytes:
+        """``size`` bytes at ``offset`` of a needle, from the first of
+        its volume's holders that answers (this server too)."""
+        vid, _, _ = parse_file_id(fid)
+        urls = self._vid_map.lookup(vid) if self._vid_map else None
+        if not urls:
+            urls = lookup(self.master_url, vid) if self.master_url \
+                else [self.url]
+        last = None
+        for u in urls:
+            try:
+                return http_call("GET", f"http://{u}/{fid}", headers={
+                    "Range": f"bytes={offset}-{offset + size - 1}"})
+            except HttpError as e:
+                last = e
+        raise last or HttpError(404, f"no locations for {fid}")
+
+    def _cascade_chunk_manifest_delete(self, vid: int, n: Needle):
+        """A manifest's chunks are deleted before the manifest (reference
+        DeleteHandler + operation.DeleteChunks): left, they would be
+        unreachable garbage. The flag is read with two small reads, so a
+        plain delete never reads its payload."""
+        try:
+            if not self.store.read_needle_flags(vid, n) & \
+                    FLAG_IS_CHUNK_MANIFEST:
+                return
+            got = self.store.read_needle(vid, Needle(id=n.id,
+                                                     cookie=n.cookie))
+            manifest = ChunkManifest.from_json(got.data)
+        except (NotFound, VolumeError, ValueError, KeyError):
+            return
+        fan_out(lambda c: delete_file(self.master_url, c.fid)
+                if self.master_url else http_call(
+                    "DELETE", f"http://{self.url}/{c.fid}"),
+                manifest.chunks, dedicated=True)
+
     def delete_needle(self, req: Request, vid, key, cookie):
         if self.store.find_volume(vid) is None:
             ev = self.store.find_ec_volume(vid)
             if ev is not None:
                 return self._delete_ec_needle(req, ev, vid, key)
             raise HttpError(404, f"volume {vid} not found")
+        n = Needle(id=key, cookie=cookie)
+        if req.query.get("type") != "replicate" and \
+                req.query.get("cm") != "false":
+            self._cascade_chunk_manifest_delete(vid, n)
         try:
-            freed = self.store.delete_needle(vid, Needle(id=key,
-                                                         cookie=cookie))
+            freed = self.store.delete_needle(vid, n)
         except VolumeError as e:
             raise HttpError(500, str(e)) from None
+        self._fast_delete(vid, key)
         if req.query.get("type") != "replicate":
             # every replica must drop it, or a read redirect brings it
             # back; a 404 there is already the goal
@@ -1626,6 +2025,10 @@ class VolumeServer:
         holder that misses it would serve the needle again; 404 there is
         the goal state)."""
         found = ev.delete_needle(key)
+        if found:
+            # the plane's .ecx mirror too: it redirects (and Python
+            # answers 404) instead of serving the needle
+            self._fast_ec_delete(vid, key)
         if req.query.get("type") != "replicate":
             # a fresh lookup first: a holder that mounted shards after the
             # cache filled must not miss the delete
@@ -1705,6 +2108,13 @@ def main(argv=None) -> int:
     ap.add_argument("--whitelist", default="",
                     help="comma-separated IPs, prefixes (10.0.) and CIDRs "
                          "allowed on every route (none: all)")
+    ap.add_argument("-fastPort", type=int, default=0,
+                    help="the native plane's port (0 picks one, -1: no "
+                         "plane); plain needle GETs and POSTs are served "
+                         "there without the GIL")
+    ap.add_argument("-index", default="memory", choices=("memory", "disk"),
+                    help="the needle map: a dict in memory, or on disk "
+                         "(sqlite) for indexes larger than RAM")
     ap.add_argument("-tierConfig", default="",
                     help="JSON file of remote tier backends, e.g. "
                          '{"s3": {"default": {"endpoint": ..., '
@@ -1733,7 +2143,9 @@ def main(argv=None) -> int:
                       ec_backend=args.ec_backend, mesh=mesh,
                       jwt_signing_key=args.jwt_key,
                       whitelist=[w for w in args.whitelist.split(",")
-                                 if w.strip()]).start()
+                                 if w.strip()],
+                      index_kind=args.index,
+                      fast_port=args.fastPort).start()
     done = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: done.set())

@@ -11,8 +11,10 @@ carry the port's device accounting (``ops/device_stats``): builds are
 nvcc and tile-plan builds, device samples are CUDA-event timings, and
 ``ec_xla_jit_cache_*`` gets no series (the port has no jit factories).
 
-Left out, with their modules: the filer gatherer and the native
-plane's families.
+The native plane's families (``fast_plane_request_total``,
+``plane_*``) mirror ``server/native_plane``'s counters, latency and fsync
+buckets (``PLANE_LAT_BUCKETS_S`` are the C++ plane's ``kLatBoundsUs``) on
+each scrape. Left out, with its module: the filer gatherer.
 
 Two differences, on purpose, both in the small-dispatch tuner:
 
@@ -538,6 +540,10 @@ VOLUME_DISK_GAUGE = VOLUME_SERVER_GATHER.gauge(
     "SeaweedFS_volumeServer_total_disk_size",
     "Actual disk size used by volumes.",
     labels=("collection", "type"))
+FAST_PLANE_COUNTER = VOLUME_SERVER_GATHER.counter(
+    "SeaweedFS_volumeServer_fast_plane_request_total",
+    "Requests handled by the native C++ read plane.",
+    labels=("outcome",))
 MASTER_REQUEST_COUNTER = MASTER_GATHER.counter(
     "SeaweedFS_master_request_total",
     "Counter of master requests.", labels=("type",))
@@ -1116,6 +1122,144 @@ def observe_scrub(snap: Dict):
         VOLUME_EC_SCRUB_COUNTER.set_total(snap.get(kind, 0), kind)
     VOLUME_EC_SCRUB_MBPS_GAUGE.set(snap.get("last_pass_mbps", 0.0))
     VOLUME_EC_SCRUB_LAST_PASS_GAUGE.set(snap.get("last_pass_at", 0.0))
+
+
+# -- the native plane (server/native_plane.py via observe_plane*) ------------
+
+# kLatBoundsUs of csrc/http_plane.cc, in seconds (the tests hold the two
+# equal through swhp_lat_bounds)
+PLANE_LAT_BUCKETS_S = (0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025,
+                       0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 1.0, 5.0)
+
+PLANE_REQUEST_COUNTER = VOLUME_SERVER_GATHER.counter(
+    "SeaweedFS_volumeServer_plane_request_total",
+    "Native-plane requests by status class (1xx..5xx).",
+    labels=("class",))
+PLANE_BYTES_COUNTER = VOLUME_SERVER_GATHER.counter(
+    "SeaweedFS_volumeServer_plane_bytes_total",
+    "Bytes written to sockets by the native plane (headers + bodies).")
+PLANE_EVENT_COUNTER = VOLUME_SERVER_GATHER.counter(
+    "SeaweedFS_volumeServer_plane_events_total",
+    "Native-plane off-fast-path events by kind (redirects to the "
+    "Python server, index misses).",
+    labels=("kind",))
+PLANE_REQUEST_HISTOGRAM = VOLUME_SERVER_GATHER.histogram(
+    "SeaweedFS_volumeServer_plane_request_seconds",
+    "Bucketed latency of native-plane requests, measured request-parse "
+    "to response-written inside the C++ plane.",
+    buckets=PLANE_LAT_BUCKETS_S)
+PLANE_SLOW_RING_GAUGE = VOLUME_SERVER_GATHER.gauge(
+    "SeaweedFS_volumeServer_plane_slow_ring_depth",
+    "Entries currently held in the native slow-request ring "
+    "(GET /admin/plane/slow; threshold SW_PLANE_SLOW_US).")
+PLANE_BUILD_FAILED_GAUGE = VOLUME_SERVER_GATHER.gauge(
+    "SeaweedFS_volumeServer_plane_build_failed",
+    "1 if the one-time g++ build of the native plane failed and reads "
+    "fell back to the Python path (stderr logged at warning).")
+
+
+def observe_plane(snap: Optional[Dict], slow_depth: int = 0,
+                  build_failed: bool = False):
+    """Mirror one ``NativeReadPlane.stats()`` snapshot: the counters by
+    ``set_total`` (they only grow), the native buckets in place of the
+    histogram's."""
+    PLANE_BUILD_FAILED_GAUGE.set(1 if build_failed else 0)
+    if not snap:
+        return
+    for cls in ("1xx", "2xx", "3xx", "4xx", "5xx"):
+        PLANE_REQUEST_COUNTER.set_total(snap.get(f"status_{cls}", 0), cls)
+    PLANE_BYTES_COUNTER.set_total(snap.get("bytes_sent", 0))
+    PLANE_EVENT_COUNTER.set_total(snap.get("redirects", 0), "redirect")
+    PLANE_EVENT_COUNTER.set_total(snap.get("index_misses", 0), "index_miss")
+    buckets = snap.get("buckets") or ()
+    PLANE_REQUEST_HISTOGRAM.set_buckets(
+        [c for _bound, c in buckets[:len(PLANE_LAT_BUCKETS_S)]],
+        snap.get("lat_count", 0), snap.get("lat_sum_us", 0) / 1e6)
+    PLANE_SLOW_RING_GAUGE.set(slow_depth)
+
+
+PLANE_DEGRADED_COUNTER = VOLUME_SERVER_GATHER.counter(
+    "SeaweedFS_volumeServer_plane_degraded_total",
+    "Native-plane EC read outcomes by result: served (lost-shard bytes "
+    "filled from the slab cache, zero redirects), redirected (slabs "
+    "absent or stale — Python reconstructs), local (all shards local).",
+    labels=("result",))
+PLANE_CACHE_EVENT_COUNTER = VOLUME_SERVER_GATHER.counter(
+    "SeaweedFS_volumeServer_plane_cache_events_total",
+    "Reconstructed-slab cache flow by event (puts, hits, misses, "
+    "evictions, invalidated).",
+    labels=("event",))
+PLANE_CACHE_BYTES_COUNTER = VOLUME_SERVER_GATHER.counter(
+    "SeaweedFS_volumeServer_plane_cache_put_bytes_total",
+    "Slab bytes published into the native plane's cache.")
+PLANE_CACHE_ENTRIES_GAUGE = VOLUME_SERVER_GATHER.gauge(
+    "SeaweedFS_volumeServer_plane_cache_entries",
+    "Slabs currently resident in the native plane's cache.")
+PLANE_CACHE_BYTES_GAUGE = VOLUME_SERVER_GATHER.gauge(
+    "SeaweedFS_volumeServer_plane_cache_bytes",
+    "Bytes currently resident in the native plane's cache (bounded by "
+    "SW_PLANE_CACHE_BYTES).")
+PLANE_CACHE_MAX_BYTES_GAUGE = VOLUME_SERVER_GATHER.gauge(
+    "SeaweedFS_volumeServer_plane_cache_max_bytes",
+    "Configured byte budget of the native plane's slab cache "
+    "(SW_PLANE_CACHE_BYTES; 0 = in-plane degraded path disabled).")
+
+
+def observe_plane_cache(snap: Optional[Dict]):
+    """Mirror one ``NativeReadPlane.cache_stats()`` snapshot."""
+    if not snap:
+        return
+    PLANE_DEGRADED_COUNTER.set_total(snap.get("degraded_served", 0),
+                                     "served")
+    PLANE_DEGRADED_COUNTER.set_total(snap.get("degraded_redirected", 0),
+                                     "redirected")
+    PLANE_DEGRADED_COUNTER.set_total(snap.get("ec_local_served", 0), "local")
+    for event in ("puts", "hits", "misses", "evictions", "invalidated"):
+        PLANE_CACHE_EVENT_COUNTER.set_total(snap.get(event, 0), event)
+    PLANE_CACHE_BYTES_COUNTER.set_total(snap.get("put_bytes", 0))
+    PLANE_CACHE_ENTRIES_GAUGE.set(snap.get("entries", 0))
+    PLANE_CACHE_BYTES_GAUGE.set(snap.get("bytes", 0))
+    PLANE_CACHE_MAX_BYTES_GAUGE.set(snap.get("max_bytes", 0))
+
+
+PLANE_FSYNC_BATCH_COUNTER = VOLUME_SERVER_GATHER.counter(
+    "SeaweedFS_volumeServer_plane_fsync_batches_total",
+    "Group commits issued by the native plane: one fdatasync pair "
+    "(.dat + .idx) covering every rider in the batch; 'always' mode "
+    "counts each per-append fsync as a batch of one.")
+PLANE_FSYNC_RIDER_COUNTER = VOLUME_SERVER_GATHER.counter(
+    "SeaweedFS_volumeServer_plane_fsync_riders_total",
+    "Appends whose ack was covered by a group commit; riders/batches "
+    "is the fsync amortization ratio (1.0 = no batching win).")
+PLANE_FSYNC_FAILURE_COUNTER = VOLUME_SERVER_GATHER.counter(
+    "SeaweedFS_volumeServer_plane_fsync_failures_total",
+    "fdatasync errors: the batch poisoned (-5 to every waiting append, "
+    "nothing acked) and the writer fail-stopped — Python demoted the "
+    "volume to its own append path.")
+PLANE_FSYNC_HISTOGRAM = VOLUME_SERVER_GATHER.histogram(
+    "SeaweedFS_volumeServer_plane_fsync_seconds",
+    "Bucketed duration of the committer's covering fdatasync pair "
+    "(populated only while SW_PLANE_STATS is on — stats off keeps the "
+    "committer clock-free).",
+    buckets=PLANE_LAT_BUCKETS_S)
+PLANE_FSYNC_PENDING_GAUGE = VOLUME_SERVER_GATHER.gauge(
+    "SeaweedFS_volumeServer_plane_fsync_pending",
+    "Appends currently parked awaiting their covering group commit "
+    "(bounded by SW_PLANE_FSYNC_MAX_PENDING per batch).")
+
+
+def observe_plane_sync(snap: Optional[Dict]):
+    """Mirror one ``NativeReadPlane.sync_stats()`` snapshot."""
+    if not snap:
+        return
+    PLANE_FSYNC_BATCH_COUNTER.set_total(snap.get("batches", 0))
+    PLANE_FSYNC_RIDER_COUNTER.set_total(snap.get("riders", 0))
+    PLANE_FSYNC_FAILURE_COUNTER.set_total(snap.get("failures", 0))
+    buckets = snap.get("buckets") or ()
+    PLANE_FSYNC_HISTOGRAM.set_buckets(
+        [c for _bound, c in buckets[:len(PLANE_LAT_BUCKETS_S)]],
+        sum(c for _bound, c in buckets), snap.get("fsync_us_sum", 0) / 1e6)
+    PLANE_FSYNC_PENDING_GAUGE.set(snap.get("pending", 0))
 
 
 # -- repair queue (stats/repair_queue.py via observe_repair_queue) -----------

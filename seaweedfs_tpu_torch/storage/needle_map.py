@@ -107,6 +107,13 @@ class NeedleMap:
     def deleted_size(self) -> int:
         return self.deletion_byte_counter
 
+    def sync(self):
+        """fdatasync the .idx log: the Python append path's half of the
+        SW_PLANE_FSYNC_MODE contract (the plane's committer syncs the
+        .idx it owns the same way)."""
+        if self._idx_file is not None:
+            os.fdatasync(self._idx_file.fileno())
+
     def close(self):
         if self._idx_file is not None:
             self._idx_file.close()

@@ -72,11 +72,14 @@ class DiskLocation:
     """One directory of a store: the plain volumes (a ``.idx`` with its
     ``.dat``) and the EC volumes (shard files with an ``.ecx``) it holds.
     ``max_volume_count`` is its slots, of which an EC shard takes a
-    tenth."""
+    tenth. ``index_kind`` is the needle-map kind of every volume it
+    loads or creates (``memory`` or ``disk``)."""
 
-    def __init__(self, directory: str, max_volume_count: int = 7):
+    def __init__(self, directory: str, max_volume_count: int = 7,
+                 index_kind: str = "memory"):
         self.directory = os.path.abspath(directory)
         self.max_volume_count = max_volume_count
+        self.index_kind = index_kind
         self.volumes: Dict[int, Volume] = {}
         self.ec_volumes: Dict[int, EcVolume] = {}
         self.lock = threading.RLock()
@@ -99,7 +102,8 @@ class DiskLocation:
                     continue
                 try:
                     self.volumes[vid] = Volume(
-                        self.directory, m.group("collection") or "", vid)
+                        self.directory, m.group("collection") or "", vid,
+                        index_kind=self.index_kind)
                 except Exception:  # noqa: BLE001 - quarantine the volume
                     continue
 
@@ -120,7 +124,8 @@ class DiskLocation:
                 if not os.path.exists(base + ".dat") and \
                         not os.path.exists(base + ".vif"):
                     continue  # orphaned .idx: the boot scan's quarantine
-                v = Volume(self.directory, m.group("collection") or "", vid)
+                v = Volume(self.directory, m.group("collection") or "", vid,
+                           index_kind=self.index_kind)
                 self.volumes[vid] = v
                 return v
             return None
@@ -133,6 +138,7 @@ class DiskLocation:
         with self.lock:
             if vid in self.volumes:
                 return self.volumes[vid]
+            kwargs.setdefault("index_kind", self.index_kind)
             v = Volume(self.directory, collection, vid, create=True,
                        **kwargs)
             self.volumes[vid] = v
@@ -192,7 +198,8 @@ class Store:
     spare choice (the JAX package's SW_EC_HEALTH_ROUTING, off by
     default); ``layout`` is the parity layout of new EC volumes, "flat"
     or "piggyback" (the JAX SW_EC_LAYOUT, flat by default);
-    ``max_volume_counts`` the slots of each directory (7 each).
+    ``max_volume_counts`` the slots of each directory (7 each);
+    ``index_kind`` the volumes' needle-map kind (``-index memory|disk``).
     ``ip``, ``port`` and ``public_url``, this server's address in a
     heartbeat and a shard assignment, are set by the server that owns the
     store, and so are ``on_ec_mount(vid, shard_ids)``, called after a
@@ -201,11 +208,11 @@ class Store:
 
     def __init__(self, directories, codec=None, device="cuda",
                  routing: bool = False, layout: str = "flat",
-                 max_volume_counts=None):
+                 max_volume_counts=None, index_kind: str = "memory"):
         if isinstance(directories, str):
             directories = [directories]
         max_volume_counts = max_volume_counts or [7] * len(directories)
-        self.locations = [DiskLocation(d, n)
+        self.locations = [DiskLocation(d, n, index_kind=index_kind)
                           for d, n in zip(directories, max_volume_counts)]
         self._codec = codec
         self.device = device

@@ -28,8 +28,21 @@ volume_loading.go, volume_checking.go, volume_vacuum.go):
   keep-local upload) is served locally. Either way the volume is
   readonly, so the remote copy cannot diverge.
 
-Left out: the native plane's write lease (``fast_writer``), the fsync
-knob, and every needle-map kind but ``memory``.
+The write lease: while ``fast_writer`` (a
+``server/native_plane.NativeWriter``, set and cleared under the volume
+lock by the owning server) is set, the native plane owns the .dat and
+.idx tails. Every append goes through it, its mirror is the index reads
+consult, and the needle map here is frozen until ``reload_nm`` replays
+the .idx the plane kept. An append the plane cannot vouch for (an I/O
+error, a poisoned group commit) takes the lease back and is retried on
+the Python path. Freezing the volume stops the plane's POSTs at once.
+
+``SW_PLANE_FSYNC_MODE`` (``util/config``) other than ``off``
+fdatasyncs the .dat and the .idx after each Python append, so an
+acknowledged write is as durable as the plane's group commit makes it.
+``index_kind`` is the needle map's kind (``memory`` or ``disk``,
+``storage/compact_map.load_needle_map``); the compact and sorted-file
+kinds are not ported.
 """
 
 from __future__ import annotations
@@ -39,10 +52,12 @@ import threading
 import time
 from typing import Optional
 
+from ..util import config
 from ..util.throttler import WriteThrottler
 from .backend import BackendError, RemoteFile, get_backend
 from .compact_map import load_needle_map, snapshot_live_items
 from .needle import CorruptNeedle, Needle, get_actual_size
+from .needle_map import NeedleValue
 from .super_block import (FLAG_5_BYTE_OFFSETS, SUPER_BLOCK_SIZE, SuperBlock)
 from .types import (NEEDLE_HEADER_SIZE, NEEDLE_PADDING_SIZE,
                     TOMBSTONE_FILE_SIZE, TTL, ReplicaPlacement,
@@ -76,10 +91,13 @@ class Volume:
     def __init__(self, dirname: str, collection: str, vid: int,
                  replica_placement: Optional[ReplicaPlacement] = None,
                  ttl: Optional[TTL] = None, create: bool = False,
-                 version: int = None, offset_width: int = 4):
+                 version: int = None, offset_width: int = 4,
+                 index_kind: str = "memory"):
         self.dir = dirname
         self.collection = collection or ""
         self.id = vid
+        self.index_kind = index_kind
+        self.fast_writer = None
         self.readonly = False
         self.lock = threading.RLock()
         self.last_modified = 0
@@ -116,7 +134,8 @@ class Volume:
         self.dat = open(self.dat_path, "r+b")
         try:
             self.check_integrity()
-            self.nm = load_needle_map(self.idx_path, self.offset_width)
+            self.nm = load_needle_map(self.idx_path, self.index_kind,
+                                  self.offset_width)
         except BaseException:
             self.dat.close()
             raise
@@ -148,7 +167,8 @@ class Volume:
         self.super_block = SuperBlock.from_bytes(
             self.dat.read(SUPER_BLOCK_SIZE))
         self.readonly = True
-        self.nm = load_needle_map(self.idx_path, self.offset_width)
+        self.nm = load_needle_map(self.idx_path, self.index_kind,
+                                  self.offset_width)
         self.last_modified = remote.get("modified_at", 0)
 
     # -- properties --------------------------------------------------------
@@ -165,20 +185,75 @@ class Volume:
     def file_name(self) -> str:
         return volume_file_prefix(self.dir, self.collection, self.id)
 
+    @property
+    def readonly(self) -> bool:
+        return self._readonly
+
+    @readonly.setter
+    def readonly(self, value: bool):
+        """Freezing stops the native plane's POSTs at once, whatever
+        froze the volume; thawing leaves that to the owning server (it
+        hands the lease out again)."""
+        self._readonly = value
+        if value and self.fast_writer is not None:
+            self.fast_writer.set_accept_posts(False)
+
+    def _writer_deltas(self):
+        """(puts, put_bytes, deletes, deleted_bytes, max_key) the native
+        writer appended since the needle map was last replayed."""
+        w = self.fast_writer
+        return w.counters()[:5] if w is not None else (0, 0, 0, 0, 0)
+
     def content_size(self) -> int:
-        return self.nm.content_size
+        return self.nm.content_size + self._writer_deltas()[1]
 
     def deleted_size(self) -> int:
-        return self.nm.deleted_size
+        return self.nm.deleted_size + self._writer_deltas()[3]
 
     def file_count(self) -> int:
-        return self.nm.file_counter
+        return self.nm.file_counter + self._writer_deltas()[0]
 
     def deleted_count(self) -> int:
-        return self.nm.deletion_counter
+        return self.nm.deletion_counter + self._writer_deltas()[2]
 
     def max_file_key(self) -> int:
-        return self.nm.maximum_file_key
+        return max(self.nm.maximum_file_key, self._writer_deltas()[4])
+
+    def _nv_get(self, nid: int):
+        """A needle's (offset, size): from the native writer's mirror
+        while the lease is out, else from the needle map."""
+        w = self.fast_writer
+        if w is None:
+            return self.nm.get(nid)
+        hit = w.lookup(nid)
+        return None if hit is None else NeedleValue(*hit)
+
+    def reload_nm(self):
+        """Replay the .idx into a fresh needle map (under the lock, once
+        the lease is back: the .idx the plane kept is the truth)."""
+        self.nm.close()
+        self.nm = load_needle_map(self.idx_path, self.index_kind,
+                                  self.offset_width)
+
+    def _demote_fast_writer(self):
+        """The plane could not vouch for an append: take the lease back,
+        replay the .idx and append on the Python path from here on
+        (caller holds the lock)."""
+        w, self.fast_writer = self.fast_writer, None
+        try:
+            w.release()
+        finally:
+            self.reload_nm()
+
+    def _durable_sync(self):
+        """fdatasync the .dat and the .idx unless SW_PLANE_FSYNC_MODE is
+        off: a Python append keeps the durability the plane's group
+        commit acknowledges under."""
+        mode = config.env_str("SW_PLANE_FSYNC_MODE") or "off"
+        if mode.strip().lower() == "off":
+            return
+        os.fdatasync(self.dat.fileno())
+        self.nm.sync()
 
     def size(self) -> int:
         with self.lock:
@@ -259,7 +334,7 @@ class Volume:
             self._reject_empty(n)
             # an overwrite must present the stored cookie (cookies stop
             # id guessing; reference volume_read_write.go)
-            existing = self.nm.get(n.id)
+            existing = self._nv_get(n.id)
             if existing is not None and existing.offset != 0 and \
                     existing.size != TOMBSTONE_FILE_SIZE and \
                     self._stored_cookie(existing.offset) != n.cookie:
@@ -274,6 +349,20 @@ class Volume:
                     n.set_last_modified()
             if not n.append_at_ns:
                 n.append_at_ns = time.time_ns()
+            if self.fast_writer is not None:
+                # the plane owns the tail: one append writes the .dat,
+                # the .idx and its mirror, and re-checks the ceiling and
+                # the cookie under its own mutex. OSError is ambiguity:
+                # the lease comes back and this append runs below (a
+                # duplicate record of unknown durability is harmless,
+                # the index points at the later one)
+                try:
+                    self.fast_writer.append(n.to_bytes(self.version), n.id,
+                                            n.size, cookie=n.cookie)
+                    self.last_modified = int(time.time())
+                    return n.size
+                except OSError:
+                    self._demote_fast_writer()
             offset = self.dat.seek(0, os.SEEK_END)
             if offset % NEEDLE_PADDING_SIZE:
                 offset += NEEDLE_PADDING_SIZE - offset % NEEDLE_PADDING_SIZE
@@ -294,6 +383,7 @@ class Volume:
                 raise
             if n.size > 0 or self.version == 1:
                 self.nm.put(n.id, offset, n.size)
+            self._durable_sync()
             self.last_modified = int(time.time())
             return n.size
 
@@ -311,7 +401,7 @@ class Volume:
         with self.lock:
             if self.readonly:
                 raise VolumeError(f"volume {self.id} is read only")
-            nv = self.nm.get(n.id)
+            nv = self._nv_get(n.id)
             if nv is None or nv.size == TOMBSTONE_FILE_SIZE:
                 return 0
             if self._stored_cookie(nv.offset) != n.cookie:
@@ -320,10 +410,21 @@ class Volume:
             freed = nv.size
             tomb = Needle(cookie=n.cookie, id=n.id, data=b"",
                           append_at_ns=time.time_ns())
+            if self.fast_writer is not None:
+                # write_needle's contract: OSError retries here
+                try:
+                    self.fast_writer.append(tomb.to_bytes(self.version),
+                                            n.id, TOMBSTONE_FILE_SIZE,
+                                            cookie=n.cookie)
+                    self.last_modified = int(time.time())
+                    return freed
+                except OSError:
+                    self._demote_fast_writer()
             self.nm.delete(n.id)
             self.dat.seek(0, os.SEEK_END)
             self.dat.write(tomb.to_bytes(self.version))
             self.dat.flush()
+            self._durable_sync()
             self.last_modified = int(time.time())
             return freed
 
@@ -332,7 +433,7 @@ class Volume:
         """Read by id (``n`` carries the id and cookie); checks the
         cookie, the CRC and the needle's TTL."""
         with self.lock:
-            nv = self.nm.get(n.id)
+            nv = self._nv_get(n.id)
             if nv is None or nv.offset == 0 or \
                     nv.size == TOMBSTONE_FILE_SIZE:
                 raise NotFound(f"needle {n.id} not found in volume {self.id}")
@@ -350,7 +451,7 @@ class Volume:
         """The flags byte of a stored needle from two small reads, no
         payload; 0 for v1 needles. NotFound if absent."""
         with self.lock:
-            nv = self.nm.get(n.id)
+            nv = self._nv_get(n.id)
             if nv is None or nv.offset == 0 or \
                     nv.size == TOMBSTONE_FILE_SIZE:
                 raise NotFound(
@@ -479,11 +580,12 @@ class Volume:
         with self.lock:
             new_sb, cpd, cpx, deleted_size = self._begin_compaction()
             end = self.size()
-            live = iter(snapshot_live_items(self.nm, by_offset=True))
+            snapshot = snapshot_live_items(self.nm, by_offset=True)
+            live = iter(snapshot)
 
         def walk():
             live_nid, live_nv = next(live, (None, None))
-            with open(self.dat_path, "rb") as src:
+            with snapshot, open(self.dat_path, "rb") as src:
                 offset = SUPER_BLOCK_SIZE
                 while offset + NEEDLE_HEADER_SIZE <= end:
                     src.seek(offset)
@@ -549,7 +651,8 @@ class Volume:
                 self.super_block = SuperBlock.from_bytes(
                     f.read(SUPER_BLOCK_SIZE))
             self.dat = open(self.dat_path, "r+b")
-            self.nm = load_needle_map(self.idx_path, self.offset_width)
+            self.nm = load_needle_map(self.idx_path, self.index_kind,
+                                  self.offset_width)
 
     def _makeup_diff(self, cpd: str, cpx: str):
         """Replay the .idx entries appended since the compaction's
@@ -589,12 +692,18 @@ class Volume:
     # -- lifecycle ---------------------------------------------------------
     def close(self):
         with self.lock:
+            # a lease still out is its owner's to revoke; no append lands
+            # here once the files close
+            self.fast_writer = None
             self.nm.close()
             self.dat.close()
 
     def destroy(self):
         self.close()
-        exts = [".dat", ".idx", ".cpd", ".cpx"]
+        # .ndb* is the -index disk checkpoint (and its WAL), derived
+        # from the .idx
+        exts = [".dat", ".idx", ".cpd", ".cpx", ".ndb", ".ndb-wal",
+                ".ndb-shm"]
         # the .vif is shared with the EC volume: keep it while an .ecx
         # (and so shards) remain, whose parity-only holders need it
         if not os.path.exists(self.file_name() + ".ecx"):

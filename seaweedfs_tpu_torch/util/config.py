@@ -1,0 +1,87 @@
+"""The SW_* environment knobs the port reads, with typed accessors.
+
+The JAX package's ``util/config.py`` registry, for the knobs of the
+native data plane only (names, types and defaults as there, so one
+``monkeypatch.setenv`` sets a knob for both packages):
+
+    SW_HTTP_PLANE_LIB           the plane's shared library, in place of
+                                the one built from csrc/http_plane.cc
+                                (it must exist when set)
+    SW_PLANE_STATS              the plane's counters, latency histogram
+                                and slow ring (on)
+    SW_PLANE_SLOW_US            the slow ring's threshold (10000 us)
+    SW_PLANE_CACHE_BYTES        the reconstructed-slab cache's budget
+                                (32 MiB; 0 sends every read through a
+                                lost shard to Python)
+    SW_PLANE_FSYNC_MODE         off | group | always: the durability of
+                                an acknowledged append, the plane's and
+                                the Python path's (off)
+    SW_PLANE_FSYNC_BATCH_US     a group commit's window (2000 us)
+    SW_PLANE_FSYNC_MAX_PENDING  riders that close a window early (512)
+
+A read of a name that is not registered, or as another type than its
+own, raises. The full registry (every knob of the JAX package) is not
+ported.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, NamedTuple, Optional
+
+
+class EnvKnob(NamedTuple):
+    name: str
+    kind: str
+    default: object
+
+
+KNOBS: Dict[str, EnvKnob] = {k.name: k for k in (
+    EnvKnob("SW_HTTP_PLANE_LIB", "str", None),
+    EnvKnob("SW_PLANE_STATS", "bool", True),
+    EnvKnob("SW_PLANE_SLOW_US", "int", 10000),
+    EnvKnob("SW_PLANE_CACHE_BYTES", "int", 32 << 20),
+    EnvKnob("SW_PLANE_FSYNC_MODE", "str", "off"),
+    EnvKnob("SW_PLANE_FSYNC_BATCH_US", "int", 2000),
+    EnvKnob("SW_PLANE_FSYNC_MAX_PENDING", "int", 512),
+)}
+
+_TRUTHY = ("1", "true", "yes", "on")
+
+
+def _lookup(name: str, kind: str):
+    knob = KNOBS.get(name)
+    if knob is None:
+        raise KeyError(f"env knob {name} is not registered")
+    if knob.kind != kind:
+        raise TypeError(f"env knob {name} is registered as {knob.kind}, "
+                        f"read as {kind}")
+    return os.environ.get(name), knob.default
+
+
+def env_str(name: str) -> Optional[str]:
+    raw, default = _lookup(name, "str")
+    return raw if raw is not None else default
+
+
+def env_int(name: str) -> Optional[int]:
+    raw, default = _lookup(name, "int")
+    if raw is None:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        return default
+
+
+def env_bool(name: str) -> bool:
+    raw, default = _lookup(name, "bool")
+    if raw is None:
+        return bool(default)
+    return raw.strip().lower() in _TRUTHY
+
+
+def env_is_set(name: str) -> bool:
+    """Whether the registered knob is set in the environment."""
+    _lookup(name, KNOBS[name].kind if name in KNOBS else "str")
+    return name in os.environ

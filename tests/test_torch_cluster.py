@@ -151,7 +151,7 @@ def new_server(kind, d, master_url, pulse, port=0):
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     return VolumeServer(port=port, directories=[d], master_url=master_url,
                         pulse_seconds=pulse, max_volume_counts=[30],
-                        device="cpu").start()
+                        device="cpu", fast_port=-1).start()
 
 
 def _named(text, names):

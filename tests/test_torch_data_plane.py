@@ -87,7 +87,7 @@ def servers(tmp_path, monkeypatch):
                           file_size_limit_mb=1).start()
     port = VolumeServer(port=0, directories=[str(tmp_path / "port")],
                         device="cpu", master_url=murl,
-                        file_size_limit_mb=1).start()
+                        file_size_limit_mb=1, fast_port=-1).start()
     yield ref, port, tmp_path
     port.stop()
     ref.stop()
@@ -318,7 +318,8 @@ def test_no_card_raises_unless_cpu(tmp_path):
         pytest.skip("this machine has a card")
     d = str(tmp_path / "v")
     rng = np.random.default_rng(5)
-    cpu = VolumeServer(port=0, directories=[d], device="cpu").start()
+    cpu = VolumeServer(port=0, directories=[d], device="cpu",
+                       fast_port=-1).start()
     try:
         for path in ("/admin/assign_volume?volume=3",
                      "/admin/assign_volume?volume=4"):
@@ -337,7 +338,8 @@ def test_no_card_raises_unless_cpu(tmp_path):
             assert _call(cpu.url, "POST", path)[0] == 200, path
     finally:
         cpu.stop()
-    card = VolumeServer(port=0, directories=[d]).start()   # device="cuda"
+    card = VolumeServer(port=0, directories=[d],
+                        fast_port=-1).start()   # device="cuda"
     try:
         assert _call(card.url, "POST",
                      "/admin/volume/readonly?volume=4")[0] == 200
@@ -351,7 +353,8 @@ def test_no_card_raises_unless_cpu(tmp_path):
         assert _call(card.url, "GET", "/4,0100000011")[2] == data
     finally:
         card.stop()
-    cpu = VolumeServer(port=0, directories=[d], device="cpu").start()
+    cpu = VolumeServer(port=0, directories=[d], device="cpu",
+                       fast_port=-1).start()
     try:
         assert _call(cpu.url, "GET", "/3,0100000011")[2] == data
         assert _call(cpu.url, "POST", "/admin/ec/rebuild?volume=3")[2][
@@ -392,7 +395,7 @@ def test_no_master_503_after_work_and_status(tmp_path, monkeypatch):
     ref = RefVolumeServer(port=0, directories=[dirs[0]], master_url=gone,
                           ec_backend="numpy", fast_port=-1).start()
     port = VolumeServer(port=0, directories=[dirs[1]], device="cpu",
-                        master_url=gone).start()
+                        master_url=gone, fast_port=-1).start()
     # the test configuration turns the JAX scrub's background pass off
     port.scrub.idle_s = ref.scrub.idle_s
     try:

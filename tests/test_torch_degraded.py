@@ -306,7 +306,8 @@ def test_remote_survivors_match_jax(tmp_path, layout, local):
     shutil.copytree(tmp_path / "mine", hdir)
     open(hdir / "1.ecx", "wb").close()
     lost = 3
-    holders = [VolumeServer(port=0, directories=[str(hdir)]).start()
+    holders = [VolumeServer(port=0, directories=[str(hdir)],
+                            fast_port=-1).start()
                for _ in range(2)]
     try:
         sids = (0, 2) if local == "mixed" else ()

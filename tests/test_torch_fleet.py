@@ -355,7 +355,7 @@ def test_observability_routes_answer_like_jax(tmp_path, monkeypatch):
         (MasterServer(port=0, pulse_seconds=60, seed=1,
                       repair_interval=0).start(),
          VolumeServer(port=0, directories=[dirs[1]], device="cpu",
-                      master_url="127.0.0.1:1").start())]
+                      master_url="127.0.0.1:1", fast_port=-1).start())]
 
     def call(url, method, path):
         host, p = url.split(":")

@@ -329,7 +329,7 @@ def _server(kind, d, master_url, port):
     return VolumeServer(port=port, directories=[d], master_url=master_url,
                         pulse_seconds=1, max_volume_counts=[30],
                         device="cpu", scrub_idle_s=0,
-                        scrub_rate_mbps=0).start()
+                        scrub_rate_mbps=0, fast_port=-1).start()
 
 
 _TIMING = ("last_pass_s", "last_pass_mbps", "last_pass_at", "volumes",
@@ -559,7 +559,8 @@ def _ec_volume_dir(root):
     from seaweedfs_tpu_torch.client.operation import upload
     d = str(root / "ec")
     os.makedirs(d)
-    vs = VolumeServer(port=0, directories=[d], device="cpu").start()
+    vs = VolumeServer(port=0, directories=[d], device="cpu",
+                      fast_port=-1).start()
     rng = np.random.default_rng(3)
     payloads = {}
     try:
@@ -594,9 +595,9 @@ def test_naive_degraded_reads_match_batch_and_jax(tmp_path,
         dirs[name] = str(tmp_path / name)
         shutil.copytree(src, dirs[name])
     naive = VolumeServer(port=0, directories=[dirs["naive"]], device="cpu",
-                         degraded_mode="naive").start()
+                         degraded_mode="naive", fast_port=-1).start()
     batch = VolumeServer(port=0, directories=[dirs["batch"]],
-                         device="cpu").start()
+                         device="cpu", fast_port=-1).start()
     ref = RefVS(port=0, directories=[dirs["ref"]],
                 master_url="127.0.0.1:1", ec_backend="numpy",
                 fast_port=-1).start()
@@ -620,7 +621,7 @@ def test_naive_degraded_reads_match_batch_and_jax(tmp_path,
         assert naive.degraded.snapshot()["reads"] == 0  # never the engine
         with pytest.raises(ValueError):
             VolumeServer(port=0, directories=[dirs["naive"]], device="cpu",
-                         degraded_mode="fast")
+                         degraded_mode="fast", fast_port=-1)
     finally:
         for vs in (naive, batch, ref):
             vs.stop()
@@ -687,7 +688,7 @@ def test_heartbeat_post_never_blocks_admin_routes(tmp_path):
     # post 1: start(); 2: a loop pulse, held; 3: the route's; 4+: held
     master = _StallingMaster(hold=[2] + list(range(4, 40)))
     vs = VolumeServer(port=0, directories=[str(tmp_path)], device="cpu",
-                      master_url=master.url, pulse_seconds=3600)
+                      master_url=master.url, pulse_seconds=3600, fast_port=-1)
     try:
         vs.start()
         assert master.answered == [1]
@@ -728,7 +729,7 @@ def test_late_heartbeat_leaves_no_ghost_volume(tmp_path):
     # post 1: start(); 2: assign_volume's, held; 3: delete_volume's
     proxy = _StallingMaster(hold=[2], forward=real.url)
     vs = VolumeServer(port=0, directories=[str(tmp_path)], device="cpu",
-                      master_url=proxy.url, pulse_seconds=3600)
+                      master_url=proxy.url, pulse_seconds=3600, fast_port=-1)
     assigned = {}
     try:
         vs.start()

@@ -123,10 +123,27 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/storage/backend.py",
                  "seaweedfs_tpu_torch/storage/volume_tier.py",
                  "seaweedfs_tpu_torch/server/tiering.py",
+                 "seaweedfs_tpu_torch/util/config.py",
+                 "seaweedfs_tpu_torch/server/native_plane.py",
+                 "seaweedfs_tpu_torch/client/chunked.py",
+                 "seaweedfs_tpu_torch/storage/needle_map_disk.py",
+                 "seaweedfs_tpu_torch/query/json_query.py",
+                 "seaweedfs_tpu_torch/images/resizing.py",
                  "chip_smoke.py"):
         assert want in names
-    for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc"):
+    for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc",
+                   "http_plane.cc", "loadgen.cc"):
         assert (ROOT / "seaweedfs_tpu_torch/csrc" / source).exists()
+
+
+@pytest.mark.parametrize("path", _port_files() + sorted(
+    (ROOT / "seaweedfs_tpu_torch/csrc").iterdir()),
+    ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_port_file_names_the_jax_plane(path):
+    """The port builds and loads its own plane: no file of it names the
+    JAX package's (its sources, library or load generator)."""
+    assert "seaweedfs_tpu/server/native" not in path.read_text(
+        encoding="utf-8")
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -331,7 +348,7 @@ def test_network_repair_with_jax_unimportable(tmp_path):
                        small_block=4 << 10, slab=8 << 10)
         open(base + ".ecx", "wb").close()
         want = open(base + to_ext(6), "rb").read()
-        vs = VolumeServer(port=0, directories=[hdir]).start()
+        vs = VolumeServer(port=0, directories=[hdir], fast_port=-1).start()
         try:
             stats = {{}}
             got = Store([sdir], codec=codec).rebuild_ec_shards_streaming(
@@ -388,9 +405,9 @@ def test_streaming_spread_with_jax_unimportable(tmp_path):
         codec = TorchCodec(10, 4, device="cpu")
         write_ec_files(os.path.join(odir, "1"), codec=codec)
         source = VolumeServer(port=0, directories=[src], device="cpu",
-                              codec=codec).start()
+                              codec=codec, fast_port=-1).start()
         holder = VolumeServer(port=0, directories=[hdir],
-                              device="cpu").start()
+                              device="cpu", fast_port=-1).start()
         try:
             post = lambda url, body=None: json.loads(http_call(
                 "POST", "http://" + url, body))
@@ -445,7 +462,7 @@ def test_data_plane_with_jax_unimportable(tmp_path):
             HttpError, http_call, post_multipart)
         from seaweedfs_tpu_torch.server.volume_server import VolumeServer
         vs = VolumeServer(port=0, directories=[{str(tmp_path / "d")!r}],
-                          device="cpu").start()
+                          device="cpu", fast_port=-1).start()
         post = lambda t: json.loads(http_call("POST", "http://" + vs.url + t))
         try:
             assert post("/admin/assign_volume?volume=3") == {{"volume": 3}}
@@ -522,7 +539,8 @@ def test_cluster_with_jax_unimportable(tmp_path):
         servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
                                 master_url=m.url, pulse_seconds=1,
                                 max_volume_counts=[20],
-                                device="cpu").start() for i in range(3)]
+                                device="cpu",
+                                fast_port=-1).start() for i in range(3)]
 
         def shell(line):
             out = io.StringIO()
@@ -640,7 +658,7 @@ def test_ha_cluster_with_jax_unimportable(tmp_path):
         servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
                                 master_url=seeds, pulse_seconds=1,
                                 max_volume_counts=[20], device="cpu",
-                                jwt_signing_key="k").start()
+                                jwt_signing_key="k", fast_port=-1).start()
                    for i in range(3)]
 
         def shell(master, line):
@@ -735,7 +753,8 @@ def test_volume_control_plane_with_jax_unimportable(tmp_path):
         servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
                                 master_url=m.url, pulse_seconds=1,
                                 max_volume_counts=[20],
-                                device="cpu").start() for i in range(3)]
+                                device="cpu",
+                                fast_port=-1).start() for i in range(3)]
 
         def shell(line):
             for vs in servers:
@@ -826,14 +845,18 @@ def test_integrity_with_jax_unimportable(tmp_path):
         from seaweedfs_tpu_torch.shell import CommandEnv, run_command
         from seaweedfs_tpu_torch.util.profiling import annotate, maybe_trace
         root = {str(tmp_path)!r}
+        # no at-risk advisories: the health fold scores holders by their
+        # read latencies, and on a loaded host it opens advisories that
+        # cluster.repairs below would count as open incidents
         m = MasterServer(port=0, pulse_seconds=1, seed=1,
-                         repair_interval=0.2).start()
+                         repair_interval=0.2, at_risk_score=0).start()
         servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
                                 master_url=m.url, pulse_seconds=1,
                                 max_volume_counts=[20], device="cpu",
                                 scrub_idle_s=0, scrub_rate_mbps=0,
                                 degraded_mode="naive" if i == 2
-                                else "batch").start() for i in range(3)]
+                                else "batch",
+                                fast_port=-1).start() for i in range(3)]
 
         def shell(line):
             out = io.StringIO()
@@ -1037,7 +1060,8 @@ def test_observability_with_jax_unimportable(tmp_path):
         servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
                                 master_url=m.url, pulse_seconds=1,
                                 max_volume_counts=[20],
-                                device="cpu").start() for i in range(2)]
+                                device="cpu",
+                                fast_port=-1).start() for i in range(2)]
 
         def shell(line):
             out = io.StringIO()
@@ -1125,7 +1149,8 @@ def test_tiering_with_jax_unimportable(tmp_path):
         servers = [VolumeServer(port=0, directories=[root + "/v%d" % i],
                                 master_url=m.url, pulse_seconds=1,
                                 max_volume_counts=[20],
-                                device="cpu").start() for i in range(2)]
+                                device="cpu",
+                                fast_port=-1).start() for i in range(2)]
 
         def shell(line):
             for vs in servers:
@@ -1185,6 +1210,100 @@ def test_tiering_with_jax_unimportable(tmp_path):
                 vs.stop()
             m.stop()
         assert sys.modules["seaweedfs_tpu_torch.ops.rs_hopper"]._lib is None
+        assert not any(mod.split(".")[0] in {FORBIDDEN!r}
+                       for mod, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_native_data_plane_with_jax_unimportable(tmp_path):
+    """A port master and a port VolumeServer on the CPU with its native
+    plane and ``-index disk``: a file stored as chunks and a manifest
+    (``cm=``) read whole and by Range; JSON needles written through the
+    plane and queried (``/query``); the volume encoded and a shard lost,
+    a cold GET through the plane reconstructed and a warm one served in
+    the plane; the .ndb checkpoint there."""
+    script = textwrap.dedent(f"""
+        import json, os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import http.client
+        import numpy as np
+        from seaweedfs_tpu_torch.client import chunked
+        from seaweedfs_tpu_torch.server.http_util import (http_call,
+                                                          post_multipart)
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        root = {str(tmp_path)!r}
+        m = MasterServer(port=0, pulse_seconds=1, seed=1,
+                         repair_interval=0).start()
+        vs = VolumeServer(port=0, directories=[root + "/v"],
+                          master_url=m.url, pulse_seconds=1,
+                          max_volume_counts=[20], device="cpu",
+                          index_kind="disk").start()
+
+        def raw_get(path):
+            c = http.client.HTTPConnection(*vs.fast_url.split(":"))
+            c.request("GET", path)
+            r = c.getresponse()
+            out = r.status, r.read()
+            c.close()
+            return out
+
+        try:
+            assert vs.fast_plane is not None
+            data = np.random.default_rng(1).bytes(50_000)
+            fid = chunked.submit_chunked(m.url, data, filename="f",
+                                         chunk_size=20_000)
+            assert http_call("GET", "http://%s/%s" % (vs.fast_url, fid)) \
+                == data
+            assert http_call("GET", "http://%s/%s" % (vs.url, fid),
+                             headers={{"Range": "bytes=19990-20009"}}) == \
+                data[19990:20010]
+            http_call("POST", "http://%s/admin/assign_volume?volume=9"
+                      % vs.url)
+            bodies = {{}}
+            for i in range(6):
+                rows = [json.dumps({{"id": i * 1000 + j, "v": j % 97}})
+                        for j in range(12_000)]
+                body = ("\\n".join(rows) + "\\n").encode()
+                f = "9,%x1234abcd" % (i + 1)
+                post_multipart("http://%s/%s" % (vs.fast_url, f), "q", body)
+                bodies[f] = body
+            assert vs.fast_plane.written >= 6
+            assert os.path.exists(root + "/v/9.ndb")
+            ask = json.dumps({{"fids": list(bodies),
+                               "sql": "SELECT id FROM t WHERE v = 96"}})
+            before = http_call("POST", "http://%s/query" % vs.url,
+                               ask.encode())
+            assert before.count(b"\\n") == 6 * 123
+            for route in ("volume/readonly", "ec/generate"):
+                http_call("POST", "http://%s/admin/%s?volume=9"
+                          % (vs.url, route))
+            http_call("POST", "http://%s/admin/ec/mount?volume=9&shards=%s"
+                      % (vs.url, ",".join(map(str, range(14)))))
+            http_call("POST", "http://%s/admin/delete_volume?volume=9"
+                      % vs.url)
+            http_call("POST", "http://%s/admin/ec/delete_shards?volume=9"
+                      "&shards=0" % vs.url)
+            assert http_call("POST", "http://%s/query" % vs.url,
+                             ask.encode()) == before
+            f = "9,11234abcd"
+            assert http_call("GET", "http://%s/%s" % (vs.fast_url, f)) \
+                == bodies[f]
+            served = vs.fast_plane.cache_stats()["degraded_served"]
+            assert raw_get("/" + f) == (200, bodies[f])
+            assert vs.fast_plane.cache_stats()["degraded_served"] > served
+        finally:
+            vs.stop()
+            m.stop()
         assert not any(mod.split(".")[0] in {FORBIDDEN!r}
                        for mod, v in sys.modules.items() if v is not None)
         print("PORT-OK")

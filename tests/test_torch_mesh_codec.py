@@ -322,7 +322,7 @@ def test_volume_server_mesh_backend_matches_jax(tmp_path):
                           fast_port=-1).start()
     port = VolumeServer(port=0, directories=[str(tmp_path / "port")],
                         master_url=murl, ec_backend="mesh",
-                        mesh=make_codec_mesh(CPU8)).start()
+                        mesh=make_codec_mesh(CPU8), fast_port=-1).start()
     try:
         assert isinstance(port.store.codec, MeshCodec)
         all14 = ",".join(map(str, range(14)))
@@ -363,7 +363,8 @@ def test_volume_server_cli_mesh_backend(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "seaweedfs_tpu_torch.server.volume_server",
          "--dir", str(tmp_path / "cli"), "--port", "0", "--device", "cpu",
-         "--ec.backend", "mesh", "--mesh.devices", "cpu,cpu"],
+         "--ec.backend", "mesh", "--mesh.devices", "cpu,cpu",
+         "-fastPort", "-1"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         env=env)

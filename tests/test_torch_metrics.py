@@ -90,8 +90,7 @@ def test_malformed_exposition_raises_in_both(text):
             m.parse_prometheus_text(text)
 
 
-LEFT_OUT = ("SeaweedFS_volumeServer_plane_",
-            "SeaweedFS_volumeServer_fast_plane_", "SeaweedFS_filer_")
+LEFT_OUT = ("SeaweedFS_filer_",)
 
 
 @pytest.mark.parametrize("gather", ["MASTER_GATHER", "VOLUME_SERVER_GATHER"])

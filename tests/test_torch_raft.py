@@ -541,7 +541,7 @@ def ha_port(tmp_path, monkeypatch):
                             master_url=seeds, pulse_seconds=1,
                             max_volume_counts=[10], device="cpu",
                             jwt_signing_key=KEY,
-                            whitelist=["127.0.0.1"]).start()
+                            whitelist=["127.0.0.1"], fast_port=-1).start()
                for i in range(2)]
     yield masters, leader, servers, acts
     for vs in servers:
@@ -831,7 +831,7 @@ def test_master_cli_raft_guard_and_etcd_flags(tmp_path):
         vs = VolumeServer(port=0, directories=[str(tmp_path / "v")],
                           master_url=seeds, pulse_seconds=1,
                           max_volume_counts=[10], device="cpu",
-                          jwt_signing_key=KEY).start()
+                          jwt_signing_key=KEY, fast_port=-1).start()
         follower = next(f"127.0.0.1:{p}" for p in ports[:3]
                         if f"127.0.0.1:{p}" != leader())
         assert wait_until(lambda: len(get_json(
@@ -847,7 +847,7 @@ def test_master_cli_raft_guard_and_etcd_flags(tmp_path):
         vs2 = VolumeServer(port=0, directories=[str(tmp_path / "v2")],
                            master_url=f"127.0.0.1:{ports[3]}",
                            pulse_seconds=1, max_volume_counts=[10],
-                           device="cpu").start()
+                           device="cpu", fast_port=-1).start()
         try:
             fid = op.assign(f"127.0.0.1:{ports[3]}")["fid"]
         finally:

@@ -255,7 +255,8 @@ def holders(tmp_path_factory):
     ref = RefVolumeServer(port=0, directories=[str(root / "ref")],
                           master_url="127.0.0.1:1", ec_backend="numpy",
                           fast_port=-1).start()
-    port = VolumeServer(port=0, directories=[str(root / "port")]).start()
+    port = VolumeServer(port=0, directories=[str(root / "port")],
+                        fast_port=-1).start()
     yield ref, port, shards, root
     port.stop()
     ref.stop()

@@ -315,7 +315,7 @@ def test_remote_survivors_match_jax(tmp_path, layout):
     hdir = tmp_path / "holder"
     shutil.copytree(tmp_path / "ref", hdir)
     open(hdir / "1.ecx", "ab").close()
-    vs = VolumeServer(port=0, directories=[str(hdir)]).start()
+    vs = VolumeServer(port=0, directories=[str(hdir)], fast_port=-1).start()
     holder["url"] = vs.url
     try:
         width = W if layout == "flat" else PB_W

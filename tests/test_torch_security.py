@@ -148,7 +148,7 @@ def _secured(kind, root, whitelist=()):
         from seaweedfs_tpu_torch.client import operation as op
         from seaweedfs_tpu_torch.server.master import MasterServer
         from seaweedfs_tpu_torch.server.volume_server import VolumeServer
-        skw = {"device": "cpu"}
+        skw = {"device": "cpu", "fast_port": -1}
         mkw = {"seed": 1}
     master = MasterServer(port=0, volume_size_limit_mb=64, pulse_seconds=1,
                           jwt_signing_key=KEY, whitelist=whitelist,
@@ -251,9 +251,11 @@ def test_volume_server_whitelist(tmp_path):
     from seaweedfs_tpu_torch.server.http_util import HttpError, get_json
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     shut = VolumeServer(port=0, directories=[str(tmp_path / "a")],
-                        device="cpu", whitelist=["10.0."]).start()
+                        device="cpu", whitelist=["10.0."],
+                        fast_port=-1).start()
     open_ = VolumeServer(port=0, directories=[str(tmp_path / "b")],
-                         device="cpu", whitelist=["127.0.0.0/8"]).start()
+                         device="cpu", whitelist=["127.0.0.0/8"],
+                         fast_port=-1).start()
     try:
         with pytest.raises(HttpError) as e:
             get_json(f"http://{shut.url}/status")

@@ -107,7 +107,7 @@ def _push_threads():
 
 def _port_holder(directory):
     return VolumeServer(port=0, directories=[str(directory)],
-                        device="cpu").start()
+                        device="cpu", fast_port=-1).start()
 
 
 # -- the spread, both packages, byte for byte --------------------------------
@@ -423,7 +423,7 @@ def servers(tmp_path):
                           master_url="127.0.0.1:1", ec_backend="numpy",
                           fast_port=-1, max_volume_counts=[5]).start()
     port = VolumeServer(port=0, directories=[str(tmp_path / "port")],
-                        device="cpu").start()
+                        device="cpu", fast_port=-1).start()
     yield ref, port
     port.stop()
     ref.stop()
@@ -588,7 +588,7 @@ def test_generate_copy_mount_matches_jax(tmp_path, layout, monkeypatch):
 
     source = VolumeServer(port=0, directories=[str(tmp_path / "src")],
                           device="cpu", codec=TorchCodec(k, m, device="cpu"),
-                          layout=layout).start()
+                          layout=layout, fast_port=-1).start()
     holders = {n: _port_holder(tmp_path / f"h{n}") for n in "ab"}
     place = {0: source.url, 1: source.url}
     place.update({sid: holders["a"].url for sid in (2, 3, 4)})
@@ -656,7 +656,7 @@ def test_generate_local_and_errors_match_jax(tmp_path, monkeypatch):
                           master_url="127.0.0.1:1", ec_backend="numpy",
                           fast_port=-1).start()
     port = VolumeServer(port=0, directories=[str(tmp_path / "port")],
-                        device="cpu").start()
+                        device="cpu", fast_port=-1).start()
     try:
         seen = {}
         for name, vs in (("ref", ref), ("port", port)):
@@ -704,7 +704,8 @@ def test_generate_failure_leaves_nothing(tmp_path):
     tgt.fail_after = 1       # acks shard 4's run, then dies
     source = VolumeServer(port=0, directories=[str(tmp_path / "src")],
                           device="cpu",
-                          codec=TorchCodec(k, m, device="cpu")).start()
+                          codec=TorchCodec(k, m, device="cpu"),
+                          fast_port=-1).start()
     try:
         assert _post(source.url, "/admin/volume/readonly?volume=1")[0] == 200
         status, out = _post(source.url, "/admin/ec/generate?volume=1",

@@ -101,7 +101,7 @@ def cluster(tmp_path_factory):
     for name, sids in list(HOLDS.items()) + [("old", range(TOTAL))]:
         _holder_dir(src, os.path.join(root, name), sids)
         servers[name] = VolumeServer(port=0, directories=[
-            os.path.join(root, name)]).start()
+            os.path.join(root, name)], fast_port=-1).start()
     # an old holder: the shard and file routes, no repair routes
     router = servers["old"].server.router
     router.routes = [r for r in router.routes

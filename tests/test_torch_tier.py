@@ -483,7 +483,7 @@ def test_volume_server_tier_config_flag(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "seaweedfs_tpu_torch.server.volume_server",
          "--dir", str(tmp_path / "vol"), "--port", "0", "--device", "cpu",
-         "--scrub-idle-s", "0", "-tierConfig", str(cfg)],
+         "--scrub-idle-s", "0", "-tierConfig", str(cfg), "-fastPort", "-1"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         env=env)

@@ -318,7 +318,8 @@ def _servers(tmp_path, root_files):
         dirs.append(str(d))
     ref = RefServer(port=0, directories=[dirs[0]], master_url="127.0.0.1:1",
                     ec_backend="numpy", fast_port=-1).start()
-    port = VolumeServer(port=0, directories=[dirs[1]], device="cpu").start()
+    port = VolumeServer(port=0, directories=[dirs[1]], device="cpu",
+                        fast_port=-1).start()
     return ref, port
 
 
@@ -405,7 +406,8 @@ def _port_cluster(tmp_path, n=1, **master_kwargs):
                      **master_kwargs).start()
     servers = [VolumeServer(port=0, directories=[str(tmp_path / f"v{i}")],
                             master_url=m.url, pulse_seconds=1,
-                            max_volume_counts=[10], device="cpu").start()
+                            max_volume_counts=[10], device="cpu",
+                            fast_port=-1).start()
                for i in range(n)]
     return m, servers
 
@@ -513,7 +515,9 @@ def test_ttl_reap_by_the_loop_only(tmp_path, monkeypatch):
         threading.Thread(target=m._vacuum_loop, daemon=True).start()
         assert wait_until(lambda: vs.store.find_volume(vid) is None,
                           timeout=10), "the loop never reaped the volume"
-        assert _status(f"http://{m.url}/dir/lookup?volumeId={vid}") == 404
+        # the holder's heartbeat after the delete tells the master
+        assert wait_until(lambda: _status(
+            f"http://{m.url}/dir/lookup?volumeId={vid}") == 404, timeout=10)
         assert sorted(vs.store.locations[0].volumes) == \
             [v for v in grown if v != vid]
     finally:
@@ -957,7 +961,8 @@ def _live_backup(kind, tmp_path):
                               repair_interval=0).start()
         vs = VolumeServer(port=0, directories=[str(tmp_path / "srv")],
                           master_url=master.url, pulse_seconds=1,
-                          max_volume_counts=[10], device="cpu").start()
+                          max_volume_counts=[10], device="cpu",
+                          fast_port=-1).start()
     tools = _mods(kind).tools
     try:
         fids = [op.upload_data(master.url, f"payload-{i}".encode() * 50,
@@ -1018,7 +1023,8 @@ def test_master_cli_flags(tmp_path):
         m = SimpleNamespace(url=murl)
         vs = VolumeServer(port=0, directories=[str(tmp_path / "v")],
                           master_url=murl, pulse_seconds=1,
-                          max_volume_counts=[10], device="cpu").start()
+                          max_volume_counts=[10], device="cpu",
+                          fast_port=-1).start()
         vid, _, _ = _garbage(m, [vs])
         v = vs.store.find_volume(vid)
         assert wait_until(lambda: v.garbage_level() == 0.0, timeout=15), \
