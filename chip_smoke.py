@@ -57,7 +57,7 @@
    (n, 8k) and passed transposed (column-major B), and torch.matmul of
    the same in bf16.
 5. Drives the main path through the port's entry points: writes a
-   seeded 1 GiB volume (.dat with a real superblock, plus a matching
+   seeded VOLUME_BYTES volume (.dat with a real superblock, a matching
    .idx), builds the .ecx with write_sorted_file_from_idx, encodes it
    with write_ec_files on the default codec (cuda, pipelined), deletes
    data shards 0-3 and rebuilds, then deletes a seeded 4 of the 14 and
@@ -160,7 +160,7 @@
    shard must be sha256-identical at its holder to the local encode of
    the same layout, no .part left anywhere, 12 shards remote, sends only
    to the assigned holders, spread_bytes 14 x shard, exactly 12 x shard
-   (1,296,039,936 B at 1 GiB) in the holders' files, which started
+   in the holders' files, which started
    empty, and every assigned shard mounted. Prints the leg's wall,
    encode_busy_s, spread_busy_s, overlap_frac, peak_spread_buffer and
    blocked_s (stream_s - encode_busy_s) on a line of its own.
@@ -289,7 +289,7 @@
    firing inside the leg would race its commands).
 
 15. The integrity plane of a port cluster, after step 14, on the main
-   1 GiB volume (its .dat and .idx hard-linked into A's directory before
+   volume (its .dat and .idx hard-linked into A's directory before
    A starts): an in-process MasterServer with a repair loop every
    INTEGRITY_REPAIR_S, A in-process on the card, B and C as processes on
    the card (INTEGRITY_SLOTS: B the freest, so the shell puts shard 0 on
@@ -332,7 +332,7 @@
    K1 launches by server, the fleet scrape) as JSON.
 
 16. The multi-device tier, after step 15 and before the decode leg
-   rewrites the .dat, on the main 1 GiB volume. Two
+   rewrites the .dat, on the main volume. Two
    rank processes start first (each one position on the card, joined
    over gloo: NCCL refuses two ranks on one device, and the smoke prints
    that reason) and wait while (a) and (b) run. (a) MeshCodec over
@@ -428,6 +428,34 @@
    riders, cold and warm p50/p99, K1 launches and cache hits, then the
    step's numbers as JSON.
 
+20. The filer and the S3 gateway, after step 18 (s3_leg): the stack a
+   user starts, python3 -m seaweedfs_tpu_torch.command.cli server -filer
+   -s3 -s3Config <iam.json> -tierConfig <tier.json> -ec.backend cuda in a
+   process of its own (S3Stack, spawned before step 14 so that its
+   start-up overlaps it) on free ports, its volume server on the card
+   with its native plane, its master's repair loop off
+   (SW_REPAIR_INTERVAL_S=0). (b) With one IAM identity and the port's
+   SigV4 signer: a bucket, S3_OBJECTS objects of S3_MIN–S3_MAX from a
+   plan seeded by --seed (about S3_BYTES), a multipart upload of
+   S3_PARTS, a CopyObject, ListObjectsV2 by prefix and delimiter, HEAD, a
+   ranged GET across a part's edge and DeleteObjects of S3_DELETED keys:
+   every ETag the body's MD5 (the multipart form for the upload), every
+   GET sha256-identical, a deleted key 404 NoSuchKey, and the filer's own
+   GET /buckets/<bucket>/<key> the same bytes. (c) ec.encode of every
+   volume of the bucket's collection (the port shell), then the shard
+   that the most objects' needles cross (from each .ecx, ec/locate)
+   removed and unmounted; every object GET again, cold then warm: K1's
+   launches in the stack's process (its /admin/devices) over the cold
+   pass > 0 and equal to the degraded engine's device dispatches. (d)
+   ec.rebuild: the shard sha256-identical to the lost one, every object
+   again. (e) A small sealed volume onto the s3 tier whose endpoint is
+   the stack's own gateway (volume.tier.upload -dest s3.self), its
+   needles read remotely, downloaded back, every byte equal. SIGTERM then
+   exit 0. Prints PUT and GET MB/s and p50/p99 (healthy, cold, warm), the
+   objects crossing the lost shard (and by at least S3_MIN), K1 launches
+   by phase, the plane's redirects and slab-cache hits, and the step's
+   numbers as JSON.
+
 Every leg runs with every kernel's launch count (ops/device_stats) set
 to 0 just before it and read just after; a leg of steps 5-8 and 10-19
 whose K1 launches in this process differ from its dispatches (two for a
@@ -452,8 +480,10 @@ import itertools
 import json
 import math
 import os
+import queue
 import select
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -463,7 +493,7 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-VOLUME_BYTES = 1 << 30      # BASELINE.json config 1 (30 GB default cut)
+VOLUME_BYTES = 512 << 20    # BASELINE.json config 1 (30 GB default cut)
 MAIN_N = 8 << 20            # main-path slab width (encoder DEFAULT_SLAB)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 L2_BYTES = 50 << 20         # H100 SXM L2
@@ -3055,6 +3085,18 @@ class VolumeProcesses(ServerProcesses):
         return self
 
 
+def _free_ports(n):
+    """``n`` distinct ports free on 127.0.0.1 just now."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
 def _wait_for(what, pred, timeout):
     """Poll ``pred`` every 50 ms until it holds; seconds waited, or fail
     after ``timeout``."""
@@ -3111,7 +3153,52 @@ def _plain_card_codec(np, ec):
     return PlainCardCodec(ec.DATA_SHARDS, ec.PARITY_SHARDS)
 
 
-def cluster_leg(np, port, work, seed):
+def cluster_servers(np, work, seed):
+    """Step 14's raft group of CLUSTER_MASTERS in-process masters (no
+    repair, vacuum or maintenance loop: one firing inside the leg would
+    race its commands), a leader elected, volume server A in-process on
+    the card and B spawned as a process, both given the masters with the
+    leader first; run() calls it with step 16's ranks, so that B's
+    start-up overlaps steps 16 to 19. Returns what cluster_leg takes as
+    ``early``."""
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    jwt_key = np.random.default_rng(seed).bytes(16).hex()
+    ports = _free_ports(CLUSTER_MASTERS)
+    peers = ",".join(f"127.0.0.1:{p}" for p in ports)
+    raft_dir = os.path.join(work, "cluster-raft")
+    masters = [MasterServer(port=p, pulse_seconds=CLUSTER_PULSE_S,
+                            seed=seed + i, repair_interval=0,
+                            vacuum_interval=0, peers=peers,
+                            raft_dir=raft_dir, jwt_signing_key=jwt_key,
+                            whitelist=["127.0.0.1"]).start()
+               for i, p in enumerate(ports)]
+    elect_s = _wait_for("a raft leader", lambda: _raft_leader(masters),
+                        ELECTION_WAIT_S)
+    leader = _raft_leader(masters)
+    follower, other = [m for m in masters if m is not leader]
+    # the leader first: a server's location map is bound to its first seed
+    seeds = ",".join([leader.url, follower.url, other.url])
+    print(f"cluster: {CLUSTER_MASTERS} masters in a raft group, leader "
+          f"{leader.url} elected in {elect_s:.3f} s; clients and the shell "
+          f"through the follower {follower.url}; write JWTs and the "
+          f"whitelist 127.0.0.1 on every master and server")
+    d_a = os.path.join(work, "cluster-A")
+    os.makedirs(d_a)
+    a = VolumeServer(port=0, directories=[d_a], device="cuda",
+                     master_url=seeds, pulse_seconds=CLUSTER_PULSE_S,
+                     max_volume_counts=[CLUSTER_SLOTS["A"]],
+                     scrub_idle_s=0, jwt_signing_key=jwt_key,
+                     whitelist=["127.0.0.1"], fast_port=-1).start()
+    procs = VolumeProcesses(work, seeds, args=(
+        "--jwt-key", jwt_key, "--whitelist", "127.0.0.1"))
+    procs.spawn_all(["B"])
+    return {"jwt_key": jwt_key, "masters": masters, "leader": leader,
+            "follower": follower, "raft_dir": raft_dir, "d_a": d_a, "a": a, "procs": procs,
+            "elect_s": round(elect_s, 3)}
+
+
+def cluster_leg(np, port, work, seed, early=None):
     """A port cluster on 127.0.0.1, end to end, through the entry points
     its users call: CLUSTER_MASTERS in-process MasterServers in a raft
     group (pulse CLUSTER_PULSE_S, seeded, write tokens, the whitelist),
@@ -3165,8 +3252,6 @@ def cluster_leg(np, port, work, seed):
     from seaweedfs_tpu_torch.server.http_util import (HttpError, get_json,
                                                       http_call, post_json,
                                                       post_multipart)
-    from seaweedfs_tpu_torch.server.master import MasterServer
-    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
     from seaweedfs_tpu_torch.storage import crc, volume_backup
     from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
     from seaweedfs_tpu_torch.storage.types import (CURRENT_VERSION,
@@ -3186,52 +3271,20 @@ def cluster_leg(np, port, work, seed):
                           telemetry.delta(before)["dispatches"])
         return out
 
-    # a raft group of masters; no repair loop (the killed holder's shards
-    # are ec.rebuild's), no vacuum loop and no maintenance scripts: a loop
-    # firing inside the leg would race its own commands
-    jwt_key = np.random.default_rng(seed).bytes(16).hex()
+    if early is None:
+        early = cluster_servers(np, work, seed)
+    (jwt_key, masters, leader, follower, raft_dir, d_a, a, procs) = (
+        early[k] for k in ("jwt_key", "masters", "leader", "follower",
+                           "raft_dir", "d_a", "a", "procs"))
+    live_masters = list(masters)
     issued = []    # every file key assigned before the failover
+    # clients and the shell go through a follower: every call forwarded
+    murl = follower.url
+    numbers["elect_s"] = early["elect_s"]
 
     def key_of(fid):
         return parse_file_id(fid)[1]
 
-    socks = [socket.socket() for _ in range(CLUSTER_MASTERS)]
-    for sk in socks:
-        sk.bind(("127.0.0.1", 0))
-    ports = [sk.getsockname()[1] for sk in socks]
-    for sk in socks:
-        sk.close()
-    peers = ",".join(f"127.0.0.1:{p}" for p in ports)
-    raft_dir = os.path.join(work, "cluster-raft")
-    masters = [MasterServer(port=p, pulse_seconds=CLUSTER_PULSE_S,
-                            seed=seed + i, repair_interval=0,
-                            vacuum_interval=0, peers=peers,
-                            raft_dir=raft_dir, jwt_signing_key=jwt_key,
-                            whitelist=["127.0.0.1"]).start()
-               for i, p in enumerate(ports)]
-    live_masters = list(masters)
-    elect_s = _wait_for("a raft leader",
-                        lambda: _raft_leader(live_masters),
-                        ELECTION_WAIT_S)
-    leader = _raft_leader(live_masters)
-    follower, other = [m for m in masters if m is not leader]
-    # clients and the shell go through a follower: every call forwarded
-    murl = follower.url
-    seeds = ",".join([leader.url, follower.url, other.url])
-    numbers["elect_s"] = round(elect_s, 3)
-    print(f"cluster: {CLUSTER_MASTERS} masters in a raft group, leader "
-          f"{leader.url} elected in {elect_s:.3f} s; clients and the shell "
-          f"through the follower {murl}; write JWTs and the whitelist "
-          f"127.0.0.1 on every master and server")
-    d_a = os.path.join(work, "cluster-A")
-    os.makedirs(d_a)
-    a = VolumeServer(port=0, directories=[d_a], device="cuda",
-                     master_url=seeds, pulse_seconds=CLUSTER_PULSE_S,
-                     max_volume_counts=[CLUSTER_SLOTS["A"]],
-                     scrub_idle_s=0, jwt_signing_key=jwt_key,
-                     whitelist=["127.0.0.1"], fast_port=-1).start()
-    procs = VolumeProcesses(work, seeds, args=(
-        "--jwt-key", jwt_key, "--whitelist", "127.0.0.1"))
     ref_dir = os.path.join(work, "cluster-reference")
     bk_dir = os.path.join(work, "cluster-backup")
 
@@ -3270,7 +3323,7 @@ def cluster_leg(np, port, work, seed):
 
     try:
         t0 = time.perf_counter()
-        procs.start(["B"])
+        procs.wait_listening(["B"])
         urls = {"A": a.url, "B": procs.urls["B"]}
         _wait_for("A and B registered", lambda: nodes() == set(
             urls.values()), HOLDER_START_S)
@@ -4766,10 +4819,7 @@ class Ranks:
 
     def __init__(self, work):
         self.log = os.path.join(work, "rank{}.log")
-        s = socket.socket()
-        s.bind(("127.0.0.1", 0))
-        self.coord = f"127.0.0.1:{s.getsockname()[1]}"
-        s.close()
+        self.coord = f"127.0.0.1:{_free_ports(1)[0]}"
         self.procs = [subprocess.Popen(
             [sys.executable, "-c", _RANK, self.coord, str(r), ROOT,
              str(MESH_STEP_N), MESH_DEVICE], cwd=ROOT, stdin=subprocess.PIPE,
@@ -4817,7 +4867,7 @@ class Ranks:
 
 
 def mesh_codec_leg(np, port, work, base, res, seed):
-    """Step 16 (a): the 1 GiB volume encoded and a seeded 4 rebuilt
+    """Step 16 (a): the main volume encoded and a seeded 4 rebuilt
     through MeshCodec over two 'data' positions on the one card, in a
     directory of its own over a hard link to the .dat."""
     ec, ops, _ = port
@@ -4953,6 +5003,424 @@ def check_ranks(torch, ranks, ready_s):
           f"launches by rank "
           f"{[out['k1_launches'] for out in ranks]}, each rank's blocks "
           f"checked against the numpy oracle")
+
+
+S3_BUCKET = "smoke-bucket"  # step 20's bucket, and so its collection
+S3_OBJECTS = 24             # its objects, log-uniform sizes between
+S3_MIN = 256 << 10          # (the small-dispatch crossover: a needle at
+S3_MAX = 8 << 20            # least this wide over the lost shard launches)
+S3_BYTES = 48 << 20         # their data (a production bucket cut for time)
+S3_PARTS = (5 << 20, 5 << 20, 2 << 20)  # the multipart upload's parts
+S3_DELETED = 2              # keys of one DeleteObjects
+S3_TIER_NEEDLES = 16        # the small sealed volume's 64 KiB needles
+S3_AK, S3_SK = "smoke-access", "smoke/secret+key"
+
+
+class S3Stack:
+    """Step 20's stack as a user starts it: ``python3 -m
+    seaweedfs_tpu_torch.command.cli server -filer -s3`` in a process of
+    its own on free ports, its volume server on the card (``-ec.backend
+    cuda``) with its native plane, its master's repair loop off
+    (SW_REPAIR_INTERVAL_S=0: the step's lost shard is ec.rebuild's), an
+    IAM identity and an ``s3`` tier ("s3.self") whose endpoint is its
+    own gateway. ``spawn`` starts it, ``wait`` reads its addresses,
+    ``stop`` sends SIGTERM and wants exit code 0."""
+
+    def __init__(self, work):
+        self.dir = os.path.join(work, "s3-stack")
+        os.makedirs(self.dir)
+        self.ports = _free_ports(4)
+        self.master, self.volume, self.filer, self.s3 = (
+            f"127.0.0.1:{p}" for p in self.ports)
+        self.proc = None
+        self.log = os.path.join(work, "s3-stack.log")
+
+    def spawn(self):
+        iam = os.path.join(self.dir, "iam.json")
+        with open(iam, "w") as f:
+            json.dump({"identities": [{
+                "name": "smoke", "actions": ["Admin"],
+                "credentials": [{"accessKey": S3_AK,
+                                 "secretKey": S3_SK}]}]}, f)
+        tier = os.path.join(self.dir, "tier.json")
+        with open(tier, "w") as f:
+            json.dump({"s3": {"self": {
+                "endpoint": self.s3, "bucket": "tier",
+                "access_key": S3_AK, "secret_key": S3_SK}}}, f)
+        mport, vport, fport, sport = self.ports
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.command.cli",
+             "server", "-filer", "-s3", "-s3Config", iam,
+             "-tierConfig", tier, "-ec.backend", "cuda",
+             "-dir", os.path.join(self.dir, "data"), "-max", "64",
+             "-masterPort", str(mport), "-port", str(vport),
+             "-filerPort", str(fport), "-s3Port", str(sport),
+             "-pulseSeconds", "1"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=open(self.log, "wb"),
+            text=True, env=dict(os.environ, SW_REPAIR_INTERVAL_S="0"))
+        # a thread reads the stack's lines as they come (and drains the
+        # pipe after): a select on the pipe would miss lines that the
+        # reader's buffer already holds
+        self.lines = queue.Queue()
+        threading.Thread(target=self._read, args=(self.proc.stdout,),
+                         daemon=True).start()
+        return self
+
+    def _read(self, out):
+        for line in out:
+            self.lines.put(line.strip())
+        self.lines.put(None)
+
+    def wait(self):
+        deadline = time.monotonic() + HOLDER_START_S
+        lines = []
+        while time.monotonic() < deadline:
+            try:
+                line = self.lines.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            if line is None:
+                break
+            lines.append(line)
+            if line.startswith("s3 gateway on"):
+                break
+        if not lines or lines[-1] != f"s3 gateway on {self.s3}":
+            with open(self.log, "rb") as f:
+                err = f.read()[-2000:].decode("utf-8", "replace")
+            raise AssertionError(f"s3 stack did not start (exit "
+                                 f"{self.proc.poll()}): {lines} {err}")
+        self.plane = next((ln.split()[-1] for ln in lines
+                           if ln.startswith("native read plane on")), None)
+        return lines
+
+    def stop(self):
+        """SIGTERM; the exit code (it must be 0)."""
+        if self.proc is None:
+            return 0
+        proc, self.proc = self.proc, None
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        return rc
+
+    stop_processes = stop
+
+
+class S3Client:
+    """A SigV4 client of the port's ``s3/auth`` over one kept-alive
+    connection; each call returns (status, headers, body, ms)."""
+
+    def __init__(self, hostport):
+        import http.client
+        self.hostport = hostport
+        self.conn = http.client.HTTPConnection(hostport, timeout=300)
+
+    def __call__(self, method, path, body=b"", headers=None):
+        from seaweedfs_tpu_torch.s3.auth import sign_request_v4
+        h = sign_request_v4(method, f"http://{self.hostport}{path}",
+                            dict(headers or {}), body, S3_AK, S3_SK)
+        t0 = time.perf_counter()
+        self.conn.request(method, path, body=body or None, headers=h)
+        r = self.conn.getresponse()
+        data = r.read()
+        return r.status, dict(r.getheaders()), data, \
+            (time.perf_counter() - t0) * 1e3
+
+    def close(self):
+        self.conn.close()
+
+
+def _s3_plan(np, seed):
+    """S3_OBJECTS (key, bytes): log-uniform sizes scaled to about
+    S3_BYTES, under logs/d<day>/ (for the prefix and delimiter)."""
+    rng = np.random.default_rng(seed)
+    sizes = np.exp(rng.uniform(np.log(S3_MIN), np.log(S3_MAX), S3_OBJECTS))
+    sizes = np.clip(sizes * S3_BYTES / sizes.sum(), S3_MIN,
+                    S3_MAX).astype(int)
+    return [(f"logs/d{i % 4}/part-{i:02d}.bin", rng.bytes(int(n)))
+            for i, n in enumerate(sizes)]
+
+
+def _check(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what}: {got!r}, want {want!r}")
+
+
+def _objects_crossing(ec, stack, objects):
+    """{(vid, sid): (objects whose needles cross that shard, those that
+    cross it by at least S3_MIN)} over the bucket's EC volumes, from each
+    volume's .ecx (ec/locate)."""
+    from seaweedfs_tpu_torch.ec.ec_volume import EcVolume
+    from seaweedfs_tpu_torch.server.http_util import get_json
+    from seaweedfs_tpu_torch.storage.types import parse_file_id
+    data = os.path.join(stack.dir, "data")
+    vols, out = {}, {}
+    try:
+        for key in objects:
+            entry = get_json(f"http://{stack.filer}/filer/meta/lookup?path="
+                             f"/buckets/{S3_BUCKET}/{key}")["entry"]
+            crossed = {}
+            for c in entry["chunks"]:
+                vid, nid, _ = parse_file_id(c["fid"])
+                if vid not in vols:
+                    vols[vid] = EcVolume(data, S3_BUCKET, vid)
+                for iv in vols[vid].locate_needle(nid)[2]:
+                    sid = iv.to_shard_id_and_offset(ec.LARGE_BLOCK_SIZE,
+                                                    ec.SMALL_BLOCK_SIZE)[0]
+                    crossed[(vid, sid)] = crossed.get((vid, sid), 0) + \
+                        iv.size
+            for vs, nbytes in crossed.items():
+                n, wide = out.get(vs, (0, 0))
+                out[vs] = (n + 1, wide + (nbytes >= S3_MIN))
+    finally:
+        for v in vols.values():
+            v.close()
+    return out
+
+
+def _get_pass(s3, want, label):
+    """GET every object through S3, sha256-identical; (ms list, MB/s)."""
+    lat, t0 = [], time.perf_counter()
+    for key, sha in want.items():
+        st, _, body, ms = s3("GET", f"/{S3_BUCKET}/{key}")
+        if st != 200 or hashlib.sha256(body).hexdigest() != sha["sha"]:
+            raise AssertionError(f"s3 {label} GET {key}: {st}")
+        lat.append(ms)
+    wall = time.perf_counter() - t0
+    return lat, sum(w["size"] for w in want.values()) / wall / 1e6
+
+
+def s3_leg(np, port, work, seed, stack):
+    """Step 20: the filer and the S3 gateway on the port's own CLI stack
+    (``S3Stack``, started before), objects read through a lost shard
+    reconstructed on K1 in the stack's process."""
+    from seaweedfs_tpu_torch.client import operation
+    from seaweedfs_tpu_torch.server.http_util import get_json, http_call
+    ec = port[0]
+    t_step = time.perf_counter()
+    lines = stack.wait()
+    print("s3 stack: " + "; ".join(lines))
+    vs, murl = stack.volume, stack.master
+    k1_start = _devices_k1(vs)
+    s3 = S3Client(stack.s3)
+    try:
+        # (b) write and read through S3
+        _check("create bucket", s3("PUT", f"/{S3_BUCKET}")[0], 200)
+        plan = _s3_plan(np, seed)
+        want, put_ms, t0 = {}, [], time.perf_counter()
+        for key, data in plan:
+            st, h, _, ms = s3("PUT", f"/{S3_BUCKET}/{key}", data,
+                              {"Content-Type": "application/octet-stream"})
+            md5 = hashlib.md5(data).hexdigest()
+            _check(f"PUT {key}", (st, h.get("ETag")), (200, f'"{md5}"'))
+            put_ms.append(ms)
+            want[key] = {"size": len(data), "etag": md5,
+                         "sha": hashlib.sha256(data).hexdigest()}
+        put_s = time.perf_counter() - t0
+        put_bytes = sum(len(d) for _, d in plan)
+        rng = np.random.default_rng(seed + 1)
+        parts = [rng.bytes(n) for n in S3_PARTS]
+        st, _, body, _ = s3("POST", f"/{S3_BUCKET}/multi/big.bin?uploads")
+        uid = body.split(b"<UploadId>")[1].split(b"<")[0].decode()
+        for i, p in enumerate(parts, 1):
+            st, h, _, _ = s3("PUT", f"/{S3_BUCKET}/multi/big.bin?partNumber="
+                             f"{i}&uploadId={uid}", p)
+            _check(f"part {i}", (st, h.get("ETag")),
+                   (200, f'"{hashlib.md5(p).hexdigest()}"'))
+        st, _, body, _ = s3("POST", f"/{S3_BUCKET}/multi/big.bin?uploadId="
+                            f"{uid}", b"<CompleteMultipartUpload/>")
+        whole = b"".join(parts)
+        multi_etag = hashlib.md5(b"".join(hashlib.md5(p).digest()
+                                          for p in parts)).hexdigest() + \
+            f"-{len(parts)}"
+        _check("complete", (st, f"<ETag>&quot;{multi_etag}&quot;</ETag>"
+                            .encode() in body or
+                            f'<ETag>"{multi_etag}"</ETag>'.encode() in body),
+               (200, True))
+        want["multi/big.bin"] = {"size": len(whole), "etag": multi_etag,
+                                 "sha": hashlib.sha256(whole).hexdigest()}
+        src_key = plan[0][0]
+        st, _, body, _ = s3("PUT", f"/{S3_BUCKET}/copies/first.bin", b"",
+                            {"x-amz-copy-source": f"/{S3_BUCKET}/{src_key}"})
+        _check("copy", (st, want[src_key]["etag"].encode() in body),
+               (200, True))
+        want["copies/first.bin"] = dict(want[src_key])
+        st, _, body, _ = s3("GET", f"/{S3_BUCKET}?list-type=2&prefix=logs/"
+                            f"&delimiter=/")
+        import re as _re
+        _check("list logs/ by /",
+               (st, _re.findall(rb"<Prefix>(logs/d\d/)</Prefix>", body),
+                b"<Contents>" in body),
+               (200, [f"logs/d{d}/".encode() for d in range(4)], False))
+        st, _, body, _ = s3("GET", f"/{S3_BUCKET}?list-type=2&prefix="
+                            f"logs/d1/&delimiter=/")
+        _check("list logs/d1/",
+               _re.findall(rb"<Key>([^<]+)</Key>", body),
+               sorted(k.encode() for k in want if k.startswith("logs/d1/")))
+        st, h, body, _ = s3("HEAD", f"/{S3_BUCKET}/{src_key}")
+        _check("HEAD", (st, h.get("Content-Length"), h.get("ETag"), body),
+               (200, str(want[src_key]["size"]),
+                f'"{want[src_key]["etag"]}"', b""))
+        edge = S3_PARTS[0]
+        st, h, body, _ = s3("GET", f"/{S3_BUCKET}/multi/big.bin",
+                            headers={"Range": f"bytes={edge - 100}-"
+                                              f"{edge + 99}"})
+        _check("ranged GET across a chunk edge",
+               (st, h.get("Content-Range"), body),
+               (206, f"bytes {edge - 100}-{edge + 99}/{len(whole)}",
+                whole[edge - 100:edge + 100]))
+        doomed = [k for k, _ in plan[-S3_DELETED:]]
+        st, _, body, _ = s3("POST", f"/{S3_BUCKET}?delete", (
+            "<Delete>" + "".join(f"<Object><Key>{k}</Key></Object>"
+                                 for k in doomed) + "</Delete>").encode())
+        _check("DeleteObjects", (st, body.count(b"<Deleted>")),
+               (200, S3_DELETED))
+        for k in doomed:
+            want.pop(k)
+            st, _, body, _ = s3("GET", f"/{S3_BUCKET}/{k}")
+            _check(f"deleted {k}", (st, b"<Code>NoSuchKey</Code>" in body),
+                   (404, True))
+        healthy_ms, healthy_mbs = _get_pass(s3, want, "healthy")
+        for key, w in want.items():
+            body = http_call("GET", f"http://{stack.filer}/buckets/"
+                             f"{S3_BUCKET}/{key}")
+            _check(f"filer GET {key}", hashlib.sha256(body).hexdigest(),
+                   w["sha"])
+        print(f"s3 (b): {len(plan)} PUTs, {put_bytes} B, "
+              f"{put_bytes / put_s / 1e6:.1f} MB/s, p50 "
+              f"{_pct(put_ms, 0.5):.3f} ms, p99 {_pct(put_ms, 0.99):.3f} ms;"
+              f" multipart {len(parts)} parts, copy, lists, HEAD, range, "
+              f"DeleteObjects of {S3_DELETED}; healthy GETs "
+              f"{healthy_mbs:.1f} MB/s, p50 {_pct(healthy_ms, 0.5):.3f} "
+              f"ms, p99 {_pct(healthy_ms, 0.99):.3f} ms; every body "
+              f"sha256-identical, through the filer too")
+
+        # (c) encode the bucket's collection, lose the busiest shard
+        t0, k_enc = time.perf_counter(), _devices_k1(vs)
+        _shell(murl, f"ec.encode -collection {S3_BUCKET} -fullPercent 0 "
+                     f"-quietFor 0")
+        encode_s = time.perf_counter() - t0
+        k_enc = _devices_k1(vs) - k_enc
+        crossing = _objects_crossing(ec, stack, want)
+        (vid, sid), (n_cross, n_wide) = max(
+            crossing.items(), key=lambda kv: (kv[1][1], kv[1][0], kv[0]))
+        shard = os.path.join(stack.dir, "data",
+                             f"{S3_BUCKET}_{vid}{ec.to_ext(sid)}")
+        lost_sha = _sha(shard)
+        os.remove(shard)
+        _post(vs, f"/admin/ec/unmount?volume={vid}&shards={sid}")
+
+        def snap():
+            return (_devices_k1(vs),
+                    get_json(f"http://{vs}/status")["ec_degraded"],
+                    get_json(f"http://{vs}/admin/plane/cache")["cache"])
+        k0, e0, c0 = snap()
+        cold_ms, cold_mbs = _get_pass(s3, want, "cold")
+        k1, e1, c1 = snap()
+        cold_launches = k1 - k0
+        dev = e1["device_dispatches"] - e0["device_dispatches"]
+        if cold_launches < 1 or cold_launches != dev or \
+                e1["errors"] != e0["errors"]:
+            raise AssertionError(f"s3 cold pass: {cold_launches} K1 "
+                                 f"launches, {dev} device dispatches, "
+                                 f"engine {e0} -> {e1}")
+        warm_ms, warm_mbs = _get_pass(s3, want, "warm")
+        k2, e2, c2 = snap()
+
+        def delta(a, b, key):
+            return (b or {}).get(key, 0) - (a or {}).get(key, 0)
+        print(f"s3 (c): ec.encode -collection {S3_BUCKET} in "
+              f"{encode_s:.2f} s ({k_enc} K1 launches); lost shard {sid} of volume {vid}, "
+              f"crossed by {n_cross} objects ({n_wide} by >= {S3_MIN} B); "
+              f"cold GETs {cold_mbs:.1f} MB/s, p50 {_pct(cold_ms, 0.5):.3f}"
+              f" ms, p99 {_pct(cold_ms, 0.99):.3f} ms, {cold_launches} K1 "
+              f"launches = the engine's device dispatches, "
+              f"{e1['reads'] - e0['reads']} engine reads, plane "
+              f"{delta(c0, c1, 'degraded_redirected')} redirected, "
+              f"{delta(c0, c1, 'puts')} slabs published; warm GETs "
+              f"{warm_mbs:.1f} MB/s, p50 {_pct(warm_ms, 0.5):.3f} ms, p99 "
+              f"{_pct(warm_ms, 0.99):.3f} ms, {k2 - k1} K1 launches, "
+              f"{e2['reads'] - e1['reads']} engine reads, plane slab-cache "
+              f"hits {delta(c1, c2, 'hits')}, served "
+              f"{delta(c1, c2, 'degraded_served')}, redirected "
+              f"{delta(c1, c2, 'degraded_redirected')}")
+
+        # (d) rebuild
+        t0 = time.perf_counter()
+        _shell(murl, f"ec.rebuild -collection {S3_BUCKET}")
+        rebuild_s = time.perf_counter() - t0
+        k3 = _devices_k1(vs)
+        _check("rebuilt shard sha256", _sha(shard), lost_sha)
+        after_ms, after_mbs = _get_pass(s3, want, "rebuilt")
+        k4 = _devices_k1(vs)
+        print(f"s3 (d): ec.rebuild in {rebuild_s:.2f} s ({k3 - k2} K1 "
+              f"launches), shard {sid} sha256-identical; GETs "
+              f"{after_mbs:.1f} MB/s, p50 {_pct(after_ms, 0.5):.3f} ms, "
+              f"{k4 - k3} K1 launches")
+
+        # (e) a small sealed volume onto the s3 tier at its own gateway
+        _check("create tier bucket", s3("PUT", "/tier")[0], 200)
+        needles, trng = {}, np.random.default_rng(seed + 2)
+        for i in range(S3_TIER_NEEDLES):
+            a = operation.assign(murl, collection="tiered")
+            body = trng.bytes(64 << 10)
+            operation.upload(a["url"], a["fid"], body, f"n{i}")
+            needles[a["fid"]] = body
+        by_vid = {}
+        for fid in needles:
+            by_vid.setdefault(int(fid.split(",")[0]), []).append(fid)
+        tvid, tfids = max(by_vid.items(), key=lambda kv: len(kv[1]))
+        t0 = time.perf_counter()
+        _shell(murl, f"volume.tier.upload -volumeId {tvid} -dest s3.self")
+        up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for fid in tfids:
+            _check(f"remote GET {fid}",
+                   http_call("GET", f"http://{vs}/{fid}"), needles[fid])
+        remote_s = time.perf_counter() - t0
+        _shell(murl, f"volume.tier.download -volumeId {tvid}")
+        for fid in tfids:
+            _check(f"downloaded GET {fid}",
+                   http_call("GET", f"http://{vs}/{fid}"), needles[fid])
+        print(f"s3 (e): volume {tvid} ({len(tfids)} needles) onto s3.self "
+              f"(its own gateway) in {up_s:.2f} s, read remotely "
+              f"{len(tfids) * (64 << 10) / remote_s / 1e6:.1f} MB/s, "
+              f"downloaded back; every byte equal")
+        k_end = _devices_k1(vs)
+    finally:
+        s3.close()
+        rc = stack.stop()
+    _check("s3 stack exit code after SIGTERM", rc, 0)
+    numbers = {
+        "objects": len(want), "put_mb_s": round(put_bytes / put_s / 1e6, 1),
+        "put_p50_ms": round(_pct(put_ms, 0.5), 3),
+        "put_p99_ms": round(_pct(put_ms, 0.99), 3),
+        "get_mb_s": {"healthy": round(healthy_mbs, 1),
+                     "cold": round(cold_mbs, 1), "warm": round(warm_mbs, 1),
+                     "rebuilt": round(after_mbs, 1)},
+        "get_p50_ms": {"healthy": round(_pct(healthy_ms, 0.5), 3),
+                       "cold": round(_pct(cold_ms, 0.5), 3),
+                       "warm": round(_pct(warm_ms, 0.5), 3)},
+        "get_p99_ms": {"healthy": round(_pct(healthy_ms, 0.99), 3),
+                       "cold": round(_pct(cold_ms, 0.99), 3),
+                       "warm": round(_pct(warm_ms, 0.99), 3)},
+        "lost": {"vid": vid, "sid": sid, "objects": n_cross,
+                 "wide_objects": n_wide},
+        "k1_launches": {"step": k_end - k1_start, "encode": k_enc,
+                        "cold": cold_launches, "warm": k2 - k1,
+                        "rebuild": k3 - k2, "rebuilt": k4 - k3},
+        "plane": {"cold_redirected": delta(c0, c1, "degraded_redirected"),
+                  "warm_hits": delta(c1, c2, "hits"),
+                  "warm_served": delta(c1, c2, "degraded_served")},
+        "encode_s": round(encode_s, 3), "rebuild_s": round(rebuild_s, 3),
+        "wall_s": round(time.perf_counter() - t_step, 3)}
+    print(card_line())
+    print("s3 step: " + json.dumps(numbers))
+    return numbers
 
 
 def card_line() -> str:
@@ -5156,6 +5624,12 @@ def run(args) -> int:
         print("two ranks on one card: NCCL refuses two ranks on one device "
               "(each rank needs a card of its own), so they join over "
               "gloo, their partials staged through pinned host memory")
+        # step 14's masters, A and B, and step 20's stack start with
+        # step 16's ranks: one start-up wait for the three groups
+        cluster_early = cluster_servers(np, work, args.seed + 67)
+        spreading.append(cluster_early["procs"])
+        s3_stack = S3Stack(work).spawn()
+        spreading.append(s3_stack)
         ranks = Ranks(work)
         try:
             mesh = drive("mesh codec", mesh_codec_leg, np, port, work, base,
@@ -5177,9 +5651,11 @@ def run(args) -> int:
         native = drive("native plane", native_plane_leg, np, port, work,
                        args.seed)
         cluster = drive("cluster", cluster_leg, np, port, work,
-                        args.seed + 67)
+                        args.seed + 67, cluster_early)
         tiering = drive("tiering", tiering_leg, np, port, work,
                         args.seed + 79)
+        s3 = drive("s3", s3_leg, np, port, work, args.seed + 83, s3_stack,
+                   kernel=False)
     finally:
         for group in spreading:
             group.stop_processes()
@@ -5199,18 +5675,21 @@ def run(args) -> int:
     rank_launches = [out["k1_launches"] for out in rank_out]
     mesh_launches = legs["mesh codec"] + legs["mesh crossover"] + \
         legs["sharded step"] + sum(rank_launches)
-    launches = sum(legs.values()) + sum(other.values()) + sum(rank_launches)
+    s3_k1 = s3["k1_launches"]
+    launches = sum(legs.values()) + sum(other.values()) + \
+        sum(rank_launches) + s3_k1["step"]
     print(f"main path (flat, traced, trace repair, streaming, degraded "
           f"flat, scrub flat, tuner, net trace repair, net full rebuild, net "
           f"degraded flat, net scrub flat, spread flat, piggyback, plane "
           f"repair, streaming piggyback, degraded piggyback, scrub "
           f"piggyback, net plane repair, spread piggyback, integrity, "
           f"mesh codec, mesh crossover, sharded step, ranks, decode, data "
-          f"plane, native plane, cluster, tiering) in "
+          f"plane, native plane, cluster, tiering, s3) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
           f"= dispatches, 2 a sharded mesh dispatch ({sum(other.values())} "
           f"of them in the integrity leg's B and C, {json.dumps(other)}, "
-          f"{sum(rank_launches)} in step 16's ranks, {rank_launches}), by "
+          f"{sum(rank_launches)} in step 16's ranks, {rank_launches}, "
+          f"{s3_k1['step']} in step 20's stack, {json.dumps(s3_k1)}), by "
           f"leg in this process {json.dumps(legs)}; builds {build_s:.2f} s")
     print(f"main path walls by leg: {json.dumps(walls)}")
     integrity_scrub = sum(n for server in by_server.values()
@@ -5223,7 +5702,8 @@ def run(args) -> int:
     entries = [
         _k1_entry("gf_matmul", launches, max_err, timed["flat encode"],
                   timed["flat decode (0, 1, 2, 3)"])
-        | {"tiering_launches": tiering["launches"]},
+        | {"tiering_launches": tiering["launches"],
+           "s3_launches": s3_k1},
         _k1_entry("gf_matmul_piggyback",
                   legs["piggyback"] + legs["streaming piggyback"]
                   + legs["spread piggyback"],
@@ -5233,7 +5713,7 @@ def run(args) -> int:
         _k1_entry("gf_matmul_repair",
                   legs["trace repair"] + legs["plane repair"]
                   + legs["net trace repair"] + legs["net plane repair"]
-                  + integrity_repair,
+                  + integrity_repair + s3_k1["rebuild"],
                   repair_err,
                   timed["trace combine"], timed["plane repair"],
                   second_key="plane_repair"),
@@ -5243,7 +5723,8 @@ def run(args) -> int:
                   + data["launches"]["degraded"]
                   + native["launches"]["degraded"]
                   + cluster["launches"]["degraded"]
-                  + integrity["naive"]["launches"],
+                  + integrity["naive"]["launches"]
+                  + s3_k1["cold"] + s3_k1["warm"] + s3_k1["rebuilt"],
                   max(read_err["degraded flat (1,10)"],
                       read_err["degraded piggyback (32,320)"]),
                   timed["degraded flat wide"], timed["degraded piggyback wide"],

@@ -7,3 +7,5 @@ torch and numpy, never jax and nothing of seaweedfs_tpu. Entry points run on the
 default (device="cuda") and raise when there is none; the CPU is used
 only when the caller passes device="cpu".
 """
+
+VERSION = "0.1.0"

@@ -333,14 +333,18 @@ class Router:
 
 class Response:
     """Non-JSON response: bytes, or ``body_range`` (offset, size) of the
-    file at ``body_path`` streamed without buffering it."""
+    file at ``body_path`` streamed without buffering it.
+    ``content_length`` overrides the advertised length of a bytes body:
+    a HEAD advertises the size a GET would send, and sends none."""
 
     def __init__(self, body: bytes = b"", status: int = 200,
                  content_type: str = "application/octet-stream",
                  headers: Optional[dict] = None,
                  body_path: Optional[str] = None,
-                 body_range: Optional[tuple] = None):
+                 body_range: Optional[tuple] = None,
+                 content_length: Optional[int] = None):
         self.body = body
+        self.content_length = content_length
         self.status = status
         self.content_type = content_type
         self.headers = headers or {}
@@ -365,7 +369,8 @@ class Response:
             off = min(off, file_size)
             length = size = min(size, file_size - off)
         else:
-            length = len(self.body)
+            length = len(self.body) if self.content_length is None \
+                else self.content_length
         try:
             handler.send_response(self.status)
             handler.send_header("Content-Type", self.content_type)

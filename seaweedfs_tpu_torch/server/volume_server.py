@@ -270,7 +270,12 @@ class VolumeServer:
     ``jwt_signing_key`` the key of the write tokens (none: writes need
     none); ``whitelist`` the callers allowed (empty: all);
     ``index_kind`` the needle map ("memory" or "disk"); ``fast_port``
-    the native plane's port (0: one picked free, -1: no plane)."""
+    the native plane's port (0: one picked free, -1: no plane);
+    ``data_center`` and ``rack`` this server's place in the heartbeat;
+    ``public_url`` the address it advertises (its own by default);
+    ``read_redirect`` False answers a GET of a volume held elsewhere 404
+    instead of a 301 to a replica; ``compaction_mbps`` paces a vacuum's
+    copy that names no ``bytesPerSecond`` (0: unpaced)."""
 
     def __init__(self, port: int = 8080, host: str = "127.0.0.1",
                  directories=None, device: str = "cuda",
@@ -284,7 +289,12 @@ class VolumeServer:
                  device_timing_sample: int = 1,
                  ec_backend: str = "cuda", mesh=None,
                  jwt_signing_key: str = "", whitelist=(),
-                 index_kind: str = "memory", fast_port: int = 0):
+                 index_kind: str = "memory", fast_port: int = 0,
+                 data_center: str = "", rack: str = "",
+                 public_url: str = "", read_redirect: bool = True,
+                 compaction_mbps: int = 0):
+        self.read_redirect = read_redirect
+        self.compaction_bps = int(compaction_mbps) << 20
         self.degraded_mode = _degraded_mode(degraded_mode)
         self.jwt_signing_key = jwt_signing_key
         self.guard = Guard(whitelist)
@@ -375,7 +385,9 @@ class VolumeServer:
         router.node = self.url
         self.store.ip = host
         self.store.port = self.port
-        self.store.public_url = self.url
+        self.store.public_url = public_url or self.url
+        self.store.data_center = data_center
+        self.store.rack = rack
         # heartbeats follow the leader hint and rotate through the seeds
         self._seed_masters = [m.strip() for m in master_url.split(",")
                               if m.strip()]
@@ -905,7 +917,8 @@ class VolumeServer:
         # is frozen while the plane owns the tails. Writes during the
         # copy take the Python path and the commit's makeup diff
         self._writer_release(v)
-        v.compact(bytes_per_second=int(req.query.get("bytesPerSecond") or 0))
+        v.compact(bytes_per_second=int(req.query.get("bytesPerSecond")
+                                       or self.compaction_bps))
         return {"volume": vid, "compacted": True}
 
     def admin_vacuum_commit(self, req: Request):
@@ -1720,7 +1733,8 @@ class VolumeServer:
                                               f"{vid},{key:x}")
                 return self._needle_response(got, req)
             # not held here: a replica has it
-            others = self._other_replicas(vid)
+            others = self._other_replicas(vid) if self.read_redirect \
+                else []
             if others:
                 return Response(b"", 301, headers={
                     "Location": f"http://{others[0]}{req.path}"})

@@ -14,7 +14,8 @@ nvcc and tile-plan builds, device samples are CUDA-event timings, and
 The native plane's families (``fast_plane_request_total``,
 ``plane_*``) mirror ``server/native_plane``'s counters, latency and fsync
 buckets (``PLANE_LAT_BUCKETS_S`` are the C++ plane's ``kLatBoundsUs``) on
-each scrape. Left out, with its module: the filer gatherer.
+each scrape. The filer's gatherer (``FILER_GATHER``) holds its request
+counter and histogram.
 
 Two differences, on purpose, both in the small-dispatch tuner:
 
@@ -524,6 +525,7 @@ class Registry:
 
 MASTER_GATHER = Registry()
 VOLUME_SERVER_GATHER = Registry()
+FILER_GATHER = Registry()
 
 VOLUME_REQUEST_COUNTER = VOLUME_SERVER_GATHER.counter(
     "SeaweedFS_volumeServer_request_total",
@@ -544,6 +546,14 @@ FAST_PLANE_COUNTER = VOLUME_SERVER_GATHER.counter(
     "SeaweedFS_volumeServer_fast_plane_request_total",
     "Requests handled by the native C++ read plane.",
     labels=("outcome",))
+FILER_REQUEST_COUNTER = FILER_GATHER.counter(
+    "SeaweedFS_filer_request_total",
+    "Counter of filer requests.", labels=("type",))
+FILER_REQUEST_HISTOGRAM = FILER_GATHER.histogram(
+    "SeaweedFS_filer_request_seconds",
+    "Bucketed histogram of filer request processing time.",
+    labels=("type",))
+
 MASTER_REQUEST_COUNTER = MASTER_GATHER.counter(
     "SeaweedFS_master_request_total",
     "Counter of master requests.", labels=("type",))

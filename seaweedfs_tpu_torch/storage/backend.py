@@ -14,16 +14,14 @@ Two remote kinds:
   against any S3-compatible endpoint
 
 The registry is process-global, as in the JAX package: the in-process
-servers of one process share it. The SigV4 signing recipe is the JAX
-package's ``s3/auth.authorization_header_v4``, kept here since the port
-has no S3 gateway.
+servers of one process share it. Requests are signed through the
+port's ``s3/auth.authorization_header_v4``.
 """
 
 from __future__ import annotations
 
 import datetime
 import hashlib
-import hmac
 import io
 import os
 import shutil
@@ -31,7 +29,9 @@ import threading
 import urllib.error
 import urllib.parse
 import urllib.request
-from typing import Dict, List, Optional
+from typing import Dict, Optional
+
+from ..s3.auth import authorization_header_v4
 
 EMPTY_SHA256 = hashlib.sha256(b"").hexdigest()
 
@@ -175,44 +175,6 @@ class DirBackend(BackendStorage):
         p = self._p(key)
         if os.path.exists(p):
             os.remove(p)
-
-
-# -- SigV4 (the JAX package's s3/auth client side) ----------------------------
-
-
-def _hmac(key: bytes, msg: str) -> bytes:
-    return hmac.new(key, msg.encode(), hashlib.sha256).digest()
-
-
-def _signing_key(secret: str, date: str, region: str, service: str) -> bytes:
-    k = _hmac(b"AWS4" + secret.encode(), date)
-    k = _hmac(k, region)
-    k = _hmac(k, service)
-    return _hmac(k, "aws4_request")
-
-
-def authorization_header_v4(method: str, path: str, headers: Dict[str, str],
-                            payload_hash: str, access_key: str,
-                            secret_key: str, region: str,
-                            service: str = "s3",
-                            amz_date: Optional[str] = None) -> str:
-    """The Authorization value of a request whose lowercase ``headers``
-    (host, x-amz-date and x-amz-content-sha256 among them) are all
-    signed; ``path`` exactly as sent on the wire, no query."""
-    amz_date = amz_date or headers["x-amz-date"]
-    date = amz_date[:8]
-    signed: List[str] = sorted(headers)
-    canon_headers = "".join(
-        f"{h}:{' '.join(headers.get(h, '').split())}\n" for h in signed)
-    canon = "\n".join([method, path or "/", "", canon_headers,
-                       ";".join(signed), payload_hash])
-    scope = f"{date}/{region}/{service}/aws4_request"
-    to_sign = "\n".join(["AWS4-HMAC-SHA256", amz_date, scope,
-                         hashlib.sha256(canon.encode()).hexdigest()])
-    sig = _hmac(_signing_key(secret_key, date, region, service),
-                to_sign).hex()
-    return (f"AWS4-HMAC-SHA256 Credential={access_key}/{scope}, "
-            f"SignedHeaders={';'.join(signed)}, Signature={sig}")
 
 
 class S3Backend(BackendStorage):

@@ -201,8 +201,8 @@ class Store:
     ``max_volume_counts`` the slots of each directory (7 each);
     ``index_kind`` the volumes' needle-map kind (``-index memory|disk``).
     ``ip``, ``port`` and ``public_url``, this server's address in a
-    heartbeat and a shard assignment, are set by the server that owns the
-    store, and so are ``on_ec_mount(vid, shard_ids)``, called after a
+    heartbeat and a shard assignment, and ``data_center`` and ``rack``,
+    are set by the server that owns the store, and so are ``on_ec_mount(vid, shard_ids)``, called after a
     mount registers shards (the degraded reads drop their reconstructions
     of them), and ``on_change()``."""
 
@@ -221,6 +221,8 @@ class Store:
         self.ip = "127.0.0.1"
         self.port = 0
         self.public_url = ""
+        self.data_center = ""
+        self.rack = ""
         self.on_ec_mount = None
         self.on_change = None
         for loc in self.locations:
@@ -358,8 +360,7 @@ class Store:
                 ec_collections[vid] = ev.collection
         return {
             "ip": self.ip, "port": self.port, "public_url": self.public_url,
-            # the default data center and rack
-            "data_center": "", "rack": "",
+            "data_center": self.data_center, "rack": self.rack,
             "max_volume_count": max_volume_count,
             "max_file_key": max_file_key,
             "volumes": volumes,

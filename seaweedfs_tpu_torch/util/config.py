@@ -1,8 +1,8 @@
 """The SW_* environment knobs the port reads, with typed accessors.
 
 The JAX package's ``util/config.py`` registry, for the knobs of the
-native data plane only (names, types and defaults as there, so one
-``monkeypatch.setenv`` sets a knob for both packages):
+native data plane and the filer (names, types and defaults as there, so
+one ``monkeypatch.setenv`` sets a knob for both packages):
 
     SW_HTTP_PLANE_LIB           the plane's shared library, in place of
                                 the one built from csrc/http_plane.cc
@@ -18,6 +18,12 @@ native data plane only (names, types and defaults as there, so one
                                 the Python path's (off)
     SW_PLANE_FSYNC_BATCH_US     a group commit's window (2000 us)
     SW_PLANE_FSYNC_MAX_PENDING  riders that close a window early (512)
+    SW_FILER_TICK_S             the filer's deletion loop's period (1.0 s)
+    SW_RETRY_BACKOFF_SCALE      a multiplier on retry back-offs (uploads,
+                                chunk fetches): ``retry_backoff_s``; 0
+                                retries at once (1.0)
+    SW_REPAIR_INTERVAL_S        the repair loop's period of a master the
+                                CLI starts (5.0 s; <= 0: no loop)
 
 A read of a name that is not registered, or as another type than its
 own, raises. The full registry (every knob of the JAX package) is not
@@ -44,6 +50,9 @@ KNOBS: Dict[str, EnvKnob] = {k.name: k for k in (
     EnvKnob("SW_PLANE_FSYNC_MODE", "str", "off"),
     EnvKnob("SW_PLANE_FSYNC_BATCH_US", "int", 2000),
     EnvKnob("SW_PLANE_FSYNC_MAX_PENDING", "int", 512),
+    EnvKnob("SW_FILER_TICK_S", "float", 1.0),
+    EnvKnob("SW_RETRY_BACKOFF_SCALE", "float", 1.0),
+    EnvKnob("SW_REPAIR_INTERVAL_S", "float", 5.0),
 )}
 
 _TRUTHY = ("1", "true", "yes", "on")
@@ -74,11 +83,26 @@ def env_int(name: str) -> Optional[int]:
         return default
 
 
+def env_float(name: str) -> Optional[float]:
+    raw, default = _lookup(name, "float")
+    if raw is None:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        return default
+
+
 def env_bool(name: str) -> bool:
     raw, default = _lookup(name, "bool")
     if raw is None:
         return bool(default)
     return raw.strip().lower() in _TRUTHY
+
+
+def retry_backoff_s(seconds: float) -> float:
+    """A retry back-off of ``seconds``, scaled by SW_RETRY_BACKOFF_SCALE."""
+    return max(0.0, seconds * env_float("SW_RETRY_BACKOFF_SCALE"))
 
 
 def env_is_set(name: str) -> bool:

@@ -19,8 +19,10 @@ the leader stopped, a write and an ec.rebuild after), and its
 observability plane (``/metrics``, ``/cluster/metrics``,
 ``/admin/traces`` and the shell's ``trace.export``), and its hot→warm
 lifecycle (``volume.tier.upload`` / ``.download`` on a ``dir`` backend,
-and one demotion through ``/cluster/tiering?scan=1``), with both made
-unimportable."""
+and one demotion through ``/cluster/tiering?scan=1``), and its filer and
+S3 gateway (a sealed chunk, a multipart upload, a standalone gateway
+over ``FilerClient``, a GET through a lost shard and the ``s3`` tier on
+the port's own gateway), with both made unimportable."""
 
 import ast
 import os
@@ -129,6 +131,23 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/storage/needle_map_disk.py",
                  "seaweedfs_tpu_torch/query/json_query.py",
                  "seaweedfs_tpu_torch/images/resizing.py",
+                 "seaweedfs_tpu_torch/util/compression.py",
+                 "seaweedfs_tpu_torch/util/cipher.py",
+                 "seaweedfs_tpu_torch/filer/entry.py",
+                 "seaweedfs_tpu_torch/filer/filechunks.py",
+                 "seaweedfs_tpu_torch/filer/filerstore.py",
+                 "seaweedfs_tpu_torch/filer/memory_store.py",
+                 "seaweedfs_tpu_torch/filer/sqlite_store.py",
+                 "seaweedfs_tpu_torch/filer/sharded_store.py",
+                 "seaweedfs_tpu_torch/filer/filer.py",
+                 "seaweedfs_tpu_torch/filer/log_buffer.py",
+                 "seaweedfs_tpu_torch/filer/upload.py",
+                 "seaweedfs_tpu_torch/filer/stream.py",
+                 "seaweedfs_tpu_torch/filer/filer_client.py",
+                 "seaweedfs_tpu_torch/server/filer_server.py",
+                 "seaweedfs_tpu_torch/s3/auth.py",
+                 "seaweedfs_tpu_torch/s3/s3_server.py",
+                 "seaweedfs_tpu_torch/command/cli.py",
                  "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc",
@@ -1304,6 +1323,112 @@ def test_native_data_plane_with_jax_unimportable(tmp_path):
         finally:
             vs.stop()
             m.stop()
+        assert not any(mod.split(".")[0] in {FORBIDDEN!r}
+                       for mod, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_filer_and_s3_with_jax_unimportable(tmp_path):
+    """A port master, a volume server on the CPU, a filer that seals its
+    chunks and an S3 gateway: SigV4 PUTs, a multipart upload, a GET
+    through the filer, a standalone gateway over ``FilerClient``, the
+    volume encoded and a shard under an object lost, a GET through it,
+    and a volume tiered onto the ``s3`` backend at the port's own
+    gateway."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import io
+        import numpy as np
+        from seaweedfs_tpu_torch.filer.filer_client import FilerClient
+        from seaweedfs_tpu_torch.s3.auth import Iam, Identity, sign_request_v4
+        from seaweedfs_tpu_torch.s3.s3_server import S3ApiServer
+        from seaweedfs_tpu_torch.server.filer_server import FilerServer
+        from seaweedfs_tpu_torch.server.http_util import get_json, http_call
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+        from seaweedfs_tpu_torch.storage import backend
+        from seaweedfs_tpu_torch.storage.types import parse_file_id
+        root = {str(tmp_path)!r}
+        m = MasterServer(port=0, pulse_seconds=1, seed=1,
+                         repair_interval=0).start()
+        vs = VolumeServer(port=0, directories=[root + "/v"],
+                          master_url=m.url, pulse_seconds=1,
+                          max_volume_counts=[20], device="cpu",
+                          fast_port=-1).start()
+        f = FilerServer(port=0, master_url=m.url, cipher=True).start()
+        iam = Iam([Identity("i", "AK", "SK")])
+        s3 = S3ApiServer(f.filer, m.url, port=0, iam=iam).start()
+        alone = S3ApiServer(FilerClient(f.url), m.url, port=0,
+                            iam=iam).start()
+
+        def call(gw, method, path, body=b""):
+            url = "http://%s%s" % (gw.url, path)
+            h = sign_request_v4(method, url, {{}}, body, "AK", "SK")
+            return http_call(method, url, body=body or None, headers=h)
+
+        try:
+            rng = np.random.default_rng(2)
+            call(s3, "PUT", "/b")
+            objs = {{"o%d" % i: rng.bytes(300_000) for i in range(8)}}
+            for k, d in objs.items():
+                call(s3, "PUT", "/b/" + k, d)
+            up = call(s3, "POST", "/b/mp?uploads")
+            uid = up.split(b"<UploadId>")[1].split(b"<")[0].decode()
+            for i in (1, 2):
+                call(s3, "PUT", "/b/mp?partNumber=%d&uploadId=%s" % (i, uid),
+                     objs["o%d" % i])
+            call(s3, "POST", "/b/mp?uploadId=" + uid, b"<x/>")
+            assert call(alone, "GET", "/b/mp") == objs["o1"] + objs["o2"]
+            assert http_call("GET", "http://%s/buckets/b/o3" % f.url) \
+                == objs["o3"]
+            # a file written through the filer is sealed on the volume
+            # server and opens through the filer
+            http_call("PUT", "http://%s/sealed/f" % f.url, objs["o4"])
+            sealed = f.filer.find_entry("/sealed/f").chunks[0]
+            assert sealed.cipher_key and objs["o4"][:64] not in http_call(
+                "GET", "http://%s/%s" % (vs.url, sealed.fid))
+            assert http_call("GET", "http://%s/sealed/f" % f.url) \
+                == objs["o4"]
+            c = f.filer.find_entry("/buckets/b/o0").chunks[0]
+            vid = parse_file_id(c.fid)[0]
+            out = io.StringIO()
+            run_command(CommandEnv(m.url, out=out),
+                        "ec.encode -volumeId %d" % vid)
+            ev = vs.store.find_ec_volume(vid)
+            assert ev is not None, out.getvalue()
+            sid = ev.locate_needle(parse_file_id(c.fid)[1])[2][0]
+            sid = sid.block_index % 10
+            os.remove(ev.base_name + ".ec%02d" % sid)
+            http_call("POST", "http://%s/admin/ec/unmount?volume=%d"
+                      "&shards=%d" % (vs.url, vid, sid))
+            for k, d in objs.items():
+                assert call(alone, "GET", "/b/" + k) == d
+            assert get_json("http://%s/status" % vs.url)[
+                "ec_degraded"]["reads"] > 0
+            backend.configure_backends({{"s3": {{"t": {{
+                "endpoint": s3.url, "bucket": "tier", "access_key": "AK",
+                "secret_key": "SK"}}}}}})
+            call(s3, "PUT", "/tier")
+            b = backend.get_backend("s3.t")
+            src = os.path.join(root, "x.dat")
+            with open(src, "wb") as fh:
+                fh.write(objs["o5"])
+            assert b.upload_file(src, "x.dat") == len(objs["o5"])
+            assert b.read_range("x.dat", 10, 20) == objs["o5"][10:30]
+        finally:
+            for srv in (alone, s3, f, vs, m):
+                srv.stop()
         assert not any(mod.split(".")[0] in {FORBIDDEN!r}
                        for mod, v in sys.modules.items() if v is not None)
         print("PORT-OK")

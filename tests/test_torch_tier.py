@@ -17,9 +17,9 @@
   servers on ``device="cpu"``): equal lines (servers by name), the
   public read path equal before, during and after.
 - The port's ``S3Backend`` against the JAX package's own S3 gateway
-  (``S3ApiServer`` over a ``FilerServer``): PUT, ranged GET, GET, HEAD,
-  DELETE; the signature equal to the JAX ``authorization_header_v4``;
-  a port volume tiered onto it reads back.
+  (``S3ApiServer`` over a ``FilerServer``), and against the port's:
+  PUT, ranged GET, GET, HEAD, DELETE; the signature equal to the JAX
+  ``authorization_header_v4``; a port volume tiered onto it reads back.
 
 Every test clears both packages' process-global backend registries
 around it. Tolerances: none."""
@@ -348,20 +348,33 @@ def test_shell_tier_upload_download(tmp_path, monkeypatch):
     assert lines[2] == "volume V: no replica is tiered"
 
 
-def _s3_gateway(tmp_path, ak, sk):
-    """The JAX package's S3 gateway over its filer, master and volume
-    server; returns (url, stop)."""
-    from seaweedfs_tpu.s3.auth import Iam, Identity
-    from seaweedfs_tpu.s3.s3_server import S3ApiServer
-    from seaweedfs_tpu.server.filer_server import FilerServer
-    from seaweedfs_tpu.server.master import MasterServer
-    from seaweedfs_tpu.server.volume_server import VolumeServer
-    master = MasterServer(port=0, volume_size_limit_mb=64,
-                          pulse_seconds=1).start()
-    vol = VolumeServer(port=0, directories=[str(tmp_path / "s3-v0")],
-                       master_url=master.url, pulse_seconds=1,
-                       max_volume_counts=[20], ec_backend="numpy",
-                       fast_port=-1).start()
+def _s3_gateway(tmp_path, ak, sk, kind="ref"):
+    """One package's S3 gateway over its filer, master and volume
+    server (the port's on the CPU); returns (url, stop)."""
+    if kind == "ref":
+        from seaweedfs_tpu.s3.auth import Iam, Identity
+        from seaweedfs_tpu.s3.s3_server import S3ApiServer
+        from seaweedfs_tpu.server.filer_server import FilerServer
+        from seaweedfs_tpu.server.master import MasterServer
+        from seaweedfs_tpu.server.volume_server import VolumeServer
+        master = MasterServer(port=0, volume_size_limit_mb=64,
+                              pulse_seconds=1).start()
+        vol = VolumeServer(port=0, directories=[str(tmp_path / "s3-v0")],
+                           master_url=master.url, pulse_seconds=1,
+                           max_volume_counts=[20], ec_backend="numpy",
+                           fast_port=-1).start()
+    else:
+        from seaweedfs_tpu_torch.s3.auth import Iam, Identity
+        from seaweedfs_tpu_torch.s3.s3_server import S3ApiServer
+        from seaweedfs_tpu_torch.server.filer_server import FilerServer
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        master = MasterServer(port=0, volume_size_limit_mb=64,
+                              pulse_seconds=1, repair_interval=0).start()
+        vol = VolumeServer(port=0, directories=[str(tmp_path / "s3-v0")],
+                           master_url=master.url, pulse_seconds=1,
+                           max_volume_counts=[20], device="cpu",
+                           fast_port=-1).start()
     filer = FilerServer(port=0, master_url=master.url).start()
     s3 = S3ApiServer(filer.filer, master.url, port=0,
                      iam=Iam([Identity("tier", ak, sk)])).start()
@@ -387,8 +400,19 @@ def test_s3_signature_matches_jax():
 
 
 def test_s3_backend_against_jax_gateway(tmp_path):
+    _s3_backend_round_trip(tmp_path, "ref")
+
+
+def test_s3_backend_against_port_gateway(tmp_path):
+    """The same round trip against the port's own gateway: the port's
+    tier backend and S3 gateway, nothing of the JAX package on the
+    wire."""
+    _s3_backend_round_trip(tmp_path, "port")
+
+
+def _s3_backend_round_trip(tmp_path, kind):
     ak, sk = "TIERKEY", "TIERSECRET"
-    url, stop = _s3_gateway(tmp_path, ak, sk)
+    url, stop = _s3_gateway(tmp_path, ak, sk, kind)
     try:
         b = backend.S3Backend("default", f"http://{url}", "tier-bucket",
                               access_key=ak, secret_key=sk)
