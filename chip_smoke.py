@@ -456,6 +456,44 @@
    by phase, the plane's redirects and slab-cache hits, and the step's
    numbers as JSON.
 
+21. A mutual-TLS cluster from config files, after step 20 (mtls_leg):
+   (a) a CA, a server certificate (CN 127.0.0.1) and a peer certificate
+   it signed, and a self-signed rogue one, made with the openssl CLI (a
+   missing openssl fails the step). (b) python3 -m
+   seaweedfs_tpu_torch.command.cli server -filer -ec.backend cuda started
+   in a directory that holds only security.toml ([https] cert, key, ca,
+   mutual = true; [jwt.signing] key) and master.toml
+   ([master.volume_growth] copy_1 = MTLS_GROWTH; no maintenance), and two
+   volume -ec.backend cuda processes given the same material by -tlsCert,
+   -tlsKey, -tlsCa, -tlsMutual (and -jwtKey), all spawned with step 16's
+   ranks (MtlsCluster); the master's repair loop off
+   (SW_REPAIR_INTERVAL_S=0), every scrub's first pass due after the step
+   (ec/scrub.IDLE_S). This process is a client with the peer certificate
+   for the step. (c) Refusals: plain http:// to the master gets no
+   answer; /cluster/status and each volume server's /admin/devices
+   answer 403 without a client certificate; the rogue certificate fails
+   the handshake; a public fid GET over server TLS answers 200; no
+   volume server runs a native plane. (d) benchmark -n MTLS_BENCH_N
+   -size MTLS_BENCH_SIZE -c 8 -collection MTLS_COLLECTION, upload of
+   MTLS_FILES files of 256 KiB-4 MiB (about MTLS_BYTES, seeded by
+   --seed) and filer.copy of a small seeded tree, each a CLI process in
+   the config directory; download (the CLI's command, one call a file)
+   sha256-identical; the filer's HTML listing names every copied file;
+   the master's /ui names the three volume servers and a volume server's
+   /ui lists its volumes. (e) ec.encode -collection through weed shell,
+   a process in the config directory (a TLS client itself); the shard
+   the most uploaded files cross (each .ecx, ec/locate) removed and
+   unmounted; every file downloaded cold then warm, sha256-identical:
+   K1's launches in the holders' processes over the cold pass (their
+   /admin/devices, read with the peer certificate) > 0 and equal to
+   their degraded engines' device dispatches, the survivors pulled from
+   other holders over /admin/ec/shard_read. (f) ec.rebuild: the shard
+   sha256-identical to the lost one, >= 1 K1 launch; every file again.
+   (g) SIGTERM, then exit 0. Prints the benchmark's write and read
+   req/s, MB/s, p50 and p99, download MB/s, p50 and p99 (healthy, cold,
+   warm), K1 launches by phase, connections each client's pool opened,
+   and the step's numbers as JSON.
+
 Every leg runs with every kernel's launch count (ops/device_stats) set
 to 0 just before it and read just after; a leg of steps 5-8 and 10-19
 whose K1 launches in this process differ from its dispatches (two for a
@@ -5014,6 +5052,15 @@ S3_PARTS = (5 << 20, 5 << 20, 2 << 20)  # the multipart upload's parts
 S3_DELETED = 2              # keys of one DeleteObjects
 S3_TIER_NEEDLES = 16        # the small sealed volume's 64 KiB needles
 S3_AK, S3_SK = "smoke-access", "smoke/secret+key"
+MTLS_COLLECTION = "bench"   # step 21's collection (benchmark and upload)
+MTLS_GROWTH = 3             # master.toml's copy_1: volumes a growth makes
+MTLS_BENCH_N = 1024         # benchmark -n
+MTLS_BENCH_SIZE = 4096      # benchmark -size
+MTLS_FILES = 12             # uploaded files, log-uniform sizes between
+MTLS_MIN = 256 << 10        # these two
+MTLS_MAX = 4 << 20
+MTLS_BYTES = 24 << 20       # about their total
+MTLS_JWT = "smoke-signing-key"
 
 
 class S3Stack:
@@ -5423,6 +5470,559 @@ def s3_leg(np, port, work, seed, stack):
     return numbers
 
 
+def make_pki(d):
+    """Step 21 (a): a CA, a server and a peer certificate it signed, and a
+    self-signed rogue one, by the openssl CLI; {name: (cert, key)} and
+    the CA's path. A missing openssl raises."""
+    def run(*cmd):
+        out = subprocess.run(cmd, capture_output=True, timeout=120)
+        if out.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[:3])}: {out.stderr[-300:]}")
+    ca, cakey = os.path.join(d, "ca.pem"), os.path.join(d, "ca.key")
+    run("openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+        "-keyout", cakey, "-out", ca, "-days", "1", "-subj", "/CN=smoke-ca")
+    pairs = {}
+    for name, cn in (("srv", "127.0.0.1"), ("peer", "peer")):
+        key, csr, crt = (os.path.join(d, f"{name}.{x}")
+                         for x in ("key", "csr", "pem"))
+        run("openssl", "req", "-newkey", "rsa:2048", "-nodes", "-keyout",
+            key, "-out", csr, "-subj", f"/CN={cn}")
+        run("openssl", "x509", "-req", "-in", csr, "-CA", ca, "-CAkey",
+            cakey, "-CAcreateserial", "-out", crt, "-days", "1")
+        pairs[name] = (crt, key)
+    rcrt, rkey = os.path.join(d, "rogue.pem"), os.path.join(d, "rogue.key")
+    run("openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+        "-keyout", rkey, "-out", rcrt, "-days", "1", "-subj", "/CN=rogue")
+    pairs["rogue"] = (rcrt, rkey)
+    return ca, pairs
+
+
+class MtlsCluster:
+    """Step 21's cluster as an operator starts it: ``command.cli server
+    -filer`` in a directory that holds only security.toml and
+    master.toml (its TLS, write-token key and growth come from them), and
+    two ``command.cli volume`` processes given the same material by
+    flags, on free ports, every volume server on the card. ``spawn``
+    makes the certificates and starts the three on a thread of its own
+    (the caller goes on), ``wait`` joins it and reads their addresses,
+    ``stop`` sends SIGTERM and wants exit code 0 of each."""
+
+    def __init__(self, work):
+        self.dir = os.path.join(work, "mtls")
+        self.cfg = os.path.join(self.dir, "cfg")
+        os.makedirs(self.cfg)
+        ports = _free_ports(5)
+        self.master, self.a, self.filer, self.b, self.c = (
+            f"127.0.0.1:{p}" for p in ports)
+        self.ports = ports
+        self.procs, self.lines = {}, {}
+        self._spawning, self._spawn_error = None, None
+
+    def spawn(self):
+        self._spawning = threading.Thread(target=self._spawn, daemon=True)
+        self._spawning.start()
+        return self
+
+    def _spawn(self):
+        try:
+            self._make_and_start()
+        except BaseException as e:  # noqa: BLE001 - re-raised by wait()
+            self._spawn_error = e
+
+    def _make_and_start(self):
+        t0 = time.perf_counter()
+        self.ca, self.pairs = make_pki(self.dir)
+        self.pki_s = time.perf_counter() - t0
+        cert, key = self.pairs["srv"]
+        with open(os.path.join(self.cfg, "security.toml"), "w") as f:
+            f.write(f'[jwt.signing]\nkey = "{MTLS_JWT}"\n\n[https]\n'
+                    f'cert = "{cert}"\nkey = "{key}"\nca = "{self.ca}"\n'
+                    f'mutual = true\n')
+        with open(os.path.join(self.cfg, "master.toml"), "w") as f:
+            f.write(f'[master.maintenance]\nscripts = ""\n\n'
+                    f'[master.volume_growth]\ncopy_1 = {MTLS_GROWTH}\n')
+        mport, aport, fport, bport, cport = self.ports
+        env = dict(os.environ, SW_REPAIR_INTERVAL_S="0", PYTHONPATH=ROOT)
+        cli = [sys.executable, "-m", "seaweedfs_tpu_torch.command.cli"]
+        self._start("server", self.cfg, cli + [
+            "server", "-filer", "-ec.backend", "cuda",
+            "-dir", os.path.join(self.dir, "a"), "-max", "64",
+            "-masterPort", str(mport), "-port", str(aport),
+            "-filerPort", str(fport), "-pulseSeconds", "1"], env)
+        for name, port in (("b", bport), ("c", cport)):
+            d = os.path.join(self.dir, name)
+            os.makedirs(d)
+            self._start(name, d, cli + [
+                "volume", "-ec.backend", "cuda", "-dir", d, "-max", "64",
+                "-port", str(port), "-mserver", self.master,
+                "-pulseSeconds", "1", "-jwtKey", MTLS_JWT,
+                "-tlsCert", cert, "-tlsKey", key, "-tlsCa", self.ca,
+                "-tlsMutual"], env)
+
+    def _start(self, name, cwd, argv, env):
+        proc = subprocess.Popen(
+            argv, cwd=cwd, stdout=subprocess.PIPE, text=True, env=env,
+            stderr=open(os.path.join(self.dir, f"{name}.log"), "wb"))
+        self.procs[name] = proc
+        self.lines[name] = queue.Queue()
+        threading.Thread(target=self._read, args=(proc.stdout,
+                                                  self.lines[name]),
+                         daemon=True).start()
+
+    @staticmethod
+    def _read(out, q):
+        for line in out:
+            q.put(line.strip())
+        q.put(None)
+
+    def _until(self, name, prefix, deadline):
+        lines = []
+        while time.monotonic() < deadline:
+            try:
+                line = self.lines[name].get(timeout=0.5)
+            except queue.Empty:
+                continue
+            if line is None:
+                break
+            lines.append(line)
+            if line.startswith(prefix):
+                return lines
+        with open(os.path.join(self.dir, f"{name}.log"), "rb") as f:
+            err = f.read()[-2000:].decode("utf-8", "replace")
+        raise AssertionError(f"mtls {name} did not start (exit "
+                             f"{self.procs[name].poll()}): {lines} {err}")
+
+    def wait(self):
+        deadline = time.monotonic() + HOLDER_START_S
+        self._spawning.join(HOLDER_START_S)
+        if self._spawn_error is not None:
+            raise self._spawn_error
+        out = {"server": self._until("server", "filer on", deadline)}
+        for name in ("b", "c"):
+            out[name] = self._until(name, "volume server listening on",
+                                    deadline)
+        want = {"server": [f"master on {self.master}, volume server on "
+                           f"{self.a}", f"filer on {self.filer}"],
+                "b": [f"volume server listening on {self.b}, heartbeating "
+                      f"to {self.master}"],
+                "c": [f"volume server listening on {self.c}, heartbeating "
+                      f"to {self.master}"]}
+        _check("mtls cluster's lines (no native plane)", out, want)
+        return out
+
+    def stop(self):
+        """SIGTERM to each; their exit codes."""
+        if self._spawning is not None:
+            self._spawning.join(HOLDER_START_S)
+        procs, self.procs = self.procs, {}
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        rcs = {}
+        for name, proc in procs.items():
+            try:
+                rcs[name] = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rcs[name] = proc.wait()
+        return rcs
+
+    stop_processes = stop
+
+    def cli(self, *argv, timeout=300):
+        """One ``command.cli`` process in the config directory (TLS and
+        the write-token key from its security.toml); its stdout."""
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.command.cli",
+             *argv], cwd=self.cfg, capture_output=True, text=True,
+            timeout=timeout, env=dict(os.environ, PYTHONPATH=ROOT))
+        if out.returncode != 0:
+            raise AssertionError(f"cli {argv[0]}: exit {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        return out.stdout, time.perf_counter() - t0
+
+
+def _https_status(hostport, path, ca, cert=None):
+    """(status, body) of one GET over a TLS connection of its own: the
+    CA trusted, ``cert`` presented when given."""
+    import http.client
+    import ssl
+    ctx = ssl.create_default_context(cafile=ca)
+    ctx.check_hostname = False
+    if cert:
+        ctx.load_cert_chain(*cert)
+    host, port = hostport.rsplit(":", 1)
+    c = http.client.HTTPSConnection(host, int(port), timeout=30,
+                                    context=ctx)
+    try:
+        c.request("GET", path)
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def _refused(what, fn):
+    """``fn`` must fail at the transport: no HTTP answer."""
+    import http.client
+    try:
+        fn()
+    except (OSError, http.client.HTTPException):
+        return
+    raise AssertionError(f"{what}: answered")
+
+
+def _bench_report(text):
+    """{phase: {ok, failed, wall_s, req_s, kb_s, p50_ms, p99_ms}} of a
+    benchmark's report."""
+    import re as _re
+    out = {}
+    for title, body in _re.findall(r"--- (write|random read) ---\n"
+                                   r"(.*?)(?=\n\n|\Z)", text, _re.S):
+        m = _re.search(r"requests: (\d+) ok, (\d+) failed in ([\d.]+)s",
+                       body)
+        t = _re.search(r"throughput: ([\d.]+) req/s, ([\d.]+) KB/s", body)
+        p = dict(_re.findall(r"p(\d+): ([\d.]+) ms", body))
+        out[title] = {"ok": int(m.group(1)), "failed": int(m.group(2)),
+                      "wall_s": float(m.group(3)),
+                      "req_s": float(t.group(1)),
+                      "mb_s": round(float(t.group(2)) * 1024 / 1e6, 3),
+                      "p50_ms": float(p["50"]), "p99_ms": float(p["99"])}
+    return out
+
+
+def _mtls_plan(np, seed):
+    """MTLS_FILES (name, bytes), log-uniform sizes scaled to about
+    MTLS_BYTES, and a small tree for filer.copy: [(relative path,
+    bytes)]."""
+    rng = np.random.default_rng(seed)
+    sizes = np.exp(rng.uniform(np.log(MTLS_MIN), np.log(MTLS_MAX),
+                               MTLS_FILES))
+    sizes = np.clip(sizes * MTLS_BYTES / sizes.sum(), MTLS_MIN,
+                    MTLS_MAX).astype(int)
+    files = [(f"f{i:02d}.bin", rng.bytes(int(n)))
+             for i, n in enumerate(sizes)]
+    tree = [(f"logs/d{i % 2}/part-{i}.txt", rng.bytes(int(n)))
+            for i, n in enumerate(rng.integers(1 << 10, 256 << 10, 6))]
+    return files, tree
+
+
+def _k1_by_server(urls):
+    return {u: _devices_k1(u) for u in urls}
+
+
+def _engines(urls):
+    from seaweedfs_tpu_torch.server.http_util import get_json
+    return {u: get_json(f"http://{u}/status")["ec_degraded"] for u in urls}
+
+
+def _metric_sum(url, name, label):
+    """The sum of ``name``'s samples whose labels hold ``label``, from
+    ``url``'s /metrics."""
+    from seaweedfs_tpu_torch.server.http_util import http_call
+    total = 0.0
+    for line in http_call("GET", f"http://{url}/metrics").decode() \
+            .splitlines():
+        if line.startswith(name) and label in line:
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def mtls_leg(np, port, work, seed, cluster):
+    """Step 21: a mutual-TLS cluster configured by its files, loaded by
+    the operator commands, read through a lost shard reconstructed on K1
+    in the holders' processes, and rebuilt."""
+    import argparse
+    import contextlib
+    import io
+    from seaweedfs_tpu_torch.command import cli
+    from seaweedfs_tpu_torch.ec.ec_volume import EcVolume
+    from seaweedfs_tpu_torch.server import http_util
+    from seaweedfs_tpu_torch.storage.types import parse_file_id
+    ec = port[0]
+    t_step = time.perf_counter()
+    started = cluster.wait()
+    print(f"mtls cluster (certificates in {cluster.pki_s:.2f} s): " + "; ".join(
+        ln for lines in started.values() for ln in lines))
+    m, f, ca = cluster.master, cluster.filer, cluster.ca
+    servers = (cluster.a, cluster.b, cluster.c)
+    dirs = {cluster.a: os.path.join(cluster.dir, "a"),
+            cluster.b: os.path.join(cluster.dir, "b"),
+            cluster.c: os.path.join(cluster.dir, "c")}
+    peer, rogue = cluster.pairs["peer"], cluster.pairs["rogue"]
+    http_util.configure_tls(*peer, ca)
+    try:
+        _wait_for("three volume servers registered", lambda: sorted(
+            n["url"] for n in http_util.get_json(
+                f"http://{m}/cluster/status")["nodes"]) == sorted(servers),
+            HOLDER_START_S)
+        t_up = time.perf_counter()
+        # (c) refusals
+        import http.client
+        plain = http.client.HTTPConnection(*m.split(":"), timeout=10)
+        _refused("plain http:// to the master", lambda: (
+            plain.request("GET", "/dir/status"),
+            plain.getresponse().read()))
+        plain.close()
+        refusals = {}
+        for what, url, path in (("master /cluster/status", m,
+                                 "/cluster/status"),
+                                *((f"{u} /admin/devices", u,
+                                   "/admin/devices") for u in servers)):
+            st, body = _https_status(url, path, ca)
+            _check(f"{what} without a client certificate",
+                   (st, b"certificate" in body), (403, True))
+            refusals[what] = st
+        _check("master /cluster/status with the peer certificate",
+               _https_status(m, "/cluster/status", ca, peer)[0], 200)
+        _refused("the rogue certificate", lambda: _https_status(
+            m, "/cluster/status", ca, rogue))
+        for u in servers:
+            _check(f"{u} runs no native plane",
+                   "fast_plane" in http_util.get_json(f"http://{u}/status"),
+                   False)
+
+        # (d) the operator commands, each a process in the config dir
+        bench_out, bench_s = cluster.cli(
+            "benchmark", "-master", m, "-n", str(MTLS_BENCH_N), "-size",
+            str(MTLS_BENCH_SIZE), "-c", "8", "-collection", MTLS_COLLECTION)
+        bench = _bench_report(bench_out)
+        for phase in ("write", "random read"):
+            _check(f"benchmark {phase}",
+                   (bench[phase]["ok"], bench[phase]["failed"]),
+                   (MTLS_BENCH_N, 0))
+        files, tree = _mtls_plan(np, seed)
+        fdir = os.path.join(cluster.dir, "files")
+        os.makedirs(fdir)
+        want = {}
+        for name, data in files:
+            with open(os.path.join(fdir, name), "wb") as fh:
+                fh.write(data)
+            want[name] = hashlib.sha256(data).hexdigest()
+        up_out, up_s = cluster.cli(
+            "upload", "-master", m, "-collection", MTLS_COLLECTION,
+            *(os.path.join(fdir, n) for n, _ in files))
+        fids = {os.path.basename(ln.split(" -> ")[0]): ln.split(" -> ")[1]
+                for ln in up_out.splitlines()}
+        _check("uploaded files", sorted(fids), sorted(want))
+        a0 = http_util.get_json(f"http://{m}/dir/lookup?volumeId="
+                                f"{fids[files[0][0]].split(',')[0]}")
+        _check("public fid GET over server TLS", _https_status(
+            a0["locations"][0]["url"], "/" + fids[files[0][0]], ca)[0], 200)
+        tdir = os.path.join(cluster.dir, "tree")
+        for rel, data in tree:
+            os.makedirs(os.path.dirname(os.path.join(tdir, rel)),
+                        exist_ok=True)
+            with open(os.path.join(tdir, rel), "wb") as fh:
+                fh.write(data)
+        copy_out, copy_s = cluster.cli("filer.copy", "-c", "4", tdir,
+                                       f"http://{f}/copied/")
+        _check("filer.copy", copy_out.splitlines()[-1],
+               f"copied {len(tree)} files to {f}/copied")
+        for sub in sorted({os.path.dirname(rel) for rel, _ in tree}):
+            page = http_util.http_call(
+                "GET", f"http://{f}/copied/tree/{sub}/",
+                headers={"Accept": "text/html"}).decode()
+            for rel, data in tree:
+                if os.path.dirname(rel) == sub:
+                    _check(f"filer listing names {rel}",
+                           f">{os.path.basename(rel)}</a>" in page, True)
+                    _check(f"filer GET {rel}", http_util.http_call(
+                        "GET", f"http://{f}/copied/tree/{rel}"), data)
+        mpage = http_util.http_call("GET", f"http://{m}/ui").decode()
+        _check("master /ui names the volume servers",
+               [u in mpage for u in servers], [True] * 3)
+        import re as _re
+        listed = {}
+        for u in servers:
+            page = http_util.http_call("GET", f"http://{u}/ui").decode()
+            rows = _re.search(r"<h2>Volumes</h2>(.*?)</table>", page).group(1)
+            listed[u] = sorted(
+                (f"{c}_{v}" if c != "-" else v) for v, c in _re.findall(
+                    r"<tr><td>(\d+)</td><td>([^<]*)</td>", rows))
+            _check(f"{u} /ui lists its volumes", listed[u], sorted(
+                n[:-4] for n in os.listdir(dirs[u]) if n.endswith(".dat")))
+        _check(f"the {MTLS_COLLECTION} volumes on the /ui pages", sum(
+            n.startswith(MTLS_COLLECTION + "_") for v in listed.values()
+            for n in v), MTLS_GROWTH)
+
+        out_dir = os.path.join(cluster.dir, "out")
+
+        def download_pass(label):
+            """Every file through the CLI's download, one call a file:
+            (ms list, MB/s, the client pool's created and reused)."""
+            pool0 = http_util.pool_stats_snapshot()
+            lat, t0 = [], time.perf_counter()
+            for name, fid in fids.items():
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.cmd_download(argparse.Namespace(
+                        master=m, dir=out_dir, fids=[fid]))
+                lat.append((time.perf_counter() - t) * 1e3)
+                with open(os.path.join(out_dir, name), "rb") as fh:
+                    got = hashlib.sha256(fh.read()).hexdigest()
+                if got != want[name]:
+                    raise AssertionError(f"mtls {label} download {name}")
+            wall = time.perf_counter() - t0
+            pool1 = http_util.pool_stats_snapshot()
+            return lat, sum(len(d) for _, d in files) / wall / 1e6, {
+                k: pool1[k] - pool0[k] for k in ("created", "reused")}
+        healthy = download_pass("healthy")
+
+        # (e) encode through weed shell, lose the busiest shard
+        k_enc0 = _k1_by_server(servers)
+        enc_out, encode_s = cluster.cli(
+            "shell", "-master", m, "-c",
+            f"ec.encode -collection {MTLS_COLLECTION} -fullPercent 0 "
+            f"-quietFor 0")
+        print("  shell> ec.encode\n" + "".join(
+            f"    {ln}\n" for ln in enc_out.splitlines()), end="")
+        if "error:" in enc_out or "falling back" in enc_out:
+            raise AssertionError(f"ec.encode: {enc_out}")
+        k_enc1 = _k1_by_server(servers)
+        k_enc = sum(k_enc1.values()) - sum(k_enc0.values())
+        crossing, vols = {}, {}
+        try:
+            for name, fid in fids.items():
+                vid, nid, _ = parse_file_id(fid)
+                if vid not in vols:
+                    d = next(d for d in dirs.values() if os.path.exists(
+                        os.path.join(d, f"{MTLS_COLLECTION}_{vid}.ecx")))
+                    vols[vid] = EcVolume(d, MTLS_COLLECTION, vid)
+                by_sid = {}
+                for iv in vols[vid].locate_needle(nid)[2]:
+                    sid = iv.to_shard_id_and_offset(
+                        ec.LARGE_BLOCK_SIZE, ec.SMALL_BLOCK_SIZE)[0]
+                    by_sid[sid] = by_sid.get(sid, 0) + iv.size
+                for sid, nbytes in by_sid.items():
+                    n, wide = crossing.get((vid, sid), (0, 0))
+                    crossing[(vid, sid)] = (n + 1,
+                                            wide + (nbytes >= MTLS_MIN))
+        finally:
+            for v in vols.values():
+                v.close()
+        (vid, sid), (n_cross, n_wide) = max(
+            crossing.items(), key=lambda kv: (kv[1][1], kv[1][0], kv[0]))
+        shard_name = f"{MTLS_COLLECTION}_{vid}{ec.to_ext(sid)}"
+        holder = next(u for u, d in dirs.items()
+                      if os.path.exists(os.path.join(d, shard_name)))
+        lost_sha = _sha(os.path.join(dirs[holder], shard_name))
+        os.remove(os.path.join(dirs[holder], shard_name))
+        _post(holder, f"/admin/ec/unmount?volume={vid}&shards={sid}")
+
+        def snap():
+            return (_k1_by_server(servers), _engines(servers),
+                    {u: _metric_sum(u, "SeaweedFS_volumeServer_request_total",
+                                    "GET /admin/ec/shard_read")
+                     for u in servers},
+                    {u: {ev: _metric_sum(
+                        u, "SeaweedFS_volumeServer_http_pool_churn_total",
+                        f'event="{ev}"') for ev in ("created", "reused")}
+                     for u in servers})
+        k0, e0, r0, c0 = snap()
+        cold = download_pass("cold")
+        k1, e1, r1, c1 = snap()
+        warm = download_pass("warm")
+        k2, e2, _, _ = snap()
+        cold_launches = sum(k1.values()) - sum(k0.values())
+        dev = sum(e1[u]["device_dispatches"] - e0[u]["device_dispatches"]
+                  for u in servers)
+        remote = sum(e1[u]["remote_bytes"] - e0[u]["remote_bytes"]
+                     for u in servers)
+        pulls = sum(r1.values()) - sum(r0.values())
+        if cold_launches < 1 or cold_launches != dev or remote < 1 or \
+                pulls < 1:
+            raise AssertionError(
+                f"mtls cold pass: {cold_launches} K1 launches, {dev} device "
+                f"dispatches, {remote} remote bytes, {pulls} shard_read "
+                f"pulls; engines {e0} -> {e1}")
+
+        # (f) rebuild through weed shell
+        reb_out, rebuild_s = cluster.cli(
+            "shell", "-master", m, "-c",
+            f"ec.rebuild -collection {MTLS_COLLECTION}")
+        print("  shell> ec.rebuild\n" + "".join(
+            f"    {ln}\n" for ln in reb_out.splitlines()), end="")
+        k3 = _k1_by_server(servers)
+        rebuild_launches = sum(k3.values()) - sum(k2.values())
+        rebuilt = [os.path.join(d, shard_name) for d in dirs.values()
+                   if os.path.exists(os.path.join(d, shard_name))]
+        _check("rebuilt shard", [_sha(p) for p in rebuilt], [lost_sha])
+        if rebuild_launches < 1:
+            raise AssertionError(f"ec.rebuild: {rebuild_launches} K1 "
+                                 f"launches")
+        after = download_pass("rebuilt")
+        k4 = _k1_by_server(servers)
+        step_s = time.perf_counter() - t_up
+    finally:
+        http_util.reset_tls()
+        rcs = cluster.stop()
+    _check("mtls cluster exit codes after SIGTERM", rcs,
+           {"server": 0, "b": 0, "c": 0})
+
+    def lat(x):
+        return {"mb_s": round(x[1], 1), "p50_ms": round(_pct(x[0], 0.5), 3),
+                "p99_ms": round(_pct(x[0], 0.99), 3)}
+    numbers = {
+        "benchmark": bench, "benchmark_process_s": round(bench_s, 3),
+        "upload_mb_s": round(sum(len(d) for _, d in files) / up_s / 1e6, 1),
+        "upload_process_s": round(up_s, 3),
+        "filer_copy_process_s": round(copy_s, 3),
+        "files": len(files), "bytes": sum(len(d) for _, d in files),
+        "download": {"healthy": lat(healthy), "cold": lat(cold),
+                     "warm": lat(warm), "rebuilt": lat(after)},
+        "lost": {"vid": vid, "sid": sid, "files": n_cross,
+                 "wide_files": n_wide, "holder": holder},
+        "k1_launches": {"encode": k_enc, "cold": cold_launches,
+                        "warm": sum(k2.values()) - sum(k1.values()),
+                        "rebuild": rebuild_launches,
+                        "rebuilt": sum(k4.values()) - sum(k3.values()),
+                        "by_server_cold": {u: k1[u] - k0[u]
+                                           for u in servers}},
+        "cold_remote_bytes": remote, "cold_shard_read_pulls": pulls,
+        "pool_connections": {
+            "smoke_client": {"healthy": healthy[2], "cold": cold[2],
+                             "warm": warm[2]},
+            "holders_cold": {u: {ev: c1[u][ev] - c0[u][ev]
+                                 for ev in c1[u]} for u in servers},
+            "holders_total": c1},
+        "refusals": refusals,
+        "encode_s": round(encode_s, 3), "rebuild_s": round(rebuild_s, 3),
+        "step_s_after_start": round(step_s, 3),
+        "wall_s": round(time.perf_counter() - t_step, 3)}
+    numbers["k1_launches"]["step"] = sum(
+        v for k, v in numbers["k1_launches"].items() if k != "by_server_cold")
+    b_w, b_r = bench["write"], bench["random read"]
+    print(f"mtls (c): plain http refused, 403 without a client certificate "
+          f"({len(refusals)} routes), the rogue certificate refused in the "
+          f"handshake, fid GET 200 over server TLS, no native plane")
+    print(f"mtls (d): benchmark over TLS: write {b_w['req_s']} req/s "
+          f"{b_w['mb_s']} MB/s p50 {b_w['p50_ms']} ms p99 {b_w['p99_ms']} "
+          f"ms; read {b_r['req_s']} req/s {b_r['mb_s']} MB/s p50 "
+          f"{b_r['p50_ms']} ms p99 {b_r['p99_ms']} ms; upload of "
+          f"{len(files)} files in {up_s:.2f} s (process); filer.copy of "
+          f"{len(tree)} in {copy_s:.2f} s; downloads healthy "
+          f"{numbers['download']['healthy']}")
+    print(f"mtls (e): ec.encode in {encode_s:.2f} s ({k_enc} K1 launches);"
+          f" lost shard {sid} of volume {vid} on {holder}, crossed by "
+          f"{n_cross} files ({n_wide} by >= {MTLS_MIN} B); cold "
+          f"{numbers['download']['cold']}, {cold_launches} K1 launches = "
+          f"the engines' device dispatches, {remote} B pulled over "
+          f"{pulls} mutual-TLS shard reads; warm "
+          f"{numbers['download']['warm']}, "
+          f"{numbers['k1_launches']['warm']} launches; connections opened "
+          f"(reused) by the holders' pools over the cold pass "
+          f"{numbers['pool_connections']['holders_cold']}, by this "
+          f"client's {cold[2]}")
+    print(f"mtls (f): ec.rebuild in {rebuild_s:.2f} s ({rebuild_launches} "
+          f"K1 launches), shard sha256-identical; downloads "
+          f"{numbers['download']['rebuilt']}")
+    print(card_line())
+    print("mtls step: " + json.dumps(numbers))
+    return numbers
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5630,6 +6230,9 @@ def run(args) -> int:
         spreading.append(cluster_early["procs"])
         s3_stack = S3Stack(work).spawn()
         spreading.append(s3_stack)
+        mtls_cluster = MtlsCluster(work)
+        spreading.append(mtls_cluster)
+        mtls_cluster.spawn()
         ranks = Ranks(work)
         try:
             mesh = drive("mesh codec", mesh_codec_leg, np, port, work, base,
@@ -5656,6 +6259,8 @@ def run(args) -> int:
                         args.seed + 79)
         s3 = drive("s3", s3_leg, np, port, work, args.seed + 83, s3_stack,
                    kernel=False)
+        mtls = drive("mtls", mtls_leg, np, port, work, args.seed + 89,
+                     mtls_cluster, kernel=False)
     finally:
         for group in spreading:
             group.stop_processes()
@@ -5676,20 +6281,23 @@ def run(args) -> int:
     mesh_launches = legs["mesh codec"] + legs["mesh crossover"] + \
         legs["sharded step"] + sum(rank_launches)
     s3_k1 = s3["k1_launches"]
+    mtls_k1 = mtls["k1_launches"]
     launches = sum(legs.values()) + sum(other.values()) + \
-        sum(rank_launches) + s3_k1["step"]
+        sum(rank_launches) + s3_k1["step"] + mtls_k1["step"]
     print(f"main path (flat, traced, trace repair, streaming, degraded "
           f"flat, scrub flat, tuner, net trace repair, net full rebuild, net "
           f"degraded flat, net scrub flat, spread flat, piggyback, plane "
           f"repair, streaming piggyback, degraded piggyback, scrub "
           f"piggyback, net plane repair, spread piggyback, integrity, "
           f"mesh codec, mesh crossover, sharded step, ranks, decode, data "
-          f"plane, native plane, cluster, tiering, s3) in "
+          f"plane, native plane, cluster, tiering, s3, mtls) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
           f"= dispatches, 2 a sharded mesh dispatch ({sum(other.values())} "
           f"of them in the integrity leg's B and C, {json.dumps(other)}, "
           f"{sum(rank_launches)} in step 16's ranks, {rank_launches}, "
-          f"{s3_k1['step']} in step 20's stack, {json.dumps(s3_k1)}), by "
+          f"{s3_k1['step']} in step 20's stack, {json.dumps(s3_k1)}, "
+          f"{mtls_k1['step']} in step 21's cluster, "
+          f"{json.dumps(mtls_k1)}), by "
           f"leg in this process {json.dumps(legs)}; builds {build_s:.2f} s")
     print(f"main path walls by leg: {json.dumps(walls)}")
     integrity_scrub = sum(n for server in by_server.values()
@@ -5703,7 +6311,7 @@ def run(args) -> int:
         _k1_entry("gf_matmul", launches, max_err, timed["flat encode"],
                   timed["flat decode (0, 1, 2, 3)"])
         | {"tiering_launches": tiering["launches"],
-           "s3_launches": s3_k1},
+           "s3_launches": s3_k1, "mtls_launches": mtls_k1},
         _k1_entry("gf_matmul_piggyback",
                   legs["piggyback"] + legs["streaming piggyback"]
                   + legs["spread piggyback"],
@@ -5713,7 +6321,8 @@ def run(args) -> int:
         _k1_entry("gf_matmul_repair",
                   legs["trace repair"] + legs["plane repair"]
                   + legs["net trace repair"] + legs["net plane repair"]
-                  + integrity_repair + s3_k1["rebuild"],
+                  + integrity_repair + s3_k1["rebuild"]
+                  + mtls_k1["rebuild"],
                   repair_err,
                   timed["trace combine"], timed["plane repair"],
                   second_key="plane_repair"),
@@ -5724,7 +6333,8 @@ def run(args) -> int:
                   + native["launches"]["degraded"]
                   + cluster["launches"]["degraded"]
                   + integrity["naive"]["launches"]
-                  + s3_k1["cold"] + s3_k1["warm"] + s3_k1["rebuilt"],
+                  + s3_k1["cold"] + s3_k1["warm"] + s3_k1["rebuilt"]
+                  + mtls_k1["cold"] + mtls_k1["warm"] + mtls_k1["rebuilt"],
                   max(read_err["degraded flat (1,10)"],
                       read_err["degraded piggyback (32,320)"]),
                   timed["degraded flat wide"], timed["degraded piggyback wide"],

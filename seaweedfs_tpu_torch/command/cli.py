@@ -11,10 +11,30 @@ Commands:
   a gateway in its process);
 - ``s3``: a gateway over a remote filer (``FilerClient``);
 - ``shell``: the admin shell (``-c`` runs ``;``-separated lines);
-- ``version``.
+- ``benchmark``: assign and upload ``-n`` files, then read them back at
+  random (``-native``: the load generator);
+- ``upload`` (above ``-maxMB``, chunks behind a manifest), ``download``
+  (into ``-dir``, under the stored name's last part);
+- ``filer.copy``: local files and directories into a filer folder;
+- the offline volume tools ``backup``, ``see``, ``export``, ``fix``,
+  ``compact`` (``command/volume_tools``);
+- ``scaffold``: an example config file; ``version``.
 
 A server runs until SIGTERM or SIGINT, then stops (a volume server says
 goodbye to its master) and the process exits 0.
+
+Configuration, as in JAX: ``security.toml`` (or ``.json``) and
+``master.toml`` from ``util/config.SEARCH_DIRS`` (``.``,
+``~/.seaweedfs_tpu``, ``/etc/seaweedfs_tpu``), with ``WEED_*``
+variables on top; an explicit flag always wins. ``security`` gives the
+write-token key (``[jwt.signing] key``) and TLS (``[https] cert``,
+``key``, ``ca``, ``mutual``), which every command applies, clients
+included, so ``upload`` or ``shell`` reach a TLS cluster; ``-tlsCert``,
+``-tlsKey``, ``-tlsCa`` and ``-tlsMutual`` on the server commands.
+``master`` gives the maintenance scripts and interval, the etcd
+sequencer, the growth counts (``[master.volume_growth]``), the tier
+backends (``[storage.backend.<kind>.<id>]``) and the maintenance
+shell's filer.
 
 The volume server's EC codec is ``-ec.backend cuda|numpy|mesh``: the
 kernel on the card (the default), the host's NumPy codec (the CPU: no
@@ -23,13 +43,12 @@ card, ``cuda`` and ``mesh`` refuse to start. ``-index memory|disk`` is
 the needle map. A master started here takes its repair loop's period
 from ``SW_REPAIR_INTERVAL_S``, as the JAX master does.
 
-Not ported yet, so absent from the parser: the config files
-(``security.toml``, ``master.toml``, ``notification.toml``), TLS
-(``-tlsCert``, ``-tlsKey``, ``-tlsCa``, ``-tlsMutual``), the filer
-stores redis, mysql, postgres, cassandra and etcd and their flags,
+Not ported yet, so absent from the parser: ``notification.toml``, the
+filer stores redis, mysql, postgres, cassandra and etcd and their flags,
 ``-mesh.coordinator`` / ``-mesh.processes`` / ``-mesh.processId``, the
 WebDAV gateway (``server -webdav``, ``-webdavPort``), the shell's
-``-filer`` (its ``fs.*`` commands), and the other subcommands.
+``-filer`` (its ``fs.*`` commands), and the subcommands ``watch``,
+``filer.replicate``, ``mount``, ``webdav`` and ``msgBroker``.
 """
 
 from __future__ import annotations
@@ -49,6 +68,114 @@ FILER_STORES = ("memory", "sqlite", "sharded")
 
 def _whitelist(spec: str):
     return [w for w in spec.split(",") if w]
+
+
+def _security_cfg(args):
+    """security.toml/json and WEED_*, loaded once a process (kept on
+    ``args``)."""
+    if not hasattr(args, "_security_cfg_cache"):
+        from ..util.config import load_config
+        args._security_cfg_cache = load_config("security")
+    return args._security_cfg_cache
+
+
+def _apply_security_config(args):
+    """The write-token key: the flag, else the config."""
+    from ..util.config import config_get
+    if not getattr(args, "jwtKey", ""):
+        args.jwtKey = config_get(_security_cfg(args),
+                                 "jwt.signing.key", "") or ""
+
+
+def _apply_tls_config(args):
+    """TLS for every command (reference security/tls.go): servers serve
+    cert and key, and clients need the CA and their identity to reach a
+    TLS cluster. Each flag beats the config's key."""
+    from ..util.config import config_get
+    cfg = _security_cfg(args)
+    cert = getattr(args, "tlsCert", "") or \
+        config_get(cfg, "https.cert", "") or ""
+    key = getattr(args, "tlsKey", "") or \
+        config_get(cfg, "https.key", "") or ""
+    ca = getattr(args, "tlsCa", "") or \
+        config_get(cfg, "https.ca", "") or ""
+    mutual = getattr(args, "tlsMutual", False) or \
+        str(config_get(cfg, "https.mutual", "")).lower() in ("true", "1")
+    if cert or ca:
+        from ..server.http_util import configure_tls
+        configure_tls(cert, key, ca, mutual=mutual)
+
+
+def _apply_master_config(args) -> dict:
+    """master.toml / WEED_MASTER_* (reference scaffold.go
+    MASTER_TOML_EXAMPLE, master_server.go:187-232) for what the flags
+    left at their defaults: an explicit flag always wins. Configures the
+    tier backends it names; returns the master's keyword arguments that
+    have no flag (``growth_counts``, ``maintenance_filer_url``)."""
+    from urllib.parse import urlparse
+
+    from ..util.config import config_get, load_config
+    cfg = load_config("master")
+    scripts = str(config_get(cfg, "master.maintenance.scripts", "")
+                  or "")
+    if scripts.strip() and not getattr(args, "maintenanceScripts", ""):
+        # the file's lines, the flag's ';'
+        args.maintenanceScripts = ";".join(
+            ln.strip() for ln in scripts.splitlines() if ln.strip())
+    sleep_m = config_get(cfg, "master.maintenance.sleep_minutes", None)
+    if sleep_m is not None and \
+            getattr(args, "maintenanceIntervalSeconds", 17 * 60) \
+            == 17 * 60:
+        args.maintenanceIntervalSeconds = float(sleep_m) * 60
+    if str(config_get(cfg, "master.sequencer.type", "")) == "etcd" \
+            and getattr(args, "sequencer", "auto") == "auto":
+        args.sequencer = "etcd"
+        urls = str(config_get(
+            cfg, "master.sequencer.sequencer_etcd_urls", "") or "")
+        if urls and getattr(args, "sequencerEtcd", "") \
+                in ("", "127.0.0.1:2379"):
+            first = urls.split(",")[0].strip()
+            p = urlparse(first if "//" in first else "//" + first)
+            if p.hostname:
+                args.sequencerEtcd = f"{p.hostname}:{p.port or 2379}"
+    growth = {}
+    for copies, key in ((1, "copy_1"), (2, "copy_2"), (3, "copy_3"),
+                        ("other", "copy_other")):
+        val = config_get(cfg, f"master.volume_growth.{key}", None)
+        if val is not None:
+            growth[copies] = int(val)
+    # [storage.backend.<kind>.<id>] back into configure_backends' nested
+    # shape; past the id, the segments are one parameter's name whose
+    # underscores a WEED_* variable turned into dots
+    nested = {}
+    for key, val in cfg.items():
+        parts = key.split(".")
+        if parts[:2] == ["storage", "backend"] and len(parts) >= 5:
+            _, _, kind, bid = parts[:4]
+            nested.setdefault(kind, {}).setdefault(bid, {})[
+                "_".join(parts[4:])] = val
+    backends = {}
+    rename = {"aws_access_key_id": "access_key",
+              "aws_secret_access_key": "secret_key"}
+    for kind, ids in nested.items():
+        for bid, params in ids.items():
+            enabled = params.pop("enabled", False)
+            if str(enabled).lower() not in ("true", "1"):
+                continue
+            backends.setdefault(kind, {})[bid] = {
+                rename.get(k, k): v for k, v in params.items()}
+    if backends:
+        from ..storage.backend import configure_backends
+        configure_backends(backends)
+    filer_url = str(config_get(cfg, "master.filer.default_filer_url",
+                               "") or "")
+    maintenance_filer = ""
+    if filer_url:
+        p = urlparse(filer_url if "//" in filer_url else "//" + filer_url)
+        if p.hostname:
+            maintenance_filer = f"{p.hostname}:{p.port or 8888}"
+    return {"growth_counts": growth or None,
+            "maintenance_filer_url": maintenance_filer}
 
 
 def _load_tier_config(path: str):
@@ -71,18 +198,27 @@ def _volume_device(ec_backend: str) -> str:
 
 
 def _sequencer(args):
-    """``-sequencer etcd``: file keys from CAS blocks on an etcd every
-    master shares; else None (memory, or raft with -peers)."""
+    """``-sequencer etcd`` (or master.toml's): file keys from CAS blocks
+    on an etcd every master shares; else None (memory, or raft with
+    -peers). The ceiling file goes to ``-mdir``; ``server``, which has
+    none, keeps it under its first data directory."""
     if getattr(args, "sequencer", "auto") != "etcd":
         return None
     from ..server.master import default_meta_dir
     from ..topology.topology import EtcdSequencer
-    meta_dir = getattr(args, "mdir", "") or default_meta_dir()
+    meta_dir = getattr(args, "mdir", "")
+    if not meta_dir:
+        data_dirs = getattr(args, "dir", "")
+        meta_dir = os.path.join(data_dirs.split(",")[0].strip(),
+                                "master-meta") if data_dirs \
+            else default_meta_dir()
     os.makedirs(meta_dir, exist_ok=True)
-    print(f"sequencer: etcd at {args.sequencerEtcd} (ceiling file in "
-          f"{meta_dir})", flush=True)
-    return EtcdSequencer(args.sequencerEtcd, user=args.sequencerEtcdUser,
-                         password=args.sequencerEtcdPassword,
+    endpoint = getattr(args, "sequencerEtcd", "") or "127.0.0.1:2379"
+    print(f"sequencer: etcd at {endpoint} (ceiling file in {meta_dir})",
+          flush=True)
+    return EtcdSequencer(endpoint,
+                         user=getattr(args, "sequencerEtcdUser", ""),
+                         password=getattr(args, "sequencerEtcdPassword", ""),
                          meta_dir=meta_dir)
 
 
@@ -107,6 +243,8 @@ def _stop_profiler(prof, args):
 
 
 def cmd_master(args):
+    _apply_security_config(args)
+    master_cfg = _apply_master_config(args)
     from ..server.master import MasterServer
     m = MasterServer(port=args.port, host=args.ip,
                      sequencer=_sequencer(args),
@@ -122,12 +260,14 @@ def cmd_master(args):
                      garbage_threshold=args.garbageThreshold,
                      whitelist=_whitelist(args.whiteList),
                      metrics_address=args.metricsAddress,
-                     metrics_interval=args.metricsInterval).start()
+                     metrics_interval=args.metricsInterval,
+                     **master_cfg).start()
     print(f"master listening on {m.url}", flush=True)
     _wait(m)
 
 
 def cmd_volume(args):
+    _apply_security_config(args)
     from ..server.volume_server import VolumeServer
     _load_tier_config(args.tierConfig)
     device = _volume_device(args.ec_backend)
@@ -159,6 +299,8 @@ def cmd_volume(args):
 def cmd_server(args):
     """A master and a volume server (and a filer, an S3 gateway) in one
     process."""
+    _apply_security_config(args)
+    master_cfg = _apply_master_config(args)
     from ..server.master import MasterServer
     from ..server.volume_server import VolumeServer
     _load_tier_config(args.tierConfig)
@@ -166,7 +308,13 @@ def cmd_server(args):
     m = MasterServer(port=args.masterPort, host=args.ip,
                      default_replication=args.defaultReplication,
                      repair_interval=_repair_interval(),
-                     jwt_signing_key=args.jwtKey).start()
+                     jwt_signing_key=args.jwtKey,
+                     sequencer=_sequencer(args),
+                     maintenance_scripts=getattr(
+                         args, "maintenanceScripts", ""),
+                     maintenance_interval=getattr(
+                         args, "maintenanceIntervalSeconds", 17 * 60),
+                     **master_cfg).start()
     dirs = args.dir.split(",")
     vs = VolumeServer(port=args.port, host=args.ip, directories=dirs,
                       master_url=m.url, data_center=args.dataCenter,
@@ -222,6 +370,7 @@ def _store_options(args) -> dict:
 
 
 def cmd_filer(args):
+    _apply_security_config(args)
     from ..server.filer_server import FilerServer
     f = FilerServer(port=args.port, host=args.ip, master_url=args.master,
                     store=args.store, store_options=_store_options(args),
@@ -278,6 +427,190 @@ def cmd_shell(args):
             break
 
 
+def cmd_benchmark(args):
+    from .benchmark import run_benchmark, run_native_benchmark
+    prof = _profiler(args)
+    try:
+        if args.native:
+            run_native_benchmark(args.master, file_size=args.size,
+                                 concurrency=args.c,
+                                 collection=args.collection,
+                                 seconds=args.seconds, pool=args.pool,
+                                 assign_batch=args.assignBatch)
+        else:
+            run_benchmark(args.master, num_files=args.n,
+                          file_size=args.size, concurrency=args.c,
+                          collection=args.collection,
+                          assign_batch=args.assignBatch)
+    finally:
+        _stop_profiler(prof, args)
+
+
+def cmd_upload(args):
+    from ..client import operation as op
+    max_bytes = args.maxMB << 20
+    for path in args.files:
+        with open(path, "rb") as f:
+            data = f.read()
+        if max_bytes and len(data) > max_bytes:
+            from ..client.chunked import submit_chunked
+            fid = submit_chunked(args.master, data, filename=path,
+                                 collection=args.collection,
+                                 replication=args.replication,
+                                 ttl=args.ttl, chunk_size=max_bytes)
+        else:
+            fid = op.upload_data(args.master, data, filename=path,
+                                 collection=args.collection,
+                                 replication=args.replication,
+                                 ttl=args.ttl)
+        print(f"{path} -> {fid}")
+
+
+def cmd_download(args):
+    from ..client import operation as op
+    os.makedirs(args.dir, exist_ok=True)
+    for fid in args.fids:
+        data, name = op.read_file_named(args.master, fid)
+        # the stored name is the uploader's: only its last part, so that
+        # it cannot climb out of -dir
+        name = os.path.basename(name.replace("\\", "/"))
+        out = os.path.join(args.dir, name or fid.replace(",", "_"))
+        with open(out, "wb") as f:
+            f.write(data)
+        print(f"{fid} -> {out} ({len(data)} bytes)")
+
+
+def cmd_backup(args):
+    from .volume_tools import backup_volume
+    out = backup_volume(args.server, args.volumeId, args.dir,
+                        collection=args.collection)
+    print(f"volume {out['volume']}: {out['mode']} sync, "
+          f"{out['applied']} records, {out['size']} bytes")
+
+
+def cmd_see(args):
+    """An index (``.idx``, ``.ecx``) or a ``.dat``, by its name."""
+    from . import volume_tools
+    if args.file.endswith((".idx", ".ecx")):
+        n = volume_tools.see_idx(args.file, offset_width=args.offsetWidth,
+                                 limit=args.limit)
+        print(f"{n} index records")
+    else:
+        n = volume_tools.see_dat(args.file, limit=args.limit)
+        print(f"{n} needles")
+
+
+def cmd_export(args):
+    from .volume_tools import export_volume
+    listed = export_volume(args.dir, args.volumeId,
+                           collection=args.collection,
+                           tar_path=args.o or None)
+    for fid, name, size in listed:
+        print(f"{fid}\t{name}\t{size}")
+    print(f"exported {len(listed)} files")
+
+
+def cmd_fix(args):
+    from .volume_tools import fix_volume
+    n = fix_volume(args.dir, args.volumeId, collection=args.collection)
+    print(f"walked {n} records")
+
+
+def cmd_compact(args):
+    from .volume_tools import compact_volume
+    out = compact_volume(args.dir, args.volumeId,
+                         collection=args.collection, method=args.method)
+    print(f"volume {out['volume']}: {out['before']} -> "
+          f"{out['after']} bytes")
+
+
+def cmd_filer_copy(args):
+    """Local files and directories into a filer folder (reference
+    ``weed filer.copy``): the last path is the destination
+    (``[http://]filer:port/dir/``), the ones before it the sources; a
+    directory goes in whole under its own name, ``-include`` keeps the
+    names its glob matches, ``-c`` files upload at once. Exits 1 when
+    any file failed."""
+    import fnmatch
+    import mimetypes
+    import posixpath
+    import urllib.parse
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..server.http_util import http_call
+
+    if len(args.paths) < 2:
+        raise SystemExit("usage: filer.copy <src>... http://filer/dir/")
+    dest = args.paths[-1]
+    parsed = urllib.parse.urlparse(
+        dest if "://" in dest else "http://" + dest)
+    filer = parsed.netloc
+    # unquoted here: put() quotes the whole path once
+    dest_dir = urllib.parse.unquote(parsed.path).rstrip("/") or "/"
+
+    work = []  # (local path, remote path)
+    for src in args.paths[:-1]:
+        if os.path.isdir(src):
+            base = os.path.basename(os.path.abspath(src))
+            for root, _dirs, files in os.walk(src):
+                rel_root = os.path.relpath(root, src)
+                for name in files:
+                    if args.include and not fnmatch.fnmatch(
+                            name, args.include):
+                        continue
+                    rel = name if rel_root == "." else \
+                        os.path.join(rel_root, name)
+                    work.append((os.path.join(root, name),
+                                 posixpath.join(dest_dir, base,
+                                                rel.replace(os.sep, "/"))))
+        elif os.path.isfile(src):
+            if args.include and not fnmatch.fnmatch(
+                    os.path.basename(src), args.include):
+                continue
+            work.append((src, posixpath.join(dest_dir,
+                                             os.path.basename(src))))
+        else:
+            raise SystemExit(f"no such file or directory: {src}")
+
+    q = [f"{k}={urllib.parse.quote(v)}" for k, v in (
+        ("collection", args.collection), ("replication", args.replication),
+        ("ttl", args.ttl)) if v]
+    suffix = ("?" + "&".join(q)) if q else ""
+
+    def put(item):
+        local, remote = item
+        size = os.path.getsize(local)
+        mime = mimetypes.guess_type(local)[0] or "application/octet-stream"
+        # the file object streams: -c workers must not each hold a
+        # whole file
+        with open(local, "rb") as f:
+            http_call("PUT", f"http://{filer}"
+                             f"{urllib.parse.quote(remote)}{suffix}",
+                      f, {"Content-Type": mime,
+                          "Content-Length": str(size)}, timeout=600)
+        return remote, size
+
+    copied = errors = 0
+    with ThreadPoolExecutor(max_workers=args.c) as pool:
+        for fut in [pool.submit(put, item) for item in work]:
+            try:
+                remote, n = fut.result()
+                copied += 1
+                print(f"{remote} ({n} bytes)")
+            except Exception as e:  # noqa: BLE001 - reported per file
+                errors += 1
+                print(f"ERROR: {e}", file=sys.stderr)
+    print(f"copied {copied} files to {filer}{dest_dir}"
+          + (f", {errors} failed" if errors else ""))
+    if errors:
+        raise SystemExit(1)
+
+
+def cmd_scaffold(args):
+    from .scaffold import print_scaffold
+    print(print_scaffold(args.config), end="")
+
+
 def cmd_version(args):
     from .. import VERSION
     print(f"seaweedfs_tpu_torch {VERSION}")
@@ -314,6 +647,15 @@ def _set_verbosity(v: int, vmodule: str):
                 logging.getLogger(logger_name).setLevel(level(int(n or 0)))
 
 
+def _tls_flags(p):
+    p.add_argument("-tlsCert", default="")
+    p.add_argument("-tlsKey", default="")
+    p.add_argument("-tlsCa", default="")
+    p.add_argument("-tlsMutual", action="store_true",
+                   help="require CA-verified client certificates on the "
+                        "cluster-internal routes")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="weed-tpu")
     p.add_argument("-v", type=int, default=0,
@@ -330,6 +672,7 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("-pulseSeconds", type=int, default=5)
     m.add_argument("-jwtKey", default="",
                    help="HS256 key for per-fid write tokens")
+    _tls_flags(m)
     m.add_argument("-peers", default="",
                    help="every master's host:port, comma-separated: a "
                         "raft group")
@@ -393,6 +736,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write an all-thread collapsed-stack CPU profile "
                         "here on shutdown")
     v.add_argument("-jwtKey", default="")
+    _tls_flags(v)
     v.add_argument("-whiteList", default="",
                    help="comma-separated IPs/CIDRs allowed to call")
     v.add_argument("-tierConfig", default="",
@@ -425,6 +769,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("-fastPort", type=int, default=0,
                    help="native plane port (0 picks one, -1: none)")
     s.add_argument("-jwtKey", default="")
+    _tls_flags(s)
     s.add_argument("-tierConfig", default="")
     s.set_defaults(fn=cmd_server)
 
@@ -448,6 +793,7 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("-s3Port", type=int, default=8333)
     f.add_argument("-s3Config", default="")
     f.add_argument("-jwtKey", default="")
+    _tls_flags(f)
     f.add_argument("-encryptVolumeData", action="store_true",
                    help="AES-256-GCM encrypt chunk data; volume servers "
                         "only see ciphertext")
@@ -469,6 +815,106 @@ def build_parser() -> argparse.ArgumentParser:
     sh.add_argument("-c", default="", help="run one command and exit")
     sh.set_defaults(fn=cmd_shell)
 
+    b = sub.add_parser("benchmark", help="cluster load test")
+    b.add_argument("-master", default="127.0.0.1:9333")
+    b.add_argument("-n", type=int, default=1024)
+    b.add_argument("-size", type=int, default=1024)
+    b.add_argument("-c", type=int, default=16)
+    b.add_argument("-collection", default="benchmark")
+    b.add_argument("-assignBatch", type=int, default=1,
+                   help="files per assign (?count=, then fid_N): above 1 "
+                        "the tool measures the data plane rather than "
+                        "its own assigns")
+    b.add_argument("-cpuprofile", default="",
+                   help="write an all-thread collapsed-stack CPU profile "
+                        "of the run here")
+    b.add_argument("-native", action="store_true",
+                   help="drive the cluster with the C++ keep-alive load "
+                        "generator, for -seconds a phase")
+    b.add_argument("-seconds", type=float, default=10.0,
+                   help="a phase's duration with -native")
+    b.add_argument("-pool", type=int, default=4096,
+                   help="fids assigned for -native")
+    b.set_defaults(fn=cmd_benchmark)
+
+    u = sub.add_parser("upload", help="upload files")
+    u.add_argument("-master", default="127.0.0.1:9333")
+    u.add_argument("-collection", default="")
+    u.add_argument("-replication", default="")
+    u.add_argument("-ttl", default="")
+    u.add_argument("-maxMB", type=int, default=32,
+                   help="a larger file is stored as chunks behind a "
+                        "manifest fid")
+    u.add_argument("files", nargs="+")
+    u.set_defaults(fn=cmd_upload)
+
+    d = sub.add_parser("download", help="download files by fid")
+    d.add_argument("-master", default="127.0.0.1:9333")
+    d.add_argument("-dir", default=".",
+                   help="output directory; a file keeps its stored name "
+                        "when it has one")
+    d.add_argument("fids", nargs="+")
+    d.set_defaults(fn=cmd_download)
+
+    fc = sub.add_parser("filer.copy",
+                        help="copy local files and directories into a "
+                             "filer")
+    fc.add_argument("paths", nargs="+",
+                    help="src... then http://filer:8888/dest/dir/")
+    fc.add_argument("-include", default="",
+                    help="glob of the file names to copy, e.g. *.pdf")
+    fc.add_argument("-collection", default="")
+    fc.add_argument("-replication", default="")
+    fc.add_argument("-ttl", default="")
+    fc.add_argument("-c", type=int, default=8,
+                    help="files uploaded at once")
+    fc.set_defaults(fn=cmd_filer_copy)
+
+    bk = sub.add_parser("backup",
+                        help="incremental local copy of a live volume")
+    bk.add_argument("-server", default="127.0.0.1:9333",
+                    help="master url")
+    bk.add_argument("-dir", default=".")
+    bk.add_argument("-volumeId", type=int, required=True)
+    bk.add_argument("-collection", default="")
+    bk.set_defaults(fn=cmd_backup)
+
+    se = sub.add_parser("see", help="print a .dat's or an .idx's records")
+    se.add_argument("file", help="path to a .dat or .idx file")
+    se.add_argument("-offsetWidth", type=int, default=4, choices=[4, 5],
+                    help="idx entry offset width")
+    se.add_argument("-limit", type=int, default=0,
+                    help="stop after N records (0 = all)")
+    se.set_defaults(fn=cmd_see)
+
+    ex = sub.add_parser("export", help="export volume needles to tar")
+    ex.add_argument("-dir", default=".")
+    ex.add_argument("-volumeId", type=int, required=True)
+    ex.add_argument("-collection", default="")
+    ex.add_argument("-o", default="", help="tar output path")
+    ex.set_defaults(fn=cmd_export)
+
+    fx = sub.add_parser("fix", help="rebuild .idx from .dat")
+    fx.add_argument("-dir", default=".")
+    fx.add_argument("-volumeId", type=int, required=True)
+    fx.add_argument("-collection", default="")
+    fx.set_defaults(fn=cmd_fix)
+
+    cp = sub.add_parser("compact", help="force-vacuum a local volume")
+    cp.add_argument("-dir", default=".")
+    cp.add_argument("-volumeId", type=int, required=True)
+    cp.add_argument("-collection", default="")
+    cp.add_argument("-method", type=int, default=1, choices=[0, 1],
+                    help="0 = scan the .dat (reference Compact), "
+                         "1 = copy by the index (reference Compact2)")
+    cp.set_defaults(fn=cmd_compact)
+
+    sc = sub.add_parser("scaffold", help="print example config files")
+    sc.add_argument("-config", default="replication",
+                    choices=["tier", "s3", "replication", "security",
+                             "notification", "filer", "master"])
+    sc.set_defaults(fn=cmd_scaffold)
+
     ver = sub.add_parser("version", help="print version")
     ver.set_defaults(fn=cmd_version)
     return p
@@ -477,6 +923,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _set_verbosity(args.v, args.vmodule)
+    _apply_tls_config(args)
     args.fn(args)
     return 0
 

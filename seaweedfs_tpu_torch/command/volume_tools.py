@@ -24,7 +24,8 @@ records. Outputs and files are the JAX package's.
         [-limit N]
 
 The flags are those of the JAX ``cli.py`` subcommands (its ``see`` is
-split here by the kind of file).
+split here by the kind of file); the CLI's ``backup``, ``export``,
+``fix``, ``compact`` and ``see`` print what these print.
 """
 
 from __future__ import annotations
@@ -260,34 +261,18 @@ def main(argv=None) -> int:
     sd.add_argument("-limit", type=int, default=0,
                     help="stop after N records (0 = all)")
     args = ap.parse_args(argv)
-
-    if args.command == "backup":
-        out = backup_volume(args.server, args.volumeId, args.dir,
-                            collection=args.collection)
-        print(f"volume {out['volume']}: {out['mode']} sync, "
-              f"{out['applied']} records, {out['size']} bytes")
-    elif args.command == "export":
-        listed = export_volume(args.dir, args.volumeId,
-                               collection=args.collection,
-                               tar_path=args.o or None)
-        for fid, name, size in listed:
-            print(f"{fid}\t{name}\t{size}")
-        print(f"exported {len(listed)} files")
-    elif args.command == "fix":
-        n = fix_volume(args.dir, args.volumeId, collection=args.collection)
-        print(f"walked {n} records")
-    elif args.command == "compact":
-        out = compact_volume(args.dir, args.volumeId,
-                             collection=args.collection, method=args.method)
-        print(f"volume {out['volume']}: {out['before']} -> "
-              f"{out['after']} bytes")
-    elif args.command == "see_idx":
-        n = see_idx(args.file, offset_width=args.offsetWidth,
-                    limit=args.limit)
-        print(f"{n} index records")
+    from . import cli
+    if args.command in ("see_idx", "see_dat"):
+        # ``see`` tells the two apart by the file's name
+        if args.command == "see_idx":
+            n = see_idx(args.file, offset_width=args.offsetWidth,
+                        limit=args.limit)
+            print(f"{n} index records")
+        else:
+            n = see_dat(args.file, limit=args.limit)
+            print(f"{n} needles")
     else:
-        n = see_dat(args.file, limit=args.limit)
-        print(f"{n} needles")
+        getattr(cli, "cmd_" + args.command)(args)
     return 0
 
 

@@ -27,8 +27,10 @@ loop took included: the drain and its deletes run under one lock. (The
 JAX server's flush returns at once when the loop has just emptied the
 queue and is still deleting.)
 
-Left out: the HTML listing of a directory (``/ui`` waits for its
-slice): a directory lists as JSON whatever the ``Accept``."""
+A directory's ``GET`` answers a browser (``Accept: text/html`` without
+``?pretty=y``) with an HTML page of links (``server/status_ui``, every
+name escaped, a next-page link when the page is full), and any other
+client with the JSON listing."""
 
 from __future__ import annotations
 
@@ -310,12 +312,38 @@ class FilerServer:
         limit = int(req.query.get("limit", 1000))
         last = req.query.get("lastFileName", "")
         entries = self.filer.list_entries(path, last, False, limit)
+        if "text/html" in req.headers.get("Accept", "") and \
+                req.query.get("pretty") != "y":
+            return self._list_page(path, entries, limit)
         return {
             "path": path,
             "entries": [self._entry_json(e) for e in entries],
             "lastFileName": entries[-1].name if entries else "",
             "shouldDisplayLoadMore": len(entries) == limit,
         }
+
+    @staticmethod
+    def _list_page(path: str, entries, limit: int) -> Response:
+        """The file-browser page of a listing (reference filer_ui/)."""
+        import html
+        import urllib.parse
+        from .status_ui import Raw, render_page
+        rows = []
+        base = path.rstrip("/")
+        for e in entries:
+            href = urllib.parse.quote(f"{base}/{e.name}")
+            kind = "dir" if e.is_directory else (e.attr.mime or "file")
+            rows.append((Raw(f'<a href="{href}">{html.escape(e.name)}</a>'),
+                         kind, e.size() if not e.is_directory else "-"))
+        footer = ""
+        if entries and len(entries) == limit:  # a full page: more follow
+            nxt = urllib.parse.quote(entries[-1].name)
+            footer = (f'<p><a href="?lastFileName={nxt}&'
+                      f'limit={limit}">next page &raquo;</a></p>')
+        page = render_page(f"Filer {path}",
+                           [(path, ["name", "type", "size"], rows)],
+                           footer_html=footer)
+        return Response(page, content_type="text/html; charset=utf-8")
 
     @staticmethod
     def _entry_json(e: Entry) -> dict:

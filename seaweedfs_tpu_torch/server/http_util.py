@@ -22,9 +22,26 @@ servers' request metrics; every pooled call sends the current span's
 role: ``traces_handler`` (``/admin/traces``), ``traces_export_handler``
 (``/admin/traces/export``), ``profile_handler`` (``POST /admin/profile``)
 and ``process_memory_stats`` (``/stats/memory``); the pool's churn
-counts (``pool_stats_snapshot``) feed ``/metrics``. Left out: TLS. The
-port reads no knob from the environment: the accept-loop poll, the
-pool's idle cap and the profile's longest window are module constants.
+counts (``pool_stats_snapshot``) feed ``/metrics``. The port reads no
+knob from the environment: the accept-loop poll, the pool's idle cap and
+the profile's longest window are module constants.
+
+Transport security, as in JAX (reference weed/security/tls.go): one
+process-wide configuration, ``configure_tls(cert, key, ca, mutual)``.
+Every ``HttpServer`` made after it serves TLS with cert and key, and
+every cluster call rewrites ``http://`` to ``https://`` (redirect
+targets too) and verifies the server against ``ca`` (or the cert
+itself), presenting cert and key as its own identity. With ``mutual``
+the server asks each connection for a certificate the CA signed: one it
+cannot verify fails the handshake, and ``require_client_cert`` answers
+403 on the cluster-internal routes to a connection that presented none,
+while the public routes stay server-TLS on the same listener.
+``reset_tls`` turns it off; both drop the pooled connections. A call
+with ``external=True`` keeps its URL's scheme and verifies https with
+the default context. The handshake runs on the connection's own
+thread, with a deadline (the JAX server runs it in its accept loop, so
+a client that connects and sends nothing stalls every other
+connection).
 """
 
 from __future__ import annotations
@@ -35,6 +52,7 @@ import os
 import re
 import select
 import socket
+import ssl
 import threading
 import time
 import urllib.parse
@@ -53,6 +71,8 @@ POOL_MAX_IDLE_S = 60.0
 _POOL_MAX_PER_HOST = 32
 #: Longest ``POST /admin/profile`` window, seconds (SW_PROFILE_MAX_S).
 PROFILE_MAX_S = 30.0
+#: A TLS handshake that has not finished by then closes its connection.
+HANDSHAKE_TIMEOUT_S = 10.0
 
 
 class HttpError(Exception):
@@ -446,6 +466,76 @@ def _make_handler(router: Router):
     return Handler
 
 
+# -- transport security ------------------------------------------------------
+
+_TLS = {"client_ctx": None, "server_ctx": None, "mutual": False}
+
+
+def configure_tls(cert_file: str = "", key_file: str = "",
+                  ca_file: str = "", mutual: bool = False):
+    """TLS for this process: servers present ``cert_file`` and
+    ``key_file``; clients verify servers against ``ca_file`` (or the cert
+    itself, self-signed) and present the same pair. A cert without its
+    key, or the reverse, is refused (it would serve plain HTTP while the
+    clients speak https); ``mutual`` needs a CA to verify clients
+    against."""
+    clear_conn_pool()  # their contexts are the previous configuration's
+    if bool(cert_file) != bool(key_file):
+        raise ValueError("TLS needs BOTH cert and key (got only one); "
+                         "pass just ca for a client-only configuration")
+    if mutual and not ca_file:
+        raise ValueError("mutual TLS needs a CA to verify client "
+                         "certificates against")
+    _TLS["mutual"] = bool(mutual)
+    if cert_file and key_file:
+        sctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        sctx.load_cert_chain(cert_file, key_file)
+        if mutual:
+            # optional at the handshake, required by route: a cert the
+            # CA did not sign still fails the handshake
+            sctx.verify_mode = ssl.CERT_OPTIONAL
+            sctx.load_verify_locations(ca_file)
+        _TLS["server_ctx"] = sctx
+    cctx = ssl.create_default_context(cafile=ca_file or cert_file or None)
+    cctx.check_hostname = False  # peers are addressed by ip:port
+    if cert_file and key_file:
+        cctx.load_cert_chain(cert_file, key_file)
+    _TLS["client_ctx"] = cctx
+
+
+def reset_tls():
+    _TLS.update({"client_ctx": None, "server_ctx": None, "mutual": False})
+    clear_conn_pool()
+
+
+def tls_enabled() -> bool:
+    return _TLS["server_ctx"] is not None
+
+
+def mtls_enabled() -> bool:
+    return tls_enabled() and _TLS["mutual"]
+
+
+def require_client_cert(req: "Request"):
+    """403 for a cluster-internal request whose connection presented no
+    certificate, under mutual TLS (else nothing): the handshake already
+    refused one the CA did not sign, so any peer cert here is
+    verified."""
+    if not mtls_enabled():
+        return
+    conn = req.handler.connection
+    cert = conn.getpeercert() if hasattr(conn, "getpeercert") else None
+    if not cert:
+        raise HttpError(403, "client certificate required on "
+                             "cluster-internal routes")
+
+
+def _client_url(url: str) -> str:
+    if _TLS["client_ctx"] is not None and url.startswith("http://"):
+        return "https://" + url[len("http://"):]
+    return url
+
+
 class _TunedHTTPServer(ThreadingHTTPServer):
     # the stdlib backlog of 5 drops SYNs under concurrent clients
     request_queue_size = 128
@@ -469,6 +559,17 @@ class _TunedHTTPServer(ThreadingHTTPServer):
             self._client_socks.discard(request)
         super().shutdown_request(request)
 
+    def finish_request(self, request, client_address):
+        # a TLS connection's handshake, here on its own thread: a client
+        # that never finishes it holds only this thread
+        if isinstance(request, ssl.SSLSocket):
+            request.settimeout(HANDSHAKE_TIMEOUT_S)
+            try:
+                request.do_handshake()
+            except OSError:  # refused, cut or timed out
+                return
+        super().finish_request(request, client_address)
+
     def close_all_connections(self):
         # shutdown only, never close(): the owning handler thread closes
         # the fd once, so a reused fd number cannot receive its bytes
@@ -485,6 +586,10 @@ class HttpServer:
     def __init__(self, port: int, router: Router, host: str = "127.0.0.1"):
         self.router = router
         self.httpd = _TunedHTTPServer((host, port), _make_handler(router))
+        if _TLS["server_ctx"] is not None:
+            self.httpd.socket = _TLS["server_ctx"].wrap_socket(
+                self.httpd.socket, server_side=True,
+                do_handshake_on_connect=False)
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
 
@@ -533,7 +638,7 @@ def parse_range(rng: str, size: int) -> Optional[Tuple[int, int]]:
 # range read would cap the gather at connection-churn rate. Entries are
 # (conn, parked_at); the park time drives idle-age eviction.
 
-_POOL: Dict[str, List] = {}
+_POOL: Dict[Tuple[str, str], List] = {}
 _POOL_LOCK = threading.Lock()
 # churn counts, mirrored into /metrics (http_pool_churn_total{event=})
 POOL_STATS: Dict[str, int] = {"created": 0, "reused": 0,
@@ -563,16 +668,23 @@ def _sock_is_stale(sock) -> bool:
         return True
 
 
-def _pool_get(netloc: str, timeout: float):
+def _new_conn(scheme: str, netloc: str, timeout: float):
+    if scheme == "https":
+        return _httpc.HTTPSConnection(netloc, timeout=timeout,
+                                      context=_TLS["client_ctx"])
+    return _httpc.HTTPConnection(netloc, timeout=timeout)
+
+
+def _pool_get(scheme: str, netloc: str, timeout: float):
     """-> (conn, reused). Newest first; entries past the idle cap or
     failing the stale check are evicted."""
     while True:
         with _POOL_LOCK:
-            stack = _POOL.get(netloc)
+            stack = _POOL.get((scheme, netloc))
             entry = stack.pop() if stack else None
         if entry is None:
             _pool_count("created")
-            return _httpc.HTTPConnection(netloc, timeout=timeout), False
+            return _new_conn(scheme, netloc, timeout), False
         conn, parked_at = entry
         if time.monotonic() - parked_at > POOL_MAX_IDLE_S:
             conn.close()
@@ -588,13 +700,13 @@ def _pool_get(netloc: str, timeout: float):
         return conn, True
 
 
-def _pool_put(netloc: str, conn):
+def _pool_put(scheme: str, netloc: str, conn):
     """Park a connection, sweeping aged entries off the bottom of the
     stack (newest-first reuse never pops them under steady load)."""
     now = time.monotonic()
     aged, overflow = [], None
     with _POOL_LOCK:
-        stack = _POOL.setdefault(netloc, [])
+        stack = _POOL.setdefault((scheme, netloc), [])
         while stack and now - stack[0][1] > POOL_MAX_IDLE_S:
             aged.append(stack.pop(0)[0])
         if len(stack) < _POOL_MAX_PER_HOST:
@@ -634,7 +746,7 @@ def _pooled_call(method: str, url: str, body, headers: dict,
                  encode_chunked: bool = False, max_redirects: int = 5):
     headers = _traced_headers(headers)
     parsed = urllib.parse.urlsplit(url)
-    netloc = parsed.netloc
+    scheme, netloc = parsed.scheme, parsed.netloc
     target = parsed.path or "/"
     if parsed.query:
         target += "?" + parsed.query
@@ -649,10 +761,9 @@ def _pooled_call(method: str, url: str, body, headers: dict,
         method in ("GET", "HEAD", "DELETE", "PUT") else 1
     for attempt in range(attempts):
         if replayable:
-            conn, reused = _pool_get(netloc, timeout)
+            conn, reused = _pool_get(scheme, netloc, timeout)
         else:
-            conn, reused = _httpc.HTTPConnection(netloc,
-                                                 timeout=timeout), False
+            conn, reused = _new_conn(scheme, netloc, timeout), False
         try:
             if conn.sock is None:
                 conn.connect()
@@ -673,7 +784,7 @@ def _pooled_call(method: str, url: str, body, headers: dict,
         if resp.will_close:
             conn.close()
         else:
-            _pool_put(netloc, conn)
+            _pool_put(scheme, netloc, conn)
         # a GET or HEAD follows a redirect (a master's /<fid>, a volume
         # server's read of a volume it does not hold); 307 and 308 keep
         # the method and a replayable body
@@ -681,7 +792,10 @@ def _pooled_call(method: str, url: str, body, headers: dict,
             (resp.status in (307, 308) and replayable)
         if 300 <= resp.status < 400 and resp.getheader("Location") \
                 and follow and max_redirects > 0:
-            loc = urllib.parse.urljoin(url, resp.getheader("Location"))
+            # a redirect names plain http (a volume server's read of a
+            # volume held elsewhere): the cluster's scheme applies again
+            loc = _client_url(urllib.parse.urljoin(
+                url, resp.getheader("Location")))
             return _pooled_call(method, loc, body, headers, timeout,
                                 want_headers, max_redirects=max_redirects - 1)
         if resp.status >= 400:
@@ -697,6 +811,7 @@ def http_get_with_headers(url: str, timeout: float = 30.0,
                           headers: Optional[dict] = None):
     """Cluster GET returning (body, response headers), for callers that
     need what the body does not carry (Content-Range on ranged reads)."""
+    url = _client_url(url)
     try:
         return _pooled_call("GET", url, None, headers or {}, timeout,
                             want_headers=True)
@@ -707,14 +822,37 @@ def http_get_with_headers(url: str, timeout: float = 30.0,
 
 
 def http_call(method: str, url: str, body: bytes = None,
-              headers: dict = None, timeout: float = 30.0) -> bytes:
+              headers: dict = None, timeout: float = 30.0,
+              external: bool = False) -> bytes:
     """A cluster call through the keep-alive pool; a status >= 400 or a
-    transport failure raises HttpError (503 for the latter)."""
+    transport failure raises HttpError (503 for the latter).
+    ``external=True`` marks an endpoint outside the cluster (a webhook, a
+    third party): its URL keeps its scheme and an https one is verified
+    with the default context, host name included."""
+    if external:
+        return _external_call(method, url, body, headers or {}, timeout)
+    url = _client_url(url)
     try:
         return _pooled_call(method, url, body, headers or {}, timeout)
     except HttpError:
         raise
     except (OSError, _httpc.HTTPException) as e:
+        raise HttpError(503, f"{method} {url}: {e}") from None
+
+
+def _external_call(method: str, url: str, body, headers: dict,
+                   timeout: float) -> bytes:
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=body, method=method,
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.read()
+    except urllib.error.HTTPError as e:
+        detail = e.read().decode("utf-8", "replace")[:500]
+        raise HttpError(e.code, f"{method} {url}: {detail}") from None
+    except (urllib.error.URLError, socket.timeout, ConnectionError) as e:
         raise HttpError(503, f"{method} {url}: {e}") from None
 
 
@@ -782,6 +920,7 @@ def post_chunked(url: str, chunks, headers: Optional[dict] = None,
     connection and is never retried here; the spread owns retry."""
     h = dict(headers or {})
     h["Transfer-Encoding"] = "chunked"
+    url = _client_url(url)
     try:
         return _pooled_call("POST", url, iter(chunks), h, timeout,
                             encode_chunked=True)

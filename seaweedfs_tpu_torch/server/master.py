@@ -42,6 +42,7 @@ volume and EC shard maps are looked up and pushed to watchers.
     POST /admin/profile       every thread's stacks sampled for
                               ``?seconds=``
     GET  /stats/health, /stats/memory
+    GET  /, /ui               the status page (servers, volumes, traces)
     *    /vol/vacuum          compact every volume whose garbage exceeds
                               ``garbageThreshold`` on all its replicas,
                               then commit on all of them
@@ -120,9 +121,15 @@ with ``tier_enable`` its loop (leader only, every ``tier_interval``
 seconds) demotes the sealed volumes untouched for ``tier_age`` seconds
 onto EC, each a paced streaming encode on its source's card.
 
-Left out: mutual TLS and the ``security.toml`` reader; the filer of the
-maintenance shell; the status page (``/``, ``/ui``). The master does no
-device work.
+Transport security: the process's ``server/http_util`` TLS (the CLI
+configures it from ``-tls*`` or ``security.toml``). Under mutual TLS
+``/cluster/*``, ``/raft/*`` and ``/vol/*`` answer 403 to a connection
+that presented no client certificate; ``/dir/*``, ``/submit``, the
+status page and ``GET /<fid>`` stay public. ``growth_counts`` (copy
+count, or ``"other"``, to volumes grown an event: master.toml's
+``[master.volume_growth]``) replaces entries of ``GROWTH_COUNTS``;
+``maintenance_filer_url`` is the filer the maintenance shell is handed.
+The master does no device work.
 
     python3 -m seaweedfs_tpu_torch.server.master [-port 9333] [-ip HOST]
         [-volumeSizeLimitMB N] [-defaultReplication 000]
@@ -171,7 +178,8 @@ from . import tiering
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
                         http_call, post_json, post_multipart,
                         process_memory_stats, profile_handler,
-                        traces_export_handler, traces_handler)
+                        require_client_cert, traces_export_handler,
+                        traces_handler)
 from .watch_hub import WatchHub
 
 PULSE_S = 5.0        # SW_PULSE_S: a heartbeat's period; 5 missed: pruned
@@ -213,7 +221,9 @@ class MasterServer:
                  tier_age: float = tiering.TIER_AGE_S,
                  tier_concurrency: int = tiering.TIER_CONCURRENCY,
                  tier_rate_mbps: float = tiering.TIER_RATE_MBPS,
-                 tier_full_frac: float = tiering.TIER_FULL_FRAC):
+                 tier_full_frac: float = tiering.TIER_FULL_FRAC,
+                 growth_counts: Optional[dict] = None,
+                 maintenance_filer_url: str = ""):
         self.rng = random.Random(seed)
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
@@ -222,6 +232,8 @@ class MasterServer:
         self.default_replication = default_replication
         self.jwt_signing_key = jwt_signing_key
         self.guard = Guard(whitelist)
+        self.growth_counts = dict(growth_counts or {})
+        self.maintenance_filer_url = maintenance_filer_url
         self.garbage_threshold = float(garbage_threshold)
         self.vg_lock = threading.Lock()
         self.host = host
@@ -254,6 +266,8 @@ class MasterServer:
         router.add("POST", "/admin/profile", profile_handler)
         router.add("GET", "/stats/health", self.stats_health)
         router.add("GET", "/stats/memory", self.stats_memory)
+        router.add("GET", "/", self.ui_handler)
+        router.add("GET", "/ui", self.ui_handler)
         router.set_fallback(self.redirect_handler)
         router.before = self._guard_check
 
@@ -420,8 +434,12 @@ class MasterServer:
         return json.loads(out or b"{}")
 
     def _guard_check(self, req: Request):
-        """403 for a caller off the whitelist, but on the cluster's own
-        channels (volume servers and raft peers)."""
+        """Under mutual TLS, 403 for a cluster-internal route reached
+        without a client certificate; then 403 for a caller off the
+        whitelist, but on the cluster's own channels (volume servers and
+        raft peers)."""
+        if req.path.startswith(("/cluster/", "/raft/", "/vol/")):
+            require_client_cert(req)
         if not self.guard.enabled:
             return
         if req.path in GUARD_EXEMPT or req.path.startswith("/raft/"):
@@ -605,12 +623,15 @@ class MasterServer:
 
     def _grow_volumes(self, collection: str, replication: str, ttl: TTL,
                       preferred_dc: str = "", count: int = None) -> int:
-        """Create ``count`` volumes (by default GROWTH_COUNTS of the
-        placement's copy count) on placed servers; a placement that fails
-        after at least one volume grew ends the growth."""
+        """Create ``count`` volumes (by default the growth count of the
+        placement's copy count: ``growth_counts``, else GROWTH_COUNTS) on
+        placed servers; a placement that fails after at least one volume
+        grew ends the growth."""
         rp = ReplicaPlacement.parse(replication)
         if count is None:
-            count = GROWTH_COUNTS.get(rp.copy_count, 1)
+            key = rp.copy_count if rp.copy_count in GROWTH_COUNTS \
+                else "other"
+            count = self.growth_counts.get(key, GROWTH_COUNTS.get(key, 1))
         grown = 0
         for _ in range(count):
             try:
@@ -799,6 +820,12 @@ class MasterServer:
 
     def stats_memory(self, req: Request):
         return process_memory_stats()
+
+    def ui_handler(self, req: Request):
+        """The status page (reference master_ui/templates.go)."""
+        from .status_ui import master_status_page
+        return Response(master_status_page(self),
+                        content_type="text/html; charset=utf-8")
 
     # -- the integrity plane -------------------------------------------------
     def cluster_repairs(self, req: Request):
@@ -1060,7 +1087,8 @@ class MasterServer:
         while not self._stop.wait(self.maintenance_interval):
             if not self.is_leader():
                 continue
-            env = shell.CommandEnv(self.url)
+            env = shell.CommandEnv(self.url,
+                                   filer_url=self.maintenance_filer_url)
             # one wedged volume server must not stall the loop for the
             # interactive shell's hour
             env.admin_timeout = MAINTENANCE_ADMIN_TIMEOUT_S

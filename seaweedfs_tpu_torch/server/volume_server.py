@@ -186,7 +186,12 @@ the plane's slab cache, so a warm GET through a lost shard is served
 there; a mount or a rebuild drops them. ``index_kind`` is the needle
 map of every volume (``-index memory|disk``).
 
-Left out: mutual TLS and the status page (``/ui``).
+Transport security: the process's ``server/http_util`` TLS. The plane
+speaks plain HTTP, so TLS keeps it off, as a whitelist does. Under
+mutual TLS every ``/admin/*`` route (the peers' shard reads, the
+shell's and the master's admin calls) answers 403 to a connection that
+presented no client certificate; the data routes stay server-TLS.
+``GET /ui`` is the status page (volumes, EC volumes, traces).
 
     python3 -m seaweedfs_tpu_torch.server.volume_server --dir D [--dir D2]
         [--host 127.0.0.1] [--port 0] [--device cuda] [--master HOST:PORT]
@@ -250,8 +255,8 @@ from . import native_plane
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
                         get_json, http_call, parse_range, pool_stats_snapshot,
                         post_json, post_multipart, process_memory_stats,
-                        profile_handler, pull_file, traces_export_handler,
-                        traces_handler)
+                        profile_handler, pull_file, require_client_cert,
+                        tls_enabled, traces_export_handler, traces_handler)
 
 PULSE_S = 5.0        # SW_PULSE_S: the heartbeat's period
 LOOKUP_TTL_S = 10.0  # a /dir/lookup answer's life in the replica cache
@@ -361,6 +366,7 @@ class VolumeServer:
         router.add("GET", "/admin/plane/cache", self.admin_plane_cache)
         router.add("GET", "/admin/plane/durability",
                    self.admin_plane_durability)
+        router.add("GET", "/ui", self.ui_handler)
         router.add("POST", "/query", self.query_handler)
         router.set_fallback(self.data_handler)
         router.before = self._guard_check
@@ -443,14 +449,14 @@ class VolumeServer:
                                            daemon=True,
                                            name="volume-heartbeat")
         # the native plane on a second port (0 picks one, -1: none). It
-        # speaks open HTTP, so a whitelist keeps it off; write tokens
+        # speaks open HTTP, so a whitelist or TLS keeps it off; write tokens
         # keep every volume's lease with Python (_writer_acquire). A
         # plane that does not build or listen leaves the server without
         # one (the plane_build_failed gauge), as in JAX, unless
         # SW_HTTP_PLANE_LIB named the library
         self.fast_plane = None
         if fast_port >= 0 and not self.guard.enabled and \
-                native_plane.available():
+                not tls_enabled() and native_plane.available():
             try:
                 self.fast_plane = native_plane.NativeReadPlane(
                     host, fast_port, self.url)
@@ -793,6 +799,12 @@ class VolumeServer:
 
     def stats_memory(self, req: Request):
         return process_memory_stats()
+
+    def ui_handler(self, req: Request):
+        """The status page (reference volume_server_ui/)."""
+        from .status_ui import volume_status_page
+        return Response(volume_status_page(self),
+                        content_type="text/html; charset=utf-8")
 
     def status(self, req: Request):
         out = self.store.status()
@@ -1561,7 +1573,10 @@ class VolumeServer:
 
     # -- the guard -----------------------------------------------------------
     def _guard_check(self, req: Request):
-        """The whitelist covers every route, the admin ones included."""
+        """Under mutual TLS the admin routes want a client certificate;
+        the whitelist covers every route, the admin ones included."""
+        if req.path.startswith("/admin/"):
+            require_client_cert(req)
         if self.guard.enabled and \
                 not self.guard.allows(req.handler.client_address[0]):
             raise HttpError(403, "ip not in whitelist")

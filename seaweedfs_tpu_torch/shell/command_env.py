@@ -25,8 +25,11 @@ def command(name: str, help_text: str = ""):
 
 
 class CommandEnv:
-    def __init__(self, master_url: str, out=None):
+    def __init__(self, master_url: str, out=None, filer_url: str = ""):
         self.master_url = master_url
+        # the filer of the fs.* commands (not ported yet): kept, as the
+        # master's maintenance runner hands its master.toml filer here
+        self.filer_url = filer_url
         # an admin call moves whole volumes (encode, copy, rebuild): a
         # short deadline would orphan a still-running server-side step
         self.admin_timeout = 3600.0

@@ -28,12 +28,27 @@ one ``monkeypatch.setenv`` sets a knob for both packages):
 A read of a name that is not registered, or as another type than its
 own, raises. The full registry (every knob of the JAX package) is not
 ported.
+
+The config-file tier of the JAX module (reference util/config.go and
+scaffold.go): ``load_config(name)`` reads ``<name>.toml`` (stdlib
+``tomllib``) or ``<name>.json`` from the first of ``SEARCH_DIRS`` that
+holds one (the JAX package's directories, so one file configures both),
+flattens it to dotted lower-case keys, and lays every ``WEED_*``
+environment variable on top (``WEED_JWT_SIGNING_KEY`` is
+``jwt.signing.key``); ``config_get`` reads a dotted key, taking ``_``
+and ``.`` as one. The CLI reads ``security`` and ``master`` through
+them (``command/scaffold`` prints examples of every file).
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
+
+SEARCH_DIRS = [".", os.path.expanduser("~/.seaweedfs_tpu"),
+               "/etc/seaweedfs_tpu"]
+ENV_PREFIX = "WEED_"
 
 
 class EnvKnob(NamedTuple):
@@ -109,3 +124,58 @@ def env_is_set(name: str) -> bool:
     """Whether the registered knob is set in the environment."""
     _lookup(name, KNOBS[name].kind if name in KNOBS else "str")
     return name in os.environ
+
+
+def _flatten(d: dict, prefix: str = "") -> Dict[str, object]:
+    out: Dict[str, object] = {}
+    for k, v in d.items():
+        key = f"{prefix}{k}".lower()
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + "."))
+        else:
+            out[key] = v
+    return out
+
+
+def find_config_file(name: str,
+                     dirs: Optional[List[str]] = None) -> Optional[str]:
+    """The first ``<dir>/<name>.toml`` or ``.json`` of ``dirs``
+    (``SEARCH_DIRS`` by default), else None."""
+    for d in dirs or SEARCH_DIRS:
+        for ext in (".toml", ".json"):
+            p = os.path.join(d, name + ext)
+            if os.path.isfile(p):
+                return p
+    return None
+
+
+def load_config(name: str, dirs: Optional[List[str]] = None,
+                env: Optional[dict] = None) -> Dict[str, object]:
+    """The flattened dotted-key config of ``name``, {} when no file
+    exists; ``WEED_*`` variables of ``env`` (the process environment by
+    default) apply on top, so a config can be environment alone."""
+    cfg: Dict[str, object] = {}
+    path = find_config_file(name, dirs)
+    if path is not None:
+        if path.endswith(".toml"):
+            import tomllib
+            with open(path, "rb") as f:
+                cfg = _flatten(tomllib.load(f))
+        else:
+            with open(path) as f:
+                cfg = _flatten(json.load(f))
+    environ = os.environ if env is None else env
+    for k, v in environ.items():
+        if k.startswith(ENV_PREFIX):
+            cfg[k[len(ENV_PREFIX):].lower().replace("_", ".")] = v
+    return cfg
+
+
+def config_get(cfg: Dict[str, object], key: str, default=None):
+    """A dotted key of ``cfg``; ``_`` and ``.`` are one (an environment
+    variable cannot carry a dot: ``WEED_SECURITY_JWT_KEY`` and
+    ``[security] jwt_key`` land on one value)."""
+    key = key.lower()
+    if key in cfg:
+        return cfg[key]
+    return cfg.get(key.replace("_", "."), default)

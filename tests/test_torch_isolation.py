@@ -22,7 +22,10 @@ lifecycle (``volume.tier.upload`` / ``.download`` on a ``dir`` backend,
 and one demotion through ``/cluster/tiering?scan=1``), and its filer and
 S3 gateway (a sealed chunk, a multipart upload, a standalone gateway
 over ``FilerClient``, a GET through a lost shard and the ``s3`` tier on
-the port's own gateway), with both made unimportable."""
+the port's own gateway), and its operator surface (config files, mutual
+TLS, the status pages, ``benchmark``, ``upload``, ``download``,
+``filer.copy``, the offline tools and ``scaffold``), with both made
+unimportable."""
 
 import ast
 import os
@@ -148,6 +151,9 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/s3/auth.py",
                  "seaweedfs_tpu_torch/s3/s3_server.py",
                  "seaweedfs_tpu_torch/command/cli.py",
+                 "seaweedfs_tpu_torch/command/scaffold.py",
+                 "seaweedfs_tpu_torch/command/benchmark.py",
+                 "seaweedfs_tpu_torch/server/status_ui.py",
                  "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc",
@@ -1429,6 +1435,126 @@ def test_filer_and_s3_with_jax_unimportable(tmp_path):
         finally:
             for srv in (alone, s3, f, vs, m):
                 srv.stop()
+        assert not any(mod.split(".")[0] in {FORBIDDEN!r}
+                       for mod, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_operator_surface_with_jax_unimportable(tmp_path):
+    """A mutual-TLS cluster configured from ``security.toml`` and
+    ``master.toml`` (a master, a volume server on the CPU, a filer, all
+    in one process), then the CLI's ``benchmark``, ``upload`` (one file
+    chunked), ``download``, ``filer.copy``, the status pages, ``see``,
+    ``fix`` and ``scaffold``; a certificate-less client refused on the
+    admin routes."""
+    import shutil as _shutil
+    if _shutil.which("openssl") is None:
+        pytest.skip("openssl unavailable")
+    script = textwrap.dedent(f"""
+        import os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import contextlib, io, ssl, subprocess, http.client
+        root = {str(tmp_path)!r}
+        os.chdir(root)
+
+        def run(*cmd):
+            subprocess.run(cmd, check=True, capture_output=True)
+        run("openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+            "-keyout", "ca.key", "-out", "ca.pem", "-days", "1", "-subj",
+            "/CN=ca")
+        run("openssl", "req", "-newkey", "rsa:2048", "-nodes", "-keyout",
+            "srv.key", "-out", "srv.csr", "-subj", "/CN=127.0.0.1")
+        run("openssl", "x509", "-req", "-in", "srv.csr", "-CA", "ca.pem",
+            "-CAkey", "ca.key", "-CAcreateserial", "-out", "srv.pem",
+            "-days", "1")
+        with open("security.toml", "w") as f:
+            f.write('[jwt.signing]\\nkey = "k"\\n[https]\\n'
+                    'cert = "srv.pem"\\nkey = "srv.key"\\nca = "ca.pem"\\n'
+                    'mutual = true\\n')
+        with open("master.toml", "w") as f:
+            f.write("[master.volume_growth]\\ncopy_1 = 2\\n")
+        from seaweedfs_tpu_torch.command import cli
+        from seaweedfs_tpu_torch.server import http_util
+        from seaweedfs_tpu_torch.server.filer_server import FilerServer
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+
+        def cmd(*argv):
+            args = cli.build_parser().parse_args(list(argv))
+            cli._apply_tls_config(args)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                args.fn(args)
+            return out.getvalue()
+        args = cli.build_parser().parse_args(["master"])
+        cli._apply_tls_config(args)
+        cli._apply_security_config(args)
+        kw = cli._apply_master_config(args)
+        assert http_util.mtls_enabled() and args.jwtKey == "k"
+        m = MasterServer(port=0, pulse_seconds=1, repair_interval=0,
+                         jwt_signing_key=args.jwtKey, **kw).start()
+        vs = VolumeServer(port=0, directories=[root + "/v"],
+                          master_url=m.url, pulse_seconds=1, device="cpu",
+                          jwt_signing_key=args.jwtKey).start()
+        f = FilerServer(port=0, master_url=m.url,
+                        jwt_signing_key=args.jwtKey).start()
+        try:
+            assert vs.fast_plane is None
+            vs.heartbeat_once()
+            out = cmd("benchmark", "-master", m.url, "-n", "12", "-size",
+                      "700", "-c", "3", "-collection", "b")
+            assert out.count("requests: 12 ok, 0 failed") == 2, out
+            assert len(vs.store.locations[0].volumes) == 2
+            with open("big.bin", "wb") as fh:
+                fh.write(os.urandom(1_500_000))
+            with open("small.txt", "wb") as fh:
+                fh.write(b"small")
+            up = cmd("upload", "-master", m.url, "-maxMB", "1", "big.bin",
+                     "small.txt")
+            fids = [ln.split(" -> ")[1] for ln in up.splitlines()]
+            cmd("download", "-master", m.url, "-dir", "dl", *fids)
+            for name in ("big.bin", "small.txt"):
+                assert open("dl/" + name, "rb").read() == \\
+                    open(name, "rb").read()
+            os.makedirs("tree/sub")
+            with open("tree/sub/x.txt", "wb") as fh:
+                fh.write(b"x" * 99)
+            out = cmd("filer.copy", "tree", "http://%s/in/" % f.url)
+            assert "copied 1 files" in out
+            page = http_util.http_call(
+                "GET", "http://%s/in/tree/sub/" % f.url,
+                headers={{"Accept": "text/html"}}).decode()
+            assert ">x.txt</a>" in page
+            assert vs.url in http_util.http_call(
+                "GET", "http://%s/ui" % m.url).decode()
+            assert "Volumes" in http_util.http_call(
+                "GET", "http://%s/ui" % vs.url).decode()
+            ctx = ssl.create_default_context(cafile="ca.pem")
+            ctx.check_hostname = False
+            c = http.client.HTTPSConnection(
+                "127.0.0.1", vs.port, context=ctx, timeout=10)
+            c.request("GET", "/admin/devices")
+            assert c.getresponse().status == 403
+            c.close()
+            vid = fids[1].split(",")[0]
+            d = vs.store.locations[0].directory
+            assert "needles" in cmd("see", "%s/%s.dat" % (d, vid))
+            assert "index records" in cmd("see", "%s/%s.idx" % (d, vid))
+            assert "[master.volume_growth]" in cmd("scaffold", "-config",
+                                                   "master")
+        finally:
+            for srv in (f, vs, m):
+                srv.stop()
+            http_util.reset_tls()
         assert not any(mod.split(".")[0] in {FORBIDDEN!r}
                        for mod, v in sys.modules.items() if v is not None)
         print("PORT-OK")
