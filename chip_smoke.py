@@ -494,6 +494,35 @@
    warm), K1 launches by phase, connections each client's pool opened,
    and the step's numbers as JSON.
 
+22. The filer's event plane and gateways, after step 20 (event_leg) on
+   its stack, kept up: S3Stack also runs -webdav -webdavPort, and its
+   filer's webhook publisher (WEED_NOTIFICATION_WEBHOOK_ENABLED and _URL
+   in its environment, no notification.toml) posts every metadata event
+   to a msgBroker process's /queue/publish?topic=EVENT_TOPIC; the broker
+   and watch -filer <filer> -since 0 are processes started with step 16's
+   (EventPlane). (a) A text object of EVENT_TEXT_BYTES PUT through S3;
+   the shard that the most of step 20's objects cross, other than step
+   20's, removed and unmounted. (b) filer.replicate, a process, from the
+   filer's last event on, source /buckets/<bucket>, an s3 sink to bucket
+   REPLICA_BUCKET on the stack's own gateway, seeded by a shell process's
+   fs.meta.notify of the bucket: every object in the replica, each
+   replica GET sha256-identical to its PUT; SIGTERM, exit 0. (c) WebDAV:
+   PROPFIND depth 1 lists the bucket's children as the filer does, every
+   object GET sha256-identical, one ranged GET equal to its bytes; MKCOL,
+   PUT of EVENT_DAV_BYTES, MOVE, COPY, LOCK, a PUT refused 423 without
+   the token, UNLOCK, DELETE, a 404 after. (d) One shell -filer process:
+   fs.ls and fs.du of the bucket, bucket.list, bucket.create,
+   bucket.delete, fs.meta.save of the bucket and fs.cat of the text
+   object, its whole output equal to what the filer holds, fs.cat
+   sha256-identical. K1's launches in the stack's process over (b)-(d)
+   (its /admin/devices) > 0 and equal to its degraded engine's device
+   dispatches. (e) The broker topic's messages equal /filer/events since
+   0, key for key and in order; watch's lines equal format_event of the
+   same events (SIGTERM, exit 0); the broker exits 0, and the stack.
+   Prints the replication's wall, MB/s and GET p50/p99, WebDAV GET MB/s
+   and p50/p99, the shell's wall, the event counts, K1 launches, and the
+   step's numbers as JSON.
+
 Every leg runs with every kernel's launch count (ops/device_stats) set
 to 0 just before it and read just after; a leg of steps 5-8 and 10-19
 whose K1 launches in this process differ from its dispatches (two for a
@@ -531,7 +560,7 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-VOLUME_BYTES = 512 << 20    # BASELINE.json config 1 (30 GB default cut)
+VOLUME_BYTES = 384 << 20    # BASELINE.json config 1 (30 GB default cut)
 MAIN_N = 8 << 20            # main-path slab width (encoder DEFAULT_SLAB)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 L2_BYTES = 50 << 20         # H100 SXM L2
@@ -567,7 +596,7 @@ DATA_LOST = 1               # the shard it loses after the encode
 DATA_EC_DELETES = 3         # EC DELETEs at its end
 NP_VID = 8                  # step 19's volume (the native plane)
 NP_POST_BYTES = 4 * DATA_PLANE_BYTES  # a sync mode's POST data at most
-NP_SECONDS = 1.5            # each loadgen run's length at most
+NP_SECONDS = 1.0            # each loadgen run's length at most
 NP_THREADS = 8              # loadgen connections (the card's host: 8 cores)
 NP_SLOTS = 16               # the step's server's volume slots
 NP_COLD_GETS = 48           # lost-shard GETs, cold then warm
@@ -5052,9 +5081,14 @@ S3_PARTS = (5 << 20, 5 << 20, 2 << 20)  # the multipart upload's parts
 S3_DELETED = 2              # keys of one DeleteObjects
 S3_TIER_NEEDLES = 16        # the small sealed volume's 64 KiB needles
 S3_AK, S3_SK = "smoke-access", "smoke/secret+key"
+EVENT_TOPIC = "filer-events"  # step 22's broker topic of the filer's events
+REPLICA_BUCKET = "replica"  # filer.replicate's s3 sink bucket
+EVENT_TEXT_BYTES = 1 << 20  # the text object fs.cat prints
+EVENT_DAV_BYTES = 3 << 20   # the file WebDAV PUTs, moves and copies
+EVENT_WAIT_S = 60.0         # bound on each of step 22's waits
 MTLS_COLLECTION = "bench"   # step 21's collection (benchmark and upload)
 MTLS_GROWTH = 3             # master.toml's copy_1: volumes a growth makes
-MTLS_BENCH_N = 1024         # benchmark -n
+MTLS_BENCH_N = 512          # benchmark -n
 MTLS_BENCH_SIZE = 4096      # benchmark -size
 MTLS_FILES = 12             # uploaded files, log-uniform sizes between
 MTLS_MIN = 256 << 10        # these two
@@ -5070,14 +5104,19 @@ class S3Stack:
     cuda``) with its native plane, its master's repair loop off
     (SW_REPAIR_INTERVAL_S=0: the step's lost shard is ec.rebuild's), an
     IAM identity and an ``s3`` tier ("s3.self") whose endpoint is its
-    own gateway. ``spawn`` starts it, ``wait`` reads its addresses,
-    ``stop`` sends SIGTERM and wants exit code 0."""
+    own gateway. With ``events`` (step 22's ``EventPlane``) it also
+    serves WebDAV (``-webdav -webdavPort``) and its filer publishes every
+    metadata event to the plane's broker through the webhook publisher,
+    enabled by ``WEED_NOTIFICATION_WEBHOOK_*`` in its environment.
+    ``spawn`` starts it, ``wait`` reads its addresses, ``stop`` sends
+    SIGTERM and wants exit code 0."""
 
-    def __init__(self, work):
+    def __init__(self, work, events=None):
         self.dir = os.path.join(work, "s3-stack")
         os.makedirs(self.dir)
-        self.ports = _free_ports(4)
-        self.master, self.volume, self.filer, self.s3 = (
+        self.events = events
+        self.ports = _free_ports(5)
+        self.master, self.volume, self.filer, self.s3, self.webdav = (
             f"127.0.0.1:{p}" for p in self.ports)
         self.proc = None
         self.log = os.path.join(work, "s3-stack.log")
@@ -5094,7 +5133,15 @@ class S3Stack:
             json.dump({"s3": {"self": {
                 "endpoint": self.s3, "bucket": "tier",
                 "access_key": S3_AK, "secret_key": S3_SK}}}, f)
-        mport, vport, fport, sport = self.ports
+        mport, vport, fport, sport, wport = self.ports
+        env = dict(os.environ, SW_REPAIR_INTERVAL_S="0")
+        extra = []
+        if self.events is not None:
+            extra = ["-webdav", "-webdavPort", str(wport)]
+            env.update(WEED_NOTIFICATION_WEBHOOK_ENABLED="true",
+                       WEED_NOTIFICATION_WEBHOOK_URL=(
+                           f"http://{self.events.broker}/queue/publish?"
+                           f"topic={EVENT_TOPIC}"))
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "seaweedfs_tpu_torch.command.cli",
              "server", "-filer", "-s3", "-s3Config", iam,
@@ -5102,9 +5149,9 @@ class S3Stack:
              "-dir", os.path.join(self.dir, "data"), "-max", "64",
              "-masterPort", str(mport), "-port", str(vport),
              "-filerPort", str(fport), "-s3Port", str(sport),
-             "-pulseSeconds", "1"],
+             "-pulseSeconds", "1"] + extra,
             cwd=ROOT, stdout=subprocess.PIPE, stderr=open(self.log, "wb"),
-            text=True, env=dict(os.environ, SW_REPAIR_INTERVAL_S="0"))
+            text=True, env=env)
         # a thread reads the stack's lines as they come (and drains the
         # pipe after): a select on the pipe would miss lines that the
         # reader's buffer already holds
@@ -5120,6 +5167,9 @@ class S3Stack:
 
     def wait(self):
         deadline = time.monotonic() + HOLDER_START_S
+        last = f"webdav on http://{self.webdav}" \
+            if self.events is not None \
+            else f"s3 gateway on {self.s3}"
         lines = []
         while time.monotonic() < deadline:
             try:
@@ -5129,9 +5179,9 @@ class S3Stack:
             if line is None:
                 break
             lines.append(line)
-            if line.startswith("s3 gateway on"):
+            if line.startswith(last.split(" on ")[0] + " on"):
                 break
-        if not lines or lines[-1] != f"s3 gateway on {self.s3}":
+        if not lines or lines[-1] != last:
             with open(self.log, "rb") as f:
                 err = f.read()[-2000:].decode("utf-8", "replace")
             raise AssertionError(f"s3 stack did not start (exit "
@@ -5241,10 +5291,12 @@ def _get_pass(s3, want, label):
     return lat, sum(w["size"] for w in want.values()) / wall / 1e6
 
 
-def s3_leg(np, port, work, seed, stack):
+def s3_leg(np, port, work, seed, stack, keep=False):
     """Step 20: the filer and the S3 gateway on the port's own CLI stack
     (``S3Stack``, started before), objects read through a lost shard
-    reconstructed on K1 in the stack's process."""
+    reconstructed on K1 in the stack's process. With ``keep`` the stack
+    stays up for step 22, holding the bucket's objects (``objects``) and
+    the shard this step lost (``lost``)."""
     from seaweedfs_tpu_torch.client import operation
     from seaweedfs_tpu_torch.server.http_util import get_json, http_call
     ec = port[0]
@@ -5438,9 +5490,10 @@ def s3_leg(np, port, work, seed, stack):
               f"{len(tfids) * (64 << 10) / remote_s / 1e6:.1f} MB/s, "
               f"downloaded back; every byte equal")
         k_end = _devices_k1(vs)
+        stack.objects, stack.lost = want, (vid, sid)
     finally:
         s3.close()
-        rc = stack.stop()
+        rc = 0 if keep else stack.stop()
     _check("s3 stack exit code after SIGTERM", rc, 0)
     numbers = {
         "objects": len(want), "put_mb_s": round(put_bytes / put_s / 1e6, 1),
@@ -5467,6 +5520,392 @@ def s3_leg(np, port, work, seed, stack):
         "wall_s": round(time.perf_counter() - t_step, 3)}
     print(card_line())
     print("s3 step: " + json.dumps(numbers))
+    return numbers
+
+
+class CliProcess:
+    """``python3 -m seaweedfs_tpu_torch.command.cli <argv>`` in a process
+    of its own, its stdout read on a thread (every line kept); ``stop``
+    sends SIGTERM and returns the exit code."""
+
+    def __init__(self, name, argv, work, cwd=None):
+        self.name = name
+        self.log = os.path.join(work, f"{name}.log")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.command.cli"]
+            + list(argv), cwd=cwd or ROOT, stdout=subprocess.PIPE,
+            stderr=open(self.log, "wb"), text=True)
+        self.lines = []
+        self._done = threading.Event()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+        self._done.set()
+
+    def wait_line(self, prefix, timeout=HOLDER_START_S):
+        _wait_for(f"{self.name}: a line starting {prefix!r}",
+                  lambda: any(ln.startswith(prefix) for ln in self.lines)
+                  or self.proc.poll() is not None, timeout)
+        line = next((ln for ln in self.lines if ln.startswith(prefix)),
+                    None)
+        if line is None:
+            with open(self.log, "rb") as f:
+                err = f.read()[-2000:].decode("utf-8", "replace")
+            raise AssertionError(f"{self.name} exited {self.proc.poll()}: "
+                                 f"{self.lines[-5:]} {err}")
+        return line
+
+    def finish(self, timeout=120):
+        """Wait for a command that ends by itself; its exit code."""
+        rc = self.proc.wait(timeout=timeout)
+        self._done.wait(10)
+        return rc
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self._done.wait(10)
+        return rc
+
+    stop_processes = stop
+
+
+class EventPlane:
+    """Step 22's processes that start with step 16's: the ``msgBroker``
+    the stack's filer publishes to, and ``watch -since 0`` following the
+    filer. ``spawn`` starts the broker (the stack's environment names
+    it), ``watch`` the follower once the stack's ports are known."""
+
+    def __init__(self, work):
+        self.work = work
+        self.broker = f"127.0.0.1:{_free_ports(1)[0]}"
+        self.procs = {}
+
+    def spawn(self):
+        self.procs["broker"] = CliProcess(
+            "msgBroker", ["msgBroker", "-port",
+                          self.broker.split(":")[1]], self.work)
+        return self
+
+    def watch(self, filer):
+        self.procs["watch"] = CliProcess(
+            "watch", ["watch", "-filer", filer, "-since", "0"], self.work)
+
+    def stop_processes(self):
+        return {name: p.stop() for name, p in self.procs.items()}
+
+
+def _dav(hostport, method, path, body=b"", headers=None):
+    """(status, headers, body, ms) of one WebDAV request."""
+    import http.client
+    conn = http.client.HTTPConnection(hostport, timeout=120)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body or None,
+                     headers=dict(headers or {}))
+        r = conn.getresponse()
+        data = r.read()
+        return r.status, dict(r.getheaders()), data, \
+            (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def _all_events(filer):
+    """Every event of the filer's /filer/events since 0, in order."""
+    from seaweedfs_tpu_torch.server.http_util import get_json
+    out, since = [], 0.0
+    while True:
+        got = get_json(f"http://{filer}/filer/events?since={since!r}"
+                       f"&timeout=0")["events"]
+        if not got:
+            return out
+        out += got
+        since = got[-1]["ts"]
+
+
+def _all_messages(broker, topic):
+    """Every message of a broker topic since 0, decoded, in order."""
+    import base64
+    from seaweedfs_tpu_torch.server.http_util import get_json
+    out, since = [], 0.0
+    while True:
+        got = get_json(f"http://{broker}/queue/subscribe?topic={topic}"
+                       f"&since={since!r}&timeout=0")["messages"]
+        if not got:
+            return out
+        out += [json.loads(base64.b64decode(m["data"])) for m in got]
+        since = got[-1]["ts"]
+
+
+def event_leg(np, port, work, seed, stack, plane):
+    """Step 22: the filer's event plane and gateways on step 20's stack
+    (kept up by ``s3_leg``), through a second lost shard reconstructed
+    on K1 in the stack's process."""
+    import base64
+    import re as _re
+
+    from seaweedfs_tpu_torch.replication.sub import format_event
+    from seaweedfs_tpu_torch.server.http_util import get_json
+    ec = port[0]
+    t_step = time.perf_counter()
+    vs, filer, murl = stack.volume, stack.filer, stack.master
+    bucket_dir = f"/buckets/{S3_BUCKET}"
+    want = dict(stack.objects)
+    s3 = S3Client(stack.s3)
+    procs = []
+
+    def snap():
+        return (_devices_k1(vs),
+                get_json(f"http://{vs}/status")["ec_degraded"])
+    try:
+        # (a) a text object for fs.cat, then lose a second shard: the one
+        # the most objects cross, other than step 20's
+        rng = np.random.default_rng(seed)
+        raw = base64.b64encode(rng.bytes(EVENT_TEXT_BYTES * 3 // 4))
+        text = b"\n".join(raw[i:i + 76] for i in range(0, len(raw), 76))
+        st, _, _, _ = s3("PUT", f"/{S3_BUCKET}/text/notes.txt", text,
+                         {"Content-Type": "text/plain"})
+        _check("PUT text/notes.txt", st, 200)
+        want["text/notes.txt"] = {"size": len(text),
+                                  "sha": hashlib.sha256(text).hexdigest()}
+        crossing = _objects_crossing(ec, stack, stack.objects)
+        crossing.pop(stack.lost, None)
+        (vid, sid), (n_cross, n_wide) = max(
+            crossing.items(), key=lambda kv: (kv[1][1], kv[1][0], kv[0]))
+        shard = os.path.join(stack.dir, "data",
+                             f"{S3_BUCKET}_{vid}{ec.to_ext(sid)}")
+        os.remove(shard)
+        _post(vs, f"/admin/ec/unmount?volume={vid}&shards={sid}")
+        print(f"events (a): lost shard {sid} of volume {vid}, crossed by "
+              f"{n_cross} objects ({n_wide} by >= {S3_MIN} B)")
+        k0, e0 = snap()
+
+        # (b) filer.replicate from now on into an s3 sink on the stack's
+        # own gateway, seeded by fs.meta.notify of the bucket
+        _check("create replica bucket", s3("PUT", f"/{REPLICA_BUCKET}")[0],
+               200)
+        cursor = _all_events(filer)[-1]["ts"]
+        cfg = os.path.join(work, "replicate.json")
+        with open(cfg, "w") as f:
+            json.dump({"source": {"filer": filer, "master": murl,
+                                  "path": bucket_dir},
+                       "sink": {"type": "s3", "endpoint": f"http://"
+                                f"{stack.s3}", "bucket": REPLICA_BUCKET,
+                                "access_key": S3_AK, "secret_key": S3_SK}},
+                      f)
+        t0 = time.perf_counter()
+        rep = CliProcess("filer.replicate", [
+            "filer.replicate", "-config", cfg, "-since", repr(cursor)], work)
+        procs.append(rep)
+        rep.wait_line("replicating ")
+        notify = CliProcess("notify", [
+            "shell", "-master", murl, "-filer", filer, "-c",
+            f"fs.meta.notify {bucket_dir}"], work)
+        procs.append(notify)
+        _check("fs.meta.notify exit code", notify.finish(), 0)
+        notified = int(_re.search(r"notified (\d+) entries",
+                                  "\n".join(notify.lines)).group(1))
+
+        def replica_keys():
+            st, _, body, _ = s3("GET", f"/{REPLICA_BUCKET}?list-type=2"
+                                        f"&max-keys=1000")
+            return set(k.decode() for k in
+                       _re.findall(rb"<Key>([^<]+)</Key>", body))
+        _wait_for("every object in the replica bucket",
+                  lambda: replica_keys() >= set(want), EVENT_WAIT_S)
+        # the sink writes each object once it is read whole: wait for the
+        # replicator's line of the last one too
+        _wait_for("the replicator's lines", lambda: sum(
+            ln.startswith("update ") for ln in rep.lines) >= notified,
+            EVENT_WAIT_S)
+        rep_s = time.perf_counter() - t0
+        rep_lat = []
+        for key, w in want.items():
+            st, _, body, ms = s3("GET", f"/{REPLICA_BUCKET}/{key}")
+            _check(f"replica GET {key}", (st, hashlib.sha256(
+                body).hexdigest()), (200, w["sha"]))
+            rep_lat.append(ms)
+        _check("filer.replicate exit code after SIGTERM", rep.stop(), 0)
+        rep_bytes = sum(w["size"] for w in want.values())
+        print(f"events (b): filer.replicate of {bucket_dir} into s3 bucket "
+              f"{REPLICA_BUCKET}: {len(want)} objects, {rep_bytes} B in "
+              f"{rep_s:.3f} s ({rep_bytes / rep_s / 1e6:.1f} MB/s), "
+              f"{notified} entries notified, every replica GET "
+              f"sha256-identical (p50 {_pct(rep_lat, 0.5):.3f} ms, p99 "
+              f"{_pct(rep_lat, 0.99):.3f} ms)")
+
+        # (c) WebDAV: the bucket listed, its objects read, and a file put,
+        # moved, copied, locked and deleted
+        children = sorted(
+            e["FullPath"].rsplit("/", 1)[1] + ("/" if e["IsDirectory"]
+                                               else "")
+            for e in get_json(f"http://{filer}/filer/meta/list?path="
+                              f"{bucket_dir}&limit=1000")["entries"])
+        st, _, body, _ = _dav(stack.webdav, "PROPFIND", bucket_dir,
+                              headers={"Depth": "1"})
+        listed = sorted(h.decode() for h in
+                        _re.findall(rb"<D:href>([^<]+)</D:href>", body))
+        _check("PROPFIND depth 1 of the bucket", (st, listed),
+               (207, sorted([bucket_dir + "/"] + [
+                   f"{bucket_dir}/{name}" for name in children])))
+        dav_lat, t0 = [], time.perf_counter()
+        for key, w in want.items():
+            st, _, body, ms = _dav(stack.webdav, "GET", f"{bucket_dir}/{key}")
+            _check(f"WebDAV GET {key}", (st, hashlib.sha256(
+                body).hexdigest()), (200, w["sha"]))
+            dav_lat.append(ms)
+        dav_s = time.perf_counter() - t0
+        big = max(want, key=lambda k: want[k]["size"])
+        n = want[big]["size"]
+        st, h, part, _ = _dav(stack.webdav, "GET", f"{bucket_dir}/{big}",
+                              headers={"Range": f"bytes={n // 3}-"
+                                                f"{n // 3 + 99_999}"})
+        whole = s3("GET", f"/{S3_BUCKET}/{big}")[2]
+        _check("WebDAV ranged GET", (st, h.get("Content-Range"), part),
+               (206, f"bytes {n // 3}-{n // 3 + 99_999}/{n}",
+                whole[n // 3:n // 3 + 100_000]))
+        blob = rng.bytes(EVENT_DAV_BYTES)
+        lock = (b'<?xml version="1.0" encoding="utf-8"?><D:lockinfo '
+                b'xmlns:D="DAV:"><D:lockscope><D:exclusive/></D:lockscope>'
+                b'<D:locktype><D:write/></D:locktype><D:owner>smoke'
+                b'</D:owner></D:lockinfo>')
+        dav_url = f"http://{stack.webdav}"
+        got = [_dav(stack.webdav, "MKCOL", "/dav")[0],
+               _dav(stack.webdav, "PUT", "/dav/new.bin", blob)[0],
+               _dav(stack.webdav, "MOVE", "/dav/new.bin", headers={
+                   "Destination": f"{dav_url}/dav/moved.bin"})[0],
+               _dav(stack.webdav, "COPY", "/dav/moved.bin", headers={
+                   "Destination": f"{dav_url}/dav/copy.bin"})[0]]
+        st, h, _, _ = _dav(stack.webdav, "LOCK", "/dav/moved.bin", lock,
+                           {"Timeout": "Second-60"})
+        token = h.get("Lock-Token", "")
+        got += [st, _dav(stack.webdav, "PUT", "/dav/moved.bin", b"x")[0],
+                _dav(stack.webdav, "UNLOCK", "/dav/moved.bin",
+                     headers={"Lock-Token": token})[0],
+                _dav(stack.webdav, "DELETE", "/dav/copy.bin")[0],
+                _dav(stack.webdav, "GET", "/dav/copy.bin")[0]]
+        moved = _dav(stack.webdav, "GET", "/dav/moved.bin")
+        _check("WebDAV MKCOL, PUT, MOVE, COPY, LOCK, refused PUT, UNLOCK, "
+               "DELETE, GET of the deleted", (got, moved[0], hashlib.sha256(
+                   moved[2]).hexdigest()),
+               ([201, 201, 201, 201, 200, 423, 204, 204, 404], 200,
+                hashlib.sha256(blob).hexdigest()))
+        dav_bytes = sum(w["size"] for w in want.values())
+        print(f"events (c): WebDAV PROPFIND of {bucket_dir} lists "
+              f"{len(listed) - 1} children; {len(want)} GETs "
+              f"{dav_bytes / dav_s / 1e6:.1f} MB/s, p50 "
+              f"{_pct(dav_lat, 0.5):.3f} ms, p99 {_pct(dav_lat, 0.99):.3f} "
+              f"ms, sha256-identical, one ranged; MKCOL, PUT "
+              f"({EVENT_DAV_BYTES} B), MOVE, COPY, LOCK, PUT refused 423 "
+              f"under the lock, UNLOCK, DELETE")
+
+        # (d) one weed shell process with -filer
+        meta = os.path.join(work, "bucket.meta.jsonl")
+        t0 = time.perf_counter()
+        sh = CliProcess("shell", [
+            "shell", "-master", murl, "-filer", filer, "-c",
+            f"fs.ls {bucket_dir}; fs.du {bucket_dir}; bucket.list; "
+            f"bucket.create -name evt-bucket; bucket.list; bucket.delete "
+            f"-name evt-bucket; bucket.list; fs.meta.save -o {meta} "
+            f"{bucket_dir}; fs.cat {bucket_dir}/text/notes.txt"], work)
+        procs.append(sh)
+        _check("shell -filer exit code", sh.finish(), 0)
+        shell_s = time.perf_counter() - t0
+        out = "\n".join(sh.lines) + "\n"
+        head, _, cat = out.partition(f"to {meta}\n")
+        lines = head.splitlines()
+        names = children
+        du = f"{sum(w['size'] for w in want.values())} bytes\t{len(want)}" \
+             f" files\t{bucket_dir}"
+        with open(meta) as f:
+            saved = [json.loads(ln)["FullPath"] for ln in f]
+        buckets = sorted(
+            e["FullPath"].rsplit("/", 1)[1]
+            for e in get_json(f"http://{filer}/filer/meta/list?path="
+                              f"/buckets&limit=1000")["entries"]
+            if e["IsDirectory"])
+        _check("shell -filer output", (
+            lines, len(set(saved)), saved[0],
+            hashlib.sha256(cat[:-1].encode()).hexdigest()), (
+            names + [du] + buckets + ["created bucket evt-bucket"]
+            + sorted(buckets + ["evt-bucket"])
+            + ["deleted bucket evt-bucket"] + buckets
+            + [f"saved {len(saved)} entries "], len(saved), bucket_dir,
+            want["text/notes.txt"]["sha"]))
+        print(f"events (d): shell -filer ({shell_s:.2f} s): fs.ls "
+              f"{len(names)} entries, fs.du '{du}', bucket.list/create/"
+              f"delete, fs.meta.save of {len(saved)} entries, fs.cat of "
+              f"{len(text)} B sha256-identical")
+        k1, e1 = snap()
+        launches = k1 - k0
+        dispatches = e1["device_dispatches"] - e0["device_dispatches"]
+        if launches < 1 or launches != dispatches or \
+                e1["errors"] != e0["errors"]:
+            raise AssertionError(f"events: {launches} K1 launches in the "
+                                 f"stack, {dispatches} device dispatches, "
+                                 f"engine {e0} -> {e1}")
+        print(f"events K1: {launches} launches in the stack's process = "
+              f"its engine's device dispatches ({e1['reads'] - e0['reads']}"
+              f" engine reads)")
+
+        # (e) the broker's topic and watch's lines against /filer/events
+        events = _all_events(filer)
+        t0 = time.perf_counter()
+        _wait_for("the broker's topic and watch's lines to catch up",
+                  lambda: len(_all_messages(plane.broker, EVENT_TOPIC))
+                  >= len(events) and len(plane.procs["watch"].lines)
+                  >= len(events), EVENT_WAIT_S)
+        lag_s = time.perf_counter() - t0
+        events = _all_events(filer)
+        msgs = _all_messages(plane.broker, EVENT_TOPIC)
+        keys = [(e["event"]["newEntry"] or e["event"]["oldEntry"])["path"]
+                for e in events]
+        _check("broker events = /filer/events, key for key and in order",
+               ([m["key"] for m in msgs], [m["event"] for m in msgs]),
+               (keys, [e["event"] for e in events]))
+        watch = plane.procs.pop("watch")
+        watch_rc = watch.stop()
+        watch_lines = list(watch.lines)
+        _check("watch's lines = format_event of /filer/events",
+               (watch_rc, watch_lines),
+               (0, [format_event(e["ts"], e["event"]) for e in events]))
+        broker_rc = plane.procs.pop("broker").stop()
+        _check("msgBroker exit code after SIGTERM", broker_rc, 0)
+        print(f"events (e): {len(events)} filer events = {len(msgs)} "
+              f"broker messages (topic {EVENT_TOPIC}, the filer's webhook "
+              f"publisher) = {len(watch_lines)} watch lines, caught up "
+              f"{lag_s:.3f} s after the last")
+    finally:
+        s3.close()
+        for p in procs:
+            p.stop()
+        rc = stack.stop()
+    _check("s3 stack exit code after SIGTERM", rc, 0)
+    numbers = {
+        "lost": {"vid": vid, "sid": sid, "objects": n_cross,
+                 "wide_objects": n_wide},
+        "replicate": {"objects": len(want), "bytes": rep_bytes,
+                      "s": round(rep_s, 3),
+                      "mb_s": round(rep_bytes / rep_s / 1e6, 1),
+                      "notified": notified},
+        "webdav_get_mb_s": round(dav_bytes / dav_s / 1e6, 1),
+        "webdav_get_p50_ms": round(_pct(dav_lat, 0.5), 3),
+        "webdav_get_p99_ms": round(_pct(dav_lat, 0.99), 3),
+        "shell_s": round(shell_s, 3),
+        "events": len(events), "broker_messages": len(msgs),
+        "watch_lines": len(watch_lines), "catch_up_s": round(lag_s, 3),
+        "k1_launches": launches, "device_dispatches": dispatches,
+        "wall_s": round(time.perf_counter() - t_step, 3)}
+    print(card_line())
+    print("events step: " + json.dumps(numbers))
     return numbers
 
 
@@ -6055,13 +6494,22 @@ def run(args) -> int:
 
     def phase(name):
         print(f"phase {name} done at {time.perf_counter() - t_run:.2f} s")
-    build_s = build_kernels((rs_hopper, rs_bitplane), crc, native_plane)
+
+    def timed_host(fn, *fn_args):
+        t0 = time.perf_counter()
+        return fn(*fn_args), time.perf_counter() - t0
+    # the host's plans are built while the compilers run
+    with ThreadPoolExecutor(max_workers=2) as host:
+        pb_plans = host.submit(timed_host, piggyback_geometries, ops_codec)
+        repair_plans = host.submit(timed_host, repair_targets, np,
+                                   ops_codec, args.seed)
+        build_s = build_kernels((rs_hopper, rs_bitplane), crc, native_plane)
+        pb_geos, pb_s = pb_plans.result()
+        (trace_plan, plane_plan), repair_s = repair_plans.result()
     sass_counts(rs_bitplane.LIBRARY)
     phase("builds")
-    t0 = time.perf_counter()
-    pb_geos = piggyback_geometries(ops_codec)
     print(f"piggyback plans (RS(10,4), two decodes, RS(20,4)) built on the "
-          f"host in {time.perf_counter() - t0:.2f} s")
+          f"host in {pb_s:.2f} s, beside the builds")
     flat_geos = geometries(np, gf256, NumpyCodec, args.seed)
     max_err = check_kernel(torch, np, rs_hopper, gf_plan, flat_geos, dev,
                            args.seed, misaligned=MAIN_N)
@@ -6069,10 +6517,8 @@ def run(args) -> int:
         torch, np, rs_hopper, gf_plan,
         [(label, c, widths + (MAIN_N, MAIN_N + 1))
          for label, c, widths in pb_geos], dev, args.seed + 3)
-    t0 = time.perf_counter()
-    trace_plan, plane_plan = repair_targets(np, ops_codec, args.seed)
-    print(f"repair plans built on the host in {time.perf_counter() - t0:.2f}"
-          f" s: trace lost {trace_plan.lost} ({trace_plan.total_bits} bits "
+    print(f"repair plans built on the host in {repair_s:.2f} s, beside the "
+          f"builds: trace lost {trace_plan.lost} ({trace_plan.total_bits} bits "
           f"from {len(trace_plan.helpers)} helpers, {trace_plan.frac} of "
           f"k x shard), plane lost {plane_plan.lost} "
           f"{plane_plan.matrix.shape} ({plane_plan.frac} of k x shard)")
@@ -6228,8 +6674,11 @@ def run(args) -> int:
         # step 16's ranks: one start-up wait for the three groups
         cluster_early = cluster_servers(np, work, args.seed + 67)
         spreading.append(cluster_early["procs"])
-        s3_stack = S3Stack(work).spawn()
+        event_plane = EventPlane(work).spawn()
+        spreading.append(event_plane)
+        s3_stack = S3Stack(work, events=event_plane).spawn()
         spreading.append(s3_stack)
+        event_plane.watch(s3_stack.filer)
         mtls_cluster = MtlsCluster(work)
         spreading.append(mtls_cluster)
         mtls_cluster.spawn()
@@ -6258,7 +6707,9 @@ def run(args) -> int:
         tiering = drive("tiering", tiering_leg, np, port, work,
                         args.seed + 79)
         s3 = drive("s3", s3_leg, np, port, work, args.seed + 83, s3_stack,
-                   kernel=False)
+                   True, kernel=False)
+        events = drive("events", event_leg, np, port, work, args.seed + 97,
+                       s3_stack, event_plane, kernel=False)
         mtls = drive("mtls", mtls_leg, np, port, work, args.seed + 89,
                      mtls_cluster, kernel=False)
     finally:
@@ -6282,20 +6733,22 @@ def run(args) -> int:
         legs["sharded step"] + sum(rank_launches)
     s3_k1 = s3["k1_launches"]
     mtls_k1 = mtls["k1_launches"]
+    events_k1 = events["k1_launches"]
     launches = sum(legs.values()) + sum(other.values()) + \
-        sum(rank_launches) + s3_k1["step"] + mtls_k1["step"]
+        sum(rank_launches) + s3_k1["step"] + mtls_k1["step"] + events_k1
     print(f"main path (flat, traced, trace repair, streaming, degraded "
           f"flat, scrub flat, tuner, net trace repair, net full rebuild, net "
           f"degraded flat, net scrub flat, spread flat, piggyback, plane "
           f"repair, streaming piggyback, degraded piggyback, scrub "
           f"piggyback, net plane repair, spread piggyback, integrity, "
           f"mesh codec, mesh crossover, sharded step, ranks, decode, data "
-          f"plane, native plane, cluster, tiering, s3, mtls) in "
+          f"plane, native plane, cluster, tiering, s3, events, mtls) in "
           f"{time.perf_counter() - t_path:.2f} s: {launches} kernel launches "
           f"= dispatches, 2 a sharded mesh dispatch ({sum(other.values())} "
           f"of them in the integrity leg's B and C, {json.dumps(other)}, "
           f"{sum(rank_launches)} in step 16's ranks, {rank_launches}, "
           f"{s3_k1['step']} in step 20's stack, {json.dumps(s3_k1)}, "
+          f"{events_k1} in step 22's (the same stack), "
           f"{mtls_k1['step']} in step 21's cluster, "
           f"{json.dumps(mtls_k1)}), by "
           f"leg in this process {json.dumps(legs)}; builds {build_s:.2f} s")
@@ -6311,7 +6764,8 @@ def run(args) -> int:
         _k1_entry("gf_matmul", launches, max_err, timed["flat encode"],
                   timed["flat decode (0, 1, 2, 3)"])
         | {"tiering_launches": tiering["launches"],
-           "s3_launches": s3_k1, "mtls_launches": mtls_k1},
+           "s3_launches": s3_k1, "events_launches": events_k1,
+           "mtls_launches": mtls_k1},
         _k1_entry("gf_matmul_piggyback",
                   legs["piggyback"] + legs["streaming piggyback"]
                   + legs["spread piggyback"],
@@ -6334,7 +6788,8 @@ def run(args) -> int:
                   + cluster["launches"]["degraded"]
                   + integrity["naive"]["launches"]
                   + s3_k1["cold"] + s3_k1["warm"] + s3_k1["rebuilt"]
-                  + mtls_k1["cold"] + mtls_k1["warm"] + mtls_k1["rebuilt"],
+                  + events_k1 + mtls_k1["cold"] + mtls_k1["warm"]
+                  + mtls_k1["rebuilt"],
                   max(read_err["degraded flat (1,10)"],
                       read_err["degraded piggyback (32,320)"]),
                   timed["degraded flat wide"], timed["degraded piggyback wide"],

@@ -6,11 +6,18 @@ Commands:
 - ``master``: a master (raft with ``-peers``, ``-sequencer etcd``);
 - ``volume``: a volume server heartbeating to ``-mserver``;
 - ``server``: a master and a volume server in one process, and with
-  ``-filer`` a filer, with ``-s3`` an S3 gateway over it;
+  ``-filer`` a filer, with ``-s3`` an S3 gateway, with ``-webdav`` a
+  WebDAV gateway over it;
 - ``filer``: a filer over ``-store memory|sqlite|sharded`` (``-s3`` adds
   a gateway in its process);
 - ``s3``: a gateway over a remote filer (``FilerClient``);
-- ``shell``: the admin shell (``-c`` runs ``;``-separated lines);
+- ``webdav``: a WebDAV gateway over a remote filer;
+- ``shell``: the admin shell (``-c`` runs ``;``-separated lines;
+  ``-filer`` for the fs.* and bucket.* commands);
+- ``watch``: print a filer's metadata events as they come;
+- ``filer.replicate``: apply a filer's events to a sink (another filer,
+  S3, GCS, B2, Azure), from a JSON config;
+- ``msgBroker``: the topic broker (``/queue/*``);
 - ``benchmark``: assign and upload ``-n`` files, then read them back at
   random (``-native``: the load generator);
 - ``upload`` (above ``-maxMB``, chunks behind a manifest), ``download``
@@ -34,7 +41,9 @@ included, so ``upload`` or ``shell`` reach a TLS cluster; ``-tlsCert``,
 ``master`` gives the maintenance scripts and interval, the etcd
 sequencer, the growth counts (``[master.volume_growth]``), the tier
 backends (``[storage.backend.<kind>.<id>]``) and the maintenance
-shell's filer.
+shell's filer. ``notification`` (or ``WEED_NOTIFICATION_*``) enables
+one publisher of a filer's metadata events (``filer``, ``server
+-filer``).
 
 The volume server's EC codec is ``-ec.backend cuda|numpy|mesh``: the
 kernel on the card (the default), the host's NumPy codec (the CPU: no
@@ -43,12 +52,10 @@ card, ``cuda`` and ``mesh`` refuse to start. ``-index memory|disk`` is
 the needle map. A master started here takes its repair loop's period
 from ``SW_REPAIR_INTERVAL_S``, as the JAX master does.
 
-Not ported yet, so absent from the parser: ``notification.toml``, the
-filer stores redis, mysql, postgres, cassandra and etcd and their flags,
-``-mesh.coordinator`` / ``-mesh.processes`` / ``-mesh.processId``, the
-WebDAV gateway (``server -webdav``, ``-webdavPort``), the shell's
-``-filer`` (its ``fs.*`` commands), and the subcommands ``watch``,
-``filer.replicate``, ``mount``, ``webdav`` and ``msgBroker``.
+Not ported yet, so absent from the parser: the filer stores redis,
+mysql, postgres, cassandra and etcd and their flags,
+``-mesh.coordinator`` / ``-mesh.processes`` / ``-mesh.processId``, and
+the subcommand ``mount``.
 """
 
 from __future__ import annotations
@@ -327,16 +334,23 @@ def cmd_server(args):
     if vs.fast_plane is not None:
         print(f"native read plane on {vs.fast_url}", flush=True)
     stoppables = [vs]
-    if args.filer or args.s3:
+    if args.filer or args.s3 or args.webdav:
         from ..server.filer_server import FilerServer
         f = FilerServer(port=args.filerPort, host=args.ip,
                         master_url=m.url,
-                        jwt_signing_key=args.jwtKey).start()
+                        jwt_signing_key=args.jwtKey,
+                        notify_publisher=_notification_publisher()).start()
         print(f"filer on {f.url}", flush=True)
         if args.s3:
             s3 = _start_s3(f, args.s3Port, args.ip, args.s3Config)
             print(f"s3 gateway on {s3.url}", flush=True)
             stoppables.append(s3)
+        if args.webdav:
+            from ..server.webdav_server import WebDavServer
+            w = WebDavServer(f.filer, m.url, port=args.webdavPort,
+                             host=args.ip).start()
+            print(f"webdav on {w.url}", flush=True)
+            stoppables.append(w)
         stoppables.append(f)
     stoppables.append(m)
     prof = _profiler(args)
@@ -359,6 +373,18 @@ def _start_s3(filer_server, port: int, host: str, config_path: str):
                        iam=_iam(config_path)).start()
 
 
+def _notification_publisher():
+    """The filer's event publisher: the one ``[notification.<kind>]``
+    section of notification.toml (or ``WEED_NOTIFICATION_*``) with
+    ``enabled = true``; None when there is none."""
+    from ..notification.queues import publisher_from_config
+    from ..util.config import load_config
+    pub = publisher_from_config(load_config("notification"))
+    if pub is not None:
+        print(f"notification -> {pub.name}", flush=True)
+    return pub
+
+
 def _store_options(args) -> dict:
     if args.store == "sharded":
         # a directory of shard databases, not the sqlite file's name
@@ -379,7 +405,8 @@ def cmd_filer(args):
                     chunk_size=args.maxMB << 20,
                     jwt_signing_key=args.jwtKey,
                     cipher=args.encryptVolumeData,
-                    compress=args.compress).start()
+                    compress=args.compress,
+                    notify_publisher=_notification_publisher()).start()
     print(f"filer listening on {f.url}, master {args.master}", flush=True)
     stoppables = [f]
     if args.s3:
@@ -409,9 +436,22 @@ def cmd_s3(args):
     _wait(s3)
 
 
+def cmd_webdav(args):
+    """A WebDAV gateway over a remote filer."""
+    from ..filer.filer_client import FilerClient
+    from ..server.webdav_server import WebDavServer
+    w = WebDavServer(FilerClient(args.filer),
+                     args.master or _filer_master(args.filer),
+                     port=args.port, host=args.ip,
+                     collection=args.collection,
+                     chunk_size=args.maxMB << 20).start()
+    print(f"webdav on {w.url}, filer {args.filer}", flush=True)
+    _wait(w)
+
+
 def cmd_shell(args):
     from ..shell import CommandEnv, run_command, split_script
-    env = CommandEnv(args.master)
+    env = CommandEnv(args.master, filer_url=args.filer)
     if args.c:
         for line in split_script(args.c):
             if not run_command(env, line):
@@ -606,6 +646,80 @@ def cmd_filer_copy(args):
         raise SystemExit(1)
 
 
+def cmd_watch(args):
+    """Print each metadata event of a filer as a line, from ``-since``
+    on, until SIGTERM or SIGINT."""
+    from ..replication.sub import EventSubscriber, format_event
+    sub = EventSubscriber(args.filer, since=args.since,
+                          path_prefix=args.pathPrefix)
+    _interrupt_on_sigterm()
+    try:
+        for ts, event in sub.follow():
+            print(format_event(ts, event), flush=True)
+    except KeyboardInterrupt:
+        pass
+
+
+def cmd_filer_replicate(args):
+    """Apply a filer's events to a sink (``-config``: ``{"source":
+    {"filer", "master", "path"}, "sink": {"type", ...}}``). A batch's
+    cursor moves only once every event of it is applied: a sink that is
+    down stalls replication, with retries, and skips nothing."""
+    import time
+
+    from ..replication import (EventSubscriber, FilerSource, Replicator,
+                               make_sink)
+    from ..server.http_util import HttpError
+    with open(args.config) as f:
+        cfg = json.load(f)
+    src_cfg = cfg["source"]
+    source = FilerSource(src_cfg["filer"], src_cfg["master"],
+                         path_prefix=src_cfg.get("path", "/"))
+    sink = make_sink(cfg["sink"])
+    rep = Replicator(source, sink)
+    # the replicator routes by source.path_prefix; the filer's own
+    # prefix filter keeps other paths' events off the wire
+    sub = EventSubscriber(src_cfg["filer"], since=args.since,
+                          path_prefix=(source.path_prefix
+                                       if source.path_prefix != "/"
+                                       else ""))
+    print(f"replicating {src_cfg['filer']}{source.path_prefix} "
+          f"-> {sink.kind} sink", flush=True)
+    _interrupt_on_sigterm()
+    try:
+        while True:
+            try:
+                batch = sub.poll_once(advance=False)
+            except HttpError:
+                time.sleep(1.0)
+                continue
+            for e in batch:
+                delay = 1.0
+                while True:
+                    try:
+                        action = rep.replicate(e["event"])
+                        break
+                    except Exception as err:  # noqa: BLE001 - retried
+                        print(f"RETRY in {delay:.0f}s: {err}", flush=True)
+                        time.sleep(delay)
+                        delay = min(delay * 2, 30.0)
+                if action != "skip":
+                    path = (e["event"].get("newEntry")
+                            or e["event"].get("oldEntry")
+                            or {}).get("FullPath", "?")
+                    print(f"{action} {path}", flush=True)
+            sub.commit(batch)
+    except KeyboardInterrupt:
+        pass
+
+
+def cmd_msg_broker(args):
+    from ..server.msg_broker import MsgBrokerServer
+    b = MsgBrokerServer(port=args.port, host=args.ip).start()
+    print(f"message broker on {b.url}", flush=True)
+    _wait(b)
+
+
 def cmd_scaffold(args):
     from .scaffold import print_scaffold
     print(print_scaffold(args.config), end="")
@@ -628,6 +742,14 @@ def _wait(*stoppables):
             s.stop()
         except Exception as e:  # noqa: BLE001 - the others still stop
             logging.getLogger(__name__).warning("stopping %s: %s", s, e)
+
+
+def _interrupt_on_sigterm():
+    """SIGTERM ends a follower as SIGINT does, even inside a long poll:
+    the loop leaves by KeyboardInterrupt and the process exits 0."""
+    def interrupt(*_):
+        raise KeyboardInterrupt
+    signal.signal(signal.SIGTERM, interrupt)
 
 
 def _set_verbosity(v: int, vmodule: str):
@@ -764,6 +886,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("-s3Port", type=int, default=8333)
     s.add_argument("-s3Config", default="",
                    help="IAM identities JSON (the reference's s3 config)")
+    s.add_argument("-webdav", action="store_true")
+    s.add_argument("-webdavPort", type=int, default=7333)
     s.add_argument("-ec.backend", dest="ec_backend", default="cuda",
                    choices=list(EC_BACKENDS))
     s.add_argument("-fastPort", type=int, default=0,
@@ -810,8 +934,22 @@ def build_parser() -> argparse.ArgumentParser:
     s3.add_argument("-config", default="", help="IAM identities JSON")
     s3.set_defaults(fn=cmd_s3)
 
+    w = sub.add_parser("webdav", help="WebDAV gateway over a filer")
+    w.add_argument("-port", type=int, default=7333)
+    w.add_argument("-ip", default="127.0.0.1")
+    w.add_argument("-filer", default="127.0.0.1:8888")
+    w.add_argument("-master", default="",
+                   help="master url (default: ask the filer)")
+    w.add_argument("-collection", default="")
+    w.add_argument("-maxMB", type=int, default=8,
+                   help="a PUT's chunk size")
+    w.set_defaults(fn=cmd_webdav)
+
     sh = sub.add_parser("shell", help="admin shell")
     sh.add_argument("-master", default="127.0.0.1:9333")
+    sh.add_argument("-filer", default="",
+                    help="filer host:port for the fs.* and bucket.* "
+                         "commands")
     sh.add_argument("-c", default="", help="run one command and exit")
     sh.set_defaults(fn=cmd_shell)
 
@@ -856,6 +994,15 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("fids", nargs="+")
     d.set_defaults(fn=cmd_download)
 
+    wt = sub.add_parser("watch", help="follow a filer's metadata events")
+    wt.add_argument("-filer", default="127.0.0.1:8888")
+    wt.add_argument("-since", type=float, default=0.0,
+                    help="resume after this event timestamp")
+    wt.add_argument("-pathPrefix", default="",
+                    help="only events under this path (filtered by the "
+                         "filer)")
+    wt.set_defaults(fn=cmd_watch)
+
     fc = sub.add_parser("filer.copy",
                         help="copy local files and directories into a "
                              "filer")
@@ -869,6 +1016,16 @@ def build_parser() -> argparse.ArgumentParser:
     fc.add_argument("-c", type=int, default=8,
                     help="files uploaded at once")
     fc.set_defaults(fn=cmd_filer_copy)
+
+    fr = sub.add_parser("filer.replicate",
+                        help="apply a filer's changes to a sink (another "
+                             "filer, an S3 bucket, GCS, B2, Azure)")
+    fr.add_argument("-config", required=True,
+                    help='JSON: {"source": {"filer": ..., "master": ..., '
+                         '"path": ...}, "sink": {"type": "filer"|"s3"|'
+                         '"gcs"|"b2"|"azure", ...}}')
+    fr.add_argument("-since", type=float, default=0.0)
+    fr.set_defaults(fn=cmd_filer_replicate)
 
     bk = sub.add_parser("backup",
                         help="incremental local copy of a live volume")
@@ -908,6 +1065,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="0 = scan the .dat (reference Compact), "
                          "1 = copy by the index (reference Compact2)")
     cp.set_defaults(fn=cmd_compact)
+
+    mb = sub.add_parser("msgBroker", help="message queue broker")
+    mb.add_argument("-port", type=int, default=17777)
+    mb.add_argument("-ip", default="127.0.0.1")
+    mb.set_defaults(fn=cmd_msg_broker)
 
     sc = sub.add_parser("scaffold", help="print example config files")
     sc.add_argument("-config", default="replication",

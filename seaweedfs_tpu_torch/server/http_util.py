@@ -9,8 +9,9 @@ and bytes responses (``Response``, with a streamed file range),
 ``parse_range``, a keep-alive connection pool behind ``http_call`` /
 ``http_get_with_headers`` (a GET or HEAD follows redirects, and a 307 or
 308 keeps a replayable body), ``get_json``, ``post_json``,
-``post_multipart``, ``post_chunked``, which streams a body of unknown
-size on a fresh connection, and ``pull_file``, a volume server's file
+``post_multipart`` (``post_multipart_file`` streams a file object's),
+``post_chunked``, which streams a body of unknown size on a fresh
+connection, and ``pull_file``, a volume server's file
 copied in ranged pulls.
 
 A router's ``before`` hook runs ahead of every route (the whitelist
@@ -47,6 +48,7 @@ connection).
 from __future__ import annotations
 
 import http.client as _httpc
+import io
 import json
 import os
 import re
@@ -462,6 +464,9 @@ def _make_handler(router: Router):
                 pass
 
         do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = _run
+        # the WebDAV gateway's verbs
+        do_OPTIONS = do_PROPFIND = do_PROPPATCH = do_MKCOL = _run
+        do_MOVE = do_COPY = do_LOCK = do_UNLOCK = _run
 
     return Handler
 
@@ -893,22 +898,79 @@ def _quote_name(name: str) -> str:
     return name.replace("\\", "\\\\").replace('"', '\\"')
 
 
+def _multipart_frame(boundary: str, filename: str,
+                     content_type: str) -> Tuple[bytes, bytes]:
+    """The bytes before and after the one file of a multipart body."""
+    return ((f"--{boundary}\r\n"
+             f'Content-Disposition: form-data; name="file"; '
+             f'filename="{_quote_name(filename or "file")}"\r\n'
+             f"Content-Type: {content_type}\r\n\r\n").encode(),
+            f"\r\n--{boundary}--\r\n".encode())
+
+
 def post_multipart(url: str, filename: str, data: bytes,
                    content_type: str = "application/octet-stream",
                    timeout: float = 60.0, headers: dict = None) -> dict:
     """POST ``data`` as the one file of a multipart/form-data body;
     returns the JSON answer."""
     boundary = uuid.uuid4().hex
-    body = b"".join((
-        (f"--{boundary}\r\n"
-         f'Content-Disposition: form-data; name="file"; '
-         f'filename="{_quote_name(filename or "file")}"\r\n'
-         f"Content-Type: {content_type}\r\n\r\n").encode(),
-        data, f"\r\n--{boundary}--\r\n".encode()))
+    prologue, epilogue = _multipart_frame(boundary, filename, content_type)
+    body = prologue + data + epilogue
     all_headers = {"Content-Type": f"multipart/form-data; boundary={boundary}"}
     all_headers.update(headers or {})
     return json.loads(http_call("POST", url, body, all_headers, timeout)
                       or b"{}")
+
+
+class _ChainReader:
+    """A read()-able concatenation of byte strings and (file object,
+    size) pairs of a known total length: a multipart body that streams."""
+
+    def __init__(self, parts):
+        self.parts = []
+        self.len = 0
+        for p in parts:
+            if isinstance(p, bytes):
+                self.parts.append(io.BytesIO(p))
+                self.len += len(p)
+            else:
+                f, size = p
+                self.parts.append(f)
+                self.len += size
+        self.i = 0
+
+    def __len__(self):
+        return self.len
+
+    def read(self, n: int = -1) -> bytes:
+        out = b""
+        while self.i < len(self.parts):
+            chunk = self.parts[self.i].read(n if n >= 0 else (1 << 20))
+            if chunk:
+                out += chunk
+                if n >= 0:
+                    return out
+            else:
+                self.i += 1
+        return out
+
+
+def post_multipart_file(url: str, filename: str, fileobj, size: int,
+                        content_type: str = "application/octet-stream",
+                        timeout: float = 600.0,
+                        headers: dict = None) -> dict:
+    """``post_multipart`` for a file object of ``size`` bytes: the body
+    streams, so a volume-sized upload never sits in memory whole."""
+    boundary = uuid.uuid4().hex
+    prologue, epilogue = _multipart_frame(boundary, filename, content_type)
+    body = _ChainReader([prologue, (fileobj, size), epilogue])
+    all_headers = {
+        "Content-Type": f"multipart/form-data; boundary={boundary}",
+        "Content-Length": str(len(body)),
+    }
+    all_headers.update(headers or {})
+    out = http_call("POST", url, body, all_headers, timeout)
+    return json.loads(out or b"{}")
 
 
 def post_chunked(url: str, chunks, headers: Optional[dict] = None,

@@ -1,8 +1,10 @@
 """CommandEnv — what every shell command gets: the master's address, the
 output stream and the admin calls to the master and the volume servers;
 the command table (``command`` registers into it), ``split_script``,
-``run_command`` and the flag parsers. The JAX package's
-``shell/command_env.py`` without the filer."""
+``run_command`` and the flag parsers; for the fs.* and bucket.*
+commands, the filer (``filer()``, the shell's ``-filer``) and the
+working directory (``cwd``, ``resolve``). The JAX package's
+``shell/command_env.py``."""
 
 from __future__ import annotations
 
@@ -27,9 +29,10 @@ def command(name: str, help_text: str = ""):
 class CommandEnv:
     def __init__(self, master_url: str, out=None, filer_url: str = ""):
         self.master_url = master_url
-        # the filer of the fs.* commands (not ported yet): kept, as the
-        # master's maintenance runner hands its master.toml filer here
+        # the filer of the fs.* and bucket.* commands (the shell's
+        # -filer, or master.toml's for the maintenance runner)
         self.filer_url = filer_url
+        self.cwd = "/"          # the fs.* commands' working directory
         # an admin call moves whole volumes (encode, copy, rebuild): a
         # short deadline would orphan a still-running server-side step
         self.admin_timeout = 3600.0
@@ -37,6 +40,23 @@ class CommandEnv:
 
     def write(self, *args):
         print(*args, file=self.out)
+
+    def filer(self):
+        """A ``FilerClient`` of the shell's filer (``-filer``)."""
+        if not self.filer_url:
+            raise HttpError(400, "no filer configured: start the shell "
+                                 "with -filer <host:port>")
+        from ..filer.filer_client import FilerClient
+        return FilerClient(self.filer_url)
+
+    def resolve(self, path: str) -> str:
+        """The absolute path of an fs.* operand, relative to ``cwd``."""
+        import posixpath
+        if not path:
+            return self.cwd
+        if not path.startswith("/"):
+            path = posixpath.join(self.cwd, path)
+        return posixpath.normpath(path)
 
     # -- the cluster's state -------------------------------------------------
     def master_get(self, path: str) -> dict:

@@ -1,13 +1,14 @@
 """The port's ``weed``-style CLI against the JAX package's parser.
 
 For the subcommands the port has (master, volume, server, filer, s3,
-shell, benchmark, upload, download, filer.copy, backup, see, export,
-fix, compact, scaffold, version) and the top-level flags, every flag's
-option strings, destination, default, type, choices and action must
-equal the JAX ``build_parser()``'s, except:
+webdav, shell, benchmark, upload, download, watch, filer.copy,
+filer.replicate, backup, see, export, fix, compact, msgBroker,
+scaffold, version) and the top-level flags, every flag's option
+strings, destination, default, type, choices and action must equal the
+JAX ``build_parser()``'s, except:
 
 - the flags that wait for later slices, named in ``ABSENT`` (the mesh
-  and store flags, WebDAV, the shell's ``-filer``);
+  and store flags);
 - ``-ec.backend``, whose choices are the port's ``cuda|numpy|mesh`` and
   whose default is ``cuda`` (the card) where JAX's is ``auto``;
 - ``-index``, whose choices are the port's ``memory|disk``;
@@ -17,7 +18,9 @@ Then ``server -filer -s3 -ec.backend numpy`` runs as a subprocess on
 free ports and answers a SigV4 PUT and GET, the filer's GET of the
 object, and exits 0 on SIGTERM; ``version`` prints the port's name;
 the volume flags the port's server took on for the CLI (data center,
-rack, public url, read redirect, compaction pace) reach it.
+rack, public url, read redirect, compaction pace) reach it;
+``server -webdav -webdavPort`` and the shell's ``-filer`` parse and reach
+their servers and the shell's ``CommandEnv``.
 
 Tolerances: none.
 """
@@ -35,11 +38,12 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-COMMANDS = ("master", "volume", "server", "filer", "s3", "shell",
-            "benchmark", "upload", "download", "filer.copy", "backup",
-            "see", "export", "fix", "compact", "scaffold", "version")
+COMMANDS = ("master", "volume", "server", "filer", "s3", "webdav",
+            "shell", "benchmark", "upload", "download", "watch",
+            "filer.copy", "filer.replicate", "backup", "see", "export",
+            "fix", "compact", "msgBroker", "scaffold", "version")
 # the JAX commands whose modules come in a later slice
-WAITING = ("watch", "filer.replicate", "mount", "webdav", "msgBroker")
+WAITING = ("mount",)
 STORE_FLAGS = tuple(
     f"-{db}{what}" for db, whats in (
         ("redis", ("Addr", "Password", "Db")),
@@ -49,9 +53,7 @@ STORE_FLAGS = tuple(
         ("etcd", ("Addr", "User", "Password"))) for what in whats)
 ABSENT = {
     "volume": ("-mesh.coordinator", "-mesh.processes", "-mesh.processId"),
-    "server": ("-webdav", "-webdavPort"),
     "filer": STORE_FLAGS,
-    "shell": ("-filer",),
 }
 # (command, flag) -> the port's (choices, default) where they differ
 DIFFERENT = {
@@ -113,6 +115,48 @@ def test_unported_store_is_refused():
     args = build_parser().parse_args(
         ["server", "-filer", "-s3", "-ec.backend", "numpy"])
     assert (args.filer, args.s3, args.ec_backend) == (True, True, "numpy")
+
+
+@pytest.mark.parametrize("argv, want", [
+    (["server", "-filer", "-webdav", "-ec.backend", "numpy"],
+     {"webdav": True, "webdavPort": 7333, "filer": True}),
+    (["server", "-webdav", "-webdavPort", "17333"],
+     {"webdav": True, "webdavPort": 17333, "filer": False}),
+    (["server"], {"webdav": False, "webdavPort": 7333}),
+    (["shell", "-filer", "127.0.0.1:8888", "-c", "fs.ls /"],
+     {"filer": "127.0.0.1:8888", "c": "fs.ls /"}),
+    (["shell"], {"filer": "", "master": "127.0.0.1:9333"}),
+    (["webdav", "-filer", "h:1", "-port", "0", "-maxMB", "2"],
+     {"filer": "h:1", "port": 0, "maxMB": 2, "master": ""}),
+    (["watch", "-since", "12.5", "-pathPrefix", "/buckets"],
+     {"since": 12.5, "pathPrefix": "/buckets", "filer": "127.0.0.1:8888"}),
+    (["filer.replicate", "-config", "r.json"],
+     {"config": "r.json", "since": 0.0}),
+    (["msgBroker", "-port", "0"], {"port": 0, "ip": "127.0.0.1"}),
+])
+def test_parser_cases_match_jax(argv, want):
+    """The new commands' flags parse to the same values in both CLIs."""
+    from seaweedfs_tpu.command.cli import build_parser as ref_build
+    from seaweedfs_tpu_torch.command.cli import build_parser
+    port, ref = build_parser().parse_args(argv), ref_build().parse_args(argv)
+    for key, value in want.items():
+        assert getattr(port, key) == getattr(ref, key) == value, key
+
+
+def test_shell_filer_reaches_command_env(monkeypatch):
+    from seaweedfs_tpu_torch.command import cli
+    from seaweedfs_tpu_torch import shell
+    seen = []
+
+    class Env(shell.CommandEnv):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.append(self)
+    monkeypatch.setattr(shell, "CommandEnv", Env)
+    monkeypatch.setattr(shell, "run_command", lambda env, line: True)
+    cli.main(["shell", "-master", "m:1", "-filer", "f:2", "-c", "fs.pwd"])
+    assert [(e.master_url, e.filer_url, e.cwd) for e in seen] == \
+        [("m:1", "f:2", "/")]
 
 
 def test_card_backend_without_a_card_raises(monkeypatch):

@@ -25,6 +25,7 @@ Tolerances: none (bytes and JSON compared exactly).
 import json
 import posixpath
 import random
+import threading
 import time
 
 import pytest
@@ -52,11 +53,15 @@ def _pkgs():
 
 @pytest.fixture
 def fixed_clock(monkeypatch):
-    """One clock for both packages: each call moves it on by 1 ms."""
+    """One clock for both packages: each call from the test's own thread
+    moves it on by 1 ms; a call from any other thread (a server loop an
+    earlier test left running in this process) reads it unmoved."""
     state = {"t": 1_760_000_000.0}
+    owner = threading.get_ident()
 
     def now():
-        state["t"] += 0.001
+        if threading.get_ident() == owner:
+            state["t"] += 0.001
         return state["t"]
     monkeypatch.setattr(time, "time", now)
     monkeypatch.setattr(time, "time_ns", lambda: int(now() * 1e9))
@@ -185,8 +190,7 @@ def _walk(f, entry_mod, path, page=3):
         start = batch[-1].name
 
 
-@pytest.mark.parametrize("kind", STORES)
-def test_filer_script_matches_jax(tmp_path, fixed_clock, kind):
+def _check_script(tmp_path, fixed_clock, kind):
     ops = _script(SEED + STORES.index(kind))
     got = {}
     for name, pkg in _pkgs().items():
@@ -198,6 +202,32 @@ def test_filer_script_matches_jax(tmp_path, fixed_clock, kind):
     for key in ("errors", "tree", "events", "log", "queue", "buckets"):
         assert port[key] == ref[key], key
     assert len(ref["tree"]) > 10 and ref["queue"]
+
+
+@pytest.mark.parametrize("kind", STORES)
+def test_filer_script_matches_jax(tmp_path, fixed_clock, kind):
+    _check_script(tmp_path, fixed_clock, kind)
+
+
+@pytest.mark.parametrize("kind", STORES)
+def test_filer_script_ignores_foreign_clock_reads(tmp_path, fixed_clock,
+                                                  kind):
+    """A thread of someone else's (a server loop an earlier test left
+    running) that reads the clock during the replay moves nothing."""
+    stop = threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            time.time()
+            time.time_ns()
+    spinner = threading.Thread(target=spin, daemon=True)
+    spinner.start()
+    try:
+        _check_script(tmp_path, fixed_clock, kind)
+    finally:
+        stop.set()
+        spinner.join(5)
+    assert not spinner.is_alive()
 
 
 def test_wire_json_byte_equal():

@@ -24,8 +24,10 @@ S3 gateway (a sealed chunk, a multipart upload, a standalone gateway
 over ``FilerClient``, a GET through a lost shard and the ``s3`` tier on
 the port's own gateway), and its operator surface (config files, mutual
 TLS, the status pages, ``benchmark``, ``upload``, ``download``,
-``filer.copy``, the offline tools and ``scaffold``), with both made
-unimportable."""
+``filer.copy``, the offline tools and ``scaffold``), and its filer's
+event plane and gateways (the webhook publisher into ``msgBroker``,
+``watch``, ``filer.replicate`` into an ``s3`` sink, WebDAV and ``shell
+-filer``), with both made unimportable."""
 
 import ast
 import os
@@ -154,6 +156,19 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/command/scaffold.py",
                  "seaweedfs_tpu_torch/command/benchmark.py",
                  "seaweedfs_tpu_torch/server/status_ui.py",
+                 "seaweedfs_tpu_torch/notification/__init__.py",
+                 "seaweedfs_tpu_torch/notification/queues.py",
+                 "seaweedfs_tpu_torch/notification/kafka.py",
+                 "seaweedfs_tpu_torch/notification/google_pub_sub.py",
+                 "seaweedfs_tpu_torch/replication/__init__.py",
+                 "seaweedfs_tpu_torch/replication/sub.py",
+                 "seaweedfs_tpu_torch/replication/source.py",
+                 "seaweedfs_tpu_torch/replication/sink.py",
+                 "seaweedfs_tpu_torch/replication/replicator.py",
+                 "seaweedfs_tpu_torch/server/webdav_server.py",
+                 "seaweedfs_tpu_torch/server/msg_broker.py",
+                 "seaweedfs_tpu_torch/shell/command_fs.py",
+                 "seaweedfs_tpu_torch/shell/command_bucket.py",
                  "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc",
@@ -1555,6 +1570,192 @@ def test_operator_surface_with_jax_unimportable(tmp_path):
             for srv in (f, vs, m):
                 srv.stop()
             http_util.reset_tls()
+        assert not any(mod.split(".")[0] in {FORBIDDEN!r}
+                       for mod, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_event_plane_with_jax_unimportable(tmp_path):
+    """A port stack (master, volume server on the CPU, a filer whose
+    webhook publisher, enabled by ``WEED_NOTIFICATION_WEBHOOK_*``, posts
+    into a ``MsgBrokerServer``, an S3 gateway and a WebDAV gateway), and
+    the CLI's ``watch``, ``filer.replicate`` (an ``s3`` sink on the
+    stack's own gateway, seeded by ``fs.meta.notify``) and ``shell
+    -filer`` as processes, each with both packages unimportable too:
+    every replicated object equal, the WebDAV verbs, the shell's output,
+    and the broker's events and watch's lines equal to the filer's."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        BLOCK = "import sys\\nfor n in {FORBIDDEN!r}: sys.modules[n] = None\\n"
+        exec(BLOCK)
+        sys.path.insert(0, {str(ROOT)!r})
+        import base64, http.client, json, re, signal, subprocess, time
+        root = {str(tmp_path)!r}
+        from seaweedfs_tpu_torch.command import cli
+        from seaweedfs_tpu_torch.replication.sub import format_event
+        from seaweedfs_tpu_torch.s3.auth import Iam, Identity, sign_request_v4
+        from seaweedfs_tpu_torch.s3.s3_server import S3ApiServer
+        from seaweedfs_tpu_torch.server.filer_server import FilerServer
+        from seaweedfs_tpu_torch.server.http_util import get_json, http_call
+        from seaweedfs_tpu_torch.server.master import MasterServer
+        from seaweedfs_tpu_torch.server.msg_broker import MsgBrokerServer
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        from seaweedfs_tpu_torch.server.webdav_server import WebDavServer
+        broker = MsgBrokerServer(port=0).start()
+        os.environ["WEED_NOTIFICATION_WEBHOOK_ENABLED"] = "true"
+        os.environ["WEED_NOTIFICATION_WEBHOOK_URL"] = (
+            "http://%s/queue/publish?topic=ev" % broker.url)
+        os.chdir(root)
+        m = MasterServer(port=0, pulse_seconds=1, seed=1,
+                         repair_interval=0).start()
+        vs = VolumeServer(port=0, directories=[root + "/v"],
+                          master_url=m.url, pulse_seconds=1,
+                          max_volume_counts=[20], device="cpu",
+                          fast_port=-1).start()
+        pub = cli._notification_publisher()
+        assert pub.name == "webhook", pub
+        f = FilerServer(port=0, master_url=m.url,
+                        notify_publisher=pub).start()
+        s3 = S3ApiServer(f.filer, m.url, port=0,
+                         iam=Iam([Identity("i", "AK", "SK")])).start()
+        dav = WebDavServer(f.filer, m.url, port=0, chunk_size=4096).start()
+        env = dict(os.environ)
+        env.pop("PYTHONPATH", None)
+
+        def proc(*argv):
+            code = (BLOCK + "sys.path.insert(0, %r)\\n" % {str(ROOT)!r}
+                    + "from seaweedfs_tpu_torch.command.cli import main\\n"
+                    + "sys.exit(main(sys.argv[1:]))")
+            return subprocess.Popen([sys.executable, "-c", code] + list(argv),
+                                    stdout=subprocess.PIPE, text=True,
+                                    env=env)
+
+        def call(method, path, body=b""):
+            url = "http://%s%s" % (s3.url, path)
+            h = sign_request_v4(method, url, {{}}, body, "AK", "SK")
+            return http_call(method, url, body=body or None, headers=h)
+
+        def dav_req(method, path, body=b"", headers=None):
+            c = http.client.HTTPConnection(dav.url[7:], timeout=30)
+            c.request(method, path, body=body or None, headers=headers or {{}})
+            r = c.getresponse()
+            out = (r.status, dict(r.getheaders()), r.read())
+            c.close()
+            return out
+
+        def events():
+            return get_json("http://%s/filer/events?since=0&timeout=0"
+                            % f.url)["events"]
+        watch = proc("watch", "-filer", f.url, "-since", "0")
+        procs = [watch]
+        try:
+            import random
+            rng = random.Random(7)
+            objs = {{"d/o%d.bin" % i: rng.randbytes(rng.randrange(1, 200_000))
+                     for i in range(6)}}
+            objs["t/notes.txt"] = b"line one\\nline two\\n" * 500
+            call("PUT", "/src")
+            for k, d in objs.items():
+                call("PUT", "/src/" + k, d)
+            call("PUT", "/replica")
+            cfg = os.path.join(root, "rep.json")
+            with open(cfg, "w") as fh:
+                json.dump({{"source": {{"filer": f.url, "master": m.url,
+                                        "path": "/buckets/src"}},
+                           "sink": {{"type": "s3", "endpoint":
+                                    "http://" + s3.url, "bucket": "replica",
+                                    "access_key": "AK",
+                                    "secret_key": "SK"}}}}, fh)
+            rep = proc("filer.replicate", "-config", cfg, "-since",
+                       repr(events()[-1]["ts"]))
+            procs.append(rep)
+            assert rep.stdout.readline().startswith("replicating ")
+            sh = proc("shell", "-master", m.url, "-filer", f.url, "-c",
+                      "fs.meta.notify /buckets/src")
+            assert sh.wait(60) == 0
+            assert "notified" in sh.stdout.read()
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                try:
+                    if all(call("GET", "/replica/" + k) == d
+                           for k, d in objs.items()):
+                        break
+                except Exception:
+                    pass
+                time.sleep(0.1)
+            for k, d in objs.items():
+                assert call("GET", "/replica/" + k) == d, k
+            rep.send_signal(signal.SIGTERM)
+            assert rep.wait(30) == 0
+            # WebDAV
+            st, _, body = dav_req("PROPFIND", "/buckets/src",
+                                  headers={{"Depth": "1"}})
+            assert st == 207 and b"/buckets/src/d/" in body, body
+            assert dav_req("GET", "/buckets/src/d/o1.bin")[2] == \\
+                objs["d/o1.bin"]
+            st, h, part = dav_req("GET", "/buckets/src/t/notes.txt",
+                                  headers={{"Range": "bytes=5-14"}})
+            assert (st, part) == (206, objs["t/notes.txt"][5:15])
+            lock = (b'<?xml version="1.0"?><D:lockinfo xmlns:D="DAV:">'
+                    b'<D:owner>t</D:owner></D:lockinfo>')
+            codes = [dav_req("MKCOL", "/dav")[0],
+                     dav_req("PUT", "/dav/a.bin", b"a" * 9000)[0],
+                     dav_req("MOVE", "/dav/a.bin", headers={{
+                         "Destination": dav.url + "/dav/b.bin"}})[0],
+                     dav_req("COPY", "/dav/b.bin", headers={{
+                         "Destination": dav.url + "/dav/c.bin"}})[0]]
+            st, h, _ = dav_req("LOCK", "/dav/b.bin", lock)
+            codes += [st, dav_req("PUT", "/dav/b.bin", b"x")[0],
+                      dav_req("UNLOCK", "/dav/b.bin", headers={{
+                          "Lock-Token": h["Lock-Token"]}})[0],
+                      dav_req("DELETE", "/dav/c.bin")[0]]
+            assert codes == [201, 201, 201, 201, 200, 423, 204, 204], codes
+            # shell -filer
+            sh = proc("shell", "-master", m.url, "-filer", f.url, "-c",
+                      "fs.ls /buckets/src; fs.du /buckets/src; bucket.list;"
+                      " bucket.create -name nb; bucket.delete -name nb; "
+                      "fs.cat /buckets/src/t/notes.txt")
+            out, _ = sh.communicate(timeout=60)
+            assert sh.returncode == 0
+            size = sum(len(d) for d in objs.values())
+            assert out.startswith("d/\\nt/\\n%d bytes\\t7 files\\t/buckets/src"
+                                  "\\nreplica\\nsrc\\ncreated bucket nb\\n"
+                                  "deleted bucket nb\\n" % size), out[:300]
+            assert out.endswith(objs["t/notes.txt"].decode() + "\\n")
+            # events: the broker's and watch's against the filer's
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                evs = events()
+                msgs = get_json("http://%s/queue/subscribe?topic=ev&since=0"
+                                "&timeout=0" % broker.url)["messages"]
+                if len(msgs) >= len(evs):
+                    break
+                time.sleep(0.05)
+            evs = events()
+            got = [json.loads(base64.b64decode(x["data"])) for x in msgs]
+            assert [g["event"] for g in got] == [e["event"] for e in evs]
+            assert [g["key"] for g in got] == [
+                (e["event"]["newEntry"] or e["event"]["oldEntry"])["path"]
+                for e in evs]
+            time.sleep(0.5)
+            watch.send_signal(signal.SIGTERM)
+            lines = watch.stdout.read().splitlines()
+            assert watch.wait(30) == 0
+            assert lines == [format_event(e["ts"], e["event"]) for e in evs]
+            assert len(evs) > 20
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for srv in (dav, s3, f, vs, m, broker):
+                srv.stop()
         assert not any(mod.split(".")[0] in {FORBIDDEN!r}
                        for mod, v in sys.modules.items() if v is not None)
         print("PORT-OK")

@@ -150,7 +150,7 @@ def test_registry(tmp_path):
     assert sorted(backend._KINDS) == sorted(ref_backend._KINDS)
 
 
-def test_tier_upload_download_cycle(tmp_path):
+def test_tier_upload_download_cycle(tmp_path, monkeypatch):
     needles = _needles(3, 12)
     pkgs = _packages()
     vols, reads = [], []
@@ -167,6 +167,10 @@ def test_tier_upload_download_cycle(tmp_path):
         assert f.read() == dat
     assert reads[0] == reads[1] == [d for _, _, d in needles]
 
+    # one second for both uploads' modified_at, which the reopenings
+    # below read back as last_modified
+    pinned = float(int(time.time()))
+    monkeypatch.setattr(time, "time", lambda: pinned)
     infos = []
     for name, pkg, v in zip(("ref", "port"), pkgs, vols):
         volume, tier, Needle, _ = pkg

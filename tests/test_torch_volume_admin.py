@@ -659,16 +659,21 @@ def test_col_delete_keeps_a_volume_whose_delete_failed(tmp_path, monkeypatch,
 class Clock:
     """``time.time_ns`` stepping 1 us a call from a fixed start, and
     ``time.time`` reading it: needles written in the same order get the
-    same stamps in both packages."""
+    same stamps in both packages. A thread that was already running when
+    the clock was made (a server loop an earlier test left in this
+    process) reads it without moving it."""
 
     def __init__(self):
+        self._foreign = set(threading.enumerate()) - \
+            {threading.current_thread()}
         self.reset()
 
     def reset(self):
         self.n = 1_700_000_000_000_000_000
 
     def ns(self):
-        self.n += 1000
+        if threading.current_thread() not in self._foreign:
+            self.n += 1000
         return self.n
 
     def s(self):
