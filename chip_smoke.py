@@ -5,8 +5,9 @@
 
 1. Builds both Hopper kernel libraries from this checkout with nvcc, one
    process per source, and the CRC32-C library (csrc/crc32c.cc), the
-   native plane (csrc/http_plane.cc) and its load generator
-   (csrc/loadgen.cc) with the host C++ compiler, all started together
+   native plane (csrc/http_plane.cc), its load generator
+   (csrc/loadgen.cc) and the native codec (csrc/seaweed_ec.cc) with the
+   host C++ compiler, all started together
    (csrc/gf_matmul.cu, K1;
    csrc/gf_bitplane.cu, K6a/K6b), and prints each build's time and ptxas
    report (registers, spills, stack frames, wgmma serialization). Counts,
@@ -65,6 +66,19 @@
    must agree with the numpy oracle on sampled columns, and the kernel's
    launch counter and the dispatch counters must show the path ran on
    the kernel.
+5b. The host's native codec (ops/rs_native, native_leg), between the
+   flat encode and its trace: get_codec(10, 4, "native") and K1's codec
+   encode the same .dat in turn, native, K1, K1, native (ENCODE_ORDER),
+   each over a hard link in a directory of its own with write_ec_files
+   and the same 8 MiB slab, both codecs built before the timing; every
+   encode's shards must be sha256-identical to step 5's, a native encode
+   may launch no K1 and a K1 encode one a slab. Prints, beside the card
+   line and the host's core count, each encode's wall and MB/s of .dat,
+   each codec's MB/s on its mean wall and their ratio, the main path's
+   first K1 encode, and the native product alone on one (10 x 8 MiB)
+   slab at one thread and at every core against K1's time at (4,10) x
+   8 MiB from step 2; get_codec(10, 4, "auto") must resolve to the
+   card's TorchCodec.
 6. Traces one more encode and one more rebuild of the same volume with
    torch.profiler and reports the card's busy share of their wall time
    (the union of kernel, copy and memset intervals on the device) and
@@ -465,7 +479,8 @@
    mutual = true; [jwt.signing] key) and master.toml
    ([master.volume_growth] copy_1 = MTLS_GROWTH; no maintenance), and two
    volume -ec.backend cuda processes given the same material by -tlsCert,
-   -tlsKey, -tlsCa, -tlsMutual (and -jwtKey), all spawned with step 16's
+   -tlsKey, -tlsCa, -tlsMutual (and -jwtKey), b with -index compact and c
+   with -index sortedfile (MTLS_INDEX), all spawned with step 16's
    ranks (MtlsCluster); the master's repair loop off
    (SW_REPAIR_INTERVAL_S=0), every scrub's first pass due after the step
    (ec/scrub.IDLE_S). This process is a client with the peer certificate
@@ -473,17 +488,25 @@
    answer; /cluster/status and each volume server's /admin/devices
    answer 403 without a client certificate; the rogue certificate fails
    the handshake; a public fid GET over server TLS answers 200; no
-   volume server runs a native plane. (d) benchmark -n MTLS_BENCH_N
+   volume server runs a native plane. (d) One MTLS_COLLECTION volume
+   grown in each server's data center (MTLS_DC, /vol/grow), so the
+   placement is the same every run; benchmark -n MTLS_BENCH_N
    -size MTLS_BENCH_SIZE -c 8 -collection MTLS_COLLECTION, upload of
    MTLS_FILES files of 256 KiB-4 MiB (about MTLS_BYTES, seeded by
    --seed) and filer.copy of a small seeded tree, each a CLI process in
    the config directory; download (the CLI's command, one call a file)
    sha256-identical; the filer's HTML listing names every copied file;
    the master's /ui names the three volume servers and a volume server's
-   /ui lists its volumes. (e) ec.encode -collection through weed shell,
+   /ui lists its volumes. weed shell's volume.move (a process) moves
+   the volume most uploaded files sit on among those off c onto c, and
+   every volume of c is unmounted
+   and mounted again: each must then have a .sdx whose .sdx.meta
+   watermark covers its .idx, and every download after reads through
+   it. (e) ec.encode -collection through weed shell,
    a process in the config directory (a TLS client itself); the shard
    the most uploaded files cross (each .ecx, ec/locate) removed and
-   unmounted; every file downloaded cold then warm, sha256-identical:
+   unmounted (no .sdx or .sdx.meta of an encoded volume may be left on
+   c); every file downloaded cold then warm, sha256-identical:
    K1's launches in the holders' processes over the cold pass (their
    /admin/devices, read with the peer certificate) > 0 and equal to
    their degraded engines' device dispatches, the survivors pulled from
@@ -528,7 +551,8 @@ to 0 just before it and read just after; a leg of steps 5-8 and 10-19
 whose K1 launches in this process differ from its dispatches (two for a
 dispatch sharded over step 16's two positions; step 16 (b)'s programs
 count eight launches and no codec dispatch), or that launched nothing,
-fails the smoke. Each leg's wall is printed. Every
+fails the smoke; step 5b's host codec must launch nothing. Each leg's
+wall is printed. Every
 volume server the smoke starts, in its process or as a process, runs
 with its background scrub off (scrub_idle_s 0): a scrub runs only when
 a leg asks for it.
@@ -562,6 +586,7 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VOLUME_BYTES = 384 << 20    # BASELINE.json config 1 (30 GB default cut)
 MAIN_N = 8 << 20            # main-path slab width (encoder DEFAULT_SLAB)
+ENCODE_ORDER = ("native", "k1", "k1", "native")  # step 5b's encodes
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 L2_BYTES = 50 << 20         # H100 SXM L2
 WIDTHS = (1, 129, 4407, MAIN_N, MAIN_N + 1)
@@ -707,12 +732,12 @@ PTXAS_KEEP = ("registers", "Compiling entry", "spill", "stack frame",
 PTXAS_SKIP = ("C7519",)  # "warpgroup.arrive is injected": one per wgmma
 
 
-def build_kernels(modules, crc, plane) -> float:
+def build_kernels(modules, crc, plane, native) -> float:
     """One nvcc per kernel source, and the host compiler for the CRC32-C
-    library, the native plane's library and its load generator, all
-    started together; prints each build's time and ptxas report
-    (registers, spills, stack frames). Returns the wall time of the
-    builds."""
+    library, the native plane's library and its load generator and the
+    native codec's library, all started together; prints each build's
+    time and ptxas report (registers, spills, stack frames). Returns the
+    wall time of the builds."""
     builds = [(mod.LIBRARY, ("nvcc",) + tuple(mod.NVCC_FLAGS),
                lambda mod=mod: mod.compile_kernel(ptxas_verbose=True))
               for mod in modules]
@@ -722,6 +747,8 @@ def build_kernels(modules, crc, plane) -> float:
                    plane.build_library))
     builds.append((plane.LOADGEN, ("g++",) + plane.CXX_FLAGS,
                    plane.compile_loadgen))
+    builds.append((native.LIBRARY, ("g++",) + native.CXX_FLAGS,
+                   native.compile_library))
 
     def build(entry):
         t0 = time.perf_counter()
@@ -1125,6 +1152,115 @@ def main_path(torch, np, port, dev, base, nbytes, seed):
     return {"encode_s": enc_s, "encode_launches": enc_launches,
             "n_slabs": n_slabs, "shard_size": shard_size,
             "rebuilds": rebuilds, "shas": shas, "ecx_bytes": len(want_ecx)}
+
+
+def native_leg(np, port, dev, work, base, res, k1_flat):
+    """Step 5b: the host's native codec (ops/rs_native, csrc/seaweed_ec.cc
+    built beside the nvcc builds) against K1 on the main path's .dat,
+    each encode over a hard link in a directory of its own with the main
+    path's 8 MiB slab, in the order native, K1, K1, native
+    (ENCODE_ORDER), so that neither side alone gets the first read of the
+    freshly written .dat; both codecs are built before the timing. Every
+    encode's shards are sha256-identical to the main path's; a native
+    encode launches no K1, a K1 encode one a slab. Then the native
+    product alone on one (10 x 8 MiB) slab at one thread and at every
+    core, beside K1's time at (4,10) x 8 MiB (``k1_flat``, timed in
+    step 2 of this run), and ``auto`` resolved to the card's codec."""
+    import torch
+    from seaweedfs_tpu_torch.ops import rs_native
+    from seaweedfs_tpu_torch.ops.rs_torch import TorchCodec
+    ec, ops, _ = port
+    k, m = ec.DATA_SHARDS, ec.PARITY_SHARDS
+    nbytes = os.path.getsize(base + ".dat")
+    codec = ops.get_codec(k, m, "native")
+    if type(codec) is not rs_native.NativeCodec or codec.threads != 0:
+        raise AssertionError(f"native: get_codec gave {codec!r}")
+    codecs = {"native": codec, "k1": ops.get_codec(k, m, device=dev)}
+    runs, phases = [], {}
+    for i, name in enumerate(ENCODE_ORDER):
+        ndir = os.path.join(work, f"encode-{i}-{name}")
+        os.makedirs(ndir)
+        nbase = os.path.join(ndir, "1")
+        _link(base + ".dat", nbase + ".dat")
+        k1_before = _k1()
+        st = {}
+        t0 = time.perf_counter()
+        ec.write_ec_files(nbase, codec=codecs[name], stats=st)
+        secs = time.perf_counter() - t0
+        launches = _k1() - k1_before
+        shas = _shas([nbase + ec.to_ext(j) for j in range(k + m)])
+        if shas != res["shas"]:
+            bad = [j for j in range(k + m) if shas[j] != res["shas"][j]]
+            raise AssertionError(f"{name} encode {i}: shards {bad} differ "
+                                 f"from the main path's")
+        want = (0, 0, "native") if name == "native" else \
+            (res["n_slabs"], res["n_slabs"], "cuda")
+        if (launches, st["dispatches"], st["backend"]) != want:
+            raise AssertionError(f"{name} encode {i}: {launches} K1 "
+                                 f"launches, stats {st}")
+        shutil.rmtree(ndir)
+        runs.append({"codec": name, "s": round(secs, 3),
+                     "mb_s": round(nbytes / secs / 1e6, 1)})
+        phases.setdefault(name, st.get("phases"))
+    auto = ops.get_codec(k, m, "auto")
+    if type(auto) is not TorchCodec or auto.device.type != "cuda":
+        raise AssertionError(f"native: auto resolved to {auto!r}")
+    # the product alone, one 8 MiB slab of each data shard
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 256, (k, MAIN_N), dtype=np.uint8)
+    coeffs = codec.matrix[k:]
+    alone = {}
+    for threads in (1, 0):
+        one = rs_native.NativeCodec(k, m, threads=threads)
+        want = one._matmul(coeffs, data)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = one._matmul(coeffs, data)
+            times.append(time.perf_counter() - t0)
+        if not np.array_equal(got, want):
+            raise AssertionError("native: the product is not repeatable")
+        best = min(times)
+        alone["1 thread" if threads == 1 else "all threads"] = {
+            "ms": round(best * 1e3, 3),
+            "mb_s": round(data.nbytes / best / 1e6, 1)}
+    k1_ms = k1_flat["ms"]
+    walls = {name: [r["s"] for r in runs if r["codec"] == name]
+             for name in codecs}
+    mean = {name: sum(w) / len(w) for name, w in walls.items()}
+    out = {"encode_runs": runs,
+           "encode_s": round(mean["native"], 3),
+           "encode_mb_s": round(nbytes / mean["native"] / 1e6, 1),
+           "k1_encode_s": round(mean["k1"], 3),
+           "k1_encode_mb_s": round(nbytes / mean["k1"] / 1e6, 1),
+           "k1_speedup": round(mean["native"] / mean["k1"], 3),
+           "k1_first_encode_s": round(res["encode_s"], 3),
+           "k1_first_encode_mb_s": round(nbytes / res["encode_s"] / 1e6, 1),
+           "host_cores": os.cpu_count(),
+           "phases": phases,
+           "product_alone": alone,
+           "k1_product": {"shape": k1_flat["shape"], "ms": k1_ms,
+                          "mb_s": round(data.nbytes / k1_ms / 1e3, 1)},
+           "k1_product_speedup": round(
+               alone["all threads"]["ms"] / k1_ms, 1)}
+    print(card_line())
+    order = ", ".join(f"{r['codec']} {r['mb_s']} MB/s ({r['s']:.3f} s)"
+                      for r in runs)
+    print(f"native codec on the host ({out['host_cores']} cores): encodes "
+          f"of the {nbytes} B .dat in turn: {order}; native "
+          f"{out['encode_mb_s']} MB/s, K1 {out['k1_encode_mb_s']} MB/s on "
+          f"their mean walls: K1's encode {out['k1_speedup']}x as fast "
+          f"(the main path's first K1 encode {out['k1_first_encode_mb_s']} "
+          f"MB/s); every encode's 14 shards sha256-identical, 0 K1 "
+          f"launches in a native one; the product alone (10 x {MAIN_N}): "
+          f"1 thread {alone['1 thread']['mb_s']} MB/s, all threads "
+          f"{alone['all threads']['mb_s']} MB/s, K1 {k1_ms:.4f} ms "
+          f"({out['k1_product']['mb_s']} MB/s, "
+          f"{out['k1_product_speedup']}x all threads'); auto -> "
+          f"{type(auto).__name__}"
+          f" on {auto.device}")
+    print("native step: " + json.dumps(out))
+    return out
 
 
 def check_parity(np, ops, ec, base, k, m, shard_size, nbytes):
@@ -2808,8 +2944,8 @@ def native_plane_leg(np, port, work, seed):
     lib = native_plane._library_path()
     if native_plane.build_failed() or not native_plane.available() or \
             lib != native_plane.LIBRARY or \
-            native_plane._stale(lib, native_plane.SOURCE) or \
-            native_plane._stale(native_plane.LOADGEN,
+            native_plane.stale(lib, native_plane.SOURCE) or \
+            native_plane.stale(native_plane.LOADGEN,
                                 native_plane.LOADGEN_SOURCE):
         raise AssertionError(f"native plane: not built from "
                              f"{native_plane.SOURCE} ({lib})")
@@ -5095,6 +5231,10 @@ MTLS_MIN = 256 << 10        # these two
 MTLS_MAX = 4 << 20
 MTLS_BYTES = 24 << 20       # about their total
 MTLS_JWT = "smoke-signing-key"
+MTLS_INDEX = {"b": "compact", "c": "sortedfile"}  # the volume processes'
+                                                  # needle maps (-index)
+MTLS_DC = {"a": "dc-a", "b": "dc-b", "c": "dc-c"}  # -dataCenter: one
+                                  # MTLS_COLLECTION volume grown in each
 
 
 class S3Stack:
@@ -5941,7 +6081,8 @@ class MtlsCluster:
     -filer`` in a directory that holds only security.toml and
     master.toml (its TLS, write-token key and growth come from them), and
     two ``command.cli volume`` processes given the same material by
-    flags, on free ports, every volume server on the card. ``spawn``
+    flags (``b`` on the compact needle map, ``c`` on the sorted-file
+    one), on free ports, every volume server on the card. ``spawn``
     makes the certificates and starts the three on a thread of its own
     (the caller goes on), ``wait`` joins it and reads their addresses,
     ``stop`` sends SIGTERM and wants exit code 0 of each."""
@@ -5985,6 +6126,7 @@ class MtlsCluster:
         cli = [sys.executable, "-m", "seaweedfs_tpu_torch.command.cli"]
         self._start("server", self.cfg, cli + [
             "server", "-filer", "-ec.backend", "cuda",
+            "-dataCenter", MTLS_DC["a"],
             "-dir", os.path.join(self.dir, "a"), "-max", "64",
             "-masterPort", str(mport), "-port", str(aport),
             "-filerPort", str(fport), "-pulseSeconds", "1"], env)
@@ -5992,7 +6134,8 @@ class MtlsCluster:
             d = os.path.join(self.dir, name)
             os.makedirs(d)
             self._start(name, d, cli + [
-                "volume", "-ec.backend", "cuda", "-dir", d, "-max", "64",
+                "volume", "-ec.backend", "cuda", "-index", MTLS_INDEX[name],
+                "-dataCenter", MTLS_DC[name], "-dir", d, "-max", "64",
                 "-port", str(port), "-mserver", self.master,
                 "-pulseSeconds", "1", "-jwtKey", MTLS_JWT,
                 "-tlsCert", cert, "-tlsKey", key, "-tlsCa", self.ca,
@@ -6168,6 +6311,72 @@ def _metric_sum(url, name, label):
     return total
 
 
+def _collection_vids(d, collection):
+    """The volume ids of ``collection`` whose .dat lies in ``d``."""
+    return sorted(int(n[len(collection) + 1:-4]) for n in os.listdir(d)
+                  if n.startswith(collection + "_") and n.endswith(".dat"))
+
+
+def _grow_one_each(m, dirs):
+    """Step 21: one MTLS_COLLECTION volume grown in each server's data
+    center (MTLS_DC), before anything is written to the collection, so
+    the benchmark and the uploads find MTLS_GROWTH writable volumes, one
+    on each server, and grow none at random."""
+    from seaweedfs_tpu_torch.server.http_util import post_json
+    for dc in MTLS_DC.values():
+        got = post_json(f"http://{m}/vol/grow?collection={MTLS_COLLECTION}"
+                        f"&count=1&dataCenter={dc}", {})
+        _check(f"a {MTLS_COLLECTION} volume grown in {dc}", got["count"], 1)
+    _check(f"one {MTLS_COLLECTION} volume on each server",
+           [len(_collection_vids(d, MTLS_COLLECTION))
+            for d in dirs.values()], [1] * len(dirs))
+
+
+def _move_to_sorted_holder(cluster, d, fids):
+    """Step 21: the volume that the most uploaded files sit on among
+    those off the sorted-file holder ``c`` (over ``d``) moved onto it by
+    weed shell's volume.move (a process), so the downloads read through
+    c's mapped .sdx. Returns the moved volume id."""
+    from collections import Counter
+    on = Counter(int(fid.split(",")[0]) for fid in fids.values())
+    held = set(_collection_vids(d, MTLS_COLLECTION))
+    vid = next((v for v, _ in on.most_common() if v not in held), None)
+    if vid is None:
+        raise AssertionError(f"every uploaded file sits on {cluster.c}")
+    out, _ = cluster.cli("shell", "-master", cluster.master, "-c",
+                         f"volume.move -volumeId {vid} -target {cluster.c}")
+    if vid not in _collection_vids(d, MTLS_COLLECTION):
+        raise AssertionError(f"volume.move {vid} to {cluster.c}: {out}")
+    return vid
+
+
+def _remount_sorted(url, d):
+    """Every volume of the sorted-file holder ``url`` (over ``d``)
+    unmounted and mounted again, so that its needle map loads the .idx
+    into a .sdx whose .sdx.meta watermark covers the whole .idx (the
+    reads after go through the mapped file). Returns {volume: .sdx
+    bytes}."""
+    out = {}
+    for name in sorted(n[:-4] for n in os.listdir(d) if n.endswith(".dat")):
+        vid = int(name.rsplit("_", 1)[-1])
+        _post(url, f"/admin/volume/unmount?volume={vid}")
+        _post(url, f"/admin/volume/mount?volume={vid}")
+        prefix = os.path.join(d, name)
+        if not all(os.path.exists(prefix + ext)
+                   for ext in (".sdx", ".sdx.meta")):
+            raise AssertionError(f"{url}: volume {name} has no .sdx and "
+                                 f".sdx.meta")
+        with open(prefix + ".sdx.meta") as f:
+            meta = json.load(f)
+        out[name] = os.path.getsize(prefix + ".sdx")
+        if meta["idx_size"] != os.path.getsize(prefix + ".idx") or \
+                out[name] % 16:
+            raise AssertionError(f"{url}: volume {name}'s .sdx "
+                                 f"({out[name]} B) and watermark {meta} "
+                                 f"against its .idx")
+    return out
+
+
 def mtls_leg(np, port, work, seed, cluster):
     """Step 21: a mutual-TLS cluster configured by its files, loaded by
     the operator commands, read through a lost shard reconstructed on K1
@@ -6223,6 +6432,7 @@ def mtls_leg(np, port, work, seed, cluster):
                    False)
 
         # (d) the operator commands, each a process in the config dir
+        _grow_one_each(m, dirs)
         bench_out, bench_s = cluster.cli(
             "benchmark", "-master", m, "-n", str(MTLS_BENCH_N), "-size",
             str(MTLS_BENCH_SIZE), "-c", "8", "-collection", MTLS_COLLECTION)
@@ -6269,6 +6479,7 @@ def mtls_leg(np, port, work, seed, cluster):
                            f">{os.path.basename(rel)}</a>" in page, True)
                     _check(f"filer GET {rel}", http_util.http_call(
                         "GET", f"http://{f}/copied/tree/{rel}"), data)
+        moved = _move_to_sorted_holder(cluster, dirs[cluster.c], fids)
         mpage = http_util.http_call("GET", f"http://{m}/ui").decode()
         _check("master /ui names the volume servers",
                [u in mpage for u in servers], [True] * 3)
@@ -6286,6 +6497,7 @@ def mtls_leg(np, port, work, seed, cluster):
             n.startswith(MTLS_COLLECTION + "_") for v in listed.values()
             for n in v), MTLS_GROWTH)
 
+        sdx = _remount_sorted(cluster.c, dirs[cluster.c])
         out_dir = os.path.join(cluster.dir, "out")
 
         def download_pass(label):
@@ -6321,6 +6533,15 @@ def mtls_leg(np, port, work, seed, cluster):
             raise AssertionError(f"ec.encode: {enc_out}")
         k_enc1 = _k1_by_server(servers)
         k_enc = sum(k_enc1.values()) - sum(k_enc0.values())
+        # the sorted-file holder's encoded volumes left no sidecar
+        cdir = dirs[cluster.c]
+        encoded = [n for n in sdx if n.startswith(MTLS_COLLECTION + "_")
+                   and not os.path.exists(os.path.join(cdir, n + ".dat"))]
+        left = [n + ext for n in encoded for ext in (".sdx", ".sdx.meta")
+                if os.path.exists(os.path.join(cdir, n + ext))]
+        if not encoded or left:
+            raise AssertionError(f"mtls: encoded on {cluster.c} {encoded}, "
+                                 f"sidecars left {left}")
         crossing, vols = {}, {}
         try:
             for name, fid in fids.items():
@@ -6427,6 +6648,9 @@ def mtls_leg(np, port, work, seed, cluster):
                                  for ev in c1[u]} for u in servers},
             "holders_total": c1},
         "refusals": refusals,
+        "index": {"b": MTLS_INDEX["b"], "c": MTLS_INDEX["c"],
+                  "c_sdx_bytes": sdx, "c_encoded": encoded,
+                  "moved_to_c": moved},
         "encode_s": round(encode_s, 3), "rebuild_s": round(rebuild_s, 3),
         "step_s_after_start": round(step_s, 3),
         "wall_s": round(time.perf_counter() - t_step, 3)}
@@ -6443,6 +6667,12 @@ def mtls_leg(np, port, work, seed, cluster):
           f"{len(files)} files in {up_s:.2f} s (process); filer.copy of "
           f"{len(tree)} in {copy_s:.2f} s; downloads healthy "
           f"{numbers['download']['healthy']}")
+    print(f"mtls (d): b on the {MTLS_INDEX['b']} needle map, c on the "
+          f"{MTLS_INDEX['c']} one, its volumes remounted onto a .sdx each "
+          f"({sum(sdx.values())} B: {json.dumps(sdx)}; moved there by "
+          f"volume.move: {moved}), the watermarks covering "
+          f"their .idx; after ec.encode no .sdx or .sdx.meta of "
+          f"{encoded} left")
     print(f"mtls (e): ec.encode in {encode_s:.2f} s ({k_enc} K1 launches);"
           f" lost shard {sid} of volume {vid} on {holder}, crossed by "
           f"{n_cross} files ({n_wide} by >= {MTLS_MIN} B); cold "
@@ -6480,7 +6710,7 @@ def run(args) -> int:
     from seaweedfs_tpu_torch import ec, ops, storage
     from seaweedfs_tpu_torch.ops import (codec as ops_codec, device_stats,
                                          gf256, gf_plan, rs_bitplane,
-                                         rs_hopper, telemetry)
+                                         rs_hopper, rs_native, telemetry)
     from seaweedfs_tpu_torch.ops.codec import NumpyCodec
     from seaweedfs_tpu_torch.parallel import sharded_ec
     from seaweedfs_tpu_torch.server import native_plane
@@ -6503,7 +6733,8 @@ def run(args) -> int:
         pb_plans = host.submit(timed_host, piggyback_geometries, ops_codec)
         repair_plans = host.submit(timed_host, repair_targets, np,
                                    ops_codec, args.seed)
-        build_s = build_kernels((rs_hopper, rs_bitplane), crc, native_plane)
+        build_s = build_kernels((rs_hopper, rs_bitplane), crc, native_plane,
+                                rs_native)
         pb_geos, pb_s = pb_plans.result()
         (trace_plan, plane_plan), repair_s = repair_plans.result()
     sass_counts(rs_bitplane.LIBRARY)
@@ -6603,6 +6834,8 @@ def run(args) -> int:
     try:
         res = drive("flat", main_path, torch, np, port, dev, base,
                     VOLUME_BYTES, args.seed)
+        host_codec = drive("native codec", native_leg, np, port, dev, work,
+                           base, res, timed["flat encode"], kernel=False)
         drive("traced", trace_main_path, torch, port, dev, base, res["shas"])
         drive("trace repair", trace_repair_leg, np, port, dev, base, res,
               trace_plan)
@@ -6736,8 +6969,9 @@ def run(args) -> int:
     events_k1 = events["k1_launches"]
     launches = sum(legs.values()) + sum(other.values()) + \
         sum(rank_launches) + s3_k1["step"] + mtls_k1["step"] + events_k1
-    print(f"main path (flat, traced, trace repair, streaming, degraded "
-          f"flat, scrub flat, tuner, net trace repair, net full rebuild, net "
+    print(f"main path (flat, native codec, traced, trace repair, streaming, "
+          f"degraded flat, scrub flat, tuner, net trace repair, net full "
+          f"rebuild, net "
           f"degraded flat, net scrub flat, spread flat, piggyback, plane "
           f"repair, streaming piggyback, degraded piggyback, scrub "
           f"piggyback, net plane repair, spread piggyback, integrity, "
@@ -6765,7 +6999,7 @@ def run(args) -> int:
                   timed["flat decode (0, 1, 2, 3)"])
         | {"tiering_launches": tiering["launches"],
            "s3_launches": s3_k1, "events_launches": events_k1,
-           "mtls_launches": mtls_k1},
+           "mtls_launches": mtls_k1, "host_codec": host_codec},
         _k1_entry("gf_matmul_piggyback",
                   legs["piggyback"] + legs["streaming piggyback"]
                   + legs["spread piggyback"],

@@ -13,6 +13,7 @@ import time
 from typing import Dict, List, Optional
 
 from ..server.http_util import get_json
+from ..util.locks import make_lock
 
 
 class VidMap:
@@ -23,7 +24,7 @@ class VidMap:
         self.master_url = master_url
         self._locations: Dict[int, List[dict]] = {}
         self._seq = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.vid_map._lock")
         self._ready = threading.Event()  # the first snapshot applied
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
@@ -149,7 +150,7 @@ def read_routes(locs) -> List[str]:
 
 
 _shared: Dict[str, VidMap] = {}
-_shared_lock = threading.Lock()
+_shared_lock = make_lock("torch.vid_map._shared_lock")
 
 
 def shared_vid_map(master_url: str) -> VidMap:

@@ -38,6 +38,7 @@ import numpy as np
 
 from ..client import operation as op
 from ..server.http_util import HttpError
+from ..util.locks import make_lock
 
 
 class Stats:
@@ -45,7 +46,7 @@ class Stats:
         self.latencies: List[float] = []
         self.failed = 0
         self.bytes = 0
-        self.lock = threading.Lock()
+        self.lock = make_lock("torch.benchmark.lock")
 
     def add(self, dt: float, nbytes: int):
         with self.lock:
@@ -82,7 +83,7 @@ def run_benchmark(master_url: str, num_files: int = 1024,
     rng = np.random.default_rng(0)
     payload = rng.integers(0, 256, file_size).astype(np.uint8).tobytes()
     fids: List[str] = []
-    fid_lock = threading.Lock()
+    fid_lock = make_lock("torch.benchmark.fid_lock")
 
     if write:
         stats = Stats()

@@ -8,8 +8,10 @@ Commands:
 - ``server``: a master and a volume server in one process, and with
   ``-filer`` a filer, with ``-s3`` an S3 gateway, with ``-webdav`` a
   WebDAV gateway over it;
-- ``filer``: a filer over ``-store memory|sqlite|sharded`` (``-s3`` adds
-  a gateway in its process);
+- ``filer``: a filer over ``-store memory|sqlite|sharded`` or the
+  network stores ``redis|mysql|postgres|cassandra|etcd`` (their
+  ``-redisAddr``, ``-mysqlUser``... flags; ``-s3`` adds a gateway in its
+  process);
 - ``s3``: a gateway over a remote filer (``FilerClient``);
 - ``webdav``: a WebDAV gateway over a remote filer;
 - ``shell``: the admin shell (``-c`` runs ``;``-separated lines;
@@ -45,17 +47,20 @@ shell's filer. ``notification`` (or ``WEED_NOTIFICATION_*``) enables
 one publisher of a filer's metadata events (``filer``, ``server
 -filer``).
 
-The volume server's EC codec is ``-ec.backend cuda|numpy|mesh``: the
-kernel on the card (the default), the host's NumPy codec (the CPU: no
-card is touched), or the kernel at every card's position. Without a
-card, ``cuda`` and ``mesh`` refuse to start. ``-index memory|disk`` is
-the needle map. A master started here takes its repair loop's period
-from ``SW_REPAIR_INTERVAL_S``, as the JAX master does.
+The volume server's EC codec is ``-ec.backend
+auto|cuda|numpy|native|mesh``: the kernel on the card (``cuda``, the
+default), the host's AVX2 codec (``native``, ops/rs_native) or NumPy
+codec (the CPU: no card is touched), the kernel at every card's position
+(``mesh``), or ``auto``, the JAX package's choice with its TPU read as
+the card: the card, else native, else numpy. Without a card, ``cuda``
+and ``mesh`` refuse to start. ``-index memory|compact|sortedfile|disk``
+is the needle map (storage/compact_map). A master started here takes its
+repair loop's period from ``SW_REPAIR_INTERVAL_S``, as the JAX master
+does.
 
-Not ported yet, so absent from the parser: the filer stores redis,
-mysql, postgres, cassandra and etcd and their flags,
-``-mesh.coordinator`` / ``-mesh.processes`` / ``-mesh.processId``, and
-the subcommand ``mount``.
+Not ported yet, so absent from the parser: ``-mesh.coordinator`` /
+``-mesh.processes`` / ``-mesh.processId``, and the subcommand
+``mount``.
 """
 
 from __future__ import annotations
@@ -68,9 +73,10 @@ import signal
 import sys
 import threading
 
-EC_BACKENDS = ("cuda", "numpy", "mesh")
-INDEX_KINDS = ("memory", "disk")
-FILER_STORES = ("memory", "sqlite", "sharded")
+EC_BACKENDS = ("auto", "cuda", "numpy", "native", "mesh")
+INDEX_KINDS = ("memory", "compact", "sortedfile", "disk")
+FILER_STORES = ("memory", "sqlite", "sharded", "redis", "mysql", "postgres",
+                "cassandra", "etcd")
 
 
 def _whitelist(spec: str):
@@ -192,16 +198,19 @@ def _load_tier_config(path: str):
             configure_backends(json.load(f))
 
 
-def _volume_device(ec_backend: str) -> str:
-    """Where a volume server's EC work runs: the CPU only when asked
-    for (``numpy``); a card otherwise, which must be there."""
-    if ec_backend == "numpy":
-        return "cpu"
-    import torch
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"-ec.backend {ec_backend} needs a CUDA device; "
-                           f"pass -ec.backend numpy to run on the CPU")
-    return "cuda"
+def _volume_codec(ec_backend: str):
+    """A volume server's EC codec and where its work runs, as
+    ``(backend, device)`` from ``ops.codec.resolve_backend``; ``cuda``
+    and ``mesh`` need a card, which must be there."""
+    from ..ops.codec import resolve_backend
+    backend, device = resolve_backend(ec_backend)
+    if device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"-ec.backend {ec_backend} needs a CUDA "
+                               f"device; pass -ec.backend native or numpy "
+                               f"to run on the CPU")
+    return backend, device
 
 
 def _sequencer(args):
@@ -277,7 +286,7 @@ def cmd_volume(args):
     _apply_security_config(args)
     from ..server.volume_server import VolumeServer
     _load_tier_config(args.tierConfig)
-    device = _volume_device(args.ec_backend)
+    backend, device = _volume_codec(args.ec_backend)
     dirs = args.dir.split(",")
     maxes = [int(x) for x in args.max.split(",")] if args.max else None
     if maxes and len(maxes) == 1:
@@ -286,7 +295,7 @@ def cmd_volume(args):
                       master_url=args.mserver, data_center=args.dataCenter,
                       rack=args.rack, max_volume_counts=maxes,
                       pulse_seconds=args.pulseSeconds,
-                      ec_backend=args.ec_backend, device=device,
+                      ec_backend=backend, device=device,
                       jwt_signing_key=args.jwtKey,
                       index_kind=args.index, fast_port=args.fastPort,
                       public_url=args.publicUrl,
@@ -311,7 +320,7 @@ def cmd_server(args):
     from ..server.master import MasterServer
     from ..server.volume_server import VolumeServer
     _load_tier_config(args.tierConfig)
-    device = _volume_device(args.ec_backend)
+    backend, device = _volume_codec(args.ec_backend)
     m = MasterServer(port=args.masterPort, host=args.ip,
                      default_replication=args.defaultReplication,
                      repair_interval=_repair_interval(),
@@ -327,7 +336,7 @@ def cmd_server(args):
                       master_url=m.url, data_center=args.dataCenter,
                       rack=args.rack, pulse_seconds=args.pulseSeconds,
                       max_volume_counts=[int(args.max)] * len(dirs),
-                      ec_backend=args.ec_backend, device=device,
+                      ec_backend=backend, device=device,
                       fast_port=args.fastPort,
                       jwt_signing_key=args.jwtKey).start()
     print(f"master on {m.url}, volume server on {vs.url}", flush=True)
@@ -392,7 +401,14 @@ def _store_options(args) -> dict:
         return {"path": db, "shards": args.storeShards}
     if args.store == "sqlite":
         return {"path": args.db}
-    return {}
+    # the network stores: -<store>Addr, User, Password and their database
+    fields = {"redis": ("addr", "password", "db"),
+              "mysql": ("addr", "user", "password", "database"),
+              "postgres": ("addr", "user", "password", "database"),
+              "cassandra": ("addr", "user", "password", "keyspace"),
+              "etcd": ("addr", "user", "password")}.get(args.store, ())
+    return {key: getattr(args, args.store + key.capitalize())
+            for key in fields}
 
 
 def cmd_filer(args):
@@ -836,9 +852,10 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("-pulseSeconds", type=int, default=5)
     v.add_argument("-ec.backend", dest="ec_backend", default="cuda",
                    choices=list(EC_BACKENDS),
-                   help="the EC codec: the kernel on the card, the host's "
-                        "NumPy codec (the CPU), or the kernel at every "
-                        "card's position")
+                   help="the EC codec: the kernel on the card (cuda), the "
+                        "host's AVX2 codec (native) or NumPy codec, the "
+                        "kernel at every card's position (mesh), or auto: "
+                        "the card, else native, else numpy")
     v.add_argument("-fastPort", type=int, default=0,
                    help="native plane port (0 picks one, -1: none)")
     v.add_argument("-publicUrl", default="",
@@ -852,8 +869,10 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("-compactionMBps", type=int, default=0,
                    help="vacuum copy pace in MB/s, 0: unpaced")
     v.add_argument("-index", default="memory", choices=list(INDEX_KINDS),
-                   help="the needle map: in memory, or on disk for "
-                        "indexes larger than RAM")
+                   help="the needle map: a dict in memory, 16-byte "
+                        "sorted arrays (compact), an mmap'd sorted file "
+                        "(sortedfile), or on disk for indexes larger "
+                        "than RAM")
     v.add_argument("-cpuprofile", default="",
                    help="write an all-thread collapsed-stack CPU profile "
                         "here on shutdown")
@@ -909,6 +928,30 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("-storeShards", type=int, default=8,
                    help="shard count for -store sharded (kept per store "
                         "directory)")
+    f.add_argument("-redisAddr", default="127.0.0.1:6379",
+                   help="redis endpoint for -store redis")
+    f.add_argument("-redisPassword", default="")
+    f.add_argument("-redisDb", type=int, default=0)
+    f.add_argument("-mysqlAddr", default="127.0.0.1:3306",
+                   help="mysql endpoint for -store mysql")
+    f.add_argument("-mysqlUser", default="root")
+    f.add_argument("-mysqlPassword", default="")
+    f.add_argument("-mysqlDatabase", default="seaweedfs")
+    f.add_argument("-postgresAddr", default="127.0.0.1:5432",
+                   help="postgres endpoint for -store postgres")
+    f.add_argument("-postgresUser", default="postgres")
+    f.add_argument("-postgresPassword", default="")
+    f.add_argument("-postgresDatabase", default="seaweedfs")
+    f.add_argument("-cassandraAddr", default="127.0.0.1:9042",
+                   help="cassandra endpoint for -store cassandra")
+    f.add_argument("-cassandraUser", default="")
+    f.add_argument("-cassandraPassword", default="")
+    f.add_argument("-cassandraKeyspace", default="seaweedfs")
+    f.add_argument("-etcdAddr", default="127.0.0.1:2379",
+                   help="etcd endpoint for -store etcd (its v3 JSON "
+                        "gateway)")
+    f.add_argument("-etcdUser", default="")
+    f.add_argument("-etcdPassword", default="")
     f.add_argument("-collection", default="")
     f.add_argument("-defaultReplicaPlacement", default="")
     f.add_argument("-maxMB", type=int, default=32,

@@ -55,6 +55,7 @@ from ..ops import codec as ops_codec
 from ..ops.pipeline import PipelinedMatmul
 from ..storage.types import entry_size
 from ..util import tracing
+from ..util.locks import make_lock
 from ..util.profiling import StageTimer
 from .ec_volume import EcShardNotFound
 from .gather import ShardSizeCache
@@ -90,7 +91,7 @@ class SlabCache:
         self.max_bytes = int(max_bytes)
         self._entries: "OrderedDict[tuple, bytes]" = OrderedDict()
         self._bytes = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.degraded.SlabCache._lock")
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -146,7 +147,7 @@ class _Batch:
     into a batch the leader has already taken."""
 
     def __init__(self):
-        self.lock = threading.Lock()
+        self.lock = make_lock("torch.degraded.Batch.lock")
         self.pending: Dict[int, "_SlabFuture"] = {}
         self.leading = False
         self.requests = 0
@@ -220,7 +221,7 @@ class DegradedReadEngine:
         # plan / gather / dispatch of every batch, and the pipeline's own
         # stages inside dispatch on the device path
         self.timer = StageTimer()
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.degraded.Engine._lock")
         self._batches: Dict[Tuple[int, int], _Batch] = {}
         self._latencies: deque = deque(maxlen=512)
         self._c: Dict[str, int] = {

@@ -20,12 +20,12 @@ import json
 import logging
 import os
 import struct
-import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..storage.needle import get_actual_size
 from ..storage.types import (NEEDLE_ENTRY_SIZE, TOMBSTONE_FILE_SIZE,
                              bytes_to_entry, entry_size, needle_id_to_bytes)
+from ..util.locks import make_lock
 from .constants import (DATA_SHARDS, LARGE_BLOCK_SIZE,
                         SMALL_BLOCK_SIZE, TOTAL_SHARDS, to_ext)
 from .locate import Interval, locate_data
@@ -157,9 +157,9 @@ class EcVolume:
         self.ecx_size = os.path.getsize(self.base_name + ".ecx")
         # one seekable handle shared by lookups and in-place tombstoning —
         # every seek+read/write pair must hold this lock
-        self.ecx_lock = threading.Lock()
+        self.ecx_lock = make_lock("torch.ec_volume.ecx_lock")
         self.ecj_file = open(self.base_name + ".ecj", "a+b")
-        self.ecj_lock = threading.Lock()
+        self.ecj_lock = make_lock("torch.ec_volume.ecj_lock")
         self.shards: Dict[int, EcVolumeShard] = {}
         self.version = None
         self.offset_width = None

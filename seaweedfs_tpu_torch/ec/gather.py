@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import os
 import re
-import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -27,6 +26,7 @@ import numpy as np
 
 from ..ops.codec import pb_plane_rows, pb_plane_slice, project_slab
 from ..server.http_util import HttpError, http_call, http_get_with_headers
+from ..util.locks import make_lock
 from .transport import (  # noqa: F401  - the shared transport, pull role
     DEFAULT_WINDOW, GatherStats, LocalShardReader, RemoteShardReader,
     StripedPull, TransportStats,
@@ -115,7 +115,7 @@ class ShardSizeCache:
         self.timeout = timeout
         self.probes = 0
         self._sizes: Dict[Tuple[int, int], int] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.gather.ShardSizeCache._lock")
 
     def get(self, vid: int, sid: int, holders: Sequence[str]) -> int:
         key = (int(vid), int(sid))

@@ -45,6 +45,7 @@ from ..ops import gf256
 from ..ops.pipeline import PipelinedMatmul
 from ..storage.types import entry_size
 from ..util import tracing
+from ..util.locks import make_lock
 from ..util.profiling import StageTimer
 from .layout import volume_layout
 from .transport import GatherStats, LocalShardReader, RemoteShardReader
@@ -110,8 +111,8 @@ class ScrubEngine:
         self.slab = int(slab) if slab else SLAB_BYTES
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self._pass_lock = threading.Lock()   # one pass at a time
-        self._lock = threading.Lock()        # counters
+        self._pass_lock = make_lock("torch.scrub._pass_lock")   # one pass at a time
+        self._lock = make_lock("torch.scrub._lock")        # counters
         self._c = {
             "passes": 0, "volumes_scrubbed": 0, "slabs": 0,
             "bytes_verified": 0, "remote_bytes": 0,

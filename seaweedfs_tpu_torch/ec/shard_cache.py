@@ -18,10 +18,10 @@ tries someone else instead of timing out again.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Dict, List
 
+from ..util.locks import make_lock
 from .constants import DATA_SHARDS, TOTAL_SHARDS
 
 FEW_SHARDS_TTL = 11.0          # seconds, < k shards known
@@ -36,7 +36,7 @@ class EcShardLocationCache:
         self._fetch = fetch
         self._data_shards = data_shards
         self._total_shards = total_shards
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.shard_cache._lock")
         self._entries: Dict[int, tuple] = {}  # vid -> (refresh_t, locations)
 
     def _ttl(self, locations: Dict[int, List[str]]) -> float:

@@ -57,6 +57,7 @@ import numpy as np
 from ..server.http_util import HttpError, http_call, post_chunked
 from ..stats.health import BOARD
 from ..util import tracing
+from ..util.locks import make_lock
 from ..util.profiling import StageTimer
 
 #: Stripes in flight (the JAX package's SW_EC_GATHER_WINDOW and
@@ -78,7 +79,7 @@ def push_window() -> int:
 # stripe worker submitting back into its (possibly saturated) pool could
 # deadlock the window
 _HEDGE_POOL: Optional[ThreadPoolExecutor] = None
-_HEDGE_LOCK = threading.Lock()
+_HEDGE_LOCK = make_lock("torch.transport._HEDGE_LOCK")
 
 
 def hedge_pool() -> ThreadPoolExecutor:
@@ -106,7 +107,7 @@ class TransportStats:
 
     def __init__(self):
         self.timer = StageTimer()
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.transport.TransportStats._lock")
         self.fetches = 0
         self.sends = 0
         self.bytes = 0
@@ -398,7 +399,7 @@ class StripedPull:
         self.stats.local_shards = len(self.readers) - \
             self.stats.remote_shards
         self._buffered = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.transport.StripedPull._lock")
 
     def _note_buffered(self, delta: int):
         with self._lock:
@@ -790,7 +791,7 @@ class StripedPush:
         self.offset = 0
         self.failed: Optional[BaseException] = None
         self._spares = [s for s in (spares or []) if s]
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.transport.StripedPush._lock")
         self._buffered = 0
         self.writers = list(writers)
         for w in self.writers:

@@ -1,19 +1,32 @@
-"""The etcd v3 wire client: the client half of the JAX package's
-``filer/etcd_store.py`` (``EtcdStore`` waits for the filer tier).
+"""The etcd filer store and its v3 wire client: the JAX package's
+``filer/etcd_store.py`` (reference weed/filer2/etcd/etcd_store.go).
 
 etcd serves its KV API over a JSON gateway: ``POST /v3/kv/{put,range,
 deleterange,txn}`` with base64 keys and values, and
 ``/v3/auth/authenticate`` minting a bearer token. ``EtcdClient`` speaks
 that over one kept-alive HTTP/1.1 connection, with password auth and a
-re-auth when the server calls the token invalid."""
+re-auth when the server calls the token invalid; the master's
+``EtcdSequencer`` uses it too.
+
+``EtcdStore`` keys an entry ``<dir>\\x00<name>`` with the encoded entry
+as its value; a listing is a prefix range over ``<dir>\\x00``. As in
+JAX, listings ascend (the reference's descend) and
+``delete_folder_children`` removes the whole subtree (the reference's
+prefix removes direct children only)."""
 
 from __future__ import annotations
 
 import base64
 import http.client
 import json
-import threading
+import posixpath
 from typing import List, Optional
+
+from ..util.locks import make_lock
+from .entry import Entry
+from .filerstore import FilerStore, register_store
+
+DIR_FILE_SEPARATOR = b"\x00"
 
 
 class EtcdError(Exception):
@@ -60,7 +73,7 @@ class EtcdClient:
         self.password = password
         self.timeout = timeout
         self.api_prefix = api_prefix.rstrip("/")
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.etcd_store._lock")
         self._conn: Optional[http.client.HTTPConnection] = None
         self._token = ""
 
@@ -174,3 +187,83 @@ class EtcdClient:
                     self._conn.close()
                 finally:
                     self._conn = None
+
+
+def _entry_key(full_path: str) -> bytes:
+    d = posixpath.dirname(full_path) or "/"
+    name = posixpath.basename(full_path)
+    return d.encode() + DIR_FILE_SEPARATOR + name.encode()
+
+
+@register_store
+class EtcdStore(FilerStore):
+    """`-store etcd -etcdAddr host:port [-etcdUser .. -etcdPassword ..]`."""
+
+    name = "etcd"
+
+    def initialize(self, addr: str = "127.0.0.1:2379", user: str = "",
+                   password: str = "", timeout: float = 10.0,
+                   api_prefix: str = "/v3", **options):
+        self._client = EtcdClient.from_addr(addr, user=user,
+                                            password=password,
+                                            timeout=timeout,
+                                            api_prefix=api_prefix)
+        if user:
+            self._client.authenticate()
+        # fail fast on a bad endpoint (empty range on our own keyspace)
+        self._client.range(b"/", limit=1)
+
+    # -- FilerStore -------------------------------------------------------
+
+    def insert_entry(self, entry: Entry) -> None:
+        self._client.put(_entry_key(entry.full_path), entry.encode())
+
+    def update_entry(self, entry: Entry) -> None:
+        # reference etcd UpdateEntry == InsertEntry (upsert)
+        self.insert_entry(entry)
+
+    def find_entry(self, full_path: str) -> Optional[Entry]:
+        kvs = self._client.range(_entry_key(full_path))
+        if not kvs:
+            return None
+        return Entry.decode(full_path, kvs[0][1])
+
+    def delete_entry(self, full_path: str) -> None:
+        self._client.delete_range(_entry_key(full_path))
+
+    def delete_folder_children(self, full_path: str) -> None:
+        base = full_path.rstrip("/") or "/"
+        # direct children: "<base>\x00*"
+        direct = base.encode() + DIR_FILE_SEPARATOR
+        self._client.delete_range(direct, prefix_end(direct))
+        # whole subtree: every key whose directory lives under base —
+        # "<base>/..." (for base "/" this is the entire keyspace prefix
+        # "/", which is exactly the contract)
+        subtree = (base.rstrip("/") + "/").encode()
+        self._client.delete_range(subtree, prefix_end(subtree))
+
+    def list_directory_entries(self, dir_path: str, start_file_name: str,
+                               inclusive: bool,
+                               limit: int) -> List[Entry]:
+        dir_path = dir_path.rstrip("/") or "/"
+        prefix = dir_path.encode() + DIR_FILE_SEPARATOR
+        lo = prefix + start_file_name.encode() if start_file_name \
+            else prefix
+        # +1 covers the excluded startFileName itself landing in range
+        kvs = self._client.range(lo, prefix_end(prefix),
+                                 limit=limit + 1 if limit else 0)
+        base = dir_path.rstrip("/")
+        out: List[Entry] = []
+        for key, value in kvs:
+            name = key[len(prefix):].decode()
+            if not name:
+                continue
+            if name == start_file_name and not inclusive:
+                continue
+            out.append(Entry.decode(f"{base}/{name}", value))
+            if len(out) >= limit > 0:
+                break
+        return out
+
+    def close(self):
+        self._client.close()

@@ -11,11 +11,11 @@ the filer server drains."""
 from __future__ import annotations
 
 import posixpath
-import threading
 import time
 from collections import OrderedDict
 from typing import Callable, List, Optional
 
+from ..util.locks import make_rlock
 from .entry import Attr, Entry, FileChunk, new_dir_entry
 from .filechunks import minus_chunks
 from .filerstore import FilerStore
@@ -36,7 +36,7 @@ class Filer:
         self.buckets_folder = buckets_folder
         self._dir_cache: "OrderedDict[str, Entry]" = OrderedDict()
         self._dir_cache_size = dir_cache_size
-        self._lock = threading.RLock()
+        self._lock = make_rlock("torch.filer._lock")
         self.notify_fns: List[Callable] = []
         self._deletion_queue: List[str] = []
 

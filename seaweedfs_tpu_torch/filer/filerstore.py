@@ -1,18 +1,16 @@
 """The filer store interface and its registry. The JAX package's
 ``filer/filerstore.py``: insert, update, find, delete, recursive child
 delete and ordered listing; ``make_store(kind, **options)`` builds a
-registered kind (``memory``, ``sqlite``, ``sharded``). The JAX
-package's network stores (redis, mysql, postgres, cassandra, etcd) are
-not ported: asking for one raises."""
+registered kind: the embedded ``memory``, ``sqlite`` and ``sharded``,
+and the network stores ``redis``, ``mysql``, ``postgres``,
+``cassandra`` and ``etcd``, each a wire client of its own over a socket
+or ``http.client``."""
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Type
 
 from .entry import Entry
-
-#: The JAX package's stores that the port has not ported.
-NOT_PORTED = ("redis", "mysql", "postgres", "cassandra", "etcd")
 
 
 class FilerStore:
@@ -55,10 +53,9 @@ def register_store(cls: Type[FilerStore]) -> Type[FilerStore]:
 
 def make_store(name: str, **options) -> FilerStore:
     # the stores register themselves on import
-    from . import memory_store, sharded_store, sqlite_store  # noqa: F401
-    if name in NOT_PORTED:
-        raise ValueError(f"filer store {name!r} is not ported; "
-                         f"have {sorted(STORES)}")
+    from . import (cassandra_store, etcd_store, memory_store,  # noqa: F401
+                   mysql_store, postgres_store, redis_store, sharded_store,
+                   sqlite_store)
     cls = STORES.get(name)
     if cls is None:
         raise ValueError(f"unknown filer store {name!r}; "

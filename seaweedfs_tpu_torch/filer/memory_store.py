@@ -6,9 +6,9 @@ from __future__ import annotations
 
 import bisect
 import posixpath
-import threading
 from typing import Dict, List, Optional
 
+from ..util.locks import make_rlock
 from .entry import Entry
 from .filerstore import FilerStore, register_store
 
@@ -18,7 +18,7 @@ class MemoryStore(FilerStore):
     name = "memory"
 
     def initialize(self, **options):
-        self._lock = threading.RLock()
+        self._lock = make_rlock("torch.memory_store._lock")
         self._entries: Dict[str, bytes] = {}
         self._children: Dict[str, List[str]] = {}
 

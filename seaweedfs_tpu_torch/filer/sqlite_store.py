@@ -8,9 +8,9 @@ from __future__ import annotations
 
 import posixpath
 import sqlite3
-import threading
 from typing import List, Optional
 
+from ..util.locks import make_rlock
 from .entry import Entry
 from .filerstore import FilerStore, register_store
 
@@ -20,7 +20,7 @@ class SqliteStore(FilerStore):
     name = "sqlite"
 
     def initialize(self, path: str = ":memory:", **options):
-        self._lock = threading.RLock()
+        self._lock = make_rlock("torch.sqlite_store._lock")
         self._db = sqlite3.connect(path, check_same_thread=False)
         self._db.execute(
             "CREATE TABLE IF NOT EXISTS filemeta ("

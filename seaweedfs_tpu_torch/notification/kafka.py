@@ -35,11 +35,11 @@ from __future__ import annotations
 
 import socket
 import struct
-import threading
 import time
 import zlib
 from typing import Dict, List, Optional, Tuple
 from ..util import config
+from ..util.locks import make_lock
 
 API_PRODUCE = 0
 API_METADATA = 3
@@ -219,7 +219,7 @@ class KafkaProducer:
         # topic -> total partition count (incl. leaderless — the key->
         # partition mapping must be stable across leader elections)
         self._npartitions: Dict[str, int] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.kafka._lock")
 
     # -- transport --------------------------------------------------------
 

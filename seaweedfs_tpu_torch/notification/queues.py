@@ -5,9 +5,9 @@ and the publishers that need no module of their own; the JAX package's
 from __future__ import annotations
 
 import sys
-import threading
 from typing import Callable, Dict, List, Type
 from ..util import config
+from ..util.locks import make_lock
 
 
 class Publisher:
@@ -62,7 +62,7 @@ class MemoryPublisher(Publisher):
 
     def initialize(self, **options):
         self._subs: List[Callable[[str, dict], None]] = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.queues._lock")
         self.events: List[tuple] = []
 
     def subscribe(self, fn: Callable[[str, dict], None]):

@@ -6,12 +6,15 @@ are stored verbatim (systematic code), missing shards are None and are
 regenerated in place.
 
 Backends:
-    get_codec(k, m, backend="cuda" | "mesh" | "numpy", device=..., mesh=...)
+    get_codec(k, m, backend="cuda" | "mesh" | "native" | "numpy" | "auto",
+              device=..., mesh=...)
 "cuda" is the hand-written Hopper kernel behind ops/rs_torch.TorchCodec
 (its plain PyTorch version when the caller asks for device="cpu");
 "mesh" is parallel/mesh_codec.MeshCodec, the same kernel at every
-position of a mesh; "numpy" is the conformance oracle. There is no automatic choice: a
-missing card raises instead of quietly running on the CPU. All
+position of a mesh; "native" is ops/rs_native.NativeCodec, the host's
+AVX2 codec; "numpy" is the conformance oracle. The default is "cuda": a
+missing card raises instead of quietly running on the CPU; only "auto",
+asked for by name, chooses (the card, else native, else numpy). All
 backends produce bit-identical output.
 
 The host/device crossover of a device codec (``dispatch_threshold``) is
@@ -31,7 +34,6 @@ piggyback_decode_plan, piggyback_repair_plan) with its window transforms
 from __future__ import annotations
 
 import itertools
-import threading
 import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -40,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..util import tracing
+from ..util.locks import make_lock
 from . import device_stats, gf256
 from .telemetry import STATS
 
@@ -117,7 +120,7 @@ class _ConstCache:
     def __init__(self, maxsize: int = 32):
         self._entries: OrderedDict = OrderedDict()
         self._maxsize = maxsize
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.codec._ConstCache._lock")
         self.owner = next(self._serial)
         self._stats = device_stats.DEVICE_STATS
         self._stats.register_const_cache(self)
@@ -365,15 +368,38 @@ def dispatch_threshold(codec) -> int:
     return ov if ov is not None else codec.small_dispatch_bytes
 
 
+def resolve_backend(backend: str) -> Tuple[str, str]:
+    """``(backend, device)`` for an ``-ec.backend`` name: ``numpy`` and
+    ``native`` run on the host (``cpu``) and never touch torch.cuda;
+    ``auto`` is the JAX package's order with its TPU read as the card:
+    "cuda" when torch sees a card, else "native" when its library builds
+    and loads, else "numpy"; ``cuda`` and ``mesh`` run on the card."""
+    if backend in ("numpy", "native"):
+        return backend, "cpu"
+    if backend == "auto":
+        import torch
+        if torch.cuda.is_available():
+            return "cuda", "cuda"
+        from .rs_native import native_available
+        return ("native" if native_available() else "numpy"), "cpu"
+    return backend, "cuda"
+
+
 def get_codec(data_shards: int, parity_shards: int,
               backend: str = "cuda",
               matrix_kind: str = "vandermonde",
               device: str = "cuda", mesh=None) -> ReedSolomonCodec:
     """"mesh" is parallel/mesh_codec.MeshCodec over ``mesh`` (a
     parallel/mesh.Mesh; every card when None), and takes no
-    ``device``."""
+    ``device``. "native" is ops/rs_native.NativeCodec on the host.
+    "auto" picks as ``resolve_backend`` does."""
+    if backend == "auto":
+        backend, _ = resolve_backend(backend)
     if backend == "numpy":
         return NumpyCodec(data_shards, parity_shards, matrix_kind)
+    if backend == "native":
+        from .rs_native import NativeCodec
+        return NativeCodec(data_shards, parity_shards, matrix_kind)
     if backend == "cuda":
         from .rs_torch import TorchCodec
         return TorchCodec(data_shards, parity_shards, matrix_kind,

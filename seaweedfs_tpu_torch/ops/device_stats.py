@@ -43,10 +43,11 @@ arguments here (defaults off and 1); the port reads no environment.
 from __future__ import annotations
 
 import hashlib
-import threading
 import weakref
 from time import perf_counter as _perf_counter
 from typing import Any, Callable, Dict, List
+
+from ..util.locks import make_lock
 
 #: Entry names of the three kernels.
 K1 = "rs_hopper.gf_matmul"
@@ -81,7 +82,7 @@ class DeviceStats:
     """Per-entry launch, build and timing accounting (thread-safe)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.device_stats._lock")
         self.compiles: Dict[str, int] = {}
         self.compile_seconds: Dict[str, float] = {}
         self.recompiles: Dict[str, int] = {}

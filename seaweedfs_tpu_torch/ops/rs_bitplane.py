@@ -50,12 +50,12 @@ of its launches (a call on the CPU is none).
 from __future__ import annotations
 
 import ctypes
-import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..util.locks import make_lock
 from . import gf256
 from .codec import _ConstCache
 from .device_stats import K6A, K6B, dispatch
@@ -79,7 +79,7 @@ TILE = 128
 TILE_ROWS = (32, 256)
 
 _lib = None
-_lib_lock = threading.Lock()
+_lib_lock = make_lock("torch.rs_bitplane._lib_lock")
 
 
 def variant_name(u: int, dtype: str) -> str:

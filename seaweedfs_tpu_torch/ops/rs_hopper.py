@@ -42,10 +42,10 @@ import ctypes
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 import torch
 
+from ..util.locks import make_lock
 from .device_stats import K1, dispatch, timed_build
 from .gf256 import MUL_TABLE
 from .gf_plan import GfPlan
@@ -58,7 +58,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lib = None
-_lib_lock = threading.Lock()
+_lib_lock = make_lock("torch.rs_hopper._lib_lock")
 
 
 def _nvcc() -> str:

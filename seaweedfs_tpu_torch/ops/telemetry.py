@@ -18,8 +18,9 @@ share a card, and a map by device would read one wide.
 
 from __future__ import annotations
 
-import threading
 from typing import Dict
+
+from ..util.locks import make_lock
 
 
 class DispatchStats:
@@ -29,7 +30,7 @@ class DispatchStats:
                "device_bytes", "mesh_dispatches")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.telemetry._lock")
         for f in self._FIELDS:
             setattr(self, f, 0)
         self._mesh_device_bytes: Dict[str, int] = {}

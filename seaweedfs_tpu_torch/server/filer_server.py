@@ -55,6 +55,7 @@ from ..stats.metrics import (FILER_GATHER, FILER_REQUEST_COUNTER,
                              FILER_REQUEST_HISTOGRAM)
 from ..storage.types import TTL
 from ..util import config, tracing
+from ..util.locks import make_lock
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
                         http_call, parse_range, profile_handler,
                         traces_export_handler, traces_handler)
@@ -114,7 +115,7 @@ class FilerServer:
         self._fetch = None
         self._stop = threading.Event()
         # held from a drain of the deletion queue through its deletes
-        self._deleting = threading.Lock()
+        self._deleting = make_lock("torch.filer_server._deleting")
         self._deleter = threading.Thread(target=self._deletion_loop,
                                          daemon=True, name="filer-deleter")
         self._notify_queue: queue.Queue = queue.Queue(maxsize=1024)

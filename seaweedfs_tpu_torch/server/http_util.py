@@ -63,6 +63,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..util import tracing
+from ..util.locks import make_lock
 
 #: Accept-loop poll of ``HttpServer``: bounds how long ``stop()`` waits
 #: for the loop (the JAX SW_HTTP_POLL_S is 0.5; its tests set 0.02).
@@ -251,7 +252,7 @@ def traces_export_handler(req: Request) -> dict:
 
 # one profile at a time a process: concurrent samplers would double the
 # stack-walk overhead and interleave their counts
-_PROFILE_LOCK = threading.Lock()
+_PROFILE_LOCK = make_lock("torch.http_util._profile_lock")
 
 
 def profile_handler(req: Request) -> "Response":
@@ -548,7 +549,7 @@ class _TunedHTTPServer(ThreadingHTTPServer):
 
     def __init__(self, *args, **kwargs):
         self._client_socks: set = set()
-        self._conn_lock = threading.Lock()
+        self._conn_lock = make_lock("torch.http_util._conn_lock")
         super().__init__(*args, **kwargs)
 
     # track live client sockets so stop() can sever keep-alive
@@ -644,7 +645,7 @@ def parse_range(rng: str, size: int) -> Optional[Tuple[int, int]]:
 # (conn, parked_at); the park time drives idle-age eviction.
 
 _POOL: Dict[Tuple[str, str], List] = {}
-_POOL_LOCK = threading.Lock()
+_POOL_LOCK = make_lock("torch.http_util._POOL_LOCK")
 # churn counts, mirrored into /metrics (http_pool_churn_total{event=})
 POOL_STATS: Dict[str, int] = {"created": 0, "reused": 0,
                               "evicted_stale": 0, "evicted_idle": 0,

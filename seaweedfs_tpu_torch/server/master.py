@@ -174,6 +174,7 @@ from ..topology.raft import NotLeaderError, RaftNode
 from ..topology.topology import RaftSequencer, Topology
 from ..topology.volume_growth import NoFreeSlots, find_empty_slots
 from ..util import tracing
+from ..util.locks import make_lock
 from . import tiering
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
                         http_call, post_json, post_multipart,
@@ -235,7 +236,7 @@ class MasterServer:
         self.growth_counts = dict(growth_counts or {})
         self.maintenance_filer_url = maintenance_filer_url
         self.garbage_threshold = float(garbage_threshold)
-        self.vg_lock = threading.Lock()
+        self.vg_lock = make_lock("torch.master.vg_lock")
         self.host = host
 
         router = Router()
@@ -296,7 +297,7 @@ class MasterServer:
         # the newest (boot, seq) applied per server: heartbeats post at
         # once, so an older collect can arrive after a newer one and is
         # dropped (it would roll back shard bits and revive volumes)
-        self._hb_order_lock = threading.Lock()
+        self._hb_order_lock = make_lock("torch.master._hb_order_lock")
         self._hb_order: dict = {}
         # the integrity plane: incidents from scrub findings and from the
         # shard map, drained into repairs on the holders
@@ -330,7 +331,7 @@ class MasterServer:
         self.raft: Optional[RaftNode] = None
         # requests this master forwarded to its leader
         self.forwarded = 0
-        self._forwarded_lock = threading.Lock()
+        self._forwarded_lock = make_lock("torch.master._forwarded_lock")
         if peers:
             self._init_raft(peers, raft_dir, sequencer, seed, router)
 

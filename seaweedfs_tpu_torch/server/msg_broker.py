@@ -7,11 +7,11 @@ long-poll subscribe, on the filer's ``LogBuffer``; ``/queue/status``,
 from __future__ import annotations
 
 import base64
-import threading
 import time
 from typing import Dict
 
 from ..filer.log_buffer import LogBuffer
+from ..util.locks import make_lock
 from .http_util import HttpError, HttpServer, Request, Router
 
 
@@ -29,7 +29,7 @@ class MsgBrokerServer:
         self.host = host
         self.max_topics = max_topics
         self.topics: Dict[str, LogBuffer] = {}
-        self.lock = threading.Lock()
+        self.lock = make_lock("torch.msg_broker.lock")
 
     def start(self):
         self.server.start()

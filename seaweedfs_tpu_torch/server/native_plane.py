@@ -42,10 +42,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
 
@@ -57,6 +53,8 @@ from ..storage.compact_map import snapshot_live_items
 from ..storage.types import bytes_to_entry, entry_size, max_volume_size
 from ..storage.volume import VolumeError
 from ..util import config
+from ..util.host_build import compile_host, stale
+from ..util.locks import make_lock
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "http_plane.cc"
@@ -67,7 +65,7 @@ LOADGEN = BUILD_DIR / "loadgen"
 CXX_FLAGS = ("-O2", "-std=c++17", "-pthread")
 
 _lib = None
-_lib_lock = threading.Lock()
+_lib_lock = make_lock("torch.native_plane._lib_lock")
 BUILD_FAILED = False    # the one-time build or load failed
 
 
@@ -79,45 +77,20 @@ def _library_path() -> Path:
     return Path(config.env_str("SW_HTTP_PLANE_LIB") or LIBRARY)
 
 
-def _compile(source: Path, target: Path, shared: bool) -> str:
-    """g++ ``source`` into ``target`` through a temporary name; returns
-    the compiler's diagnostics, raises RuntimeError on failure."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError("no C++ compiler (g++ or c++) on PATH")
-    target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}."
-                           f"{threading.get_ident()}.tmp")
-    cmd = [cxx, *CXX_FLAGS, *(("-fPIC", "-shared") if shared else ()),
-           "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{source.name} build failed ({proc.returncode})"
-                           f":\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, target)
-    return proc.stdout + proc.stderr
-
-
-def _stale(target: Path, source: Path) -> bool:
-    return not target.exists() or \
-        target.stat().st_mtime < source.stat().st_mtime
-
-
 def build_library() -> str:
     """Build csrc/http_plane.cc into build/libseaweed_http.so."""
-    return _compile(SOURCE, LIBRARY, shared=True)
+    return compile_host(SOURCE, LIBRARY, (*CXX_FLAGS, "-fPIC", "-shared"))
 
 
 def compile_loadgen() -> str:
     """Build csrc/loadgen.cc into build/loadgen."""
-    return _compile(LOADGEN_SOURCE, LOADGEN, shared=False)
+    return compile_host(LOADGEN_SOURCE, LOADGEN, CXX_FLAGS)
 
 
 def build_loadgen() -> Path:
     """The load generator, built when missing or older than its
     source."""
-    if _stale(LOADGEN, LOADGEN_SOURCE):
+    if stale(LOADGEN, LOADGEN_SOURCE):
         compile_loadgen()
     return LOADGEN
 
@@ -191,7 +164,7 @@ def _load() -> Optional[ctypes.CDLL]:
                     f"SW_HTTP_PLANE_LIB={path} does not exist")
         try:
             if not config.env_is_set("SW_HTTP_PLANE_LIB") and \
-                    _stale(path, SOURCE):
+                    stale(path, SOURCE):
                 build_library()
             lib = ctypes.CDLL(str(path))
             for name, argtypes, restype in ABI:

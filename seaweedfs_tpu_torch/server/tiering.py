@@ -38,6 +38,7 @@ from typing import Dict, Optional
 from ..stats.metrics import (MASTER_TIER_BYTES, MASTER_TIER_DEMOTIONS,
                              MASTER_TIER_MBPS_GAUGE, MASTER_TIER_SECONDS,
                              MASTER_TIER_VOLUMES_GAUGE)
+from ..util.locks import make_lock
 
 TIER_ENABLE = False        # SW_TIER_ENABLE: the background loop
 TIER_INTERVAL_S = 60.0     # SW_TIER_INTERVAL_S; <= 0: no loop
@@ -76,7 +77,7 @@ class VolumeTierer:
         self.concurrency = max(1, int(concurrency))
         self.rate_mbps = float(rate_mbps)
         self.full_frac = float(full_frac)
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.tiering.VolumeTierer._lock")
         # vid -> {"state", "collection", "hot_bytes", ...}: the payload
         self._volumes: Dict[int, dict] = {}
         self._inflight: set = set()

@@ -116,7 +116,8 @@ none), so a server that only holds shards or serves needles never
 touches the card. ``ec_backend`` "mesh" (the JAX ``-ec.backend mesh``)
 builds the store's codec as parallel/mesh_codec.MeshCodec over ``mesh``
 (every card when None), so each encode and rebuild runs K1 at every
-mesh position; "numpy" runs the host oracle.
+mesh position; "native" runs the host's AVX2 codec (ops/rs_native) and
+"numpy" the host oracle.
 
 With ``master_url`` (seeds ``host:port[,host:port]``), the server
 heartbeats its master: at start, every ``pulse_seconds``, at once when a
@@ -184,7 +185,7 @@ takes the lease back, first and registers it again after, as the JAX
 handlers do. The degraded engine's reconstructions are published into
 the plane's slab cache, so a warm GET through a lost shard is served
 there; a mount or a rebuild drops them. ``index_kind`` is the needle
-map of every volume (``-index memory|disk``).
+map of every volume (``-index memory|compact|sortedfile|disk``).
 
 Transport security: the process's ``server/http_util`` TLS. The plane
 speaks plain HTTP, so TLS keeps it off, as a whitelist does. Under
@@ -198,9 +199,11 @@ presented no client certificate; the data routes stay server-TLS.
         [--max N] [--pulse-seconds S] [--scrub-idle-s S]
         [--scrub-rate-mbps R] [--degraded-mode batch|naive]
         [--device-timing] [--device-timing-sample N]
-        [--ec.backend cuda|numpy|mesh] [--mesh.devices cuda:0,cuda:0]
+        [--ec.backend cuda|auto|native|numpy|mesh]
+        [--mesh.devices cuda:0,cuda:0]
         [--jwt-key KEY] [--whitelist IP,PREFIX.,CIDR]
-        [-tierConfig FILE.json] [-fastPort N] [-index memory|disk]
+        [-tierConfig FILE.json] [-fastPort N]
+        [-index memory|compact|sortedfile|disk]
 
 serves until killed and prints ``listening <host>:<port>`` once bound,
 so a parent process that passed ``--port 0`` can read the port. The
@@ -251,6 +254,7 @@ from ..storage.types import TTL, ReplicaPlacement, parse_file_id
 from ..storage.volume import NotFound, VolumeError
 from ..util import config, tracing
 from ..util.fanout import fan_out
+from ..util.locks import make_lock
 from . import native_plane
 from .http_util import (HttpError, HttpServer, Request, Response, Router,
                         get_json, http_call, parse_range, pool_stats_snapshot,
@@ -271,10 +275,11 @@ class VolumeServer:
     None); ``degraded_mode`` "batch" or "naive"; ``device_timing`` and
     ``device_timing_sample`` the process's sampled kernel timing (left as
     it is when None); ``ec_backend`` "cuda" (the store's TorchCodec on
-    ``device``), "mesh" (MeshCodec over ``mesh``) or "numpy";
+    ``device``), "mesh" (MeshCodec over ``mesh``), "native" or "numpy";
     ``jwt_signing_key`` the key of the write tokens (none: writes need
     none); ``whitelist`` the callers allowed (empty: all);
-    ``index_kind`` the needle map ("memory" or "disk"); ``fast_port``
+    ``index_kind`` the needle map ("memory", "compact", "sortedfile" or
+    "disk"); ``fast_port``
     the native plane's port (0: one picked free, -1: no plane);
     ``data_center`` and ``rack`` this server's place in the heartbeat;
     ``public_url`` the address it advertises (its own by default);
@@ -438,7 +443,7 @@ class VolumeServer:
         # a route's newer ack. The lock covers a collect and an ack, never
         # a post. Each post carries (boot, seq), so the master too drops a
         # collect that arrives after a later one of this server's.
-        self._hb_lock = threading.Lock()
+        self._hb_lock = make_lock("torch.volume_server._hb_lock")
         self._hb_boot = time.time_ns()
         self._hb_seq = 0
         self._hb_acked_seq = 0
@@ -2125,9 +2130,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device-timing-sample", type=int, default=1,
                     help="N of --device-timing")
     ap.add_argument("--ec.backend", dest="ec_backend", default="cuda",
-                    choices=("cuda", "numpy", "mesh"),
-                    help="the EC codec: the kernel on --device, the host "
-                         "oracle, or the kernel at every mesh position")
+                    choices=("cuda", "auto", "native", "numpy", "mesh"),
+                    help="the EC codec: the kernel on --device, the card "
+                         "when there is one else the host's codecs, the "
+                         "host's AVX2 codec, the host oracle, or the "
+                         "kernel at every mesh position")
     ap.add_argument("--mesh.devices", dest="mesh_devices", default="",
                     help="the mesh codec's positions, a comma list of "
                          "torch devices (every card by default)")
@@ -2141,9 +2148,11 @@ def main(argv=None) -> int:
                     help="the native plane's port (0 picks one, -1: no "
                          "plane); plain needle GETs and POSTs are served "
                          "there without the GIL")
-    ap.add_argument("-index", default="memory", choices=("memory", "disk"),
-                    help="the needle map: a dict in memory, or on disk "
-                         "(sqlite) for indexes larger than RAM")
+    ap.add_argument("-index", default="memory",
+                    choices=("memory", "compact", "sortedfile", "disk"),
+                    help="the needle map: a dict in memory, sorted arrays, "
+                         "an mmap'd sorted file, or on disk (sqlite) for "
+                         "indexes larger than RAM")
     ap.add_argument("-tierConfig", default="",
                     help="JSON file of remote tier backends, e.g. "
                          '{"s3": {"default": {"endpoint": ..., '
@@ -2152,15 +2161,17 @@ def main(argv=None) -> int:
     if args.tierConfig:
         with open(args.tierConfig) as f:
             configure_backends(json.load(f))
+    backend, where = ops_codec.resolve_backend(args.ec_backend)
+    device = args.device if where == "cuda" else "cpu"
     positions = [d for d in args.mesh_devices.split(",") if d]
     mesh = None
-    if args.ec_backend == "mesh" and positions:
+    if backend == "mesh" and positions:
         from ..parallel.mesh import make_codec_mesh
         mesh = make_codec_mesh(positions)
     slots = [int(x) for x in args.max.split(",")]
     slots += slots[-1:] * (len(args.dir) - len(slots))
     vs = VolumeServer(port=args.port, host=args.host,
-                      directories=args.dir, device=args.device,
+                      directories=args.dir, device=device,
                       master_url=args.master,
                       max_volume_counts=slots[:len(args.dir)],
                       pulse_seconds=args.pulse_seconds,
@@ -2169,7 +2180,7 @@ def main(argv=None) -> int:
                       degraded_mode=args.degraded_mode,
                       device_timing=args.device_timing or None,
                       device_timing_sample=args.device_timing_sample,
-                      ec_backend=args.ec_backend, mesh=mesh,
+                      ec_backend=backend, mesh=mesh,
                       jwt_signing_key=args.jwt_key,
                       whitelist=[w for w in args.whitelist.split(",")
                                  if w.strip()],

@@ -9,7 +9,6 @@ in-process ``Filer`` or a remote ``FilerClient``."""
 from __future__ import annotations
 
 import posixpath
-import threading
 import time
 import urllib.parse
 import uuid
@@ -20,6 +19,7 @@ from ..filer.entry import Attr, Entry, new_dir_entry
 from ..filer.filer import FilerError, NotFoundError
 from ..filer.stream import read_chunked
 from ..filer.upload import split_and_upload
+from ..util.locks import make_lock
 from .http_util import (HttpError, HttpServer, Request, Response, Router)
 
 DAV_NS = "DAV:"
@@ -52,7 +52,7 @@ class LockManager:
 
     def __init__(self):
         self._locks: dict = {}       # path -> _Lock
-        self._mu = threading.Lock()
+        self._mu = make_lock("torch.webdav_server._mu")
 
     def _evict_expired(self, now: float):
         dead = [p for p, lk in self._locks.items() if lk.expires <= now]

@@ -32,6 +32,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
+from ..util.locks import make_lock
 from .metrics import (CLUSTER_NODE_UP_GAUGE, CLUSTER_NODES_GAUGE,
                       CLUSTER_SCRAPE_COUNTER, CLUSTER_SCRAPE_SECONDS,
                       parse_prometheus_text, render_families)
@@ -69,7 +70,7 @@ class ClusterMetricsAggregator:
         self.stale_after_s = max(2.5 * self.interval_s, 1.0)
         self.age_out_s = 4 * self.stale_after_s
         self._fetch = fetch or self._http_fetch
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.aggregate._lock")
         self._nodes: Dict[str, _NodeSnapshot] = {}
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None

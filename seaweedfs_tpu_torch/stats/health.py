@@ -26,8 +26,9 @@ module constant ``REF_MS`` (the SW_EC_HEALTH_REF_MS default).
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, List, Sequence
+
+from ..util.locks import make_lock
 
 # EWMA smoothing: each observation moves the average 20% of the way to
 # the new value, so ~10 observations forget an old regime.
@@ -41,7 +42,7 @@ class HolderHealthBoard:
     """Thread-safe EWMA scoreboard keyed by holder URL."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.health._lock")
         # holder -> kind -> latency EWMA (seconds)
         self._lat: Dict[str, Dict[str, float]] = {}
         # holder -> error-rate EWMA (0..1)

@@ -37,6 +37,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from ..util.locks import make_lock
+
 _DEFAULT_BUCKETS = (0.0001, 0.0003, 0.001, 0.003, 0.01, 0.03, 0.1,
                     0.3, 1.0, 3.0, 10.0)
 
@@ -346,7 +348,7 @@ class _Metric:
         self.name = name
         self.help = help_text
         self.label_names = tuple(labels)
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.metrics.Metric._lock")
 
     def header(self) -> List[str]:
         return [f"# HELP {self.name} {_escape_help(self.help)}",
@@ -495,7 +497,7 @@ class Histogram(_Metric):
 class Registry:
     def __init__(self):
         self._metrics: List[_Metric] = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.metrics.Registry._lock")
 
     def register(self, metric: _Metric):
         with self._lock:
@@ -1328,7 +1330,7 @@ class SmallDispatchTuner:
     CLAMP = (64 << 10, 8 << 20)
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.metrics.SmallDispatchTuner._lock")
         self._host: List[Tuple[float, float]] = []    # (bytes, seconds)
         self._device: List[Tuple[float, float]] = []
 

@@ -25,10 +25,11 @@ priorities, back-off and snapshots.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional
+
+from ..util.locks import make_lock
 
 PRIORITIES = {"corruption": 0, "lost_shard": 1, "at_risk_holder": 2}
 
@@ -93,7 +94,7 @@ class RepairQueue:
     """Deduplicated priority queue of durability incidents."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.repair_queue._lock")
         self._open: Dict[tuple, Incident] = {}
         self._resolved: deque = deque(maxlen=_RESOLVED_KEEP)
         self._next_id = 1

@@ -25,13 +25,13 @@ import hashlib
 import io
 import os
 import shutil
-import threading
 import urllib.error
 import urllib.parse
 import urllib.request
 from typing import Dict, Optional
 
 from ..s3.auth import authorization_header_v4
+from ..util.locks import make_lock
 
 EMPTY_SHA256 = hashlib.sha256(b"").hexdigest()
 
@@ -298,7 +298,7 @@ class S3Backend(BackendStorage):
 # -- the registry (reference backend.go InitBackendStorages) -----------------
 
 _registry: Dict[str, BackendStorage] = {}
-_registry_lock = threading.Lock()
+_registry_lock = make_lock("torch.backend._registry_lock")
 
 _KINDS = {"dir": DirBackend, "s3": S3Backend}
 

@@ -16,11 +16,10 @@ and the smoke's check.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
+
+from ..util.host_build import compile_host, stale
+from ..util.locks import make_lock
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "crc32c.cc"
@@ -43,7 +42,7 @@ def _build_table():
 
 _TABLE = _build_table()
 _lib = None
-_lib_lock = threading.Lock()
+_lib_lock = make_lock("torch.crc._lib_lock")
 
 
 def crc32c_plain(data: bytes, crc: int = 0) -> int:
@@ -55,30 +54,10 @@ def crc32c_plain(data: bytes, crc: int = 0) -> int:
     return c ^ 0xFFFFFFFF
 
 
-def _cxx() -> str:
-    for name in ("g++", "c++"):
-        found = shutil.which(name)
-        if found:
-            return found
-    raise RuntimeError("no C++ compiler (g++ or c++) on PATH: the CRC32-C "
-                       "library cannot be built")
-
-
 def compile_library() -> str:
     """Compile csrc/crc32c.cc into build/libcrc32c.so; returns the
     compiler's diagnostics. Raises RuntimeError if the build fails."""
-    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}."
-                            f"{threading.get_ident()}.tmp")
-    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"CRC32-C library build failed "
-                           f"({proc.returncode}):\n{proc.stdout}"
-                           f"{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+    return compile_host(SOURCE, LIBRARY, CXX_FLAGS)
 
 
 def _library() -> ctypes.CDLL:
@@ -87,8 +66,7 @@ def _library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            if not LIBRARY.exists() or \
-                    LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime:
+            if stale(LIBRARY, SOURCE):
                 compile_library()
             lib = ctypes.CDLL(str(LIBRARY))
             for fn in (lib.crc32c, lib.crc32c_sw):

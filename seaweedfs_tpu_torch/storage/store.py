@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import os
 import re
-import threading
 import time
 from typing import Dict, List, Optional
 
@@ -58,6 +57,7 @@ from ..server.http_util import HttpError
 from ..stats.health import BOARD
 from ..stats.metrics import observe_transport
 from ..util import tracing
+from ..util.locks import make_rlock
 from .needle import Needle
 from .types import TTL, ReplicaPlacement, entry_size
 from .volume import (NotFound, Volume, VolumeError,  # noqa: F401
@@ -82,7 +82,7 @@ class DiskLocation:
         self.index_kind = index_kind
         self.volumes: Dict[int, Volume] = {}
         self.ec_volumes: Dict[int, EcVolume] = {}
-        self.lock = threading.RLock()
+        self.lock = make_rlock("torch.disk_location.lock")
         os.makedirs(self.directory, exist_ok=True)
 
     def load_existing_volumes(self):
@@ -199,7 +199,8 @@ class Store:
     default); ``layout`` is the parity layout of new EC volumes, "flat"
     or "piggyback" (the JAX SW_EC_LAYOUT, flat by default);
     ``max_volume_counts`` the slots of each directory (7 each);
-    ``index_kind`` the volumes' needle-map kind (``-index memory|disk``).
+    ``index_kind`` the volumes' needle-map kind (``-index
+    memory|compact|sortedfile|disk``).
     ``ip``, ``port`` and ``public_url``, this server's address in a
     heartbeat and a shard assignment, and ``data_center`` and ``rack``,
     are set by the server that owns the store, and so are ``on_ec_mount(vid, shard_ids)``, called after a

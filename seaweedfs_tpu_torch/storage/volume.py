@@ -40,19 +40,21 @@ the Python path. Freezing the volume stops the plane's POSTs at once.
 ``SW_PLANE_FSYNC_MODE`` (``util/config``) other than ``off``
 fdatasyncs the .dat and the .idx after each Python append, so an
 acknowledged write is as durable as the plane's group commit makes it.
-``index_kind`` is the needle map's kind (``memory`` or ``disk``,
-``storage/compact_map.load_needle_map``); the compact and sorted-file
-kinds are not ported.
+``index_kind`` is the needle map's kind (``memory``, ``compact``,
+``sortedfile`` or ``disk``, ``storage/compact_map.load_needle_map``).
+The sorted-file map's ``.sdx`` and ``.sdx.meta`` go with the .idx they
+were derived from: a compaction's commit (or its redo at the next load)
+removes them inside the marker's window, and ``destroy`` with the rest.
 """
 
 from __future__ import annotations
 
 import os
-import threading
 import time
 from typing import Optional
 
 from ..util import config
+from ..util.locks import make_rlock
 from ..util.throttler import WriteThrottler
 from .backend import BackendError, RemoteFile, get_backend
 from .compact_map import load_needle_map, snapshot_live_items
@@ -63,6 +65,15 @@ from .types import (NEEDLE_HEADER_SIZE, NEEDLE_PADDING_SIZE,
                     TOMBSTONE_FILE_SIZE, TTL, ReplicaPlacement,
                     bytes_to_entry, entry_size, entry_to_bytes,
                     max_volume_size)
+
+#: The sortedfile needle map's sidecars, derived from the .idx.
+SORTED_SIDECARS = (".sdx", ".sdx.meta")
+
+
+def _remove_sorted_sidecars(prefix: str):
+    for ext in SORTED_SIDECARS:
+        if os.path.exists(prefix + ext):
+            os.remove(prefix + ext)
 
 
 class VolumeError(Exception):
@@ -99,7 +110,7 @@ class Volume:
         self.index_kind = index_kind
         self.fast_writer = None
         self.readonly = False
-        self.lock = threading.RLock()
+        self.lock = make_rlock("torch.volume.lock")
         self.last_modified = 0
         self._compacting = False
         self._compact_idx_watermark = None
@@ -620,6 +631,9 @@ class Volume:
                          (prefix + ".cpx", self.idx_path)):
             if os.path.exists(src):
                 os.replace(src, dst)
+        # as commit_compact: a stale .sdx whose watermark matches the new
+        # .idx's size would serve pre-compaction offsets
+        _remove_sorted_sidecars(prefix)
         os.remove(marker)
 
     def commit_compact(self):
@@ -646,6 +660,10 @@ class Volume:
                 os.close(dfd)
             os.replace(cpd, self.dat_path)
             os.replace(cpx, self.idx_path)
+            # inside the marker's window: the compacted .idx can match a
+            # stale .sdx's watermark, and once the marker is gone nothing
+            # would redo the cleanup
+            _remove_sorted_sidecars(prefix)
             os.remove(marker)
             with open(self.dat_path, "rb") as f:
                 self.super_block = SuperBlock.from_bytes(
@@ -700,10 +718,10 @@ class Volume:
 
     def destroy(self):
         self.close()
-        # .ndb* is the -index disk checkpoint (and its WAL), derived
-        # from the .idx
+        # .ndb* is the -index disk checkpoint (and its WAL), .sdx* the
+        # sortedfile sidecar: both derived from the .idx
         exts = [".dat", ".idx", ".cpd", ".cpx", ".ndb", ".ndb-wal",
-                ".ndb-shm"]
+                ".ndb-shm", *SORTED_SIDECARS]
         # the .vif is shared with the EC volume: keep it while an .ecx
         # (and so shards) remain, whose parity-only holders need it
         if not os.path.exists(self.file_name() + ".ecx"):

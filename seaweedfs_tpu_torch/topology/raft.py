@@ -28,6 +28,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from ..server.http_util import HttpError, post_json
+from ..util.locks import make_rlock
 
 FOLLOWER, CANDIDATE, LEADER = "follower", "candidate", "leader"
 
@@ -112,7 +113,7 @@ class RaftNode:
         self.next_index: Dict[str, int] = {}
         self.match_index: Dict[str, int] = {}
 
-        self.lock = threading.RLock()
+        self.lock = make_rlock("torch.raft.lock")
         self._commit_cv = threading.Condition(self.lock)
         self._stop = threading.Event()
         self._election_deadline = self._new_deadline()

@@ -16,13 +16,13 @@ from __future__ import annotations
 
 import os
 import random
-import threading
 import time
 import uuid
 from typing import Dict, List, Optional, Tuple
 
 from ..ec.constants import TOTAL_SHARDS
 from ..storage.types import TTL, ReplicaPlacement, format_file_id
+from ..util.locks import make_lock, make_rlock
 from .node import DataCenter, DataNode, VolumeInfo
 from .volume_layout import VolumeLayout
 
@@ -32,7 +32,7 @@ class Sequencer:
 
     def __init__(self, start: int = 1):
         self._counter = start
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.topology.Sequencer._lock")
 
     def next_file_id(self, count: int = 1) -> int:
         with self._lock:
@@ -242,7 +242,7 @@ class Topology:
         # ("new" | "deleted", vid, url, public_url, fast_url): the master
         # wires its watch hub here to push location events
         self.location_listener = None
-        self.lock = threading.RLock()
+        self.lock = make_rlock("torch.topology.lock")
 
     # -- the tree ------------------------------------------------------------
     def get_or_create_dc(self, dc_id: str) -> DataCenter:

@@ -7,10 +7,10 @@ from the module-global ``random``, in the same order)."""
 from __future__ import annotations
 
 import random
-import threading
 from typing import Dict, List, Optional
 
 from ..storage.types import ReplicaPlacement
+from ..util.locks import make_rlock
 from .node import DataNode, VolumeInfo
 
 
@@ -24,7 +24,7 @@ class VolumeLayout:
         self.writables: List[int] = []
         self.readonly: set = set()
         self.oversized: set = set()
-        self.lock = threading.RLock()
+        self.lock = make_rlock("torch.volume_layout.lock")
 
     def register_volume(self, vi: VolumeInfo, node: DataNode):
         with self.lock:

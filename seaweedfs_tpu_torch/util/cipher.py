@@ -12,7 +12,8 @@ from __future__ import annotations
 import ctypes
 import ctypes.util
 import os
-import threading
+
+from .locks import make_lock
 
 KEY_SIZE = 32
 NONCE_SIZE = 12
@@ -23,7 +24,7 @@ _EVP_CTRL_GCM_GET_TAG = 0x10
 _EVP_CTRL_GCM_SET_TAG = 0x11
 
 _lib = None
-_lib_lock = threading.Lock()
+_lib_lock = make_lock("torch.cipher._lib_lock")
 
 
 class CipherError(Exception):

@@ -24,6 +24,11 @@ one ``monkeypatch.setenv`` sets a knob for both packages):
                                 retries at once (1.0)
     SW_REPAIR_INTERVAL_S        the repair loop's period of a master the
                                 CLI starts (5.0 s; <= 0: no loop)
+    SW_LOCK_DEBUG               record the lock-acquisition graph
+                                (util/locks; off)
+    SW_LOCK_GRAPH_DIR           where a recording process dumps its graph
+                                at exit (the port's under its ``torch/``
+                                subdirectory; unset: no dump)
 
 A read of a name that is not registered, or as another type than its
 own, raises. The full registry (every knob of the JAX package) is not
@@ -68,6 +73,8 @@ KNOBS: Dict[str, EnvKnob] = {k.name: k for k in (
     EnvKnob("SW_FILER_TICK_S", "float", 1.0),
     EnvKnob("SW_RETRY_BACKOFF_SCALE", "float", 1.0),
     EnvKnob("SW_REPAIR_INTERVAL_S", "float", 5.0),
+    EnvKnob("SW_LOCK_DEBUG", "bool", False),
+    EnvKnob("SW_LOCK_GRAPH_DIR", "str", None),
 )}
 
 _TRUTHY = ("1", "true", "yes", "on")

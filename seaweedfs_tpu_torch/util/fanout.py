@@ -7,16 +7,17 @@ JAX package's ``util/fanout.py``."""
 
 from __future__ import annotations
 
-import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Sequence, Tuple, TypeVar
+
+from .locks import make_lock
 
 T = TypeVar("T")
 R = TypeVar("R")
 
 _MAX_WORKERS = 32
 _pool = None
-_pool_lock = threading.Lock()
+_pool_lock = make_lock("torch.fanout._pool_lock")
 
 
 def _shared_pool() -> ThreadPoolExecutor:

@@ -18,6 +18,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from .locks import make_lock
+
 
 @contextlib.contextmanager
 def maybe_trace(label: str = "trace", profile_dir: Optional[str] = None):
@@ -143,7 +145,7 @@ class StageTimer:
         self.totals: Dict[str, float] = {}
         self.bytes: Dict[str, int] = {}
         self.intervals: Dict[str, List[Tuple[float, float]]] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.profiling._lock")
 
     def add(self, stage: str, dt: float, nbytes: int = 0,
             interval: Optional[Tuple[float, float]] = None):

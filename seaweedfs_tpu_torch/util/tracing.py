@@ -32,10 +32,11 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
-import threading
 import time
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
+
+from .locks import make_lock
 
 # EC phase names instrumented across the encode/rebuild hot paths.
 PHASES = ("gather", "plan", "dispatch", "drain", "write")
@@ -219,7 +220,7 @@ class TraceRing:
     def __init__(self, max_traces: int = 64, max_spans: int = 512):
         self.max_traces = max_traces
         self.max_spans = max_spans
-        self._lock = threading.Lock()
+        self._lock = make_lock("torch.tracing._lock")
         self._traces: "OrderedDict[str, List[Dict]]" = OrderedDict()
 
     def add(self, span_dict: Dict):

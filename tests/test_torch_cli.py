@@ -7,12 +7,13 @@ scaffold, version) and the top-level flags, every flag's option
 strings, destination, default, type, choices and action must equal the
 JAX ``build_parser()``'s, except:
 
-- the flags that wait for later slices, named in ``ABSENT`` (the mesh
-  and store flags);
-- ``-ec.backend``, whose choices are the port's ``cuda|numpy|mesh`` and
-  whose default is ``cuda`` (the card) where JAX's is ``auto``;
-- ``-index``, whose choices are the port's ``memory|disk``;
-- the filer's ``-store`` choices, the three stores ported.
+- the flags that wait for later slices, named in ``ABSENT`` (the
+  volume server's mesh flags);
+- ``-ec.backend``, whose choices are the port's
+  ``auto|cuda|numpy|native|mesh`` (the card where JAX has ``tpu``) and
+  whose default is ``cuda`` (the card) where JAX's is ``auto``.
+
+``-index`` and the filer's ``-store`` and store flags equal JAX's.
 
 Then ``server -filer -s3 -ec.backend numpy`` runs as a subprocess on
 free ports and answers a SigV4 PUT and GET, the filer's GET of the
@@ -44,23 +45,14 @@ COMMANDS = ("master", "volume", "server", "filer", "s3", "webdav",
             "fix", "compact", "msgBroker", "scaffold", "version")
 # the JAX commands whose modules come in a later slice
 WAITING = ("mount",)
-STORE_FLAGS = tuple(
-    f"-{db}{what}" for db, whats in (
-        ("redis", ("Addr", "Password", "Db")),
-        ("mysql", ("Addr", "User", "Password", "Database")),
-        ("postgres", ("Addr", "User", "Password", "Database")),
-        ("cassandra", ("Addr", "User", "Password", "Keyspace")),
-        ("etcd", ("Addr", "User", "Password"))) for what in whats)
 ABSENT = {
     "volume": ("-mesh.coordinator", "-mesh.processes", "-mesh.processId"),
-    "filer": STORE_FLAGS,
 }
 # (command, flag) -> the port's (choices, default) where they differ
+EC_BACKENDS = ["auto", "cuda", "numpy", "native", "mesh"]
 DIFFERENT = {
-    ("volume", "-ec.backend"): (["cuda", "numpy", "mesh"], "cuda"),
-    ("server", "-ec.backend"): (["cuda", "numpy", "mesh"], "cuda"),
-    ("volume", "-index"): (["memory", "disk"], "memory"),
-    ("filer", "-store"): (["memory", "sqlite", "sharded"], "sqlite"),
+    ("volume", "-ec.backend"): (EC_BACKENDS, "cuda"),
+    ("server", "-ec.backend"): (EC_BACKENDS, "cuda"),
 }
 
 
@@ -109,9 +101,14 @@ def test_parser_matches_jax():
 
 
 def test_unported_store_is_refused():
+    """A store neither package has is refused; the network stores parse,
+    with their flags."""
     from seaweedfs_tpu_torch.command.cli import build_parser
     with pytest.raises(SystemExit):
-        build_parser().parse_args(["filer", "-store", "redis"])
+        build_parser().parse_args(["filer", "-store", "leveldb"])
+    args = build_parser().parse_args(
+        ["filer", "-store", "redis", "-redisAddr", "h:1", "-redisDb", "2"])
+    assert (args.store, args.redisAddr, args.redisDb) == ("redis", "h:1", 2)
     args = build_parser().parse_args(
         ["server", "-filer", "-s3", "-ec.backend", "numpy"])
     assert (args.filer, args.s3, args.ec_backend) == (True, True, "numpy")
@@ -165,8 +162,13 @@ def test_card_backend_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for backend in ("cuda", "mesh"):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
-            cli._volume_device(backend)
-    assert cli._volume_device("numpy") == "cpu"
+            cli._volume_codec(backend)
+    assert cli._volume_codec("numpy") == ("numpy", "cpu")
+    assert cli._volume_codec("native") == ("native", "cpu")
+    assert cli._volume_codec("auto") == ("native", "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert cli._volume_codec("auto") == ("cuda", "cuda")
+    assert cli._volume_codec("cuda") == ("cuda", "cuda")
 
 
 def _free_ports(n):

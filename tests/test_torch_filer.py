@@ -17,7 +17,8 @@
 - Chunk blobs sealed (AES-256-GCM) or gzipped by one package open
   through the other's ``read_chunked``, in both directions; the LogBuffer
   hands out the same events.
-- A store kind the port has not ported raises, naming it.
+- A network store whose server is not there raises at once; an unknown
+  kind raises, naming it.
 
 Tolerances: none (bytes and JSON compared exactly).
 """
@@ -413,9 +414,20 @@ def test_log_buffer_matches_jax():
 @pytest.mark.parametrize("kind", ("redis", "mysql", "postgres", "cassandra",
                                   "etcd"))
 def test_unported_store_raises(kind):
-    from seaweedfs_tpu_torch.filer.filerstore import make_store
-    with pytest.raises(ValueError, match=f"{kind}.*not ported"):
-        make_store(kind)
+    """A network store is registered and fails fast when its server is
+    not there, as the JAX one does; a kind neither package has raises,
+    naming it."""
+    import socket
+    from seaweedfs_tpu_torch.filer.etcd_store import EtcdError
+    from seaweedfs_tpu_torch.filer.filerstore import STORES, make_store
+    with pytest.raises(ValueError, match="unknown filer store 'leveldb'"):
+        make_store("leveldb")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with pytest.raises((OSError, EtcdError)):
+        make_store(kind, addr=f"127.0.0.1:{port}")
+    assert STORES[kind].name == kind
 
 
 def test_cipher_without_libcrypto_raises(monkeypatch):

@@ -27,7 +27,9 @@ TLS, the status pages, ``benchmark``, ``upload``, ``download``,
 ``filer.copy``, the offline tools and ``scaffold``), and its filer's
 event plane and gateways (the webhook publisher into ``msgBroker``,
 ``watch``, ``filer.replicate`` into an ``s3`` sink, WebDAV and ``shell
--filer``), with both made unimportable."""
+-filer``), and its host codec, ``compact`` and ``sortedfile`` needle
+maps, lock-order recorder and network filer stores, with both made
+unimportable."""
 
 import ast
 import os
@@ -169,10 +171,17 @@ def test_port_files_exist():
                  "seaweedfs_tpu_torch/server/msg_broker.py",
                  "seaweedfs_tpu_torch/shell/command_fs.py",
                  "seaweedfs_tpu_torch/shell/command_bucket.py",
+                 "seaweedfs_tpu_torch/ops/rs_native.py",
+                 "seaweedfs_tpu_torch/util/locks.py",
+                 "seaweedfs_tpu_torch/util/host_build.py",
+                 "seaweedfs_tpu_torch/filer/redis_store.py",
+                 "seaweedfs_tpu_torch/filer/mysql_store.py",
+                 "seaweedfs_tpu_torch/filer/postgres_store.py",
+                 "seaweedfs_tpu_torch/filer/cassandra_store.py",
                  "chip_smoke.py"):
         assert want in names
     for source in ("gf_matmul.cu", "gf_bitplane.cu", "crc32c.cc",
-                   "http_plane.cc", "loadgen.cc"):
+                   "http_plane.cc", "loadgen.cc", "seaweed_ec.cc"):
         assert (ROOT / "seaweedfs_tpu_torch/csrc" / source).exists()
 
 
@@ -1758,6 +1767,137 @@ def test_event_plane_with_jax_unimportable(tmp_path):
                 srv.stop()
         assert not any(mod.split(".")[0] in {FORBIDDEN!r}
                        for mod, v in sys.modules.items() if v is not None)
+        print("PORT-OK")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+def test_host_codec_maps_locks_and_stores_with_jax_unimportable(tmp_path):
+    """The native codec (an encode and a rebuild equal to the numpy
+    oracle's), a sortedfile volume's write, reload and compaction, the
+    lock-order recorder's cycle report, and the etcd store against a
+    stub of the etcd v3 JSON gateway kept in this test, all with both
+    packages unimportable."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import base64, http.server, json, threading
+        import numpy as np
+        root = {str(tmp_path)!r}
+        # the native codec
+        from seaweedfs_tpu_torch.ec import (rebuild_ec_files, to_ext,
+                                            write_ec_files)
+        from seaweedfs_tpu_torch.ops.codec import NumpyCodec, get_codec
+        from seaweedfs_tpu_torch.ops.rs_native import NativeCodec
+        base = os.path.join(root, "1")
+        with open(base + ".dat", "wb") as f:
+            f.write(np.random.default_rng(0).integers(
+                0, 256, 100_003, dtype=np.uint8).tobytes())
+        blocks = dict(large_block=16 << 10, small_block=4 << 10,
+                      slab=8 << 10)
+        codec = get_codec(10, 4, "native")
+        assert type(codec) is NativeCodec
+        write_ec_files(base, codec=codec, **blocks)
+        want = [open(base + to_ext(i), "rb").read() for i in range(14)]
+        data = np.frombuffer(b"".join(want[:10]), np.uint8).reshape(10, -1)
+        parity = NumpyCodec(10, 4).encode(data)
+        assert [bytes(r) for r in parity] == want[10:]
+        for sid in (0, 6, 12):
+            os.remove(base + to_ext(sid))
+        assert sorted(rebuild_ec_files(base, codec=codec, slab=8 << 10)) \\
+            == [0, 6, 12]
+        assert [open(base + to_ext(i), "rb").read()
+                for i in range(14)] == want
+        # a sortedfile volume: write, reload, compaction
+        from seaweedfs_tpu_torch.storage.needle import Needle
+        from seaweedfs_tpu_torch.storage.volume import Volume
+        vdir = os.path.join(root, "v")
+        os.makedirs(vdir)
+        v = Volume(vdir, "", 3, create=True, index_kind="sortedfile")
+        for i in range(1, 30):
+            v.write_needle(Needle(id=i, cookie=5, data=b"n%d" % i * 50))
+        v.delete_needle(Needle(id=7, cookie=5))
+        v.close()
+        v = Volume(vdir, "", 3, index_kind="sortedfile")
+        assert os.path.exists(v.file_name() + ".sdx")
+        v.compact()
+        v.commit_compact()
+        for i in range(1, 30):
+            if i != 7:
+                assert v.read_needle(Needle(id=i, cookie=5)).data == \\
+                    b"n%d" % i * 50
+        assert v.nm.kind == "sortedfile"
+        v.close()
+        # the recorder's cycle report
+        from seaweedfs_tpu_torch.util import locks
+        rec = locks.LockGraphRecorder()
+        a = locks.make_lock("torch.a", recorder=rec)
+        b = locks.make_lock("torch.b", recorder=rec)
+        for x, y in ((a, b), (b, a)):
+            with x:
+                with y:
+                    pass
+        assert rec.cycles() == [["torch.a", "torch.b"]]
+        assert rec.cycles(allowed={{("torch.b", "torch.a")}}) == []
+        # the etcd store on a stub of etcd's v3 JSON gateway
+        kv, lock = {{}}, threading.Lock()
+
+        class Etcd(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                req = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                key = base64.b64decode(req["key"])
+                end = base64.b64decode(req.get("range_end", ""))
+                inside = (lambda k: k == key) if not end else (
+                    lambda k: k >= key and (end == b"\\0" or k < end))
+                with lock:
+                    if self.path.endswith("/put"):
+                        kv[key] = base64.b64decode(req["value"])
+                        out = {{}}
+                    elif self.path.endswith("/range"):
+                        keys = sorted(k for k in kv if inside(k))
+                        keys = keys[:int(req.get("limit", 0)) or None]
+                        out = {{"kvs": [
+                            {{"key": base64.b64encode(k).decode(),
+                              "value": base64.b64encode(kv[k]).decode()}}
+                            for k in keys]}}
+                    else:
+                        gone = [k for k in kv if inside(k)]
+                        for k in gone:
+                            del kv[k]
+                        out = {{"deleted": str(len(gone))}}
+                body = json.dumps(out).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+        srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Etcd)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        from seaweedfs_tpu_torch.filer.entry import Attr, Entry
+        from seaweedfs_tpu_torch.filer.filerstore import make_store
+        store = make_store("etcd", addr="127.0.0.1:%d" % srv.server_address[1])
+        for p in ("/d/a", "/d/b", "/d/sub/c", "/e/x"):
+            store.insert_entry(Entry(full_path=p, attr=Attr(mime=p)))
+        assert store.find_entry("/d/b").attr.mime == "/d/b"
+        assert [e.name for e in store.list_directory_entries(
+            "/d", "a", False, 10)] == ["b"]
+        store.delete_folder_children("/d")
+        assert store.find_entry("/d/sub/c") is None
+        assert store.find_entry("/e/x") is not None
+        store.close()
+        srv.shutdown()
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, v in sys.modules.items() if v is not None)
         print("PORT-OK")
     """)
     env = dict(os.environ)
